@@ -1,0 +1,79 @@
+"""Stacked S5 encoder and the regression head (counterpart of
+``sparsernns_tpu/models/seq_model.py`` ``StackedEncoderModel`` and
+``RegressionModel``), eval forward.
+
+The JAX package pads the stream to its TPU kernel geometry (L to a
+multiple of the time block, H to 128 lanes); the port computes on the true
+(B, L, H) region, where the values are the same.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from sparsernns_tpu_torch.models.layers import SequenceLayer
+from sparsernns_tpu_torch.ops.scan import Pair
+
+#: per-layer streaming state: one (carry_re, carry_im) (B, P) pair a layer
+Cache = List[Pair]
+
+
+class StackedEncoderModel(nn.Module):
+    """Linear encoder + N S5 sequence layers."""
+
+    def __init__(self, make_mixer: Callable[[], nn.Module], d_input: int,
+                 n_layers: int, d_model: int, glu_variant: str = "none",
+                 relufication: bool = False):
+        super().__init__()
+        self.relufication = relufication
+        self.encoder = nn.Linear(d_input, d_model)
+        self.layers = nn.ModuleList(
+            SequenceLayer(make_mixer(), d_model, glu_variant=glu_variant,
+                          relufication=relufication)
+            for _ in range(n_layers))
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.encoder(x)
+        return torch.relu(x) if self.relufication else x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._encode(x)
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+    def forward_stream(self, x: torch.Tensor, cache: Optional[Cache]
+                       ) -> Tuple[torch.Tensor, Cache]:
+        x = self._encode(x)
+        new_cache = []
+        for i, layer in enumerate(self.layers):
+            x, final = layer.forward_stream(
+                x, None if cache is None else cache[i])
+            new_cache.append(final)
+        return x, new_cache
+
+
+class RegressionModel(nn.Module):
+    """Encoder stack + per-step linear decoder (the NDNS denoising head):
+    (B, L, d_input) -> (B, L, d_output)."""
+
+    def __init__(self, make_mixer: Callable[[], nn.Module], d_input: int,
+                 d_output: int, n_layers: int, d_model: int, **layer_kw):
+        super().__init__()
+        self.encoder = StackedEncoderModel(make_mixer, d_input, n_layers,
+                                           d_model, **layer_kw)
+        self.decoder = nn.Linear(d_model, d_output)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Offline forward (the whole-layer kernel route)."""
+        return self.decoder(self.encoder(x))
+
+    def forward_stream(self, x: torch.Tensor, cache: Optional[Cache] = None
+                       ) -> Tuple[torch.Tensor, Cache]:
+        """Chunk forward: every layer's scan starts from its carry in
+        ``cache`` (None: zero) and the final carries come back."""
+        y, new_cache = self.encoder.forward_stream(x, cache)
+        return self.decoder(y), new_cache

@@ -1,0 +1,152 @@
+"""The S5 SSM mixer, float path (counterpart of ``sparsernns_tpu/models/ssm.py``).
+
+Inputs are (B, L, H); complex numbers are (re, im) pairs of float32
+tensors. The B and C projections are each one real matmul against a
+stacked (H, 2P) / (2P, H) weight. Two routes use the mixer:
+
+- the whole-layer tail kernel (``ops/cuda/layer_tail.py``) takes its
+  operands from :meth:`S5SSM.layer_tail_operands` — the offline forward;
+- :meth:`S5SSM.forward` runs B-projection, the diagonal-scan kernel with
+  an optional carry, and C-projection — the streaming forward.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from sparsernns_tpu_torch.models.ssm_init import (init_cv, init_log_steps,
+                                                  init_vinv_b, project_cv,
+                                                  trunc_standard_normal)
+from sparsernns_tpu_torch.ops.scan import Pair, diag_ssm_scan
+
+
+def discretize_zoh(lam: Pair, b: Pair, delta: torch.Tensor
+                   ) -> Tuple[Pair, Pair]:
+    """Zero-order hold. lam: (P,) pair; b: (P, H) pair; delta: (P,).
+    Returns (lambda_bar (P,), b_bar (P, H)) pairs."""
+    lr, li = lam
+    er = torch.exp(lr * delta)
+    lam_bar = (er * torch.cos(li * delta), er * torch.sin(li * delta))
+    # B_bar = (1/Lambda) (Lambda_bar - 1) * B
+    denom = lr * lr + li * li
+    gr = (lam_bar[0] - 1.0) * lr / denom + lam_bar[1] * li / denom
+    gi = lam_bar[1] * lr / denom - (lam_bar[0] - 1.0) * li / denom
+    br, bi = b
+    b_bar = (gr[:, None] * br - gi[:, None] * bi,
+             gr[:, None] * bi + gi[:, None] * br)
+    return lam_bar, b_bar
+
+
+def discretize_bilinear(lam: Pair, b: Pair, delta: torch.Tensor
+                        ) -> Tuple[Pair, Pair]:
+    """Bilinear (Tustin) discretization."""
+    lr, li = lam
+    hr, hi = 1.0 - 0.5 * delta * lr, -0.5 * delta * li  # 1 - Δ/2·Λ
+    denom = hr * hr + hi * hi
+    blr, bli = hr / denom, -hi / denom  # BL = 1/(1 - Δ/2·Λ)
+    pr, pi = 1.0 + 0.5 * delta * lr, 0.5 * delta * li  # 1 + Δ/2·Λ
+    lam_bar = (blr * pr - bli * pi, blr * pi + bli * pr)
+    gr, gi = blr * delta, bli * delta
+    br, bi = b
+    b_bar = (gr[:, None] * br - gi[:, None] * bi,
+             gr[:, None] * bi + gi[:, None] * br)
+    return lam_bar, b_bar
+
+
+class S5SSM(nn.Module):
+    """S5 state-space mixer over (B, L, H) inputs.
+
+    Parameters keep the JAX package's names and shapes: Lambda_re /
+    Lambda_im (P,), B (P, H, 2), C (H, P, 2), D (H,), log_step (P, 1).
+    """
+
+    def __init__(self, lambda_init, v, vinv, h: int, p: int,
+                 c_init: str = "lecun_normal", discretization: str = "zoh",
+                 dt_min: float = 0.001, dt_max: float = 0.1,
+                 conj_sym: bool = True, clip_eigs: bool = False,
+                 bidirectional: bool = False, step_rescale: float = 1.0,
+                 relufication: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if bidirectional:
+            raise NotImplementedError("bidirectional mixer: not ported yet")
+        if discretization not in ("zoh", "bilinear"):
+            raise NotImplementedError(f"discretization {discretization}")
+        self.h, self.p = h, p
+        self.discretization = discretization
+        self.conj_sym = conj_sym
+        self.clip_eigs = clip_eigs
+        self.step_rescale = step_rescale
+        self.relufication = relufication
+
+        lam = np.asarray(lambda_init)
+        self.Lambda_re = nn.Parameter(torch.from_numpy(
+            lam.real.astype(np.float32).copy()))
+        self.Lambda_im = nn.Parameter(torch.from_numpy(
+            lam.imag.astype(np.float32).copy()))
+        self.B = nn.Parameter(init_vinv_b(np.asarray(vinv), h, generator))
+        local_p = 2 * p if conj_sym else p
+        if c_init == "lecun_normal":
+            c = init_cv(np.asarray(v), h, generator)
+        elif c_init == "trunc_standard_normal":
+            c = project_cv(trunc_standard_normal(h, local_p, generator),
+                           np.asarray(v))
+        elif c_init == "complex_normal":
+            c = torch.randn((h, p, 2), generator=generator) * 0.5 ** 0.5
+        else:
+            raise NotImplementedError(f"C_init {c_init}")
+        self.C = nn.Parameter(c)
+        self.D = nn.Parameter(torch.randn((h,), generator=generator))
+        self.log_step = nn.Parameter(
+            init_log_steps(p, dt_min, dt_max, generator))
+
+    def _lambda(self) -> Pair:
+        lr = self.Lambda_re
+        if self.clip_eigs:
+            lr = torch.clamp(lr, max=-1e-4)
+        return lr, self.Lambda_im
+
+    def discretized(self) -> Tuple[Pair, Pair]:
+        """(lambda_bar (P,), b_bar (P, H)) pairs."""
+        step = self.step_rescale * torch.exp(self.log_step[:, 0])
+        b_pair = (self.B[..., 0], self.B[..., 1])
+        if self.discretization == "zoh":
+            return discretize_zoh(self._lambda(), b_pair, step)
+        return discretize_bilinear(self._lambda(), b_pair, step)
+
+    def _w_b(self, b_bar: Pair) -> torch.Tensor:
+        return torch.cat([b_bar[0].T, b_bar[1].T], dim=-1)    # (H, 2P)
+
+    def _w_c(self) -> torch.Tensor:
+        return torch.cat([self.C[..., 0].T, -self.C[..., 1].T], dim=0)
+
+    def layer_tail_operands(self):
+        """Operands of the whole-layer tail kernel: (lam_bar, w_b, w_c, d,
+        relu_state), with the conj-sym factor 2 folded into ``w_c``."""
+        lam_bar, b_bar = self.discretized()
+        scale = 2.0 if self.conj_sym else 1.0
+        return (lam_bar, self._w_b(b_bar), scale * self._w_c(), self.D,
+                self.relufication)
+
+    def forward(self, u: torch.Tensor, carry: Optional[Pair] = None
+                ) -> Tuple[torch.Tensor, Pair]:
+        """u: (B, L, H) -> (ys (B, L, H), final state pair (B, P)).
+
+        ``carry``: the state before the first step (streaming); None
+        starts from zero."""
+        lam_bar, b_bar = self.discretized()
+        bu_cat = u @ self._w_b(b_bar)
+        bu = (bu_cat[..., :self.p], bu_cat[..., self.p:])
+        xs = diag_ssm_scan(lam_bar, bu, carry_init=carry)
+        final = (xs[0][..., -1, :], xs[1][..., -1, :])
+        if self.relufication:
+            xs = (torch.relu(xs[0]), torch.relu(xs[1]))
+        ys = torch.cat(xs, dim=-1) @ self._w_c()
+        if self.conj_sym:
+            ys = 2.0 * ys
+        return ys + self.D * u, final
+

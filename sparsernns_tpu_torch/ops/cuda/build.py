@@ -1,0 +1,100 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers,
+so ``nvcc`` builds it in seconds::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+        -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
+
+The library name carries a hash of the source, so an edited source is
+rebuilt and an unchanged one is reused from ``_build/`` (listed in
+``.gitignore``). :func:`build_all` starts one ``nvcc`` per source, all at
+once. A missing ``nvcc`` or a failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable, List
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+SOURCES = ("diag_scan", "layer_tail")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: ``nvcc -Xptxas -v`` output of each build made in this process
+#: (registers, shared memory and spills per kernel)
+build_logs: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def _start(name: str, out: str) -> subprocess.Popen:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, out: str, proc: subprocess.Popen) -> None:
+    log, _ = proc.communicate()
+    build_logs[name] = log
+    tmp = f"{out}.{os.getpid()}.tmp"
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names: Iterable[str] = SOURCES) -> List[str]:
+    """Build every listed kernel that has no current library, one
+    ``nvcc`` per source started together. Returns the library paths."""
+    paths = {n: _lib_path(n) for n in names}
+    procs = {n: _start(n, p) for n, p in paths.items()
+             if not os.path.exists(p)}
+    for n, proc in procs.items():
+        _finish(n, paths[n], proc)
+    return list(paths.values())
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path, = build_all([name])
+            lib = ctypes.CDLL(path)
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

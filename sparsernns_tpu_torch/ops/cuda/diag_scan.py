@@ -1,0 +1,105 @@
+"""Kernel K1: the diagonal complex scan x_t = λ ⊙ x_{t-1} + bu_t.
+
+Replaces ``sparsernns_tpu/ops/pallas/scan_kernel.py`` ``pallas_diag_scan``
+(forward, with an optional ``carry_init``). The CUDA source is
+``csrc/diag_scan.cu``; its header note gives the bound and the design.
+
+:func:`diag_scan` launches the kernel for CUDA tensors and takes the plain
+version :func:`diag_scan_plain` only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from sparsernns_tpu_torch.ops.cuda import build
+from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
+
+#: kernel launches made by :func:`diag_scan` in this process
+launches = 0
+
+_argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
+
+
+def diag_scan_plain(lam: Pair, bu: Pair,
+                    carry_init: Optional[Pair] = None) -> Pair:
+    """Plain PyTorch version: the sequential recurrence."""
+    return sequential_diag_scan(lam, bu, carry_init=carry_init)[0]
+
+
+def _lib():
+    lib = build.load("diag_scan")
+    fn = lib.diag_scan_fwd
+    if fn.argtypes is None:
+        fn.argtypes = _argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_f32_cuda(name: str, t: torch.Tensor, device) -> None:
+    if t.dtype != torch.float32 or t.device != device:
+        raise ValueError(f"{name}: expected float32 on {device}, got "
+                         f"{t.dtype} on {t.device}")
+
+
+def diag_scan_cuda(lam: Pair, bu: Pair,
+                   carry_init: Optional[Pair] = None) -> Pair:
+    """Launch the kernel. bu: (B, L, P) pair whose last axis is unit-stride
+    (the halves of a (B, L, 2P) projection are taken as they are);
+    lam: (P,) pair; carry_init: (B, P) pair or None. Returns contiguous
+    (B, L, P) states."""
+    global launches
+    bu_re, bu_im = bu
+    dev = bu_re.device
+    if bu_re.dim() != 3 or bu_re.shape != bu_im.shape:
+        raise ValueError(f"bu must be a (B, L, P) pair, got "
+                         f"{tuple(bu_re.shape)} / {tuple(bu_im.shape)}")
+    if bu_re.stride() != bu_im.stride() or bu_re.stride(-1) != 1:
+        raise ValueError("bu halves need equal strides, unit-stride in P")
+    b, l, p = bu_re.shape
+    lam_re = lam[0].contiguous()
+    lam_im = lam[1].contiguous()
+    tensors = {"bu_re": bu_re, "bu_im": bu_im, "lam_re": lam_re,
+               "lam_im": lam_im}
+    c_re = c_im = None
+    if carry_init is not None:
+        c_re = carry_init[0].contiguous()
+        c_im = carry_init[1].contiguous()
+        if c_re.shape != (b, p) or c_im.shape != (b, p):
+            raise ValueError(f"carry_init must be ({b}, {p}) pairs")
+        tensors.update(c_re=c_re, c_im=c_im)
+    for name, t in tensors.items():
+        _check_f32_cuda(name, t, dev)
+    if lam_re.shape != (p,) or lam_im.shape != (p,):
+        raise ValueError(f"lam must be ({p},) pairs")
+    out_re = torch.empty((b, l, p), dtype=torch.float32, device=dev)
+    out_im = torch.empty_like(out_re)
+    if b == 0 or l == 0 or p == 0:
+        return out_re, out_im
+    fn = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(bu_re.data_ptr(), bu_im.data_ptr(), bu_re.stride(0),
+             bu_re.stride(1), lam_re.data_ptr(), lam_im.data_ptr(),
+             c_re.data_ptr() if c_re is not None else None,
+             c_im.data_ptr() if c_im is not None else None,
+             out_re.data_ptr(), out_im.data_ptr(), b, l, p, stream)
+    build.check(err, "diag_scan")
+    launches += 1
+    return out_re, out_im
+
+
+def diag_scan(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None
+              ) -> Pair:
+    """All-prefix states of x_t = λ x_{t-1} + bu_t over bu (B, L, P).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    fn = diag_scan_cuda if bu[0].is_cuda else diag_scan_plain
+    return fn(lam, bu, carry_init)

@@ -1,0 +1,115 @@
+"""Where the time goes on the float serving path, on one GPU.
+
+Profiles, at the width of ``recipes/ndns.json`` with random weights, one
+offline eval step (B clips of 30 s) and one streaming chunk (B streams,
+1 s) with ``torch.profiler``, after a warm-up, and prints for each: the
+wall time, the device time summed over kernels, the device busy share
+(device time over wall time) and the kernels that take the most device
+time. Run on a machine with the card, from the repository root::
+
+    python -m sparsernns_tpu_torch.utils.profiling [--batch 8]
+
+Prints the card's name and power limit, then one JSON object per
+profiled region.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_region(name: str, fn, top: int = 10) -> dict:
+    """Run ``fn`` once under the profiler; summarize wall and device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only (kernels, copies): the host-side operator
+    # events carry the same device time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    events.sort(key=_device_us, reverse=True)
+    device_us = sum(_device_us(e) for e in events)
+    return {
+        "region": name, "wall_ms": wall_us / 1e3,
+        "device_ms": device_us / 1e3,
+        "device_busy_share": device_us / wall_us if wall_us else None,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_ms": _device_us(e) / 1e3}
+                        for e in events[:top]],
+    }
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
+    from sparsernns_tpu_torch.ops.stft import stft_splitter
+    from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.train.steps import make_ndns_eval_step
+    from sparsernns_tpu_torch.utils.config import RunConfig
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=8)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    cfg = RunConfig().with_recipe(os.path.join(root, "recipes", "ndns.json"))
+    model = build_model(cfg, 257, 257, device="cuda", seed=0)
+    b, audio_len, chunk = args.batch, 30 * 16000, 16000
+    ds = SyntheticNDNS(size=b, length=audio_len, seed=0)
+    pairs = [ds[i] for i in range(b)]
+    noisy = np.stack([a for a, _ in pairs])
+    noisy_t = torch.from_numpy(noisy).cuda()
+    clean_t = torch.from_numpy(np.stack([c for _, c in pairs])).cuda()
+    step = make_ndns_eval_step(model)
+
+    def eval_step():
+        nm, nph = stft_splitter(noisy_t)
+        cm, _ = stft_splitter(clean_t)
+        return step(nm, nph, cm, clean_t)
+
+    den = StreamingDenoiser(model, batch_size=b)
+    pos = [0]
+
+    def stream_chunk():
+        den.process(noisy[:, pos[0]:pos[0] + chunk])
+        pos[0] += chunk
+
+    eval_step()                     # warm-up: builds kernels, plans
+    for _ in range(2):
+        stream_chunk()
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    for name, fn in (("offline eval step (incl. STFT)", eval_step),
+                     ("streaming chunk (1 s)", stream_chunk)):
+        print(json.dumps(profile_region(name, fn)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

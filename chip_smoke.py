@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the flagship shapes, and
-drives the float NDNS serving path at the width of ``recipes/ndns.json``
-(d_model 192, P 128, 3 layers; random weights from a seed):
+drives the float NDNS serving path and the w8a16 engine serving path at
+the width of ``recipes/ndns.json`` (d_model 192, P 128, 3 layers; random
+weights from a seed):
 
 1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail)
    against their plain versions on the card, B=8, L=3751, with times;
@@ -9,7 +10,17 @@ drives the float NDNS serving path at the width of ``recipes/ndns.json``
    (goes through K2), checked against the same model on the CPU;
 3. streaming phase — a StreamingDenoiser over the same audio in 1 s chunks
    (goes through K1), checked against its one-chunk output and against
-   the offline forward.
+   the offline forward;
+4. engine kernel phase — the float model is calibrated on two synthetic
+   batches, its scales are frozen and a ``W8A16Engine`` is built; K5a (one
+   serving layer), K5b (with a non-zero carry) and K6 (the whole network)
+   against their plain versions, B=8, L=3751, block_t=512, with times;
+5. engine offline phase — ``engine(x)`` on the 30 s batch (one K6 launch),
+   the same through the per-layer stack (three K5a launches, bit-identical
+   mask), and the engine on the card against the engine on the CPU;
+6. engine streaming phase — ``StreamingDenoiser.from_engine`` at
+   block_t=128 over the same audio (K5b on every forward), and chunked
+   ``process_chunk`` against one whole call.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -18,6 +29,8 @@ and its power limit, one ``{"kernels": [...]}`` line, and last
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -25,6 +38,8 @@ import sys
 import time
 
 B, SECONDS, CHUNK = 8, 30, 16000
+#: seconds of audio in a calibration clip; frames per streaming engine block
+CAL_SECONDS, STREAM_BLOCK = 4, 128
 #: published H100 SXM peaks: f32 on the CUDA cores, device memory rate
 F32_FLOPS, MEM_BYTES_S = 67e12, 3.35e12
 
@@ -56,6 +71,18 @@ def _check(name: str, err: float, limit: float) -> None:
         raise AssertionError(f"{name}: error {err} above {limit}")
 
 
+def _code_diff(name: str, out, ref, max_frac: float = 5e-3) -> float:
+    """Stored integer streams: codes differ by at most 1, in at most
+    ``max_frac`` of the elements. Returns the largest difference."""
+    diff = (out.to(int) - ref.to(int)).abs()
+    worst, frac = diff.max().item(), (diff > 0).float().mean().item()
+    print(f"{name}: max code diff {worst}, differing share {frac:.2e} "
+          f"(limits 1, {max_frac:.1e})", flush=True)
+    if worst > 1 or frac > max_frac:
+        raise AssertionError(f"{name}: codes differ by {worst} in {frac}")
+    return float(worst)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -64,11 +91,17 @@ def main() -> int:
     import numpy as np
 
     from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
-    from sparsernns_tpu_torch.ops.cuda import build, diag_scan, layer_tail
+    from sparsernns_tpu_torch.ops.cuda import (build, diag_scan,
+                                               engine_layer, engine_network,
+                                               layer_tail)
     from sparsernns_tpu_torch.ops.stft import stft_splitter
     from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
     from sparsernns_tpu_torch.train.loop import build_model
-    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+    from sparsernns_tpu_torch.quantize.calibrate import calibrate
+    from sparsernns_tpu_torch.quantize.config import quantization_recipes
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.train.losses import (STFT_MAG_MEAN,
+                                                   ndns_loss_from_mask_tm)
     from sparsernns_tpu_torch.train.steps import make_ndns_eval_step
     from sparsernns_tpu_torch.utils.config import RunConfig
 
@@ -238,6 +271,245 @@ def main() -> int:
         y_offline = model(x_frames)
     _check("stream forward (K1 path) vs offline forward (K2 path)",
            (y_stream - y_offline).abs().max().item(), 1e-3)
+
+    # ---------------- engine set-up: calibrate, freeze, build ----------
+    def reset_counts():
+        diag_scan.launches = layer_tail.launches = 0
+        engine_layer.launches = engine_layer.launches_carry = 0
+        engine_network.launches = 0
+
+    t0 = time.time()
+    recipe = quantization_recipes[cfg.convert_quantization]
+    cal_model = build_model(
+        cfg, 257, 257, device=dev, seed=0, scan_mode="sequential",
+        q_config=recipe(static_quant=True, calibrating=True))
+    cal_ds = SyntheticNDNS(size=2 * B, length=CAL_SECONDS * 16000, seed=7)
+    cal_audio = torch.from_numpy(np.stack(
+        [cal_ds[i][0] for i in range(2 * B)])).to(dev)
+    cal_x = (stft_splitter(cal_audio)[0] - STFT_MAG_MEAN).transpose(1, 2)
+    frozen_params, frozen_stats = calibrate(
+        cal_model, model.state_dict(), [cal_x[:B], cal_x[B:]])
+    engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
+                                device=dev, block_t=512)
+    print(f"engine set-up (calibrate 2 x {B} clips of {CAL_SECONDS} s, "
+          f"freeze, pack): {time.time() - t0:.1f} s", flush=True)
+    x_eng = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    mode, layers = engine.mode, engine.layers
+    assert all(lay.w_b.dtype == torch.int8 and lay.state_requant is not None
+               and lay.residual_requant is not None for lay in layers)
+    rows = B * frames
+    layer_flops = (2 * h * 2 * p + 2 * 2 * p * h + n_dense * 2 * h * h
+                   + 8 * p + 6 * h)
+    layer_w_bytes = 2 * h * 2 * p + n_dense * h * h + 4 * (
+        3 * h + 2 * p + n_dense * h)
+
+    # ---------------- engine kernel phase (K5a, K5b, K6) ----------------
+    with torch.no_grad():
+        # K6, the default offline route, at its own block rule
+        net_args = (x_eng, engine._enc, layers, engine._dec, mode)
+        ref = engine_network.engine_network_plain(*net_args, block_t=512)
+        out = engine_network.engine_network_cuda(*net_args, block_t=512)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ref_scale = max(1.0, ref.abs().max().item())
+        _check("K6 engine_network vs plain (mask)", err, 2e-3 * ref_scale)
+        _check("K6 engine_network vs plain (mask, mean)",
+               (out - ref).abs().mean().item(), 1e-4 * ref_scale)
+        ms = _time_ms(lambda: engine_network.engine_network_cuda(
+            *net_args, block_t=512), 3)
+        plain_ms = _time_ms(lambda: engine_network.engine_network_plain(
+            *net_args, block_t=512), 1, 0)
+        bound, by = _bound_ms(
+            2 * rows * 257 * 4 + n_layers * layer_w_bytes + 2 * 257 * h
+            + 4 * (h + 257),
+            rows * (2 * 257 * h + n_layers * layer_flops + 2 * h * 257))
+        records["engine_network"] = dict(
+            name="engine_network", route="cuda",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/engine_network.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_network.py:299",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+
+        # K5a: the middle layer over the int16-code stream that the plain
+        # first layer writes
+        r0 = engine_layer.engine_layer_plain(
+            x_eng, layers[0], mode, block_t=512, enc=engine._enc)
+        assert r0.dtype == torch.int16, r0.dtype
+        kw = dict(block_t=512, in_requant=layers[0].residual_requant)
+        ref = engine_layer.engine_layer_plain(r0, layers[1], mode, **kw)
+        out = engine_layer.engine_layer_cuda(r0, layers[1], mode, **kw)
+        torch.cuda.synchronize()
+        err = _code_diff("K5a engine_layer vs plain (int16 codes)", out, ref)
+        ms = _time_ms(lambda: engine_layer.engine_layer_cuda(
+            r0, layers[1], mode, **kw), 5)
+        plain_ms = _time_ms(lambda: engine_layer.engine_layer_plain(
+            r0, layers[1], mode, **kw), 1, 0)
+        bound, by = _bound_ms(2 * rows * h * 2 + layer_w_bytes,
+                              rows * layer_flops)
+        records["engine_layer"] = dict(
+            name="engine_layer", route="cuda",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/engine_layer.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_layer.py:629",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+
+        # K5b: the same layer from a non-zero carry, at the full length
+        # and at the streaming shape (one block of 128 frames), which is
+        # the one timed
+        carry = tuple(0.05 * torch.randn((B, p), generator=gen).to(dev)
+                      for _ in range(2))
+        errs = []
+        for name, r_in, bt in (("L=3751, block 512", r0, 512),
+                               ("L=128, block 128", r0[:, :STREAM_BLOCK],
+                                STREAM_BLOCK)):
+            kw = dict(block_t=bt, in_requant=layers[0].residual_requant,
+                      carry=carry)
+            ref, ref_c = engine_layer.engine_layer_plain(
+                r_in, layers[1], mode, **kw)
+            out, out_c = engine_layer.engine_layer_cuda(
+                r_in, layers[1], mode, **kw)
+            torch.cuda.synchronize()
+            errs.append(_code_diff(f"K5b engine_layer_carry vs plain, {name}",
+                                   out, ref))
+            scale = max(c.abs().max().item() for c in ref_c)
+            _check(f"K5b carry out, {name}",
+                   max((a - b).abs().max().item()
+                       for a, b in zip(out_c, ref_c)), 1e-5 * scale)
+        ms = _time_ms(lambda: engine_layer.engine_layer_cuda(
+            r_in, layers[1], mode, **kw), 20)
+        plain_ms = _time_ms(lambda: engine_layer.engine_layer_plain(
+            r_in, layers[1], mode, **kw), 1, 0)
+        s_rows = B * STREAM_BLOCK
+        bound, by = _bound_ms(
+            2 * s_rows * h * 2 + layer_w_bytes + 4 * B * p * 4,
+            s_rows * layer_flops)
+        records["engine_layer_carry"] = dict(
+            name="engine_layer_carry", route="cuda",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/engine_layer.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_layer.py:729",
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+        # every variant of the engine kernels (the recipe runs half1 +
+        # gelu + prenorm over int8 weights and an int16-code stream): GLU
+        # kinds, relufication, postnorm, float32 activations, bf16 io,
+        # int16 and float weights with a bf16 stream, at the full width on
+        # a short sequence with a short last block; both routes against
+        # the plain network and against each other
+        full_params = copy.deepcopy(frozen_params)
+        for i in range(n_layers):       # a value dense for the "full" GLU
+            lay = full_params["encoder"][f"layers_{i}"]
+            lay["out1"] = {k: np.roll(lay["out2"][k], 1, axis=0)
+                           for k in ("kernel", "bias")}
+        xs = x_eng[:2, :300]
+        variants = [dict(glu_variant=g, relufication=r, prenorm=pn)
+                    for g in ("full", "half1", "half2", "none")
+                    for r, pn in ((False, True), (True, False))]
+        variants += [dict(act_dtype=torch.float32),
+                     dict(convert_quantization="w16a16"),
+                     dict(convert_quantization="none"),
+                     dict(io=torch.bfloat16)]
+        for var in variants:
+            var = dict(var)
+            io = var.pop("io", torch.float32)
+            act = var.pop("act_dtype", torch.bfloat16)
+            v_eng = engine_from_frozen(
+                dataclasses.replace(cfg, **var), full_params, frozen_stats,
+                device=dev, block_t=128, act_dtype=act)
+            x_in = xs.to(io)
+            v_args = (x_in, v_eng._enc, v_eng.layers, v_eng._dec, v_eng.mode)
+            ref = engine_network.engine_network_plain(
+                *v_args, block_t=128, out_dtype=io).float()
+            net = v_eng._apply_network(x_in, 128, io)
+            stk = v_eng._apply_stack(x_in, 128, io)
+            assert net.dtype == stk.dtype == io
+            scale = max(1.0, ref.abs().max().item())
+            name = f"K6/K5a {var or ''} act {act} io {io}"
+            _check(f"{name} vs plain", (net.float() - ref).abs().max().item(),
+                   (2e-2 if io == torch.bfloat16 else 2e-3) * scale)
+            _check(f"{name} network vs stack",
+                   (net.float() - stk.float()).abs().max().item(), 0.0)
+    print(json.dumps({"engine_kernel_phase": {
+        k: records[k] for k in ("engine_network", "engine_layer",
+                                "engine_layer_carry")}}), flush=True)
+
+    # ---------------- engine offline phase (K6, then the K5a stack) -----
+    def engine_metrics(mask):
+        nm = noisy_mag.transpose(1, 2)
+        loss_e, snr_e, _ = ndns_loss_from_mask_tm(
+            mask, nm, noisy_phase.transpose(1, 2),
+            clean_mag.transpose(1, 2), clean_t)
+        return loss_e.item(), snr_e.item()
+
+    reset_counts()
+    t0 = time.time()
+    mask_net = engine(x_eng)
+    torch.cuda.synchronize()
+    eng_s = time.time() - t0
+    records["engine_network"]["launches"] = engine_network.launches
+    loss_e, snr_e = engine_metrics(mask_net)
+    print(f"engine offline: call {eng_s * 1e3:.1f} ms, loss {loss_e:.4f}, "
+          f"si_snr {snr_e:.3f} dB (float model: loss {loss:.4f}, si_snr "
+          f"{snr:.3f} dB), K6 launches {engine_network.launches}, K5a "
+          f"{engine_layer.launches}, K5b {engine_layer.launches_carry}",
+          flush=True)
+    assert mask_net.shape == (B, frames, 257), mask_net.shape
+    assert torch.isfinite(mask_net).all()
+    assert np.isfinite(loss_e) and np.isfinite(snr_e)
+    assert engine_network.launches == 1, engine_network.launches
+    assert engine_layer.launches == engine_layer.launches_carry == 0
+    assert diag_scan.launches == layer_tail.launches == 0
+
+    stack_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
+                                      device=dev, block_t=512)
+    stack_engine._network_ok = False
+    reset_counts()
+    mask_stack = stack_engine(x_eng)
+    torch.cuda.synchronize()
+    records["engine_layer"]["launches"] = engine_layer.launches
+    print(f"engine stack route: K5a launches {engine_layer.launches}, K6 "
+          f"{engine_network.launches}, K5b {engine_layer.launches_carry}",
+          flush=True)
+    assert engine_layer.launches == n_layers, engine_layer.launches
+    assert engine_network.launches == engine_layer.launches_carry == 0
+    _check("engine network route vs stack route (bit-identical)",
+           (mask_net - mask_stack).abs().max().item(), 0.0)
+    cpu_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
+                                    device="cpu", block_t=512)
+    x_small = x_eng[:2, :200]
+    _check("engine on the card vs engine on the CPU (plain)",
+           (engine(x_small).cpu() - cpu_engine(x_small.cpu())).abs().max()
+           .item(), 2e-3)
+
+    # ---------------- engine streaming phase (K5b) ----------------
+    stream_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
+                                       device=dev, block_t=STREAM_BLOCK)
+    eden = StreamingDenoiser.from_engine(stream_engine, batch_size=B)
+    reset_counts()
+    t0 = time.time()
+    out_eng = eden.process_offline(noisy, chunk_samples=CHUNK)
+    torch.cuda.synchronize()
+    estream_s = time.time() - t0
+    records["engine_layer_carry"]["launches"] = engine_layer.launches_carry
+    n_forwards = engine_layer.launches_carry // n_layers
+    print(f"engine streaming: {n_chunks} chunks of {CHUNK} samples in "
+          f"{estream_s * 1e3:.1f} ms, {n_forwards} forwards of "
+          f"{STREAM_BLOCK}-frame blocks, K5b launches "
+          f"{engine_layer.launches_carry}, K5a {engine_layer.launches}, K6 "
+          f"{engine_network.launches}", flush=True)
+    assert out_eng.shape == out_chunked.shape, out_eng.shape
+    assert np.isfinite(out_eng).all()
+    assert engine_layer.launches_carry % n_layers == 0
+    assert n_forwards >= frames // STREAM_BLOCK, n_forwards
+    assert engine_layer.launches == engine_network.launches == 0
+    assert diag_scan.launches == layer_tail.launches == 0
+    carries, parts = None, []
+    for start in range(0, frames, STREAM_BLOCK):
+        part, carries = stream_engine.process_chunk(
+            x_eng[:, start:start + STREAM_BLOCK], carries)
+        parts.append(part)
+    _check("engine chunked process_chunk vs one whole call",
+           (torch.cat(parts, dim=1) - stream_engine(x_eng)).abs().max()
+           .item(), 0.0)    # the same device functions, the same blocks
 
     # ---------------- report ----------------
     smi = subprocess.run(

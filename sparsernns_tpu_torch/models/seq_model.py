@@ -14,8 +14,9 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch import nn
 
-from sparsernns_tpu_torch.models.layers import SequenceLayer
+from sparsernns_tpu_torch.models.layers import SequenceLayer, make_dense
 from sparsernns_tpu_torch.ops.scan import Pair
+from sparsernns_tpu_torch.quantize.config import QuantizationConfig
 
 #: per-layer streaming state: one (carry_re, carry_im) (B, P) pair a layer
 Cache = List[Pair]
@@ -26,13 +27,17 @@ class StackedEncoderModel(nn.Module):
 
     def __init__(self, make_mixer: Callable[[], nn.Module], d_input: int,
                  n_layers: int, d_model: int, glu_variant: str = "none",
-                 relufication: bool = False):
+                 relufication: bool = False, batchnorm: bool = True,
+                 prenorm: bool = True,
+                 q_config: Optional[QuantizationConfig] = None):
         super().__init__()
+        q_config = q_config or QuantizationConfig.none()
         self.relufication = relufication
-        self.encoder = nn.Linear(d_input, d_model)
+        self.encoder = make_dense(q_config, d_input, d_model)
         self.layers = nn.ModuleList(
             SequenceLayer(make_mixer(), d_model, glu_variant=glu_variant,
-                          relufication=relufication)
+                          relufication=relufication, batchnorm=batchnorm,
+                          prenorm=prenorm, q_config=q_config)
             for _ in range(n_layers))
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
@@ -61,14 +66,19 @@ class RegressionModel(nn.Module):
     (B, L, d_input) -> (B, L, d_output)."""
 
     def __init__(self, make_mixer: Callable[[], nn.Module], d_input: int,
-                 d_output: int, n_layers: int, d_model: int, **layer_kw):
+                 d_output: int, n_layers: int, d_model: int,
+                 q_config: Optional[QuantizationConfig] = None, **layer_kw):
         super().__init__()
+        q_config = q_config or QuantizationConfig.none()
+        self.q_config = q_config
         self.encoder = StackedEncoderModel(make_mixer, d_input, n_layers,
-                                           d_model, **layer_kw)
-        self.decoder = nn.Linear(d_model, d_output)
+                                           d_model, q_config=q_config,
+                                           **layer_kw)
+        self.decoder = make_dense(q_config, d_model, d_output)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Offline forward (the whole-layer kernel route)."""
+        """Offline forward (the whole-layer kernel route for a float
+        prenorm-BatchNorm model, else the unfused route)."""
         return self.decoder(self.encoder(x))
 
     def forward_stream(self, x: torch.Tensor, cache: Optional[Cache] = None

@@ -1,13 +1,18 @@
-"""The S5 SSM mixer, float path (counterpart of ``sparsernns_tpu/models/ssm.py``).
+"""The S5 SSM mixer (counterpart of ``sparsernns_tpu/models/ssm.py``).
 
 Inputs are (B, L, H); complex numbers are (re, im) pairs of float32
 tensors. The B and C projections are each one real matmul against a
-stacked (H, 2P) / (2P, H) weight. Two routes use the mixer:
+stacked (H, 2P) / (2P, H) weight. Three routes use the mixer:
 
 - the whole-layer tail kernel (``ops/cuda/layer_tail.py``) takes its
   operands from :meth:`S5SSM.layer_tail_operands` — the offline forward;
 - :meth:`S5SSM.forward` runs B-projection, the diagonal-scan kernel with
-  an optional carry, and C-projection — the streaming forward.
+  an optional carry, and C-projection — the streaming forward;
+- with ``q_config.static_quant`` :meth:`S5SSM.forward` is the
+  static-quant path: every operand through its ``FakeQuant`` and a
+  sequential scan that requantizes the state after each step — the model
+  that calibration observes and that the serving engine is checked
+  against.
 """
 
 from __future__ import annotations
@@ -21,7 +26,12 @@ from torch import nn
 from sparsernns_tpu_torch.models.ssm_init import (init_cv, init_log_steps,
                                                   init_vinv_b, project_cv,
                                                   trunc_standard_normal)
-from sparsernns_tpu_torch.ops.scan import Pair, diag_ssm_scan
+from sparsernns_tpu_torch.ops.scan import (Pair, diag_ssm_scan,
+                                           sequential_diag_scan)
+from sparsernns_tpu_torch.quantize.config import QuantizationConfig
+from sparsernns_tpu_torch.quantize.static import (FakeQuant,
+                                                  FakeQuantComplex,
+                                                  quant_dequant)
 
 
 def discretize_zoh(lam: Pair, b: Pair, delta: torch.Tensor
@@ -70,7 +80,8 @@ class S5SSM(nn.Module):
                  conj_sym: bool = True, clip_eigs: bool = False,
                  bidirectional: bool = False, step_rescale: float = 1.0,
                  relufication: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 q_config: Optional[QuantizationConfig] = None):
         super().__init__()
         if bidirectional:
             raise NotImplementedError("bidirectional mixer: not ported yet")
@@ -82,6 +93,18 @@ class S5SSM(nn.Module):
         self.clip_eigs = clip_eigs
         self.step_rescale = step_rescale
         self.relufication = relufication
+        self.q_config = cfg = q_config or QuantizationConfig.none()
+        if cfg.static_quant:
+            kw = dict(pow2scale=True, calibrating=cfg.calibrating)
+            self.quant_a = FakeQuantComplex(bits=cfg.a_precision, **kw)
+            self.quant_b = FakeQuantComplex(bits=cfg.b_precision, **kw)
+            self.quant_c = FakeQuantComplex(bits=cfg.c_precision, **kw)
+            self.quant_d = FakeQuant(bits=cfg.d_precision, **kw)
+            self.quant_xt = FakeQuantComplex(bits=cfg.ssm_act_precision, **kw)
+            self.quant_ut = FakeQuant(bits=cfg.ssm_act_precision, **kw)
+            self.quant_but = FakeQuantComplex(bits=cfg.ssm_act_precision,
+                                              **kw)
+            self.quant_yt = FakeQuant(bits=cfg.ssm_act_precision, **kw)
 
         lam = np.asarray(lambda_init)
         self.Lambda_re = nn.Parameter(torch.from_numpy(
@@ -138,6 +161,12 @@ class S5SSM(nn.Module):
 
         ``carry``: the state before the first step (streaming); None
         starts from zero."""
+        if self.q_config.static_quant:
+            if carry is not None:
+                raise NotImplementedError(
+                    "the static-quant model has no streaming carry: stream "
+                    "through quantize.engine.W8A16Engine.process_chunk")
+            return self._apply_static_quant(u)
         lam_bar, b_bar = self.discretized()
         bu_cat = u @ self._w_b(b_bar)
         bu = (bu_cat[..., :self.p], bu_cat[..., self.p:])
@@ -150,3 +179,45 @@ class S5SSM(nn.Module):
             ys = 2.0 * ys
         return ys + self.D * u, final
 
+
+    # ---------------- static-quant path ----------------
+
+    def _state_requant(self):
+        """The per-step state requantizer from the ``quant_xt`` scales, or
+        None. While calibrating it uses the observers' running scales, and
+        only once they have seen a non-zero state: requantizing with the
+        eps scale of an observer that saw nothing would clip every state,
+        the observers would only ever see clipped states, and the scale
+        could never grow. So the first batch runs unclipped."""
+        q_re, q_im = self.quant_xt.quant_real, self.quant_xt.quant_imag
+        bits = self.q_config.ssm_act_precision
+        if self.q_config.calibrating:
+            absmax = torch.maximum(q_re.observed_absmax(),
+                                   q_im.observed_absmax())
+            if not (torch.isfinite(absmax) and absmax > 0.0):
+                return None
+            s_re, s_im = q_re.calibration_scale(), q_im.calibration_scale()
+        else:
+            s_re, s_im = q_re.scale, q_im.scale
+        return lambda x: (quant_dequant(x[0], s_re, 0.0, bits),
+                          quant_dequant(x[1], s_im, 0.0, bits))
+
+    def _apply_static_quant(self, u: torch.Tensor
+                            ) -> Tuple[torch.Tensor, Pair]:
+        lam_bar, b_bar = self.discretized()
+        u_q = self.quant_ut(u)
+        b_bar = self.quant_b(*b_bar)
+        lam_q = self.quant_a(*lam_bar)
+        c_re, c_im = self.quant_c(self.C[..., 0], self.C[..., 1])
+
+        bu_cat = u_q @ self._w_b(b_bar)
+        bu = self.quant_but(bu_cat[..., :self.p], bu_cat[..., self.p:])
+        xs, final = sequential_diag_scan(
+            lam_q, bu, state_requant=self._state_requant())
+        self.quant_xt(*xs)      # feeds the observers while calibrating
+        if self.relufication:
+            xs = (torch.relu(xs[0]), torch.relu(xs[1]))
+        ys = torch.cat(xs, dim=-1) @ torch.cat([c_re.T, -c_im.T], dim=0)
+        if self.conj_sym:
+            ys = 2.0 * ys
+        return self.quant_yt(ys + self.quant_d(self.D) * u_q), final

@@ -1,15 +1,15 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers,
-so ``nvcc`` builds it in seconds::
+Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers
+(it may include headers of ``csrc/``), so ``nvcc`` builds it in seconds::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited source is
-rebuilt and an unchanged one is reused from ``_build/`` (listed in
-``.gitignore``). :func:`build_all` starts one ``nvcc`` per source, all at
-once. A missing ``nvcc`` or a failed build raises; nothing falls back.
+The library name carries a hash of the source and of every ``csrc/``
+header it includes, so an edited source or header is rebuilt and an
+unchanged one is reused from ``_build/`` (listed in ``.gitignore``).
+:func:`build_all` starts one ``nvcc`` per source, all at once. A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +26,8 @@ from typing import Dict, Iterable, List
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("diag_scan", "layer_tail")
+SOURCES = ("diag_scan", "layer_tail", "engine_layer", "engine_network")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,10 +50,23 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _hash_with_includes(fname: str, digest, seen: set) -> None:
+    """Feed ``csrc/<fname>`` and, recursively, the ``csrc/`` headers it
+    includes with quotes into ``digest``."""
+    if fname in seen:
+        return
+    seen.add(fname)
+    with open(os.path.join(CSRC, fname), "rb") as f:
+        text = f.read()
+    digest.update(fname.encode() + b"\0" + text)
+    for inc in _INCLUDE.findall(text):
+        _hash_with_includes(inc.decode(), digest, seen)
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha256()
+    _hash_with_includes(f"{name}.cu", digest, set())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _start(name: str, out: str) -> subprocess.Popen:

@@ -1,0 +1,119 @@
+"""Kernel K6: the whole serving network in one kernel.
+
+Replaces ``sparsernns_tpu/ops/pallas/fused_network.py``
+``fused_network_apply`` in float-dot mode: per time block, the encoder
+dense (+ relu), every layer as in ``engine_layer.py`` with the store and
+load of the stream between two layers reproduced as values, and the
+decoder dense, with every layer's scan carry resident across blocks.
+Input (B, L, d_in) float32 / bfloat16, output (B, L, d_out) in
+``out_dtype``. Bit-identical to the per-layer stack (``engine_layer`` with
+``enc`` on the first launch and ``dec`` on the last) at the same block.
+
+The CUDA source is ``csrc/engine_network.cu`` over ``csrc/engine_body.cuh``
+(the layer body shared with K5). :func:`engine_network` launches the
+kernel for CUDA tensors (or raises) and takes :func:`engine_network_plain`
+only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from sparsernns_tpu_torch.ops.cuda import build
+from sparsernns_tpu_torch.ops.cuda.engine_layer import (
+    IO_TYPES, Dense, DenseW, LayerMode, LayerParams, Mode, zero_carry,
+    dense_plain, encode_plain, layer_body_plain, pack_dense, pack_layer,
+    pack_mode, stream_value)
+
+#: most layers one launch takes (``kMaxLayers`` of the CUDA source)
+MAX_LAYERS = 8
+
+#: kernel launches made by :func:`engine_network_cuda` in this process
+launches = 0
+
+
+def _check_args(x, enc: Dense, layers: Sequence, dec: Dense, block_t: int):
+    if x.dim() != 3 or x.shape[-1] != enc[0].data.shape[0]:
+        raise ValueError(f"x must be (B, L, {enc[0].data.shape[0]}), got "
+                         f"{tuple(x.shape)}")
+    if not 1 <= len(layers) <= MAX_LAYERS:
+        raise ValueError(f"1..{MAX_LAYERS} layers, got {len(layers)}")
+    if block_t < 1:
+        raise ValueError(f"block_t {block_t}")
+
+
+def engine_network_plain(x: torch.Tensor, enc: Dense, layers: Sequence,
+                         dec: Dense, mode: LayerMode, *, block_t: int,
+                         out_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Plain PyTorch version: per time block of ``block_t`` frames, the
+    encoder, every layer (the body shared with ``engine_layer_plain``,
+    recurrence step by step) and the decoder."""
+    _check_args(x, enc, layers, dec, block_t)
+    carries = [zero_carry(x, layer) for layer in layers]
+    outs = []
+    for s in range(0, x.shape[1], block_t):
+        hb = encode_plain(x[:, s:s + block_t], enc, mode)
+        for i, layer in enumerate(layers):
+            hb, carries[i] = layer_body_plain(hb, layer, mode, carries[i])
+            hb = stream_value(hb, layer, mode)
+        outs.append(dense_plain(hb, dec).to(out_dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _lib():
+    fn = build.load("engine_network").engine_network_fwd
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.POINTER(LayerParams), ctypes.c_int, ctypes.POINTER(Mode),
+             ctypes.POINTER(DenseW), ctypes.c_int, ctypes.POINTER(DenseW),
+             ctypes.c_int] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
+                        dec: Dense, mode: LayerMode, *, block_t: int,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """Launch the kernel (one CTA per batch row, one launch for all of L).
+    Same arguments as :func:`engine_network_plain`, every tensor on ``x``'s
+    CUDA device."""
+    global launches
+    _check_args(x, enc, layers, dec, block_t)
+    if x.dtype not in (torch.float32, torch.bfloat16) or out_dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError(f"io dtypes {x.dtype} / {out_dtype}")
+    dev = x.device
+    b, l, d_in = x.shape
+    h = enc[0].data.shape[1]
+    d_out = dec[0].data.shape[1]
+    x = x.contiguous()
+    out = torch.empty((b, l, d_out), dtype=out_dtype, device=dev)
+    if b == 0 or l == 0:
+        return out
+    packed = (LayerParams * len(layers))(
+        *[pack_layer(layer, mode, dev) for layer in layers])
+    md = pack_mode(mode, h)
+    enc_w = pack_dense(enc, "encoder", (d_in, h), dev)
+    dec_w = pack_dense(dec, "decoder", (h, d_out), dev)
+    err = _lib()(
+        x.data_ptr(), out.data_ptr(), IO_TYPES[x.dtype], IO_TYPES[out_dtype],
+        packed, len(layers), ctypes.byref(md), ctypes.byref(enc_w), d_in,
+        ctypes.byref(dec_w), d_out, b, l, int(block_t),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "engine_network")
+    launches += 1
+    return out
+
+
+def engine_network(x: torch.Tensor, enc: Dense, layers: Sequence, dec: Dense,
+                   mode: LayerMode, **kw) -> torch.Tensor:
+    """The whole network on (B, L, d_in). CUDA tensors launch the kernel
+    (or raise); CPU tensors take the plain version."""
+    fn = engine_network_cuda if x.is_cuda else engine_network_plain
+    return fn(x, enc, layers, dec, mode, **kw)

@@ -12,7 +12,7 @@ layout the CUDA kernels read (counterpart of ``sparsernns_tpu/ops/scan.py``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -27,11 +27,15 @@ def complex_mul(a: Pair, b: Pair) -> Pair:
 
 
 def sequential_diag_scan(lam: Pair, bu: Pair,
-                         carry_init: Optional[Pair] = None
+                         carry_init: Optional[Pair] = None,
+                         state_requant: Optional[Callable[[Pair], Pair]] = None
                          ) -> Tuple[Pair, Pair]:
     """Step-by-step scan along axis -2. Returns (all states, final state).
 
-    ``carry_init`` (..., P): the state before the first step (streaming)."""
+    ``carry_init`` (..., P): the state before the first step (streaming).
+    ``state_requant`` is applied to the carried state after every step: the
+    static-quant inference semantics, which no associative scan can
+    express."""
     bu_r, bu_i = bu
     if carry_init is None:
         x_r = torch.zeros_like(bu_r[..., 0, :])
@@ -44,6 +48,8 @@ def sequential_diag_scan(lam: Pair, bu: Pair,
         ax_r, ax_i = complex_mul(lam, (x_r, x_i))
         x_r = ax_r + bu_r[..., t, :]
         x_i = ax_i + bu_i[..., t, :]
+        if state_requant is not None:
+            x_r, x_i = state_requant((x_r, x_i))
         out_r[..., t, :] = x_r
         out_i[..., t, :] = x_i
     return (out_r, out_i), (x_r, x_i)

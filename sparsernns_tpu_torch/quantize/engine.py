@@ -1,0 +1,476 @@
+"""W8A16 serving engine: the quantized inference path as GPU kernels
+(counterpart of ``sparsernns_tpu/quantize/engine.py``).
+
+- weights are stored quantized (int8 for B̄/C/dense, values on the pow2
+  grid for Λ̄ and D) with frozen power-of-2 scales from calibration, packed
+  once, host-side, into the kernels' layouts;
+- activations run at 16 bits: the residual stream between layers is the
+  int16 codes of each layer's calibrated grid (bf16 where a layer has
+  none), the scan state float32;
+- the offline call runs the whole network as ONE kernel
+  (``ops/cuda/engine_network.py``, K6), or one kernel per layer
+  (``ops/cuda/engine_layer.py``, K5a) when the network route is switched
+  off; a streaming chunk runs one kernel per layer with carries (K5b).
+  The two offline routes are bit-identical at the same time block.
+
+The engine takes the frozen tree that calibration returns
+(``quantize/calibrate.py``, or the JAX package's: the trees are
+interchangeable), as nested dicts of numpy arrays.
+
+Not ported yet, and refused with ``NotImplementedError``: the int8-dot
+modes (``mxu16=True`` and recipes with activations of 8 bits or fewer,
+``ops/intdot.py``), everything that needs the per-op route (model-dim
+top-k, block-sparse dense packs, a residual requant wider than 16 bits),
+``route="xla"`` and ``from_artifacts``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sparsernns_tpu_torch.fxp.derive import FxpModelConfig, _discretize, _get
+from sparsernns_tpu_torch.ops.cuda.engine_layer import (LayerMode,
+                                                        dense_plain,
+                                                        engine_layer, qdq)
+from sparsernns_tpu_torch.ops.cuda.engine_network import (MAX_LAYERS,
+                                                          engine_network)
+from sparsernns_tpu_torch.ops.scan import Pair
+from sparsernns_tpu_torch.quantize.config import QuantizationConfig
+
+#: the engine's time block when ``block_t`` is None
+DEFAULT_BLOCK_T = 512
+
+
+def pow2_quantize(w: np.ndarray, bits: Optional[int]
+                  ) -> Tuple[np.ndarray, Optional[float]]:
+    """Symmetric pow2-scale integer quantization of a weight tensor:
+    -> (int8/int16 data, scale). Pure numpy, the value rule of
+    ``static.calculate_qparams(pow2scale=True)`` + ``quant_dequant``, so
+    ``data * scale`` equals the static-quant emulation's dequantized
+    weights. Returns (float32, None) when bits is None or >= 32."""
+    if bits is None or bits >= 32:
+        return np.asarray(w, np.float32), None
+    w = np.asarray(w)
+    absmax = float(np.abs(w).max())
+    qmax = 2.0 ** (bits - 1) - 1.0
+    s = max(absmax / qmax, 1e-6)
+    s = 2.0 ** round(np.log2(s))
+    q = np.clip(np.round(w / s), -(2 ** (bits - 1)), 2 ** (bits - 1) - 1)
+    dt = np.int8 if bits <= 8 else np.int16
+    return q.astype(dt), float(s)
+
+
+def _pow2_quant_values(w: np.ndarray, bits: Optional[int]) -> np.ndarray:
+    """Dequantized float values on the pow2 int grid (for Λ̄ and D, which
+    stay in float storage)."""
+    q, s = pow2_quantize(w, bits)
+    if s is None:
+        return q
+    return q.astype(np.float32) * s
+
+
+@dataclasses.dataclass
+class QWeight:
+    """Integer-stored weight + static per-tensor pow2 scale (None: the
+    data is float)."""
+
+    data: torch.Tensor
+    scale: Optional[float] = None
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        if self.scale is None:
+            return self.data.to(dtype)
+        return self.data.to(dtype) * self.scale
+
+
+@dataclasses.dataclass
+class _LayerPack:
+    """Per-layer packed operands and static grids."""
+
+    lam: Pair                 # (P,) f32 values on the a-precision grid
+    w_b: torch.Tensor         # (H, 2P) int8 [B̄_re^T | B̄_im^T], or f32
+    w_c: torch.Tensor         # (2P, H) int8 [C_re^T ; -C_im^T]
+    d: torch.Tensor           # (H,) f32 values on the d-precision grid
+    norm_w: torch.Tensor      # (H,) BN scale / sqrt(var + eps)
+    norm_b: torch.Tensor
+    out2_kernel: Optional[QWeight] = None   # GLU gate dense
+    out2_bias: Optional[torch.Tensor] = None
+    out1_kernel: Optional[QWeight] = None   # "full" GLU value dense
+    out1_bias: Optional[torch.Tensor] = None
+    #: (scale, bits) of the calibrated residual requant at the layer output
+    residual_requant: Optional[Tuple[float, int]] = None
+    #: (s_re, s_im, bits) of the blockwise state requant
+    state_requant: Optional[Tuple[float, float, int]] = None
+    #: per-half pow2 scales of the int B/C packs; None for float weights
+    wb_scales: Optional[Tuple[float, float]] = None
+    wc_scales: Optional[Tuple[float, float]] = None   # incl. conj-sym 2x
+
+    @property
+    def p(self) -> int:
+        return self.w_b.shape[-1] // 2
+
+
+def quantized_dense(x: torch.Tensor, w: QWeight, bias: torch.Tensor,
+                    in_spec: Optional[Tuple[float, int]] = None,
+                    out_spec: Optional[Tuple[float, int]] = None
+                    ) -> torch.Tensor:
+    """Dense layer on a quantized weight, float branch: dequantize and
+    float dot, then the optional ``out_spec`` requant. ``in_spec`` selects
+    the int8-dot path, which is not ported."""
+    if in_spec is not None:
+        raise NotImplementedError(
+            "int8 dots on quantized activations (ops/intdot.py) are not "
+            "ported yet")
+    return qdq(dense_plain(x, (w, bias)), out_spec)
+
+
+def engine_encode(cfg: FxpModelConfig, encoder_kernel: QWeight,
+                  encoder_bias: torch.Tensor, x: torch.Tensor,
+                  in_scale=None, out_spec=None) -> torch.Tensor:
+    if cfg.topk < 1.0:
+        raise NotImplementedError("model-dim top-k is not ported yet")
+    h = quantized_dense(x, encoder_kernel, encoder_bias, in_scale, out_spec)
+    return torch.relu(h) if cfg.relufication else h
+
+
+def _block_saving(q: np.ndarray, bk: int, bn: int) -> float:
+    """Fraction of (bk, bn) tiles of a (K, N) weight that are all zero."""
+    k, n = q.shape
+    kt, nt = -(-k // bk), -(-n // bn)
+    padded = np.zeros((kt * bk, nt * bn), dtype=bool)
+    padded[:k, :n] = q != 0
+    nnz = padded.reshape(kt, bk, nt, bn).any(axis=(1, 3)).sum()
+    return 1.0 - nnz / (kt * nt)
+
+
+class W8A16Engine:
+    """Quantized NDNS inference engine over frozen conversion artifacts."""
+
+    def __init__(self, params: Dict[str, Any], batch_stats: Dict[str, Any],
+                 q_config: QuantizationConfig, model_cfg: FxpModelConfig,
+                 act_dtype=torch.bfloat16, block_t: Optional[int] = None,
+                 compact_state: bool = True,
+                 block_sparse_dense: Optional[Tuple[int, int]] = (32, 128),
+                 block_sparse_min_saving: float = 0.2,
+                 mxu16: bool = False, route: str = "auto",
+                 row_pair: bool = False, device="cuda"):
+        if route not in ("auto", "xla"):
+            raise ValueError(f"unknown engine route {route!r}")
+        if route == "xla":
+            raise NotImplementedError(
+                "route='xla' (the kernel-free blocked_diag_scan route) is "
+                "not ported yet")
+        if mxu16:
+            raise NotImplementedError(
+                "mxu16 (int8 dots on int16 activation codes, "
+                "ops/intdot.py, in the layer and network kernels) is not "
+                "ported yet")
+        if act_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"act_dtype {act_dtype}")
+        #: the JAX package's paired-row schedule of the network kernel
+        #: gives the same bits as its unpaired one; here every batch row
+        #: is a thread block of its own, so the flag changes nothing
+        self.row_pair = row_pair
+        self.route = route
+        self.cfg = cfg = model_cfg
+        self.act_dtype = act_dtype
+        self.device = torch.device(device)
+        #: frames per time block: where the scan states are requantized
+        self.block_t = DEFAULT_BLOCK_T if block_t is None else int(block_t)
+        #: per-layer (p_original, p_kept) after structured-channel
+        #: compaction
+        self.state_channels: List[Tuple[int, int]] = []
+
+        if cfg.topk < 1.0:
+            raise NotImplementedError(
+                "model-dim top-k needs the per-op route (the fused mixer "
+                "kernels fused_s5_apply / fused_s5_apply_carry), which is "
+                "not ported yet")
+        if cfg.glu_variant not in ("half1", "half2", "full", "none"):
+            raise ValueError(f"glu_variant {cfg.glu_variant!r}")
+        if cfg.n_layers < 1:
+            raise ValueError("the engine needs at least one layer")
+
+        enc = params["encoder"]
+        enc_stats = (batch_stats or {}).get("encoder", {})
+        wq = q_config.non_ssm_precision
+        a_bits = q_config.non_ssm_act_precision
+        if a_bits is not None and a_bits <= 8 and wq is not None and wq <= 8:
+            raise NotImplementedError(
+                "activations of 8 bits or fewer run their dense dots as "
+                "int8 dots (ops/intdot.py in the layer and network "
+                "kernels), which are not ported yet")
+
+        def dev(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.array(a, order="C")).to(self.device)
+
+        def pack_dense(name: str, w: np.ndarray, bits) -> QWeight:
+            q, s = pow2_quantize(w, bits)
+            if block_sparse_dense is not None and _block_saving(
+                    q, *block_sparse_dense) >= block_sparse_min_saving:
+                raise NotImplementedError(
+                    f"{name}: enough all-zero tiles for a block-sparse pack "
+                    "(the block_sparse_matmul kernel), which is not ported "
+                    "yet; pass block_sparse_dense=None to pack it densely")
+            return QWeight(dev(q), s)
+
+        self.encoder_kernel = pack_dense(
+            "encoder", np.asarray(enc["encoder"]["kernel"]), wq)
+        self.encoder_bias = dev(np.asarray(enc["encoder"]["bias"],
+                                           np.float32))
+        self.decoder_kernel = pack_dense(
+            "decoder", np.asarray(params["decoder"]["kernel"]), wq)
+        self.decoder_bias = dev(np.asarray(params["decoder"]["bias"],
+                                           np.float32))
+
+        self.layers: List[_LayerPack] = []
+        for i in range(cfg.n_layers):
+            lp = enc[f"layers_{i}"]
+            ls = enc_stats.get(f"layers_{i}", {})
+            lam_bar, b_bar, c_tilde, d = _discretize(lp["mixer"], cfg)
+
+            # Structured-sparsity compaction: a state channel whose B̄ row
+            # AND C column are exactly zero contributes nothing — drop it,
+            # shrinking the scan width and both projections.
+            p_orig = b_bar[0].shape[0]
+            p_kept = p_orig
+            if compact_state and c_tilde[0].shape[1] == p_orig:
+                b_zero = ((np.abs(b_bar[0]).max(axis=1) == 0)
+                          & (np.abs(b_bar[1]).max(axis=1) == 0))
+                c_zero = ((np.abs(c_tilde[0]).max(axis=0) == 0)
+                          & (np.abs(c_tilde[1]).max(axis=0) == 0))
+                keep = ~(b_zero & c_zero)
+                p_kept = int(keep.sum())
+                if p_kept == 0:
+                    keep[0] = True  # degenerate: keep one channel
+                    p_kept = 1
+                if p_kept < p_orig:
+                    b_bar = (b_bar[0][keep], b_bar[1][keep])
+                    c_tilde = (c_tilde[0][:, keep], c_tilde[1][:, keep])
+                    lam_bar = (lam_bar[0][keep], lam_bar[1][keep])
+            self.state_channels.append((p_orig, p_kept))
+
+            # int storage, separate per-half pow2 scales (the static-quant
+            # FakeQuantComplex quantizes re/im on their own grids). C_im is
+            # negated BEFORE quantization so the packed ints carry the
+            # [C_re^T; -C_im^T] sign without an int8 negate (-128 would
+            # overflow).
+            b_re_q, s_bre = pow2_quantize(b_bar[0], q_config.b_precision)
+            b_im_q, s_bim = pow2_quantize(b_bar[1], q_config.b_precision)
+            c_re_q, s_cre = pow2_quantize(c_tilde[0], q_config.c_precision)
+            c_imn_q, s_cim = pow2_quantize(-c_tilde[1], q_config.c_precision)
+            lam_bar = (_pow2_quant_values(lam_bar[0], q_config.a_precision),
+                       _pow2_quant_values(lam_bar[1], q_config.a_precision))
+            d_q = _pow2_quant_values(d, q_config.d_precision)
+
+            # the norm as an affine prologue (BatchNorm eps 1e-5)
+            mean = np.asarray(_get(ls, "norm", "mean",
+                                   default=np.zeros(cfg.d_model)))
+            var = np.asarray(_get(ls, "norm", "var",
+                                  default=np.ones(cfg.d_model)))
+            scale = np.asarray(_get(lp, "norm", "scale",
+                                    default=np.ones(cfg.d_model)))
+            bias = np.asarray(_get(lp, "norm", "bias",
+                                   default=np.zeros(cfg.d_model)))
+            nw = scale / np.sqrt(var + 1e-5)
+            nb = bias - mean * nw
+
+            w_b = np.concatenate([b_re_q.T, b_im_q.T], axis=-1)
+            sgn = 2.0 if cfg.conj_sym else 1.0
+            w_c = np.concatenate([c_re_q.T, c_imn_q.T], axis=0)
+            wb_scales = (None if s_bre is None
+                         else (float(s_bre), float(s_bim)))
+            # conj-sym 2x folds into the static scales, not the ints
+            wc_scales = (None if s_cre is None
+                         else (sgn * float(s_cre), sgn * float(s_cim)))
+            if s_cre is None:
+                w_c = sgn * w_c
+
+            # frozen state scales: blockwise state requant in the kernels
+            requant = None
+            s_re = _get(lp, "mixer", "quant_xt", "quant_real", "scale")
+            s_im = _get(lp, "mixer", "quant_xt", "quant_imag", "scale")
+            if s_re is not None and s_im is not None \
+                    and q_config.ssm_act_precision:
+                requant = (float(np.asarray(s_re)), float(np.asarray(s_im)),
+                           int(q_config.ssm_act_precision))
+
+            res_requant = None
+            s_res = _get(lp, "quant_residual", "scale")
+            if s_res is not None and q_config.non_ssm_act_precision:
+                res_requant = (float(np.asarray(s_res)),
+                               int(q_config.non_ssm_act_precision))
+                if res_requant[1] > 16:
+                    raise NotImplementedError(
+                        "a residual requant wider than 16 bits needs the "
+                        "per-op route (fused_s5_apply), which is not "
+                        "ported yet")
+
+            out2_k = out2_b = out1_k = out1_b = None
+            if cfg.glu_variant in ("full", "half1", "half2"):
+                out2_k = pack_dense(f"layers_{i}/out2",
+                                    np.asarray(lp["out2"]["kernel"]), wq)
+                out2_b = dev(np.asarray(lp["out2"]["bias"], np.float32))
+            if cfg.glu_variant == "full":
+                out1_k = pack_dense(f"layers_{i}/out1",
+                                    np.asarray(lp["out1"]["kernel"]), wq)
+                out1_b = dev(np.asarray(lp["out1"]["bias"], np.float32))
+
+            self.layers.append(_LayerPack(
+                lam=(dev(lam_bar[0]), dev(lam_bar[1])),
+                w_b=dev(w_b), w_c=dev(w_c), d=dev(d_q),
+                norm_w=dev(nw.astype(np.float32)),
+                norm_b=dev(nb.astype(np.float32)),
+                out2_kernel=out2_k, out2_bias=out2_b,
+                out1_kernel=out1_k, out1_bias=out1_b,
+                state_requant=requant,
+                wb_scales=wb_scales, wc_scales=wc_scales,
+                residual_requant=res_requant))
+
+        self.mode = LayerMode(prenorm=cfg.prenorm,
+                              relufication=cfg.relufication,
+                              glu=cfg.glu_variant,
+                              relu_state=cfg.relufication,
+                              act_dtype=act_dtype)
+        #: whole-network route (K6): one kernel for the offline call when
+        #: its layer limit allows; else, and for every streaming chunk, the
+        #: whole-layer route (K5), one kernel per layer over the stored
+        #: residual stream. The whole-layer route has no eligibility test
+        #: of its own: what it cannot express was refused above, since the
+        #: per-op route it would fall back to is not ported.
+        self._network_ok = self._fused_network_eligible()
+
+    def _fused_network_eligible(self) -> bool:
+        """By configuration only: the network kernel takes up to
+        ``MAX_LAYERS`` layers in one launch; deeper models keep the
+        per-layer stack."""
+        return 1 <= len(self.layers) <= MAX_LAYERS
+
+    @property
+    def _enc(self):
+        return self.encoder_kernel, self.encoder_bias
+
+    @property
+    def _dec(self):
+        return self.decoder_kernel, self.decoder_bias
+
+    def _apply_stack(self, x: torch.Tensor, block_t: int,
+                     out_dtype=torch.float32) -> torch.Tensor:
+        """Whole-layer-kernel forward: N launches over the stored residual
+        stream; the first also runs the encoder, the last the decoder. The
+        JAX stack pads L up to its block ``min(block_t, ceil8(L))`` with
+        zero rows; the block is kept, the padding is not."""
+        t = min(block_t, -(-x.shape[1] // 8) * 8)
+        r, in_rq = x, None
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            r = engine_layer(
+                r, layer, self.mode, block_t=t, in_requant=in_rq,
+                enc=self._enc if i == 0 else None,
+                dec=self._dec if i == last else None, out_dtype=out_dtype)
+            in_rq = layer.residual_requant
+        return r
+
+    def _apply_network(self, x: torch.Tensor, block_t: int,
+                       out_dtype=torch.float32) -> torch.Tensor:
+        """Whole-network-kernel forward: one launch. The JAX kernel's
+        block is ``min(block_t, L)``, cut to a multiple of 8 when it is
+        shorter than L, and the last ``L % t`` frames are one short block."""
+        l = x.shape[1]
+        t = min(block_t, l)
+        if t < l:
+            t = max(t - t % 8, 8)
+        return engine_network(x, self._enc, self.layers, self._dec,
+                              self.mode, block_t=t, out_dtype=out_dtype)
+
+    @staticmethod
+    def _io_dtype(x: torch.Tensor) -> torch.dtype:
+        """The mask comes back in the dtype the magnitudes arrived in:
+        bf16 in -> bf16 out, everything else f32."""
+        return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+
+    def _input(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x, device=self.device)
+        return x if x.dtype == torch.bfloat16 else x.to(torch.float32)
+
+    @torch.no_grad()
+    def _apply(self, x: torch.Tensor, block_t: int) -> torch.Tensor:
+        """x: (B, L, d_input) f32 or bf16 -> mask (B, L, d_output)."""
+        if self._network_ok:
+            return self._apply_network(x, block_t, self._io_dtype(x))
+        return self._apply_stack(x, block_t, self._io_dtype(x))
+
+    def __call__(self, x) -> torch.Tensor:
+        return self._apply(self._input(x), self.block_t)
+
+    # ---------------- streaming (chunked) serving ----------------
+
+    def init_stream_state(self, batch: int) -> Tuple[Pair, ...]:
+        """Zero carries for a new stream: per-layer (B, P) state pairs."""
+        return tuple(
+            (torch.zeros((batch, layer.p), device=self.device),
+             torch.zeros((batch, layer.p), device=self.device))
+            for layer in self.layers)
+
+    @torch.no_grad()
+    def _apply_chunk_stack(self, x: torch.Tensor, carries: Sequence[Pair],
+                           block_t: int, lo: int = 0, encode: bool = True,
+                           decode: bool = True,
+                           layers: Optional[Sequence[_LayerPack]] = None):
+        """Chunked whole-layer-kernel forward: per-layer carry in and out.
+        The chunk length must be a multiple of the time block
+        ``min(block_t, L_chunk)``.
+
+        Pipeline-stage mode: ``layers`` is the stage's slice of
+        ``self.layers`` and ``lo`` the global index of its first layer.
+        With ``encode=False`` x is the previous stage's stored stream (the
+        codes of layer lo-1's residual requant, or ``act_dtype``); with
+        ``decode=False`` the stored stream is returned for the next stage
+        instead of the decoded output."""
+        layers = self.layers if layers is None else layers
+        t = min(block_t, x.shape[1])
+        if x.shape[1] % t:
+            raise ValueError(
+                f"chunk length {x.shape[1]} is not divisible by the time "
+                f"block {t}")
+        in_rq = self.layers[lo - 1].residual_requant if lo > 0 else None
+        r = x
+        new_carries = []
+        last = len(layers) - 1
+        for i, (layer, carry) in enumerate(zip(layers, carries)):
+            r, new_c = engine_layer(
+                r, layer, self.mode, block_t=t, in_requant=in_rq,
+                carry=carry, enc=self._enc if encode and i == 0 else None,
+                dec=self._dec if decode and i == last else None,
+                out_dtype=self._io_dtype(x) if encode else torch.float32)
+            new_carries.append(new_c)
+            in_rq = layer.residual_requant
+        return r, tuple(new_carries)
+
+    def process_chunk(self, x, carries=None):
+        """x: (B, L_chunk, d_input) -> (mask chunk, new carries).
+
+        Chunked calls match one whole-sequence call when the chunk length
+        equals the engine's ``block_t`` (the state-requant granularity);
+        for other chunk lengths the recurrence is still exact but the
+        block-boundary requantization happens at chunk granularity.
+        L_chunk must be a multiple of the effective time block."""
+        x = self._input(x)
+        if carries is None:
+            carries = self.init_stream_state(x.shape[0])
+        return self._apply_chunk_stack(x, carries, self.block_t)
+
+    @staticmethod
+    def from_artifacts(checkpoint_dir: str, cfg) -> "W8A16Engine":
+        raise NotImplementedError(
+            "from_artifacts reads the conversion ArtifactStore of the "
+            "checkpoint module, which is not ported yet; build the engine "
+            "from the frozen tree that quantize.calibrate returns")

@@ -4,7 +4,9 @@ of ``sparsernns_tpu/serve/streaming.py``).
 Inference is chunked: each layer's SSM carry is kept between chunks, so a
 stream of any length runs in O(chunk) memory with the recurrence of the
 offline scan. The model forward runs on the model's device (the scan
-kernel with carry, ``ops/cuda/diag_scan.py``); framing and overlap-add stay
+kernel with carry, ``ops/cuda/diag_scan.py``), or, built with
+:meth:`StreamingDenoiser.from_engine`, through the quantized serving
+engine's per-layer kernels with carries; framing and overlap-add stay
 numpy on the host. The STFT analysis is uncentred (frame k covers samples
 [k·hop, k·hop + nfft)); synthesis is boxcar overlap-add, with samples
 emitted once no future frame can touch them.
@@ -22,27 +24,56 @@ from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
 
 
 class StreamingDenoiser:
-    """Stateful chunked inference around an eval-mode RegressionModel;
-    batch B streams B channels at once (continuous batching is a fixed B
-    with per-slot reset via ``reset(slot)``)."""
+    """Stateful chunked inference around an eval-mode RegressionModel —
+    or, via :meth:`from_engine`, around the quantized W8A16Engine; batch B
+    streams B channels at once (continuous batching is a fixed B with
+    per-slot reset via ``reset(slot)``)."""
 
     def __init__(self, model, batch_size: int = 1, hop: int = HOP_LENGTH,
-                 nfft: int = NFFT):
+                 nfft: int = NFFT, frame_multiple: int = 1):
         self.model = model
+        self.engine = None
         self.batch = batch_size
         self.hop = hop
         self.nfft = nfft
         self.overlap = nfft // hop
+        #: frames are consumed in multiples of this (the rest is buffered):
+        #: an engine sets it to its time block, so that every forward
+        #: honours the carry kernel's chunk contract
+        self.frame_multiple = frame_multiple
         self.device = next(model.parameters()).device
         self.reset()
+
+    @classmethod
+    def from_engine(cls, engine, batch_size: int = 1, hop: int = HOP_LENGTH,
+                    nfft: int = NFFT) -> "StreamingDenoiser":
+        """Streaming denoiser over the quantized serving engine
+        (``W8A16Engine.process_chunk``): the cache is the per-layer (B, P)
+        carry pairs. Frames buffer to the engine's ``block_t`` so each
+        forward is whole time blocks (at the default 512 frames that is
+        4 s of audio per forward)."""
+        self = cls.__new__(cls)
+        self.model = None
+        self.engine = engine
+        self.batch = batch_size
+        self.hop = hop
+        self.nfft = nfft
+        self.overlap = nfft // hop
+        self.frame_multiple = int(engine.block_t)
+        self.device = engine.device
+        self.reset()
+        return self
 
     @torch.no_grad()
     def _forward(self, frames_mag: np.ndarray):
         """(B, F, T) magnitudes -> ((B, F, T) mask, new cache)."""
         x = torch.from_numpy(frames_mag).to(self.device)
         x = (x - STFT_MAG_MEAN).transpose(1, 2)
-        out, cache = self.model.forward_stream(x, self.cache)
-        return out.transpose(1, 2).cpu().numpy(), cache
+        if self.engine is not None:
+            out, cache = self.engine.process_chunk(x, self.cache)
+        else:
+            out, cache = self.model.forward_stream(x, self.cache)
+        return out.transpose(1, 2).float().cpu().numpy(), cache
 
     def reset(self, slot: Optional[int] = None):
         if slot is None:
@@ -73,7 +104,11 @@ class StreamingDenoiser:
         n_avail = self._pending.shape[1]
         if n_avail < self.nfft:
             return np.zeros((self.batch, 0), np.float32)
-        return self._run_frames((n_avail - self.nfft) // self.hop + 1)
+        n_frames = (n_avail - self.nfft) // self.hop + 1
+        n_frames -= n_frames % self.frame_multiple
+        if n_frames <= 0:
+            return np.zeros((self.batch, 0), np.float32)
+        return self._run_frames(n_frames)
 
     def _run_frames(self, n_frames: int) -> np.ndarray:
         starts = np.arange(n_frames) * self.hop
@@ -123,15 +158,24 @@ class StreamingDenoiser:
         return out
 
     def flush(self) -> np.ndarray:
-        """Emit everything accumulated (end of stream)."""
+        """Emit everything accumulated (end of stream). Frames still
+        buffered by the frame_multiple flooring are processed first (a
+        final forward shorter than the multiple: one time block)."""
+        outs = []
+        if self.frame_multiple > 1 and self._pending.shape[1] >= self.nfft:
+            n_frames = (self._pending.shape[1] - self.nfft) // self.hop + 1
+            if n_frames > 0:
+                outs.append(self._run_frames(n_frames))
         if self._ola.shape[1] == 0:
-            return np.zeros((self.batch, 0), np.float32)
+            return (np.concatenate(outs, axis=-1) if outs
+                    else np.zeros((self.batch, 0), np.float32))
         w = np.maximum(self._ola_w, 1.0)
         out = self._ola / w[None, :]
         self._ola = np.zeros((self.batch, 0), np.float32)
         self._ola_w = np.zeros((0,), np.float32)
         self._ola_start = self._emit_pos = self._emit_pos + out.shape[1]
-        return out
+        outs.append(out)
+        return np.concatenate(outs, axis=-1)
 
     def process_offline(self, audio: np.ndarray,
                         chunk_samples: int = 16000) -> np.ndarray:
@@ -237,8 +281,9 @@ class ContinuousBatcher:
                 if hi > lo:
                     self._outputs[sid].append(out[i, lo:hi])
         # release drained+ended+fully-EMITTED streams, admit from the
-        # queue (emission trails ingestion by the analysis window;
-        # recycling earlier would zero the slot's unprocessed tail)
+        # queue (emission trails ingestion by the analysis window plus
+        # any frame_multiple buffering; recycling earlier would zero the
+        # slot's unprocessed tail)
         for i, sid in enumerate(self.slots):
             if (sid is not None and sid in self._ended
                     and self._inputs[sid].shape[0] == 0

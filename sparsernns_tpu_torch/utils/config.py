@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from typing import Optional
 
 
 @dataclasses.dataclass
@@ -34,7 +35,16 @@ class RunConfig:
     batchnorm: bool = True
     glu_variant: str = "half1"
     relufication: bool = False
-    scan_mode: str = "fused"            # the port runs only "fused"
+    scan_mode: str = "fused"            # the float port runs only "fused"
+
+    # --- quantized conversion and serving (quantize/convert.py) ---
+    convert_quantization: str = "w8a16"
+    block_t: Optional[int] = None       # engine time block; None -> 512
+    engine_mxu16: bool = False
+    engine_route: str = "auto"
+    calibrate_quant: bool = True
+    validate_static_quant: bool = True
+    validate_engine: bool = True
 
     # --- training (read by the training port; recipes set them) ---
     p_dropout: float = 0.1

@@ -1,13 +1,16 @@
-"""Where the time goes on the float serving path, on one GPU.
+"""Where the time goes on the serving paths, on one GPU.
 
 Profiles, at the width of ``recipes/ndns.json`` with random weights, one
 offline eval step (B clips of 30 s) and one streaming chunk (B streams,
-1 s) with ``torch.profiler``, after a warm-up, and prints for each: the
-wall time, the device time summed over kernels, the device busy share
-(device time over wall time) and the kernels that take the most device
-time. Run on a machine with the card, from the repository root::
+1 s) of the float model — or, with ``--engine``, one offline call of the
+calibrated w8a16 engine (B x 3751 frames) and one streaming forward of the
+engine-backed denoiser (one 128-frame block) — with ``torch.profiler``,
+after a warm-up, and prints for each: the wall time, the device time
+summed over kernels, the device busy share (device time over wall time)
+and the kernels that take the most device time. Run on a machine with the
+card, from the repository root::
 
-    python -m sparsernns_tpu_torch.utils.profiling [--batch 8]
+    python -m sparsernns_tpu_torch.utils.profiling [--batch 8] [--engine]
 
 Prints the card's name and power limit, then one JSON object per
 profiled region.
@@ -70,6 +73,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--engine", action="store_true",
+                    help="profile the w8a16 engine instead of the float "
+                         "model")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -91,6 +97,9 @@ def main() -> int:
         cm, _ = stft_splitter(clean_t)
         return step(nm, nph, cm, clean_t)
 
+    if args.engine:
+        return _profile_engine(cfg, model, noisy, noisy_t)
+
     den = StreamingDenoiser(model, batch_size=b)
     pos = [0]
 
@@ -101,13 +110,59 @@ def main() -> int:
     eval_step()                     # warm-up: builds kernels, plans
     for _ in range(2):
         stream_chunk()
+    _report((("offline eval step (incl. STFT)", eval_step),
+             ("streaming chunk (1 s)", stream_chunk)))
+    return 0
+
+
+def _report(regions) -> None:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
-    for name, fn in (("offline eval step (incl. STFT)", eval_step),
-                     ("streaming chunk (1 s)", stream_chunk)):
+    for name, fn in regions:
         print(json.dumps(profile_region(name, fn)), flush=True)
+
+
+def _profile_engine(cfg, model, noisy, noisy_t) -> int:
+    """The calibrated engine: one offline call (the whole-network kernel)
+    and one streaming forward of a 128-frame block (the per-layer carry
+    kernel) with its host framing."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.stft import stft_splitter
+    from sparsernns_tpu_torch.quantize.calibrate import calibrate
+    from sparsernns_tpu_torch.quantize.config import quantization_recipes
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+
+    b, block = noisy.shape[0], 128
+    x = (stft_splitter(noisy_t)[0] - STFT_MAG_MEAN).transpose(1, 2)
+    x = x.contiguous()
+    cal_model = build_model(
+        cfg, 257, 257, device="cuda", seed=0, scan_mode="sequential",
+        q_config=quantization_recipes[cfg.convert_quantization](
+            static_quant=True, calibrating=True))
+    frozen = calibrate(cal_model, model.state_dict(),
+                       [x[:, :500], x[:, 500:1000]])
+    engine = engine_from_frozen(cfg, *frozen, block_t=512)
+    den = StreamingDenoiser.from_engine(
+        engine_from_frozen(cfg, *frozen, block_t=block), batch_size=b)
+    pos = [0]
+
+    def stream_forward():           # 128 hops of audio: one block
+        den.process(noisy[:, pos[0]:pos[0] + block * den.hop])
+        pos[0] += block * den.hop
+
+    engine(x)                       # warm-up: builds kernels
+    for _ in range(4):              # the first forward waits for nfft
+        stream_forward()
+    _report(((f"engine offline call (B={b}, L={x.shape[1]})",
+              lambda: engine(x)),
+             ("engine streaming forward (128-frame block)",
+              stream_forward)))
     return 0
 
 

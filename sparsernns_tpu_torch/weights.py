@@ -1,54 +1,88 @@
-"""Carry weights from the JAX package's model variables into the port.
+"""Carry weights between the JAX package's model variables and the port.
 
 :func:`from_flax` takes the ``params`` and ``batch_stats`` nested dicts of
-the JAX package's ``RegressionModel`` as numpy arrays and returns the ``state_dict`` of the port's
-:class:`~sparsernns_tpu_torch.models.seq_model.RegressionModel` for any
-number of layers and any GLU variant. Dense kernels (in, out) become
-``nn.Linear`` weights (out, in); BatchNorm scale/bias/mean/var become
-``nn.BatchNorm1d`` weight/bias/running_mean/running_var.
+the JAX package's ``RegressionModel`` as numpy arrays and returns the
+``state_dict`` of the port's
+:class:`~sparsernns_tpu_torch.models.seq_model.RegressionModel`, for any
+number of layers, any GLU variant, BatchNorm or LayerNorm, float or
+static-quant (a frozen tree's ``scale`` leaves become the quantizers'
+``scale`` buffers). :func:`to_flax` is the inverse: a model's state under
+the JAX package's names, which for a calibrated model is the frozen tree
+(scales kept, observers dropped). Frozen trees of the two packages are
+therefore interchangeable.
+
+Dense kernels (in, out) are ``nn.Linear`` weights (out, in); norm
+scale/bias are ``weight``/``bias``; BatchNorm mean/var are
+``running_mean``/``running_var``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+_LAYER = re.compile(r"layers_(\d+)")
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _dense(prefix: str, leaf: Mapping, out: Dict[str, torch.Tensor]):
-    out[f"{prefix}.weight"] = _t(leaf["kernel"]).T.contiguous()
-    out[f"{prefix}.bias"] = _t(leaf["bias"])
+def flat_leaves(tree: Mapping, path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from flat_leaves(val, path + (key,))
+        else:
+            yield path + (key,), val
 
 
 def from_flax(params: Mapping, batch_stats: Mapping
               ) -> Dict[str, torch.Tensor]:
     """JAX RegressionModel variables (numpy leaves) -> port state_dict."""
     out: Dict[str, torch.Tensor] = {}
-    enc = params["encoder"]
-    _dense("encoder.encoder", enc["encoder"], out)
-    _dense("decoder", params["decoder"], out)
-    stats = batch_stats["encoder"]
-    layer_names = sorted((k for k in enc if re.fullmatch(r"layers_\d+", k)),
-                         key=lambda k: int(k.split("_")[1]))
-    for name in layer_names:
-        i = int(name.split("_")[1])
-        pre = f"encoder.layers.{i}"
-        layer = enc[name]
-        for key, val in layer["mixer"].items():
-            out[f"{pre}.mixer.{key}"] = _t(val)
-        for dense in ("out1", "out2"):
-            if dense in layer:
-                _dense(f"{pre}.{dense}", layer[dense], out)
-        norm, norm_stats = layer["norm"], stats[name]["norm"]
-        out[f"{pre}.norm.weight"] = _t(norm["scale"])
-        out[f"{pre}.norm.bias"] = _t(norm["bias"])
-        out[f"{pre}.norm.running_mean"] = _t(norm_stats["mean"])
-        out[f"{pre}.norm.running_var"] = _t(norm_stats["var"])
-        out[f"{pre}.norm.num_batches_tracked"] = torch.tensor(0)
+    for path, leaf in flat_leaves(params):
+        *mods, name = (_LAYER.sub(r"layers.\1", p) for p in path)
+        val = _t(leaf)
+        if name == "kernel":
+            name, val = "weight", val.T.contiguous()
+        elif name == "scale" and mods[-1] == "norm":
+            name = "weight"
+        out[".".join([*mods, name])] = val
+    for path, leaf in flat_leaves(batch_stats or {}):
+        *mods, name = (_LAYER.sub(r"layers.\1", p) for p in path)
+        if mods[-1] == "norm" and name in ("mean", "var"):
+            prefix = ".".join(mods)
+            out[f"{prefix}.running_{name}"] = _t(leaf)
+            out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def to_flax(model: torch.nn.Module
+            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Port model -> (params, batch_stats) nested dicts of numpy arrays
+    under the JAX package's names. Quantizer ``scale`` buffers go into
+    ``params`` and observer state is dropped, so for a calibrated model
+    this is the frozen tree."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, val in model.state_dict().items():
+        *mods, name = key.split(".")
+        if "observer" in mods or name == "num_batches_tracked":
+            continue
+        tree = params
+        arr = val.detach().cpu().numpy()
+        if name == "weight" and mods[-1] == "norm":
+            name = "scale"
+        elif name == "weight":
+            name, arr = "kernel", arr.T
+        elif name in ("running_mean", "running_var"):
+            tree, name = stats, name[len("running_"):]
+        path = re.sub(r"layers\.(\d+)", r"layers_\1", ".".join(mods))
+        for part in path.split("."):
+            tree = tree.setdefault(part, {})
+        tree[name] = np.array(arr, order="C")
+    return params, stats

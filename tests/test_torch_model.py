@@ -61,7 +61,7 @@ def paired_models(cfg: RunConfig, d_io: int, seed: int = 0, length=16,
         lambda path, a: (0.2 * rng.randn(*a.shape) if path[-1].key == "mean"
                          else rng.uniform(0.5, 1.5, a.shape)
                          ).astype(np.float32),
-        variables["batch_stats"])
+        variables.get("batch_stats", {}))
     variables = {"params": variables["params"], "batch_stats": stats}
     tm = build_model(cfg, d_io, d_io, device="cpu", seed=seed)
     tm.load_state_dict(from_flax(variables["params"], stats))
@@ -80,6 +80,34 @@ def test_regression_forward_matches_jax(glu, relu):
         out = tm(torch.from_numpy(x)).numpy()
     assert layer_tail.launches == before    # plain version on the CPU
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("glu", ["half1", "none"])
+def test_layernorm_forward_matches_jax(glu):
+    """``batchnorm=False``: prenorm LayerNorm. The JAX model runs its
+    non-affine tail kernel; the port runs the unfused route (LayerNorm,
+    mixer, GLU, residual). Offline and chunked forwards both."""
+    cfg = small_config(glu_variant=glu, batchnorm=False)
+    jm, variables, tm = paired_models(cfg, d_io=17, seed=8)
+    assert isinstance(tm.encoder.layers[0].norm, torch.nn.LayerNorm)
+    rng = np.random.RandomState(9)
+    for layer in tm.encoder.layers:     # a non-trivial affine
+        with torch.no_grad():
+            layer.norm.weight.copy_(torch.from_numpy(
+                rng.uniform(0.5, 1.5, 16).astype(np.float32)))
+            layer.norm.bias.copy_(torch.from_numpy(
+                (0.1 * rng.randn(16)).astype(np.float32)))
+    from sparsernns_tpu_torch.weights import to_flax
+    params, _ = to_flax(tm)
+    x = rng.randn(2, 37, 17).astype(np.float32)
+    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        out = tm(torch.from_numpy(x)).numpy()
+        t1, cache = tm.forward_stream(torch.from_numpy(x[:, :19]))
+        t2, _ = tm.forward_stream(torch.from_numpy(x[:, 19:]), cache)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(torch.cat([t1, t2], dim=1).numpy(), ref,
+                               atol=1e-4, rtol=0)
 
 
 def test_stream_forward_matches_jax_cache():

@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the flagship shapes, and
-drives the float NDNS serving path and the w8a16 engine serving path at
-the width of ``recipes/ndns.json`` (d_model 192, P 128, 3 layers; random
-weights from a seed):
+drives the float NDNS serving path, the w8a16 engine serving path and the
+float NDNS training path at the width of ``recipes/ndns.json`` (d_model
+192, P 128, 3 layers; random weights from a seed):
 
 1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail)
    against their plain versions on the card, B=8, L=3751, with times;
@@ -20,7 +20,19 @@ weights from a seed):
    mask), and the engine on the card against the engine on the CPU;
 6. engine streaming phase — ``StreamingDenoiser.from_engine`` at
    block_t=128 over the same audio (K5b on every forward), and chunked
-   ``process_chunk`` against one whole call.
+   ``process_chunk`` against one whole call;
+7. training kernel phase — K2 with dropout masks, K3a (carry history) and
+   K3b (reverse-time adjoint, every output) against their plain versions,
+   B=8, L=3751, for the four GLU kinds x (gelu | relu + relu_state +
+   layer_relu), with times for the recipe's variant;
+8. training phase — ``build_model(training=True)``, ``create_run_state``
+   and ``make_ndns_train_step`` as the recipe sets them (B=32 clips of
+   30 s, dropout 0.1, noBCdecay, weight decay 0.04): three steps, then
+   three with ``microbatch=8`` (3 x K2, K3a, K3b per step, x 4 with the
+   microbatch, no other kernel); one step on the card against the same
+   step on the CPU at a short length; eight dropout-free steps on one
+   B=8 batch must lower the loss; step wall time, device busy share and
+   peak memory at B=32 and B=8.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -65,6 +77,23 @@ def _time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _median_ms(fn, iters: int = 5) -> float:
+    """Median over ``iters`` timed calls, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
 def _check(name: str, err: float, limit: float) -> None:
     print(f"{name}: max_abs_err {err:.3e} (limit {limit:.3e})", flush=True)
     if not err <= limit:
@@ -81,6 +110,306 @@ def _code_diff(name: str, out, ref, max_frac: float = 5e-3) -> float:
     if worst > 1 or frac > max_frac:
         raise AssertionError(f"{name}: codes differ by {worst} in {frac}")
     return float(worst)
+
+
+BWD_OUTPUTS = ("g_x", "d_lam", "d_w_b", "d_w_c", "d_d", "d_o2k", "d_o2b",
+               "d_o1k", "d_o1b", "d_m1", "d_m2", "d_nw", "d_nb")
+
+
+def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
+    """Phase 7: K2 with masks, K3a and K3b against their plain versions at
+    B x frames x H, layer 0's operands; limits 2e-4 of max(1, max|ref|)
+    (the JAX package's bar between its adjoint kernel and its XLA
+    backward)."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import layer_tail, layer_tail_bwd
+    dev = torch.device("cuda")
+    h, p = cfg.d_model, layer0.mixer.p
+    with torch.no_grad():
+        lam, w_b, w_c, d, _ = layer0.mixer.layer_tail_operands()
+        nw, nb = layer0.bn_affine()
+        o2k, o2b = layer0.out2.weight.T.contiguous(), layer0.out2.bias
+        o1k = torch.randn((h, h), generator=gen).to(dev) * h ** -0.5
+        o1b = torch.randn((h,), generator=gen).to(dev) * 0.1
+        x = torch.randn((B, frames, h), generator=gen).to(dev)
+        g = torch.randn((B, frames, h), generator=gen).to(dev)
+        keep = 1.0 - cfg.p_dropout
+        m1, m2 = ((torch.rand((B, 1, h), generator=gen) < keep).float().to(
+            dev) / keep for _ in range(2))
+
+        def variant(glu, act):
+            relu = act == "relu"
+            use2, use1 = glu != "none", glu == "full"
+            args = (lam, w_b, w_c, d, nw, nb, o2k if use2 else None,
+                    o2b if use2 else None, o1k if use1 else None,
+                    o1b if use1 else None)
+            kw = dict(act=act, glu=glu, relu_state=relu, layer_relu=relu,
+                      m1=m1, m2=m2 if use2 else None)
+            return args, kw
+
+        def compare(tag, x, g, args, kw):
+            """K2 with masks and every output of K3b against the plain
+            versions; returns (forward error, worst relative error of the
+            backward's outputs)."""
+            ref = layer_tail.layer_tail_plain(x, *args, **kw)
+            out = layer_tail.layer_tail_cuda(x, *args, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            _check(f"K2-train {tag} vs plain", err,
+                   1e-4 * max(1.0, ref.abs().max().item()))
+            refs = layer_tail_bwd.layer_tail_bwd_plain(x, g, *args, **kw)
+            outs = layer_tail_bwd.layer_tail_bwd_cuda(x, g, *args, **kw)
+            torch.cuda.synchronize()
+            rel_worst = 0.0
+            for name, r, o in zip(BWD_OUTPUTS, refs, outs):
+                if r is None:
+                    assert o is None, name
+                    continue
+                if name == "d_lam":
+                    r, o = torch.stack(r), torch.stack(o)
+                assert r.shape == o.shape, (name, r.shape, o.shape)
+                scale = max(1.0, r.abs().max().item())
+                rel_worst = max(rel_worst,
+                                (o - r).abs().max().item() / scale)
+            _check(f"K3b {tag} vs plain, worst output, relative to "
+                   "max(1, max|ref|)", rel_worst, 2e-4)
+            return err, rel_worst
+
+        worst = {}
+        for glu in layer_tail.GLU_KINDS:
+            for act in layer_tail.ACTS:
+                errs = compare(f"{glu}/{act}", x, g, *variant(glu, act))
+                if glu == cfg.glu_variant and act == "gelu":
+                    worst["fwd"], worst["bwd"] = errs
+
+        # widths that are no multiple of the kernels' vector widths, a
+        # length with a short last tile: the generic paths of the kernels
+        hs, ps, ls = 20, 12, 70
+        rnd = lambda *shape, sc=1.0: (  # noqa: E731
+            torch.randn(shape, generator=gen) * sc).to(dev)
+        radius = torch.rand(ps, generator=gen) * 0.39 + 0.6
+        angle = torch.rand(ps, generator=gen) * 6.0 - 3.0
+        odd_args = (((radius * torch.cos(angle)).to(dev),
+                     (radius * torch.sin(angle)).to(dev)),
+                    rnd(hs, 2 * ps, sc=0.3), rnd(2 * ps, hs, sc=0.3),
+                    rnd(hs), 1.0 + rnd(hs, sc=0.2), rnd(hs, sc=0.1),
+                    rnd(hs, hs, sc=0.3), rnd(hs, sc=0.1),
+                    rnd(hs, hs, sc=0.3), rnd(hs, sc=0.1))
+        odd_kw = dict(act="relu", glu="full", relu_state=True,
+                      layer_relu=True, m1=m1[:2, :, :hs].contiguous(),
+                      m2=m2[:2, :, :hs].contiguous())
+        compare(f"H={hs} P={ps} L={ls} full/relu", rnd(2, ls, hs),
+                rnd(2, ls, hs), odd_args, odd_kw)
+
+        args, kw = variant(cfg.glu_variant, "gelu")
+        hist_ref = layer_tail_bwd.layer_tail_hist_plain(x, lam, w_b, nw, nb)
+        hist = layer_tail_bwd.layer_tail_hist_cuda(x, lam, w_b, nw, nb)
+        torch.cuda.synchronize()
+        hist_scale = max(t.abs().max().item() for t in hist_ref)
+        hist_err = max((a - b).abs().max().item()
+                       for a, b in zip(hist, hist_ref))
+        _check("K3a layer_tail_hist vs plain", hist_err,
+               1e-5 * max(1.0, hist_scale))
+        assert hist[0].shape == (B, -(-frames // 32), p), hist[0].shape
+
+        # times: the recipe's variant; K3b alone = (K3a + K3b) - K3a, since
+        # the backward wrapper launches both
+        ms_fwd = _median_ms(lambda: layer_tail.layer_tail_cuda(
+            x, *args, **kw))
+        ms_hist = _median_ms(lambda: layer_tail_bwd.layer_tail_hist_cuda(
+            x, lam, w_b, nw, nb))
+        ms_both = _median_ms(lambda: layer_tail_bwd.layer_tail_bwd_cuda(
+            x, g, *args, **kw))
+        plain_fwd = _time_ms(lambda: layer_tail.layer_tail_plain(
+            x, *args, **kw), 1, 0)
+        plain_hist = _time_ms(lambda: layer_tail_bwd.layer_tail_hist_plain(
+            x, lam, w_b, nw, nb), 1, 0)
+        plain_bwd = _time_ms(lambda: layer_tail_bwd.layer_tail_bwd_plain(
+            x, g, *args, **kw), 1, 0)
+    rows = B * frames
+    n_dense = {"full": 2, "half1": 1, "half2": 1, "none": 0}[cfg.glu_variant]
+    mm = 2 * h * 2 * p + 2 * 2 * p * h + n_dense * 2 * h * h
+    weights = 2 * h * 2 * p + n_dense * (h * h + h) + 3 * h + 2 * p
+    stream = rows * h * 4
+    fwd_bound = _bound_ms(2 * stream + (weights + 2 * B * h) * 4,
+                          rows * (mm + 8 * p + 8 * h))
+    hist_bound = _bound_ms(
+        stream + (h * 2 * p + 2 * h + 2 * p) * 4 + 2 * hist[0].numel() * 4,
+        rows * (2 * h * 2 * p + 8 * p + 2 * h))
+    # the adjoint: the forward's products again, as many transposed
+    # products and as many weight-gradient products; x and g read, g_x
+    # written, the per-row weight gradients written
+    row_grads = 2 * h * 2 * p + n_dense * h * h + (6 + n_dense) * h + 2 * p
+    bwd_bound = _bound_ms(
+        3 * stream + (weights + 2 * B * h + B * row_grads) * 4
+        + 2 * hist[0].numel() * 4,
+        rows * (3 * mm + 24 * p + 40 * h))
+    common = dict(route="cuda", library_ms=None)
+    records["layer_tail_train"] = dict(
+        name="layer_tail_train",
+        source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail.cu",
+        replaces="sparsernns_tpu/ops/pallas/fused_layer_train.py:336",
+        max_abs_err=worst["fwd"], ms=ms_fwd, plain_ms=plain_fwd,
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1], **common)
+    records["layer_tail_hist"] = dict(
+        name="layer_tail_hist",
+        source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail_bwd.cu",
+        replaces="sparsernns_tpu/ops/pallas/fused_layer_bwd.py:489",
+        max_abs_err=hist_err, ms=ms_hist, plain_ms=plain_hist,
+        bound_ms=hist_bound[0], bound_by=hist_bound[1], **common)
+    records["layer_tail_bwd"] = dict(
+        name="layer_tail_bwd",
+        source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail_bwd.cu",
+        replaces="sparsernns_tpu/ops/pallas/fused_layer_bwd.py:557",
+        max_abs_err=worst["bwd"], ms=ms_both - ms_hist, plain_ms=plain_bwd,
+        bound_ms=bwd_bound[0], bound_by=bwd_bound[1], **common)
+    print(json.dumps({"training_kernel_phase": {
+        k: records[k] for k in ("layer_tail_train", "layer_tail_hist",
+                                "layer_tail_bwd")}}), flush=True)
+
+
+def training_phase(cfg, records, counters) -> None:
+    """Phase 8: the training entry points at the recipe's settings.
+    ``counters()`` returns the launch counts of every kernel by record
+    name and sets them to 0."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
+    from sparsernns_tpu_torch.train.loop import (build_model,
+                                                 create_run_state,
+                                                 prep_ndns_batch)
+    from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    dev = torch.device("cuda")
+    n_layers, bsz = cfg.n_layers, cfg.bsz
+    assert (bsz, cfg.p_dropout, cfg.opt_config, cfg.weight_decay) == (
+        32, 0.1, "noBCdecay", 0.04), cfg
+    train_kernels = ("layer_tail_train", "layer_tail_hist", "layer_tail_bwd")
+
+    ds = SyntheticNDNS(size=bsz, length=SECONDS * 16000, seed=0)
+    pairs = [ds[i] for i in range(bsz)]
+    noisy = torch.from_numpy(np.stack([a for a, _ in pairs])).to(dev)
+    clean = torch.from_numpy(np.stack([c for _, c in pairs])).to(dev)
+    feats = (*prep_ndns_batch(noisy, clean), clean)
+
+    def fresh(config, device=dev):
+        model = build_model(config, 257, 257, training=True, device=device,
+                            seed=0)
+        return model, create_run_state(config, model, steps_per_epoch=2)
+
+    def snapshot(model):
+        return ({n: p.detach().clone() for n, p in model.named_parameters()},
+                {n: b.detach().clone() for n, b in model.named_buffers()
+                 if "running" in n})
+
+    def run_steps(tag, state, step, batch, n, per_step):
+        for i in range(n):
+            counters()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, metrics = step(state, *batch)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = counters()
+            loss, gn = metrics["loss"].item(), metrics["grad_norm"].item()
+            print(f"{tag} step {i}: {wall * 1e3:.1f} ms, loss {loss:.4f}, "
+                  f"si_snr {metrics['si_snr'].item():.3f} dB, grad_norm "
+                  f"{gn:.3f}, launches {counts}", flush=True)
+            assert np.isfinite(loss) and np.isfinite(gn), metrics
+            for name, count in counts.items():
+                want = per_step if name in train_kernels else 0
+                assert count == want, (tag, name, count, want)
+        return state, counts
+
+    # ---- three full-batch steps, then three with microbatch=8 ----
+    model, state = fresh(cfg)
+    params0, stats0 = snapshot(model)
+    step = make_ndns_train_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    state, counts = run_steps(f"train B={bsz}", state, step, feats, 3,
+                              n_layers)
+    peak_full = torch.cuda.max_memory_allocated()
+    for name in train_kernels:
+        records[name]["launches"] = counts[name]
+    frozen = {id(q) for grp in state.optimizer.param_groups
+              if grp["label"] == "none" for q in grp["params"]}
+    for n, q in model.named_parameters():
+        assert (id(q) in frozen) == torch.equal(q, params0[n]), n
+    for n, b in model.named_buffers():
+        if "running" in n:
+            assert not torch.equal(b, stats0[n]), n
+    assert state.step == 3
+    profile = profile_region(f"train step B={bsz}",
+                             lambda: step(state, *feats))
+    print(json.dumps(profile), flush=True)
+    print(f"train B={bsz}: peak memory {peak_full / 2**20:.0f} MiB, device "
+          f"busy share {profile['device_busy_share']:.3f}", flush=True)
+
+    micro = make_ndns_train_step(model, microbatch=8)
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = run_steps(f"train B={bsz} microbatch=8", state, micro, feats,
+                         3, n_layers * (bsz // 8))
+    peak_micro = torch.cuda.max_memory_allocated()
+    profile = profile_region(f"train step B={bsz} microbatch=8",
+                             lambda: micro(state, *feats))
+    print(json.dumps(profile), flush=True)
+    print(f"train B={bsz} microbatch=8: peak memory "
+          f"{peak_micro / 2**20:.0f} MiB, device busy share "
+          f"{profile['device_busy_share']:.3f}", flush=True)
+    del model, state, step, micro
+
+    # ---- one step on the card against the same step on the CPU ----
+    quiet = dataclasses.replace(cfg, p_dropout=0.0)
+    short = tuple(t[:2, ..., :64 * 128].contiguous() for t in (noisy, clean))
+    results = []
+    for device in (dev, torch.device("cpu")):
+        model, state = fresh(quiet, device)
+        batch = tuple(t.to(device) for t in short)
+        state, metrics = make_ndns_train_step(model)(
+            state, *prep_ndns_batch(*batch), batch[1])
+        results.append((metrics, {n: (q.detach().cpu(), q.grad.cpu())
+                                  for n, q in model.named_parameters()}))
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = results
+    for key in ("loss", "grad_norm"):
+        ref = m_cpu[key].item()
+        _check(f"train step on the card vs on the CPU (plain), {key}",
+               abs(m_gpu[key].item() - ref), 1e-3 * max(1.0, abs(ref)))
+    _check("train step on the card vs on the CPU (plain), gradients, "
+           "relative to each parameter's max(1, max|grad|)",
+           max(((p_gpu[n][1] - g).abs().max() / max(1.0, g.abs().max()))
+               .item() for n, (_, g) in p_cpu.items()), 2e-4)
+    # Adam's first step moves an element by about the learning rate in the
+    # direction of its gradient's sign, so an element whose gradient is
+    # rounding noise may differ by that much: the mean is held, not the max
+    _check("train step on the card vs on the CPU (plain), parameters, "
+           "mean abs difference",
+           max((p_gpu[n][0] - q).abs().mean().item()
+               for n, (q, _) in p_cpu.items()), 1e-5)
+
+    # ---- eight dropout-free steps on one B=8 batch must learn ----
+    model, state = fresh(quiet)
+    step = make_ndns_train_step(model)
+    small = tuple(t[:B].contiguous() for t in feats)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, metrics = step(state, *small)
+        torch.cuda.synchronize()
+        losses.append(metrics["loss"].item())
+        print(f"train B={B} dropout 0 step {i}: "
+              f"{(time.time() - t0) * 1e3:.1f} ms, loss {losses[-1]:.4f}",
+              flush=True)
+    peak_small = torch.cuda.max_memory_allocated()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    profile = profile_region(f"train step B={B}",
+                             lambda: step(state, *small))
+    print(json.dumps(profile), flush=True)
+    print(f"train B={B}: peak memory {peak_small / 2**20:.0f} MiB, device "
+          f"busy share {profile['device_busy_share']:.3f}", flush=True)
 
 
 def main() -> int:
@@ -510,6 +839,26 @@ def main() -> int:
     _check("engine chunked process_chunk vs one whole call",
            (torch.cat(parts, dim=1) - stream_engine(x_eng)).abs().max()
            .item(), 0.0)    # the same device functions, the same blocks
+
+    # ---------------- training kernel phase (K2-train, K3a, K3b) --------
+    from sparsernns_tpu_torch.ops.cuda import layer_tail_bwd
+    training_kernel_phase(layer0, cfg, frames, gen, records)
+
+    # ---------------- training phase ----------------
+    def counters():
+        counts = {
+            "diag_scan": diag_scan.launches,
+            "layer_tail_train": layer_tail.launches,
+            "layer_tail_hist": layer_tail_bwd.launches_hist,
+            "layer_tail_bwd": layer_tail_bwd.launches_bwd,
+            "engine_layer": engine_layer.launches,
+            "engine_layer_carry": engine_layer.launches_carry,
+            "engine_network": engine_network.launches}
+        reset_counts()
+        layer_tail_bwd.launches_hist = layer_tail_bwd.launches_bwd = 0
+        return counts
+
+    training_phase(cfg, records, counters)
 
     # ---------------- report ----------------
     smi = subprocess.run(

@@ -6,7 +6,13 @@ forward (the diagonal-scan kernel with carry, ``ops/cuda/diag_scan.py``) —
 and w8a16 engine serving: calibration, frozen scales and the
 ``quantize/engine.W8A16Engine`` over the whole-network kernel
 (``ops/cuda/engine_network.py``) and the whole-layer kernel with an
-optional carry (``ops/cuda/engine_layer.py``).
+optional carry (``ops/cuda/engine_layer.py``) — and float NDNS training:
+``train/loop.train``, the train step and its microbatch form
+(``train/steps.py``), the optimizer groups and schedules
+(``train/optim.py``) and checkpoints (``train/checkpoint.py``), every
+layer's forward and backward through the tail kernel with dropout masks
+and its carry-history and reverse-time adjoint kernels
+(``ops/cuda/layer_tail_bwd.py``).
 Module names follow the JAX package. Entry points run on ``"cuda"`` unless
 the caller passes another device.
 """

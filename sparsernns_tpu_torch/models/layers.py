@@ -1,20 +1,27 @@
-"""Sequence layer: norm → S5 mixer → GLU gate → residual (eval forward;
-counterpart of ``sparsernns_tpu/models/layers.py`` ``SequenceLayer``).
+"""Sequence layer: norm → S5 mixer → GLU gate → residual (counterpart of
+``sparsernns_tpu/models/layers.py`` ``SequenceLayer``).
 
 Two routes, as in the JAX package:
 
 - fused (:meth:`SequenceLayer.forward` of a float prenorm-BatchNorm
-  layer, as every repo recipe sets): BatchNorm folds to a per-feature
-  affine from its running statistics and the whole rest of the layer is
-  one kernel (``ops/cuda/layer_tail.py``); the raw input is the residual;
+  layer, as every repo recipe sets), eval and training: BatchNorm folds
+  to a per-feature affine and the whole rest of the layer is one kernel
+  with a kernel backward (``ops/cuda/layer_tail.py``
+  :class:`~sparsernns_tpu_torch.ops.cuda.layer_tail.LayerTailFn`); the raw
+  input is the residual. In eval mode the affine comes from the running
+  statistics. In training mode it comes from the batch statistics, which
+  stay in the autograd graph (the gradients of the affine flowing back to
+  ``x`` are the BatchNorm backward), the running statistics move by
+  ``bn_momentum``, and the dropout masks are drawn per (batch row,
+  feature), constant along time, from the caller's generator;
 - unfused (:meth:`SequenceLayer.forward_stream`, and ``forward`` of a
-  LayerNorm, postnorm or static-quant layer): norm, then the mixer
-  (B-projection, scan with carry, C-projection), then the GLU, then the
-  residual. Under static quantization the dense layers are
+  LayerNorm, postnorm or static-quant layer), eval only: norm, then the
+  mixer (B-projection, scan with carry, C-projection), then the GLU, then
+  the residual. Under static quantization the dense layers are
   ``QuantizedDense``, the gate product a ``QuantizedMultiply`` and the
-  layer output goes through the ``quant_residual`` quantizer.
-
-Only the eval forward is ported; training waits for a later slice.
+  layer output goes through the ``quant_residual`` quantizer. Training on
+  this route needs the scan's reverse direction and gradient, which a later
+  slice ports.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sparsernns_tpu_torch.ops.cuda.layer_tail import layer_tail
+from sparsernns_tpu_torch.ops.cuda.layer_tail import LayerTailFn
 from sparsernns_tpu_torch.ops.scan import Pair
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
 from sparsernns_tpu_torch.quantize.static import (FakeQuant, QuantizedDense,
@@ -57,10 +64,13 @@ class SequenceLayer(nn.Module):
     def __init__(self, mixer: nn.Module, d_model: int,
                  glu_variant: str = "none", relufication: bool = False,
                  batchnorm: bool = True, prenorm: bool = True,
-                 q_config: Optional[QuantizationConfig] = None):
+                 q_config: Optional[QuantizationConfig] = None,
+                 dropout: float = 0.0, bn_momentum: float = 0.90):
         super().__init__()
         if glu_variant not in GLU_VARIANTS:
             raise ValueError(f"glu_variant must be one of {GLU_VARIANTS}")
+        if not 0.0 <= dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got {dropout}")
         q_config = q_config or QuantizationConfig.none()
         self.mixer = mixer
         self.d_model = d_model
@@ -68,6 +78,10 @@ class SequenceLayer(nn.Module):
         self.relufication = relufication
         self.batchnorm = batchnorm
         self.prenorm = prenorm
+        self.dropout = dropout
+        #: running = bn_momentum * running + (1 - bn_momentum) * batch, the
+        #: JAX package's convention (the complement of nn.BatchNorm1d's)
+        self.bn_momentum = bn_momentum
         if glu_variant == "full":
             self.out1 = make_dense(q_config, d_model, d_model)
         if glu_variant in ("full", "half1", "half2"):
@@ -96,10 +110,52 @@ class SequenceLayer(nn.Module):
         nw = n.weight * torch.rsqrt(n.running_var + n.eps)
         return nw, n.bias - n.running_mean * nw
 
+    def batch_affine(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """BatchNorm (training) as x * nw + nb from the statistics of ``x``
+        over (B, L), differentiable in ``x``; moves the running statistics
+        (biased variance) by ``bn_momentum``. ``nn.BatchNorm1d``'s own
+        training forward is not used: it stores the unbiased variance."""
+        n = self.norm
+        mean = x.mean(dim=(0, 1))
+        var = (x * x).mean(dim=(0, 1)) - mean * mean
+        with torch.no_grad():
+            mom = self.bn_momentum
+            n.running_mean.mul_(mom).add_(mean, alpha=1.0 - mom)
+            n.running_var.mul_(mom).add_(var.clamp(min=0.0), alpha=1.0 - mom)
+        nw = n.weight * torch.rsqrt(var + n.eps)
+        return nw, n.bias - mean * nw
+
+    def dropout_masks(self, batch: int, device,
+                      generator: Optional[torch.Generator]
+                      ) -> Tuple[Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+        """The two training dropout masks, (B, 1, H) each, values 0 or
+        1/keep: one after the activation and, with a gate, one after the
+        gate product; two separate draws. (None, None) without dropout."""
+        if self.dropout == 0.0:
+            return None, None
+        if generator is None:
+            raise ValueError("a training forward with dropout needs the "
+                             "run's torch.Generator")
+        keep = 1.0 - self.dropout
+
+        def draw():
+            u = torch.rand((batch, 1, self.d_model), generator=generator,
+                           device=device)
+            return (u < keep).to(torch.float32) / keep
+
+        m1 = draw()
+        return m1, (draw() if self.glu_variant != "none" else None)
+
     def _check_eval(self):
         if self.training:
             raise NotImplementedError(
-                "only the eval forward is ported: call .eval() first")
+                "training is ported for the fused route only (float, "
+                "prenorm BatchNorm); a LayerNorm, postnorm or static-quant "
+                "layer trains through the unfused route, which waits for "
+                "the slice that ports the reverse scan and its gradient: "
+                "call .eval() first")
 
     def _norm(self, x: torch.Tensor) -> torch.Tensor:
         n = self.norm
@@ -111,22 +167,29 @@ class SequenceLayer(nn.Module):
     def _gate(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.mult_gate(a, b) if hasattr(self, "mult_gate") else a * b
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._check_eval()
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the source of the training dropout masks, on the
+        device of ``x`` (unused in eval mode and without dropout)."""
         if not (self.batchnorm and self.prenorm) or self.static_quant:
             return self.forward_stream(x, None)[0]
         lam, w_b, w_c, d, relu_state = self.mixer.layer_tail_operands()
-        nw, nb = self.bn_affine()
+        if self.training:
+            nw, nb = self.batch_affine(x)
+            m1, m2 = self.dropout_masks(x.shape[0], x.device, generator)
+        else:
+            nw, nb = self.bn_affine()
+            m1 = m2 = None
         glu = self.glu_variant
         o2k = o2b = o1k = o1b = None
         if glu != "none":
             o2k, o2b = self.out2.weight.T, self.out2.bias
         if glu == "full":
             o1k, o1b = self.out1.weight.T, self.out1.bias
-        return layer_tail(
-            x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
-            act="relu" if self.relufication else "gelu", glu=glu,
-            relu_state=relu_state, layer_relu=self.relufication)
+        return LayerTailFn.apply(
+            x, lam[0], lam[1], w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b, m1,
+            m2, "relu" if self.relufication else "gelu", glu, relu_state,
+            self.relufication)
 
     def forward_stream(self, x: torch.Tensor, carry: Optional[Pair]
                        ) -> Tuple[torch.Tensor, Pair]:

@@ -1,10 +1,12 @@
 """Stacked S5 encoder and the regression head (counterpart of
 ``sparsernns_tpu/models/seq_model.py`` ``StackedEncoderModel`` and
-``RegressionModel``), eval forward.
+``RegressionModel``), eval and training forward.
 
 The JAX package pads the stream to its TPU kernel geometry (L to a
-multiple of the time block, H to 128 lanes); the port computes on the true
-(B, L, H) region, where the values are the same.
+multiple of the time block, H to 128 lanes) and takes the training
+BatchNorm statistics from sums over the padded stream divided by the true
+count; the port computes on the true (B, L, H) region, where the values
+and the statistics are the same. The stream stays float32.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ class StackedEncoderModel(nn.Module):
                  n_layers: int, d_model: int, glu_variant: str = "none",
                  relufication: bool = False, batchnorm: bool = True,
                  prenorm: bool = True,
-                 q_config: Optional[QuantizationConfig] = None):
+                 q_config: Optional[QuantizationConfig] = None,
+                 dropout: float = 0.0, bn_momentum: float = 0.90):
         super().__init__()
         q_config = q_config or QuantizationConfig.none()
         self.relufication = relufication
@@ -37,17 +40,19 @@ class StackedEncoderModel(nn.Module):
         self.layers = nn.ModuleList(
             SequenceLayer(make_mixer(), d_model, glu_variant=glu_variant,
                           relufication=relufication, batchnorm=batchnorm,
-                          prenorm=prenorm, q_config=q_config)
+                          prenorm=prenorm, q_config=q_config,
+                          dropout=dropout, bn_momentum=bn_momentum)
             for _ in range(n_layers))
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
         x = self.encoder(x)
         return torch.relu(x) if self.relufication else x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self._encode(x)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator)
         return x
 
     def forward_stream(self, x: torch.Tensor, cache: Optional[Cache]
@@ -76,10 +81,13 @@ class RegressionModel(nn.Module):
                                            **layer_kw)
         self.decoder = make_dense(q_config, d_model, d_output)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Offline forward (the whole-layer kernel route for a float
-        prenorm-BatchNorm model, else the unfused route)."""
-        return self.decoder(self.encoder(x))
+        prenorm-BatchNorm model, else the unfused route). In training mode
+        every layer normalizes with the batch statistics, moves its running
+        statistics and draws its dropout masks from ``generator``."""
+        return self.decoder(self.encoder(x, generator))
 
     def forward_stream(self, x: torch.Tensor, cache: Optional[Cache] = None
                        ) -> Tuple[torch.Tensor, Cache]:

@@ -2,24 +2,29 @@
 
 Replaces ``sparsernns_tpu/ops/pallas/fused_layer_train.py``
 ``fused_layer_tail`` in affine mode (BatchNorm folded to a per-feature
-affine from its running statistics), the eval forward: per batch row
+affine from its running or batch statistics), the eval and the training
+forward: per batch row
 
     z = x ⊙ nw + nb
     xs = scan(λ, z @ W_b)                 (in order over time, with carry)
     y = [xs_re xs_im] @ W_c + D ⊙ z       (relu on xs if relu_state)
-    x1 = act(y)
-    h = GLU(x1, y)                        (full / half1 / half2 / none)
+    x1 = act(y) ⊙ m1                      (dropout mask, constant in time)
+    h = GLU(x1, y) ⊙ m2                   (full / half1 / half2 / none)
     out = h + x                           (relu if layer_relu)
 
-The CUDA source is ``csrc/layer_tail.cu``; its header note gives the bound
-and the design. :func:`layer_tail` launches the kernel for CUDA tensors
-and takes the plain version :func:`layer_tail_plain` only for tensors on
-the CPU. The dropout masks and the backward wait for the training port.
+``m1``, ``m2`` are (B, 1, H) float32 masks already scaled by 1/keep, or
+None (eval). The CUDA source is ``csrc/layer_tail.cu``; its header note
+gives the bound and the design. :func:`layer_tail` launches the kernel for
+CUDA tensors and takes the plain version :func:`layer_tail_plain` only for
+tensors on the CPU. :class:`LayerTailFn` is the differentiable form (the
+counterpart of ``fused_layer_tail_diff``): its forward saves only its
+inputs and its backward is ``ops/cuda/layer_tail_bwd.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,9 +47,11 @@ def _act(y: torch.Tensor, act: str) -> torch.Tensor:
 def layer_tail_plain(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
                      o1k=None, o1b=None, act: str = "gelu",
                      glu: str = "none", relu_state: bool = False,
-                     layer_relu: bool = False) -> torch.Tensor:
+                     layer_relu: bool = False, m1=None, m2=None
+                     ) -> torch.Tensor:
     """Plain PyTorch version. x: (B, L, H); w_b (H, 2P); w_c (2P, H) with
-    the conj-sym factor folded in; o2k/o1k (H, H) in (in, out) layout."""
+    the conj-sym factor folded in; o2k/o1k (H, H) in (in, out) layout;
+    m1/m2 (B, 1, H) dropout masks or None."""
     z = x * nw + nb
     p = w_b.shape[-1] // 2
     bu = z @ w_b
@@ -53,6 +60,8 @@ def layer_tail_plain(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
         xs = (torch.relu(xs[0]), torch.relu(xs[1]))
     y = torch.cat(xs, dim=-1) @ w_c + d * z
     x1 = _act(y, act)
+    if m1 is not None:
+        x1 = x1 * m1
     if glu == "none":
         h = x1
     else:
@@ -61,11 +70,13 @@ def layer_tail_plain(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
         if base is None:
             base = x1 @ o1k + o1b
         h = base * gate
+        if m2 is not None:
+            h = h * m2
     out = h + x
     return torch.relu(out) if layer_relu else out
 
 
-_argtypes = ([ctypes.c_void_p] * 13
+_argtypes = ([ctypes.c_void_p] * 15
              + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
@@ -77,13 +88,30 @@ def _lib():
     return fn
 
 
-def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
-                    o1k=None, o1b=None, act: str = "gelu",
-                    glu: str = "none", relu_state: bool = False,
-                    layer_relu: bool = False) -> torch.Tensor:
-    """Launch the kernel (one CTA per batch row). Same arguments as
-    :func:`layer_tail_plain`; every tensor float32 on one CUDA device."""
-    global launches
+def check_tensors(shapes, device) -> Dict[str, torch.Tensor]:
+    """``shapes``: name -> (tensor, expected shape). Every tensor must have
+    its shape, be float32 and lie on ``device``; returns them detached and
+    contiguous."""
+    out = {}
+    for name, (t, shape) in shapes.items():
+        if t is None or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{None if t is None else tuple(t.shape)}")
+        if t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"{name}: expected float32 on {device}, got "
+                             f"{t.dtype} on {t.device}")
+        out[name] = t.detach().contiguous()
+    return out
+
+
+def checked_operands(x, lam: Pair, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
+                     m1, m2, act: str, glu: str, **more
+                     ) -> Dict[str, torch.Tensor]:
+    """The kernels' operands by name, each checked for shape, float32 and
+    the device of ``x``, and made contiguous. Operands that the GLU variant
+    does not use, and masks that are None, are left out (the kernels take a
+    null pointer for them). ``more`` adds (B, L, H) streams (the backward's
+    cotangent)."""
     if glu not in GLU_KINDS or act not in ACTS:
         raise ValueError(f"glu {glu!r} / act {act!r}")
     if x.dim() != 3:
@@ -94,31 +122,49 @@ def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
               "lam_im": (lam[1], (p,)), "w_b": (w_b, (h, 2 * p)),
               "w_c": (w_c, (2 * p, h)), "d": (d, (h,)), "nw": (nw, (h,)),
               "nb": (nb, (h,))}
+    shapes.update({k: (v, (b, l, h)) for k, v in more.items()})
     if glu != "none":
         shapes.update(o2k=(o2k, (h, h)), o2b=(o2b, (h,)))
     if glu == "full":
         shapes.update(o1k=(o1k, (h, h)), o1b=(o1b, (h,)))
-    ptrs = {}
-    for name, (t, shape) in shapes.items():
-        if t is None or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got "
-                             f"{None if t is None else tuple(t.shape)}")
-        if t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"{name}: expected float32 on {x.device}, got "
-                             f"{t.dtype} on {t.device}")
-        t = t.contiguous()
-        shapes[name] = (t, shape)
-        ptrs[name] = t.data_ptr()
+    if m1 is not None:
+        shapes["m1"] = (m1, (b, 1, h))
+    if m2 is not None:
+        if glu == "none":
+            raise ValueError("m2 masks the gated product: glu 'none' has "
+                             "none")
+        shapes["m2"] = (m2, (b, 1, h))
+    return check_tensors(shapes, x.device)
+
+
+def data_ptr(ops: Dict[str, torch.Tensor], name: str) -> Optional[int]:
+    t = ops.get(name)
+    return None if t is None else t.data_ptr()
+
+
+def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
+                    o1k=None, o1b=None, act: str = "gelu",
+                    glu: str = "none", relu_state: bool = False,
+                    layer_relu: bool = False, m1=None, m2=None
+                    ) -> torch.Tensor:
+    """Launch the kernel (one CTA per batch row). Same arguments as
+    :func:`layer_tail_plain`; every tensor float32 on one CUDA device."""
+    global launches
+    ops = checked_operands(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
+                           m1, m2, act, glu)
+    b, l, h = x.shape
+    p = w_b.shape[-1] // 2
     out = torch.empty((b, l, h), dtype=torch.float32, device=x.device)
     if b == 0 or l == 0:
         return out
     fn = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(ptrs["x"], out.data_ptr(), ptrs["nw"], ptrs["nb"], ptrs["w_b"],
-             ptrs["w_c"], ptrs["d"], ptrs["lam_re"], ptrs["lam_im"],
-             ptrs.get("o2k"), ptrs.get("o2b"), ptrs.get("o1k"),
-             ptrs.get("o1b"), b, l, h, p, GLU_KINDS.index(glu),
-             ACTS.index(act), int(relu_state), int(layer_relu), stream)
+    ptr = lambda name: data_ptr(ops, name)  # noqa: E731
+    err = fn(ptr("x"), out.data_ptr(), ptr("nw"), ptr("nb"), ptr("w_b"),
+             ptr("w_c"), ptr("d"), ptr("lam_re"), ptr("lam_im"), ptr("o2k"),
+             ptr("o2b"), ptr("o1k"), ptr("o1b"), ptr("m1"), ptr("m2"), b, l,
+             h, p, GLU_KINDS.index(glu), ACTS.index(act), int(relu_state),
+             int(layer_relu), stream)
     build.check(err, "layer_tail")
     launches += 1
     return out
@@ -126,10 +172,44 @@ def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
 
 def layer_tail(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
                o1k=None, o1b=None, act: str = "gelu", glu: str = "none",
-               relu_state: bool = False, layer_relu: bool = False
-               ) -> torch.Tensor:
+               relu_state: bool = False, layer_relu: bool = False,
+               m1=None, m2=None) -> torch.Tensor:
     """One layer's tail, (B, L, H) -> (B, L, H). CUDA tensors launch the
     kernel (or raise); CPU tensors take the plain version."""
     fn = layer_tail_cuda if x.is_cuda else layer_tail_plain
     return fn(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b, act=act,
-              glu=glu, relu_state=relu_state, layer_relu=layer_relu)
+              glu=glu, relu_state=relu_state, layer_relu=layer_relu,
+              m1=m1, m2=m2)
+
+
+class LayerTailFn(torch.autograd.Function):
+    """Differentiable :func:`layer_tail`. The forward saves only its
+    inputs; the backward recomputes the chain and returns the gradient of
+    every tensor input (``ops/cuda/layer_tail_bwd.py``: the history and
+    adjoint kernels for CUDA tensors, the plain adjoint for CPU tensors).
+    Call as ``LayerTailFn.apply(x, lam_re, lam_im, w_b, w_c, d, nw, nb, o2k,
+    o2b, o1k, o1b, m1, m2, act, glu, relu_state, layer_relu)``."""
+
+    @staticmethod
+    def forward(ctx, x, lam_re, lam_im, w_b, w_c, d, nw, nb, o2k, o2b, o1k,
+                o1b, m1, m2, act, glu, relu_state, layer_relu):
+        ctx.save_for_backward(x, lam_re, lam_im, w_b, w_c, d, nw, nb, o2k,
+                              o2b, o1k, o1b, m1, m2)
+        ctx.flags = dict(act=act, glu=glu, relu_state=relu_state,
+                         layer_relu=layer_relu)
+        return layer_tail(x, (lam_re, lam_im), w_b, w_c, d, nw, nb, o2k,
+                          o2b, o1k, o1b, m1=m1, m2=m2, **ctx.flags)
+
+    @staticmethod
+    def backward(ctx, g):
+        from sparsernns_tpu_torch.ops.cuda.layer_tail_bwd import \
+            layer_tail_bwd
+        (x, lam_re, lam_im, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b, m1,
+         m2) = ctx.saved_tensors
+        (g_x, d_lam, d_w_b, d_w_c, d_d, d_o2k, d_o2b, d_o1k, d_o1b, d_m1,
+         d_m2, d_nw, d_nb) = layer_tail_bwd(
+            x, g, (lam_re, lam_im), w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
+            m1=m1, m2=m2, **ctx.flags)
+        return (g_x, d_lam[0], d_lam[1], d_w_b, d_w_c, d_d, d_nw, d_nb,
+                d_o2k, d_o2b, d_o1k, d_o1b, d_m1, d_m2, None, None, None,
+                None)

@@ -1,0 +1,107 @@
+"""Checkpoints of a training run over ``torch.save`` / ``torch.load``
+(counterpart of ``sparsernns_tpu/train/checkpoint.py``
+``CheckpointManager``).
+
+One file per saved step, ``ckpt_<step>.pt``, holding the model's
+``state_dict`` (parameters and BatchNorm running statistics), the
+optimizer's ``state_dict`` (moments, schedules, live learning rates), the
+count of optimizer steps, the dropout generator's state and a metadata
+dict. The format is the port's own;
+:func:`~sparsernns_tpu_torch.weights.from_flax` and ``to_flax`` remain the
+bridge to the JAX package's checkpoints. Files are written whole under a
+temporary name and renamed, and read with ``weights_only=True`` (tensors
+and plain containers only).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from sparsernns_tpu_torch.train.state import TrainState
+
+_NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+_SCHEDULE_KEYS = ("schedule", "total_steps", "warmup_steps", "lr_min", "clip")
+
+
+class CheckpointManager:
+    """Keeps the latest ``max_to_keep`` checkpoints of ``directory``."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        if max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
+
+    def all_steps(self) -> List[int]:
+        found = (_NAME.match(f) for f in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState,
+             metadata: Optional[Dict[str, Any]] = None) -> None:
+        gen = state.generator
+        payload = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "generator": None if gen is None else gen.get_state(),
+            "metadata": dict(metadata or {}),
+        }
+        path = self._path(step)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            os.remove(self._path(old))
+
+    def _load(self, state: TrainState, step: Optional[int]):
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None
+        device = next(state.model.parameters()).device
+        return torch.load(self._path(step), map_location=device,
+                          weights_only=True)
+
+    def restore(self, state: TrainState, step: Optional[int] = None
+                ) -> Tuple[TrainState, Optional[Dict[str, Any]]]:
+        """Load checkpoint ``step`` (default: the latest) into ``state``, in
+        place. Returns (state, metadata); (state, None) when the directory
+        holds no checkpoint."""
+        payload = self._load(state, step)
+        if payload is None:
+            return state, None
+        state.model.load_state_dict(payload["model"])
+        # the shape of the schedule belongs to the run's configuration (a
+        # resumed run may have more epochs); moments and the live learning
+        # rates come from the checkpoint
+        keep = [{k: g[k] for k in _SCHEDULE_KEYS if k in g}
+                for g in state.optimizer.param_groups]
+        state.optimizer.load_state_dict(payload["optimizer"])
+        for group, fields in zip(state.optimizer.param_groups, keep):
+            group.update(fields)
+        state.step = int(payload["step"])
+        if state.generator is not None and payload["generator"] is not None:
+            state.generator.set_state(payload["generator"].cpu())
+        return state, payload["metadata"]
+
+    def restore_params_only(self, state: TrainState,
+                            step: Optional[int] = None) -> TrainState:
+        """Restore the parameters and BatchNorm statistics and leave the
+        optimizer, the step count and the generator as they are: a fresh
+        optimizer on trained weights."""
+        payload = self._load(state, step)
+        if payload is not None:
+            state.model.load_state_dict(payload["model"])
+        return state

@@ -1,0 +1,32 @@
+"""TrainState: what one training run carries from step to step (counterpart
+of ``sparsernns_tpu/train/state.py``).
+
+The JAX state is an immutable pytree of parameters, optimizer state and
+batch statistics; here the model and the optimizer own their tensors and
+are updated in place, so the state holds references: the model (parameters
+and BatchNorm running statistics), the optimizer (moments and schedules),
+the count of optimizer steps taken, and the generator that the dropout
+masks are drawn from. ``masks`` (pruning) stays None until pruning is
+ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    generator: Optional[torch.Generator] = None
+    masks: Any = None
+
+
+def count_params(model: torch.nn.Module) -> int:
+    """Number of trainable scalars."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)

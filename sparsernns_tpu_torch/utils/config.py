@@ -1,6 +1,6 @@
 """Run configuration with JSON recipe overlay (counterpart of
-``sparsernns_tpu/utils/config.py``), reduced to the fields the serving
-path reads plus the training fields the repo's recipes set."""
+``sparsernns_tpu/utils/config.py``), reduced to the fields the ported
+serving and training paths read, with the JAX package's defaults."""
 
 from __future__ import annotations
 
@@ -11,13 +11,21 @@ from typing import Optional
 
 @dataclasses.dataclass
 class RunConfig:
+    # --- experiment ---
+    logger: str = "jsonl"               # accepted from recipes; the port
+                                        # logs through Python ``logging``
+    checkpoint_dir: Optional[str] = None
+    restore_checkpoint: bool = True
+    reset_optimizer: bool = False
+
     # --- dataset ---
     dataset: str = "ndns"
     bsz: int = 32
+    #: gradient-accumulation microbatch size (None: full-batch step)
+    microbatch: Optional[int] = None
     synthetic_data: bool = False
     synthetic_size: int = 64
     synthetic_seconds: float = 30.0
-    logger: str = "jsonl"
 
     # --- model ---
     n_layers: int = 3
@@ -33,6 +41,7 @@ class RunConfig:
     dt_max: float = 0.1
     prenorm: bool = True
     batchnorm: bool = True
+    bn_momentum: float = 0.95
     glu_variant: str = "half1"
     relufication: bool = False
     scan_mode: str = "fused"            # the float port runs only "fused"
@@ -46,14 +55,32 @@ class RunConfig:
     validate_static_quant: bool = True
     validate_engine: bool = True
 
-    # --- training (read by the training port; recipes set them) ---
+    # --- regularization / optimization ---
     p_dropout: float = 0.1
-    seed: int = 1919
+    seed: int = 1919                    # model init, dropout, data
     epochs: int = 50
+    warmup_end: int = 1
+    early_stop_patience: int = 1000
     lr_factor: float = 4.0
+    ssm_lr_base: float = 1e-3
     weight_decay: float = 0.04
     opt_config: str = "noBCdecay"
-    pruning: str = "no_prune"
+    dt_global: bool = False
+    grad_clip_threshold: Optional[float] = None
+    lr_min: float = 1e-6
+    lr_schedule: str = "cosine"         # cosine | plateau
+    plateau_factor: float = 0.2
+    plateau_patience: int = 20
+    pruning: str = "no_prune"           # pruning is not ported: must stay so
+
+    # --- parallelism (not ported: any other value raises) ---
+    mesh_data: int = -1
+    mesh_model: int = 1
+    mesh_seq: int = 1
+
+    @property
+    def lr(self) -> float:
+        return self.lr_factor * self.ssm_lr_base
 
     def with_recipe(self, path: str) -> "RunConfig":
         """Overlay a JSON recipe; unknown keys raise."""

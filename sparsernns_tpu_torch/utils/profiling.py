@@ -1,16 +1,18 @@
-"""Where the time goes on the serving paths, on one GPU.
+"""Where the time goes on the serving and training paths, on one GPU.
 
 Profiles, at the width of ``recipes/ndns.json`` with random weights, one
 offline eval step (B clips of 30 s) and one streaming chunk (B streams,
 1 s) of the float model — or, with ``--engine``, one offline call of the
 calibrated w8a16 engine (B x 3751 frames) and one streaming forward of the
-engine-backed denoiser (one 128-frame block) — with ``torch.profiler``,
-after a warm-up, and prints for each: the wall time, the device time
-summed over kernels, the device busy share (device time over wall time)
-and the kernels that take the most device time. Run on a machine with the
-card, from the repository root::
+engine-backed denoiser (one 128-frame block); or, with ``--train``, one
+train step of the recipe (B clips of 30 s, dropout 0.1, noBCdecay) — with
+``torch.profiler``, after a warm-up, and prints for each: the wall time,
+the device time summed over kernels, the device busy share (device time
+over wall time) and the kernels that take the most device time. Run on a
+machine with the card, from the repository root::
 
-    python -m sparsernns_tpu_torch.utils.profiling [--batch 8] [--engine]
+    python -m sparsernns_tpu_torch.utils.profiling [--batch 8] \\
+        [--engine | --train]
 
 Prints the card's name and power limit, then one JSON object per
 profiled region.
@@ -76,6 +78,8 @@ def main() -> int:
     ap.add_argument("--engine", action="store_true",
                     help="profile the w8a16 engine instead of the float "
                          "model")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step of the float model")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -99,6 +103,8 @@ def main() -> int:
 
     if args.engine:
         return _profile_engine(cfg, model, noisy, noisy_t)
+    if args.train:
+        return _profile_train(cfg, noisy_t, clean_t)
 
     den = StreamingDenoiser(model, batch_size=b)
     pos = [0]
@@ -122,6 +128,27 @@ def _report(regions) -> None:
         check=True).stdout.strip().splitlines()[0])
     for name, fn in regions:
         print(json.dumps(profile_region(name, fn)), flush=True)
+
+
+def _profile_train(cfg, noisy_t, clean_t) -> int:
+    """One warm train step as the recipe sets it, STFT included."""
+    from sparsernns_tpu_torch.train.loop import (build_model,
+                                                 create_run_state,
+                                                 prep_ndns_batch)
+    from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+
+    model = build_model(cfg, 257, 257, training=True, device="cuda", seed=0)
+    state = create_run_state(cfg, model, steps_per_epoch=2)
+    step = make_ndns_train_step(model)
+
+    def train_step():
+        step(state, *prep_ndns_batch(noisy_t, clean_t), clean_t)
+
+    for _ in range(2):              # warm-up: builds kernels, plans
+        train_step()
+    _report(((f"train step (B={noisy_t.shape[0]}, incl. STFT)",
+              train_step),))
+    return 0
 
 
 def _profile_engine(cfg, model, noisy, noisy_t) -> int:

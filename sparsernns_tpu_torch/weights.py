@@ -9,7 +9,10 @@ static-quant (a frozen tree's ``scale`` leaves become the quantizers'
 ``scale`` buffers). :func:`to_flax` is the inverse: a model's state under
 the JAX package's names, which for a calibrated model is the frozen tree
 (scales kept, observers dropped). Frozen trees of the two packages are
-therefore interchangeable.
+therefore interchangeable. :func:`grads_to_flax` gives the gradients that
+a backward pass left on the model's parameters under the same names and
+layouts, so that gradients and updated parameters compare leaf by leaf
+with the JAX package's.
 
 Dense kernels (in, out) are ``nn.Linear`` weights (out, in); norm
 scale/bias are ``weight``/``bias``; BatchNorm mean/var are
@@ -67,9 +70,22 @@ def to_flax(model: torch.nn.Module
     under the JAX package's names. Quantizer ``scale`` buffers go into
     ``params`` and observer state is dropped, so for a calibrated model
     this is the frozen tree."""
+    return _flax_trees(model.state_dict().items())
+
+
+def grads_to_flax(model: torch.nn.Module) -> Dict[str, Any]:
+    """The ``.grad`` of every parameter that has one, as the JAX package's
+    ``params`` tree of numpy arrays (dense kernels transposed back to
+    (in, out))."""
+    params, _ = _flax_trees((name, p.grad) for name, p in
+                            model.named_parameters() if p.grad is not None)
+    return params
+
+
+def _flax_trees(items) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
-    for key, val in model.state_dict().items():
+    for key, val in items:
         *mods, name = key.split(".")
         if "observer" in mods or name == "num_batches_tracked":
             continue

@@ -186,8 +186,11 @@ def test_build_model_shapes_and_state_dict_keys():
     for key, val in tm.state_dict().items():
         assert tuple(val.shape) == tuple(sd[key].shape), key
     assert not tm.training
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, 9, 9, training=True, device="cpu")
+    trainer = build_model(cfg, 9, 9, training=True, device="cpu")
+    assert trainer.training and set(trainer.state_dict()) == set(sd)
+    with pytest.raises(NotImplementedError):   # trains on the fused route
+        build_model(dataclasses.replace(cfg, batchnorm=False), 9, 9,
+                    training=True, device="cpu")(torch.zeros(1, 4, 9))
     with pytest.raises(NotImplementedError):   # only the fused route
         build_model(dataclasses.replace(cfg, scan_mode="sequential"), 9, 9,
                     device="cpu")

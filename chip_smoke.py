@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the flagship shapes, and
-drives the float NDNS serving path, the w8a16 engine serving path and the
-float NDNS training path at the width of ``recipes/ndns.json`` (d_model
+drives the float NDNS serving path, the w8a16 engine serving path, the
+float NDNS training path and the mixer route (training and eval of the
+models outside the whole-layer kernel) at the width of ``recipes/ndns.json`` (d_model
 192, P 128, 3 layers; random weights from a seed):
 
 1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail)
@@ -23,16 +24,30 @@ float NDNS training path at the width of ``recipes/ndns.json`` (d_model
    ``process_chunk`` against one whole call;
 7. training kernel phase — K2 with dropout masks, K3a (carry history) and
    K3b (reverse-time adjoint, every output) against their plain versions,
-   B=8, L=3751, for the four GLU kinds x (gelu | relu + relu_state +
-   layer_relu), with times for the recipe's variant;
+   B=8, L=3751 for the recipe's variant, with times, and L=1000 for the
+   other seven of the four GLU kinds x (gelu | relu + relu_state +
+   layer_relu);
 8. training phase — ``build_model(training=True)``, ``create_run_state``
    and ``make_ndns_train_step`` as the recipe sets them (B=32 clips of
    30 s, dropout 0.1, noBCdecay, weight decay 0.04): three steps, then
-   three with ``microbatch=8`` (3 x K2, K3a, K3b per step, x 4 with the
+   two with ``microbatch=8``, the second under the profiler (3 x K2, K3a, K3b per step, x 4 with the
    microbatch, no other kernel); one step on the card against the same
    step on the CPU at a short length; eight dropout-free steps on one
    B=8 batch must lower the loss; step wall time, device busy share and
-   peak memory at B=32 and B=8.
+   peak memory at B=32 and B=8;
+9. mixer kernel phase — K1 in reverse and K4a (the S5 mixer in one kernel,
+   with and without relu_state) against their plain versions, B=8, L=3751
+   and one odd-width case, with times; the gradients of ``FusedS5Fn`` and
+   of the scan in both directions on the card against autograd through
+   the plain versions on the card;
+10. mixer-route training phase — the recipe with ``prenorm=false``
+   (postnorm BatchNorm: the unfused layer around K4a): three B=32 train
+   steps with dropout 0.1 (per step 3 x K4a, 3 x K1 forward, 3 x K1
+   reverse and no other kernel), one eval step (3 x K4a), one step on the
+   card against the CPU, eight dropout-free B=8 steps that must lower the
+   loss; then the bidirectional model at B=8, two steps (6 x K1 forward
+   and 6 x K1 reverse a step); step wall time, device busy share, peak
+   memory.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -176,12 +191,18 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
                    "max(1, max|ref|)", rel_worst, 2e-4)
             return err, rel_worst
 
+        # the recipe's variant at the full length, the other seven at the
+        # full width over the first 1000 frames
         worst = {}
+        x_cut, g_cut = x[:, :1000].contiguous(), g[:, :1000].contiguous()
         for glu in layer_tail.GLU_KINDS:
             for act in layer_tail.ACTS:
-                errs = compare(f"{glu}/{act}", x, g, *variant(glu, act))
                 if glu == cfg.glu_variant and act == "gelu":
-                    worst["fwd"], worst["bwd"] = errs
+                    worst["fwd"], worst["bwd"] = compare(
+                        f"{glu}/{act}", x, g, *variant(glu, act))
+                else:
+                    compare(f"{glu}/{act} L=1000", x_cut, g_cut,
+                            *variant(glu, act))
 
         # widths that are no multiple of the kernels' vector widths, a
         # length with a short last tile: the generic paths of the kernels
@@ -269,67 +290,141 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
                                 "layer_tail_bwd")}}), flush=True)
 
 
-def training_phase(cfg, records, counters) -> None:
-    """Phase 8: the training entry points at the recipe's settings.
-    ``counters()`` returns the launch counts of every kernel by record
-    name and sets them to 0."""
+def _train_batch(bsz: int):
+    """(noisy, clean) audio of ``bsz`` synthetic 30 s clips on the card and
+    the train step's features of them."""
     import numpy as np
     import torch
 
     from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
-    from sparsernns_tpu_torch.train.loop import (build_model,
-                                                 create_run_state,
-                                                 prep_ndns_batch)
+    from sparsernns_tpu_torch.train.loop import prep_ndns_batch
+    ds = SyntheticNDNS(size=bsz, length=SECONDS * 16000, seed=0)
+    pairs = [ds[i] for i in range(bsz)]
+    noisy = torch.from_numpy(np.stack([a for a, _ in pairs])).cuda()
+    clean = torch.from_numpy(np.stack([c for _, c in pairs])).cuda()
+    return noisy, clean, (*prep_ndns_batch(noisy, clean), clean)
+
+
+def _fresh_run(config, device="cuda"):
+    """A training model of ``config`` from seed 0 and its run state."""
+    from sparsernns_tpu_torch.train.loop import build_model, create_run_state
+    model = build_model(config, 257, 257, training=True, device=device,
+                        seed=0)
+    return model, create_run_state(config, model, steps_per_epoch=2)
+
+
+def _run_steps(tag, state, step, batch, n, expect, counters):
+    """``n`` train steps; every step's launch counts must equal ``expect``
+    (name -> count; a kernel not named: 0). Returns (state, the last
+    step's counts, the steps' wall times in ms)."""
+    import numpy as np
+    import torch
+    walls = []
+    for i in range(n):
+        counters()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, metrics = step(state, *batch)
+        torch.cuda.synchronize()
+        walls.append((time.time() - t0) * 1e3)
+        counts = counters()
+        loss, gn = metrics["loss"].item(), metrics["grad_norm"].item()
+        print(f"{tag} step {i}: {walls[-1]:.1f} ms, loss {loss:.4f}, "
+              f"si_snr {metrics['si_snr'].item():.3f} dB, grad_norm "
+              f"{gn:.3f}, launches {counts}", flush=True)
+        assert np.isfinite(loss) and np.isfinite(gn), metrics
+        for name, count in counts.items():
+            assert count == expect.get(name, 0), (tag, name, count, expect)
+    return state, counts, walls
+
+
+def _card_vs_cpu_step(tag, config, noisy, clean) -> None:
+    """One dropout-free train step at B=2, L=65 on the card against the
+    same step on the CPU (the kernels' plain versions)."""
+    import torch
+
+    from sparsernns_tpu_torch.train.loop import prep_ndns_batch
+    from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+    short = tuple(t[:2, ..., :64 * 128].contiguous() for t in (noisy, clean))
+    results = []
+    for device in (torch.device("cuda"), torch.device("cpu")):
+        model, state = _fresh_run(config, device)
+        batch = tuple(t.to(device) for t in short)
+        state, metrics = make_ndns_train_step(model)(
+            state, *prep_ndns_batch(*batch), batch[1])
+        results.append((metrics, {n: (q.detach().cpu(), q.grad.cpu())
+                                  for n, q in model.named_parameters()}))
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = results
+    for key in ("loss", "grad_norm"):
+        ref = m_cpu[key].item()
+        _check(f"{tag} on the card vs on the CPU (plain), {key}",
+               abs(m_gpu[key].item() - ref), 1e-3 * max(1.0, abs(ref)))
+    _check(f"{tag} on the card vs on the CPU (plain), gradients, "
+           "relative to each parameter's max(1, max|grad|)",
+           max(((p_gpu[n][1] - g).abs().max() / max(1.0, g.abs().max()))
+               .item() for n, (_, g) in p_cpu.items()), 2e-4)
+    # Adam's first step moves an element by about the learning rate in the
+    # direction of its gradient's sign, so an element whose gradient is
+    # rounding noise may differ by that much: the mean is held, not the max
+    _check(f"{tag} on the card vs on the CPU (plain), parameters, "
+           "mean abs difference",
+           max((p_gpu[n][0] - q).abs().mean().item()
+               for n, (q, _) in p_cpu.items()), 1e-5)
+
+
+def _learning_steps(tag, config, feats):
+    """Eight dropout-free steps on one B=8 batch must lower the loss.
+    Returns (state, step function, the batch, peak memory in bytes)."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+    model, state = _fresh_run(config)
+    step = make_ndns_train_step(model)
+    small = tuple(t[:B].contiguous() for t in feats)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, metrics = step(state, *small)
+        torch.cuda.synchronize()
+        losses.append(metrics["loss"].item())
+        print(f"{tag} B={B} dropout 0 step {i}: "
+              f"{(time.time() - t0) * 1e3:.1f} ms, loss {losses[-1]:.4f}",
+              flush=True)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    return state, step, small, torch.cuda.max_memory_allocated()
+
+
+def training_phase(cfg, records, counters, batch) -> None:
+    """Phase 8: the training entry points at the recipe's settings.
+    ``counters()`` returns the launch counts of every kernel by record
+    name and sets them to 0; ``batch`` is ``_train_batch(cfg.bsz)``."""
+    import torch
+
     from sparsernns_tpu_torch.train.steps import make_ndns_train_step
     from sparsernns_tpu_torch.utils.profiling import profile_region
-    dev = torch.device("cuda")
     n_layers, bsz = cfg.n_layers, cfg.bsz
     assert (bsz, cfg.p_dropout, cfg.opt_config, cfg.weight_decay) == (
         32, 0.1, "noBCdecay", 0.04), cfg
     train_kernels = ("layer_tail_train", "layer_tail_hist", "layer_tail_bwd")
-
-    ds = SyntheticNDNS(size=bsz, length=SECONDS * 16000, seed=0)
-    pairs = [ds[i] for i in range(bsz)]
-    noisy = torch.from_numpy(np.stack([a for a, _ in pairs])).to(dev)
-    clean = torch.from_numpy(np.stack([c for _, c in pairs])).to(dev)
-    feats = (*prep_ndns_batch(noisy, clean), clean)
-
-    def fresh(config, device=dev):
-        model = build_model(config, 257, 257, training=True, device=device,
-                            seed=0)
-        return model, create_run_state(config, model, steps_per_epoch=2)
+    noisy, clean, feats = batch
 
     def snapshot(model):
         return ({n: p.detach().clone() for n, p in model.named_parameters()},
                 {n: b.detach().clone() for n, b in model.named_buffers()
                  if "running" in n})
 
-    def run_steps(tag, state, step, batch, n, per_step):
-        for i in range(n):
-            counters()
-            torch.cuda.synchronize()
-            t0 = time.time()
-            state, metrics = step(state, *batch)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            counts = counters()
-            loss, gn = metrics["loss"].item(), metrics["grad_norm"].item()
-            print(f"{tag} step {i}: {wall * 1e3:.1f} ms, loss {loss:.4f}, "
-                  f"si_snr {metrics['si_snr'].item():.3f} dB, grad_norm "
-                  f"{gn:.3f}, launches {counts}", flush=True)
-            assert np.isfinite(loss) and np.isfinite(gn), metrics
-            for name, count in counts.items():
-                want = per_step if name in train_kernels else 0
-                assert count == want, (tag, name, count, want)
-        return state, counts
-
-    # ---- three full-batch steps, then three with microbatch=8 ----
-    model, state = fresh(cfg)
+    # ---- three full-batch steps, then microbatch=8 (one counted step, one
+    # under the profiler) ----
+    model, state = _fresh_run(cfg)
     params0, stats0 = snapshot(model)
     step = make_ndns_train_step(model)
     torch.cuda.reset_peak_memory_stats()
-    state, counts = run_steps(f"train B={bsz}", state, step, feats, 3,
-                              n_layers)
+    state, counts, _ = _run_steps(
+        f"train B={bsz}", state, step, feats, 3,
+        dict.fromkeys(train_kernels, n_layers), counters)
     peak_full = torch.cuda.max_memory_allocated()
     for name in train_kernels:
         records[name]["launches"] = counts[name]
@@ -349,8 +444,9 @@ def training_phase(cfg, records, counters) -> None:
 
     micro = make_ndns_train_step(model, microbatch=8)
     torch.cuda.reset_peak_memory_stats()
-    state, _ = run_steps(f"train B={bsz} microbatch=8", state, micro, feats,
-                         3, n_layers * (bsz // 8))
+    state, _, _ = _run_steps(
+        f"train B={bsz} microbatch=8", state, micro, feats, 1,
+        dict.fromkeys(train_kernels, n_layers * (bsz // 8)), counters)
     peak_micro = torch.cuda.max_memory_allocated()
     profile = profile_region(f"train step B={bsz} microbatch=8",
                              lambda: micro(state, *feats))
@@ -360,56 +456,244 @@ def training_phase(cfg, records, counters) -> None:
           f"{profile['device_busy_share']:.3f}", flush=True)
     del model, state, step, micro
 
-    # ---- one step on the card against the same step on the CPU ----
     quiet = dataclasses.replace(cfg, p_dropout=0.0)
-    short = tuple(t[:2, ..., :64 * 128].contiguous() for t in (noisy, clean))
-    results = []
-    for device in (dev, torch.device("cpu")):
-        model, state = fresh(quiet, device)
-        batch = tuple(t.to(device) for t in short)
-        state, metrics = make_ndns_train_step(model)(
-            state, *prep_ndns_batch(*batch), batch[1])
-        results.append((metrics, {n: (q.detach().cpu(), q.grad.cpu())
-                                  for n, q in model.named_parameters()}))
-    (m_gpu, p_gpu), (m_cpu, p_cpu) = results
-    for key in ("loss", "grad_norm"):
-        ref = m_cpu[key].item()
-        _check(f"train step on the card vs on the CPU (plain), {key}",
-               abs(m_gpu[key].item() - ref), 1e-3 * max(1.0, abs(ref)))
-    _check("train step on the card vs on the CPU (plain), gradients, "
-           "relative to each parameter's max(1, max|grad|)",
-           max(((p_gpu[n][1] - g).abs().max() / max(1.0, g.abs().max()))
-               .item() for n, (_, g) in p_cpu.items()), 2e-4)
-    # Adam's first step moves an element by about the learning rate in the
-    # direction of its gradient's sign, so an element whose gradient is
-    # rounding noise may differ by that much: the mean is held, not the max
-    _check("train step on the card vs on the CPU (plain), parameters, "
-           "mean abs difference",
-           max((p_gpu[n][0] - q).abs().mean().item()
-               for n, (q, _) in p_cpu.items()), 1e-5)
-
-    # ---- eight dropout-free steps on one B=8 batch must learn ----
-    model, state = fresh(quiet)
-    step = make_ndns_train_step(model)
-    small = tuple(t[:B].contiguous() for t in feats)
-    torch.cuda.reset_peak_memory_stats()
-    losses = []
-    for i in range(8):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        state, metrics = step(state, *small)
-        torch.cuda.synchronize()
-        losses.append(metrics["loss"].item())
-        print(f"train B={B} dropout 0 step {i}: "
-              f"{(time.time() - t0) * 1e3:.1f} ms, loss {losses[-1]:.4f}",
-              flush=True)
-    peak_small = torch.cuda.max_memory_allocated()
-    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    _card_vs_cpu_step("train step", quiet, noisy, clean)
+    state, step, small, peak_small = _learning_steps("train", quiet, feats)
     profile = profile_region(f"train step B={B}",
                              lambda: step(state, *small))
     print(json.dumps(profile), flush=True)
     print(f"train B={B}: peak memory {peak_small / 2**20:.0f} MiB, device "
           f"busy share {profile['device_busy_share']:.3f}", flush=True)
+
+
+def _rel_err(out, ref) -> float:
+    """max|out - ref| over max(1, max|ref|)."""
+    return ((out - ref).abs().max() / max(1.0, ref.abs().max().item())).item()
+
+
+def mixer_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
+    """Phase 9: K1 reverse and K4a against their plain versions at
+    B x frames, layer 0's operands, and at odd widths; the gradient
+    Functions on the card against autograd through the plain versions on
+    the card (B x 1000 frames). Limits: K1 1e-5 of max|x|; K4a 1e-4 of
+    max(1, max|ref|); gradients 2e-4 of max(1, max|ref|) (f32 sums over
+    8000 rows in another order), and under relu_state, where a state within rounding of
+    zero may pass the recompute's relu the other way, 2e-2 with at most
+    1e-4 of the elements above 2e-4 (the JAX package's bar is 2e-2)."""
+    import torch
+
+    from sparsernns_tpu_torch.ops import scan
+    from sparsernns_tpu_torch.ops.cuda import diag_scan, fused_s5
+    dev = torch.device("cuda")
+    h, p = cfg.d_model, layer0.mixer.p
+    rnd = lambda *shape, sc=1.0: (  # noqa: E731
+        torch.randn(shape, generator=gen) * sc).to(dev)
+    with torch.no_grad():
+        lam, w_b, w_c, d, _ = (
+            t.contiguous() if torch.is_tensor(t) else t
+            for t in layer0.mixer.layer_tail_operands())
+    hs, ps, ls = 20, 12, 70
+    radius = torch.rand(ps, generator=gen) * 0.39 + 0.6
+    angle = torch.rand(ps, generator=gen) * 6.0 - 3.0
+    odd_lam = ((radius * torch.cos(angle)).to(dev),
+               (radius * torch.sin(angle)).to(dev))
+    odd = (odd_lam, rnd(hs, 2 * ps, sc=0.3), rnd(2 * ps, hs, sc=0.3),
+           rnd(hs))
+
+    # ---- K1 reverse: halves of one (B, L, 2P) tensor, as the mixer's
+    # backward hands them over ----
+    def scan_case(tag, lam_, bu_cat, pp):
+        bu = (bu_cat[..., :pp], bu_cat[..., pp:])
+        with torch.no_grad():
+            ref = diag_scan.diag_scan_plain(lam_, bu, reverse=True)
+            out = diag_scan.diag_scan_cuda(lam_, bu, reverse=True)
+        torch.cuda.synchronize()
+        scale = max(r.abs().max().item() for r in ref)
+        err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+        _check(f"K1 reverse {tag} vs plain", err, 1e-5 * scale)
+        return bu, err
+
+    bu, err_rev = scan_case("", lam, rnd(B, frames, 2 * p), p)
+    scan_case(f"P={ps} L={ls}", odd_lam, rnd(2, ls, 2 * ps), ps)
+    with torch.no_grad():
+        ms = _median_ms(lambda: diag_scan.diag_scan_cuda(lam, bu,
+                                                         reverse=True))
+        ms_fwd = _median_ms(lambda: diag_scan.diag_scan_cuda(lam, bu))
+        plain_ms = _time_ms(lambda: diag_scan.diag_scan_plain(
+            lam, bu, reverse=True), 1, 0)
+    elems = B * frames * p
+    bound, by = _bound_ms(2 * elems * 4 * 2 + 2 * p * 4, 8 * elems)
+    records["diag_scan_rev"] = dict(
+        name="diag_scan_rev", route="cuda",
+        source="sparsernns_tpu_torch/ops/cuda/csrc/diag_scan.cu",
+        replaces="sparsernns_tpu/ops/pallas/scan_kernel.py:433",
+        max_abs_err=err_rev, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None)
+    print(f"K1 at B={B}, no carry: reverse {ms:.3f} ms, forward "
+          f"{ms_fwd:.3f} ms", flush=True)
+
+    # ---- K4a ----
+    u = rnd(B, frames, h)
+    errs = {}
+    with torch.no_grad():
+        for relu in (False, True):
+            for tag, args in (("", (u, lam, w_b, w_c, d)),
+                              (f"H={hs} P={ps} L={ls}",
+                               (rnd(2, ls, hs), *odd))):
+                ref = fused_s5.fused_s5_plain(*args, relu_state=relu)
+                out = fused_s5.fused_s5_cuda(*args, relu_state=relu)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                _check(f"K4a fused_s5 relu_state={relu} {tag} vs plain", err,
+                       1e-4 * max(1.0, ref.abs().max().item()))
+                if not tag:
+                    errs[relu] = err
+        relu_state = layer0.mixer.relufication
+        ms = _median_ms(lambda: fused_s5.fused_s5_cuda(
+            u, lam, w_b, w_c, d, relu_state=relu_state))
+        plain_ms = _time_ms(lambda: fused_s5.fused_s5_plain(
+            u, lam, w_b, w_c, d, relu_state=relu_state), 1, 0)
+    rows = B * frames
+    bound, by = _bound_ms(
+        2 * rows * h * 4 + (2 * h * 2 * p + h + 2 * p) * 4,
+        rows * (2 * h * 2 * p + 2 * 2 * p * h + 8 * p + 2 * h))
+    records["fused_s5"] = dict(
+        name="fused_s5", route="cuda",
+        source="sparsernns_tpu_torch/ops/cuda/csrc/fused_s5.cu",
+        replaces="sparsernns_tpu/ops/pallas/fused_s5.py:204",
+        max_abs_err=errs[relu_state], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None)
+
+    # ---- gradients on the card vs autograd through the plain versions ----
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    def grads_of(fn, operands, g):
+        ops = [leaf(t) for t in operands]
+        out = fn(*ops)
+        torch.autograd.backward(out, g)
+        torch.cuda.synchronize()
+        return [t.grad for t in ops]
+
+    def compare(tag, names, ours, refs, relu=False):
+        worst = max(_rel_err(o, r) for o, r in zip(ours, refs))
+        if not relu:
+            _check(f"{tag}: worst of {names}, relative to max(1, max|ref|)",
+                   worst, 2e-4)
+            return
+        _check(f"{tag}: worst of {names}, relative to max(1, max|ref|)",
+               worst, 2e-2)
+        share = max(((o - r).abs() > 2e-4 * max(1.0, r.abs().max().item()))
+                    .float().mean().item() for o, r in zip(ours, refs))
+        _check(f"{tag}: share of elements above 2e-4", share, 1e-4)
+
+    # at the full width over B x 1000 frames: autograd through the plain
+    # loop keeps every step's state
+    cut = 1000
+    for reverse in (False, True):
+        g = (rnd(B, cut, p), rnd(B, cut, p))
+        operands = (*lam, bu[0][:, :cut], bu[1][:, :cut])
+        ours = grads_of(lambda a, b_, c, e: scan.diag_ssm_scan(
+            (a, b_), (c, e), reverse=reverse), operands, g)
+        refs = grads_of(lambda a, b_, c, e: scan.sequential_diag_scan(
+            (a, b_), (c, e), reverse=reverse)[0], operands, g)
+        compare(f"DiagScanFn reverse={reverse} gradients vs plain autograd",
+                "(lam_re, lam_im, bu_re, bu_im)", ours, refs)
+    names = "(u, lam_re, lam_im, w_b, w_c, d)"
+    for tag, relu, ops, shape in (
+            (f"L={cut}", False, (u[:, :cut], *lam, w_b, w_c, d),
+             (B, cut, h)),
+            ("L=300", True, (u[:2, :300], *lam, w_b, w_c, d), (2, 300, h)),
+            (f"H={hs} P={ps} L={ls}", True,
+             (rnd(2, ls, hs), *odd_lam, *odd[1:]), (2, ls, hs))):
+        g = rnd(*shape)
+        ours = grads_of(lambda *a: fused_s5.FusedS5Fn.apply(*a, relu), ops, g)
+        refs = grads_of(lambda a, lr, li, *w: fused_s5.fused_s5_plain(
+            a, (lr, li), *w, relu_state=relu), ops, g)
+        compare(f"FusedS5Fn relu_state={relu} {tag} gradients vs plain "
+                "autograd", names, ours, refs, relu)
+    print(json.dumps({"mixer_kernel_phase": {
+        k: records[k] for k in ("diag_scan_rev", "fused_s5")}}), flush=True)
+
+
+def mixer_training_phase(cfg, records, counters, batch) -> None:
+    """Phase 10: training and eval on the mixer route at the recipe's
+    width: the postnorm model (the unfused layer around K4a, whose
+    backward runs K1 both ways), then the bidirectional model (K1 both
+    ways in the forward and in the backward)."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.train.steps import (make_ndns_eval_step,
+                                                  make_ndns_train_step)
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    n_layers, bsz = cfg.n_layers, cfg.bsz
+    post = dataclasses.replace(cfg, prenorm=False)
+    noisy, clean, feats = batch
+
+    # ---- postnorm: three B=32 steps with dropout, one eval step ----
+    model, state = _fresh_run(post)
+    assert not model.encoder.layers[0].prenorm
+    step = make_ndns_train_step(model)
+    per_step = {"fused_s5": n_layers, "diag_scan": n_layers,
+                "diag_scan_rev": n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    state, counts, walls = _run_steps(f"postnorm train B={bsz}", state, step,
+                                      feats, 3, per_step, counters)
+    peak = torch.cuda.max_memory_allocated()
+    records["fused_s5"]["launches"] = counts["fused_s5"]
+    records["diag_scan_rev"]["launches"] = counts["diag_scan_rev"]
+    profile = profile_region(f"postnorm train step B={bsz}",
+                             lambda: step(state, *feats), top=24)
+    print(json.dumps(profile), flush=True)
+    print(f"postnorm train B={bsz}: peak memory {peak / 2**20:.0f} MiB, "
+          f"device busy share {profile['device_busy_share']:.3f}",
+          flush=True)
+    eval_step = make_ndns_eval_step(model)
+    small = tuple(t[:B].contiguous() for t in feats)
+    eval_step(*small)                                   # warm-up
+    counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = eval_step(*small)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = counters()
+    print(f"postnorm eval step B={B}: {wall:.1f} ms, loss "
+          f"{metrics['loss'].item():.4f}, launches {counts}", flush=True)
+    assert np.isfinite(metrics["loss"].item()) and model.training
+    for name, count in counts.items():
+        assert count == (n_layers if name == "fused_s5" else 0), counts
+    del model, state, step, eval_step
+
+    quiet = dataclasses.replace(post, p_dropout=0.0)
+    _card_vs_cpu_step("postnorm train step", quiet, noisy, clean)
+    state, step, small, peak_small = _learning_steps("postnorm train", quiet,
+                                                     feats)
+    profile = profile_region(f"postnorm train step B={B}",
+                             lambda: step(state, *small))
+    print(json.dumps(profile), flush=True)
+    print(f"postnorm train B={B}: peak memory {peak_small / 2**20:.0f} MiB, "
+          f"device busy share {profile['device_busy_share']:.3f}",
+          flush=True)
+    del state, step
+
+    # ---- bidirectional: two B=8 steps, scans both ways ----
+    bidir = dataclasses.replace(cfg, bidirectional=True)
+    model, state = _fresh_run(bidir)
+    assert hasattr(model.encoder.layers[0].mixer, "C1")
+    step = make_ndns_train_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    state, _, _ = _run_steps(
+        f"bidirectional train B={B}", state, step, small, 2,
+        {"diag_scan": 2 * n_layers, "diag_scan_rev": 2 * n_layers}, counters)
+    peak_bi = torch.cuda.max_memory_allocated()
+    profile = profile_region(f"bidirectional train step B={B}",
+                             lambda: step(state, *small))
+    print(json.dumps(profile), flush=True)
+    print(f"bidirectional train B={B}: peak memory {peak_bi / 2**20:.0f} "
+          f"MiB, device busy share {profile['device_busy_share']:.3f}",
+          flush=True)
 
 
 def main() -> int:
@@ -422,7 +706,7 @@ def main() -> int:
     from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
     from sparsernns_tpu_torch.ops.cuda import (build, diag_scan,
                                                engine_layer, engine_network,
-                                               layer_tail)
+                                               fused_s5, layer_tail)
     from sparsernns_tpu_torch.ops.stft import stft_splitter
     from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
     from sparsernns_tpu_torch.train.loop import build_model
@@ -461,6 +745,12 @@ def main() -> int:
     audio_len = SECONDS * 16000
     frames = audio_len // 128 + 1
     records = {}
+
+    marks = [time.time()]
+
+    def mark(name: str) -> None:
+        marks.append(time.time())
+        print(f"[{name}: {marks[-1] - marks[-2]:.1f} s]", flush=True)
 
     # ---------------- kernel phase ----------------
     with torch.no_grad():
@@ -538,6 +828,8 @@ def main() -> int:
                        1e-4 * max(1.0, ref.abs().max().item()))
     print(json.dumps({"kernel_phase": records}), flush=True)
 
+    mark("kernel phase")
+
     # ---------------- offline phase (K2) ----------------
     ds = SyntheticNDNS(size=B, length=audio_len, seed=0)
     pairs = [ds[i] for i in range(B)]
@@ -573,6 +865,8 @@ def main() -> int:
     _check("offline forward, GPU vs CPU plain", (y_gpu - y_cpu).abs().max()
            .item(), 1e-3)
 
+    mark("offline phase")
+
     # ---------------- streaming phase (K1) ----------------
     den = StreamingDenoiser(model, batch_size=B)
     diag_scan.launches = layer_tail.launches = 0
@@ -601,9 +895,12 @@ def main() -> int:
     _check("stream forward (K1 path) vs offline forward (K2 path)",
            (y_stream - y_offline).abs().max().item(), 1e-3)
 
+    mark("streaming phase")
+
     # ---------------- engine set-up: calibrate, freeze, build ----------
     def reset_counts():
-        diag_scan.launches = layer_tail.launches = 0
+        diag_scan.launches = diag_scan.launches_rev = 0
+        fused_s5.launches = layer_tail.launches = 0
         engine_layer.launches = engine_layer.launches_carry = 0
         engine_network.launches = 0
 
@@ -631,6 +928,8 @@ def main() -> int:
                    + 8 * p + 6 * h)
     layer_w_bytes = 2 * h * 2 * p + n_dense * h * h + 4 * (
         3 * h + 2 * p + n_dense * h)
+
+    mark("engine set-up")
 
     # ---------------- engine kernel phase (K5a, K5b, K6) ----------------
     with torch.no_grad():
@@ -761,6 +1060,8 @@ def main() -> int:
         k: records[k] for k in ("engine_network", "engine_layer",
                                 "engine_layer_carry")}}), flush=True)
 
+    mark("engine kernel phase")
+
     # ---------------- engine offline phase (K6, then the K5a stack) -----
     def engine_metrics(mask):
         nm = noisy_mag.transpose(1, 2)
@@ -809,6 +1110,8 @@ def main() -> int:
            (engine(x_small).cpu() - cpu_engine(x_small.cpu())).abs().max()
            .item(), 2e-3)
 
+    mark("engine offline phase")
+
     # ---------------- engine streaming phase (K5b) ----------------
     stream_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
                                        device=dev, block_t=STREAM_BLOCK)
@@ -840,14 +1143,19 @@ def main() -> int:
            (torch.cat(parts, dim=1) - stream_engine(x_eng)).abs().max()
            .item(), 0.0)    # the same device functions, the same blocks
 
+    mark("engine streaming phase")
+
     # ---------------- training kernel phase (K2-train, K3a, K3b) --------
     from sparsernns_tpu_torch.ops.cuda import layer_tail_bwd
     training_kernel_phase(layer0, cfg, frames, gen, records)
+    mark("training kernel phase")
 
     # ---------------- training phase ----------------
     def counters():
         counts = {
             "diag_scan": diag_scan.launches,
+            "diag_scan_rev": diag_scan.launches_rev,
+            "fused_s5": fused_s5.launches,
             "layer_tail_train": layer_tail.launches,
             "layer_tail_hist": layer_tail_bwd.launches_hist,
             "layer_tail_bwd": layer_tail_bwd.launches_bwd,
@@ -858,7 +1166,18 @@ def main() -> int:
         layer_tail_bwd.launches_hist = layer_tail_bwd.launches_bwd = 0
         return counts
 
-    training_phase(cfg, records, counters)
+    batch = _train_batch(cfg.bsz)
+    training_phase(cfg, records, counters, batch)
+    mark("training phase")
+
+    # ---------------- mixer kernel phase (K1 reverse, K4a, gradients) ----
+    mixer_kernel_phase(layer0, cfg, frames, gen, records)
+    mark("mixer kernel phase")
+
+    # ---------------- mixer-route training phase ----------------
+    mixer_training_phase(cfg, records, counters, batch)
+
+    mark("mixer-route training phase")
 
     # ---------------- report ----------------
     smi = subprocess.run(

@@ -12,7 +12,11 @@ optional carry (``ops/cuda/engine_layer.py``) — and float NDNS training:
 (``train/optim.py``) and checkpoints (``train/checkpoint.py``), every
 layer's forward and backward through the tail kernel with dropout masks
 and its carry-history and reverse-time adjoint kernels
-(``ops/cuda/layer_tail_bwd.py``).
+(``ops/cuda/layer_tail_bwd.py``) — and the mixer route: offline forward and
+training of the models outside the whole-layer kernel (postnorm, LayerNorm,
+bidirectional, ``scan_mode="pallas"``) through the S5 mixer kernel and its
+gradient (``ops/cuda/fused_s5.py``) and the diagonal-scan kernel in both
+directions under autograd (``ops/scan.py``).
 Module names follow the JAX package. Entry points run on ``"cuda"`` unless
 the caller passes another device.
 """

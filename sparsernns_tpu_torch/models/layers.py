@@ -3,10 +3,11 @@
 
 Two routes, as in the JAX package:
 
-- fused (:meth:`SequenceLayer.forward` of a float prenorm-BatchNorm
-  layer, as every repo recipe sets), eval and training: BatchNorm folds
-  to a per-feature affine and the whole rest of the layer is one kernel
-  with a kernel backward (``ops/cuda/layer_tail.py``
+- fused (:meth:`SequenceLayer.forward` of a float prenorm-BatchNorm layer
+  around a unidirectional ``scan_mode="fused"`` mixer, as every repo recipe
+  sets), eval and training: BatchNorm folds to a per-feature affine and the
+  whole rest of the layer is one kernel with a kernel backward
+  (``ops/cuda/layer_tail.py``
   :class:`~sparsernns_tpu_torch.ops.cuda.layer_tail.LayerTailFn`); the raw
   input is the residual. In eval mode the affine comes from the running
   statistics. In training mode it comes from the batch statistics, which
@@ -14,14 +15,23 @@ Two routes, as in the JAX package:
   ``x`` are the BatchNorm backward), the running statistics move by
   ``bn_momentum``, and the dropout masks are drawn per (batch row,
   feature), constant along time, from the caller's generator;
-- unfused (:meth:`SequenceLayer.forward_stream`, and ``forward`` of a
-  LayerNorm, postnorm or static-quant layer), eval only: norm, then the
-  mixer (B-projection, scan with carry, C-projection), then the GLU, then
-  the residual. Under static quantization the dense layers are
-  ``QuantizedDense``, the gate product a ``QuantizedMultiply`` and the
-  layer output goes through the ``quant_residual`` quantizer. Training on
-  this route needs the scan's reverse direction and gradient, which a later
-  slice ports.
+- unfused (``forward`` of every other layer: postnorm, LayerNorm, a
+  bidirectional or ``scan_mode="pallas"`` mixer, static quantization; and
+  :meth:`SequenceLayer.forward_stream` of any layer), eval and training:
+  norm, then the mixer, then the activation and the GLU with the same two
+  dropout masks, then the residual, then the norm of a postnorm layer, all
+  in autograd. Offline the mixer is called without a carry (the mixer
+  kernel ``ops/cuda/fused_s5.py``, or the stand-alone scans), streaming
+  with one (``ops/scan.py`` ``diag_ssm_scan``). BatchNorm on this route is
+  flax's own: in training mode it normalizes with the batch mean and the
+  biased variance max(0, E[x²] − E[x]²) of the stream it sees (for a
+  postnorm layer the post-residual stream) and moves the running
+  statistics by ``bn_momentum``. A prenorm LayerNorm layer, which the JAX
+  package runs through its tail kernel's non-affine mode, runs this route
+  here, with the same values. Under static quantization the dense layers
+  are ``QuantizedDense``, the gate product a ``QuantizedMultiply`` and the
+  layer output goes through the ``quant_residual`` quantizer; such a layer
+  does not train yet.
 """
 
 from __future__ import annotations
@@ -149,20 +159,29 @@ class SequenceLayer(nn.Module):
         return m1, (draw() if self.glu_variant != "none" else None)
 
     def _check_eval(self):
-        if self.training:
+        if self.training and self.static_quant:
             raise NotImplementedError(
-                "training is ported for the fused route only (float, "
-                "prenorm BatchNorm); a LayerNorm, postnorm or static-quant "
-                "layer trains through the unfused route, which waits for "
-                "the slice that ports the reverse scan and its gradient: "
-                "call .eval() first")
+                "static-quant finetuning is not ported yet: call .eval() "
+                "first")
 
     def _norm(self, x: torch.Tensor) -> torch.Tensor:
+        """The unfused route's norm: LayerNorm, or BatchNorm as flax
+        computes it (running statistics in eval mode; in training mode the
+        statistics of ``x`` over (B, L), which also move the running
+        ones)."""
         n = self.norm
         if not self.batchnorm:
             return n(x)
-        z = (x - n.running_mean) * torch.rsqrt(n.running_var + n.eps)
-        return z * n.weight + n.bias
+        if self.training:
+            mean = x.mean(dim=(0, 1))
+            var = ((x * x).mean(dim=(0, 1)) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                mom = self.bn_momentum
+                n.running_mean.mul_(mom).add_(mean, alpha=1.0 - mom)
+                n.running_var.mul_(mom).add_(var, alpha=1.0 - mom)
+        else:
+            mean, var = n.running_mean, n.running_var
+        return (x - mean) * (torch.rsqrt(var + n.eps) * n.weight) + n.bias
 
     def _gate(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.mult_gate(a, b) if hasattr(self, "mult_gate") else a * b
@@ -171,9 +190,12 @@ class SequenceLayer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator``: the source of the training dropout masks, on the
         device of ``x`` (unused in eval mode and without dropout)."""
-        if not (self.batchnorm and self.prenorm) or self.static_quant:
-            return self.forward_stream(x, None)[0]
-        lam, w_b, w_c, d, relu_state = self.mixer.layer_tail_operands()
+        tail = None
+        if self.batchnorm and self.prenorm and not self.static_quant:
+            tail = self.mixer.layer_tail_operands()
+        if tail is None:
+            return self._unfused(x, generator, None, streaming=False)[0]
+        lam, w_b, w_c, d, relu_state = tail
         if self.training:
             nw, nb = self.batch_affine(x)
             m1, m2 = self.dropout_masks(x.shape[0], x.device, generator)
@@ -195,9 +217,24 @@ class SequenceLayer(nn.Module):
                        ) -> Tuple[torch.Tensor, Pair]:
         """Unfused forward starting the scan from ``carry`` (None: zero).
         Returns (output, the mixer's final state pair)."""
+        return self._unfused(x, None, carry, streaming=True)
+
+    def _unfused(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 carry: Optional[Pair], streaming: bool
+                 ) -> Tuple[torch.Tensor, Optional[Pair]]:
         self._check_eval()
-        y, final = self.mixer(self._norm(x) if self.prenorm else x, carry)
+        m1 = m2 = None
+        if self.training:
+            m1, m2 = self.dropout_masks(x.shape[0], x.device, generator)
+        u = self._norm(x) if self.prenorm else x
+        if streaming:
+            y, final = self.mixer.forward_stream(u, carry)
+        else:
+            y, final = self.mixer(u)
         x1 = self._act(y)
+        if m1 is not None:
+            x1 = x1 * m1
         glu = self.glu_variant
         if glu == "full":
             h = self._gate(self.out1(x1), torch.sigmoid(self.out2(x1)))
@@ -207,6 +244,8 @@ class SequenceLayer(nn.Module):
             h = self._gate(y, torch.sigmoid(self.out2(x1)))
         else:
             h = x1
+        if m2 is not None:
+            h = h * m2
         out = h + x
         if not self.prenorm:
             out = self._norm(out)

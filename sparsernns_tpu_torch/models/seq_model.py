@@ -84,9 +84,11 @@ class RegressionModel(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Offline forward (the whole-layer kernel route for a float
-        prenorm-BatchNorm model, else the unfused route). In training mode
-        every layer normalizes with the batch statistics, moves its running
-        statistics and draws its dropout masks from ``generator``."""
+        prenorm-BatchNorm model, else the unfused route around the mixer
+        kernel or the stand-alone scans). In training mode every layer, on
+        either route, normalizes with the batch statistics, moves its
+        running statistics and draws its dropout masks from
+        ``generator``."""
         return self.decoder(self.encoder(x, generator))
 
     def forward_stream(self, x: torch.Tensor, cache: Optional[Cache] = None

@@ -2,12 +2,24 @@
 
 Inputs are (B, L, H); complex numbers are (re, im) pairs of float32
 tensors. The B and C projections are each one real matmul against a
-stacked (H, 2P) / (2P, H) weight. Three routes use the mixer:
+stacked (H, 2P) / (2P, H) weight. The routes through the mixer:
 
 - the whole-layer tail kernel (``ops/cuda/layer_tail.py``) takes its
-  operands from :meth:`S5SSM.layer_tail_operands` — the offline forward;
-- :meth:`S5SSM.forward` runs B-projection, the diagonal-scan kernel with
-  an optional carry, and C-projection — the streaming forward;
+  operands from :meth:`S5SSM.layer_tail_operands` — the offline forward and
+  training of a prenorm-BatchNorm layer around a unidirectional
+  ``scan_mode="fused"`` mixer;
+- :meth:`S5SSM.forward` (no carry) on such a mixer is the mixer kernel
+  (``ops/cuda/fused_s5.py`` ``FusedS5Fn``: B-projection, scan and
+  C-projection in one launch, the states never in device memory,
+  differentiable) and returns no state — the offline forward and training
+  of every other float layer (postnorm, LayerNorm);
+- the carried call (:meth:`S5SSM.forward_stream`, streaming), a
+  ``scan_mode="pallas"`` mixer and a ``bidirectional`` mixer run
+  B-projection, the stand-alone scan kernel (``ops/scan.py``
+  ``diag_ssm_scan``, differentiable without a carry) and C-projection. A
+  bidirectional mixer scans both ways and projects the two state sets with
+  one C of 2P columns (``C1`` and ``C2`` when C is projected from the
+  eigenbasis); only the forward states pass the relu;
 - with ``q_config.static_quant`` :meth:`S5SSM.forward` is the
   static-quant path: every operand through its ``FakeQuant`` and a
   sequential scan that requantizes the state after each step — the model
@@ -71,7 +83,13 @@ class S5SSM(nn.Module):
     """S5 state-space mixer over (B, L, H) inputs.
 
     Parameters keep the JAX package's names and shapes: Lambda_re /
-    Lambda_im (P,), B (P, H, 2), C (H, P, 2), D (H,), log_step (P, 1).
+    Lambda_im (P,), B (P, H, 2), C (H, P, 2), D (H,), log_step (P, 1);
+    with ``bidirectional`` C1 and C2 (H, P, 2) each in place of C, or one
+    C (H, 2P, 2) under ``c_init="complex_normal"``.
+
+    ``scan_mode``: ``"fused"`` (the mixer kernel where it applies),
+    ``"pallas"`` (always the stand-alone scan kernel; the name is the JAX
+    package's) or, for the static-quant model, ``"sequential"``.
     """
 
     def __init__(self, lambda_init, v, vinv, h: int, p: int,
@@ -81,10 +99,9 @@ class S5SSM(nn.Module):
                  bidirectional: bool = False, step_rescale: float = 1.0,
                  relufication: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 q_config: Optional[QuantizationConfig] = None):
+                 q_config: Optional[QuantizationConfig] = None,
+                 scan_mode: str = "fused"):
         super().__init__()
-        if bidirectional:
-            raise NotImplementedError("bidirectional mixer: not ported yet")
         if discretization not in ("zoh", "bilinear"):
             raise NotImplementedError(f"discretization {discretization}")
         self.h, self.p = h, p
@@ -93,7 +110,12 @@ class S5SSM(nn.Module):
         self.clip_eigs = clip_eigs
         self.step_rescale = step_rescale
         self.relufication = relufication
+        self.bidirectional = bidirectional
+        self.scan_mode = scan_mode
         self.q_config = cfg = q_config or QuantizationConfig.none()
+        if cfg.static_quant and bidirectional:
+            raise NotImplementedError(
+                "the static-quant model has no bidirectional mixer")
         if cfg.static_quant:
             kw = dict(pow2scale=True, calibrating=cfg.calibrating)
             self.quant_a = FakeQuantComplex(bits=cfg.a_precision, **kw)
@@ -114,15 +136,23 @@ class S5SSM(nn.Module):
         self.B = nn.Parameter(init_vinv_b(np.asarray(vinv), h, generator))
         local_p = 2 * p if conj_sym else p
         if c_init == "lecun_normal":
-            c = init_cv(np.asarray(v), h, generator)
+            draw_c = lambda: init_cv(np.asarray(v), h, generator)  # noqa: E731
         elif c_init == "trunc_standard_normal":
-            c = project_cv(trunc_standard_normal(h, local_p, generator),
-                           np.asarray(v))
+            draw_c = lambda: project_cv(  # noqa: E731
+                trunc_standard_normal(h, local_p, generator), np.asarray(v))
         elif c_init == "complex_normal":
-            c = torch.randn((h, p, 2), generator=generator) * 0.5 ** 0.5
+            draw_c = None
         else:
             raise NotImplementedError(f"C_init {c_init}")
-        self.C = nn.Parameter(c)
+        if draw_c is None:
+            cols = 2 * p if bidirectional else p
+            self.C = nn.Parameter(torch.randn(
+                (h, cols, 2), generator=generator) * 0.5 ** 0.5)
+        elif bidirectional:
+            self.C1 = nn.Parameter(draw_c())
+            self.C2 = nn.Parameter(draw_c())
+        else:
+            self.C = nn.Parameter(draw_c())
         self.D = nn.Parameter(torch.randn((h,), generator=generator))
         self.log_step = nn.Parameter(
             init_log_steps(p, dt_min, dt_max, generator))
@@ -144,41 +174,88 @@ class S5SSM(nn.Module):
     def _w_b(self, b_bar: Pair) -> torch.Tensor:
         return torch.cat([b_bar[0].T, b_bar[1].T], dim=-1)    # (H, 2P)
 
+    def _c_tilde(self) -> Pair:
+        """C as a (re, im) pair of (H, P), or (H, 2P) when bidirectional."""
+        if hasattr(self, "C1"):
+            return (torch.cat([self.C1[..., 0], self.C2[..., 0]], dim=-1),
+                    torch.cat([self.C1[..., 1], self.C2[..., 1]], dim=-1))
+        return self.C[..., 0], self.C[..., 1]
+
     def _w_c(self) -> torch.Tensor:
-        return torch.cat([self.C[..., 0].T, -self.C[..., 1].T], dim=0)
+        """[C_re^T; -C_im^T] with the conj-sym factor 2 folded in."""
+        c_re, c_im = self._c_tilde()
+        scale = 2.0 if self.conj_sym else 1.0
+        return scale * torch.cat([c_re.T, -c_im.T], dim=0)
 
     def layer_tail_operands(self):
         """Operands of the whole-layer tail kernel: (lam_bar, w_b, w_c, d,
-        relu_state), with the conj-sym factor 2 folded into ``w_c``."""
+        relu_state), or None where that kernel cannot express the mixer
+        (bidirectional, another ``scan_mode`` than ``"fused"``, static
+        quantization) and the layer runs its unfused route."""
+        if (self.scan_mode != "fused" or self.bidirectional
+                or self.q_config.static_quant):
+            return None
         lam_bar, b_bar = self.discretized()
-        scale = 2.0 if self.conj_sym else 1.0
-        return (lam_bar, self._w_b(b_bar), scale * self._w_c(), self.D,
+        return (lam_bar, self._w_b(b_bar), self._w_c(), self.D,
                 self.relufication)
 
-    def forward(self, u: torch.Tensor, carry: Optional[Pair] = None
-                ) -> Tuple[torch.Tensor, Pair]:
-        """u: (B, L, H) -> (ys (B, L, H), final state pair (B, P)).
+    def forward(self, u: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[Pair]]:
+        """The offline, differentiable call. u: (B, L, H) -> (ys (B, L, H),
+        final state). A unidirectional ``scan_mode="fused"`` mixer runs the
+        mixer kernel, which has no state to return (None, as in the JAX
+        package), every other float mixer the stand-alone scans without a
+        carry (None as well); the static-quant path returns the final
+        state of its sequential scan."""
+        if self.q_config.static_quant:
+            return self._apply_static_quant(u)
+        lam_bar, b_bar = self.discretized()
+        w_b = self._w_b(b_bar)
+        if self.scan_mode == "fused" and not self.bidirectional:
+            from sparsernns_tpu_torch.ops.cuda.fused_s5 import FusedS5Fn
+            return FusedS5Fn.apply(u, lam_bar[0], lam_bar[1], w_b,
+                                   self._w_c(), self.D,
+                                   self.relufication), None
+        return self._apply_scan(u, lam_bar, w_b, None)
 
-        ``carry``: the state before the first step (streaming); None
-        starts from zero."""
+    def forward_stream(self, u: torch.Tensor, carry: Optional[Pair]
+                       ) -> Tuple[torch.Tensor, Pair]:
+        """The carried call (streaming): the scan starts from ``carry``
+        (the state before the first step; None: zeros) and its final state
+        comes back. Not differentiable, as in the JAX package."""
         if self.q_config.static_quant:
             if carry is not None:
                 raise NotImplementedError(
                     "the static-quant model has no streaming carry: stream "
                     "through quantize.engine.W8A16Engine.process_chunk")
             return self._apply_static_quant(u)
+        if self.bidirectional:
+            raise NotImplementedError(
+                "a bidirectional mixer has no streaming carry")
+        if carry is None:
+            zeros = u.new_zeros((u.shape[0], self.p))
+            carry = (zeros, zeros)
         lam_bar, b_bar = self.discretized()
-        bu_cat = u @ self._w_b(b_bar)
+        return self._apply_scan(u, lam_bar, self._w_b(b_bar), carry)
+
+    def _apply_scan(self, u, lam_bar: Pair, w_b, carry: Optional[Pair]):
+        """B-projection, stand-alone scan(s), state relu, C-projection."""
+        bu_cat = u @ w_b
         bu = (bu_cat[..., :self.p], bu_cat[..., self.p:])
         xs = diag_ssm_scan(lam_bar, bu, carry_init=carry)
-        final = (xs[0][..., -1, :], xs[1][..., -1, :])
+        final = None
+        if carry is not None:
+            final = (xs[0][..., -1, :], xs[1][..., -1, :])
         if self.relufication:
             xs = (torch.relu(xs[0]), torch.relu(xs[1]))
+        if self.bidirectional:
+            # as in the JAX package, the reverse states are not relufied
+            # before the concatenation
+            rev = diag_ssm_scan(lam_bar, bu, reverse=True)
+            xs = (torch.cat([xs[0], rev[0]], dim=-1),
+                  torch.cat([xs[1], rev[1]], dim=-1))
         ys = torch.cat(xs, dim=-1) @ self._w_c()
-        if self.conj_sym:
-            ys = 2.0 * ys
         return ys + self.D * u, final
-
 
     # ---------------- static-quant path ----------------
 
@@ -208,7 +285,7 @@ class S5SSM(nn.Module):
         u_q = self.quant_ut(u)
         b_bar = self.quant_b(*b_bar)
         lam_q = self.quant_a(*lam_bar)
-        c_re, c_im = self.quant_c(self.C[..., 0], self.C[..., 1])
+        c_re, c_im = self.quant_c(*self._c_tilde())
 
         bu_cat = u_q @ self._w_b(b_bar)
         bu = self.quant_but(bu_cat[..., :self.p], bu_cat[..., self.p:])

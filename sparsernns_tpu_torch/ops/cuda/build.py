@@ -26,8 +26,8 @@ from typing import Dict, Iterable, List
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("diag_scan", "layer_tail", "layer_tail_bwd", "engine_layer",
-           "engine_network")
+SOURCES = ("diag_scan", "fused_s5", "layer_tail", "layer_tail_bwd",
+           "engine_layer", "engine_network")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

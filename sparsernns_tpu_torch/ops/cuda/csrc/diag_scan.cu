@@ -1,12 +1,18 @@
-// Diagonal complex linear recurrence x_t = lam * x_{t-1} + bu_t, forward in
-// time, with an optional initial carry (streaming).
+// Diagonal complex linear recurrence over time, in either direction:
+//   forward  x_t = lam * x_{t-1} + bu_t, with an optional initial carry
+//            (streaming);
+//   reverse  x_t = lam * x_{t+1} + bu_t, from a zero state past the end (the
+//            backward half of a bidirectional mixer, and the adjoint of the
+//            forward scan when called with conj(lam)).
 //
 // Replaces the TPU kernel sparsernns_tpu/ops/pallas/scan_kernel.py
 // `pallas_diag_scan` -> `_pallas_diag_scan` (pallas_call at :494). On the
 // TPU the grid walks time blocks in order and keeps the carry in VMEM
-// scratch; CUDA blocks run in no order, so here one thread owns one
-// (batch row, channel) pair and loops over all of time itself, the carry
-// in registers.
+// scratch, and the reverse direction flips its input and its output; CUDA
+// blocks run in no order, so here one thread owns one (batch row, channel)
+// pair and loops over all of time itself, the carry in registers, and the
+// reverse direction walks the same arrays from the last step down: no
+// flipped copy is made.
 //
 // Bound: bytes. Read bu_re and bu_im once (2*B*L*P*4 bytes) and write
 // x_re and x_im once (the same again); 8 flops per element are nothing
@@ -21,11 +27,15 @@
 
 #include <cuda_runtime.h>
 
+#include "scan_step.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnroll = 8;
 
+// Step s of the walk visits time row s (forward) or L - 1 - s (reverse).
+template <bool kReverse>
 __global__ void diag_scan_kernel(
     const float* __restrict__ bu_re, const float* __restrict__ bu_im,
     long long stride_b, long long stride_t,
@@ -47,33 +57,28 @@ __global__ void diag_scan_kernel(
   const float* in_i = bu_im + b * stride_b + p;
   float* o_r = out_re + (long long)b * L * P + p;
   float* o_i = out_im + (long long)b * L * P + p;
-  int t = 0;
-  for (; t + kUnroll <= L; t += kUnroll) {
+  int s = 0;
+  for (; s + kUnroll <= L; s += kUnroll) {
     float ur[kUnroll], ui[kUnroll];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
-      ur[k] = in_r[(t + k) * stride_t];
-      ui[k] = in_i[(t + k) * stride_t];
+      const long long t = kReverse ? L - 1 - (s + k) : s + k;
+      ur[k] = in_r[t * stride_t];
+      ui[k] = in_i[t * stride_t];
     }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
-      const float nr = lr * xr - li * xi + ur[k];
-      const float ni = lr * xi + li * xr + ui[k];
-      xr = nr;
-      xi = ni;
-      o_r[(long long)(t + k) * P] = xr;
-      o_i[(long long)(t + k) * P] = xi;
+      const long long t = kReverse ? L - 1 - (s + k) : s + k;
+      scan::scan_step(lr, li, ur[k], ui[k], xr, xi);
+      o_r[t * P] = xr;
+      o_i[t * P] = xi;
     }
   }
-  for (; t < L; ++t) {
-    const float ur = in_r[t * stride_t];
-    const float ui = in_i[t * stride_t];
-    const float nr = lr * xr - li * xi + ur;
-    const float ni = lr * xi + li * xr + ui;
-    xr = nr;
-    xi = ni;
-    o_r[(long long)t * P] = xr;
-    o_i[(long long)t * P] = xi;
+  for (; s < L; ++s) {
+    const long long t = kReverse ? L - 1 - s : s;
+    scan::scan_step(lr, li, in_r[t * stride_t], in_i[t * stride_t], xr, xi);
+    o_r[t * P] = xr;
+    o_i[t * P] = xi;
   }
 }
 
@@ -81,16 +86,24 @@ __global__ void diag_scan_kernel(
 
 // bu_re/bu_im: (B, L, P) views with element strides (stride_b, stride_t, 1)
 // -- they may be the two halves of one (B, L, 2P) tensor. c_re/c_im:
-// (B, P) contiguous, or null for a zero initial state. out_re/out_im:
-// (B, L, P) contiguous. Returns cudaGetLastError() after the launch.
-extern "C" int diag_scan_fwd(
+// (B, P) contiguous, or null for a zero initial state (the reverse direction
+// takes no carry: the caller passes null). out_re/out_im: (B, L, P)
+// contiguous. reverse: 0 forward in time, 1 backward. Returns
+// cudaGetLastError() after the launch.
+extern "C" int diag_scan_run(
     const float* bu_re, const float* bu_im, long long stride_b,
     long long stride_t, const float* lam_re, const float* lam_im,
     const float* c_re, const float* c_im, float* out_re, float* out_im,
-    int B, int L, int P, void* stream) {
+    int B, int L, int P, int reverse, void* stream) {
   dim3 grid((P + kThreads - 1) / kThreads, B);
-  diag_scan_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      bu_re, bu_im, stride_b, stride_t, lam_re, lam_im, c_re, c_im, out_re,
-      out_im, B, L, P);
+  if (reverse) {
+    diag_scan_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        bu_re, bu_im, stride_b, stride_t, lam_re, lam_im, c_re, c_im, out_re,
+        out_im, B, L, P);
+  } else {
+    diag_scan_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        bu_re, bu_im, stride_b, stride_t, lam_re, lam_im, c_re, c_im, out_re,
+        out_im, B, L, P);
+  }
   return (int)cudaGetLastError();
 }

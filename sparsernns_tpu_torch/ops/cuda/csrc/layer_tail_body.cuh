@@ -9,6 +9,8 @@
 
 #include <cuda_runtime.h>
 
+#include "scan_step.cuh"
+
 namespace tail {
 
 constexpr int kT = 32;        // time rows per tile
@@ -110,14 +112,8 @@ __device__ inline void load_tile(const float* __restrict__ xb, int t0,
   }
 }
 
-// One step of x_t = lam * x_{t-1} + bu_t on a complex state.
-__device__ inline void scan_step(float lr, float li, float bu_r, float bu_i,
-                                 float& xr, float& xi) {
-  const float nr = fmaf(lr, xr, fmaf(-li, xi, bu_r));
-  const float ni = fmaf(lr, xi, fmaf(li, xr, bu_i));
-  xr = nr;
-  xi = ni;
-}
+// One step of x_t = lam * x_{t-1} + bu_t on a complex state (scan_step.cuh).
+using scan::scan_step;
 
 // In-order scan over a tile held in S as [re | im] columns (bu in, states
 // out), from and to `carry` (2P floats in shared memory). With `act` the

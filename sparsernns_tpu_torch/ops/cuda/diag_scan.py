@@ -1,8 +1,11 @@
-"""Kernel K1: the diagonal complex scan x_t = λ ⊙ x_{t-1} + bu_t.
+"""Kernel K1: the diagonal complex scan x_t = λ ⊙ x_{t-1} + bu_t, and
+with ``reverse`` x_t = λ ⊙ x_{t+1} + bu_t.
 
 Replaces ``sparsernns_tpu/ops/pallas/scan_kernel.py`` ``pallas_diag_scan``
-(forward, with an optional ``carry_init``). The CUDA source is
-``csrc/diag_scan.cu``; its header note gives the bound and the design.
+(forward with an optional ``carry_init``, and ``reverse=True`` without
+one). The CUDA source is ``csrc/diag_scan.cu``; its header note gives the
+bound and the design. The differentiable form is
+``ops/scan.py`` :class:`~sparsernns_tpu_torch.ops.scan.DiagScanFn`.
 
 :func:`diag_scan` launches the kernel for CUDA tensors and takes the plain
 version :func:`diag_scan_plain` only for tensors on the CPU.
@@ -18,25 +21,28 @@ import torch
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
 
-#: kernel launches made by :func:`diag_scan` in this process
+#: kernel launches made by :func:`diag_scan` in this process, forward in
+#: time and reverse
 launches = 0
+launches_rev = 0
 
 _argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p]
 
 
-def diag_scan_plain(lam: Pair, bu: Pair,
-                    carry_init: Optional[Pair] = None) -> Pair:
+def diag_scan_plain(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
+                    reverse: bool = False) -> Pair:
     """Plain PyTorch version: the sequential recurrence."""
-    return sequential_diag_scan(lam, bu, carry_init=carry_init)[0]
+    return sequential_diag_scan(lam, bu, carry_init=carry_init,
+                                reverse=reverse)[0]
 
 
 def _lib():
     lib = build.load("diag_scan")
-    fn = lib.diag_scan_fwd
+    fn = lib.diag_scan_run
     if fn.argtypes is None:
         fn.argtypes = _argtypes
         fn.restype = ctypes.c_int
@@ -49,13 +55,15 @@ def _check_f32_cuda(name: str, t: torch.Tensor, device) -> None:
                          f"{t.dtype} on {t.device}")
 
 
-def diag_scan_cuda(lam: Pair, bu: Pair,
-                   carry_init: Optional[Pair] = None) -> Pair:
+def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
+                   reverse: bool = False) -> Pair:
     """Launch the kernel. bu: (B, L, P) pair whose last axis is unit-stride
     (the halves of a (B, L, 2P) projection are taken as they are);
-    lam: (P,) pair; carry_init: (B, P) pair or None. Returns contiguous
-    (B, L, P) states."""
-    global launches
+    lam: (P,) pair; carry_init: (B, P) pair or None, and None with
+    ``reverse``. Returns contiguous (B, L, P) states."""
+    global launches, launches_rev
+    if reverse and carry_init is not None:
+        raise NotImplementedError("carry with reverse scan")
     bu_re, bu_im = bu
     dev = bu_re.device
     if bu_re.dim() != 3 or bu_re.shape != bu_im.shape:
@@ -89,17 +97,22 @@ def diag_scan_cuda(lam: Pair, bu: Pair,
              bu_re.stride(1), lam_re.data_ptr(), lam_im.data_ptr(),
              c_re.data_ptr() if c_re is not None else None,
              c_im.data_ptr() if c_im is not None else None,
-             out_re.data_ptr(), out_im.data_ptr(), b, l, p, stream)
+             out_re.data_ptr(), out_im.data_ptr(), b, l, p, int(reverse),
+             stream)
     build.check(err, "diag_scan")
-    launches += 1
+    if reverse:
+        launches_rev += 1
+    else:
+        launches += 1
     return out_re, out_im
 
 
-def diag_scan(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None
-              ) -> Pair:
-    """All-prefix states of x_t = λ x_{t-1} + bu_t over bu (B, L, P).
+def diag_scan(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
+              reverse: bool = False) -> Pair:
+    """All-prefix states of x_t = λ x_{t-1} + bu_t over bu (B, L, P), or
+    with ``reverse`` of x_t = λ x_{t+1} + bu_t (no carry then).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
     fn = diag_scan_cuda if bu[0].is_cuda else diag_scan_plain
-    return fn(lam, bu, carry_init)
+    return fn(lam, bu, carry_init, reverse)

@@ -48,15 +48,18 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     """The NDNS regression model of ``cfg`` on ``device``, in eval mode
     or, with ``training``, in training mode (batch statistics, dropout
     ``cfg.p_dropout``), with parameters drawn from ``seed`` (default
-    ``cfg.seed``) by the JAX package's initializer distributions. Only a
-    float prenorm-BatchNorm model trains; a LayerNorm or postnorm model
-    raises at its first training forward.
+    ``cfg.seed``) by the JAX package's initializer distributions. Every
+    float model trains: prenorm or postnorm, BatchNorm or LayerNorm,
+    unidirectional or ``cfg.bidirectional``.
 
     ``q_config`` with ``static_quant`` builds the static-quant model (the
     calibration model when it is ``calibrating``); it runs the sequential
     scan, so ``scan_mode`` must then be ``"sequential"``, as the JAX
-    package's conversion pipeline passes it. The float model runs only
-    ``"fused"``."""
+    package's conversion pipeline passes it. The float model runs
+    ``"fused"`` (the whole-layer kernel or the mixer kernel, whichever the
+    layer admits) or ``"pallas"`` (the JAX package's name for the
+    stand-alone scan kernel between two matmuls); the other scan modes of
+    the JAX package are not ported."""
     if cfg.dataset != "ndns":
         raise NotImplementedError(f"dataset {cfg.dataset!r}: only ndns")
     q_config = q_config or QuantizationConfig.none()
@@ -73,9 +76,10 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     elif q_config.any_quantized:
         raise NotImplementedError(
             "dynamic fake-quant (QAT) models are not ported yet")
-    elif scan_mode != "fused":
+    elif scan_mode not in ("fused", "pallas"):
         raise NotImplementedError(
-            f"scan_mode {scan_mode!r}: the float port runs only 'fused'")
+            f"scan_mode {scan_mode!r}: the float port runs 'fused' and "
+            "'pallas'")
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     init = blocked_dplr_init(cfg.ssm_size_base, cfg.blocks, cfg.conj_sym)
 
@@ -87,7 +91,7 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
             dt_max=cfg.dt_max, conj_sym=cfg.conj_sym,
             clip_eigs=cfg.clip_eigs, bidirectional=cfg.bidirectional,
             relufication=cfg.relufication, generator=gen,
-            q_config=q_config)
+            q_config=q_config, scan_mode=scan_mode)
 
     model = RegressionModel(
         make_mixer, d_input, d_output, cfg.n_layers, cfg.d_model,

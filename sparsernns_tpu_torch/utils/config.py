@@ -44,7 +44,7 @@ class RunConfig:
     bn_momentum: float = 0.95
     glu_variant: str = "half1"
     relufication: bool = False
-    scan_mode: str = "fused"            # the float port runs only "fused"
+    scan_mode: str = "fused"            # float port: "fused" or "pallas"
 
     # --- quantized conversion and serving (quantize/convert.py) ---
     convert_quantization: str = "w8a16"

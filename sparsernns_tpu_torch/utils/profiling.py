@@ -5,14 +5,17 @@ offline eval step (B clips of 30 s) and one streaming chunk (B streams,
 1 s) of the float model — or, with ``--engine``, one offline call of the
 calibrated w8a16 engine (B x 3751 frames) and one streaming forward of the
 engine-backed denoiser (one 128-frame block); or, with ``--train``, one
-train step of the recipe (B clips of 30 s, dropout 0.1, noBCdecay) — with
+train step of the recipe (B clips of 30 s, dropout 0.1, noBCdecay), which
+``--prenorm 0`` (postnorm: the unfused layer around the mixer kernel) or
+``--bidirectional`` (the stand-alone scans both ways) put on the mixer
+route — with
 ``torch.profiler``, after a warm-up, and prints for each: the wall time,
 the device time summed over kernels, the device busy share (device time
 over wall time) and the kernels that take the most device time. Run on a
 machine with the card, from the repository root::
 
     python -m sparsernns_tpu_torch.utils.profiling [--batch 8] \\
-        [--engine | --train]
+        [--engine | --train [--prenorm 0] [--bidirectional]]
 
 Prints the card's name and power limit, then one JSON object per
 profiled region.
@@ -80,6 +83,10 @@ def main() -> int:
                          "model")
     ap.add_argument("--train", action="store_true",
                     help="profile one train step of the float model")
+    ap.add_argument("--prenorm", type=int, choices=(0, 1), default=1,
+                    help="with --train: 0 trains the postnorm model")
+    ap.add_argument("--bidirectional", action="store_true",
+                    help="with --train: the bidirectional model")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -104,6 +111,9 @@ def main() -> int:
     if args.engine:
         return _profile_engine(cfg, model, noisy, noisy_t)
     if args.train:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, prenorm=bool(args.prenorm),
+                                  bidirectional=args.bidirectional)
         return _profile_train(cfg, noisy_t, clean_t)
 
     den = StreamingDenoiser(model, batch_size=b)
@@ -146,7 +156,9 @@ def _profile_train(cfg, noisy_t, clean_t) -> int:
 
     for _ in range(2):              # warm-up: builds kernels, plans
         train_step()
-    _report(((f"train step (B={noisy_t.shape[0]}, incl. STFT)",
+    kind = ("" if cfg.prenorm else "postnorm ") + (
+        "bidirectional " if cfg.bidirectional else "")
+    _report(((f"{kind}train step (B={noisy_t.shape[0]}, incl. STFT)",
               train_step),))
     return 0
 

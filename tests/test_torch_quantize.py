@@ -265,4 +265,5 @@ def test_build_model_quant_refusals():
                         scan_mode="sequential")
     carry = (torch.zeros(1, 8), torch.zeros(1, 8))
     with pytest.raises(NotImplementedError, match="process_chunk"):
-        model.encoder.layers[0].mixer(torch.zeros(1, 4, H), carry)
+        model.encoder.layers[0].mixer.forward_stream(
+            torch.zeros(1, 4, H), carry)

@@ -36,7 +36,8 @@ models outside the whole-layer kernel) at the width of ``recipes/ndns.json`` (d_
    B=8 batch must lower the loss; step wall time, device busy share and
    peak memory at B=32 and B=8;
 9. mixer kernel phase — K1 in reverse and K4a (the S5 mixer in one kernel,
-   with and without relu_state) against their plain versions, B=8, L=3751
+   float mode, with and without relu_state) against their plain versions,
+   B=8, L=3751
    and one odd-width case, with times; the gradients of ``FusedS5Fn`` and
    of the scan in both directions on the card against autograd through
    the plain versions on the card;
@@ -47,7 +48,22 @@ models outside the whole-layer kernel) at the width of ``recipes/ndns.json`` (d_
    card against the CPU, eight dropout-free B=8 steps that must lower the
    loss; then the bidirectional model at B=8, two steps (6 x K1 forward
    and 6 x K1 reverse a step); step wall time, device busy share, peak
-   memory.
+   memory;
+11. top-k kernel phase — K1 with the block requant (no carry, and from a
+   carry), K4a in the serving engine's modes (int8 weights with per-half
+   scales, bf16 and f32 input, block 512, relu_state off and on, one
+   odd-width case; f32 weights on a 32-bit state grid) and K4b (one
+   128-frame block from a carry) against their plain versions at B=8,
+   L=3751 with layer 1 of the w8a16 engine, with times; chunked K4b
+   against one K4a-engine call (exact); the engine's per-op route forced
+   against its stack route;
+12. top-k serving phase — the recipe with ``topk=0.5, approx_topk=true``:
+   the float eval step (3 x K1, no K2, no K4a) and a 30-chunk stream
+   (3 x K1 a forward); calibrate, freeze, the w8a16 engine (bf16) offline
+   (3 x K4a-engine, no K5, no K6) and streaming at block 128 (3 x K4b a
+   forward); the relufied model's engine offline (3 x K1 block requant,
+   no K4a), checked against the CPU engine, and its refusal to stream
+   chunks; wall time, device busy share and peak memory per region.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -695,6 +711,428 @@ def mixer_training_phase(cfg, records, counters, batch) -> None:
           f"MiB, device busy share {profile['device_busy_share']:.3f}",
           flush=True)
 
+def _codes_of(name, out, ref, scale) -> float:
+    """States on a frozen grid of ``scale``: every state the kernel wrote
+    lies on the grid (its code times ``scale``, exactly); codes at most 1
+    apart in at most 0.5 % of the elements (a requant can flip at a tie
+    between two summation orders); where the codes agree, the states within
+    1e-5 of max|ref|. Returns the largest absolute difference."""
+    import torch
+    q_out, q_ref = torch.round(out / scale), torch.round(ref / scale)
+    _check(f"{name}: distance of the kernel's states from the grid",
+           (out - q_out * scale).abs().max().item(), 0.0)
+    _code_diff(name, q_out, q_ref)
+    diff = (out - ref).abs()
+    same = q_out == q_ref
+    _check(f"{name}: states where the codes agree",
+           diff[same].max().item() if bool(same.any()) else 0.0,
+           1e-5 * ref.abs().max().item())
+    return diff.max().item()
+
+
+def _kernel_close(name, out, ref) -> float:
+    """A serving-mode kernel against its plain version: max 1e-5 of
+    max(1, max|ref|), the bar of the CPU tests against the JAX kernels."""
+    err = (out.float() - ref.float()).abs().max().item()
+    _check(name, err, 1e-5 * max(1.0, ref.abs().max().item()))
+    return err
+
+
+def _engine_close(name, out, ref) -> float:
+    """The engine bar: max 2e-3, mean 1e-4 of max(1, max|ref|); also
+    prints the share of elements above 1e-5 of it."""
+    diff = (out.float() - ref.float()).abs()
+    scale = max(1.0, ref.abs().max().item())
+    share = (diff > 1e-5 * scale).float().mean().item()
+    print(f"{name}: share above 1e-5 x max(1, |ref|): {share:.2e}",
+          flush=True)
+    _check(f"{name} (max)", diff.max().item(), 2e-3 * scale)
+    _check(f"{name} (mean)", diff.mean().item(), 1e-4 * scale)
+    return diff.max().item()
+
+
+def _topk_close(name, out, ref, limit) -> None:
+    """Outputs of two top-k models: elementwise within ``limit``, but for
+    at most 0.5 % of the elements, where a top-k selection flipped at a
+    near-tie between two summation orders (such an element moves by up to
+    the threshold). Prints the count."""
+    diff = (out.float() - ref.float()).abs()
+    over = int((diff > limit).sum().item())
+    share = over / diff.numel()
+    print(f"{name}: max_abs_err {diff.max().item():.3e}, {over} of "
+          f"{diff.numel()} elements above {limit:.1e} (flips; limit 0.5 %)",
+          flush=True)
+    if share > 5e-3:
+        raise AssertionError(f"{name}: {share} of the elements differ")
+
+
+def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
+                      frozen) -> None:
+    """Phase 11: K1 with the block requant, K4a's engine modes and K4b
+    against their plain versions on the card at B x frames, full width,
+    layer 1 of the flagship w8a16 engine (int8 weights, per-half scales,
+    16-bit state grid), and K4a with that layer's dequantized f32 weights
+    on a 32-bit state grid (the ``w32a32`` mode); states on the grid,
+    codes at most 1 apart in at most 0.5 %, outputs 1e-5 of max(1,
+    max|ref|); chunked K4b at chunk = block against one K4a-engine call
+    (exact); the flagship engine's per-op route forced against its stack
+    route at float32 activations (engine bar)."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import diag_scan, fused_s5
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    dev = torch.device("cuda")
+    lay = engine.layers[1]
+    h, p = lay.w_b.shape[0], lay.p
+    s_re, s_im, bits = lay.state_requant
+    block = 512
+    rnd = lambda *shape, sc=1.0: (  # noqa: E731
+        torch.randn(shape, generator=gen) * sc).to(dev)
+    # a realistic mixer input: the first layer's input stream of the batch
+    u32 = (x_eng @ engine.encoder_kernel.dequant() + engine.encoder_bias)
+    u32 = (u32 * lay.norm_w + lay.norm_b).contiguous()
+    u16 = u32.to(torch.bfloat16)
+    ops = (lay.lam, lay.w_b, lay.w_c, lay.d)
+    kw = dict(wb_scales=lay.wb_scales, wc_scales=lay.wc_scales,
+              block_requant=lay.state_requant)
+    rows = B * frames
+    with torch.no_grad():
+        # ---- K1 block requant: no carry, then from a carry on the grid ----
+        bu = u32 @ lay.wb_f32()
+        bu = (bu[..., :p], bu[..., p:])
+        carry = tuple(torch.round(rnd(B, p, sc=200.0)) * s
+                      for s in (s_re, s_im))
+        k1 = {}
+        for tag, c in (("no carry", None), ("carry", carry)):
+            ref = diag_scan.diag_scan_plain(lay.lam, bu, c, False,
+                                            lay.state_requant, block)
+            out = diag_scan.diag_scan_cuda(lay.lam, bu, c, False,
+                                           lay.state_requant, block)
+            torch.cuda.synchronize()
+            k1[tag] = max(_codes_of(f"K1 block requant {tag} {half}", o, r,
+                                    sc)
+                          for half, o, r, sc in zip(("re", "im"), out, ref,
+                                                    (s_re, s_im)))
+        ms = _median_ms(lambda: diag_scan.diag_scan_cuda(
+            lay.lam, bu, None, False, lay.state_requant, block))
+        plain_ms = _time_ms(lambda: diag_scan.diag_scan_plain(
+            lay.lam, bu, None, False, lay.state_requant, block), 1, 0)
+        elems = B * frames * p
+        bound, by = _bound_ms(2 * elems * 4 * 2 + 2 * p * 4, 18 * elems)
+        records["diag_scan_requant"] = dict(
+            name="diag_scan_requant", route="cuda",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/diag_scan.cu",
+            replaces="sparsernns_tpu/ops/pallas/scan_kernel.py:433",
+            max_abs_err=max(k1.values()), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None)
+
+        # ---- K4a engine modes: bf16 / f32 input, relu_state off / on ----
+        errs = {}
+        for name, u in (("bf16", u16), ("f32", u32)):
+            for relu in (False, True):
+                ref = fused_s5.fused_s5_engine_plain(
+                    u, *ops, block_t=block, relu_state=relu, **kw)
+                out = fused_s5.fused_s5_engine_cuda(
+                    u, *ops, block_t=block, relu_state=relu, **kw)
+                torch.cuda.synchronize()
+                errs[(name, relu)] = _kernel_close(
+                    f"K4a engine u {name} relu_state={relu} vs plain", out,
+                    ref)
+        hs, ps, ls = 20, 12, 70
+        odd_w_b = torch.randint(-127, 128, (hs, 2 * ps), generator=gen,
+                                dtype=torch.int8).to(dev)
+        odd_w_c = torch.randint(-127, 128, (2 * ps, hs), generator=gen,
+                                dtype=torch.int8).to(dev)
+        radius = torch.rand(ps, generator=gen) * 0.39 + 0.6
+        angle = torch.rand(ps, generator=gen) * 6.0 - 3.0
+        odd = ((radius * torch.cos(angle)).to(dev),
+               (radius * torch.sin(angle)).to(dev))
+        odd_kw = dict(wb_scales=(2.0 ** -8, 2.0 ** -9),
+                      wc_scales=(2.0 ** -7, 2.0 ** -8),
+                      block_requant=(2.0 ** -10, 2.0 ** -11, 16))
+        u_odd = rnd(2, ls, hs).to(torch.bfloat16)
+        args = (u_odd, odd, odd_w_b, odd_w_c, rnd(hs))
+        _kernel_close(f"K4a engine H={hs} P={ps} L={ls} block 16 vs plain",
+                      fused_s5.fused_s5_engine_cuda(*args, block_t=16,
+                                                    relu_state=True,
+                                                    **odd_kw),
+                      fused_s5.fused_s5_engine_plain(*args, block_t=16,
+                                                     relu_state=True,
+                                                     **odd_kw))
+        # the w32a32 mode: f32 weights without scales, a 32-bit grid
+        kw32 = dict(block_requant=(s_re * 2.0 ** -16, s_im * 2.0 ** -16, 32))
+        args32 = (u32, lay.lam, lay.wb_f32().contiguous(),
+                  lay.wc_f32().contiguous(), lay.d)
+        _kernel_close("K4a engine f32 weights, 32-bit state grid vs plain",
+                      fused_s5.fused_s5_engine_cuda(*args32, block_t=block,
+                                                    **kw32),
+                      fused_s5.fused_s5_engine_plain(*args32, block_t=block,
+                                                     **kw32))
+        ms = _median_ms(lambda: fused_s5.fused_s5_engine_cuda(
+            u16, *ops, block_t=block, **kw))
+        plain_ms = _time_ms(lambda: fused_s5.fused_s5_engine_plain(
+            u16, *ops, block_t=block, **kw), 1, 0)
+        row_flops = 2 * h * 2 * p + 2 * 2 * p * h + 22 * p + 2 * h
+        w_bytes = 2 * h * 2 * p + 4 * (h + 2 * p)
+        bound, by = _bound_ms(rows * h * (2 + 4) + w_bytes,
+                              rows * row_flops)
+        records["fused_s5_engine"] = dict(
+            name="fused_s5_engine", route="cuda",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/fused_s5.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_s5.py:204",
+            max_abs_err=errs[("bf16", False)], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None)
+
+        # ---- K4b: one 128-frame block from a carry on the grid ----
+        ub = u16[:, :STREAM_BLOCK].contiguous()
+        ref, ref_c = fused_s5.fused_s5_engine_plain(
+            ub, *ops, block_t=STREAM_BLOCK, carry=carry, **kw)
+        out, out_c = fused_s5.fused_s5_engine_cuda(
+            ub, *ops, block_t=STREAM_BLOCK, carry=carry, **kw)
+        torch.cuda.synchronize()
+        err = _kernel_close("K4b one 128-frame block vs plain", out, ref)
+        for half, o, r, sc in zip(("re", "im"), out_c, ref_c, (s_re, s_im)):
+            _codes_of(f"K4b carry out {half}", o, r, sc)
+        ms = _median_ms(lambda: fused_s5.fused_s5_engine_cuda(
+            ub, *ops, block_t=STREAM_BLOCK, carry=carry, **kw))
+        plain_ms = _time_ms(lambda: fused_s5.fused_s5_engine_plain(
+            ub, *ops, block_t=STREAM_BLOCK, carry=carry, **kw), 1, 0)
+        s_rows = B * STREAM_BLOCK
+        bound, by = _bound_ms(s_rows * h * (2 + 4) + w_bytes + 4 * B * p * 4,
+                              s_rows * row_flops)
+        records["fused_s5_engine_carry"] = dict(
+            name="fused_s5_engine_carry", route="cuda",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/fused_s5.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_s5.py:290",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+
+        # ---- chunked K4b at chunk = block == one K4a-engine call ----
+        n = (frames // STREAM_BLOCK) * STREAM_BLOCK
+        whole = fused_s5.fused_s5_engine_cuda(
+            u16[:, :n].contiguous(), *ops, block_t=STREAM_BLOCK, **kw)
+        c = tuple(torch.zeros((B, p), device=dev) for _ in range(2))
+        parts = []
+        for t0 in range(0, n, STREAM_BLOCK):
+            y, c = fused_s5.fused_s5_engine_cuda(
+                u16[:, t0:t0 + STREAM_BLOCK].contiguous(), *ops,
+                block_t=STREAM_BLOCK, carry=c, **kw)
+            parts.append(y)
+        _check(f"K4b x {n // STREAM_BLOCK} chunks vs one K4a-engine call",
+               (torch.cat(parts, dim=1) - whole).abs().max().item(), 0.0)
+
+    # ---- the flagship engine's per-op route vs its stack route ----
+    f32_engine = engine_from_frozen(cfg, *frozen, device=dev, block_t=512,
+                                    act_dtype=torch.float32)
+    stack = f32_engine._apply_stack(x_eng, 512)
+    f32_engine._stack_ok = False
+    before = fused_s5.launches_engine
+    per_op = f32_engine(x_eng)
+    torch.cuda.synchronize()
+    assert fused_s5.launches_engine - before == len(engine.layers)
+    _engine_close("flagship engine per-op route vs stack route (f32 act)",
+                  per_op, stack)
+    print(json.dumps({"topk_kernel_phase": {
+        k: records[k] for k in ("diag_scan_requant", "fused_s5_engine",
+                                "fused_s5_engine_carry")}}), flush=True)
+
+
+def topk_serving_phase(cfg, audio, feats, records, counters) -> None:
+    """Phase 12: the recipe with ``topk=0.5, approx_topk=true`` at full
+    width, random weights from seed 0: the float eval step (K1 x 3, no K2,
+    no K4a) and a 30-chunk float stream (K1 x 3 a forward); calibrate,
+    freeze and serve the w8a16 engine (bf16): offline (K4a-engine x 3, no
+    K5, no K6), streaming from the engine at block 128 (K4b x 3 a
+    forward); the relufied model's engine offline (K1 block requant x 3,
+    no K4a) and its refusal to stream chunks."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.ops.stft import stft_splitter
+    from sparsernns_tpu_torch.quantize.calibrate import calibrate
+    from sparsernns_tpu_torch.quantize.config import quantization_recipes
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+    from sparsernns_tpu_torch.train.steps import make_ndns_eval_step
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    dev = torch.device("cuda")
+    n_layers = cfg.n_layers
+    noisy, clean_t = audio
+    noisy_mag, noisy_phase, clean_mag = feats
+    frames = noisy_mag.shape[-1]
+    tk = dataclasses.replace(cfg, topk=0.5, approx_topk=True)
+    x_eng = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+
+    def timed(tag, fn, expect):
+        """One warm call after a warm-up: wall time, launches (asserted
+        exactly), peak memory, then one profiled call."""
+        fn()
+        counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        counts = counters()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        for name, count in counts.items():
+            assert count == expect.get(name, 0), (tag, counts)
+        prof = profile_region(tag, fn, top=12)
+        print(json.dumps(prof), flush=True)
+        print(f"{tag}: {wall:.1f} ms, peak memory {peak:.0f} MiB, device "
+              f"busy share {prof['device_busy_share']:.3f}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        return out, counts
+
+    # ---- float top-k model: eval step and 30-chunk stream ----
+    model = build_model(tk, 257, 257, device=dev, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for layer in model.encoder.layers:
+            h = layer.d_model
+            layer.norm.running_mean.copy_(0.1 * torch.randn(h, generator=gen))
+            layer.norm.running_var.copy_(0.5 + torch.rand(h, generator=gen))
+    step = make_ndns_eval_step(model)
+    metrics, _ = timed(f"topk float eval step B={B}",
+                       lambda: step(noisy_mag, noisy_phase, clean_mag,
+                                    clean_t), {"diag_scan": n_layers})
+    assert np.isfinite(metrics["loss"].item()), metrics
+    with torch.no_grad():
+        x_small = x_eng[:2, :200]
+        cpu_model = build_model(tk, 257, 257, device="cpu", seed=0)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        _topk_close("topk float forward, GPU vs CPU plain",
+                    model(x_small).cpu(), cpu_model(x_small.cpu()), 1e-3)
+        y_stream, _ = model.forward_stream(x_eng[:, :1000], None)
+        _topk_close("topk stream forward vs offline forward",
+                    y_stream, model(x_eng[:, :1000]), 1e-3)
+    den = StreamingDenoiser(model, batch_size=B)
+    forwards = [0]
+    inner = den._forward
+
+    def counting(frames_mag):
+        forwards[0] += 1
+        return inner(frames_mag)
+
+    den._forward = counting
+    counters()
+    t0 = time.time()
+    out = den.process_offline(noisy, chunk_samples=CHUNK)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = counters()
+    print(f"topk float streaming: {forwards[0]} forwards in {wall:.1f} ms "
+          f"({wall / forwards[0]:.1f} ms a forward), launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    assert np.isfinite(out).all()
+    assert forwards[0] >= -(-noisy.shape[1] // CHUNK) - 1, forwards
+    assert counts == {**{k: 0 for k in counts},
+                      "diag_scan": n_layers * forwards[0]}, counts
+    del step, cpu_model
+
+    # ---- calibrate, freeze, the top-k engine (bf16) offline ----
+    cal_ds_audio = torch.from_numpy(noisy[:, :CAL_SECONDS * 16000]).to(dev)
+    cal_x = (stft_splitter(cal_ds_audio)[0] - STFT_MAG_MEAN).transpose(1, 2)
+    recipe = quantization_recipes[cfg.convert_quantization]
+
+    def calibrated(run_cfg, float_model):
+        t0 = time.time()
+        cal_model = build_model(
+            run_cfg, 257, 257, device=dev, seed=0, scan_mode="sequential",
+            q_config=recipe(static_quant=True, calibrating=True))
+        frozen = calibrate(cal_model, float_model.state_dict(),
+                           [cal_x[:B // 2], cal_x[B // 2:]])
+        print(f"calibrate 2 x {B // 2} clips of {CAL_SECONDS} s and freeze: "
+              f"{time.time() - t0:.1f} s", flush=True)
+        return frozen
+
+    frozen = calibrated(tk, model)
+    engine = engine_from_frozen(tk, *frozen, device=dev, block_t=512)
+    assert not engine._stack_ok and engine.cfg.topk == 0.5
+    mask, counts = timed(f"topk engine offline call B={B}",
+                         lambda: engine(x_eng),
+                         {"fused_s5_engine": n_layers})
+    records["fused_s5_engine"]["launches"] = counts["fused_s5_engine"]
+    assert mask.shape == (B, frames, 257) and torch.isfinite(mask).all()
+    cpu_engine = engine_from_frozen(tk, *frozen, device="cpu", block_t=512)
+    ref = cpu_engine(x_small.cpu())
+    _topk_close("topk engine on the card vs on the CPU (plain)",
+                engine(x_small).cpu(), ref,
+                2e-3 * max(1.0, ref.abs().max().item()))
+
+    # ---- streaming from the top-k engine at block 128 (K4b) ----
+    stream_engine = engine_from_frozen(tk, *frozen, device=dev,
+                                       block_t=STREAM_BLOCK)
+    eden = StreamingDenoiser.from_engine(stream_engine, batch_size=B)
+    chunk_calls, chunk_frames = [0], [0]
+    inner_chunk = stream_engine.process_chunk
+
+    def counting_chunk(x, carries=None):
+        chunk_calls[0] += 1
+        chunk_frames[0] += x.shape[1]
+        return inner_chunk(x, carries)
+
+    stream_engine.process_chunk = counting_chunk
+    counters()
+    t0 = time.time()
+    out_eng = eden.process_offline(noisy, chunk_samples=CHUNK)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = counters()
+    records["fused_s5_engine_carry"]["launches"] = counts[
+        "fused_s5_engine_carry"]
+    print(f"topk engine streaming: {chunk_calls[0]} forwards of "
+          f"{STREAM_BLOCK}-frame blocks in {wall:.1f} ms "
+          f"({wall / chunk_calls[0]:.1f} ms a forward), launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    assert np.isfinite(out_eng).all()
+    assert chunk_frames[0] == eden._frames_done >= frames - STREAM_BLOCK, (
+        chunk_frames, eden._frames_done)
+    assert counts == {**{k: 0 for k in counts}, "fused_s5_engine_carry":
+                      n_layers * chunk_calls[0]}, counts
+    pos = [0]
+
+    def one_forward():
+        eden.process(noisy[:, pos[0]:pos[0] + STREAM_BLOCK * eden.hop])
+        pos[0] += STREAM_BLOCK * eden.hop
+
+    eden.reset()
+    for _ in range(4):
+        one_forward()
+    prof = profile_region("topk engine streaming forward (128-frame block)",
+                          one_forward, top=8)
+    print(json.dumps(prof), flush=True)
+    del engine, stream_engine, eden, cpu_engine
+
+    # ---- the relufied top-k model: state top-k, K1 block requant ----
+    rk = dataclasses.replace(tk, relufication=True)
+    r_model = build_model(rk, 257, 257, device=dev, seed=0)
+    r_model.load_state_dict(model.state_dict())
+    r_frozen = calibrated(rk, r_model)
+    r_engine = engine_from_frozen(rk, *r_frozen, device=dev, block_t=512)
+    assert r_engine._state_topk()
+    r_mask, counts = timed(f"relufied topk engine offline call B={B}",
+                           lambda: r_engine(x_eng),
+                           {"diag_scan_requant": n_layers})
+    records["diag_scan_requant"]["launches"] = counts["diag_scan_requant"]
+    assert r_mask.shape == (B, frames, 257) and torch.isfinite(r_mask).all()
+    r_cpu = engine_from_frozen(rk, *r_frozen, device="cpu", block_t=512)
+    ref = r_cpu(x_small.cpu())
+    _topk_close("relufied topk engine on the card vs on the CPU (plain)",
+                r_engine(x_small).cpu(), ref,
+                2e-3 * max(1.0, ref.abs().max().item()))
+    try:
+        r_engine.process_chunk(x_eng[:, :512])
+    except NotImplementedError as exc:
+        print(f"relufied topk engine process_chunk refuses: {exc}",
+              flush=True)
+    else:
+        raise AssertionError("state top-k process_chunk must raise")
+
 
 def main() -> int:
     import torch
@@ -900,7 +1338,9 @@ def main() -> int:
     # ---------------- engine set-up: calibrate, freeze, build ----------
     def reset_counts():
         diag_scan.launches = diag_scan.launches_rev = 0
+        diag_scan.launches_requant = 0
         fused_s5.launches = layer_tail.launches = 0
+        fused_s5.launches_engine = fused_s5.launches_engine_carry = 0
         engine_layer.launches = engine_layer.launches_carry = 0
         engine_network.launches = 0
 
@@ -1155,7 +1595,10 @@ def main() -> int:
         counts = {
             "diag_scan": diag_scan.launches,
             "diag_scan_rev": diag_scan.launches_rev,
+            "diag_scan_requant": diag_scan.launches_requant,
             "fused_s5": fused_s5.launches,
+            "fused_s5_engine": fused_s5.launches_engine,
+            "fused_s5_engine_carry": fused_s5.launches_engine_carry,
             "layer_tail_train": layer_tail.launches,
             "layer_tail_hist": layer_tail_bwd.launches_hist,
             "layer_tail_bwd": layer_tail_bwd.launches_bwd,
@@ -1178,6 +1621,17 @@ def main() -> int:
     mixer_training_phase(cfg, records, counters, batch)
 
     mark("mixer-route training phase")
+
+    # ---------------- top-k kernel phase (K1 requant, K4a engine, K4b) ---
+    topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
+                      (frozen_params, frozen_stats))
+    mark("top-k kernel phase")
+
+    # ---------------- top-k serving phase ----------------
+    topk_serving_phase(cfg, (noisy, clean_t),
+                       (noisy_mag, noisy_phase, clean_mag), records,
+                       counters)
+    mark("top-k serving phase")
 
     # ---------------- report ----------------
     smi = subprocess.run(

@@ -31,7 +31,12 @@ Two routes, as in the JAX package:
   here, with the same values. Under static quantization the dense layers
   are ``QuantizedDense``, the gate product a ``QuantizedMultiply`` and the
   layer output goes through the ``quant_residual`` quantizer; such a layer
-  does not train yet.
+  does not train yet. A layer with activation top-k (``topk < 1``, with
+  ``approx_topk``: the JAX package raises for exact top-k) runs this route
+  too: a relufied layer's activation keeps the ``int(topk * d_model)``
+  largest values (relu top-k), and after the residual, the postnorm and
+  the relu the layer output keeps them too (top-k, before the
+  ``quant_residual`` quantizer).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from torch import nn
 
 from sparsernns_tpu_torch.ops.cuda.layer_tail import LayerTailFn
 from sparsernns_tpu_torch.ops.scan import Pair
+from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity, top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
 from sparsernns_tpu_torch.quantize.static import (FakeQuant, QuantizedDense,
                                                   QuantizedMultiply)
@@ -75,7 +81,8 @@ class SequenceLayer(nn.Module):
                  glu_variant: str = "none", relufication: bool = False,
                  batchnorm: bool = True, prenorm: bool = True,
                  q_config: Optional[QuantizationConfig] = None,
-                 dropout: float = 0.0, bn_momentum: float = 0.90):
+                 dropout: float = 0.0, bn_momentum: float = 0.90,
+                 topk: float = 1.0, approx_topk: bool = False):
         super().__init__()
         if glu_variant not in GLU_VARIANTS:
             raise ValueError(f"glu_variant must be one of {GLU_VARIANTS}")
@@ -89,6 +96,8 @@ class SequenceLayer(nn.Module):
         self.batchnorm = batchnorm
         self.prenorm = prenorm
         self.dropout = dropout
+        self.topk = topk
+        self.approx_topk = approx_topk
         #: running = bn_momentum * running + (1 - bn_momentum) * batch, the
         #: JAX package's convention (the complement of nn.BatchNorm1d's)
         self.bn_momentum = bn_momentum
@@ -109,10 +118,19 @@ class SequenceLayer(nn.Module):
             self.quant_residual = FakeQuant(
                 bits=act_bits, calibrating=q_config.calibrating)
 
+    def _topk_k(self) -> int:
+        if not self.approx_topk:
+            raise NotImplementedError("exact top-k not implemented")
+        return int(self.topk * self.d_model)
+
     def _act(self, x: torch.Tensor) -> torch.Tensor:
+        """The GLU input's activation (the JAX package's ``_glu_act``)."""
+        if self.relufication:
+            if self.topk < 1.0:
+                return relu_top_k_sparsity(x, self._topk_k())
+            return torch.relu(x)
         # jax.nn.gelu's default is the tanh approximation
-        return torch.relu(x) if self.relufication else F.gelu(
-            x, approximate="tanh")
+        return F.gelu(x, approximate="tanh")
 
     def bn_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """BatchNorm (eval) as x * nw + nb, from the running statistics."""
@@ -251,6 +269,8 @@ class SequenceLayer(nn.Module):
             out = self._norm(out)
         if self.relufication:
             out = torch.relu(out)
+        if self.topk < 1.0:
+            out = top_k_sparsity(out, self._topk_k())
         if hasattr(self, "quant_residual"):
             out = self.quant_residual(out)
         return out, final

@@ -18,6 +18,7 @@ from torch import nn
 
 from sparsernns_tpu_torch.models.layers import SequenceLayer, make_dense
 from sparsernns_tpu_torch.ops.scan import Pair
+from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
 
 #: per-layer streaming state: one (carry_re, carry_im) (B, P) pair a layer
@@ -32,20 +33,31 @@ class StackedEncoderModel(nn.Module):
                  relufication: bool = False, batchnorm: bool = True,
                  prenorm: bool = True,
                  q_config: Optional[QuantizationConfig] = None,
-                 dropout: float = 0.0, bn_momentum: float = 0.90):
+                 dropout: float = 0.0, bn_momentum: float = 0.90,
+                 topk: float = 1.0, approx_topk: bool = False):
         super().__init__()
         q_config = q_config or QuantizationConfig.none()
+        if topk < 1.0 and not approx_topk:
+            raise NotImplementedError("exact top-k not implemented")
         self.relufication = relufication
+        self.d_model = d_model
+        self.topk = topk
         self.encoder = make_dense(q_config, d_input, d_model)
         self.layers = nn.ModuleList(
             SequenceLayer(make_mixer(), d_model, glu_variant=glu_variant,
                           relufication=relufication, batchnorm=batchnorm,
                           prenorm=prenorm, q_config=q_config,
-                          dropout=dropout, bn_momentum=bn_momentum)
+                          dropout=dropout, bn_momentum=bn_momentum,
+                          topk=topk, approx_topk=approx_topk)
             for _ in range(n_layers))
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder dense and its activation (the JAX package's
+        ``topk_op``): relu top-k with top-k, relu when relufied, else
+        none."""
         x = self.encoder(x)
+        if self.topk < 1.0:
+            return relu_top_k_sparsity(x, int(self.topk * self.d_model))
         return torch.relu(x) if self.relufication else x
 
     def forward(self, x: torch.Tensor,

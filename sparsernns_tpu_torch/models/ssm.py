@@ -14,17 +14,20 @@ stacked (H, 2P) / (2P, H) weight. The routes through the mixer:
   differentiable) and returns no state — the offline forward and training
   of every other float layer (postnorm, LayerNorm);
 - the carried call (:meth:`S5SSM.forward_stream`, streaming), a
-  ``scan_mode="pallas"`` mixer and a ``bidirectional`` mixer run
+  ``scan_mode="pallas"`` mixer, a ``bidirectional`` mixer and a mixer with
+  activation top-k (``topk < 1``) run
   B-projection, the stand-alone scan kernel (``ops/scan.py``
   ``diag_ssm_scan``, differentiable without a carry) and C-projection. A
   bidirectional mixer scans both ways and projects the two state sets with
   one C of 2P columns (``C1`` and ``C2`` when C is projected from the
-  eigenbasis); only the forward states pass the relu;
+  eigenbasis); only the forward states pass the relu, or with top-k and
+  ``approx_topk`` a relu top-k of ``int(topk * P)`` per state half;
 - with ``q_config.static_quant`` :meth:`S5SSM.forward` is the
   static-quant path: every operand through its ``FakeQuant`` and a
   sequential scan that requantizes the state after each step — the model
   that calibration observes and that the serving engine is checked
-  against.
+  against. It top-ks no state, as in the JAX package (the serving engine
+  does: the reference's emulation and engine differ at that site).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from sparsernns_tpu_torch.models.ssm_init import (init_cv, init_log_steps,
                                                   trunc_standard_normal)
 from sparsernns_tpu_torch.ops.scan import (Pair, diag_ssm_scan,
                                            sequential_diag_scan)
+from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
 from sparsernns_tpu_torch.quantize.static import (FakeQuant,
                                                   FakeQuantComplex,
@@ -100,7 +104,8 @@ class S5SSM(nn.Module):
                  relufication: bool = False,
                  generator: Optional[torch.Generator] = None,
                  q_config: Optional[QuantizationConfig] = None,
-                 scan_mode: str = "fused"):
+                 scan_mode: str = "fused", topk: float = 1.0,
+                 approx_topk: bool = False):
         super().__init__()
         if discretization not in ("zoh", "bilinear"):
             raise NotImplementedError(f"discretization {discretization}")
@@ -112,6 +117,8 @@ class S5SSM(nn.Module):
         self.relufication = relufication
         self.bidirectional = bidirectional
         self.scan_mode = scan_mode
+        self.topk = topk
+        self.approx_topk = approx_topk
         self.q_config = cfg = q_config or QuantizationConfig.none()
         if cfg.static_quant and bidirectional:
             raise NotImplementedError(
@@ -191,9 +198,10 @@ class S5SSM(nn.Module):
         """Operands of the whole-layer tail kernel: (lam_bar, w_b, w_c, d,
         relu_state), or None where that kernel cannot express the mixer
         (bidirectional, another ``scan_mode`` than ``"fused"``, static
-        quantization) and the layer runs its unfused route."""
+        quantization, activation top-k, which the tail kernel applies at
+        none of its sites) and the layer runs its unfused route."""
         if (self.scan_mode != "fused" or self.bidirectional
-                or self.q_config.static_quant):
+                or self.q_config.static_quant or self.topk < 1.0):
             return None
         lam_bar, b_bar = self.discretized()
         return (lam_bar, self._w_b(b_bar), self._w_c(), self.D,
@@ -202,16 +210,17 @@ class S5SSM(nn.Module):
     def forward(self, u: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[Pair]]:
         """The offline, differentiable call. u: (B, L, H) -> (ys (B, L, H),
-        final state). A unidirectional ``scan_mode="fused"`` mixer runs the
-        mixer kernel, which has no state to return (None, as in the JAX
-        package), every other float mixer the stand-alone scans without a
-        carry (None as well); the static-quant path returns the final
-        state of its sequential scan."""
+        final state). A unidirectional ``scan_mode="fused"`` mixer without
+        top-k runs the mixer kernel, which has no state to return (None, as
+        in the JAX package), every other float mixer the stand-alone scans
+        without a carry (None as well); the static-quant path returns the
+        final state of its sequential scan."""
         if self.q_config.static_quant:
             return self._apply_static_quant(u)
         lam_bar, b_bar = self.discretized()
         w_b = self._w_b(b_bar)
-        if self.scan_mode == "fused" and not self.bidirectional:
+        if (self.scan_mode == "fused" and not self.bidirectional
+                and not self.topk < 1.0):
             from sparsernns_tpu_torch.ops.cuda.fused_s5 import FusedS5Fn
             return FusedS5Fn.apply(u, lam_bar[0], lam_bar[1], w_b,
                                    self._w_c(), self.D,
@@ -247,7 +256,7 @@ class S5SSM(nn.Module):
         if carry is not None:
             final = (xs[0][..., -1, :], xs[1][..., -1, :])
         if self.relufication:
-            xs = (torch.relu(xs[0]), torch.relu(xs[1]))
+            xs = self._state_act(xs)
         if self.bidirectional:
             # as in the JAX package, the reverse states are not relufied
             # before the concatenation
@@ -256,6 +265,17 @@ class S5SSM(nn.Module):
                   torch.cat([xs[1], rev[1]], dim=-1))
         ys = torch.cat(xs, dim=-1) @ self._w_c()
         return ys + self.D * u, final
+
+    def _state_act(self, xs: Pair) -> Pair:
+        """The relufied states' activation: relu, or with top-k a relu
+        top-k of ``int(topk * P)`` on each half (exact top-k raises, as in
+        the JAX package)."""
+        if self.topk < 1.0:
+            if not self.approx_topk:
+                raise NotImplementedError("exact top-k not implemented")
+            k = int(self.topk * xs[0].shape[-1])
+            return relu_top_k_sparsity(xs[0], k), relu_top_k_sparsity(xs[1], k)
+        return torch.relu(xs[0]), torch.relu(xs[1])
 
     # ---------------- static-quant path ----------------
 

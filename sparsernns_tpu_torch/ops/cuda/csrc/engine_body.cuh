@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_step.cuh"
+
 namespace engine {
 
 constexpr int kT = 32;        // frames per tile
@@ -228,23 +230,18 @@ __device__ inline void decode_tile(const float* R, int ldh, const DenseW& dec,
   });
 }
 
-// One layer on the tile R (rows x H, f32 stream values); h replaces R.
-// Z, Y: (kT, ldh) scratch; S: (kT, ldp) scratch, ldp >= 2P; carry: (2P)
-// running state [re | im] of this layer, kept across tiles. `t0` is the
-// index of the tile's first frame in the sequence of length L.
-__device__ inline void layer_tile(const LayerParams& lp, const Mode& m,
-                                  float* R, float* Z, float* Y, float* S,
+// The S5 mixer on a tile: Z (rows x H, the mixer input) -> Y = the mixer
+// output. S: (kT, ldp) scratch, ldp >= 2P; carry: (2P) running state
+// [re | im] of this layer, kept across tiles. `t0` is the index of the
+// tile's first frame in the sequence of length L. Shared by the layer
+// (layer_tile) and the stand-alone mixer kernel (fused_s5.cu), so
+// both round every product, state and requant alike.
+__device__ inline void mixer_tile(const LayerParams& lp, int relu_state,
+                                  int H, const float* Z, float* Y, float* S,
                                   float* carry, int ldh, int ldp, int rows,
                                   int t0, int L, int block_t) {
-  const int H = m.h, P = lp.p;
+  const int P = lp.p;
   const int tid = threadIdx.x;
-  for (int i = tid; i < rows * H; i += blockDim.x) {
-    const int r = i / H, c = i % H;
-    const float v = R[r * ldh + c];
-    Z[r * ldh + c] =
-        m.prenorm ? __fadd_rn(__fmul_rn(v, lp.nw[c]), lp.nb[c]) : v;
-  }
-  __syncthreads();
   // ---- B-projection, per-half weight scale on the result ----
   tile_matmul(Z, ldh, lp.wb, H, 2 * P, rows, [&](int r, int c, float acc) {
     S[r * ldp + c] = __fmul_rn(acc, c < P ? lp.wb_s_re : lp.wb_s_im);
@@ -255,13 +252,8 @@ __device__ inline void layer_tile(const LayerParams& lp, const Mode& m,
     const float lr = lp.lam_re[p], li = lp.lam_im[p];
     float xr = carry[p], xi = carry[P + p];
     for (int r = 0; r < rows; ++r) {
-      const float nr = __fadd_rn(
-          __fsub_rn(__fmul_rn(lr, xr), __fmul_rn(li, xi)), S[r * ldp + p]);
-      const float ni = __fadd_rn(
-          __fadd_rn(__fmul_rn(lr, xi), __fmul_rn(li, xr)),
-          S[r * ldp + P + p]);
-      xr = nr;
-      xi = ni;
+      scan::scan_step_rn(lr, li, S[r * ldp + p], S[r * ldp + P + p], xr,
+                         xi);
       float sr = xr, si = xi;
       if (lp.has_sq) {
         sr = __fmul_rn(quant_code(xr, lp.sq_re, lp.sq_min, lp.sq_max),
@@ -274,7 +266,7 @@ __device__ inline void layer_tile(const LayerParams& lp, const Mode& m,
           xi = si;
         }
       }
-      if (m.relu_state) {
+      if (relu_state) {
         sr = fmaxf(sr, 0.f);
         si = fmaxf(si, 0.f);
       }
@@ -290,6 +282,25 @@ __device__ inline void layer_tile(const LayerParams& lp, const Mode& m,
     Y[r * ldh + c] = __fadd_rn(acc, __fmul_rn(lp.d[c], Z[r * ldh + c]));
   });
   __syncthreads();
+}
+
+// One layer on the tile R (rows x H, f32 stream values); h replaces R.
+// Z, Y: (kT, ldh) scratch; S, carry, t0 as for mixer_tile.
+__device__ inline void layer_tile(const LayerParams& lp, const Mode& m,
+                                  float* R, float* Z, float* Y, float* S,
+                                  float* carry, int ldh, int ldp, int rows,
+                                  int t0, int L, int block_t) {
+  const int H = m.h;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < rows * H; i += blockDim.x) {
+    const int r = i / H, c = i % H;
+    const float v = R[r * ldh + c];
+    Z[r * ldh + c] =
+        m.prenorm ? __fadd_rn(__fmul_rn(v, lp.nw[c]), lp.nb[c]) : v;
+  }
+  __syncthreads();
+  mixer_tile(lp, m.relu_state, H, Z, Y, S, carry, ldh, ldp, rows, t0, L,
+             block_t);
   // ---- activation (x1 replaces z); no GLU: residual here ----
   for (int i = tid; i < rows * H; i += blockDim.x) {
     const int r = i / H, c = i % H;

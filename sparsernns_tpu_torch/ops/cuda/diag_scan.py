@@ -2,8 +2,8 @@
 with ``reverse`` x_t = λ ⊙ x_{t+1} + bu_t.
 
 Replaces ``sparsernns_tpu/ops/pallas/scan_kernel.py`` ``pallas_diag_scan``
-(forward with an optional ``carry_init``, and ``reverse=True`` without
-one). The CUDA source is ``csrc/diag_scan.cu``; its header note gives the
+(forward with an optional ``carry_init`` and an optional
+``block_requant``, and ``reverse=True`` without either). The CUDA source is ``csrc/diag_scan.cu``; its header note gives the
 bound and the design. The differentiable form is
 ``ops/scan.py`` :class:`~sparsernns_tpu_torch.ops.scan.DiagScanFn`.
 
@@ -19,25 +19,39 @@ from typing import Optional
 import torch
 
 from sparsernns_tpu_torch.ops.cuda import build
-from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
+from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair,
+                                           sequential_diag_scan)
 
-#: kernel launches made by :func:`diag_scan` in this process, forward in
-#: time and reverse
+#: kernel launches made by :func:`diag_scan` in this process: forward in
+#: time, reverse, and forward with the block requant (each launch counts
+#: in one of the three)
 launches = 0
 launches_rev = 0
+launches_requant = 0
 
-_argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
+_argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+              ctypes.c_longlong] + [ctypes.c_void_p] * 6
+             + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+
+
+def _check_requant(block_requant, block_t, reverse) -> None:
+    if block_requant is None:
+        return
+    if reverse:
+        raise NotImplementedError("block_requant with reverse scan")
+    if block_t is None or block_t < 1:
+        raise ValueError(f"block_requant needs block_t >= 1, got {block_t}")
 
 
 def diag_scan_plain(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
-                    reverse: bool = False) -> Pair:
+                    reverse: bool = False,
+                    block_requant: Optional[BlockRequant] = None,
+                    block_t: Optional[int] = None) -> Pair:
     """Plain PyTorch version: the sequential recurrence."""
+    _check_requant(block_requant, block_t, reverse)
     return sequential_diag_scan(lam, bu, carry_init=carry_init,
-                                reverse=reverse)[0]
+                                reverse=reverse, block_requant=block_requant,
+                                block_t=block_t)[0]
 
 
 def _lib():
@@ -56,14 +70,18 @@ def _check_f32_cuda(name: str, t: torch.Tensor, device) -> None:
 
 
 def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
-                   reverse: bool = False) -> Pair:
+                   reverse: bool = False,
+                   block_requant: Optional[BlockRequant] = None,
+                   block_t: Optional[int] = None) -> Pair:
     """Launch the kernel. bu: (B, L, P) pair whose last axis is unit-stride
     (the halves of a (B, L, 2P) projection are taken as they are);
     lam: (P,) pair; carry_init: (B, P) pair or None, and None with
-    ``reverse``. Returns contiguous (B, L, P) states."""
-    global launches, launches_rev
+    ``reverse``; ``block_requant`` (s_re, s_im, bits) per ``block_t``
+    steps, forward only. Returns contiguous (B, L, P) states."""
+    global launches, launches_rev, launches_requant
     if reverse and carry_init is not None:
         raise NotImplementedError("carry with reverse scan")
+    _check_requant(block_requant, block_t, reverse)
     bu_re, bu_im = bu
     dev = bu_re.device
     if bu_re.dim() != 3 or bu_re.shape != bu_im.shape:
@@ -91,6 +109,10 @@ def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
     out_im = torch.empty_like(out_re)
     if b == 0 or l == 0 or p == 0:
         return out_re, out_im
+    rq_t, s_re, s_im, qmax = 0, 1.0, 1.0, 0.0
+    if block_requant is not None:
+        s_re, s_im, bits = block_requant
+        rq_t, qmax = int(block_t), 2.0 ** (bits - 1) - 1
     fn = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(bu_re.data_ptr(), bu_im.data_ptr(), bu_re.stride(0),
@@ -98,21 +120,28 @@ def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
              c_re.data_ptr() if c_re is not None else None,
              c_im.data_ptr() if c_im is not None else None,
              out_re.data_ptr(), out_im.data_ptr(), b, l, p, int(reverse),
-             stream)
+             rq_t, float(s_re), float(s_im), -(qmax + 1.0), qmax, stream)
     build.check(err, "diag_scan")
     if reverse:
         launches_rev += 1
+    elif block_requant is not None:
+        launches_requant += 1
     else:
         launches += 1
     return out_re, out_im
 
 
 def diag_scan(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
-              reverse: bool = False) -> Pair:
+              reverse: bool = False,
+              block_requant: Optional[BlockRequant] = None,
+              block_t: Optional[int] = None) -> Pair:
     """All-prefix states of x_t = λ x_{t-1} + bu_t over bu (B, L, P), or
-    with ``reverse`` of x_t = λ x_{t+1} + bu_t (no carry then).
+    with ``reverse`` of x_t = λ x_{t+1} + bu_t (no carry then). With
+    ``block_requant`` every state is output on the frozen grid and the
+    carry is put on it every ``block_t`` steps
+    (:func:`~sparsernns_tpu_torch.ops.scan.sequential_diag_scan`).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
     fn = diag_scan_cuda if bu[0].is_cuda else diag_scan_plain
-    return fn(lam, bu, carry_init, reverse)
+    return fn(lam, bu, carry_init, reverse, block_requant, block_t)

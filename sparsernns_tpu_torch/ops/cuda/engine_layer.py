@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from sparsernns_tpu_torch.ops.cuda import build
-from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
+from sparsernns_tpu_torch.ops.scan import (Pair, grid_value, quant_codes,
+                                           sequential_diag_scan)
 
 GLU_KINDS = ("full", "half1", "half2", "none")
 
@@ -74,17 +75,9 @@ def stream_dtype(layer, mode: LayerMode) -> torch.dtype:
 
 # ---------------------------------------------------------------- plain
 
-def quant_codes(x: torch.Tensor, spec: Tuple[float, int]) -> torch.Tensor:
-    """Integer codes (as float32) of x on a frozen (scale, bits) grid:
-    round half to even, then clip."""
-    s, bits = spec
-    qmax = float(2 ** (bits - 1) - 1)
-    return torch.clamp(torch.round(x / s), -(qmax + 1.0), qmax)
-
-
 def qdq(x: torch.Tensor, spec: Optional[Tuple[float, int]]) -> torch.Tensor:
     """Quantize-dequantize onto a frozen grid; None passes through."""
-    return x if spec is None else quant_codes(x, spec) * spec[0]
+    return x if spec is None else grid_value(x, *spec)
 
 
 def dense_plain(x: torch.Tensor, dense: Dense) -> torch.Tensor:
@@ -112,12 +105,27 @@ def encode_plain(x: torch.Tensor, enc: Dense, mode: LayerMode
     return h.to(mode.act_dtype).to(torch.float32)
 
 
-def layer_body_plain(r: torch.Tensor, layer, mode: LayerMode,
-                     carry: Pair) -> Tuple[torch.Tensor, Pair]:
-    """The layer on ONE time block r (B, T, H) of float32 stream values,
-    starting from ``carry``. Returns (h before the output requant, the
-    carry into the next block)."""
-    z = r * layer.norm_w + layer.norm_b if mode.prenorm else r
+class MixerOps(NamedTuple):
+    """The serving mixer's operands under the names a ``_LayerPack`` of
+    the engine gives them, so either can be handed to :func:`mixer_plain`
+    and :func:`pack_mixer`."""
+
+    lam: Pair                 # (P,) f32 pair
+    w_b: torch.Tensor         # (H, 2P) int8 / int16 / f32
+    w_c: torch.Tensor         # (2P, H), conj-sym factor in the scales or w
+    d: torch.Tensor           # (H,) f32
+    wb_scales: Optional[Tuple[float, float]] = None
+    wc_scales: Optional[Tuple[float, float]] = None
+    #: (s_re, s_im, bits) of the blockwise state requant
+    state_requant: Optional[Tuple[float, float, int]] = None
+
+
+def mixer_plain(z: torch.Tensor, layer, relu_state: bool, carry: Pair
+                ) -> Tuple[torch.Tensor, Pair]:
+    """The mixer on ONE time block z (B, T, H) float32 from ``carry``:
+    B-projection with the per-half scales, the recurrence, every state on
+    the frozen grid and the requantized last state as the next carry,
+    relu, C-side scales, C-projection + d * z. Returns (y, carry)."""
     p = layer.w_b.shape[-1] // 2
     bu = z @ layer.w_b.to(torch.float32)
     bu_re, bu_im = bu[..., :p], bu[..., p:]
@@ -129,12 +137,21 @@ def layer_body_plain(r: torch.Tensor, layer, mode: LayerMode,
         s_re, s_im, bits = layer.state_requant
         x_re, x_im = qdq(x_re, (s_re, bits)), qdq(x_im, (s_im, bits))
     carry = (x_re[:, -1], x_im[:, -1])
-    if mode.relu_state:
+    if relu_state:
         x_re, x_im = torch.relu(x_re), torch.relu(x_im)
     if layer.wc_scales is not None:
         x_re, x_im = x_re * layer.wc_scales[0], x_im * layer.wc_scales[1]
     y = torch.cat([x_re, x_im], dim=-1) @ layer.w_c.to(torch.float32)
-    y = y + layer.d * z
+    return y + layer.d * z, carry
+
+
+def layer_body_plain(r: torch.Tensor, layer, mode: LayerMode,
+                     carry: Pair) -> Tuple[torch.Tensor, Pair]:
+    """The layer on ONE time block r (B, T, H) of float32 stream values,
+    starting from ``carry``. Returns (h before the output requant, the
+    carry into the next block)."""
+    z = r * layer.norm_w + layer.norm_b if mode.prenorm else r
+    y, carry = mixer_plain(z, layer, mode.relu_state, carry)
     x1 = torch.relu(y) if mode.relufication else F.gelu(
         y, approximate="tanh")
     if mode.glu == "none":
@@ -280,8 +297,9 @@ def pack_dense(dense: Optional[Dense], name: str, shape, device) -> DenseW:
     return pack_weight(kernel.data, kernel.scale, bias, name, shape, device)
 
 
-def pack_layer(layer, mode: LayerMode, device) -> LayerParams:
-    """One layer's operands as the kernel's struct (pointers into the
+def pack_mixer(layer, device) -> LayerParams:
+    """The mixer's operands of a layer (or a :class:`MixerOps`) as the
+    kernel's struct, without the norm and the GLU (pointers into the
     layer's own tensors, which must outlive the launch)."""
     h = layer.w_b.shape[0]
     p = layer.w_b.shape[-1] // 2
@@ -290,29 +308,38 @@ def pack_layer(layer, mode: LayerMode, device) -> LayerParams:
     lp.lam_re = _ptr(layer.lam[0], "lam_re", (p,), f32, device)
     lp.lam_im = _ptr(layer.lam[1], "lam_im", (p,), f32, device)
     lp.d = _ptr(layer.d, "d", (h,), f32, device)
-    lp.nw = _ptr(layer.norm_w, "norm_w", (h,), f32, device)
-    lp.nb = _ptr(layer.norm_b, "norm_b", (h,), f32, device)
     lp.wb = pack_weight(layer.w_b, None, None, "w_b", (h, 2 * p), device)
     lp.wc = pack_weight(layer.w_c, None, None, "w_c", (2 * p, h), device)
-    if mode.glu != "none":
-        lp.out2 = pack_dense((layer.out2_kernel, layer.out2_bias), "out2",
-                             (h, h), device)
-    if mode.glu == "full":
-        lp.out1 = pack_dense((layer.out1_kernel, layer.out1_bias), "out1",
-                             (h, h), device)
     lp.wb_s_re, lp.wb_s_im = layer.wb_scales or (1.0, 1.0)
     lp.wc_s_re, lp.wc_s_im = layer.wc_scales or (1.0, 1.0)
     if layer.state_requant is not None:
         s_re, s_im, bits = layer.state_requant
         lp.has_sq, lp.sq_re, lp.sq_im = 1, s_re, s_im
         lp.sq_min, lp.sq_max = -(2.0 ** (bits - 1)), 2.0 ** (bits - 1) - 1
+    lp.p = p
+    return lp
+
+
+def pack_layer(layer, mode: LayerMode, device) -> LayerParams:
+    """One layer's operands as the kernel's struct (pointers into the
+    layer's own tensors, which must outlive the launch)."""
+    h = layer.w_b.shape[0]
+    f32 = torch.float32
+    lp = pack_mixer(layer, device)
+    lp.nw = _ptr(layer.norm_w, "norm_w", (h,), f32, device)
+    lp.nb = _ptr(layer.norm_b, "norm_b", (h,), f32, device)
+    if mode.glu != "none":
+        lp.out2 = pack_dense((layer.out2_kernel, layer.out2_bias), "out2",
+                             (h, h), device)
+    if mode.glu == "full":
+        lp.out1 = pack_dense((layer.out1_kernel, layer.out1_bias), "out1",
+                             (h, h), device)
     if layer.residual_requant is not None:
         s, bits = layer.residual_requant
         if bits > 16:
             raise ValueError("residual requant wider than 16 bits")
         lp.has_rq, lp.rq_s = 1, s
         lp.rq_min, lp.rq_max = -(2.0 ** (bits - 1)), 2.0 ** (bits - 1) - 1
-    lp.p = p
     return lp
 
 

@@ -1,16 +1,28 @@
-"""Kernel K4a: the S5 mixer in one kernel, float mode.
+"""Kernels K4a and K4b: the S5 mixer in one kernel.
 
-Replaces ``sparsernns_tpu/ops/pallas/fused_s5.py`` ``fused_s5_apply`` with
-f32 weights and an f32 input: per batch row
+Replaces ``sparsernns_tpu/ops/pallas/fused_s5.py`` ``fused_s5_apply``:
+per batch row
 
-    bu = u @ W_b
+    bu = u @ W_b                          (per-half scales on the result)
     xs = scan(λ, bu)                      (in order over time)
     y = [xs_re xs_im] @ W_c + D ⊙ u       (relu on xs if relu_state)
 
-with the states never in device memory. The CUDA source is
-``csrc/fused_s5.cu``; its header note gives the bound and the design.
-:func:`fused_s5` launches the kernel for CUDA tensors and takes the plain
-version :func:`fused_s5_plain` only for tensors on the CPU.
+with the states never in device memory. One CUDA source,
+``csrc/fused_s5.cu`` (its header note gives the bound and the design),
+runs every mode through the serving layer kernels' own mixer steps
+(``csrc/engine_body.cuh`` ``mixer_tile``):
+
+- :func:`fused_s5`: the float mode (f32 weights and input, no scales, no
+  state grid), the mixer of the float models' mixer route;
+- :func:`fused_s5_engine`: the serving engine's modes (int8 / int16
+  weights with static per-half pow2 scales, a bf16 or f32 input, the
+  blockwise state requant), and with a carry in and out the replacement
+  of ``fused_s5_apply_carry`` (K4b): the mixer of the engine's per-op
+  route.
+
+Each launches the kernel for CUDA tensors and takes its plain version
+(:func:`fused_s5_plain`, :func:`fused_s5_engine_plain`) only for tensors
+on the CPU.
 
 :class:`FusedS5Fn` is the differentiable form (the counterpart of
 ``sparsernns_tpu/ops/pallas/fused_vjp.py`` ``fused_s5_apply_diff``). Its
@@ -20,33 +32,40 @@ reverse with conj(λ) on the cotangents, and leaves the products to
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
 Under ``relu_state`` the backward's relu mask comes from the recomputed
-states. Both kernels round a scan step alike (``csrc/scan_step.cuh``), but
-the recompute's B-projection is a ``torch.matmul`` with another summation
-order than the kernel's, so a state within rounding of zero may land on the
-other side of the relu than it did in the forward. Such a state contributes
-nothing to the output on either side; its cotangent is then kept or dropped
-the other way. The JAX package is in the same position (a Pallas dot in the
-forward, an XLA matmul in the recompute) and holds this gradient to
-rtol = atol 2e-2 against plain autograd.
+states. The recompute's B-projection is a ``torch.matmul`` with another
+summation order than the kernel's, and its scan another rounding of a
+step, so a state within rounding of zero may land on the other side of the
+relu than it did in the forward. Such a state contributes nothing to the
+output on either side; its cotangent is then kept or dropped the other
+way. The JAX package is in the same position (a Pallas dot in the forward,
+an XLA matmul in the recompute) and holds this gradient to rtol = atol
+2e-2 against plain autograd.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
-from sparsernns_tpu_torch.ops.cuda import build
+from sparsernns_tpu_torch.ops.cuda import build, engine_layer
 from sparsernns_tpu_torch.ops.cuda.diag_scan import diag_scan
 from sparsernns_tpu_torch.ops.cuda.layer_tail import check_tensors
-from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
+from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair,
+                                           sequential_diag_scan)
 
-#: kernel launches made by :func:`fused_s5` in this process
+#: kernel launches made in this process: by :func:`fused_s5` (K4a float),
+#: by :func:`fused_s5_engine` without a carry (K4a engine modes) and with
+#: one (K4b)
 launches = 0
+launches_engine = 0
+launches_engine_carry = 0
 
-#: shared memory one block may ask for on the card, and the kernel's tile
+#: shared memory one block may ask for on the card
 _MAX_SMEM = 232448
-_TILE = 32
+
+Scales = Optional[Tuple[float, float]]
 
 
 def fused_s5_plain(u, lam: Pair, w_b, w_c, d, relu_state: bool = False
@@ -61,45 +80,69 @@ def fused_s5_plain(u, lam: Pair, w_b, w_c, d, relu_state: bool = False
     return torch.cat(xs, dim=-1) @ w_c + d * u
 
 
-_argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-
-
 def _lib():
     fn = build.load("fused_s5").fused_s5_fwd
     if fn.argtypes is None:
-        fn.argtypes = _argtypes
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.POINTER(engine_layer.LayerParams),
+                        ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def _launch(u, ops: engine_layer.MixerOps, relu_state: bool, block_t: int,
+            carry: Optional[Pair]):
+    """One launch of the kernel on a checked (B, L, H) input ``u``:
+    y, or with ``carry`` (y, new carry)."""
+    dev = u.device
+    b, l, h = u.shape
+    p = ops.w_b.shape[-1] // 2
+    smem = 4 * (32 * (2 * (-(-h // 4) * 4) + -(-2 * p // 4) * 4) + 2 * p)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"H={h}, P={p}: a tile needs {smem} bytes of "
+                         f"shared memory, the card gives {_MAX_SMEM}")
+    u = u.contiguous()
+    lp = engine_layer.pack_mixer(ops, dev)
+    y = torch.empty((b, l, h), dtype=torch.float32, device=dev)
+    ci_ptr = co_ptr = [None, None]
+    co = None
+    if carry is not None:
+        ci = tuple(c.contiguous() for c in carry)
+        ci_ptr = [engine_layer._ptr(c, "carry", (b, p), torch.float32, dev)
+                  for c in ci]
+        co = (torch.empty((b, p), dtype=torch.float32, device=dev),
+              torch.empty((b, p), dtype=torch.float32, device=dev))
+        co_ptr = [c.data_ptr() for c in co]
+    if b == 0 or l == 0:
+        return y if carry is None else (y, carry)
+    err = _lib()(
+        u.data_ptr(), y.data_ptr(), engine_layer.IO_TYPES[u.dtype],
+        ctypes.byref(lp), int(relu_state), *ci_ptr, *co_ptr, b, l, h,
+        block_t, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "fused_s5")
+    return y if carry is None else (y, co)
+
+
 def fused_s5_cuda(u, lam: Pair, w_b, w_c, d, relu_state: bool = False
                   ) -> torch.Tensor:
-    """Launch the kernel (one CTA per batch row). Same arguments as
-    :func:`fused_s5_plain`; every tensor float32 on one CUDA device."""
+    """Launch the kernel in its float mode (one CTA per batch row). Same
+    arguments as :func:`fused_s5_plain`; every tensor float32 on one CUDA
+    device."""
     global launches
     if u.dim() != 3:
         raise ValueError(f"u must be (B, L, H), got {tuple(u.shape)}")
     b, l, h = u.shape
     p = w_b.shape[-1] // 2
-    ops = check_tensors(
+    t = check_tensors(
         {"u": (u, (b, l, h)), "lam_re": (lam[0], (p,)),
          "lam_im": (lam[1], (p,)), "w_b": (w_b, (h, 2 * p)),
          "w_c": (w_c, (2 * p, h)), "d": (d, (h,))}, u.device)
-    smem = 4 * (_TILE * (-(-h // 4) * 4 + -(-2 * p // 4) * 4) + 2 * p)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"H={h}, P={p}: a tile needs {smem} bytes of "
-                         f"shared memory, the card gives {_MAX_SMEM}")
-    y = torch.empty((b, l, h), dtype=torch.float32, device=u.device)
-    if b == 0 or l == 0:
-        return y
-    fn = _lib()
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = fn(ops["u"].data_ptr(), y.data_ptr(), ops["w_b"].data_ptr(),
-             ops["w_c"].data_ptr(), ops["d"].data_ptr(),
-             ops["lam_re"].data_ptr(), ops["lam_im"].data_ptr(), b, l, h, p,
-             int(relu_state), stream)
-    build.check(err, "fused_s5")
-    launches += 1
+    ops = engine_layer.MixerOps((t["lam_re"], t["lam_im"]), t["w_b"],
+                                t["w_c"], t["d"])
+    y = _launch(t["u"], ops, relu_state, max(l, 1), None)
+    if b and l:
+        launches += 1
     return y
 
 
@@ -158,3 +201,96 @@ class FusedS5Fn(torch.autograd.Function):
         d_u, d_lam, d_w_b, d_w_c, d_d = fused_s5_bwd(
             u, g, (lam_re, lam_im), w_b, w_c, d, ctx.relu_state)
         return d_u, d_lam[0], d_lam[1], d_w_b, d_w_c, d_d, None
+
+
+# ------------------------------------------------ engine modes and K4b
+
+def engine_block(block_t: int, length: int) -> int:
+    """The time block of the mixer at sequence length ``length``: the JAX
+    kernel's ``min(block_t, ceil8(L))``. Only multiples of it inside the
+    sequence are block ends, so it requantizes where ``block_t`` would."""
+    if block_t < 1:
+        raise ValueError(f"block_t {block_t}")
+    return min(block_t, -(-length // 8) * 8)
+
+
+def _engine_args(u, w_b, block_t: int, carry):
+    if u.dim() != 3:
+        raise ValueError(f"u must be (B, L, H), got {tuple(u.shape)}")
+    t = engine_block(block_t, max(u.shape[1], 1))
+    if carry is not None and u.shape[1] % t:
+        raise ValueError(
+            f"the carried mixer needs L divisible by the time block "
+            f"(L={u.shape[1]}, block={t}); pad or re-chunk the input")
+    if u.shape[-1] != w_b.shape[0]:
+        raise ValueError(f"u width {u.shape[-1]}, W_b {tuple(w_b.shape)}")
+    return t
+
+
+def fused_s5_engine_plain(u, lam: Pair, w_b, w_c, d, *, block_t: int,
+                          wb_scales: Scales = None, wc_scales: Scales = None,
+                          block_requant: Optional[BlockRequant] = None,
+                          relu_state: bool = False,
+                          carry: Optional[Pair] = None):
+    """Plain PyTorch version of :func:`fused_s5_engine`: the mixer block by
+    block (``engine_layer.mixer_plain``), the recurrence step by step."""
+    t = _engine_args(u, w_b, block_t, carry)
+    ops = engine_layer.MixerOps(lam, w_b, w_c, d, wb_scales, wc_scales,
+                                block_requant)
+    z = u.to(torch.float32)
+    p = w_b.shape[-1] // 2
+    state = carry
+    if state is None:
+        zero = torch.zeros((u.shape[0], p), dtype=torch.float32,
+                           device=u.device)
+        state = (zero, zero)
+    ys = []
+    for s in range(0, u.shape[1], t):
+        y, state = engine_layer.mixer_plain(z[:, s:s + t], ops, relu_state,
+                                            state)
+        ys.append(y)
+    y = torch.cat(ys, dim=1) if ys else z.new_empty(z.shape)
+    return y if carry is None else (y, state)
+
+
+def fused_s5_engine_cuda(u, lam: Pair, w_b, w_c, d, *, block_t: int,
+                         wb_scales: Scales = None, wc_scales: Scales = None,
+                         block_requant: Optional[BlockRequant] = None,
+                         relu_state: bool = False,
+                         carry: Optional[Pair] = None):
+    """Launch the kernel (one CTA per batch row). Same arguments and
+    results as :func:`fused_s5_engine_plain`; u float32 or bfloat16,
+    weights int8 / int16 / float32, every tensor on ``u``'s CUDA device."""
+    global launches_engine, launches_engine_carry
+    t = _engine_args(u, w_b, block_t, carry)
+    if u.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"u dtype {u.dtype}: float32 or bfloat16")
+    ops = engine_layer.MixerOps(lam, w_b, w_c, d, wb_scales, wc_scales,
+                                block_requant)
+    out = _launch(u, ops, relu_state, t, carry)
+    if u.shape[0] and u.shape[1]:
+        if carry is None:
+            launches_engine += 1
+        else:
+            launches_engine_carry += 1
+    return out
+
+
+def fused_s5_engine(u, lam: Pair, w_b, w_c, d, *, block_t: int,
+                    wb_scales: Scales = None, wc_scales: Scales = None,
+                    block_requant: Optional[BlockRequant] = None,
+                    relu_state: bool = False, carry: Optional[Pair] = None):
+    """The serving engine's mixer, (B, L, H) f32 or bf16 -> (B, L, H) f32,
+    or with ``carry`` ((B, P) pair) -> (y, new carry); with a carry L must
+    be a multiple of the time block :func:`engine_block`. ``w_b`` (H, 2P)
+    and ``w_c`` (2P, H) are int8 / int16 with the per-half scales
+    ``wb_scales`` / ``wc_scales`` (the conj-sym factor folded into the
+    latter), or float32 without. ``block_requant`` (s_re, s_im, bits) puts
+    every state on its frozen grid and the carry on it at every block end.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    fn = fused_s5_engine_cuda if u.is_cuda else fused_s5_engine_plain
+    return fn(u, lam, w_b, w_c, d, block_t=block_t, wb_scales=wb_scales,
+              wc_scales=wc_scales, block_requant=block_requant,
+              relu_state=relu_state, carry=carry)

@@ -21,6 +21,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
+#: (s_re, s_im, bits): the frozen grid of a blockwise state requant
+BlockRequant = Tuple[float, float, int]
 
 
 def complex_mul(a: Pair, b: Pair) -> Pair:
@@ -30,10 +32,27 @@ def complex_mul(a: Pair, b: Pair) -> Pair:
     return ar * br - ai * bi, ar * bi + ai * br
 
 
+def quant_codes(x: torch.Tensor, spec: Tuple[float, int]) -> torch.Tensor:
+    """Integer codes (as float32) of x on a frozen (scale, bits) grid:
+    round half to even, then clip."""
+    s, bits = spec
+    qmax = float(2 ** (bits - 1) - 1)
+    return torch.clamp(torch.round(x / s), -(qmax + 1.0), qmax)
+
+
+def grid_value(x: torch.Tensor, scale: float, bits: int) -> torch.Tensor:
+    """x on a frozen symmetric grid: its ``bits``-bit codes times the
+    scale."""
+    return quant_codes(x, (scale, bits)) * scale
+
+
 def sequential_diag_scan(lam: Pair, bu: Pair,
                          carry_init: Optional[Pair] = None,
                          state_requant: Optional[Callable[[Pair], Pair]] = None,
-                         reverse: bool = False) -> Tuple[Pair, Pair]:
+                         reverse: bool = False,
+                         block_requant: Optional[BlockRequant] = None,
+                         block_t: Optional[int] = None
+                         ) -> Tuple[Pair, Pair]:
     """Step-by-step scan along axis -2. Returns (all states, final state).
 
     ``carry_init`` (..., P): the state before the first step (streaming).
@@ -41,10 +60,20 @@ def sequential_diag_scan(lam: Pair, bu: Pair,
     the final state is then the one at t = 0); it takes no carry.
     ``state_requant`` is applied to the carried state after every step: the
     static-quant inference semantics, which no associative scan can
-    express."""
+    express.
+
+    ``block_requant`` (s_re, s_im, bits), forward only, is the serving
+    engine's blockwise requant (the JAX kernel ``pallas_diag_scan``'s
+    ``block_requant``): inside a time block of ``block_t`` steps the
+    recurrence runs in float32 from the block's carry, every state of the
+    block is output on the frozen grid, and the carry into the next block
+    (and the final state) is the requantized last state of the block."""
     bu_r, bu_i = bu
     if reverse and carry_init is not None:
         raise NotImplementedError("carry with reverse scan")
+    if block_requant is not None and (reverse or not block_t
+                                      or block_t < 1):
+        raise ValueError("block_requant runs forward, with block_t >= 1")
     if carry_init is None:
         x_r = torch.zeros_like(bu_r[..., 0, :])
         x_i = torch.zeros_like(bu_i[..., 0, :])
@@ -59,8 +88,16 @@ def sequential_diag_scan(lam: Pair, bu: Pair,
         x_i = ax_i + bu_i[..., t, :]
         if state_requant is not None:
             x_r, x_i = state_requant((x_r, x_i))
-        out_r[..., t, :] = x_r
-        out_i[..., t, :] = x_i
+        if block_requant is None:
+            out_r[..., t, :] = x_r
+            out_i[..., t, :] = x_i
+            continue
+        s_re, s_im, bits = block_requant
+        q_r, q_i = grid_value(x_r, s_re, bits), grid_value(x_i, s_im, bits)
+        out_r[..., t, :] = q_r
+        out_i[..., t, :] = q_i
+        if (t + 1) % block_t == 0 or t + 1 == length:
+            x_r, x_i = q_r, q_i
     return (out_r, out_i), (x_r, x_i)
 
 
@@ -126,22 +163,29 @@ class DiagScanFn(torch.autograd.Function):
 
 
 def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
-                  carry_init: Optional[Pair] = None) -> Pair:
+                  carry_init: Optional[Pair] = None,
+                  block_requant: Optional[BlockRequant] = None,
+                  block_t: Optional[int] = None) -> Pair:
     """Scan through the diagonal-scan kernel. Returns all-prefix states
     (B, L, P): of x_t = λ x_{t-1} + bu_t, or with ``reverse`` of
     x_t = λ x_{t+1} + bu_t.
 
-    Without a carry the call is differentiable in λ and bu. With
-    ``carry_init`` (forward only, streaming) it is not, as in the JAX
+    Without a carry and a requant the call is differentiable in λ and bu.
+    With ``carry_init`` (forward only, streaming) or ``block_requant``
+    (forward only, per ``block_t`` steps: the serving engine's state
+    requant, see :func:`sequential_diag_scan`) it is not, as in the JAX
     package: inputs that require grad raise while grad mode is on."""
-    if carry_init is None:
+    if carry_init is None and block_requant is None:
         return DiagScanFn.apply(lam[0], lam[1], bu[0], bu[1], reverse)
     if reverse:
-        raise NotImplementedError("carry with reverse scan")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*lam, *bu, *carry_init)):
         raise NotImplementedError(
-            "the scan with a carry has no gradient: call it under "
-            "torch.no_grad(), or without carry_init")
+            "the reverse scan takes no carry and no block requant")
+    operands = (*lam, *bu, *(carry_init or ()))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise NotImplementedError(
+            "the scan with a carry or a block requant has no gradient: call "
+            "it under torch.no_grad(), or without carry_init and "
+            "block_requant")
     from sparsernns_tpu_torch.ops.cuda.diag_scan import diag_scan
-    return diag_scan(lam, bu, carry_init=carry_init)
+    return diag_scan(lam, _kernel_operand(bu), carry_init=carry_init,
+                     block_requant=block_requant, block_t=block_t)

@@ -42,7 +42,8 @@ def engine_from_frozen(cfg: RunConfig, frozen_params, frozen_stats,
         frozen_params, glu_variant=cfg.glu_variant,
         relufication=cfg.relufication, prenorm=cfg.prenorm,
         clip_eigs=cfg.clip_eigs, conj_sym=cfg.conj_sym,
-        discretization=cfg.discretization)
+        discretization=cfg.discretization, topk=cfg.topk,
+        approx_topk=cfg.approx_topk)
     kw = dict(block_t=cfg.block_t, mxu16=cfg.engine_mxu16,
               route=cfg.engine_route, device=device)
     kw.update(engine_kw)

@@ -11,7 +11,18 @@
   (``ops/cuda/engine_network.py``, K6), or one kernel per layer
   (``ops/cuda/engine_layer.py``, K5a) when the network route is switched
   off; a streaming chunk runs one kernel per layer with carries (K5b).
-  The two offline routes are bit-identical at the same time block.
+  The two offline routes are bit-identical at the same time block;
+- what the whole-layer kernels cannot express (model-dim activation
+  top-k, a residual requant wider than 16 bits) runs the per-op route,
+  decided by configuration (:meth:`W8A16Engine._fused_stack_eligible`):
+  the mixer is one kernel (``ops/cuda/fused_s5.py`` ``fused_s5_engine``:
+  K4a's engine modes offline, K4b with carries per chunk), or with top-k
+  on the relufied states the B-projection, the scan kernel with its block
+  requant (``ops/scan.py`` ``diag_ssm_scan``, K1) and the C-projection;
+  norm, activation, GLU, residual, top-k and the dense layers are tensor
+  ops around it (``engine_layer_forward``), the denses as
+  ``torch.matmul`` of the dequantized weights, as the JAX package leaves
+  them to XLA.
 
 The engine takes the frozen tree that calibration returns
 (``quantize/calibrate.py``, or the JAX package's: the trees are
@@ -19,9 +30,9 @@ interchangeable), as nested dicts of numpy arrays.
 
 Not ported yet, and refused with ``NotImplementedError``: the int8-dot
 modes (``mxu16=True`` and recipes with activations of 8 bits or fewer,
-``ops/intdot.py``), everything that needs the per-op route (model-dim
-top-k, block-sparse dense packs, a residual requant wider than 16 bits),
-``route="xla"`` and ``from_artifacts``.
+``ops/intdot.py``), block-sparse dense packs (``block_sparse_matmul``),
+``route="xla"``, ``from_artifacts`` and, as in the JAX package, chunked
+streaming with top-k on the states.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sparsernns_tpu_torch.fxp.derive import FxpModelConfig, _discretize, _get
 from sparsernns_tpu_torch.ops.cuda.engine_layer import (LayerMode,
@@ -38,7 +50,9 @@ from sparsernns_tpu_torch.ops.cuda.engine_layer import (LayerMode,
                                                         engine_layer, qdq)
 from sparsernns_tpu_torch.ops.cuda.engine_network import (MAX_LAYERS,
                                                           engine_network)
-from sparsernns_tpu_torch.ops.scan import Pair
+from sparsernns_tpu_torch.ops.cuda.fused_s5 import fused_s5_engine
+from sparsernns_tpu_torch.ops.scan import Pair, diag_ssm_scan
+from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity, top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
 
 #: the engine's time block when ``block_t`` is None
@@ -117,6 +131,26 @@ class _LayerPack:
     def p(self) -> int:
         return self.w_b.shape[-1] // 2
 
+    def _half_scales(self, scales: Tuple[float, float]) -> torch.Tensor:
+        p = self.p
+        dev = self.w_b.device
+        return torch.cat([torch.full((p,), scales[0], device=dev),
+                          torch.full((p,), scales[1], device=dev)])
+
+    def wb_f32(self) -> torch.Tensor:
+        """Dequantized (H, 2P) float B projection, for the scan route of
+        the per-op path (the mixer kernel scales inside instead)."""
+        if self.wb_scales is None:
+            return self.w_b.to(torch.float32)
+        return self.w_b.to(torch.float32) * self._half_scales(
+            self.wb_scales)
+
+    def wc_f32(self) -> torch.Tensor:
+        if self.wc_scales is None:
+            return self.w_c.to(torch.float32)
+        return self.w_c.to(torch.float32) * self._half_scales(
+            self.wc_scales)[:, None]
+
 
 def quantized_dense(x: torch.Tensor, w: QWeight, bias: torch.Tensor,
                     in_spec: Optional[Tuple[float, int]] = None,
@@ -132,12 +166,65 @@ def quantized_dense(x: torch.Tensor, w: QWeight, bias: torch.Tensor,
     return qdq(dense_plain(x, (w, bias)), out_spec)
 
 
+def state_activation(cfg: FxpModelConfig, xs: Pair) -> Pair:
+    """Activation of the SSM state pair before the C projection, as the
+    model applies it: relu top-k of ``int(topk * P)`` per half with top-k
+    and ``approx_topk``, relu when relufied, else none."""
+    if not cfg.relufication:
+        return xs
+    if cfg.topk < 1.0 and cfg.approx_topk:
+        k = int(cfg.topk * xs[0].shape[-1])
+        return relu_top_k_sparsity(xs[0], k), relu_top_k_sparsity(xs[1], k)
+    return torch.relu(xs[0]), torch.relu(xs[1])
+
+
+def engine_layer_forward(cfg: FxpModelConfig, layer: "_LayerPack",
+                         h: torch.Tensor, mixer_fn,
+                         act_dtype=torch.float32):
+    """The per-op serving layer: norm -> mixer -> activation -> GLU ->
+    residual (-> postnorm) -> relu -> top-k -> residual requant.
+    ``mixer_fn(z)`` is the S5 mixer on the norm's output cast to
+    ``act_dtype``: (y, the new carry or None). Returns (h, that carry)."""
+    use_topk = cfg.topk < 1.0
+    k = int(cfg.topk * h.shape[-1])
+    skip = h
+    z = h * layer.norm_w + layer.norm_b if cfg.prenorm else h
+    y, carry = mixer_fn(z.to(act_dtype))
+    if cfg.relufication:
+        x1 = relu_top_k_sparsity(y, k) if use_topk else torch.relu(y)
+    else:
+        x1 = F.gelu(y, approximate="tanh")
+    if cfg.glu_variant in ("half1", "half2", "full"):
+        gate = torch.sigmoid(quantized_dense(x1, layer.out2_kernel,
+                                             layer.out2_bias))
+        if cfg.glu_variant == "half1":
+            base = x1
+        elif cfg.glu_variant == "half2":
+            base = y
+        else:
+            base = quantized_dense(x1, layer.out1_kernel, layer.out1_bias)
+        h = base * gate
+    else:
+        h = x1
+    h = h + skip
+    if not cfg.prenorm:
+        h = h * layer.norm_w + layer.norm_b
+    if cfg.relufication:
+        h = torch.relu(h)
+    if use_topk:
+        h = top_k_sparsity(h, k)
+    h = qdq(h, layer.residual_requant)
+    return h, carry
+
+
 def engine_encode(cfg: FxpModelConfig, encoder_kernel: QWeight,
                   encoder_bias: torch.Tensor, x: torch.Tensor,
                   in_scale=None, out_spec=None) -> torch.Tensor:
-    if cfg.topk < 1.0:
-        raise NotImplementedError("model-dim top-k is not ported yet")
+    """The encoder dense and its activation: relu top-k with top-k, relu
+    when relufied."""
     h = quantized_dense(x, encoder_kernel, encoder_bias, in_scale, out_spec)
+    if cfg.topk < 1.0:
+        return relu_top_k_sparsity(h, int(cfg.topk * h.shape[-1]))
     return torch.relu(h) if cfg.relufication else h
 
 
@@ -189,11 +276,6 @@ class W8A16Engine:
         #: compaction
         self.state_channels: List[Tuple[int, int]] = []
 
-        if cfg.topk < 1.0:
-            raise NotImplementedError(
-                "model-dim top-k needs the per-op route (the fused mixer "
-                "kernels fused_s5_apply / fused_s5_apply_carry), which is "
-                "not ported yet")
         if cfg.glu_variant not in ("half1", "half2", "full", "none"):
             raise ValueError(f"glu_variant {cfg.glu_variant!r}")
         if cfg.n_layers < 1:
@@ -308,11 +390,6 @@ class W8A16Engine:
             if s_res is not None and q_config.non_ssm_act_precision:
                 res_requant = (float(np.asarray(s_res)),
                                int(q_config.non_ssm_act_precision))
-                if res_requant[1] > 16:
-                    raise NotImplementedError(
-                        "a residual requant wider than 16 bits needs the "
-                        "per-op route (fused_s5_apply), which is not "
-                        "ported yet")
 
             out2_k = out2_b = out1_k = out1_b = None
             if cfg.glu_variant in ("full", "half1", "half2"):
@@ -340,18 +417,32 @@ class W8A16Engine:
                               glu=cfg.glu_variant,
                               relu_state=cfg.relufication,
                               act_dtype=act_dtype)
+        #: whole-layer route (K5): one kernel per layer over the stored
+        #: residual stream, for the offline call and every streaming
+        #: chunk; else the per-op route. Tests force the per-op route by
+        #: clearing this flag alone, as the JAX package's tests do.
+        self._stack_ok = self._fused_stack_eligible()
         #: whole-network route (K6): one kernel for the offline call when
-        #: its layer limit allows; else, and for every streaming chunk, the
-        #: whole-layer route (K5), one kernel per layer over the stored
-        #: residual stream. The whole-layer route has no eligibility test
-        #: of its own: what it cannot express was refused above, since the
-        #: per-op route it would fall back to is not ported.
+        #: the whole-layer route applies and the layer limit allows
         self._network_ok = self._fused_network_eligible()
 
+    def _fused_stack_eligible(self) -> bool:
+        """By configuration: the whole-layer kernels express neither
+        model-dim top-k nor a residual requant wider than 16 bits (int16
+        stream codes); such an engine runs the per-op route, with the same
+        numerics up to f32 summation order. (The JAX package's VMEM budget
+        has no counterpart here; block-sparse packs were refused above.)"""
+        if self.cfg.topk < 1.0:
+            return False
+        return all(lp.residual_requant is None or lp.residual_requant[1] <= 16
+                   for lp in self.layers)
+
     def _fused_network_eligible(self) -> bool:
-        """By configuration only: the network kernel takes up to
-        ``MAX_LAYERS`` layers in one launch; deeper models keep the
-        per-layer stack."""
+        """By configuration only: the network kernel needs the whole-layer
+        route and takes up to ``MAX_LAYERS`` layers in one launch; deeper
+        models keep the per-layer stack."""
+        if not self._stack_ok:
+            return False
         return 1 <= len(self.layers) <= MAX_LAYERS
 
     @property
@@ -401,12 +492,75 @@ class W8A16Engine:
         x = torch.as_tensor(x, device=self.device)
         return x if x.dtype == torch.bfloat16 else x.to(torch.float32)
 
+    def _state_topk(self) -> bool:
+        cfg = self.cfg
+        return cfg.relufication and cfg.topk < 1.0 and cfg.approx_topk
+
+    def _mixer(self, layer: _LayerPack, block_t: int,
+               carry: Optional[Pair] = None):
+        """The S5 mixer of one layer on the per-op route, as a function of
+        its input returning (y, the new carry or None): one kernel (K4a's
+        engine modes, or K4b with a carry); or with top-k on the states,
+        which that kernel cannot apply, the B-projection and the
+        C-projection as ``torch.matmul`` of the dequantized weights around
+        the scan kernel with its block requant, the state activation
+        between (offline only)."""
+        if not self._state_topk():
+            def kernel_mixer(z: torch.Tensor):
+                out = fused_s5_engine(
+                    z, layer.lam, layer.w_b, layer.w_c, layer.d,
+                    block_t=block_t, wb_scales=layer.wb_scales,
+                    wc_scales=layer.wc_scales,
+                    block_requant=layer.state_requant,
+                    relu_state=self.cfg.relufication, carry=carry)
+                return (out, None) if carry is None else out
+
+            return kernel_mixer
+
+        def scan_mixer(z: torch.Tensor):
+            z = z.to(torch.float32)
+            bu = z @ layer.wb_f32()
+            p = layer.p
+            xs = diag_ssm_scan(layer.lam, (bu[..., :p], bu[..., p:]),
+                               block_requant=layer.state_requant,
+                               block_t=block_t)
+            xs = state_activation(self.cfg, xs)
+            return torch.cat(xs, dim=-1) @ layer.wc_f32() + layer.d * z, None
+
+        return scan_mixer
+
+    @torch.no_grad()
+    def _apply_per_op(self, x: torch.Tensor, block_t: int,
+                      carries: Optional[Sequence[Pair]] = None):
+        """Per-op forward: encoder, then each layer around its mixer
+        (:meth:`_mixer`), then the decoder. The mixer input is cast to
+        ``act_dtype``; the residual stream stays float32 on the frozen
+        requant grids. With ``carries`` (a streaming chunk) each layer's
+        mixer kernel starts from its carry and returns the new one (K4b),
+        and the chunk length must be a multiple of the time block
+        ``min(block_t, L_chunk)``: returns (mask chunk, new carries)."""
+        cfg = self.cfg
+        if carries is not None:
+            block_t = min(block_t, x.shape[1])
+        h = engine_encode(cfg, *self._enc, x.to(torch.float32))
+        new_carries = []
+        for i, layer in enumerate(self.layers):
+            carry = None if carries is None else carries[i]
+            h, new_c = engine_layer_forward(
+                cfg, layer, h, self._mixer(layer, block_t, carry),
+                act_dtype=self.act_dtype)
+            new_carries.append(new_c)
+        out = quantized_dense(h, *self._dec).to(self._io_dtype(x))
+        return out if carries is None else (out, tuple(new_carries))
+
     @torch.no_grad()
     def _apply(self, x: torch.Tensor, block_t: int) -> torch.Tensor:
         """x: (B, L, d_input) f32 or bf16 -> mask (B, L, d_output)."""
-        if self._network_ok:
+        if self._network_ok and self._stack_ok:
             return self._apply_network(x, block_t, self._io_dtype(x))
-        return self._apply_stack(x, block_t, self._io_dtype(x))
+        if self._stack_ok:
+            return self._apply_stack(x, block_t, self._io_dtype(x))
+        return self._apply_per_op(x, block_t)
 
     def __call__(self, x) -> torch.Tensor:
         return self._apply(self._input(x), self.block_t)
@@ -463,10 +617,17 @@ class W8A16Engine:
         for other chunk lengths the recurrence is still exact but the
         block-boundary requantization happens at chunk granularity.
         L_chunk must be a multiple of the effective time block."""
+        if self._state_topk():
+            raise NotImplementedError(
+                "chunked streaming with state top-k is not supported (the "
+                "fused carry kernel applies plain state relu); serve topk "
+                "models with whole-sequence engine calls")
         x = self._input(x)
         if carries is None:
             carries = self.init_stream_state(x.shape[0])
-        return self._apply_chunk_stack(x, carries, self.block_t)
+        if self._stack_ok:
+            return self._apply_chunk_stack(x, carries, self.block_t)
+        return self._apply_per_op(x, self.block_t, carries)
 
     @staticmethod
     def from_artifacts(checkpoint_dir: str, cfg) -> "W8A16Engine":

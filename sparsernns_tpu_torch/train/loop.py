@@ -68,6 +68,11 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
         raise NotImplementedError(
             "static-quant finetuning is not ported yet: only the float "
             "model trains")
+    if training and cfg.topk < 1.0:
+        raise NotImplementedError(
+            "training with activation top-k is not ported yet (ROADMAP "
+            "Queue A: training with top-k); build the top-k model for "
+            "serving, or train with topk=1.0")
     if q_config.static_quant:
         if scan_mode != "sequential":
             raise NotImplementedError(
@@ -91,14 +96,16 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
             dt_max=cfg.dt_max, conj_sym=cfg.conj_sym,
             clip_eigs=cfg.clip_eigs, bidirectional=cfg.bidirectional,
             relufication=cfg.relufication, generator=gen,
-            q_config=q_config, scan_mode=scan_mode)
+            q_config=q_config, scan_mode=scan_mode, topk=cfg.topk,
+            approx_topk=cfg.approx_topk)
 
     model = RegressionModel(
         make_mixer, d_input, d_output, cfg.n_layers, cfg.d_model,
         q_config=q_config, glu_variant=cfg.glu_variant,
         relufication=cfg.relufication, batchnorm=cfg.batchnorm,
         prenorm=cfg.prenorm, dropout=cfg.p_dropout,
-        bn_momentum=cfg.bn_momentum)
+        bn_momentum=cfg.bn_momentum, topk=cfg.topk,
+        approx_topk=cfg.approx_topk)
     # dense layers: lecun_normal kernel, zero bias (as in the JAX package)
     with torch.no_grad():
         for mod in model.modules():

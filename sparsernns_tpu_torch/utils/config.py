@@ -44,6 +44,8 @@ class RunConfig:
     bn_momentum: float = 0.95
     glu_variant: str = "half1"
     relufication: bool = False
+    topk: float = 1.0                   # activation top-k share (< 1: on)
+    approx_topk: bool = False           # required with topk < 1 (as JAX)
     scan_mode: str = "fused"            # float port: "fused" or "pallas"
 
     # --- quantized conversion and serving (quantize/convert.py) ---

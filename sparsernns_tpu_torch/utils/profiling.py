@@ -8,14 +8,20 @@ engine-backed denoiser (one 128-frame block); or, with ``--train``, one
 train step of the recipe (B clips of 30 s, dropout 0.1, noBCdecay), which
 ``--prenorm 0`` (postnorm: the unfused layer around the mixer kernel) or
 ``--bidirectional`` (the stand-alone scans both ways) put on the mixer
-route — with
+route. ``--topk 0.5`` (with ``approx_topk``) and ``--relufication``
+change the model of the float and ``--engine`` regions: a top-k model
+runs the stand-alone scan (float) and the engine's per-op route (the
+serving mixer kernel, or with ``--relufication`` the scan kernel with its
+block requant and top-k on the states, which streams no chunks, so its
+streaming region is left out) — with
 ``torch.profiler``, after a warm-up, and prints for each: the wall time,
 the device time summed over kernels, the device busy share (device time
 over wall time) and the kernels that take the most device time. Run on a
 machine with the card, from the repository root::
 
     python -m sparsernns_tpu_torch.utils.profiling [--batch 8] \\
-        [--engine | --train [--prenorm 0] [--bidirectional]]
+        [--engine | --train [--prenorm 0] [--bidirectional]] \\
+        [--topk 0.5] [--relufication]
 
 Prints the card's name and power limit, then one JSON object per
 profiled region.
@@ -24,6 +30,7 @@ profiled region.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -87,6 +94,12 @@ def main() -> int:
                     help="with --train: 0 trains the postnorm model")
     ap.add_argument("--bidirectional", action="store_true",
                     help="with --train: the bidirectional model")
+    ap.add_argument("--topk", type=float, default=1.0,
+                    help="activation top-k share of the model (< 1: on, "
+                         "with approx_topk)")
+    ap.add_argument("--relufication", action="store_true",
+                    help="the relufied model (with --topk: top-k on the "
+                         "states too)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -94,6 +107,11 @@ def main() -> int:
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     cfg = RunConfig().with_recipe(os.path.join(root, "recipes", "ndns.json"))
+    cfg = dataclasses.replace(
+        cfg, topk=args.topk, approx_topk=args.topk < 1.0,
+        relufication=cfg.relufication or args.relufication)
+    if args.train and (args.topk < 1.0 or args.relufication):
+        raise SystemExit("--topk and --relufication profile serving only")
     model = build_model(cfg, 257, 257, device="cuda", seed=0)
     b, audio_len, chunk = args.batch, 30 * 16000, 16000
     ds = SyntheticNDNS(size=b, length=audio_len, seed=0)
@@ -111,7 +129,6 @@ def main() -> int:
     if args.engine:
         return _profile_engine(cfg, model, noisy, noisy_t)
     if args.train:
-        import dataclasses
         cfg = dataclasses.replace(cfg, prenorm=bool(args.prenorm),
                                   bidirectional=args.bidirectional)
         return _profile_train(cfg, noisy_t, clean_t)
@@ -126,9 +143,16 @@ def main() -> int:
     eval_step()                     # warm-up: builds kernels, plans
     for _ in range(2):
         stream_chunk()
-    _report((("offline eval step (incl. STFT)", eval_step),
-             ("streaming chunk (1 s)", stream_chunk)))
+    kind = _kind(cfg)
+    _report(((f"{kind}offline eval step (incl. STFT)", eval_step),
+             (f"{kind}streaming chunk (1 s)", stream_chunk)))
     return 0
+
+
+def _kind(cfg) -> str:
+    """Region-name prefix naming the model's top-k and relu switches."""
+    return (f"topk {cfg.topk} " if cfg.topk < 1.0 else "") + (
+        "relufied " if cfg.relufication else "")
 
 
 def _report(regions) -> None:
@@ -195,13 +219,16 @@ def _profile_engine(cfg, model, noisy, noisy_t) -> int:
         den.process(noisy[:, pos[0]:pos[0] + block * den.hop])
         pos[0] += block * den.hop
 
+    kind = _kind(cfg)
+    regions = [(f"{kind}engine offline call (B={b}, L={x.shape[1]})",
+                lambda: engine(x))]
     engine(x)                       # warm-up: builds kernels
-    for _ in range(4):              # the first forward waits for nfft
-        stream_forward()
-    _report(((f"engine offline call (B={b}, L={x.shape[1]})",
-              lambda: engine(x)),
-             ("engine streaming forward (128-frame block)",
-              stream_forward)))
+    if not engine._state_topk():    # state top-k streams no chunks
+        for _ in range(4):          # the first forward waits for nfft
+            stream_forward()
+        regions.append((f"{kind}engine streaming forward (128-frame "
+                        "block)", stream_forward))
+    _report(regions)
     return 0
 
 

@@ -252,7 +252,9 @@ def test_state_channel_compaction(frozen):  # noqa: F811
 
 
 def test_engine_refusals(frozen):  # noqa: F811
-    """Every mode this slice leaves out raises and names what is missing."""
+    """Every mode the port leaves out raises and names what is missing;
+    model-dim top-k and a residual requant wider than 16 bits are served
+    by the per-op route instead."""
     with pytest.raises(NotImplementedError, match="mxu16"):
         port_eng(frozen, engine_kw=dict(mxu16=True))
     with pytest.raises(NotImplementedError, match="int8 dots"):
@@ -261,14 +263,17 @@ def test_engine_refusals(frozen):  # noqa: F811
         port_eng(frozen, engine_kw=dict(route="xla"))
     with pytest.raises(ValueError, match="route"):
         port_eng(frozen, engine_kw=dict(route="fast"))
-    with pytest.raises(NotImplementedError, match="wider than 16"):
-        port_eng(frozen, recipe="w32a32")
+    wide = port_eng(frozen, recipe="w32a32")
+    assert wide.layers[0].residual_requant[1] == 32
+    assert not wide._stack_ok and not wide._network_ok
     q = quantization_recipes["w8a16"](static_quant=True, calibrating=False)
     cfg = FxpModelConfig.infer(frozen["frozen_params"], topk=0.5,
                                approx_topk=True, **_cfg_kw())
-    with pytest.raises(NotImplementedError, match="top-k"):
-        W8A16Engine(frozen["frozen_params"], frozen["frozen_stats"], q, cfg,
-                    device="cpu")
+    topk = W8A16Engine(frozen["frozen_params"], frozen["frozen_stats"], q,
+                       cfg, device="cpu")
+    assert not topk._stack_ok and not topk._network_ok
+    with pytest.raises(NotImplementedError, match="state top-k"):
+        topk.process_chunk(frozen["batches"][0])
     import copy
     sparse = copy.deepcopy(frozen)
     k = np.array(sparse["frozen_params"]["decoder"]["kernel"])

@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the flagship shapes, and
 drives the float NDNS serving path, the w8a16 engine serving path, the
-float NDNS training path and the mixer route (training and eval of the
-models outside the whole-layer kernel) at the width of ``recipes/ndns.json`` (d_model
-192, P 128, 3 layers; random weights from a seed):
+float NDNS training path, the mixer route (training and eval of the models
+outside the whole-layer kernel), top-k serving, and pruned training with
+block-sparse serving at the width of ``recipes/ndns.json`` (d_model 192,
+P 128, 3 layers; random weights from a seed):
 
 1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail)
    against their plain versions on the card, B=8, L=3751, with times;
@@ -63,7 +64,22 @@ models outside the whole-layer kernel) at the width of ``recipes/ndns.json`` (d_
    (3 x K4a-engine, no K5, no K6) and streaming at block 128 (3 x K4b a
    forward); the relufied model's engine offline (3 x K1 block requant,
    no K4a), checked against the CPU engine, and its refusal to stream
-   chunks; wall time, device busy share and peak memory per region.
+   chunks; wall time, device busy share and peak memory per region;
+13. block-sparse kernel phase — K7 (the block-sparse matmul over kept
+   (32, 128) int8 tiles) against its plain version at M = B x 3751 on the
+   encoder, GLU gate and decoder shapes, 90 % and 50 % zero tiles, x f32
+   and bf16, an edge tile and a fully zero output tile, one exact-grid
+   case; times beside ``torch.matmul`` of the dequantized dense weight;
+14. pruned training and block-sparse serving phase — the recipe with
+   ``pruning="iterative-ste-block-0.9"``: three B = 32 train steps with
+   tile-mask updates (K2, K3a, K3b x 3 a step) and the final update (every
+   dense kernel at least 83 % zero tiles); masks applied, calibrate,
+   freeze; the w8a16 engine (bf16) offline (K7 x 5, K4a-engine x 3) and
+   ``process_chunk`` at block 128 (K7 x 5, K4b x 3 a chunk, float32
+   mask), chunks against one whole call, card against CPU; an engine with
+   dense GLU kernels on the stack route (K7 x 2, K5a x 3) against its
+   per-op route; three steps of ``recipes/ndns_sparse.json`` (magnitude
+   masks through K2/K3) and its weight sparsity.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -937,6 +953,33 @@ def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
                                 "fused_s5_engine_carry")}}), flush=True)
 
 
+def _timed_region(tag, fn, expect, counters):
+    """One warm call after a warm-up: wall time, launches (asserted
+    exactly: name -> count, a kernel not named 0), peak memory, then one
+    profiled call. Returns (the warm call's result, its counts)."""
+    import torch
+
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    fn()
+    counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    for name, count in counts.items():
+        assert count == expect.get(name, 0), (tag, counts)
+    prof = profile_region(tag, fn, top=12)
+    print(json.dumps(prof), flush=True)
+    print(f"{tag}: {wall:.1f} ms, peak memory {peak:.0f} MiB, device "
+          f"busy share {prof['device_busy_share']:.3f}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return out, counts
+
+
 def topk_serving_phase(cfg, audio, feats, records, counters) -> None:
     """Phase 12: the recipe with ``topk=0.5, approx_topk=true`` at full
     width, random weights from seed 0: the float eval step (K1 x 3, no K2,
@@ -966,26 +1009,7 @@ def topk_serving_phase(cfg, audio, feats, records, counters) -> None:
     x_eng = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
 
     def timed(tag, fn, expect):
-        """One warm call after a warm-up: wall time, launches (asserted
-        exactly), peak memory, then one profiled call."""
-        fn()
-        counters()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = (time.time() - t0) * 1e3
-        counts = counters()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        for name, count in counts.items():
-            assert count == expect.get(name, 0), (tag, counts)
-        prof = profile_region(tag, fn, top=12)
-        print(json.dumps(prof), flush=True)
-        print(f"{tag}: {wall:.1f} ms, peak memory {peak:.0f} MiB, device "
-              f"busy share {prof['device_busy_share']:.3f}, launches "
-              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
-        return out, counts
+        return _timed_region(tag, fn, expect, counters)
 
     # ---- float top-k model: eval step and 30-chunk stream ----
     model = build_model(tk, 257, 257, device=dev, seed=0)
@@ -1134,6 +1158,299 @@ def topk_serving_phase(cfg, audio, feats, records, counters) -> None:
         raise AssertionError("state top-k process_chunk must raise")
 
 
+def _bs_weight(rng, k, n, zero_share, kept=None):
+    """A (k, n) int8 weight whose (32, 128) tiles are zero but for a
+    ``1 - zero_share`` share (or the (input, output) tiles ``kept``)."""
+    import numpy as np
+    kt, nt = -(-k // 32), -(-n // 128)
+    if kept is None:
+        tiles = [(i, j) for i in range(kt) for j in range(nt)]
+        rng.shuffle(tiles)
+        kept = tiles[int(zero_share * len(tiles)):]
+    w = np.zeros((k, n), np.int8)
+    for i, j in kept:
+        blk = w[i * 32:(i + 1) * 32, j * 128:(j + 1) * 128]
+        blk[...] = rng.randint(-127, 128, size=blk.shape)
+    return w
+
+
+def _bs_work(w, m: int, x_bytes: int):
+    """(bytes, flops) that y = x @ w needs over its kept tiles only: the x
+    columns of the input tiles that some kept tile uses, the kept tiles,
+    the (m, N) f32 output; 2 flops per multiply-add of each kept tile's
+    valid rows and columns (pad blocks of empty output tiles do no work)."""
+    k_dim, n_dim = w.shape
+    ks = w.blk_k.tolist()
+    real = [(k, j) for k, j, t in zip(ks, w.blk_j.tolist(), w.data)
+            if bool(t.any())]
+    rows = lambda k: min(w.bk, k_dim - k * w.bk)       # noqa: E731
+    cols = lambda j: min(w.bn, n_dim - j * w.bn)       # noqa: E731
+    x_cols = sum(rows(k) for k in {k for k, _ in real})
+    n_bytes = (m * x_cols * x_bytes + w.data.numel() * w.data.element_size()
+               + m * n_dim * 4)
+    return n_bytes, sum(2 * m * rows(k) * cols(j) for k, j in real)
+
+
+def block_sparse_kernel_phase(frames: int, records) -> None:
+    """Phase 13: K7 against its plain version on the card at M = B x
+    frames rows, the flagship's three serving shapes (encoder 257 -> 192,
+    GLU gate 192 -> 192, decoder 192 -> 257), int8 tiles with 90 % and
+    50 % of the (32, 128) tiles zero, x float32 and bf16; the encoder at
+    90 % with both kept tiles in output tile 0 (output tile 1 fully zero,
+    K = 257: an edge tile). Bar 1e-5 x max(1, max|ref|); an exact-grid
+    case (bf16 x of small integers, small integer weights) must be exact.
+    Times: medians of 5 of the kernel and of ``torch.matmul`` of x with
+    the dequantized dense weight (TF32 off), the plain version once."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import block_sparse as bs
+    dev = torch.device("cuda")
+    m = B * frames
+    rng = np.random.RandomState(13)
+    gen = torch.Generator().manual_seed(13)
+    x32 = {k: torch.randn((m, k), generator=gen).to(dev) for k in (192, 257)}
+    table, worst = [], 0.0
+    with torch.no_grad():
+        for name, k, n in (("encoder", 257, 192), ("gate", 192, 192),
+                           ("decoder", 192, 257)):
+            for zero in (0.9, 0.5):
+                kept = ([(0, 0), (8, 0)] if (name, zero) == ("encoder", 0.9)
+                        else None)
+                q = _bs_weight(rng, k, n, zero, kept)
+                w = bs.pack_block_sparse(q, 32, 128, scale=2.0 ** -7,
+                                         device=dev)
+                dense = w.dequant()
+                for x_name, x in (("f32", x32[k]),
+                                  ("bf16", x32[k].to(torch.bfloat16))):
+                    ref = bs.block_sparse_matmul_plain(x, w)
+                    out = bs.block_sparse_matmul_cuda(x, w)
+                    torch.cuda.synchronize()
+                    err = _kernel_close(
+                        f"K7 {name} {k}->{n} {zero:.0%} zero tiles, x "
+                        f"{x_name} vs plain", out, ref)
+                    worst = max(worst, err)
+                    row = dict(
+                        shape=f"{k}->{n}", zero_tiles=zero, x=x_name,
+                        nnz=w.nnz, max_abs_err=err,
+                        ms=_median_ms(lambda: bs.block_sparse_matmul_cuda(
+                            x, w)),
+                        plain_ms=_time_ms(lambda: bs.block_sparse_matmul_plain(
+                            x, w), 1, 0),
+                        library_ms=_median_ms(lambda: torch.matmul(
+                            x.float(), dense)))
+                    row["bound_ms"], row["bound_by"] = _bound_ms(
+                        *_bs_work(w, m, x.element_size()))
+                    table.append(row)
+        # exact grid: every product and every sum an integer below 2^24
+        xi = torch.randint(-8, 9, (m, 257), generator=gen).to(
+            dev, torch.bfloat16)
+        qi = _bs_weight(rng, 257, 192, 0.5)
+        qi = np.clip(qi, -3, 3).astype(np.int8)
+        wi = bs.pack_block_sparse(qi, 32, 128, device=dev)
+        _check("K7 exact grid (bf16 integer x, small integer tiles)",
+               (bs.block_sparse_matmul_cuda(xi, wi)
+                - bs.block_sparse_matmul_plain(xi, wi)).abs().max().item(),
+               0.0)
+    print(json.dumps({"block_sparse_kernel_phase": table}), flush=True)
+    # the record: the encoder at 90 % with f32 x, as the engine feeds it
+    main_row = table[0]
+    records["block_sparse"] = dict(
+        name="block_sparse", route="cuda",
+        source="sparsernns_tpu_torch/ops/cuda/csrc/block_sparse.cu",
+        replaces="sparsernns_tpu/ops/pallas/block_sparse.py:143",
+        max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+        library_ms=main_row["library_ms"])
+
+
+def _tiles_zero(w: "np.ndarray") -> tuple:
+    """(zero tiles, tiles) of a (K, N) kernel in (32, 128) tiles."""
+    import numpy as np
+    k, n = w.shape
+    kt, nt = -(-k // 32), -(-n // 128)
+    pad = np.zeros((kt * 32, nt * 128), bool)
+    pad[:k, :n] = w != 0
+    nz = pad.reshape(kt, 32, nt, 128).any(axis=(1, 3))
+    return int((~nz).sum()), kt * nt
+
+
+def pruned_serving_phase(cfg, audio, feats, batch, records,
+                         counters) -> None:
+    """Phase 14: tile-pruned training and block-sparse serving of the
+    flagship. The recipe with ``pruning="iterative-ste-block-0.9"`` at 4
+    epochs of 2 steps (mask updates from step 0): three B = 32 train steps
+    with the mask update before each (K2, K3a, K3b x 3 a step), then the
+    update at ``update_end`` (90 %: every dense kernel at least 83 % zero
+    tiles); masks applied, calibrate 2 x 4 clips of 4 s, freeze; the w8a16
+    engine (bf16) offline (K7 x 5, K4a-engine x 3, no K5/K6) and
+    ``process_chunk`` at block 128 (K7 x 5, K4b x 3 a chunk; float32
+    mask), chunks against one whole call, the card against the CPU engine;
+    an engine with dense GLU kernels and a block-sparse encoder and decoder
+    on the stack route (K7 x 2, K5a x 3) against its per-op route; three
+    B = 32 steps of ``recipes/ndns_sparse.json`` (``iterative-ste-mag-0.9``,
+    K2/K3 on masked weights) and its weight sparsity."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.ops.stft import stft_splitter
+    from sparsernns_tpu_torch.quantize.calibrate import calibrate
+    from sparsernns_tpu_torch.quantize.config import quantization_recipes
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+    from sparsernns_tpu_torch.train.pruning import (masked_state_dict,
+                                                    summarize_sparsity)
+    from sparsernns_tpu_torch.train.steps import (make_mask_update_fn,
+                                                  make_ndns_train_step)
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    from sparsernns_tpu_torch.weights import to_flax
+    dev = torch.device("cuda")
+    n_layers = cfg.n_layers
+    noisy, _ = audio
+    noisy_mag = feats[0]
+    frames = noisy_mag.shape[-1]
+    x_eng = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    train_kernels = ("layer_tail_train", "layer_tail_hist", "layer_tail_bwd")
+
+    def pruned_steps(tag, run_cfg):
+        """Three B = 32 steps with the mask update before each; returns
+        the model and its state."""
+        model, state = _fresh_run(run_cfg)
+        assert state.pruner is not None, run_cfg.pruning
+        step = make_ndns_train_step(model)
+        update = make_mask_update_fn(state.pruner)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        state, _, walls = _run_steps(
+            tag, state, lambda st, *b: step(update(st), *b), batch[2], 3,
+            dict.fromkeys(train_kernels, n_layers), counters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        prof = profile_region(f"{tag}, one step",
+                              lambda: step(update(state), *batch[2]))
+        print(json.dumps(prof), flush=True)
+        print(f"{tag}: {(time.time() - t0) * 1e3:.1f} ms for 3 steps and "
+              f"one profiled, peak memory {peak:.0f} MiB, device busy share "
+              f"{prof['device_busy_share']:.3f}", flush=True)
+        return model, state
+
+    # ---- tile-pruned training of the flagship ----
+    bcfg = dataclasses.replace(cfg, epochs=4,
+                               pruning="iterative-ste-block-0.9")
+    model, state = pruned_steps(f"block-pruned train B={cfg.bsz}", bcfg)
+    pcfg = state.pruner.cfg
+    assert (pcfg.update_start, pcfg.update_end, pcfg.update_freq) == (0, 7, 1)
+    state.pruner.update_masks(model, state.masks, pcfg.update_end)
+    keys = {"encoder": "['encoder']['encoder']['kernel']",
+            "decoder": "['decoder']['kernel']"}
+    for i in range(n_layers):
+        keys[f"layers_{i}/out2"] = f"['encoder']['layers_{i}']['out2']['kernel']"
+    # a kernel's mask is (out, in) like its nn.Linear weight; tiles are
+    # (32, 128) of the (in, out) kernel
+    zero_tiles = {name: _tiles_zero(state.masks[key].T.cpu().numpy())
+                  for name, key in keys.items()}
+    print(f"block-pruned zero tiles (zero, of): {zero_tiles}; weight "
+          f"sparsity {summarize_sparsity(model, state.masks)['_total_sparsity']:.4f}",
+          flush=True)
+    for name, (zero, total) in zero_tiles.items():
+        assert zero >= 0.83 * total, (name, zero, total)
+
+    # ---- masks applied, calibrate, freeze ----
+    t0 = time.time()
+    cal_audio = torch.from_numpy(noisy[:, :CAL_SECONDS * 16000]).to(dev)
+    cal_x = (stft_splitter(cal_audio)[0] - STFT_MAG_MEAN).transpose(1, 2)
+    recipe = quantization_recipes[cfg.convert_quantization]
+    cal_model = build_model(
+        bcfg, 257, 257, device=dev, seed=0, scan_mode="sequential",
+        q_config=recipe(static_quant=True, calibrating=True))
+    frozen = calibrate(cal_model, masked_state_dict(model, state.masks),
+                       [cal_x[:B // 2], cal_x[B // 2:]])
+    print(f"calibrate 2 x {B // 2} clips of {CAL_SECONDS} s and freeze: "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    # ---- the block-sparse engine offline: K7 x 5, K4a-engine x 3 ----
+    engine = engine_from_frozen(bcfg, *frozen, device=dev, block_t=512)
+    print(f"dense_blocks (kept, tiles): {engine.dense_blocks}", flush=True)
+    assert len(engine.dense_blocks) == n_layers + 2, engine.dense_blocks
+    assert not engine._stack_ok and not engine._network_ok
+    mask, counts = _timed_region(
+        f"block-sparse engine offline call B={B}", lambda: engine(x_eng),
+        {"block_sparse": n_layers + 2, "fused_s5_engine": n_layers},
+        counters)
+    records["block_sparse"]["launches"] = counts["block_sparse"]
+    assert mask.shape == (B, frames, 257) and torch.isfinite(mask).all()
+    x_small = x_eng[:2, :200]
+    cpu_engine = engine_from_frozen(bcfg, *frozen, device="cpu",
+                                    block_t=512)
+    _engine_close("block-sparse engine on the card vs on the CPU (plain)",
+                  engine(x_small).cpu(), cpu_engine(x_small.cpu()))
+
+    # ---- process_chunk at block 128: K7 x 5, K4b x 3 a chunk ----
+    s_engine = engine_from_frozen(bcfg, *frozen, device=dev,
+                                  block_t=STREAM_BLOCK)
+    n = (frames // STREAM_BLOCK) * STREAM_BLOCK
+    carries, parts = None, []
+    counters()
+    t0 = time.time()
+    for start in range(0, n, STREAM_BLOCK):
+        part, carries = s_engine.process_chunk(
+            x_eng[:, start:start + STREAM_BLOCK], carries)
+        parts.append(part)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = counters()
+    chunks = n // STREAM_BLOCK
+    print(f"block-sparse engine process_chunk: {chunks} chunks of "
+          f"{STREAM_BLOCK} frames in {wall:.1f} ms ({wall / chunks:.2f} ms "
+          f"a chunk), launches { {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    assert counts == {**{k: 0 for k in counts},
+                      "block_sparse": (n_layers + 2) * chunks,
+                      "fused_s5_engine_carry": n_layers * chunks}, counts
+    assert all(p.dtype == torch.float32 for p in parts)
+    bf_part, _ = s_engine.process_chunk(
+        x_eng[:, :STREAM_BLOCK].to(torch.bfloat16))
+    assert bf_part.dtype == torch.float32, bf_part.dtype
+    _engine_close("block-sparse process_chunk chunks vs one whole call",
+                  torch.cat(parts, dim=1), s_engine(x_eng[:, :n]))
+    x_chunk = x_eng[:, :STREAM_BLOCK]
+    _timed_region(f"block-sparse engine process_chunk B={B}",
+                  lambda: s_engine.process_chunk(x_chunk),
+                  {"block_sparse": n_layers + 2,
+                   "fused_s5_engine_carry": n_layers}, counters)
+    del engine, s_engine, cpu_engine
+
+    # ---- dense GLU, block-sparse encoder and decoder: the stack route ----
+    dense_glu = copy.deepcopy(frozen[0])
+    trained, _ = to_flax(model)
+    for i in range(n_layers):
+        dense_glu["encoder"][f"layers_{i}"]["out2"]["kernel"] = trained[
+            "encoder"][f"layers_{i}"]["out2"]["kernel"]
+    st_engine = engine_from_frozen(bcfg, dense_glu, frozen[1], device=dev,
+                                   block_t=512, act_dtype=torch.float32)
+    assert set(st_engine.dense_blocks) == {"encoder", "decoder"}
+    assert st_engine._stack_ok and not st_engine._network_ok
+    stack, _ = _timed_region(
+        f"block-sparse enc/dec engine, stack route B={B}",
+        lambda: st_engine(x_eng),
+        {"block_sparse": 2, "engine_layer": n_layers}, counters)
+    st_engine._stack_ok = False
+    _engine_close("block-sparse enc/dec engine: stack route vs per-op route",
+                  stack, st_engine(x_eng))
+    del st_engine, model, state
+
+    # ---- the unstructured recipe: masked weights through K2 / K3 ----
+    root = os.path.dirname(os.path.abspath(__file__))
+    scfg = dataclasses.replace(
+        cfg.with_recipe(os.path.join(root, "recipes", "ndns_sparse.json")),
+        epochs=4)
+    assert scfg.pruning == "iterative-ste-mag-0.9" and scfg.relufication
+    s_model, s_state = pruned_steps(f"ndns_sparse train B={scfg.bsz}", scfg)
+    print(f"ndns_sparse after 3 steps: weight_sparsity "
+          f"{summarize_sparsity(s_model, s_state.masks)['_total_sparsity']:.4f}",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1142,9 +1459,10 @@ def main() -> int:
     import numpy as np
 
     from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
-    from sparsernns_tpu_torch.ops.cuda import (build, diag_scan,
-                                               engine_layer, engine_network,
-                                               fused_s5, layer_tail)
+    from sparsernns_tpu_torch.ops.cuda import (block_sparse, build,
+                                               diag_scan, engine_layer,
+                                               engine_network, fused_s5,
+                                               layer_tail)
     from sparsernns_tpu_torch.ops.stft import stft_splitter
     from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
     from sparsernns_tpu_torch.train.loop import build_model
@@ -1343,6 +1661,7 @@ def main() -> int:
         fused_s5.launches_engine = fused_s5.launches_engine_carry = 0
         engine_layer.launches = engine_layer.launches_carry = 0
         engine_network.launches = 0
+        block_sparse.launches = 0
 
     t0 = time.time()
     recipe = quantization_recipes[cfg.convert_quantization]
@@ -1604,7 +1923,8 @@ def main() -> int:
             "layer_tail_bwd": layer_tail_bwd.launches_bwd,
             "engine_layer": engine_layer.launches,
             "engine_layer_carry": engine_layer.launches_carry,
-            "engine_network": engine_network.launches}
+            "engine_network": engine_network.launches,
+            "block_sparse": block_sparse.launches}
         reset_counts()
         layer_tail_bwd.launches_hist = layer_tail_bwd.launches_bwd = 0
         return counts
@@ -1632,6 +1952,16 @@ def main() -> int:
                        (noisy_mag, noisy_phase, clean_mag), records,
                        counters)
     mark("top-k serving phase")
+
+    # ---------------- block-sparse kernel phase (K7) ----------------
+    block_sparse_kernel_phase(frames, records)
+    mark("block-sparse kernel phase")
+
+    # ---------------- pruned training and block-sparse serving ----------
+    pruned_serving_phase(cfg, (noisy, clean_t),
+                         (noisy_mag, noisy_phase, clean_mag), batch, records,
+                         counters)
+    mark("pruned training and block-sparse serving phase")
 
     # ---------------- report ----------------
     smi = subprocess.run(

@@ -16,7 +16,11 @@ and its carry-history and reverse-time adjoint kernels
 training of the models outside the whole-layer kernel (postnorm, LayerNorm,
 bidirectional, ``scan_mode="pallas"``) through the S5 mixer kernel and its
 gradient (``ops/cuda/fused_s5.py``) and the diagonal-scan kernel in both
-directions under autograd (``ops/scan.py``).
+directions under autograd (``ops/scan.py``) — and activation top-k
+serving (``ops/topk.py``, the engine's per-op route) — and pruned training
+(magnitude, state-channel and tile masks with STE, ``train/pruning.py``)
+with block-sparse engine serving over the block-sparse matmul kernel
+(``ops/cuda/block_sparse.py``).
 Module names follow the JAX package. Entry points run on ``"cuda"`` unless
 the caller passes another device.
 """

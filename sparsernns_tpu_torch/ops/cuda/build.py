@@ -9,7 +9,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers
 The library name carries a hash of the source and of every ``csrc/``
 header it includes, so an edited source or header is rebuilt and an
 unchanged one is reused from ``_build/`` (listed in ``.gitignore``).
-:func:`build_all` starts one ``nvcc`` per source, all at once. A missing ``nvcc`` or a failed build raises; nothing falls back.
+:func:`build_all` starts one ``nvcc`` per source, all at once. A missing
+``nvcc`` or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("diag_scan", "fused_s5", "layer_tail", "layer_tail_bwd",
-           "engine_layer", "engine_network")
+           "engine_layer", "engine_network", "block_sparse")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

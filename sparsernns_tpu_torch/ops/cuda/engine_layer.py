@@ -258,7 +258,7 @@ class Mode(ctypes.Structure):
         "h", "prenorm", "relufication", "glu", "relu_state", "act_bf16")]
 
 
-_WTYPES = {torch.float32: 0, torch.int8: 1, torch.int16: 2}
+WTYPES = {torch.float32: 0, torch.int8: 1, torch.int16: 2}
 IO_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2,
             torch.int8: 3}
 
@@ -278,7 +278,7 @@ def _ptr(t: torch.Tensor, name: str, shape, dtype, device) -> int:
 def pack_weight(w: torch.Tensor, scale: Optional[float],
                 bias: Optional[torch.Tensor], name: str, shape,
                 device) -> DenseW:
-    if w.dtype not in _WTYPES:
+    if w.dtype not in WTYPES:
         raise ValueError(f"{name}: weight dtype {w.dtype}")
     out = DenseW()
     out.w = _ptr(w, name, shape, w.dtype, device)
@@ -286,7 +286,7 @@ def pack_weight(w: torch.Tensor, scale: Optional[float],
                 _ptr(bias, f"{name} bias", (shape[1],), torch.float32,
                      device))
     out.scale = 1.0 if scale is None else float(scale)
-    out.wtype = _WTYPES[w.dtype]
+    out.wtype = WTYPES[w.dtype]
     return out
 
 

@@ -3,18 +3,17 @@
 
 Ported stages, each gated by its config flag, over the synthetic loader:
 
-  calibrate (observers over the validation set) -> freeze scales
-  -> [validate_static_quant] -> [validate_engine]
+  re-apply the pruning masks -> calibrate (observers over the validation
+  set) -> freeze scales -> [validate_static_quant] -> [validate_engine]
 
-Not ported yet (they wait for the training slice): checkpoint restore and
-the versioned artifact store, re-applying sparsity masks, the baseline /
-naive-scan / fake-quant validations and both finetuning stages. The float
-model is therefore passed in by the caller.
+Not ported yet: checkpoint restore and the versioned artifact store, the
+baseline / naive-scan / fake-quant validations and both finetuning stages.
+The float model and its masks are therefore passed in by the caller.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -26,6 +25,7 @@ from sparsernns_tpu_torch.quantize.calibrate import calibrate
 from sparsernns_tpu_torch.quantize.config import quantization_recipes
 from sparsernns_tpu_torch.quantize.engine import W8A16Engine
 from sparsernns_tpu_torch.train.loop import build_model
+from sparsernns_tpu_torch.train.pruning import Masks, masked_state_dict
 from sparsernns_tpu_torch.train.losses import (STFT_MAG_MEAN,
                                                ndns_loss_from_mask_tm)
 from sparsernns_tpu_torch.train.steps import make_ndns_eval_step
@@ -70,8 +70,11 @@ def _validate(step, loader, device) -> Dict[str, float]:
     return {"loss": float(np.mean(losses)), "si_snr": float(np.mean(snrs))}
 
 
-def convert(cfg: RunConfig, model: torch.nn.Module) -> Dict[str, Any]:
-    """Run the ported stages on the float ``model`` of ``cfg``. Returns the
+def convert(cfg: RunConfig, model: torch.nn.Module,
+            masks: Optional[Masks] = None) -> Dict[str, Any]:
+    """Run the ported stages on the float ``model`` of ``cfg``, with its
+    weights times the pruning ``masks`` (a pruned run's
+    ``TrainState.masks``; the model itself is left as it is). Returns the
     per-stage metrics plus ``frozen_params`` / ``frozen_stats`` (nested
     dicts of numpy arrays) when calibration ran."""
     results: Dict[str, Any] = {}
@@ -95,7 +98,7 @@ def convert(cfg: RunConfig, model: torch.nn.Module) -> Dict[str, Any]:
                 yield (noisy_mag - STFT_MAG_MEAN).transpose(1, 2)
 
         frozen_params, frozen_stats = calibrate(
-            cal_model, model.state_dict(), batches())
+            cal_model, masked_state_dict(model, masks), batches())
         results.update(calibrated=True, frozen_params=frozen_params,
                        frozen_stats=frozen_stats)
 

@@ -13,16 +13,21 @@
   off; a streaming chunk runs one kernel per layer with carries (K5b).
   The two offline routes are bit-identical at the same time block;
 - what the whole-layer kernels cannot express (model-dim activation
-  top-k, a residual requant wider than 16 bits) runs the per-op route,
-  decided by configuration (:meth:`W8A16Engine._fused_stack_eligible`):
-  the mixer is one kernel (``ops/cuda/fused_s5.py`` ``fused_s5_engine``:
-  K4a's engine modes offline, K4b with carries per chunk), or with top-k
-  on the relufied states the B-projection, the scan kernel with its block
-  requant (``ops/scan.py`` ``diag_ssm_scan``, K1) and the C-projection;
-  norm, activation, GLU, residual, top-k and the dense layers are tensor
-  ops around it (``engine_layer_forward``), the denses as
-  ``torch.matmul`` of the dequantized weights, as the JAX package leaves
-  them to XLA.
+  top-k, a residual requant wider than 16 bits, a block-sparse GLU dense)
+  runs the per-op route, decided by configuration
+  (:meth:`W8A16Engine._fused_stack_eligible`): the mixer is one kernel
+  (``ops/cuda/fused_s5.py`` ``fused_s5_engine``: K4a's engine modes
+  offline, K4b with carries per chunk), or with top-k on the relufied
+  states the B-projection, the scan kernel with its block requant
+  (``ops/scan.py`` ``diag_ssm_scan``, K1) and the C-projection; norm,
+  activation, GLU, residual, top-k and the dense layers are tensor ops
+  around it (``engine_layer_forward``), the denses as ``torch.matmul`` of
+  the dequantized weights, as the JAX package leaves them to XLA;
+- a dense kernel with enough all-zero (32, 128) tiles (a tile-pruned
+  checkpoint) is packed block-sparse and runs the block-sparse matmul
+  (``ops/cuda/block_sparse.py``, K7) wherever it is used; a block-sparse
+  encoder or decoder turns the whole-network route off, and the stack
+  route then runs it outside the first or last layer launch.
 
 The engine takes the frozen tree that calibration returns
 (``quantize/calibrate.py``, or the JAX package's: the trees are
@@ -30,9 +35,8 @@ interchangeable), as nested dicts of numpy arrays.
 
 Not ported yet, and refused with ``NotImplementedError``: the int8-dot
 modes (``mxu16=True`` and recipes with activations of 8 bits or fewer,
-``ops/intdot.py``), block-sparse dense packs (``block_sparse_matmul``),
-``route="xla"``, ``from_artifacts`` and, as in the JAX package, chunked
-streaming with top-k on the states.
+``ops/intdot.py``), ``route="xla"``, ``from_artifacts`` and, as in the JAX
+package, chunked streaming with top-k on the states.
 """
 
 from __future__ import annotations
@@ -45,6 +49,9 @@ import torch
 import torch.nn.functional as F
 
 from sparsernns_tpu_torch.fxp.derive import FxpModelConfig, _discretize, _get
+from sparsernns_tpu_torch.ops.cuda.block_sparse import (BlockSparseWeight,
+                                                        block_sparse_matmul,
+                                                        pack_block_sparse)
 from sparsernns_tpu_torch.ops.cuda.engine_layer import (LayerMode,
                                                         dense_plain,
                                                         engine_layer, qdq)
@@ -152,13 +159,16 @@ class _LayerPack:
             self.wc_scales)[:, None]
 
 
-def quantized_dense(x: torch.Tensor, w: QWeight, bias: torch.Tensor,
+def quantized_dense(x: torch.Tensor, w, bias: torch.Tensor,
                     in_spec: Optional[Tuple[float, int]] = None,
                     out_spec: Optional[Tuple[float, int]] = None
                     ) -> torch.Tensor:
     """Dense layer on a quantized weight, float branch: dequantize and
-    float dot, then the optional ``out_spec`` requant. ``in_spec`` selects
-    the int8-dot path, which is not ported."""
+    float dot (a :class:`BlockSparseWeight`: the block-sparse matmul over
+    its kept tiles), then the optional ``out_spec`` requant. ``in_spec``
+    selects the int8-dot path, which is not ported."""
+    if isinstance(w, BlockSparseWeight):
+        return qdq(block_sparse_matmul(x, w) + bias, out_spec)
     if in_spec is not None:
         raise NotImplementedError(
             "int8 dots on quantized activations (ops/intdot.py) are not "
@@ -228,16 +238,6 @@ def engine_encode(cfg: FxpModelConfig, encoder_kernel: QWeight,
     return torch.relu(h) if cfg.relufication else h
 
 
-def _block_saving(q: np.ndarray, bk: int, bn: int) -> float:
-    """Fraction of (bk, bn) tiles of a (K, N) weight that are all zero."""
-    k, n = q.shape
-    kt, nt = -(-k // bk), -(-n // bn)
-    padded = np.zeros((kt * bk, nt * bn), dtype=bool)
-    padded[:k, :n] = q != 0
-    nnz = padded.reshape(kt, bk, nt, bn).any(axis=(1, 3)).sum()
-    return 1.0 - nnz / (kt * nt)
-
-
 class W8A16Engine:
     """Quantized NDNS inference engine over frozen conversion artifacts."""
 
@@ -275,6 +275,8 @@ class W8A16Engine:
         #: per-layer (p_original, p_kept) after structured-channel
         #: compaction
         self.state_channels: List[Tuple[int, int]] = []
+        #: dense kernels packed block-sparse: name -> (kept tiles, tiles)
+        self.dense_blocks: Dict[str, Tuple[int, int]] = {}
 
         if cfg.glu_variant not in ("half1", "half2", "full", "none"):
             raise ValueError(f"glu_variant {cfg.glu_variant!r}")
@@ -294,14 +296,19 @@ class W8A16Engine:
         def dev(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.array(a, order="C")).to(self.device)
 
-        def pack_dense(name: str, w: np.ndarray, bits) -> QWeight:
+        def pack_dense(name: str, w: np.ndarray, bits):
+            """A QWeight, or a BlockSparseWeight of the same integer grid
+            when at least ``block_sparse_min_saving`` of its
+            ``block_sparse_dense`` tiles are all zero."""
             q, s = pow2_quantize(w, bits)
-            if block_sparse_dense is not None and _block_saving(
-                    q, *block_sparse_dense) >= block_sparse_min_saving:
-                raise NotImplementedError(
-                    f"{name}: enough all-zero tiles for a block-sparse pack "
-                    "(the block_sparse_matmul kernel), which is not ported "
-                    "yet; pass block_sparse_dense=None to pack it densely")
+            if block_sparse_dense is not None:
+                bsw = pack_block_sparse(q, *block_sparse_dense, scale=s,
+                                        device=self.device)
+                if 1.0 - bsw.density >= block_sparse_min_saving:
+                    kt = -(-bsw.shape[0] // bsw.bk)
+                    nt = -(-bsw.shape[1] // bsw.bn)
+                    self.dense_blocks[name] = (bsw.nnz, kt * nt)
+                    return bsw
             return QWeight(dev(q), s)
 
         self.encoder_kernel = pack_dense(
@@ -428,22 +435,50 @@ class W8A16Engine:
 
     def _fused_stack_eligible(self) -> bool:
         """By configuration: the whole-layer kernels express neither
-        model-dim top-k nor a residual requant wider than 16 bits (int16
-        stream codes); such an engine runs the per-op route, with the same
-        numerics up to f32 summation order. (The JAX package's VMEM budget
-        has no counterpart here; block-sparse packs were refused above.)"""
+        model-dim top-k, nor a block-sparse GLU dense, nor a residual
+        requant wider than 16 bits (int16 stream codes); such an engine
+        runs the per-op route, with the same numerics up to f32 summation
+        order. (The JAX package's VMEM budget has no counterpart here.)"""
         if self.cfg.topk < 1.0:
             return False
+        for lp in self.layers:
+            if any(isinstance(k, BlockSparseWeight)
+                   for k in (lp.out2_kernel, lp.out1_kernel)):
+                return False
         return all(lp.residual_requant is None or lp.residual_requant[1] <= 16
                    for lp in self.layers)
 
     def _fused_network_eligible(self) -> bool:
         """By configuration only: the network kernel needs the whole-layer
-        route and takes up to ``MAX_LAYERS`` layers in one launch; deeper
-        models keep the per-layer stack."""
-        if not self._stack_ok:
+        route and dense (not block-sparse) encoder and decoder, and takes
+        up to ``MAX_LAYERS`` layers in one launch; deeper models keep the
+        per-layer stack."""
+        if not self._stack_ok or self._bs_encoder or self._bs_decoder:
             return False
         return 1 <= len(self.layers) <= MAX_LAYERS
+
+    @property
+    def _bs_encoder(self) -> bool:
+        return isinstance(self.encoder_kernel, BlockSparseWeight)
+
+    @property
+    def _bs_decoder(self) -> bool:
+        return isinstance(self.decoder_kernel, BlockSparseWeight)
+
+    def _encode_outside(self, x: torch.Tensor) -> torch.Tensor:
+        """A block-sparse encoder ahead of the first layer launch (K7):
+        its output as the stream that launch reads, in ``act_dtype``."""
+        return engine_encode(self.cfg, *self._enc, x).to(self.act_dtype)
+
+    def _decode_outside(self, r: torch.Tensor,
+                        in_rq: Optional[Tuple[float, int]]) -> torch.Tensor:
+        """A block-sparse decoder after the last layer launch (K7), on its
+        stored stream: codes times the last residual requant's scale (or
+        the ``act_dtype`` values), float32 out."""
+        rf = r.to(torch.float32)
+        if in_rq is not None:
+            rf = rf * in_rq[0]
+        return quantized_dense(rf, *self._dec)
 
     @property
     def _enc(self):
@@ -456,18 +491,25 @@ class W8A16Engine:
     def _apply_stack(self, x: torch.Tensor, block_t: int,
                      out_dtype=torch.float32) -> torch.Tensor:
         """Whole-layer-kernel forward: N launches over the stored residual
-        stream; the first also runs the encoder, the last the decoder. The
+        stream; the first also runs the encoder, the last the decoder,
+        unless it is block-sparse: then it runs outside, through K7. The
         JAX stack pads L up to its block ``min(block_t, ceil8(L))`` with
         zero rows; the block is kept, the padding is not."""
         t = min(block_t, -(-x.shape[1] // 8) * 8)
         r, in_rq = x, None
+        enc = self._enc
+        if self._bs_encoder:
+            r, enc = self._encode_outside(x), None
+        dec = None if self._bs_decoder else self._dec
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
             r = engine_layer(
                 r, layer, self.mode, block_t=t, in_requant=in_rq,
-                enc=self._enc if i == 0 else None,
-                dec=self._dec if i == last else None, out_dtype=out_dtype)
+                enc=enc if i == 0 else None,
+                dec=dec if i == last else None, out_dtype=out_dtype)
             in_rq = layer.residual_requant
+        if self._bs_decoder:
+            return self._decode_outside(r, in_rq).to(out_dtype)
         return r
 
     def _apply_network(self, x: torch.Tensor, block_t: int,
@@ -550,8 +592,10 @@ class W8A16Engine:
                 cfg, layer, h, self._mixer(layer, block_t, carry),
                 act_dtype=self.act_dtype)
             new_carries.append(new_c)
-        out = quantized_dense(h, *self._dec).to(self._io_dtype(x))
-        return out if carries is None else (out, tuple(new_carries))
+        out = quantized_dense(h, *self._dec)
+        if carries is None:
+            return out.to(self._io_dtype(x))
+        return out, tuple(new_carries)
 
     @torch.no_grad()
     def _apply(self, x: torch.Tensor, block_t: int) -> torch.Tensor:
@@ -579,9 +623,11 @@ class W8A16Engine:
                            block_t: int, lo: int = 0, encode: bool = True,
                            decode: bool = True,
                            layers: Optional[Sequence[_LayerPack]] = None):
-        """Chunked whole-layer-kernel forward: per-layer carry in and out.
-        The chunk length must be a multiple of the time block
-        ``min(block_t, L_chunk)``.
+        """Chunked whole-layer-kernel forward: per-layer carry in and out;
+        the mask comes back float32. The chunk length must be a multiple of
+        the time block ``min(block_t, L_chunk)``. A block-sparse encoder or
+        decoder runs outside the first or last launch, as in
+        :meth:`_apply_stack`.
 
         Pipeline-stage mode: ``layers`` is the stage's slice of
         ``self.layers`` and ``lo`` the global index of its first layer.
@@ -597,16 +643,21 @@ class W8A16Engine:
                 f"block {t}")
         in_rq = self.layers[lo - 1].residual_requant if lo > 0 else None
         r = x
+        enc = self._enc if encode else None
+        if encode and self._bs_encoder:
+            r, enc = self._encode_outside(x), None
+        dec = self._dec if decode and not self._bs_decoder else None
         new_carries = []
         last = len(layers) - 1
         for i, (layer, carry) in enumerate(zip(layers, carries)):
             r, new_c = engine_layer(
                 r, layer, self.mode, block_t=t, in_requant=in_rq,
-                carry=carry, enc=self._enc if encode and i == 0 else None,
-                dec=self._dec if decode and i == last else None,
-                out_dtype=self._io_dtype(x) if encode else torch.float32)
+                carry=carry, enc=enc if i == 0 else None,
+                dec=dec if i == last else None)
             new_carries.append(new_c)
             in_rq = layer.residual_requant
+        if decode and self._bs_decoder:
+            r = self._decode_outside(r, in_rq)
         return r, tuple(new_carries)
 
     def process_chunk(self, x, carries=None):

@@ -5,8 +5,8 @@
 One file per saved step, ``ckpt_<step>.pt``, holding the model's
 ``state_dict`` (parameters and BatchNorm running statistics), the
 optimizer's ``state_dict`` (moments, schedules, live learning rates), the
-count of optimizer steps, the dropout generator's state and a metadata
-dict. The format is the port's own;
+count of optimizer steps, the dropout generator's state, the pruning masks
+(None without pruning) and a metadata dict. The format is the port's own;
 :func:`~sparsernns_tpu_torch.weights.from_flax` and ``to_flax`` remain the
 bridge to the JAX package's checkpoints. Files are written whole under a
 temporary name and renamed, and read with ``weights_only=True`` (tensors
@@ -56,6 +56,7 @@ class CheckpointManager:
             "optimizer": state.optimizer.state_dict(),
             "step": int(state.step),
             "generator": None if gen is None else gen.get_state(),
+            "masks": state.masks,
             "metadata": dict(metadata or {}),
         }
         path = self._path(step)
@@ -82,7 +83,7 @@ class CheckpointManager:
         payload = self._load(state, step)
         if payload is None:
             return state, None
-        state.model.load_state_dict(payload["model"])
+        _restore_model(state, payload)
         # the shape of the schedule belongs to the run's configuration (a
         # resumed run may have more epochs); moments and the live learning
         # rates come from the checkpoint
@@ -98,10 +99,22 @@ class CheckpointManager:
 
     def restore_params_only(self, state: TrainState,
                             step: Optional[int] = None) -> TrainState:
-        """Restore the parameters and BatchNorm statistics and leave the
-        optimizer, the step count and the generator as they are: a fresh
-        optimizer on trained weights."""
+        """Restore the parameters, BatchNorm statistics and masks and leave
+        the optimizer, the step count and the generator as they are: a
+        fresh optimizer on trained weights."""
         payload = self._load(state, step)
         if payload is not None:
-            state.model.load_state_dict(payload["model"])
+            _restore_model(state, payload)
         return state
+
+
+def _restore_model(state: TrainState, payload: Dict[str, Any]) -> None:
+    """The model's tensors and, where both the run and the checkpoint have
+    them, the masks, in place (the dict object stays, so an eval step that
+    holds it sees the restored masks). A checkpoint without masks leaves the
+    run's as they are."""
+    state.model.load_state_dict(payload["model"])
+    saved = payload.get("masks")
+    if state.masks is not None and saved is not None:
+        for key, mask in saved.items():
+            state.masks[key] = mask

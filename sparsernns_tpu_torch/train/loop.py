@@ -3,12 +3,14 @@
 synthetic loader.
 
 :func:`build_model` assembles the model of a :class:`RunConfig`;
-:func:`create_run_state` adds the optimizer, the step count and the dropout
-generator; :func:`run_ndns_epoch` and :func:`validate_ndns` drive one pass
-over a loader; :func:`train` is the whole run: epochs with validation and
-test passes, the cosine or plateau schedule, latest and best checkpoints,
+:func:`create_run_state` adds the optimizer, the step count, the dropout
+generator and, for a ``cfg.pruning`` recipe, the pruner and its masks;
+:func:`run_ndns_epoch` and :func:`validate_ndns` drive one pass over a
+loader (with the mask update before each step); :func:`train` is the whole
+run: epochs with validation and test passes, the cosine or plateau
+schedule, the weight sparsity of a pruned run, latest and best checkpoints,
 early stopping and resume. Not ported, and raising where a configuration
-asks for them: device meshes, pruning, the activation-sparsity capture and
+asks for them: device meshes, the activation-sparsity capture and
 profiling; metrics go to Python ``logging`` only.
 """
 
@@ -32,8 +34,12 @@ from sparsernns_tpu_torch.train.optim import (create_optimizer,
                                               extract_learning_rates,
                                               reduce_lr_on_plateau,
                                               set_learning_rates)
+from sparsernns_tpu_torch.train.pruning import (MagnitudePruner,
+                                                pruning_recipes,
+                                                summarize_sparsity)
 from sparsernns_tpu_torch.train.state import TrainState, count_params
-from sparsernns_tpu_torch.train.steps import (make_ndns_eval_step,
+from sparsernns_tpu_torch.train.steps import (make_mask_update_fn,
+                                              make_ndns_eval_step,
                                               make_ndns_train_step)
 from sparsernns_tpu_torch.utils.config import RunConfig
 
@@ -125,9 +131,6 @@ def prep_ndns_batch(noisy: torch.Tensor, clean: torch.Tensor):
 
 
 def _check_ported(cfg: RunConfig) -> None:
-    if cfg.pruning not in ("no_prune", "none"):
-        raise NotImplementedError(
-            f"pruning {cfg.pruning!r}: pruning is not ported yet")
     if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.mesh_seq > 1:
         raise NotImplementedError(
             f"mesh ({cfg.mesh_data},{cfg.mesh_model},{cfg.mesh_seq}): "
@@ -139,9 +142,16 @@ def _check_ported(cfg: RunConfig) -> None:
 def create_run_state(cfg: RunConfig, model: RegressionModel,
                      steps_per_epoch: int) -> TrainState:
     """Optimizer of ``cfg`` over the model's parameters (schedules sized
-    by ``steps_per_epoch * cfg.epochs``), step 0, and a dropout generator
-    on the model's device seeded with ``cfg.seed``."""
+    by ``steps_per_epoch * cfg.epochs``), step 0, a dropout generator on
+    the model's device seeded with ``cfg.seed`` and, when
+    ``pruning_recipes(cfg.epochs, steps_per_epoch)[cfg.pruning]`` prunes,
+    its pruner with masks of ones."""
     _check_ported(cfg)
+    recipes = pruning_recipes(cfg.epochs, steps_per_epoch)
+    if cfg.pruning not in recipes:
+        raise ValueError(f"unknown pruning recipe {cfg.pruning!r}")
+    prune_cfg = recipes[cfg.pruning]
+    pruner = MagnitudePruner(prune_cfg) if prune_cfg.enabled else None
     optimizer = create_optimizer(
         model.named_parameters(), cfg.opt_config, lr=cfg.lr,
         ssm_lr=cfg.ssm_lr_base, weight_decay=cfg.weight_decay,
@@ -154,7 +164,9 @@ def create_run_state(cfg: RunConfig, model: RegressionModel,
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     logger.info("trainable parameters: %d", count_params(model))
     return TrainState(model=model, optimizer=optimizer, step=0,
-                      generator=generator)
+                      generator=generator,
+                      masks=pruner.init_masks(model) if pruner else None,
+                      pruner=pruner)
 
 
 def _place(batch, device):
@@ -167,14 +179,19 @@ def _epoch_means(acc: Dict[str, list], prefix: str = "") -> Dict[str, float]:
             for k, v in acc.items()}
 
 
-def run_ndns_epoch(state: TrainState, step_fn: Callable, loader
+def run_ndns_epoch(state: TrainState, step_fn: Callable, loader,
+                   mask_update: Optional[Callable] = None
                    ) -> Dict[str, float]:
-    """One pass of ``step_fn`` over ``loader``; ``state`` moves on in
-    place. Returns the epoch means of the step metrics as ``train_<key>``."""
+    """One pass of ``step_fn`` over ``loader``, each step after
+    ``mask_update(state)`` (:func:`make_mask_update_fn`); ``state`` moves
+    on in place. Returns the epoch means of the step metrics as
+    ``train_<key>``."""
     device = next(state.model.parameters()).device
     acc: Dict[str, list] = {}
     for batch in loader:
         noisy, clean = _place(batch, device)
+        if mask_update is not None:
+            state = mask_update(state)
         state, metrics = step_fn(state, *prep_ndns_batch(noisy, clean),
                                  clean)
         for k, v in metrics.items():
@@ -233,10 +250,11 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
                     metadata.update(restored)
 
     step_fn = make_ndns_train_step(model, microbatch=cfg.microbatch)
-    eval_fn = make_ndns_eval_step(model)
+    eval_fn = make_ndns_eval_step(model, state.pruner, state.masks)
+    mask_update = make_mask_update_fn(state.pruner)
     patience = 0
     for epoch in range(int(metadata.get("next_epoch", 0)), cfg.epochs):
-        log = run_ndns_epoch(state, step_fn, trainloader)
+        log = run_ndns_epoch(state, step_fn, trainloader, mask_update)
         val = validate_ndns(model, eval_fn, valloader)
         test = validate_ndns(model, eval_fn, testloader)
 
@@ -261,6 +279,9 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
         log.update({f"val_{k}": v for k, v in val.items()})
         log.update({f"test_{k}": v for k, v in test.items()})
         log.update(extract_learning_rates(state.optimizer))
+        if state.pruner is not None:
+            log["weight_sparsity"] = summarize_sparsity(
+                model, state.masks)["_total_sparsity"]
         logger.info("epoch %d: %s", epoch, log)
 
         improved = val["loss"] < metadata["best_val_loss"]

@@ -1,21 +1,24 @@
 """TrainState: what one training run carries from step to step (counterpart
 of ``sparsernns_tpu/train/state.py``).
 
-The JAX state is an immutable pytree of parameters, optimizer state and
-batch statistics; here the model and the optimizer own their tensors and
-are updated in place, so the state holds references: the model (parameters
-and BatchNorm running statistics), the optimizer (moments and schedules),
-the count of optimizer steps taken, and the generator that the dropout
-masks are drawn from. ``masks`` (pruning) stays None until pruning is
-ported.
+The JAX state is an immutable pytree of parameters, optimizer state, batch
+statistics and pruning masks; here the model and the optimizer own their
+tensors and are updated in place, so the state holds references: the model
+(parameters and BatchNorm running statistics), the optimizer (moments and
+schedules), the count of optimizer steps taken, the generator that the
+dropout masks are drawn from, and with pruning the pruner and its masks
+(``train/pruning.py``: a dict keyed by the JAX leaf paths, updated in
+place), else None.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
+
+from sparsernns_tpu_torch.train.pruning import MagnitudePruner, Masks
 
 
 @dataclasses.dataclass
@@ -24,7 +27,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     generator: Optional[torch.Generator] = None
-    masks: Any = None
+    masks: Optional[Masks] = None
+    pruner: Optional[MagnitudePruner] = None
 
 
 def count_params(model: torch.nn.Module) -> int:

@@ -1,10 +1,15 @@
 """NDNS train and eval steps (counterpart of
 ``sparsernns_tpu/train/steps.py`` ``make_ndns_train_step``,
-``_make_ndns_microbatch_step`` and ``make_ndns_eval_step``).
+``_make_ndns_microbatch_step``, ``make_ndns_eval_step``,
+``_forward_params`` and ``make_mask_update_fn``).
 
 The train step updates the model, the optimizer and the state's step count
 in place (the JAX step returns a new immutable state; here the tensors are
 owned by the model and the optimizer) and returns the same state object.
+With pruning the model runs on its masked weights
+(``torch.func.functional_call`` with the pruner's forward weights: the
+parameters are swapped for the call, the BatchNorm buffers stay the
+module's and move in place).
 """
 
 from __future__ import annotations
@@ -12,19 +17,57 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.func import functional_call
 
 from sparsernns_tpu_torch.train.losses import (STFT_MAG_MEAN,
                                                ndns_loss_from_mask_tm)
 from sparsernns_tpu_torch.train.optim import optimizer_step
+from sparsernns_tpu_torch.train.pruning import MagnitudePruner, Masks
 from sparsernns_tpu_torch.train.state import TrainState
 
 
-def _loss(model, generator, noisy_mag, noisy_phase, clean_mag, clean):
+def _forward_params(model, pruner: Optional[MagnitudePruner],
+                    masks: Optional[Masks]) -> Dict[str, torch.Tensor]:
+    """The masked forward weights of the pruned parameters, by name; empty
+    without pruning."""
+    if pruner is None or not pruner.cfg.enabled or masks is None:
+        return {}
+    return pruner.apply_masks(model, masks)
+
+
+def make_mask_update_fn(pruner: Optional[MagnitudePruner]) -> Callable:
+    """Per-step mask refresh, gated on the host against the schedule, so
+    the masks are recomputed on due steps only. The host step counter starts
+    from ``state.step`` (resume-safe) and then counts calls: the epoch
+    loop calls this once per optimizer step, before the step."""
+    if pruner is None or not pruner.cfg.enabled:
+        return lambda state: state
+    cfg = pruner.cfg
+    counter = {"step": None}
+
+    def maybe_update(state: TrainState) -> TrainState:
+        if counter["step"] is None:
+            counter["step"] = int(state.step)
+        step = counter["step"]
+        counter["step"] = step + 1
+        if (cfg.update_start <= step <= cfg.update_end
+                and (step - cfg.update_start) % cfg.update_freq == 0):
+            pruner.update_masks(state.model, state.masks, step)
+        return state
+
+    return maybe_update
+
+
+def _loss(model, generator, noisy_mag, noisy_phase, clean_mag, clean,
+          params: Optional[Dict[str, torch.Tensor]] = None):
     """(loss, mean SI-SNR) of one (micro)batch. The whole loss path runs
     time-major (B, L, F), the model's own layout; the spectra are
-    transposed once here (only the mask carries gradients)."""
+    transposed once here (only the mask carries gradients). ``params``
+    replace the model's parameters of those names for the call."""
     noisy_mag_tm = noisy_mag.transpose(1, 2)
-    out = model(noisy_mag_tm - STFT_MAG_MEAN, generator)
+    x = noisy_mag_tm - STFT_MAG_MEAN
+    out = (functional_call(model, params, (x, generator)) if params
+           else model(x, generator))
     loss, snr, _ = ndns_loss_from_mask_tm(
         out, noisy_mag_tm, noisy_phase.transpose(1, 2),
         clean_mag.transpose(1, 2), clean)
@@ -61,7 +104,11 @@ def make_ndns_train_step(model: torch.nn.Module,
     BatchNorm normalizes each chunk with its own statistics and moves the
     running statistics chunk by chunk; dropout draws fresh masks per
     chunk. The dropout masks come from ``state.generator``, which moves on
-    with every draw, so every step sees other masks."""
+    with every draw, so every step sees other masks.
+
+    With ``state.pruner`` the forward sees the weights times
+    ``state.masks`` (STE: the gradient reaches the dense weights whole);
+    in hard mode the pruned weights are zeroed after the update."""
 
     def step(state: TrainState, noisy_mag, noisy_phase, clean_mag, clean):
         if state.model is not model:
@@ -79,7 +126,9 @@ def make_ndns_train_step(model: torch.nn.Module,
             rows = slice(i * size, (i + 1) * size)
             loss, snr = _loss(model, state.generator, noisy_mag[rows],
                               noisy_phase[rows], clean_mag[rows],
-                              clean[rows])
+                              clean[rows],
+                              _forward_params(model, state.pruner,
+                                              state.masks))
             loss.backward()             # .grad accumulates the sum
             losses.append(loss.detach())
             snrs.append(snr.detach())
@@ -91,18 +140,23 @@ def make_ndns_train_step(model: torch.nn.Module,
                    "si_snr": torch.stack(snrs).mean()}
         metrics.update(_grad_norm_metrics(model))
         optimizer_step(state.optimizer, state.step)
+        if state.pruner is not None:
+            state.pruner.post_gradient_update(model, state.masks)
         state.step += 1
         return state, metrics
 
     return step
 
 
-def make_ndns_eval_step(model: torch.nn.Module) -> Callable:
+def make_ndns_eval_step(model: torch.nn.Module,
+                        pruner: Optional[MagnitudePruner] = None,
+                        masks: Optional[Masks] = None) -> Callable:
     """Returns ``step(noisy_mag, noisy_phase, clean_mag, clean)`` ->
     ``{"loss", "si_snr"}`` (0-dim tensors). Spectra are (B, F, L) as
     :func:`~sparsernns_tpu_torch.ops.stft.stft_splitter` gives them; the
     model runs in eval mode on its own device (a model in training mode is
-    switched to eval for the call and back)."""
+    switched to eval for the call and back), with ``pruner`` on its
+    weights times ``masks`` as they are at the call."""
 
     @torch.no_grad()
     def step(noisy_mag, noisy_phase, clean_mag, clean
@@ -111,7 +165,8 @@ def make_ndns_eval_step(model: torch.nn.Module) -> Callable:
         model.eval()
         try:
             loss, snr = _loss(model, None, noisy_mag, noisy_phase,
-                              clean_mag, clean)
+                              clean_mag, clean,
+                              _forward_params(model, pruner, masks))
         finally:
             model.train(was_training)
         return {"loss": loss, "si_snr": snr}

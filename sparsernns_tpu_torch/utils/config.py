@@ -73,7 +73,7 @@ class RunConfig:
     lr_schedule: str = "cosine"         # cosine | plateau
     plateau_factor: float = 0.2
     plateau_patience: int = 20
-    pruning: str = "no_prune"           # pruning is not ported: must stay so
+    pruning: str = "no_prune"           # a train/pruning.pruning_recipes name
 
     # --- parallelism (not ported: any other value raises) ---
     mesh_data: int = -1

@@ -82,6 +82,22 @@ def grads_to_flax(model: torch.nn.Module) -> Dict[str, Any]:
     return params
 
 
+def flax_path(key: str) -> Tuple[Tuple[str, ...], bool]:
+    """A port ``state_dict`` name -> (its path in the JAX package's tree,
+    whether the port's tensor is the transpose of the JAX leaf: a dense
+    ``weight`` (out, in) against the flax ``kernel`` (in, out))."""
+    *mods, name = key.split(".")
+    transposed = False
+    if name == "weight" and mods[-1] == "norm":
+        name = "scale"
+    elif name == "weight":
+        name, transposed = "kernel", True
+    elif name in ("running_mean", "running_var"):
+        name = name[len("running_"):]
+    path = re.sub(r"layers\.(\d+)", r"layers_\1", ".".join(mods))
+    return (*path.split("."), name), transposed
+
+
 def _flax_trees(items) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
@@ -89,16 +105,10 @@ def _flax_trees(items) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         *mods, name = key.split(".")
         if "observer" in mods or name == "num_batches_tracked":
             continue
-        tree = params
+        tree = stats if name.startswith("running_") else params
+        (*path, name), transposed = flax_path(key)
         arr = val.detach().cpu().numpy()
-        if name == "weight" and mods[-1] == "norm":
-            name = "scale"
-        elif name == "weight":
-            name, arr = "kernel", arr.T
-        elif name in ("running_mean", "running_var"):
-            tree, name = stats, name[len("running_"):]
-        path = re.sub(r"layers\.(\d+)", r"layers_\1", ".".join(mods))
-        for part in path.split("."):
+        for part in path:
             tree = tree.setdefault(part, {})
-        tree[name] = np.array(arr, order="C")
+        tree[name] = np.array(arr.T if transposed else arr, order="C")
     return params, stats

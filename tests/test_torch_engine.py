@@ -279,9 +279,12 @@ def test_engine_refusals(frozen):  # noqa: F811
     k = np.array(sparse["frozen_params"]["decoder"]["kernel"])
     k[:8] = 0.0
     sparse["frozen_params"]["decoder"]["kernel"] = k
-    with pytest.raises(NotImplementedError, match="block_sparse_matmul"):
-        port_eng(sparse, engine_kw=dict(block_sparse_dense=(8, 16)))
-    port_eng(sparse, engine_kw=dict(block_sparse_dense=None))   # dense pack
+    # enough zero tiles: a block-sparse pack (K7), off the network route
+    bs = port_eng(sparse, engine_kw=dict(block_sparse_dense=(8, 16)))
+    assert bs.dense_blocks == {"decoder": (1, 2)}
+    assert bs._stack_ok and not bs._network_ok
+    dense = port_eng(sparse, engine_kw=dict(block_sparse_dense=None))
+    assert dense.dense_blocks == {} and dense._network_ok
     with pytest.raises(NotImplementedError, match="from_artifacts"):
         W8A16Engine.from_artifacts("runs", None)
     # row_pair is a TPU schedule with the same bits: accepted, no effect

@@ -320,9 +320,12 @@ def test_what_still_raises():
                              training=True, device="cpu")
     tm = loop.build_model(small_config(), D_IO, D_IO, training=True,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="pruning"):
-        loop.create_run_state(
-            small_config(pruning="iterative-ste-mag-0.5"), tm, 1)
+    # every pruning recipe is accepted; an unknown name is not
+    pruned = loop.create_run_state(
+        small_config(pruning="iterative-ste-mag-0.5"), tm, 1)
+    assert pruned.pruner.cfg.final_sparsity == 0.5 and pruned.masks
+    with pytest.raises(ValueError, match="pruning"):
+        loop.create_run_state(small_config(pruning="magnitude-0.5"), tm, 1)
     with pytest.raises(NotImplementedError, match="mesh"):
         loop.train(small_config(mesh_model=2), device="cpu")
     with pytest.raises(NotImplementedError, match="synthetic"):

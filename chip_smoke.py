@@ -2,8 +2,9 @@
 holds each against its plain PyTorch version at the flagship shapes, and
 drives the float NDNS serving path, the w8a16 engine serving path, the
 float NDNS training path, the mixer route (training and eval of the models
-outside the whole-layer kernel), top-k serving, and pruned training with
-block-sparse serving at the width of ``recipes/ndns.json`` (d_model 192,
+outside the whole-layer kernel), top-k serving, pruned training with
+block-sparse serving, and quantization-aware and top-k training at the
+width of ``recipes/ndns.json`` (d_model 192,
 P 128, 3 layers; random weights from a seed):
 
 1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail)
@@ -79,7 +80,23 @@ P 128, 3 layers; random weights from a seed):
    mask), chunks against one whole call, card against CPU; an engine with
    dense GLU kernels on the stack route (K7 x 2, K5a x 3) against its
    per-op route; three steps of ``recipes/ndns_sparse.json`` (magnitude
-   masks through K2/K3) and its weight sparsity.
+   masks through K2/K3) and its weight sparsity;
+15. QAT kernel phase — K1 and K4a in their QAT modes (w8a16's bits, 16
+   and 16) against their plain versions at B=8, L=3751 under the
+   quantized-state bar: K1 at t=1024 forward, reverse and from a carry,
+   one odd width; K4a at t=512 with per-block and global state scales,
+   relu_state off and on, and its states over an exact B-projection;
+   times and profiles;
+16. QAT and top-k training phase — the recipe with
+   ``quantization="w8a16"``, ``block_t=512``: three B=32 steps (K4a qat
+   x 3, K1 x 3 each way a step), three with ``qat_global_scales`` (K1 x 3
+   more), a step against the CPU, eight dropout-free B=8 steps that must
+   lower the loss, an eval step (K4a qat x 3), a 30-chunk QAT stream (K1
+   qat x 3 a forward; three chunks against the CPU), the per-block and
+   global forwards against the associative QAT forward (printed); three
+   B=32 steps of the top-k recipe (K1 x 3 each way); the ``w32a32``
+   engine offline (per-op route, K4a-engine x 3) against the CPU engine,
+   timed.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -639,7 +656,8 @@ def mixer_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
             (f"H={hs} P={ps} L={ls}", True,
              (rnd(2, ls, hs), *odd_lam, *odd[1:]), (2, ls, hs))):
         g = rnd(*shape)
-        ours = grads_of(lambda *a: fused_s5.FusedS5Fn.apply(*a, relu), ops, g)
+        ours = grads_of(lambda *a: fused_s5.FusedS5Fn.apply(
+            *a, relu, None, None, None), ops, g)
         refs = grads_of(lambda a, lr, li, *w: fused_s5.fused_s5_plain(
             a, (lr, li), *w, relu_state=relu), ops, g)
         compare(f"FusedS5Fn relu_state={relu} {tag} gradients vs plain "
@@ -1451,6 +1469,388 @@ def pruned_serving_phase(cfg, audio, feats, batch, records,
           flush=True)
 
 
+def _qat_steps(ref, t: int, bits: int, reverse: bool = False):
+    """absmax/qmax of each (batch row, time block) of ``ref`` (B, L, P),
+    blocks aligned as the QAT scan aligns them (from the end when
+    reversed); the last, padded block takes its row's absmax."""
+    import torch
+    x = ref.flip(1) if reverse else ref
+    b, length, _ = x.shape
+    steps = torch.empty_like(x[..., :1])
+    row_max = x.abs().amax(dim=(1, 2), keepdim=True)
+    for j in range(0, length, t):
+        blk = x[:, j:j + t] if j + t <= length else None
+        steps[:, j:j + t] = (row_max if blk is None else
+                             blk.abs().amax(dim=(1, 2), keepdim=True))
+    steps = steps / (2.0 ** (bits - 1) - 1)
+    return steps.flip(1) if reverse else steps
+
+
+def _states_close(name, out, ref, steps) -> float:
+    """The quantized-state bar: at most 0.5 % of the elements differ by
+    more than 1e-6·max(1, |ref|), and none by more than two grid steps of
+    its block (``steps``, broadcastable). Returns the largest difference."""
+    diff = (out - ref).abs()
+    floor = 1e-6 * ref.abs().clamp(min=1.0)
+    share = (diff > floor).float().mean().item()
+    excess = (diff - 2.0 * steps - floor).max().item()
+    print(f"{name}: max_abs_err {diff.max().item():.3e}, share above "
+          f"1e-6 x max(1, |ref|) {share:.2e} (limit 5e-3), largest excess "
+          f"over two grid steps {excess:.3e} (limit 0)", flush=True)
+    if share > 5e-3 or excess > 0:
+        raise AssertionError(f"{name}: share {share}, excess {excess}")
+    return diff.max().item()
+
+
+def _qat_mixer_operands(mixer, u):
+    """The QAT mixer's kernel operands of one layer, as its forward makes
+    them: fake-quantized u, W_b and W_c halves (conj-sym 2 folded in), D,
+    and the global state absmax of its stats pass."""
+    import torch
+
+    from sparsernns_tpu_torch.quantize.qat import fake_quant
+    q = mixer.q_config
+    with torch.no_grad():
+        lam, b_bar = mixer.discretized()
+        w_b = mixer._w_b(b_bar).contiguous()
+        u_q = fake_quant(u, q.ssm_act_precision)
+        return (u_q, lam, w_b, mixer._w_c().contiguous(),
+                fake_quant(mixer.D, q.d_precision),
+                mixer._global_state_absmax(u_q, lam, w_b))
+
+
+def qat_kernel_phase(cfg, frames: int, gen, records) -> None:
+    """Phase 15: K1 and K4a in their QAT modes against their plain
+    versions at B=8, L=3751, H=192, P=128 with the w8a16 recipe's bits
+    (16, 16): K1 forward at t=1024, reverse and from a carry, and one odd
+    width (L not a multiple of t); K4a at t=512, per-block and global
+    scale, relu_state off and on, with layer 0's QAT operands of the
+    flagship, and its states alone (W_c the identity, d = 0) over a
+    B-projection that is exact in any summation order. Median of 5 timed
+    calls beside the plain version's time and the bound."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import fused_s5, qat_scan
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    dev = torch.device("cuda")
+    bits = (16, 16)
+    qcfg = dataclasses.replace(cfg, quantization="w8a16", block_t=512)
+    mixer = build_model(qcfg, 257, 257, device=dev, seed=0
+                        ).encoder.layers[0].mixer
+    h, p = cfg.d_model, mixer.p
+    rnd = lambda *shape, sc=1.0: (  # noqa: E731
+        torch.randn(shape, generator=gen) * sc).to(dev)
+    with torch.no_grad():
+        lam, _ = mixer.discretized()
+        lam = tuple(x.contiguous() for x in lam)
+
+    # ---- K1: halves of one (B, L, 2P) projection, as the mixer gives ----
+    bu_cat = rnd(B, frames, 2 * p)
+    bu = (bu_cat[..., :p], bu_cat[..., p:])
+    carry = (rnd(B, p), rnd(B, p))
+    errs = {}
+    with torch.no_grad():
+        for tag, kw in (("forward", {}), ("reverse", dict(reverse=True)),
+                        ("carry", dict(carry_init=carry))):
+            ref = qat_scan.qat_scan_plain(lam, bu, bits, 1024, **kw)
+            out = qat_scan.qat_scan_cuda(lam, bu, bits, 1024, **kw)
+            torch.cuda.synchronize()
+            rev = tag == "reverse"
+            t = min(1024, -(-frames // 8) * 8)
+            errs[tag] = max(_states_close(
+                f"K1 qat {tag} t=1024 vs plain ({half})", o, r,
+                _qat_steps(r, t, bits[1], rev))
+                for half, o, r in zip(("re", "im"), out, ref))
+        ps, ls = 12, 70
+        radius = torch.rand(ps, generator=gen) * 0.05 + 0.94
+        angle = torch.rand(ps, generator=gen) * 6.0 - 3.0
+        odd_lam = ((radius * torch.cos(angle)).to(dev),
+                   (radius * torch.sin(angle)).to(dev))
+        odd_bu = (rnd(2, ls, ps), rnd(2, ls, ps))
+        for rev in (False, True):
+            ref = qat_scan.qat_scan_plain(odd_lam, odd_bu, (8, 8), 32,
+                                          reverse=rev)
+            out = qat_scan.qat_scan_cuda(odd_lam, odd_bu, (8, 8), 32,
+                                         reverse=rev)
+            for o, r in zip(out, ref):
+                _states_close(f"K1 qat P={ps} L={ls} t=32 (8, 8) "
+                              f"reverse={rev} vs plain", o, r,
+                              _qat_steps(r, 32, 8, rev))
+        ms = _median_ms(lambda: qat_scan.qat_scan_cuda(lam, bu, bits, 1024))
+        plain_ms = _median_ms(lambda: qat_scan.qat_scan_plain(
+            lam, bu, bits, 1024), 1)
+        ms_rev = _median_ms(lambda: qat_scan.qat_scan_cuda(
+            lam, bu, bits, 1024, reverse=True))
+    elems = B * frames * p
+    n_pass = max(1, (1024 - 1).bit_length())
+    bound, by = _bound_ms(2 * elems * 4 * 2 + 2 * p * 4,
+                          8 * elems * (n_pass + 1))
+    records["qat_scan"] = dict(
+        name="qat_scan", route="cuda",
+        source="sparsernns_tpu_torch/ops/cuda/csrc/qat_scan.cu",
+        replaces="sparsernns_tpu/ops/pallas/scan_kernel.py:406",
+        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None)
+    print(f"K1 qat at B={B}, t=1024: forward {ms:.3f} ms, reverse "
+          f"{ms_rev:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms",
+          flush=True)
+    print(json.dumps(profile_region(
+        "K1 qat t=1024, one call (tables, passes, carry walk)",
+        lambda: qat_scan.qat_scan_cuda(lam, bu, bits, 1024), top=8)),
+        flush=True)
+
+    # ---- K4a: layer 0's QAT operands of the flagship ----
+    u_q, lam_q, w_b, w_c, d, g_amax = _qat_mixer_operands(
+        mixer, rnd(B, frames, h))
+    state_step = g_amax.item() / (2.0 ** (bits[1] - 1) - 1)
+    col = w_c.abs().sum(dim=0).max().item()
+    k4a = {}
+    with torch.no_grad():
+        for scale in (None, g_amax):
+            for relu in (False, True):
+                args = (u_q, lam_q, w_b, w_c, d, bits, 512, relu, scale)
+                ref = fused_s5.fused_s5_qat_plain(*args)
+                out = fused_s5.fused_s5_qat_cuda(*args)
+                torch.cuda.synchronize()
+                diff = (out - ref).abs()
+                top = max(1.0, ref.abs().max().item())
+                share = (diff > 1e-4 * top).float().mean().item()
+                kind = "per-block" if scale is None else "global"
+                tag = f"K4a qat t=512 {kind} scale relu_state={relu}"
+                print(f"{tag} vs plain: share above 1e-4 x max(1, max|ref|) "
+                      f"{share:.2e}", flush=True)
+                # a state code the two B-projection sums round apart moves
+                # the row's outputs by a state step times W_c's weights
+                _check(f"{tag} vs plain", diff.max().item(),
+                       2 * 4 * state_step * col + 1e-4 * top)
+                k4a[(scale is None, relu)] = diff.max().item()
+        # the states alone over an exact B-projection: the same codes
+        hs = 2 * p
+        u_x = (torch.randint(-16, 17, (B, frames, hs), generator=gen) / 8.0
+               ).to(dev)
+        wb_x = (torch.randint(-8, 9, (hs, 2 * p), generator=gen) / 32.0
+                ).to(dev)
+        eye = torch.eye(hs, device=dev)
+        zero = torch.zeros(hs, device=dev)
+        for scale in (None, torch.full((), 40.0, device=dev)):
+            args = (u_x, lam_q, wb_x, eye, zero, bits, 512, False, scale)
+            ref = fused_s5.fused_s5_qat_plain(*args)
+            out = fused_s5.fused_s5_qat_cuda(*args)
+            if scale is None:
+                kind = "per-block"
+                steps = torch.cat(
+                    [_qat_steps(ref[..., :p], 512, 16).expand(-1, -1, p),
+                     _qat_steps(ref[..., p:], 512, 16).expand(-1, -1, p)],
+                    dim=-1)
+            else:
+                kind, steps = "global", scale.item() / 32767.0
+            _states_close(f"K4a qat states, {kind} scale, exact "
+                          "B-projection, vs plain", out, ref, steps)
+        odd = (rnd(2, 45, 20), odd_lam, rnd(20, 2 * ps, sc=0.3),
+               rnd(2 * ps, 20, sc=0.3), rnd(20))
+        ref = fused_s5.fused_s5_qat_plain(*odd, (8, 8), 16, True)
+        out = fused_s5.fused_s5_qat_cuda(*odd, (8, 8), 16, True)
+        _check(f"K4a qat H=20 P={ps} L=45 t=16 (8, 8) relu vs plain",
+               (out - ref).abs().max().item(),
+               2e-2 * max(1.0, ref.abs().max().item()))
+        ms = _median_ms(lambda: fused_s5.fused_s5_qat_cuda(
+            u_q, lam_q, w_b, w_c, d, bits, 512))
+        ms_glob = _median_ms(lambda: fused_s5.fused_s5_qat_cuda(
+            u_q, lam_q, w_b, w_c, d, bits, 512, False, g_amax))
+        plain_ms = _median_ms(lambda: fused_s5.fused_s5_qat_plain(
+            u_q, lam_q, w_b, w_c, d, bits, 512), 1)
+    rows = B * frames
+    n_pass = max(1, (512 - 1).bit_length())
+    bound, by = _bound_ms(
+        2 * rows * h * 4 + (2 * h * 2 * p + h + 2 * p) * 4,
+        rows * (2 * h * 2 * p + 2 * 2 * p * h + 8 * p * (n_pass + 1)
+                + 2 * h))
+    records["fused_s5_qat"] = dict(
+        name="fused_s5_qat", route="cuda",
+        source="sparsernns_tpu_torch/ops/cuda/csrc/qat_scan.cu",
+        replaces="sparsernns_tpu/ops/pallas/fused_s5.py:204",
+        max_abs_err=k4a[(True, False)], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None)
+    print(f"K4a qat at B={B}, t=512: per-block {ms:.3f} ms, global scale "
+          f"{ms_glob:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms",
+          flush=True)
+    print(json.dumps(profile_region(
+        "K4a qat t=512, one call (tables, three launches)",
+        lambda: fused_s5.fused_s5_qat_cuda(u_q, lam_q, w_b, w_c, d, bits,
+                                           512), top=8)), flush=True)
+    print(json.dumps({"qat_kernel_phase": {
+        k: records[k] for k in ("qat_scan", "fused_s5_qat")}}), flush=True)
+
+
+def qat_training_phase(cfg, audio, feats, batch, frozen, records,
+                       counters) -> None:
+    """Phase 16: quantization-aware training and training with top-k at
+    the flagship's width. The recipe with ``quantization="w8a16"`` and
+    ``block_t=512``: three B=32 steps with dropout (per step K4a qat x 3,
+    K1 x 3 forward and x 3 reverse in the backward, no K2/K3), three with
+    ``qat_global_scales`` (K1 x 3 more forward, the stats pass), one step
+    on the card against the CPU, eight dropout-free B=8 steps that must
+    lower the loss, one eval step (K4a qat x 3), a 30-chunk QAT stream
+    (K1 qat x 3 a forward; three chunks against the CPU); the global-scale
+    and per-block forwards against the associative QAT forward on the
+    card (printed, not held); three B=32 steps of the top-k recipe (K1 x 3
+    each way); and the ``w32a32`` engine's offline call (per-op route,
+    K4a-engine x 3) against the CPU engine at the engine bar, timed."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+    from sparsernns_tpu_torch.train.steps import (make_ndns_eval_step,
+                                                  make_ndns_train_step)
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    n_layers, bsz = cfg.n_layers, cfg.bsz
+    noisy, clean = audio
+    noisy_mag, _, _ = feats
+    tr_noisy, tr_clean, tr_feats = batch
+    qcfg = dataclasses.replace(cfg, quantization="w8a16", block_t=512)
+    per_step = {"fused_s5_qat": n_layers, "diag_scan": n_layers,
+                "diag_scan_rev": n_layers}
+
+    # ---- three B=32 QAT steps, per-block and global scales ----
+    for tag, run_cfg, expect in (
+            ("QAT", qcfg, per_step),
+            ("QAT global scales",
+             dataclasses.replace(qcfg, qat_global_scales=True),
+             dict(per_step, diag_scan=2 * n_layers))):
+        model, state = _fresh_run(run_cfg)
+        assert model.encoder.layers[0].mixer.layer_tail_operands() is None
+        step = make_ndns_train_step(model)
+        torch.cuda.reset_peak_memory_stats()
+        state, counts, _ = _run_steps(f"{tag} train B={bsz}", state, step,
+                                      tr_feats, 3, expect, counters)
+        peak = torch.cuda.max_memory_allocated()
+        if tag == "QAT":
+            records["fused_s5_qat"]["launches"] = counts["fused_s5_qat"]
+        profile = profile_region(f"{tag} train step B={bsz}",
+                                 lambda: step(state, *tr_feats), top=16)
+        print(json.dumps(profile), flush=True)
+        print(f"{tag} train B={bsz}: peak memory {peak / 2**20:.0f} MiB, "
+              f"device busy share {profile['device_busy_share']:.3f}",
+              flush=True)
+        del model, state, step
+
+    quiet = dataclasses.replace(qcfg, p_dropout=0.0)
+    _card_vs_cpu_step("QAT train step", quiet, tr_noisy, tr_clean)
+    state, step, small, peak_small = _learning_steps("QAT train", quiet,
+                                                     tr_feats)
+    print(f"QAT train B={B}: peak memory {peak_small / 2**20:.0f} MiB",
+          flush=True)
+    model = state.model
+    eval_step = make_ndns_eval_step(model)
+    eval_step(*small)                                   # warm-up
+    counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = eval_step(*small)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = counters()
+    print(f"QAT eval step B={B}: {wall:.1f} ms, loss "
+          f"{metrics['loss'].item():.4f}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    assert np.isfinite(metrics["loss"].item())
+    for name, count in counts.items():
+        assert count == (n_layers if name == "fused_s5_qat" else 0), counts
+
+    # ---- the 30-chunk QAT stream (K1 qat with a carry) ----
+    model.eval()
+    den = StreamingDenoiser(model, batch_size=B)
+    counters()
+    t0 = time.time()
+    out = den.process_offline(noisy, chunk_samples=CHUNK)
+    torch.cuda.synchronize()
+    stream_s = time.time() - t0
+    counts = counters()
+    records["qat_scan"]["launches"] = counts["qat_scan"]
+    n_chunks = -(-noisy.shape[-1] // CHUNK)
+    print(f"QAT streaming: {n_chunks} chunks of {CHUNK} samples in "
+          f"{stream_s * 1e3:.1f} ms, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    assert np.isfinite(out).all() and out.shape[0] == B, out.shape
+    assert counts["qat_scan"] >= n_layers * (n_chunks - 1), counts
+    assert counts["qat_scan"] % n_layers == 0
+    assert sum(counts.values()) == counts["qat_scan"], counts
+    x_tm = (noisy_mag[:2].transpose(1, 2) - STFT_MAG_MEAN).contiguous()
+    cpu_model = build_model(quiet, 257, 257, device="cpu", seed=0)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    cpu_model.eval()
+    with torch.no_grad():
+        outs, cache, cpu_outs, cpu_cache = [], None, [], None
+        for s in range(0, 3 * 125, 125):
+            y, cache = model.forward_stream(x_tm[:, s:s + 125], cache)
+            outs.append(y.cpu())
+            y, cpu_cache = cpu_model.forward_stream(
+                x_tm[:, s:s + 125].cpu(), cpu_cache)
+            cpu_outs.append(y)
+    out3, ref3 = torch.cat(outs, 1), torch.cat(cpu_outs, 1)
+    diff = (out3 - ref3).abs()
+    top = max(1.0, ref3.abs().max().item())
+    share = (diff > 1e-4 * top).float().mean().item()
+    print(f"QAT stream, 3 chunks on the card vs the CPU: share above 1e-4 "
+          f"x max(1, max|ref|) {share:.2e}", flush=True)
+    _check("QAT stream, 3 chunks on the card vs the CPU", diff.max().item(),
+           2e-2 * top)
+
+    # ---- per-block and global-scale forwards vs the associative one ----
+    with torch.no_grad():
+        sd = model.state_dict()
+        x2 = x_tm.to("cuda")
+        ys = {}
+        for name, kw in (("associative", dict(scan_mode="associative")),
+                         ("per-block", {}),
+                         ("global", dict(qat_global_scales=True))):
+            m = build_model(dataclasses.replace(quiet, **kw), 257, 257,
+                            device="cuda", seed=0)
+            m.load_state_dict(sd)
+            ys[name] = m.eval()(x2)
+            del m
+        denom = max(ys["associative"].abs().max().item(), 1e-3)
+        rel = {name: (ys[name] - ys["associative"]).abs().max().item() / denom
+               for name in ("per-block", "global")}
+    print(f"QAT forward at the flagship (B=2, L={x2.shape[1]}) against the "
+          f"associative QAT forward, max relative to its max: per-block "
+          f"{rel['per-block']:.4f}, global scale {rel['global']:.4f} "
+          "(recorded, not held)", flush=True)
+    del state, step, model, eval_step
+
+    # ---- top-k training: the unfused route, K1 both ways ----
+    topk = dataclasses.replace(cfg, topk=0.5, approx_topk=True)
+    model, state = _fresh_run(topk)
+    step = make_ndns_train_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    state, _, _ = _run_steps(f"top-k train B={bsz}", state, step, tr_feats,
+                             3, {"diag_scan": n_layers,
+                                 "diag_scan_rev": n_layers}, counters)
+    print(f"top-k train B={bsz}: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+    del model, state, step
+
+    # ---- the w32a32 engine, offline on the per-op route ----
+    x_eng = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    w32 = dataclasses.replace(cfg, convert_quantization="w32a32")
+    eng = engine_from_frozen(w32, *frozen, device="cuda", block_t=512)
+    assert not eng._stack_ok and not eng._network_ok
+    _timed_region("w32a32 engine offline (per-op route)",
+                  lambda: eng(x_eng), {"fused_s5_engine": n_layers},
+                  counters)
+    ms = _median_ms(lambda: eng(x_eng))
+    print(f"w32a32 engine offline at B={B}: {ms:.3f} ms", flush=True)
+    cpu_eng = engine_from_frozen(w32, *frozen, device="cpu", block_t=512)
+    x_small = x_eng[:2, :200]
+    _engine_close("w32a32 engine on the card vs the CPU engine",
+                  eng(x_small).cpu(), cpu_eng(x_small.cpu()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1462,7 +1862,7 @@ def main() -> int:
     from sparsernns_tpu_torch.ops.cuda import (block_sparse, build,
                                                diag_scan, engine_layer,
                                                engine_network, fused_s5,
-                                               layer_tail)
+                                               layer_tail, qat_scan)
     from sparsernns_tpu_torch.ops.stft import stft_splitter
     from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
     from sparsernns_tpu_torch.train.loop import build_model
@@ -1662,6 +2062,7 @@ def main() -> int:
         engine_layer.launches = engine_layer.launches_carry = 0
         engine_network.launches = 0
         block_sparse.launches = 0
+        qat_scan.launches = fused_s5.launches_qat = 0
 
     t0 = time.time()
     recipe = quantization_recipes[cfg.convert_quantization]
@@ -1924,7 +2325,9 @@ def main() -> int:
             "engine_layer": engine_layer.launches,
             "engine_layer_carry": engine_layer.launches_carry,
             "engine_network": engine_network.launches,
-            "block_sparse": block_sparse.launches}
+            "block_sparse": block_sparse.launches,
+            "qat_scan": qat_scan.launches,
+            "fused_s5_qat": fused_s5.launches_qat}
         reset_counts()
         layer_tail_bwd.launches_hist = layer_tail_bwd.launches_bwd = 0
         return counts
@@ -1962,6 +2365,16 @@ def main() -> int:
                          (noisy_mag, noisy_phase, clean_mag), batch, records,
                          counters)
     mark("pruned training and block-sparse serving phase")
+
+    # ---------------- QAT kernel phase (K1 qat, K4a qat) ----------------
+    qat_kernel_phase(cfg, frames, gen, records)
+    mark("QAT kernel phase")
+
+    # ---------------- QAT and top-k training, w32a32 engine -------------
+    qat_training_phase(cfg, (noisy, clean_t),
+                       (noisy_mag, noisy_phase, clean_mag), batch,
+                       (frozen_params, frozen_stats), records, counters)
+    mark("QAT and top-k training phase")
 
     # ---------------- report ----------------
     smi = subprocess.run(

@@ -31,7 +31,9 @@ Two routes, as in the JAX package:
   here, with the same values. Under static quantization the dense layers
   are ``QuantizedDense``, the gate product a ``QuantizedMultiply`` and the
   layer output goes through the ``quant_residual`` quantizer; such a layer
-  does not train yet. A layer with activation top-k (``topk < 1``, with
+  does not train yet. A QAT layer (dynamic fake-quant) runs this route
+  too, its dense layers ``QATDense`` and its gate product of two
+  fake-quantized operands. A layer with activation top-k (``topk < 1``, with
   ``approx_topk``: the JAX package raises for exact top-k) runs this route
   too: a relufied layer's activation keeps the ``int(topk * d_model)``
   largest values (relu top-k), and after the residual, the postnorm and
@@ -51,6 +53,7 @@ from sparsernns_tpu_torch.ops.cuda.layer_tail import LayerTailFn
 from sparsernns_tpu_torch.ops.scan import Pair
 from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity, top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
+from sparsernns_tpu_torch.quantize.qat import fake_quant
 from sparsernns_tpu_torch.quantize.static import (FakeQuant, QuantizedDense,
                                                   QuantizedMultiply)
 
@@ -61,16 +64,36 @@ BN_EPS = 1e-5
 LN_EPS = 1e-6
 
 
+class QATDense(nn.Linear):
+    """``nn.Linear`` whose input and weight pass the per-tensor fake-quant
+    with the STE first (the JAX package's ``QDense`` with ``q_dot``):
+    ``fake_quant(x, a_bits) @ fake_quant(W, w_bits)^T + b``. The weight's
+    absmax is that of the JAX package's (in, out) kernel, and the
+    parameter names are ``nn.Linear``'s."""
+
+    def __init__(self, d_in: int, d_out: int, a_bits: Optional[int],
+                 w_bits: Optional[int]):
+        super().__init__(d_in, d_out)
+        self.a_bits, self.w_bits = a_bits, w_bits
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(fake_quant(x, self.a_bits),
+                        fake_quant(self.weight, self.w_bits), self.bias)
+
+
 def make_dense(q_config: QuantizationConfig, d_in: int, d_out: int
                ) -> nn.Linear:
     """Dense layer outside the SSM: ``QuantizedDense`` under static
-    quantization, else ``nn.Linear`` (dynamic fake-quant training is not
-    ported)."""
+    quantization, ``QATDense`` under dynamic fake-quant (QAT), else
+    ``nn.Linear``."""
     if q_config.static_quant:
         return QuantizedDense(d_in, d_out,
                               a_bits=q_config.non_ssm_act_precision,
                               w_bits=q_config.non_ssm_precision,
                               calibrating=q_config.calibrating)
+    if q_config.any_quantized:
+        return QATDense(d_in, d_out, q_config.non_ssm_act_precision,
+                        q_config.non_ssm_precision)
     return nn.Linear(d_in, d_out)
 
 
@@ -109,6 +132,11 @@ class SequenceLayer(nn.Module):
                      else nn.LayerNorm(d_model, eps=LN_EPS))
         act_bits = q_config.non_ssm_act_precision
         self.static_quant = bool(q_config.static_quant)
+        #: any quantization (static or QAT) keeps the layer off the
+        #: whole-layer kernel
+        self.quantized = q_config.any_quantized
+        #: the QAT gate product: both operands fake-quantized to act_bits
+        self.gate_bits = None if self.static_quant else act_bits
         if self.static_quant and act_bits is not None:
             self.mult_gate = QuantizedMultiply(
                 left_bits=act_bits, right_bits=act_bits,
@@ -202,14 +230,16 @@ class SequenceLayer(nn.Module):
         return (x - mean) * (torch.rsqrt(var + n.eps) * n.weight) + n.bias
 
     def _gate(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return self.mult_gate(a, b) if hasattr(self, "mult_gate") else a * b
+        if hasattr(self, "mult_gate"):
+            return self.mult_gate(a, b)
+        return fake_quant(a, self.gate_bits) * fake_quant(b, self.gate_bits)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator``: the source of the training dropout masks, on the
         device of ``x`` (unused in eval mode and without dropout)."""
         tail = None
-        if self.batchnorm and self.prenorm and not self.static_quant:
+        if self.batchnorm and self.prenorm and not self.quantized:
             tail = self.mixer.layer_tail_operands()
         if tail is None:
             return self._unfused(x, generator, None, streaming=False)[0]

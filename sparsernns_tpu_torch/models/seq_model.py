@@ -25,6 +25,16 @@ from sparsernns_tpu_torch.quantize.config import QuantizationConfig
 Cache = List[Pair]
 
 
+def quant_input_fn(x: torch.Tensor, quant_input_exp: Optional[float] = None
+                   ) -> torch.Tensor:
+    """Round the input to the fixed grid of 2^-quant_input_exp (None: the
+    identity), as the fixed-point model quantizes its input."""
+    if quant_input_exp is None:
+        return x
+    step = 2.0 ** quant_input_exp
+    return torch.round(x * step) / step
+
+
 class StackedEncoderModel(nn.Module):
     """Linear encoder + N S5 sequence layers."""
 
@@ -84,10 +94,13 @@ class RegressionModel(nn.Module):
 
     def __init__(self, make_mixer: Callable[[], nn.Module], d_input: int,
                  d_output: int, n_layers: int, d_model: int,
-                 q_config: Optional[QuantizationConfig] = None, **layer_kw):
+                 q_config: Optional[QuantizationConfig] = None,
+                 quant_input: Optional[float] = None, **layer_kw):
         super().__init__()
         q_config = q_config or QuantizationConfig.none()
         self.q_config = q_config
+        #: the exponent of the input grid (``quant_input_fn``), or None
+        self.quant_input = quant_input
         self.encoder = StackedEncoderModel(make_mixer, d_input, n_layers,
                                            d_model, q_config=q_config,
                                            **layer_kw)
@@ -100,12 +113,15 @@ class RegressionModel(nn.Module):
         kernel or the stand-alone scans). In training mode every layer, on
         either route, normalizes with the batch statistics, moves its
         running statistics and draws its dropout masks from
-        ``generator``."""
+        ``generator``. With ``quant_input`` the input is first rounded to
+        its grid."""
+        x = quant_input_fn(x, self.quant_input)
         return self.decoder(self.encoder(x, generator))
 
     def forward_stream(self, x: torch.Tensor, cache: Optional[Cache] = None
                        ) -> Tuple[torch.Tensor, Cache]:
         """Chunk forward: every layer's scan starts from its carry in
         ``cache`` (None: zero) and the final carries come back."""
-        y, new_cache = self.encoder.forward_stream(x, cache)
+        y, new_cache = self.encoder.forward_stream(
+            quant_input_fn(x, self.quant_input), cache)
         return self.decoder(y), new_cache

@@ -22,6 +22,14 @@ stacked (H, 2P) / (2P, H) weight. The routes through the mixer:
   one C of 2P columns (``C1`` and ``C2`` when C is projected from the
   eigenbasis); only the forward states pass the relu, or with top-k and
   ``approx_topk`` a relu top-k of ``int(topk * P)`` per state half;
+- under dynamic fake-quant (QAT: a ``q_config`` with precisions and no
+  static quant) the same routes with fake-quantized operands, as the JAX
+  package's ``_apply``: the mixer kernel's and the scan kernel's QAT modes
+  (in-scan fake-quant over time blocks of ``block_t``, per-block or, with
+  ``qat_global_scales``, one global state scale), or with
+  ``scan_mode="associative"`` the associative scan with the QAT
+  hadamards; such a mixer never gives the whole-layer kernel its
+  operands;
 - with ``q_config.static_quant`` :meth:`S5SSM.forward` is the
   static-quant path: every operand through its ``FakeQuant`` and a
   sequential scan that requantizes the state after each step — the model
@@ -45,6 +53,8 @@ from sparsernns_tpu_torch.ops.scan import (Pair, diag_ssm_scan,
                                            sequential_diag_scan)
 from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
+from sparsernns_tpu_torch.quantize.qat import (QuantizedOps, act_qat_bits,
+                                               fake_quant, is_qat)
 from sparsernns_tpu_torch.quantize.static import (FakeQuant,
                                                   FakeQuantComplex,
                                                   quant_dequant)
@@ -105,7 +115,8 @@ class S5SSM(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  q_config: Optional[QuantizationConfig] = None,
                  scan_mode: str = "fused", topk: float = 1.0,
-                 approx_topk: bool = False):
+                 approx_topk: bool = False, block_t: int = 256,
+                 qat_global_scales: bool = False):
         super().__init__()
         if discretization not in ("zoh", "bilinear"):
             raise NotImplementedError(f"discretization {discretization}")
@@ -119,7 +130,12 @@ class S5SSM(nn.Module):
         self.scan_mode = scan_mode
         self.topk = topk
         self.approx_topk = approx_topk
+        self.block_t = block_t
+        self.qat_global_scales = qat_global_scales
         self.q_config = cfg = q_config or QuantizationConfig.none()
+        self.q_ops = QuantizedOps.create(cfg)
+        #: dynamic fake-quant (QAT): the float paths quantize their operands
+        self.qat = is_qat(cfg)
         if cfg.static_quant and bidirectional:
             raise NotImplementedError(
                 "the static-quant model has no bidirectional mixer")
@@ -179,7 +195,11 @@ class S5SSM(nn.Module):
         return discretize_bilinear(self._lambda(), b_pair, step)
 
     def _w_b(self, b_bar: Pair) -> torch.Tensor:
-        return torch.cat([b_bar[0].T, b_bar[1].T], dim=-1)    # (H, 2P)
+        """[B̄_re^T | B̄_im^T] (H, 2P), under QAT each half fake-quantized
+        to ``b_precision``."""
+        bits = self.q_config.b_precision if self.qat else None
+        return torch.cat([fake_quant(b_bar[0], bits).T,
+                          fake_quant(b_bar[1], bits).T], dim=-1)
 
     def _c_tilde(self) -> Pair:
         """C as a (re, im) pair of (H, P), or (H, 2P) when bidirectional."""
@@ -189,19 +209,24 @@ class S5SSM(nn.Module):
         return self.C[..., 0], self.C[..., 1]
 
     def _w_c(self) -> torch.Tensor:
-        """[C_re^T; -C_im^T] with the conj-sym factor 2 folded in."""
+        """[C_re^T; -C_im^T] (2P, H), under QAT each half fake-quantized to
+        ``c_precision``, with the conj-sym factor 2 folded in (a power of
+        two: the same products as scaling the projection after it)."""
         c_re, c_im = self._c_tilde()
+        bits = self.q_config.c_precision if self.qat else None
         scale = 2.0 if self.conj_sym else 1.0
-        return scale * torch.cat([c_re.T, -c_im.T], dim=0)
+        return scale * torch.cat([fake_quant(c_re, bits).T,
+                                  -fake_quant(c_im, bits).T], dim=0)
 
     def layer_tail_operands(self):
         """Operands of the whole-layer tail kernel: (lam_bar, w_b, w_c, d,
         relu_state), or None where that kernel cannot express the mixer
-        (bidirectional, another ``scan_mode`` than ``"fused"``, static
-        quantization, activation top-k, which the tail kernel applies at
-        none of its sites) and the layer runs its unfused route."""
+        (bidirectional, another ``scan_mode`` than ``"fused"``, static or
+        dynamic quantization, activation top-k, which the tail kernel
+        applies at none of its sites) and the layer runs its unfused
+        route."""
         if (self.scan_mode != "fused" or self.bidirectional
-                or self.q_config.static_quant or self.topk < 1.0):
+                or self.q_config.any_quantized or self.topk < 1.0):
             return None
         lam_bar, b_bar = self.discretized()
         return (lam_bar, self._w_b(b_bar), self._w_c(), self.D,
@@ -212,20 +237,45 @@ class S5SSM(nn.Module):
         """The offline, differentiable call. u: (B, L, H) -> (ys (B, L, H),
         final state). A unidirectional ``scan_mode="fused"`` mixer without
         top-k runs the mixer kernel, which has no state to return (None, as
-        in the JAX package), every other float mixer the stand-alone scans
-        without a carry (None as well); the static-quant path returns the
-        final state of its sequential scan."""
+        in the JAX package), every other float or QAT mixer the stand-alone
+        scans without a carry (None as well); the static-quant path returns
+        the final state of its sequential scan.
+
+        Under QAT (dynamic fake-quant) the mixer kernel gets the
+        fake-quantized W_b and W_c halves and, when an activation precision
+        of the SSM is below 32 bits, the fake-quantized u and D, and runs
+        its QAT mode with ``qat_bits`` (a_bits, act_bits) over time blocks
+        of ``block_t``; with ``qat_global_scales`` one state absmax, from
+        an unquantized B-projection and float scan under no_grad, scales
+        every in-scan fake-quant."""
         if self.q_config.static_quant:
             return self._apply_static_quant(u)
+        cfg = self.q_config
         lam_bar, b_bar = self.discretized()
         w_b = self._w_b(b_bar)
         if (self.scan_mode == "fused" and not self.bidirectional
                 and not self.topk < 1.0):
             from sparsernns_tpu_torch.ops.cuda.fused_s5 import FusedS5Fn
+            qat_bits = act_qat_bits(cfg)
+            d, qat_scale = self.D, None
+            if qat_bits is not None:
+                u = fake_quant(u, cfg.ssm_act_precision)
+                d = fake_quant(d, cfg.d_precision)
+                if self.qat_global_scales:
+                    qat_scale = self._global_state_absmax(u, lam_bar, w_b)
             return FusedS5Fn.apply(u, lam_bar[0], lam_bar[1], w_b,
-                                   self._w_c(), self.D,
-                                   self.relufication), None
+                                   self._w_c(), d, self.relufication,
+                                   qat_bits, qat_scale, self.block_t), None
         return self._apply_scan(u, lam_bar, w_b, None)
+
+    def _global_state_absmax(self, u, lam_bar: Pair, w_b) -> torch.Tensor:
+        """max(absmax(x_re), absmax(x_im)) of the unquantized states of the
+        mixer input ``u``: the stats pass of the global-scale QAT mode, a
+        matmul and the float scan kernel, without gradient."""
+        with torch.no_grad():
+            bu = u @ w_b
+            xs = diag_ssm_scan(lam_bar, (bu[..., :self.p], bu[..., self.p:]))
+            return torch.maximum(xs[0].abs().amax(), xs[1].abs().amax())
 
     def forward_stream(self, u: torch.Tensor, carry: Optional[Pair]
                        ) -> Tuple[torch.Tensor, Pair]:
@@ -248,10 +298,21 @@ class S5SSM(nn.Module):
         return self._apply_scan(u, lam_bar, self._w_b(b_bar), carry)
 
     def _apply_scan(self, u, lam_bar: Pair, w_b, carry: Optional[Pair]):
-        """B-projection, stand-alone scan(s), state relu, C-projection."""
-        bu_cat = u @ w_b
+        """B-projection, stand-alone scan(s), state relu, C-projection: the
+        JAX package's unfused mixer. Under QAT u enters the B-projection
+        fake-quantized, the scans run the kernel's QAT mode (or, with
+        ``scan_mode="associative"``, the associative scan with the QAT
+        hadamards), the states are fake-quantized once more before the
+        C-projection, and D ⊙ u is ``d_had`` of the two fake-quantized
+        operands."""
+        cfg = self.q_config
+        bu_cat = fake_quant(u, cfg.ssm_act_precision) @ w_b
         bu = (bu_cat[..., :self.p], bu_cat[..., self.p:])
-        xs = diag_ssm_scan(lam_bar, bu, carry_init=carry)
+        mode = "associative" if self.scan_mode == "associative" else "kernel"
+        had_aa, had_ax = self.q_ops.a_had
+        kw = dict(mode=mode, qat_bits=act_qat_bits(cfg), block_t=self.block_t,
+                  had_aa=had_aa, had_ax=had_ax)
+        xs = diag_ssm_scan(lam_bar, bu, carry_init=carry, **kw)
         final = None
         if carry is not None:
             final = (xs[0][..., -1, :], xs[1][..., -1, :])
@@ -260,11 +321,13 @@ class S5SSM(nn.Module):
         if self.bidirectional:
             # as in the JAX package, the reverse states are not relufied
             # before the concatenation
-            rev = diag_ssm_scan(lam_bar, bu, reverse=True)
+            rev = diag_ssm_scan(lam_bar, bu, reverse=True, **kw)
             xs = (torch.cat([xs[0], rev[0]], dim=-1),
                   torch.cat([xs[1], rev[1]], dim=-1))
-        ys = torch.cat(xs, dim=-1) @ self._w_c()
-        return ys + self.D * u, final
+        bits = cfg.ssm_act_precision
+        xs_cat = torch.cat([fake_quant(xs[0], bits), fake_quant(xs[1], bits)],
+                           dim=-1)
+        return xs_cat @ self._w_c() + self.q_ops.d_had(self.D, u), final
 
     def _state_act(self, xs: Pair) -> Pair:
         """The relufied states' activation: relu, or with top-k a relu

@@ -20,9 +20,13 @@ runs every mode through the serving layer kernels' own mixer steps
   of ``fused_s5_apply_carry`` (K4b): the mixer of the engine's per-op
   route.
 
+:func:`fused_s5_qat` is the QAT mode (``qat_bits``, ``qat_state_scale``):
+the in-scan fake-quant of ``ops/cuda/qat_scan.py`` between the two
+projections, three launches of ``csrc/qat_scan.cu``.
+
 Each launches the kernel for CUDA tensors and takes its plain version
-(:func:`fused_s5_plain`, :func:`fused_s5_engine_plain`) only for tensors
-on the CPU.
+(:func:`fused_s5_plain`, :func:`fused_s5_engine_plain`,
+:func:`fused_s5_qat_plain`) only for tensors on the CPU.
 
 :class:`FusedS5Fn` is the differentiable form (the counterpart of
 ``sparsernns_tpu/ops/pallas/fused_vjp.py`` ``fused_s5_apply_diff``). Its
@@ -49,18 +53,19 @@ from typing import Optional, Tuple
 
 import torch
 
-from sparsernns_tpu_torch.ops.cuda import build, engine_layer
-from sparsernns_tpu_torch.ops.cuda.diag_scan import diag_scan
+from sparsernns_tpu_torch.ops.cuda import build, engine_layer, qat_scan
+from sparsernns_tpu_torch.ops.cuda.diag_scan import _check_f32_cuda, diag_scan
 from sparsernns_tpu_torch.ops.cuda.layer_tail import check_tensors
-from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair,
+from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, QatBits,
                                            sequential_diag_scan)
 
 #: kernel launches made in this process: by :func:`fused_s5` (K4a float),
 #: by :func:`fused_s5_engine` without a carry (K4a engine modes) and with
-#: one (K4b)
+#: one (K4b), by :func:`fused_s5_qat` (K4a QAT mode, one a call)
 launches = 0
 launches_engine = 0
 launches_engine_carry = 0
+launches_qat = 0
 
 #: shared memory one block may ask for on the card
 _MAX_SMEM = 232448
@@ -185,22 +190,129 @@ def fused_s5_bwd(u, g, lam: Pair, w_b, w_c, d, relu_state: bool = False):
 
 
 class FusedS5Fn(torch.autograd.Function):
-    """Differentiable :func:`fused_s5`. Call as ``FusedS5Fn.apply(u, lam_re,
-    lam_im, w_b, w_c, d, relu_state)``. The forward saves only its inputs;
-    the backward is :func:`fused_s5_bwd`."""
+    """Differentiable mixer. Call as ``FusedS5Fn.apply(u, lam_re, lam_im,
+    w_b, w_c, d, relu_state[, qat_bits, qat_scale, block_t])``: with
+    ``qat_bits`` None (the default) the float mode :func:`fused_s5`
+    (``qat_scale`` and ``block_t`` unused), else the QAT mode :func:`fused_s5_qat`. The forward
+    saves only its inputs; the backward is :func:`fused_s5_bwd` in both
+    cases: the adjoint of the float mixer, whose states (and relu mask) it
+    recomputes without fake-quant (the straight-through estimator, as the
+    JAX package's ``fused_s5_apply_diff``). ``qat_scale`` gets no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, u, lam_re, lam_im, w_b, w_c, d, relu_state):
+    def forward(ctx, u, lam_re, lam_im, w_b, w_c, d, relu_state,
+                qat_bits=None, qat_scale=None, block_t=None):
         ctx.save_for_backward(u, lam_re, lam_im, w_b, w_c, d)
         ctx.relu_state = relu_state
-        return fused_s5(u, (lam_re, lam_im), w_b, w_c, d, relu_state)
+        lam = (lam_re, lam_im)
+        if qat_bits is None:
+            return fused_s5(u, lam, w_b, w_c, d, relu_state)
+        return fused_s5_qat(u, lam, w_b, w_c, d, qat_bits, block_t,
+                            relu_state, qat_scale)
 
     @staticmethod
     def backward(ctx, g):
         u, lam_re, lam_im, w_b, w_c, d = ctx.saved_tensors
         d_u, d_lam, d_w_b, d_w_c, d_d = fused_s5_bwd(
             u, g, (lam_re, lam_im), w_b, w_c, d, ctx.relu_state)
-        return d_u, d_lam[0], d_lam[1], d_w_b, d_w_c, d_d, None
+        return (d_u, d_lam[0], d_lam[1], d_w_b, d_w_c, d_d, None, None, None,
+                None)
+
+
+# ------------------------------------------------ QAT mode
+
+def fused_s5_qat_plain(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
+                       block_t: int, relu_state: bool = False,
+                       qat_scale: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_s5_qat`: the B-projection,
+    the QAT scan of its zero-padded blocks
+    (``qat_scan.qat_blocks_plain``), relu, the C-projection and d ⊙ u."""
+    a_bits, act_bits = qat_scan._check_bits(qat_bits)
+    b, length, _ = u.shape
+    p = w_b.shape[-1] // 2
+    t, l_pad, n_pass = qat_scan.scan_geometry(length, block_t)
+    bu = torch.nn.functional.pad(u @ w_b, (0, 0, 0, l_pad - length))
+    xs = qat_scan.qat_blocks_plain(
+        (bu[..., :p], bu[..., p:]),
+        qat_scan.lambda_power_tables(lam, t, n_pass, a_bits), t, act_bits,
+        qat_scale)
+    xs = torch.cat(xs, dim=-1)[:, :length]
+    if relu_state:
+        xs = torch.relu(xs)
+    return xs @ w_c + d * u
+
+
+def _qat_lib():
+    fn = build.load("qat_scan").fused_s5_qat_run
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_s5_qat_cuda(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
+                      block_t: int, relu_state: bool = False,
+                      qat_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Launch the kernel in its QAT mode (three launches of hand-written
+    kernels: B-projection and doubling passes per (row, block), the carry
+    walk per row, relu and C-projection per (row, tile)). Same arguments
+    as :func:`fused_s5_qat_plain`; every tensor float32 on one CUDA
+    device, ``qat_scale`` a one-element tensor or None."""
+    global launches_qat
+    a_bits, act_bits = qat_scan._check_bits(qat_bits)
+    if u.dim() != 3:
+        raise ValueError(f"u must be (B, L, H), got {tuple(u.shape)}")
+    b, length, h = u.shape
+    p = w_b.shape[-1] // 2
+    t = check_tensors(
+        {"u": (u, (b, length, h)), "lam_re": (lam[0], (p,)),
+         "lam_im": (lam[1], (p,)), "w_b": (w_b, (h, 2 * p)),
+         "w_c": (w_c, (2 * p, h)), "d": (d, (h,))}, u.device)
+    amax_ptr = None
+    if qat_scale is not None:
+        amax = qat_scale.reshape(()).contiguous()
+        _check_f32_cuda("qat_scale", amax, u.device)
+        amax_ptr = amax.data_ptr()
+    y = torch.empty((b, length, h), dtype=torch.float32, device=u.device)
+    if b == 0 or length == 0:
+        return y
+    blk, l_pad, n_pass = qat_scan.scan_geometry(length, block_t)
+    tables = [x.contiguous() for x in qat_scan.lambda_power_tables(
+        (t["lam_re"], t["lam_im"]), blk, n_pass, a_bits)]
+    scratch = torch.empty((2, b, l_pad, 2 * p), dtype=torch.float32,
+                          device=u.device)
+    err = _qat_lib()(
+        t["u"].data_ptr(), t["w_b"].data_ptr(), t["w_c"].data_ptr(),
+        t["d"].data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
+        n_pass, tables[2].data_ptr(), tables[3].data_ptr(), amax_ptr,
+        scratch[0].data_ptr(), scratch[1].data_ptr(), y.data_ptr(), b,
+        length, h, p, blk, int(relu_state), act_bits,
+        torch.cuda.current_stream(u.device).cuda_stream)
+    build.check(err, "fused_s5_qat")
+    launches_qat += 1
+    return y
+
+
+def fused_s5_qat(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
+                 block_t: int, relu_state: bool = False,
+                 qat_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mixer in its QAT mode, (B, L, H) -> (B, L, H): the states of
+    ``bu = u @ w_b`` through the QAT scan (``qat_scan.py``: per-block
+    fake-quant to ``qat_bits`` (a_bits, act_bits) over time blocks of
+    ``block_t``, L padded with zero rows to a multiple of the block), relu
+    if ``relu_state``, then ``[x_re x_im] @ w_c + d ⊙ u``. ``qat_scale``:
+    one global state absmax for every in-scan fake-quant (the global-scale
+    QAT mode), else per-block scales.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    fn = fused_s5_qat_cuda if u.is_cuda else fused_s5_qat_plain
+    return fn(u, lam, w_b, w_c, d, qat_bits, block_t, relu_state, qat_scale)
 
 
 # ------------------------------------------------ engine modes and K4b

@@ -11,7 +11,15 @@ plain version (:func:`sequential_diag_scan`) only for a tensor on the CPU.
 Without a carry the scan is differentiable (:class:`DiagScanFn`, the
 counterpart of ``sparsernns_tpu/ops/pallas/scan_vjp.py``): the recurrence
 is linear, so its adjoint is the same kernel run in the other direction
-with conj(λ).
+with conj(λ). With ``qat_bits`` the forward is the kernel's QAT mode
+(``ops/cuda/qat_scan.py``: per-block fake-quant of every doubling
+operand, of the folded carry and of the block's states), the backward the
+same float adjoint.
+
+:func:`associative_diag_scan` is the associative scan of the JAX package
+(``jax.lax.associative_scan``'s recursion, reproduced combine for
+combine), with the QAT hadamards in every combine: the quantization-aware
+scan of ``scan_mode="associative"``, in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -23,13 +31,15 @@ import torch
 Pair = Tuple[torch.Tensor, torch.Tensor]
 #: (s_re, s_im, bits): the frozen grid of a blockwise state requant
 BlockRequant = Tuple[float, float, int]
+#: (a_bits, act_bits) of the in-scan activation QAT
+QatBits = Tuple[Optional[int], Optional[int]]
 
 
-def complex_mul(a: Pair, b: Pair) -> Pair:
-    """(a_re + i a_im) * (b_re + i b_im) as 4 real products."""
+def complex_mul(a: Pair, b: Pair, had: Callable = torch.mul) -> Pair:
+    """(a_re + i a_im) * (b_re + i b_im) as 4 real products ``had``."""
     ar, ai = a
     br, bi = b
-    return ar * br - ai * bi, ar * bi + ai * br
+    return had(ar, br) - had(ai, bi), had(ar, bi) + had(ai, br)
 
 
 def quant_codes(x: torch.Tensor, spec: Tuple[float, int]) -> torch.Tensor:
@@ -137,17 +147,28 @@ def _dlam(v: Pair, xs: Pair, reverse: bool) -> Pair:
 
 class DiagScanFn(torch.autograd.Function):
     """Differentiable scan without a carry, either direction. Call as
-    ``DiagScanFn.apply(lam_re, lam_im, bu_re, bu_im, reverse)``; returns the
-    (B, L, P) state pair. The backward runs the kernel once more, in the
-    other direction with conj(λ), on the cotangents: ``v`` is the gradient
-    of ``bu``, and dλ sums ``v`` against the conjugate of the state each
-    step read (plain tensor ops, as in the JAX package)."""
+    ``DiagScanFn.apply(lam_re, lam_im, bu_re, bu_im, reverse[, qat_bits,
+    block_t])``; returns the (B, L, P) state pair. ``qat_bits``
+    (a_bits, act_bits) runs the forward in the kernel's QAT mode over time
+    blocks of ``block_t`` (``ops/cuda/qat_scan.py``); None the float scan
+    (``block_t`` unused). The backward runs the float kernel once more, in
+    the other direction with conj(λ), on the cotangents: ``v`` is the
+    gradient of ``bu`` (the straight-through estimator of the in-scan
+    fake-quant), and dλ sums ``v`` against the conjugate of the state each
+    step read, the quantized states under QAT (plain tensor ops, as in the
+    JAX package)."""
 
     @staticmethod
-    def forward(ctx, lam_re, lam_im, bu_re, bu_im, reverse):
+    def forward(ctx, lam_re, lam_im, bu_re, bu_im, reverse, qat_bits=None,
+                block_t=None):
         from sparsernns_tpu_torch.ops.cuda.diag_scan import diag_scan
-        xs = diag_scan((lam_re, lam_im), _kernel_operand((bu_re, bu_im)),
-                       reverse=reverse)
+        bu = _kernel_operand((bu_re, bu_im))
+        if qat_bits is None:
+            xs = diag_scan((lam_re, lam_im), bu, reverse=reverse)
+        else:
+            from sparsernns_tpu_torch.ops.cuda.qat_scan import qat_scan
+            xs = qat_scan((lam_re, lam_im), bu, qat_bits, block_t,
+                          reverse=reverse)
         ctx.save_for_backward(lam_re, lam_im, *xs)
         ctx.reverse = reverse
         return xs
@@ -159,24 +180,112 @@ class DiagScanFn(torch.autograd.Function):
         v = diag_scan((lam_re, -lam_im), _kernel_operand((g_re, g_im)),
                       reverse=not ctx.reverse)
         d_re, d_im = _dlam(v, (x_re, x_im), ctx.reverse)
-        return d_re, d_im, v[0], v[1], None
+        return d_re, d_im, v[0], v[1], None, None, None
+
+
+# ------------------------------------------------ associative scan
+
+def _scan_binop(qi, qj, had_aa: Callable, had_ax: Callable):
+    """The associative combine of first-order recurrences on elements
+    (A_re, A_im, b_re, b_im), i earlier than j: (A_j∘A_i, A_j∘b_i + b_j),
+    with the Λ·Λ products through ``had_aa`` and the Λ·state products
+    through ``had_ax`` (the JAX package's ``_scan_binop``)."""
+    a_out = complex_mul((qj[0], qj[1]), (qi[0], qi[1]), had_aa)
+    bx = complex_mul((qj[0], qj[1]), (qi[2], qi[3]), had_ax)
+    return [a_out[0], a_out[1], bx[0] + qj[2], bx[1] + qj[3]]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[a0, b0, a1, b1, ...] along axis -2; a has as many rows as b or one
+    more."""
+    n = b.shape[-2]
+    pairs = torch.stack([a[..., :n, :], b], dim=-2)
+    out = pairs.reshape(*b.shape[:-2], 2 * n, b.shape[-1])
+    return torch.cat([out, a[..., n:, :]], dim=-2)
+
+
+def _assoc_scan(elems, combine):
+    """``jax.lax.associative_scan``'s recursion along axis -2, step for
+    step: the per-tensor fake-quant inside a combine depends on which
+    slices it combines, so the slices are the same ones."""
+    n = elems[0].shape[-2]
+    if n < 2:
+        return elems
+    reduced = combine([e[..., 0:-1:2, :] for e in elems],
+                      [e[..., 1::2, :] for e in elems])
+    odd = _assoc_scan(reduced, combine)
+    rest = [e[..., 2::2, :] for e in elems]
+    if n % 2 == 0:
+        even = combine([e[..., :-1, :] for e in odd], rest)
+    else:
+        even = combine(odd, rest)
+    even = [torch.cat([e[..., :1, :], r], dim=-2)
+            for e, r in zip(elems, even)]
+    return [_interleave(e, o) for e, o in zip(even, odd)]
+
+
+def associative_diag_scan(lam: Pair, bu: Pair, reverse: bool = False,
+                          had_aa: Callable = torch.mul,
+                          had_ax: Callable = torch.mul) -> Pair:
+    """All-prefix states along axis -2 by the associative scan, with the
+    QAT hadamards ``had_aa`` / ``had_ax`` (``quantize.qat.q_had``) in every
+    combine. Plain PyTorch, differentiable by autograd, as the JAX package
+    runs it as XLA ops."""
+    shape = bu[0].shape
+    elems = [lam[0].expand(shape), lam[1].expand(shape), bu[0], bu[1]]
+    if reverse:
+        elems = [torch.flip(e, dims=(-2,)) for e in elems]
+    out = _assoc_scan(elems, lambda a, b: _scan_binop(a, b, had_aa, had_ax))
+    xs = out[2], out[3]
+    if reverse:
+        xs = torch.flip(xs[0], dims=(-2,)), torch.flip(xs[1], dims=(-2,))
+    return xs
+
+
+def apply_carry(xs: Pair, lam: Pair, carry: Pair) -> Pair:
+    """Fold an incoming carry into chunk-local states:
+    x_t <- x_t + λ^{t+1} ⊙ carry (t local, 0-based)."""
+    pw = lambda_powers(lam, xs[0].shape[-2])
+    corr = complex_mul(pw, (carry[0][..., None, :], carry[1][..., None, :]))
+    return xs[0] + corr[0], xs[1] + corr[1]
 
 
 def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
                   carry_init: Optional[Pair] = None,
                   block_requant: Optional[BlockRequant] = None,
-                  block_t: Optional[int] = None) -> Pair:
-    """Scan through the diagonal-scan kernel. Returns all-prefix states
-    (B, L, P): of x_t = λ x_{t-1} + bu_t, or with ``reverse`` of
-    x_t = λ x_{t+1} + bu_t.
+                  block_t: Optional[int] = None, mode: str = "kernel",
+                  qat_bits: Optional[QatBits] = None,
+                  had_aa: Callable = torch.mul,
+                  had_ax: Callable = torch.mul) -> Pair:
+    """All-prefix states (B, L, P): of x_t = λ x_{t-1} + bu_t, or with
+    ``reverse`` of x_t = λ x_{t+1} + bu_t.
 
-    Without a carry and a requant the call is differentiable in λ and bu.
-    With ``carry_init`` (forward only, streaming) or ``block_requant``
-    (forward only, per ``block_t`` steps: the serving engine's state
-    requant, see :func:`sequential_diag_scan`) it is not, as in the JAX
-    package: inputs that require grad raise while grad mode is on."""
+    ``mode="kernel"`` (the JAX package's ``"pallas"``) runs the
+    diagonal-scan kernel. Without a carry and a requant the call is
+    differentiable in λ and bu. With ``carry_init`` (forward only,
+    streaming) or ``block_requant`` (forward only, per ``block_t`` steps:
+    the serving engine's state requant, see :func:`sequential_diag_scan`)
+    it is not, as in the JAX package: inputs that require grad raise while
+    grad mode is on. ``qat_bits`` (a_bits, act_bits) runs the kernel's QAT
+    mode over time blocks of ``block_t`` (no requant then).
+
+    ``mode="associative"`` is the associative scan with the hadamards
+    ``had_aa`` / ``had_ax`` (differentiable; a carry folds in with the
+    λ powers afterwards, forward only)."""
+    if mode == "associative":
+        xs = associative_diag_scan(lam, bu, reverse, had_aa, had_ax)
+        if carry_init is not None:
+            if reverse:
+                raise NotImplementedError("carry with reverse scan")
+            xs = apply_carry(xs, lam, carry_init)
+        return xs
+    if mode != "kernel":
+        raise ValueError(f"unknown scan mode {mode!r}")
+    if qat_bits is not None and block_requant is not None:
+        raise ValueError("qat_bits and block_requant exclude each other")
     if carry_init is None and block_requant is None:
-        return DiagScanFn.apply(lam[0], lam[1], bu[0], bu[1], reverse)
+        return DiagScanFn.apply(lam[0], lam[1], bu[0], bu[1], reverse,
+                                qat_bits, block_t)
     if reverse:
         raise NotImplementedError(
             "the reverse scan takes no carry and no block requant")
@@ -186,6 +295,10 @@ def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
             "the scan with a carry or a block requant has no gradient: call "
             "it under torch.no_grad(), or without carry_init and "
             "block_requant")
+    if qat_bits is not None:
+        from sparsernns_tpu_torch.ops.cuda.qat_scan import qat_scan
+        return qat_scan(lam, _kernel_operand(bu), qat_bits, block_t,
+                        carry_init=carry_init)
     from sparsernns_tpu_torch.ops.cuda.diag_scan import diag_scan
     return diag_scan(lam, _kernel_operand(bu), carry_init=carry_init,
                      block_requant=block_requant, block_t=block_t)

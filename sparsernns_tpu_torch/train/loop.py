@@ -28,7 +28,8 @@ from sparsernns_tpu_torch.models.ssm import S5SSM
 from sparsernns_tpu_torch.models.ssm_init import (blocked_dplr_init,
                                                   lecun_normal)
 from sparsernns_tpu_torch.ops.stft import stft_splitter
-from sparsernns_tpu_torch.quantize.config import QuantizationConfig
+from sparsernns_tpu_torch.quantize.config import (QuantizationConfig,
+                                                  quantization_recipes)
 from sparsernns_tpu_torch.train.checkpoint import CheckpointManager
 from sparsernns_tpu_torch.train.optim import (create_optimizer,
                                               extract_learning_rates,
@@ -46,6 +47,12 @@ from sparsernns_tpu_torch.utils.config import RunConfig
 logger = logging.getLogger("sparsernns_tpu_torch")
 
 
+#: the QAT mixer's time block where ``cfg.block_t`` is None (the JAX
+#: package's hand-set default; it reads measured ones from
+#: ``runs/autotune.json``, which the port does not)
+QAT_BLOCK_T = 256
+
+
 def build_model(cfg: RunConfig, d_input: int, d_output: int,
                 training: bool = False, device="cuda",
                 seed: Optional[int] = None,
@@ -56,43 +63,45 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     ``cfg.p_dropout``), with parameters drawn from ``seed`` (default
     ``cfg.seed``) by the JAX package's initializer distributions. Every
     float model trains: prenorm or postnorm, BatchNorm or LayerNorm,
-    unidirectional or ``cfg.bidirectional``.
+    unidirectional or ``cfg.bidirectional``, with activation top-k
+    (``cfg.topk < 1`` with ``cfg.approx_topk``) or without.
 
-    ``q_config`` with ``static_quant`` builds the static-quant model (the
-    calibration model when it is ``calibrating``); it runs the sequential
-    scan, so ``scan_mode`` must then be ``"sequential"``, as the JAX
-    package's conversion pipeline passes it. The float model runs
-    ``"fused"`` (the whole-layer kernel or the mixer kernel, whichever the
-    layer admits) or ``"pallas"`` (the JAX package's name for the
-    stand-alone scan kernel between two matmuls); the other scan modes of
-    the JAX package are not ported."""
+    ``q_config`` defaults to ``quantization_recipes[cfg.quantization]()``:
+    a dynamic fake-quant recipe (``"w8a16"`` …) builds the
+    quantization-aware (QAT) model, which trains and evaluates with
+    ``cfg.block_t`` (None: :data:`QAT_BLOCK_T`) as the time block of its
+    QAT scans and, with ``cfg.qat_global_scales``, one global state scale
+    in the mixer kernel. ``q_config`` with ``static_quant`` builds the
+    static-quant model (the calibration model when it is ``calibrating``);
+    it runs the sequential scan, so ``scan_mode`` must then be
+    ``"sequential"``, as the JAX package's conversion pipeline passes it,
+    and it does not train. The float and QAT models run ``"fused"`` (the
+    whole-layer kernel or the mixer kernel, whichever the layer admits),
+    ``"pallas"`` (the JAX package's name for the stand-alone scan kernel
+    between two matmuls) or ``"associative"`` (the associative scan in
+    plain PyTorch, with the QAT hadamards); the other scan modes of the
+    JAX package are not ported."""
     if cfg.dataset != "ndns":
         raise NotImplementedError(f"dataset {cfg.dataset!r}: only ndns")
-    q_config = q_config or QuantizationConfig.none()
+    if q_config is None:
+        q_config = quantization_recipes[cfg.quantization]()
     scan_mode = scan_mode or cfg.scan_mode
     if training and q_config.static_quant:
         raise NotImplementedError(
-            "static-quant finetuning is not ported yet: only the float "
-            "model trains")
-    if training and cfg.topk < 1.0:
-        raise NotImplementedError(
-            "training with activation top-k is not ported yet (ROADMAP "
-            "Queue A: training with top-k); build the top-k model for "
-            "serving, or train with topk=1.0")
+            "static-quant finetuning is not ported yet: the float and the "
+            "QAT models train")
     if q_config.static_quant:
         if scan_mode != "sequential":
             raise NotImplementedError(
                 "the static-quant model requantizes the state every step: "
                 "build it with scan_mode='sequential'")
-    elif q_config.any_quantized:
+    elif scan_mode not in ("fused", "pallas", "associative"):
         raise NotImplementedError(
-            "dynamic fake-quant (QAT) models are not ported yet")
-    elif scan_mode not in ("fused", "pallas"):
-        raise NotImplementedError(
-            f"scan_mode {scan_mode!r}: the float port runs 'fused' and "
-            "'pallas'")
+            f"scan_mode {scan_mode!r}: the float and QAT port runs 'fused', "
+            "'pallas' and 'associative'")
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     init = blocked_dplr_init(cfg.ssm_size_base, cfg.blocks, cfg.conj_sym)
+    block_t = QAT_BLOCK_T if cfg.block_t is None else cfg.block_t
 
     def make_mixer():
         return S5SSM(
@@ -103,11 +112,13 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
             clip_eigs=cfg.clip_eigs, bidirectional=cfg.bidirectional,
             relufication=cfg.relufication, generator=gen,
             q_config=q_config, scan_mode=scan_mode, topk=cfg.topk,
-            approx_topk=cfg.approx_topk)
+            approx_topk=cfg.approx_topk, block_t=block_t,
+            qat_global_scales=cfg.qat_global_scales)
 
     model = RegressionModel(
         make_mixer, d_input, d_output, cfg.n_layers, cfg.d_model,
-        q_config=q_config, glu_variant=cfg.glu_variant,
+        q_config=q_config, quant_input=cfg.quant_input,
+        glu_variant=cfg.glu_variant,
         relufication=cfg.relufication, batchnorm=cfg.batchnorm,
         prenorm=cfg.prenorm, dropout=cfg.p_dropout,
         bn_momentum=cfg.bn_momentum, topk=cfg.topk,

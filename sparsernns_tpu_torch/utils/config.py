@@ -46,11 +46,20 @@ class RunConfig:
     relufication: bool = False
     topk: float = 1.0                   # activation top-k share (< 1: on)
     approx_topk: bool = False           # required with topk < 1 (as JAX)
-    scan_mode: str = "fused"            # float port: "fused" or "pallas"
+    scan_mode: str = "fused"            # "fused", "pallas", "associative"
+
+    # --- quantization-aware training (train/loop.py build_model) ---
+    quantization: str = "none"          # a quantization_recipes name
+    quant_input: Optional[float] = None  # input grid exponent, or None
+    #: QAT mixer kernel: one global state absmax (two-pass) instead of
+    #: per-block scales
+    qat_global_scales: bool = False
 
     # --- quantized conversion and serving (quantize/convert.py) ---
     convert_quantization: str = "w8a16"
-    block_t: Optional[int] = None       # engine time block; None -> 512
+    #: time block of the engine (None -> 512) and of the QAT scans, where
+    #: it is numerics (None -> 256)
+    block_t: Optional[int] = None
     engine_mxu16: bool = False
     engine_route: str = "auto"
     calibrate_quant: bool = True

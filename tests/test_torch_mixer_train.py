@@ -349,10 +349,15 @@ def test_routes_and_what_still_raises():
                           device="cpu")
     with pytest.raises(NotImplementedError, match="bidirectional"):
         bi.forward_stream(torch.zeros(1, 8, D_IO))
-    for mode in ("associative", "blocked", "sp", "sequential"):
+    for mode in ("blocked", "sp", "sequential"):
         with pytest.raises(NotImplementedError, match="scan_mode"):
             loop.build_model(small_config(scan_mode=mode), D_IO, D_IO,
                              device="cpu")
+    # the associative scan (plain PyTorch) builds and runs the unfused route
+    assoc = loop.build_model(small_config(scan_mode="associative"), D_IO,
+                             D_IO, device="cpu")
+    assert assoc.encoder.layers[0].mixer.layer_tail_operands() is None
+    assert assoc.encoder.layers[0].mixer(x)[0].shape == x.shape
 
 
 def test_unfused_batchnorm_is_flax_batchnorm_with_the_variance_clamp():

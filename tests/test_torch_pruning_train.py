@@ -162,3 +162,49 @@ def test_convert_calibrates_the_pruned_weights():
     k = "['encoder']['encoder']['kernel']"
     dense = leaves(convert(cfg, tm)["frozen_params"])
     assert (dense[k] != 0).all() and (frozen[k] == 0).any()
+
+
+def test_tile_pruned_grad_norm_jump_is_the_reference_behaviour():
+    """The tile-pruned recipe at the flagship's width (d_model 192, P 16,
+    1 layer, 37 frames), three steps with the mask update before each, in
+    both packages: the grad norms agree step by step (1e-3 relative), and
+    both jump at the third step. The uniform tile schedule masks the
+    encoder kernel's 64-wide edge column first (a tile scores the sum of
+    its squares, and those tiles hold 64 of 128 columns), so output
+    features 128–191 keep only their
+    bias: constant over batch and time, BatchNorm divides them by
+    sqrt(eps), and the straight-through gradient of the masked encoder
+    weights of those features carries the jump."""
+    cfg = small_config(n_layers=1, d_model=192, ssm_size_base=32, blocks=2,
+                       epochs=4, pruning="iterative-ste-block-0.9")
+    jm, jstate, tm, state = _paired_states(cfg, seed=11,
+                                           steps_per_epoch=STEPS_PER_EPOCH)
+    jpruner = jp.MagnitudePruner(
+        jp.pruning_recipes(cfg.epochs, STEPS_PER_EPOCH)[cfg.pruning])
+    jstate = jstate.replace(masks=jpruner.init_masks(jstate.params))
+    jstep = jax_train_step(jm, batchnorm=True, pruner=jpruner)
+    jupdate = jax_mask_update(jpruner)
+    step, update = make_ndns_train_step(tm), make_mask_update_fn(state.pruner)
+    norms = []
+    for i in range(3):
+        noisy, clean = audio_batch(2, seed=60 + i)
+        jstate = jupdate(jstate)
+        jstate, jmetrics = jstep(jstate, jax.random.PRNGKey(0),
+                                 *jax_features(noisy, clean))
+        state = update(state)
+        state, metrics = step(state, *torch_features(noisy, clean))
+        for key in ("grad_norm", "grad_norm/encoder", "grad_norm/decoder"):
+            assert metrics[key].item() == pytest.approx(
+                float(jmetrics[key]), rel=1e-3), (i, key)
+        norms.append(metrics["grad_norm"].item())
+    assert norms[2] > 20 * norms[1], norms
+    _masks_equal(tm, state.masks, jax.device_get(jstate.masks))
+    enc = tm.encoder.encoder
+    mask = state.masks["['encoder']['encoder']['kernel']"]
+    assert tuple(mask.shape) == tuple(enc.weight.shape) == (192, 257)
+    dead = (mask == 0).all(dim=1)       # output features, every input masked
+    assert dead.nonzero().flatten().tolist() == list(range(128, 192))
+    per_param = {n: p.grad.norm().item() for n, p in tm.named_parameters()}
+    assert max(per_param, key=per_param.get) == "encoder.encoder.weight"
+    assert enc.weight.grad[128:].norm() > 0.99 * per_param[
+        "encoder.encoder.weight"]

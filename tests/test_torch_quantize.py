@@ -258,9 +258,11 @@ def test_build_model_quant_refusals():
     sq = quantization_recipes["w8a16"](static_quant=True, calibrating=False)
     with pytest.raises(NotImplementedError, match="sequential"):
         build_model(cfg, D_IO, D_IO, device="cpu", q_config=sq)
-    with pytest.raises(NotImplementedError, match="QAT"):
-        build_model(cfg, D_IO, D_IO, device="cpu",
-                    q_config=quantization_recipes["w8a16"]())
+    # a dynamic recipe builds the quantization-aware (QAT) model
+    qat = build_model(cfg, D_IO, D_IO, device="cpu",
+                      q_config=quantization_recipes["w8a16"]())
+    assert qat.q_config.any_quantized and not qat.q_config.static_quant
+    assert qat.decoder.w_bits == 8 and qat.decoder.a_bits == 16
     model = build_model(cfg, D_IO, D_IO, device="cpu", q_config=sq,
                         scan_mode="sequential")
     carry = (torch.zeros(1, 8), torch.zeros(1, 8))

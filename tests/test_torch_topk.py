@@ -74,13 +74,14 @@ def test_recipe_with_topk_loads(tmp_path):
 
 
 def test_topk_model_refusals():
-    """Training with top-k waits for a later slice; exact top-k raises, as
-    in the JAX package."""
+    """Training with top-k builds a training model (the unfused route);
+    exact top-k raises, as in the JAX package."""
     cfg = dataclasses.replace(RunConfig(), n_layers=1, d_model=8,
                               ssm_size_base=8, blocks=1, topk=0.5,
                               approx_topk=True)
-    with pytest.raises(NotImplementedError, match="training with"):
-        build_model(cfg, 5, 5, training=True, device="cpu")
+    trainer = build_model(cfg, 5, 5, training=True, device="cpu")
+    assert trainer.training
+    assert trainer.encoder.layers[0].mixer.layer_tail_operands() is None
     model = build_model(cfg, 5, 5, device="cpu")
     assert not model.training
     assert model.encoder.layers[0].mixer.layer_tail_operands() is None

@@ -3,8 +3,9 @@ holds each against its plain PyTorch version at the flagship shapes, and
 drives the float NDNS serving path, the w8a16 engine serving path, the
 float NDNS training path, the mixer route (training and eval of the models
 outside the whole-layer kernel), top-k serving, pruned training with
-block-sparse serving, and quantization-aware and top-k training at the
-width of ``recipes/ndns.json`` (d_model 192,
+block-sparse serving, quantization-aware and top-k training, and the
+int-dot engines (w8a8, and w8a16 with ``mxu16``) at the width of
+``recipes/ndns.json`` (d_model 192,
 P 128, 3 layers; random weights from a seed):
 
 1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail)
@@ -96,7 +97,23 @@ P 128, 3 layers; random weights from a seed):
    global forwards against the associative QAT forward (printed); three
    B=32 steps of the top-k recipe (K1 x 3 each way); the ``w32a32``
    engine offline (per-op route, K4a-engine x 3) against the CPU engine,
-   timed.
+   timed;
+17. int-dot kernel phase — the flagship calibrated at w8a8 and at w8a16
+   and frozen; the w8a8 engine (int8 dots of the denses on their frozen
+   input grids) and the w8a16 engine with ``mxu16`` (every dot on the two
+   int8 planes of its 16-bit codes, the static model's requants): K6, K5a
+   (first launch with the encoder, a middle one, the last with the
+   decoder) and K5b (one 128-frame block from a carry) in those modes
+   against their plain versions at B=8, L=3751, timed (median of 5 and
+   the profiler's device time); GLU full / half2 / none and f32
+   activations at a short length (network vs plain, network = stack); an
+   odd-width network (H=400: the plane-wise formula; P=18);
+18. int-dot serving phase — the w8a8, w8a8A8 and ``mxu16`` engines
+   offline (K6 x 1), on the stack
+   route (K5a x 3, bit-identical), streamed by ``from_engine`` at block
+   128 (K5b x 3 a forward; chunked = whole), on the card against the
+   CPU; the w8a8 top-k engine on the per-op route (K4a-engine x 3, the
+   denses' int8 dots as float64 code products), against the CPU engine.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -116,12 +133,17 @@ import time
 B, SECONDS, CHUNK = 8, 30, 16000
 #: seconds of audio in a calibration clip; frames per streaming engine block
 CAL_SECONDS, STREAM_BLOCK = 4, 128
-#: published H100 SXM peaks: f32 on the CUDA cores, device memory rate
-F32_FLOPS, MEM_BYTES_S = 67e12, 3.35e12
+#: published H100 SXM peaks: f32 on the CUDA cores, int8 on the tensor
+#: cores (dense), device memory rate
+F32_FLOPS, INT8_OPS, MEM_BYTES_S = 67e12, 1979e12, 3.35e12
 
 
-def _bound_ms(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / MEM_BYTES_S, n_flops / F32_FLOPS
+def _bound_ms(n_bytes: float, n_flops: float, int8_ops: float = 0.0):
+    """The least time: the larger of the bytes at the memory rate and the
+    operations at the peak of their type (f32 flops on the CUDA cores,
+    int8 dot operations on the tensor cores, which can run at once)."""
+    t_bytes = n_bytes / MEM_BYTES_S
+    t_ops = max(n_flops / F32_FLOPS, int8_ops / INT8_OPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1851,6 +1873,463 @@ def qat_training_phase(cfg, audio, feats, batch, frozen, records,
                   eng(x_small).cpu(), cpu_eng(x_small.cpu()))
 
 
+#: the integer-dot engines: tag -> (recipe, mxu16)
+INT_ENGINES = {"w8a8": ("w8a8", False), "mxu16": ("w8a16", True)}
+
+
+def _int_work(tag: str, h: int, p: int, n_dense: int):
+    """(f32 flops, int8 ops) a frame of one layer of an integer-dot engine:
+    w8a8 runs the GLU denses as int8 dots (2 ops a multiply-add) and the
+    B/C projections in f32; mxu16 runs every dot on two int8 planes."""
+    glu = n_dense * h * h
+    bc = h * 2 * p + 2 * p * h
+    rest = 8 * p + 6 * h
+    if tag == "w8a8":
+        return 2 * bc + rest, 2 * glu
+    return rest, 2 * 2 * (bc + glu)
+
+
+def _device_ms(tag, fn, kernel: str, reps: int = 3) -> float:
+    """Device time of one launch of ``kernel`` (a part of its name) from
+    ``torch.profiler``: the mean over the launches of ``reps`` calls of
+    ``fn`` in one profiled window."""
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    prof = profile_region(tag, lambda: [fn() for _ in range(reps)], top=3)
+    print(json.dumps(prof), flush=True)
+    hits = [k for k in prof["top_kernels"] if kernel in k["name"]]
+    count = sum(k["count"] for k in hits)
+    if not count:
+        raise AssertionError(f"{tag}: the profiler saw no {kernel} launch")
+    return sum(k["device_ms"] for k in hits) / count
+
+
+def _full_glu_tree(params, n_layers: int):
+    """A frozen tree with a value dense for the "full" GLU in every layer:
+    the gate dense's kernel and bias rolled by one row, its grids kept."""
+    import numpy as np
+    full = copy.deepcopy(params)
+    for i in range(n_layers):
+        lay = full["encoder"][f"layers_{i}"]
+        lay["out1"] = {**lay["out2"], **{
+            k: np.roll(lay["out2"][k], 1, axis=0)
+            for k in ("kernel", "bias")}}
+    return full
+
+
+def _odd_int_network(gen, tag: str, dev):
+    """A two-layer integer-dot network of odd widths and random int8
+    weights: H = 400 (the TPU kernels pad it to 512, so 16-bit dots over H
+    take the plane-wise formula), P = 18 (the im half of the states' codes
+    at an offset, tails of 2), d_in = 100, d_out = 90; ``tag`` "mxu16":
+    every site on 16-bit grids; "w8a8": the denses on 8-bit grids, the
+    int8 stream. Returns (enc, layers, dec, mode)."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda.engine_layer import Dense, LayerMode
+    from sparsernns_tpu_torch.ops.intdot import weight_colsum
+    from sparsernns_tpu_torch.quantize.engine import QWeight, _LayerPack
+    h, p, d_in, d_out = 400, 18, 100, 90
+    bits = 16 if tag == "mxu16" else 8
+
+    def grid(e):   # a scale of 2^e at 16 bits, as coarse at fewer bits
+        return (2.0 ** (e + 16 - bits), bits)
+
+    def i8(*shape):
+        w = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+        return w.to(dev)
+
+    def qweight(k, n, scale):
+        w = i8(k, n)
+        return QWeight(w, scale, weight_colsum(w))
+
+    def vec(n, sc=0.1, mean=0.0):
+        return (mean + sc * torch.randn(n, generator=gen)).to(dev)
+
+    enc = Dense(qweight(d_in, h, 2.0 ** -8), vec(h), grid(-10),
+                grid(-9) if tag == "mxu16" else None)
+    dec = Dense(qweight(h, d_out, 2.0 ** -10), vec(d_out), grid(-9),
+                grid(-9) if tag == "mxu16" else None)
+    layers = []
+    for _ in range(2):
+        radius = torch.rand(p, generator=gen) * 0.3 + 0.6
+        angle = torch.rand(p, generator=gen) * 6.0 - 3.0
+        w_b, w_c = i8(h, 2 * p), i8(2 * p, h)
+        s_state = grid(-8)[0]
+        sites = {}
+        if tag == "mxu16":
+            sites = dict(mixer_in16=grid(-12), state16=True,
+                         but_requant=(grid(-9)[0], grid(-9)[0], bits),
+                         yt_requant=grid(-9), out2_out_requant=grid(-9))
+        layers.append(_LayerPack(
+            lam=((radius * torch.cos(angle)).to(dev),
+                 (radius * torch.sin(angle)).to(dev)),
+            w_b=w_b, w_c=w_c, d=vec(h), norm_w=vec(h, mean=1.0),
+            norm_b=vec(h), out2_kernel=qweight(h, h, 2.0 ** -9),
+            out2_bias=vec(h), residual_requant=grid(-9),
+            state_requant=(s_state, s_state, bits),
+            wb_scales=(2.0 ** -9, 2.0 ** -10),
+            wc_scales=(2.0 ** -10, 2.0 ** -11), out2_in_scale=grid(-9),
+            cs_wb=weight_colsum(w_b), cs_wc_re=weight_colsum(w_c[:p]),
+            cs_wc_im=weight_colsum(w_c[p:]), **sites))
+    mode = LayerMode(prenorm=True, relufication=True, glu="half1",
+                     relu_state=True, act_dtype=torch.bfloat16)
+    return enc, layers, dec, mode
+
+
+def intdot_kernel_phase(cfg, model, cal_x, x_eng, frames, gen,
+                        records) -> dict:
+    """Phase 17: calibrate the flagship with the w8a8 recipe and with
+    w8a16 (two batches of the synthetic loader), freeze, and build the
+    w8a8 engine and the w8a16 engine with ``mxu16``; hold K6, K5a (the
+    first launch with the encoder, a middle one, the last with the
+    decoder) and K5b (one 128-frame block from a carry on the state grid)
+    in their integer-dot modes against their plain versions on the card
+    at B=8, L=3751 (block 512); mask: the engine bar; streams: codes at
+    most 1 apart in at most 0.5 %; carries: on the grid, codes likewise),
+    timed (median of 5, device time from the profiler); the variants GLU
+    full / half2 (postnorm, relufied) / none and f32 activations at
+    B=2, L=300, block 128 (network vs plain: the engine bar; network vs
+    stack: 0); one odd-width network (H=400, P=18: the plane-wise formula,
+    an odd P) per mode, K6 and the K5 stack vs plain and each other.
+    Returns tag -> (run config, frozen tree), with the w8a8A8 tree."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import engine_layer, engine_network
+    from sparsernns_tpu_torch.quantize.calibrate import calibrate
+    from sparsernns_tpu_torch.quantize.config import quantization_recipes
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.train.loop import build_model
+    dev = torch.device("cuda")
+    el, en = engine_layer, engine_network
+    h, n_layers = cfg.d_model, cfg.n_layers
+    n_dense = {"full": 2, "half1": 1, "half2": 1, "none": 0}[cfg.glu_variant]
+    rows, s_rows = B * frames, B * STREAM_BLOCK
+    trees, summary = {}, {}
+
+    def calibrated(recipe, mxu16=False):
+        run_cfg = dataclasses.replace(cfg, convert_quantization=recipe,
+                                      engine_mxu16=mxu16)
+        cal_model = build_model(
+            run_cfg, 257, 257, device=dev, seed=0, scan_mode="sequential",
+            q_config=quantization_recipes[recipe](static_quant=True,
+                                                  calibrating=True))
+        return run_cfg, calibrate(cal_model, model.state_dict(),
+                                  [cal_x[:B], cal_x[B:]])
+
+    for tag, (recipe, mxu16) in INT_ENGINES.items():
+        t0 = time.time()
+        run_cfg, frozen = trees[tag] = calibrated(recipe, mxu16)
+        eng = engine_from_frozen(run_cfg, *frozen, device=dev, block_t=512)
+        print(f"{tag} engine (calibrate, freeze, pack {time.time() - t0:.1f}"
+              f" s): mxu16 {eng.mxu16}, encoder grid "
+              f"{eng.encoder_in_scale}, network route {eng._network_ok}",
+              flush=True)
+        assert eng._network_ok and eng.mxu16["dense"]
+        if mxu16:
+            assert all(eng.mxu16.values()), eng.mxu16
+        mode, layers = eng.mode, eng.layers
+        p = layers[0].p
+        rq = [lay.residual_requant for lay in layers]
+        stream_bytes = 1 if rq[0][1] <= 8 else 2
+        f32_l, int_l = _int_work(tag, h, p, n_dense)
+        w_bytes = (2 * h * 2 * p + n_dense * h * h + 4 * (
+            3 * h + 2 * p + n_dense * h) + 4 * (2 * p + 2 * h))
+        bound_io = 2 * 257 * h + 4 * (2 * h + 2 * 257)
+        with torch.no_grad():
+            # ---- K6, the default offline route ----
+            net_args = (x_eng, eng._enc, layers, eng._dec, mode)
+            ref = en.engine_network_plain(*net_args, block_t=512)
+            out = en.engine_network_cuda(*net_args, block_t=512)
+            torch.cuda.synchronize()
+            err = _engine_close(f"K6 {tag} vs plain (mask)", out, ref)
+            run = lambda: en.engine_network_cuda(  # noqa: E731
+                *net_args, block_t=512)
+            ms = _median_ms(run)
+            dev_ms = _device_ms(f"K6 {tag} x 3", run,
+                                "engine_network_kernel")
+            plain_ms = _time_ms(lambda: en.engine_network_plain(
+                *net_args, block_t=512), 1, 0)
+            bound, by = _bound_ms(
+                2 * rows * 257 * 4 + n_layers * w_bytes + bound_io,
+                rows * n_layers * f32_l,
+                rows * (n_layers * int_l
+                        + 2 * 2 * 257 * h * (2 if mxu16 else 1)))
+            records[f"engine_network_{tag}"] = dict(
+                name=f"engine_network_{tag}", route="cuda",
+                source="sparsernns_tpu_torch/ops/cuda/csrc/engine_network.cu",
+                replaces="sparsernns_tpu/ops/pallas/fused_network.py:299",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+            summary[f"K6 {tag}"] = dict(ms=ms, device_ms=dev_ms,
+                                        bound_ms=bound, mxu16=eng.mxu16)
+
+            # ---- K5a: first (encoder), middle, last (decoder) launch,
+            # each on the plain version's input ----
+            kw = dict(block_t=512)
+            r0 = el.engine_layer_plain(x_eng, layers[0], mode, enc=eng._enc,
+                                       **kw)
+            errs = [_code_diff(f"K5a {tag} first launch (encoder) vs plain",
+                               el.engine_layer_cuda(x_eng, layers[0], mode,
+                                                    enc=eng._enc, **kw), r0)]
+            r1 = el.engine_layer_plain(r0, layers[1], mode, in_requant=rq[0],
+                                       **kw)
+            errs.append(_code_diff(
+                f"K5a {tag} middle launch vs plain",
+                el.engine_layer_cuda(r0, layers[1], mode, in_requant=rq[0],
+                                     **kw), r1))
+            last = dict(in_requant=rq[1], dec=eng._dec, **kw)
+            ref = el.engine_layer_plain(r1, layers[2], mode, **last)
+            _engine_close(f"K5a {tag} last launch (decoder) vs plain (mask)",
+                          el.engine_layer_cuda(r1, layers[2], mode, **last),
+                          ref)
+            mid = dict(in_requant=rq[0], **kw)
+            run = lambda: el.engine_layer_cuda(  # noqa: E731
+                r0, layers[1], mode, **mid)
+            ms = _median_ms(run)
+            dev_ms = _device_ms(f"K5a {tag} x 3", run, "engine_layer_kernel")
+            plain_ms = _time_ms(lambda: el.engine_layer_plain(
+                r0, layers[1], mode, **mid), 1, 0)
+            bound, by = _bound_ms(
+                2 * rows * h * stream_bytes + w_bytes, rows * f32_l,
+                rows * int_l)
+            records[f"engine_layer_{tag}"] = dict(
+                name=f"engine_layer_{tag}", route="cuda",
+                source="sparsernns_tpu_torch/ops/cuda/csrc/engine_layer.cu",
+                replaces="sparsernns_tpu/ops/pallas/fused_layer.py:629",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+            summary[f"K5a {tag}"] = dict(ms=ms, device_ms=dev_ms,
+                                         bound_ms=bound)
+
+            # ---- K5b: one 128-frame block from a carry on the grid ----
+            s_re, s_im, _ = layers[1].state_requant
+            carry = tuple(
+                (torch.round(torch.randn((B, p), generator=gen) * 200) * s)
+                .to(dev) for s in (s_re, s_im))
+            r_in = r0[:, :STREAM_BLOCK].contiguous()
+            kwc = dict(block_t=STREAM_BLOCK, in_requant=rq[0], carry=carry)
+            ref, ref_c = el.engine_layer_plain(r_in, layers[1], mode, **kwc)
+            out, out_c = el.engine_layer_cuda(r_in, layers[1], mode, **kwc)
+            torch.cuda.synchronize()
+            err = _code_diff(f"K5b {tag} one 128-frame block vs plain", out,
+                             ref)
+            for half, o, r, sc in zip(("re", "im"), out_c, ref_c,
+                                      (s_re, s_im)):
+                _codes_of(f"K5b {tag} carry out {half}", o, r, sc)
+            run = lambda: el.engine_layer_cuda(  # noqa: E731
+                r_in, layers[1], mode, **kwc)
+            ms = _median_ms(run)
+            dev_ms = _device_ms(f"K5b {tag} x 3", run, "engine_layer_kernel")
+            plain_ms = _time_ms(lambda: el.engine_layer_plain(
+                r_in, layers[1], mode, **kwc), 1, 0)
+            bound, by = _bound_ms(
+                2 * s_rows * h * stream_bytes + w_bytes + 4 * B * p * 4,
+                s_rows * f32_l, s_rows * int_l)
+            records[f"engine_layer_carry_{tag}"] = dict(
+                name=f"engine_layer_carry_{tag}", route="cuda",
+                source="sparsernns_tpu_torch/ops/cuda/csrc/engine_layer.cu",
+                replaces="sparsernns_tpu/ops/pallas/fused_layer.py:729",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+            summary[f"K5b {tag}"] = dict(ms=ms, device_ms=dev_ms,
+                                         bound_ms=bound)
+
+            # ---- variants at B=2, L=300, block 128 ----
+            full_params = _full_glu_tree(frozen[0], n_layers)
+            xs = x_eng[:2, :300]
+            for var in (dict(glu_variant="full"),
+                        dict(glu_variant="half2", relufication=True,
+                             prenorm=False),
+                        dict(glu_variant="none"),
+                        dict(act_dtype=torch.float32)):
+                var = dict(var)
+                act = var.pop("act_dtype", torch.bfloat16)
+                v_eng = engine_from_frozen(
+                    dataclasses.replace(run_cfg, **var), full_params,
+                    frozen[1], device=dev, block_t=128, act_dtype=act)
+                assert v_eng._network_ok and v_eng.mxu16 == eng.mxu16
+                v_args = (xs, v_eng._enc, v_eng.layers, v_eng._dec,
+                          v_eng.mode)
+                ref = en.engine_network_plain(*v_args, block_t=128)
+                net = v_eng._apply_network(xs, 128)
+                name = f"K6/K5a {tag} {var or ''} act {act}"
+                _engine_close(f"{name} vs plain", net, ref)
+                _check(f"{name} network vs stack",
+                       (net - v_eng._apply_stack(xs, 128)).abs().max()
+                       .item(), 0.0)
+
+            # ---- odd widths: the plane-wise formula, an odd P ----
+            enc, o_layers, dec, o_mode = _odd_int_network(gen, tag, dev)
+            xo = torch.randn((2, 70, 100), generator=gen).to(dev)
+            ref = en.engine_network_plain(xo, enc, o_layers, dec, o_mode,
+                                          block_t=16)
+            net = en.engine_network_cuda(xo, enc, o_layers, dec, o_mode,
+                                         block_t=16)
+            _engine_close(f"K6 {tag} H=400 P=18 vs plain", net, ref)
+            r = el.engine_layer_cuda(xo, o_layers[0], o_mode, block_t=16,
+                                     enc=enc)
+            stk = el.engine_layer_cuda(
+                r, o_layers[1], o_mode, block_t=16,
+                in_requant=o_layers[0].residual_requant, dec=dec)
+            _check(f"K6 {tag} H=400 P=18 network vs K5a stack",
+                   (net - stk).abs().max().item(), 0.0)
+            c0 = tuple(torch.zeros((2, 18), device=dev) for _ in range(2))
+            kwo = dict(block_t=16, in_requant=o_layers[0].residual_requant,
+                       carry=c0)
+            ref, _ = el.engine_layer_plain(r[:, :32], o_layers[1], o_mode,
+                                           **kwo)
+            out, _ = el.engine_layer_cuda(r[:, :32], o_layers[1], o_mode,
+                                          **kwo)
+            _code_diff(f"K5b {tag} H=400 P=18 vs plain", out, ref)
+    print(json.dumps({"intdot_kernel_phase": summary}), flush=True)
+    # w8a8A8 (8-bit lambda too) runs the kernels' w8a8 modes: served in
+    # phase 18
+    trees["w8a8A8"] = calibrated("w8a8A8")
+    return trees
+
+
+def intdot_serving_phase(cfg, trees, audio, feats, records,
+                         counters) -> None:
+    """Phase 18: serve the integer-dot engines (w8a8, w8a8A8; w8a16 with
+    mxu16) through the entry points: the offline call (K6 x 1, nothing else),
+    the stack route (K5a x 3, bit-identical to K6), a ``from_engine``
+    stream of the 30 s audio in 1 s chunks at block 128 (K5b x 3 a
+    forward) and ``process_chunk`` at block 128 against one whole call
+    (exact), the engine on the card against the engine on the CPU (the
+    engine bar; w8a8A8 against the plain network on the card, the CPU
+    difference printed); and the w8a8 engine of the top-k recipe (``topk=0.5,
+    approx_topk=true``) offline on the per-op route: K4a-engine x 3 and
+    the denses' int8 dots as float64 products of the codes, against the
+    CPU engine. Each region timed, its launches asserted exactly."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import engine_network
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
+    from sparsernns_tpu_torch.train.losses import (STFT_MAG_MEAN,
+                                                   ndns_loss_from_mask_tm)
+    dev = torch.device("cuda")
+    n_layers = cfg.n_layers
+    noisy, clean_t = audio
+    noisy_mag, noisy_phase, clean_mag = feats
+    frames = noisy_mag.shape[-1]
+    x_eng = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    x_small = x_eng[:2, :200]
+    summary = {}
+
+    def timed(tag, fn, expect):
+        return _timed_region(tag, fn, expect, counters)
+
+    for tag, (run_cfg, frozen) in trees.items():
+        engine = engine_from_frozen(run_cfg, *frozen, device=dev,
+                                    block_t=512)
+        mask, counts = timed(f"{tag} engine offline call B={B}",
+                             lambda: engine(x_eng), {"engine_network": 1})
+        assert engine.mxu16["dense"], engine.mxu16
+        launches = {"engine_network": counts["engine_network"]}
+        assert mask.shape == (B, frames, 257) and torch.isfinite(mask).all()
+        loss_e, snr_e, _ = ndns_loss_from_mask_tm(
+            mask, noisy_mag.transpose(1, 2), noisy_phase.transpose(1, 2),
+            clean_mag.transpose(1, 2), clean_t)
+        assert np.isfinite(loss_e.item()) and np.isfinite(snr_e.item())
+        call_ms = _median_ms(lambda: engine(x_eng))
+        stack_engine = engine_from_frozen(run_cfg, *frozen, device=dev,
+                                          block_t=512)
+        stack_engine._network_ok = False
+        mask_stack, counts = timed(f"{tag} engine stack route B={B}",
+                                   lambda: stack_engine(x_eng),
+                                   {"engine_layer": n_layers})
+        launches["engine_layer"] = counts["engine_layer"]
+        _check(f"{tag} engine network route vs stack route "
+               "(bit-identical)", (mask - mask_stack).abs().max().item(),
+               0.0)
+        stack_ms = _median_ms(lambda: stack_engine(x_eng))
+        cpu_engine = engine_from_frozen(run_cfg, *frozen, device="cpu",
+                                        block_t=512)
+        y_card, y_cpu = engine(x_small).cpu(), cpu_engine(x_small.cpu())
+        if tag in INT_ENGINES:
+            _engine_close(f"{tag} engine on the card vs on the CPU (plain)",
+                          y_card, y_cpu)
+        else:
+            # w8a8A8 quantizes lambda's halves apart at 8 bits, which puts
+            # a few channels outside the unit circle: one 8-bit code that
+            # the card's and the CPU's float ops round apart at a tie
+            # spreads through them. Held against the plain version on the
+            # same card; the CPU difference is printed.
+            with torch.no_grad():
+                ref = engine_network.engine_network_plain(
+                    x_small, engine._enc, engine.layers, engine._dec,
+                    engine.mode, block_t=x_small.shape[1])
+            _engine_close(f"{tag} engine vs the plain network on the card",
+                          y_card, ref.cpu())
+            mag = max(float((lay.lam[0] ** 2 + lay.lam[1] ** 2).max())
+                      for lay in engine.layers) ** 0.5
+            d = (y_card - y_cpu).abs()
+            print(f"{tag} engine on the card vs on the CPU (plain): max "
+                  f"{d.max().item():.3e}, share above 1e-5 "
+                  f"{(d > 1e-5).float().mean().item():.2e}; max |lambda| "
+                  f"{mag:.6f}", flush=True)
+
+        stream_engine = engine_from_frozen(run_cfg, *frozen, device=dev,
+                                           block_t=STREAM_BLOCK)
+        eden = StreamingDenoiser.from_engine(stream_engine, batch_size=B)
+        counters()
+        t0 = time.time()
+        out = eden.process_offline(noisy, chunk_samples=CHUNK)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        counts = counters()
+        forwards = counts["engine_layer_carry"] // n_layers
+        launches["engine_layer_carry"] = counts["engine_layer_carry"]
+        for name, count in launches.items():    # w8a8A8: the w8a8 modes
+            if f"{name}_{tag}" in records:
+                records[f"{name}_{tag}"]["launches"] = count
+        print(f"{tag} engine streaming: {-(-noisy.shape[1] // CHUNK)} "
+              f"chunks in {wall:.1f} ms, {forwards} forwards of "
+              f"{STREAM_BLOCK}-frame blocks, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        assert np.isfinite(out).all()
+        assert forwards >= frames // STREAM_BLOCK, forwards
+        assert counts == {**{k: 0 for k in counts}, "engine_layer_carry":
+                          n_layers * forwards}, counts
+        carries, parts = None, []
+        with torch.no_grad():
+            for start in range(0, frames, STREAM_BLOCK):
+                part, carries = stream_engine.process_chunk(
+                    x_eng[:, start:start + STREAM_BLOCK], carries)
+                parts.append(part)
+            _check(f"{tag} engine chunked process_chunk vs one whole call",
+                   (torch.cat(parts, dim=1) - stream_engine(x_eng)).abs()
+                   .max().item(), 0.0)
+        chunk = x_eng[:, :STREAM_BLOCK].contiguous()
+        chunk_ms = _median_ms(lambda: stream_engine.process_chunk(chunk))
+        summary[tag] = dict(offline_ms=call_ms, stack_ms=stack_ms,
+                            chunk_ms=chunk_ms, stream_wall_ms=wall,
+                            loss=loss_e.item(), si_snr=snr_e.item(),
+                            launches=launches)
+        del engine, stack_engine, stream_engine, eden, cpu_engine
+
+    # ---- w8a8 with top-k: the per-op route's int8 dots ----
+    run_cfg, frozen = trees["w8a8"]
+    tk = dataclasses.replace(run_cfg, topk=0.5, approx_topk=True)
+    engine = engine_from_frozen(tk, *frozen, device=dev, block_t=512)
+    assert not engine._stack_ok and engine.mxu16["dense"]
+    mask, counts = timed(f"w8a8 topk engine offline call (per-op) B={B}",
+                         lambda: engine(x_eng),
+                         {"fused_s5_engine": n_layers})
+    assert mask.shape == (B, frames, 257) and torch.isfinite(mask).all()
+    summary["w8a8 topk per-op"] = dict(
+        offline_ms=_median_ms(lambda: engine(x_eng)),
+        launches={k: v for k, v in counts.items() if v})
+    cpu_engine = engine_from_frozen(tk, *frozen, device="cpu", block_t=512)
+    ref = cpu_engine(x_small.cpu())
+    _topk_close("w8a8 topk engine on the card vs on the CPU (plain)",
+                engine(x_small).cpu(), ref,
+                2e-3 * max(1.0, ref.abs().max().item()))
+    print(json.dumps({"intdot_serving_phase": summary}), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2375,6 +2854,17 @@ def main() -> int:
                        (noisy_mag, noisy_phase, clean_mag), batch,
                        (frozen_params, frozen_stats), records, counters)
     mark("QAT and top-k training phase")
+
+    # ---------------- int-dot kernel phase (K5a, K5b, K6 int modes) -----
+    int_trees = intdot_kernel_phase(cfg, model, cal_x, x_eng, frames, gen,
+                                    records)
+    mark("int-dot kernel phase")
+
+    # ---------------- int-dot serving phase (w8a8, w8a16 mxu16) ---------
+    intdot_serving_phase(cfg, int_trees, (noisy, clean_t),
+                         (noisy_mag, noisy_phase, clean_mag), records,
+                         counters)
+    mark("int-dot serving phase")
 
     # ---------------- report ----------------
     smi = subprocess.run(

@@ -22,6 +22,29 @@
 //   h  = GLU(x1, y)  (gate = sigmoid((x1 @ W_2) * s_2 + b_2))
 //   h  = h + r; postnorm affine if not prenorm; relu if relufication
 //
+// Integer-dot modes (fused_layer.py `_glu_dense` :117, `_mixer_pre` :139
+// with mixer_in16, `_mixer_post` :185 with state16; fused_network.py
+// `_boundary_dense` :125), each switched on per dot site by its fields:
+//
+//   a dense with a frozen activation grid (DenseW.in_mode): the operand's
+//     codes q = clip(rint(a / s)) go into int8 planes (the code itself at 8
+//     bits or fewer; hi = q >> 8 and lo - 128 = (q & 255) - 128 up to 16),
+//     the products accumulate in int32 by __dp4a, and the planes combine
+//     as ops/intdot.py does (one int32 accumulator with 128 * colsum, or
+//     plane-wise in f32); value = acc * (s * w_scale) + bias, then the
+//     optional output requant (quant_output);
+//   mixer_in16 (ut_mode): the B-projection on the codes of z on the
+//     quant_ut grid, per-half scales s_ut * s_b, and the D term on
+//     code * s_ut; quant_but (but_bits) after the B-projection;
+//   state16 (st_mode): the C-projection on the states' codes (they lie on
+//     the block-requant grid: code = x * (1/s) exactly), one integer dot
+//     per half with its own colsum; quant_yt (yt_bits) after + d * z_d.
+//
+// Integer dots are exact, so they add no summation-order difference. The
+// kernels of other modules that include this header (fused_s5.cu,
+// qat_scan.cu) leave every integer field zero and take none of these
+// branches.
+//
 // The result h (before the output requant) replaces r in shared memory.
 // Rounding is round-half-to-even (rintf) with the clip after it; scales
 // divide, as in the reference. No fast-math intrinsics.
@@ -43,13 +66,24 @@ constexpr int kThreads = 256;
 enum Glu { kFull = 0, kHalf1 = 1, kHalf2 = 2, kNone = 3 };
 enum WType { kWF32 = 0, kWI8 = 1, kWI16 = 2 };
 enum IoType { kIoF32 = 0, kIoBF16 = 1, kIoI16 = 2, kIoI8 = 3 };
+// How a dot runs: on the float operand, or on its integer codes in one
+// int8 plane, two planes in one int32 accumulator, or two planes combined
+// in f32 (ops/intdot.py DOT_I8, DOT_I16, DOT_I16_PLANES).
+enum DotMode { kDotFloat = 0, kDotI8 = 1, kDotI16 = 2, kDotI16Planes = 3 };
 
-// A dense weight (K, N) row-major with its per-tensor scale and bias.
+// A dense weight (K, N) row-major with its per-tensor scale and bias, and
+// the integer dot that runs it where its input has a frozen grid.
 struct DenseW {
   const void* w;
   const float* bias;   // (N) or null
+  const int* colsum;   // (N) column sums of the int8 weight (two planes)
   float scale;         // 1 when the weight is float
+  float acc_scale;     // in_s * scale: integer accumulator -> value
+  float in_s;          // the input's grid (in_mode != kDotFloat)
+  float out_s;         // output requant after the bias (out_bits != 0)
   int wtype;           // WType
+  int in_mode;         // DotMode
+  int in_bits, out_bits;
 };
 
 // One layer's operands. The layout is mirrored by a ctypes.Structure in
@@ -60,6 +94,9 @@ struct LayerParams {
   const float* d;        // (H)
   const float* nw;       // (H)
   const float* nb;
+  const int* cs_wb;      // (2P) column sums of W_b (two-plane B-projection)
+  const int* cs_wc_re;   // (H) column sums of W_c's rows [0, P)
+  const int* cs_wc_im;   // (H) of its rows [P, 2P)
   DenseW wb;             // (H, 2P) [B_re^T | B_im^T]
   DenseW wc;             // (2P, H) [C_re^T ; -C_im^T]
   DenseW out2;           // (H, H) gate dense, w null without a GLU
@@ -68,8 +105,15 @@ struct LayerParams {
   float wc_s_re, wc_s_im;      // incl. the conj-sym factor 2
   float sq_re, sq_im, sq_min, sq_max;   // block state requant grid
   float rq_s, rq_min, rq_max;           // output (residual) requant grid
+  float ut_s, ut_sc_re, ut_sc_im;       // quant_ut grid; ut_s * wb_s_*
+  float st_inv_re, st_inv_im;           // 1 / sq_*: state -> code
+  float st_sc_re, st_sc_im;             // sq_* * wc_s_*
+  float but_re, but_im, yt_s;           // quant_but, quant_yt grids
   int has_sq, has_rq;
   int p;
+  int ut_mode, ut_bits;  // DotMode of the B-projection (mixer_in16)
+  int st_mode;           // DotMode of the C-projection (state16)
+  int but_bits, yt_bits; // 0: requant absent
 };
 
 struct Mode {
@@ -77,6 +121,18 @@ struct Mode {
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// Bytes a row of the code tile Q needs for a layer's integer dots: the
+// widest operand they quantize (the im half of the states sits at
+// round4(P)).
+__host__ inline int code_width(const LayerParams& lp, int h) {
+  int w = 0;
+  if (lp.ut_mode || lp.out2.in_mode || lp.out1.in_mode) w = h;
+  if (lp.st_mode) w = imax(w, 2 * round4(lp.p));
+  return w;
+}
 
 __device__ inline float ldw(const float* w, long long i) {
   return __ldg(w + i);
@@ -155,6 +211,136 @@ __device__ inline float quant_code(float v, float s, float qmin, float qmax) {
   return fminf(fmaxf(rintf(v / s), qmin), qmax);
 }
 
+// The largest code of a symmetric `bits`-bit grid; the smallest is
+// -grid_max - 1.
+__device__ inline float grid_max(int bits) {
+  return (float)((1 << (bits - 1)) - 1);
+}
+
+// v on the frozen (s, bits) grid: its code times s.
+__device__ inline float requant(float v, float s, int bits) {
+  const float qmax = grid_max(bits);
+  return __fmul_rn(quant_code(v, s, -qmax - 1.f, qmax), s);
+}
+
+// The value of an integer dot from its plane accumulators (ops/intdot.py
+// int16_dot): the code dot itself at 8 bits or fewer; else
+// 256 * hi + (lo - 128) + 128 * colsum in one int32 (wrapping unsigned
+// arithmetic: the true sum fits), or plane-wise with one f32 add.
+__device__ inline float int_dot_value(int hi, int lo, int cs, int mode) {
+  if (mode == kDotI8) return (float)lo;
+  const unsigned low = (unsigned)lo + 128u * (unsigned)cs;
+  if (mode == kDotI16) return (float)(int)((unsigned)hi * 256u + low);
+  return __fadd_rn(__fmul_rn((float)hi, 256.f), (float)(int)low);
+}
+
+// Codes of rows [0, rows) x [0, K) of the float tile A (ld lda) on the
+// grid (s, qmin, qmax) as the int8 planes of Q (ld ldq; the hi plane at Q,
+// the lo plane at Q + kT * ldq): for kDotI8 the code itself in the lo
+// plane. With `zd`, also code * s into zd[r * lda + c] (may be A itself).
+__device__ inline void quant_tile(const float* A, int lda, int K, int rows,
+                                  float s, float qmin, float qmax, int mode,
+                                  int8_t* Q, int ldq, float* zd) {
+  int8_t* Qlo = Q + kT * ldq;
+  for (int i = threadIdx.x; i < rows * K; i += blockDim.x) {
+    const int r = i / K, c = i % K;
+    const float code = quant_code(A[r * lda + c], s, qmin, qmax);
+    const int q = (int)code;
+    if (mode == kDotI8) {
+      Qlo[r * ldq + c] = (int8_t)q;
+    } else {
+      Q[r * ldq + c] = (int8_t)(q >> 8);
+      Qlo[r * ldq + c] = (int8_t)((q & 255) - 128);
+    }
+    if (zd) zd[r * lda + c] = __fmul_rn(code, s);
+  }
+}
+
+// out(r, c) = the integer dot of the codes in Q (ld ldq, planes as
+// quant_tile writes them) with the int8 W (K, N) row-major, as a float
+// through int_dot_value; per 4 k one packed weight word and one __dp4a per
+// row and plane. `epi(r, c, value)` as for tile_matmul_t.
+template <bool kTwo, class Epi>
+__device__ inline void tile_matmul_q_t(const int8_t* Q, int ldq,
+                                       const int8_t* __restrict__ W, int K,
+                                       int N, int rows, int mode,
+                                       const int* colsum, Epi epi) {
+  const int8_t* Qlo = Q + kT * ldq;
+  const int n_items = N * (kT / kRT);
+  for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
+    const int c = item % N;
+    const int r0 = (item / N) * kRT;
+    if (r0 >= rows) continue;
+    int hi[kRT], lo[kRT];
+#pragma unroll
+    for (int r = 0; r < kRT; ++r) hi[r] = lo[r] = 0;
+    int k = 0;
+#pragma unroll 2
+    for (; k + 4 <= K; k += 4) {
+      const unsigned w0 = (unsigned char)__ldg(W + (long long)(k + 0) * N + c);
+      const unsigned w1 = (unsigned char)__ldg(W + (long long)(k + 1) * N + c);
+      const unsigned w2 = (unsigned char)__ldg(W + (long long)(k + 2) * N + c);
+      const unsigned w3 = (unsigned char)__ldg(W + (long long)(k + 3) * N + c);
+      const int w4 = (int)(w0 | (w1 << 8) | (w2 << 16) | (w3 << 24));
+#pragma unroll
+      for (int r = 0; r < kRT; ++r) {
+        const int off = (r0 + r) * ldq + k;
+        lo[r] = __dp4a(*reinterpret_cast<const int*>(Qlo + off), w4, lo[r]);
+        if (kTwo)
+          hi[r] = __dp4a(*reinterpret_cast<const int*>(Q + off), w4, hi[r]);
+      }
+    }
+    for (; k < K; ++k) {
+      const int w = __ldg(W + (long long)k * N + c);
+#pragma unroll
+      for (int r = 0; r < kRT; ++r) {
+        lo[r] += (int)Qlo[(r0 + r) * ldq + k] * w;
+        if (kTwo) hi[r] += (int)Q[(r0 + r) * ldq + k] * w;
+      }
+    }
+    const int cs = kTwo ? colsum[c] : 0;
+#pragma unroll
+    for (int r = 0; r < kRT; ++r)
+      if (r0 + r < rows) epi(r0 + r, c, int_dot_value(hi[r], lo[r], cs, mode));
+  }
+}
+
+template <class Epi>
+__device__ inline void tile_matmul_q(const int8_t* Q, int ldq,
+                                     const int8_t* W, int K, int N, int rows,
+                                     int mode, const int* colsum, Epi epi) {
+  if (mode == kDotI8)
+    tile_matmul_q_t<false>(Q, ldq, W, K, N, rows, mode, colsum, epi);
+  else
+    tile_matmul_q_t<true>(Q, ldq, W, K, N, rows, mode, colsum, epi);
+}
+
+// acc -> the dense's output value at column c: the scale (the accumulator
+// scale of an integer dot), the bias, then the output requant if any.
+__device__ inline float dense_out(const DenseW& w, int c, float acc) {
+  const float v = __fadd_rn(
+      __fmul_rn(acc, w.in_mode ? w.acc_scale : w.scale), w.bias[c]);
+  return w.out_bits ? requant(v, w.out_s, w.out_bits) : v;
+}
+
+// out(r, c) = A @ W through the dense w: the float dot of A, or with an
+// input grid the integer dot of A's codes (quantized into Q first).
+template <class Epi>
+__device__ inline void dense_tile(const float* A, int lda, const DenseW& w,
+                                  int K, int N, int rows, int8_t* Q, int ldq,
+                                  Epi epi) {
+  if (w.in_mode == kDotFloat) {
+    tile_matmul(A, lda, w, K, N, rows, epi);
+    return;
+  }
+  const float qmax = grid_max(w.in_bits);
+  quant_tile(A, lda, K, rows, w.in_s, -qmax - 1.f, qmax, w.in_mode, Q, ldq,
+             nullptr);
+  __syncthreads();
+  tile_matmul_q(Q, ldq, static_cast<const int8_t*>(w.w), K, N, rows,
+                w.in_mode, w.colsum, epi);
+}
+
 __device__ inline float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -209,25 +395,28 @@ __device__ inline void load_tile(float* T, int ld, const void* src, int type,
   }
 }
 
-// Encoder: R = stream_type(relu?((X @ W_enc) * s + b)).
+// Encoder: R = stream_type(relu?(requant?((X @ W_enc) * s + b))).
 __device__ inline void encode_tile(const float* X, int ldx, const DenseW& enc,
                                    int d_in, const Mode& m, float* R, int ldh,
-                                   int rows) {
-  tile_matmul(X, ldx, enc, d_in, m.h, rows, [&](int r, int c, float acc) {
-    float v = __fadd_rn(__fmul_rn(acc, enc.scale), enc.bias[c]);
-    if (m.relufication) v = fmaxf(v, 0.f);
-    R[r * ldh + c] = m.act_bf16 ? bf16_round(v) : v;
-  });
+                                   int rows, int8_t* Q, int ldq) {
+  dense_tile(X, ldx, enc, d_in, m.h, rows, Q, ldq,
+             [&](int r, int c, float acc) {
+               float v = dense_out(enc, c, acc);
+               if (m.relufication) v = fmaxf(v, 0.f);
+               R[r * ldh + c] = m.act_bf16 ? bf16_round(v) : v;
+             });
 }
 
-// Decoder: out[t0 + r, c] = (R @ W_dec) * s + b, stored as `out_type`.
+// Decoder: out[t0 + r, c] = requant?((R @ W_dec) * s + b), as `out_type`.
 __device__ inline void decode_tile(const float* R, int ldh, const DenseW& dec,
                                    int h, int d_out, void* out, int out_type,
-                                   long long row0, int rows) {
-  tile_matmul(R, ldh, dec, h, d_out, rows, [&](int r, int c, float acc) {
-    store_io(out, (row0 + r) * d_out + c, out_type,
-             __fadd_rn(__fmul_rn(acc, dec.scale), dec.bias[c]));
-  });
+                                   long long row0, int rows, int8_t* Q,
+                                   int ldq) {
+  dense_tile(R, ldh, dec, h, d_out, rows, Q, ldq,
+             [&](int r, int c, float acc) {
+               store_io(out, (row0 + r) * d_out + c, out_type,
+                        dense_out(dec, c, acc));
+             });
 }
 
 // The S5 mixer on a tile: Z (rows x H, the mixer input) -> Y = the mixer
@@ -235,19 +424,39 @@ __device__ inline void decode_tile(const float* R, int ldh, const DenseW& dec,
 // [re | im] of this layer, kept across tiles. `t0` is the index of the
 // tile's first frame in the sequence of length L. Shared by the layer
 // (layer_tile) and the stand-alone mixer kernel (fused_s5.cu), so
-// both round every product, state and requant alike.
+// both round every product, state and requant alike. Q (ld ldq): the code
+// tile of the integer modes, which overwrite Z with the D term's operand.
 __device__ inline void mixer_tile(const LayerParams& lp, int relu_state,
-                                  int H, const float* Z, float* Y, float* S,
+                                  int H, float* Z, float* Y, float* S,
                                   float* carry, int ldh, int ldp, int rows,
-                                  int t0, int L, int block_t) {
+                                  int t0, int L, int block_t,
+                                  int8_t* Q = nullptr, int ldq = 0) {
   const int P = lp.p;
   const int tid = threadIdx.x;
-  // ---- B-projection, per-half weight scale on the result ----
-  tile_matmul(Z, ldh, lp.wb, H, 2 * P, rows, [&](int r, int c, float acc) {
-    S[r * ldp + c] = __fmul_rn(acc, c < P ? lp.wb_s_re : lp.wb_s_im);
-  });
+  // ---- B-projection, per-half scale on the result, quant_but ----
+  auto bu_out = [&](int r, int c, float v) {
+    if (lp.but_bits)
+      v = requant(v, c < P ? lp.but_re : lp.but_im, lp.but_bits);
+    S[r * ldp + c] = v;
+  };
+  if (lp.ut_mode) {
+    const float qmax = grid_max(lp.ut_bits);
+    quant_tile(Z, ldh, H, rows, lp.ut_s, -qmax - 1.f, qmax, lp.ut_mode, Q,
+               ldq, Z);
+    __syncthreads();
+    tile_matmul_q(Q, ldq, static_cast<const int8_t*>(lp.wb.w), H, 2 * P,
+                  rows, lp.ut_mode, lp.cs_wb, [&](int r, int c, float acc) {
+                    bu_out(r, c,
+                           __fmul_rn(acc, c < P ? lp.ut_sc_re : lp.ut_sc_im));
+                  });
+  } else {
+    tile_matmul(Z, ldh, lp.wb, H, 2 * P, rows, [&](int r, int c, float acc) {
+      bu_out(r, c, __fmul_rn(acc, c < P ? lp.wb_s_re : lp.wb_s_im));
+    });
+  }
   __syncthreads();
-  // ---- recurrence in order, block requant, relu and C-side scale ----
+  // ---- recurrence in order, block requant, relu and C-side scale (or
+  // the state's code for the integer C-projection) ----
   for (int p = tid; p < P; p += blockDim.x) {
     const float lr = lp.lam_re[p], li = lp.lam_im[p];
     float xr = carry[p], xi = carry[P + p];
@@ -270,26 +479,57 @@ __device__ inline void mixer_tile(const LayerParams& lp, int relu_state,
         sr = fmaxf(sr, 0.f);
         si = fmaxf(si, 0.f);
       }
-      S[r * ldp + p] = __fmul_rn(sr, lp.wc_s_re);
-      S[r * ldp + P + p] = __fmul_rn(si, lp.wc_s_im);
+      if (lp.st_mode) {
+        S[r * ldp + p] = __fmul_rn(sr, lp.st_inv_re);
+        S[r * ldp + P + p] = __fmul_rn(si, lp.st_inv_im);
+      } else {
+        S[r * ldp + p] = __fmul_rn(sr, lp.wc_s_re);
+        S[r * ldp + P + p] = __fmul_rn(si, lp.wc_s_im);
+      }
     }
     carry[p] = xr;
     carry[P + p] = xi;
   }
   __syncthreads();
-  // ---- C-projection + D * z ----
-  tile_matmul(S, ldp, lp.wc, 2 * P, H, rows, [&](int r, int c, float acc) {
-    Y[r * ldh + c] = __fadd_rn(acc, __fmul_rn(lp.d[c], Z[r * ldh + c]));
-  });
+  // ---- C-projection + D * z, quant_yt ----
+  auto y_out = [&](int r, int c, float v) {
+    float y = __fadd_rn(v, __fmul_rn(lp.d[c], Z[r * ldh + c]));
+    if (lp.yt_bits) y = requant(y, lp.yt_s, lp.yt_bits);
+    Y[r * ldh + c] = y;
+  };
+  if (lp.st_mode) {
+    const int p4 = round4(P);
+    quant_tile(S, ldp, P, rows, 1.f, lp.sq_min, lp.sq_max, lp.st_mode, Q,
+               ldq, nullptr);
+    quant_tile(S + P, ldp, P, rows, 1.f, lp.sq_min, lp.sq_max, lp.st_mode,
+               Q + p4, ldq, nullptr);
+    __syncthreads();
+    const int8_t* wc = static_cast<const int8_t*>(lp.wc.w);
+    tile_matmul_q(Q, ldq, wc, P, H, rows, lp.st_mode, lp.cs_wc_re,
+                  [&](int r, int c, float acc) {
+                    Y[r * ldh + c] = __fmul_rn(acc, lp.st_sc_re);
+                  });
+    __syncthreads();
+    tile_matmul_q(Q + p4, ldq, wc + (long long)P * H, P, H, rows,
+                  lp.st_mode, lp.cs_wc_im, [&](int r, int c, float acc) {
+                    y_out(r, c, __fadd_rn(Y[r * ldh + c],
+                                          __fmul_rn(acc, lp.st_sc_im)));
+                  });
+  } else {
+    tile_matmul(S, ldp, lp.wc, 2 * P, H, rows,
+                [&](int r, int c, float acc) { y_out(r, c, acc); });
+  }
   __syncthreads();
 }
 
 // One layer on the tile R (rows x H, f32 stream values); h replaces R.
-// Z, Y: (kT, ldh) scratch; S, carry, t0 as for mixer_tile.
+// Z, Y: (kT, ldh) scratch; S, carry, t0 as for mixer_tile; Q (kT rows of
+// ldq bytes, two planes) for the integer dots.
 __device__ inline void layer_tile(const LayerParams& lp, const Mode& m,
                                   float* R, float* Z, float* Y, float* S,
                                   float* carry, int ldh, int ldp, int rows,
-                                  int t0, int L, int block_t) {
+                                  int t0, int L, int block_t, int8_t* Q,
+                                  int ldq) {
   const int H = m.h;
   const int tid = threadIdx.x;
   for (int i = tid; i < rows * H; i += blockDim.x) {
@@ -300,7 +540,7 @@ __device__ inline void layer_tile(const LayerParams& lp, const Mode& m,
   }
   __syncthreads();
   mixer_tile(lp, m.relu_state, H, Z, Y, S, carry, ldh, ldp, rows, t0, L,
-             block_t);
+             block_t, Q, ldq);
   // ---- activation (x1 replaces z); no GLU: residual here ----
   for (int i = tid; i < rows * H; i += blockDim.x) {
     const int r = i / H, c = i % H;
@@ -321,19 +561,20 @@ __device__ inline void layer_tile(const LayerParams& lp, const Mode& m,
     return;
   }
   if (m.glu == kFull) {
-    // value dense: Y = (x1 @ W_1) * s_1 + b_1 (y is no longer needed)
-    tile_matmul(Z, ldh, lp.out1, H, H, rows, [&](int r, int c, float acc) {
-      Y[r * ldh + c] =
-          __fadd_rn(__fmul_rn(acc, lp.out1.scale), lp.out1.bias[c]);
-    });
+    // value dense: Y = requant?((x1 @ W_1) * s_1 + b_1) (y is no longer
+    // needed)
+    dense_tile(Z, ldh, lp.out1, H, H, rows, Q, ldq,
+               [&](int r, int c, float acc) {
+                 Y[r * ldh + c] = dense_out(lp.out1, c, acc);
+               });
     __syncthreads();
   }
   const float* base = m.glu == kHalf1 ? Z : Y;
-  tile_matmul(Z, ldh, lp.out2, H, H, rows, [&](int r, int c, float acc) {
-    const float gate = sigmoidf(
-        __fadd_rn(__fmul_rn(acc, lp.out2.scale), lp.out2.bias[c]));
-    finish(r, c, __fmul_rn(base[r * ldh + c], gate));
-  });
+  dense_tile(Z, ldh, lp.out2, H, H, rows, Q, ldq,
+             [&](int r, int c, float acc) {
+               const float gate = sigmoidf(dense_out(lp.out2, c, acc));
+               finish(r, c, __fmul_rn(base[r * ldh + c], gate));
+             });
   __syncthreads();
 }
 

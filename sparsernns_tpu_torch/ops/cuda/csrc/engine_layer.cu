@@ -6,7 +6,8 @@
 //
 // Replaces the TPU kernels sparsernns_tpu/ops/pallas/fused_layer.py
 // `fused_layer_apply` (pallas_call at :629) and `fused_layer_apply_carry`
-// (:729), float-dot mode. On the TPU the grid walks the time blocks of a
+// (:729), in float-dot mode and in the integer-dot modes of w8a8 and of
+// the w8a16 engine's mxu16 (engine_body.cuh). On the TPU the grid walks the time blocks of a
 // row in order with the carry in VMEM scratch, and the block's states come
 // from doubling passes over a padded block. Here one CTA owns a row and
 // walks tiles of kT frames itself: the recurrence runs in order with the
@@ -15,12 +16,16 @@
 // residual stream is read and written once, as the integer codes of its
 // frozen grid (int16 / int8), bf16 or f32; nothing else touches device
 // memory but the weights, which are int8 / int16 / f32 and stream from L2.
+// The integer dots quantize their operand into a code tile of two int8
+// planes in shared memory (Q, kT rows of ldq bytes each).
 //
 // Bound: operations. Per frame 2*H*2P (B-projection) + 2*2P*H
 // (C-projection) + 2*H*H per GLU dense, 0.27 MFLOP at H=192, P=128 with
 // half1; at B=8, L=3751 that is 8.1 GFLOP, 0.12 ms at 67 TFLOP/s f32,
-// against 23 MB of stream traffic (0.007 ms at 3.35 TB/s). This simple
-// design fills B of the 132 SMs, as the float tail kernel does.
+// against 23 MB of stream traffic (0.007 ms at 3.35 TB/s). In the int-dot
+// modes the dots become int8 operations (two a multiply-add, twice that on
+// two planes) at the tensor cores' int8 rate; the scan stays f32. This
+// simple design fills B of the 132 SMs, as the float tail kernel does.
 
 #include "engine_body.cuh"
 
@@ -42,6 +47,7 @@ struct LayerArgs {
   int in_type, out_type; // IoType
   int d_in, d_out;
   int L, block_t;
+  int ldq;               // bytes a row of the code tile Q (0: no int dot)
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -58,6 +64,7 @@ engine_layer_kernel(const __grid_constant__ LayerArgs a) {
   float* S = Y + kT * ldh;
   float* carry = S + kT * ldp;
   float* X = carry + 2 * P;
+  int8_t* Q = reinterpret_cast<int8_t*>(X + (a.enc.w ? kT * ldx : 0));
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -74,13 +81,13 @@ engine_layer_kernel(const __grid_constant__ LayerArgs a) {
     if (a.enc.w) {
       load_tile(X, ldx, a.in, a.in_type, in_row0 + t0, w_in, rows, 1.f);
       __syncthreads();
-      encode_tile(X, ldx, a.enc, a.d_in, a.mode, R, ldh, rows);
+      encode_tile(X, ldx, a.enc, a.d_in, a.mode, R, ldh, rows, Q, a.ldq);
     } else {
       load_tile(R, ldh, a.in, a.in_type, in_row0 + t0, H, rows, a.in_scale);
     }
     __syncthreads();
     layer_tile(lp, a.mode, R, Z, Y, S, carry, ldh, ldp, rows, t0, L,
-               a.block_t);
+               a.block_t, Q, a.ldq);
     if (a.dec.w) {
       for (int i = tid; i < rows * H; i += blockDim.x) {
         float* v = R + (i / H) * ldh + i % H;
@@ -88,7 +95,7 @@ engine_layer_kernel(const __grid_constant__ LayerArgs a) {
       }
       __syncthreads();
       decode_tile(R, ldh, a.dec, H, a.d_out, a.out, a.out_type, in_row0 + t0,
-                  rows);
+                  rows, Q, a.ldq);
     } else {
       for (int i = tid; i < rows * H; i += blockDim.x) {
         const float h = R[(i / H) * ldh + i % H];
@@ -139,11 +146,16 @@ extern "C" int engine_layer_fwd(
   a.L = L;
   a.block_t = block_t;
   const int H = mode->h, P = layer->p;
+  int q_w = engine::code_width(*layer, H);
+  if (enc->in_mode) q_w = engine::imax(q_w, d_in);
+  if (dec->in_mode) q_w = engine::imax(q_w, H);
+  a.ldq = engine::round4(q_w);
   const size_t smem =
       sizeof(float) * ((size_t)engine::kT *
                            (3 * engine::round4(H) + engine::round4(2 * P) +
                             (enc->w ? engine::round4(d_in) : 0)) +
-                       2 * P);
+                       2 * P) +
+      2 * (size_t)engine::kT * a.ldq;
   cudaError_t err = cudaFuncSetAttribute(
       engine_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -5,7 +5,9 @@
 //
 // Replaces the TPU kernel sparsernns_tpu/ops/pallas/fused_network.py
 // `fused_network_apply` -> `_net_call` (pallas_call at :299, main and tail
-// calls). The TPU version needs a main grid of 8-aligned time blocks plus a
+// calls), in float-dot mode and in the integer-dot modes (the encoder's and
+// decoder's `_boundary_dense` :125 and every layer's, engine_body.cuh). The
+// TPU version needs a main grid of 8-aligned time blocks plus a
 // tail call chained by carries, and lambda-power tables per block size;
 // here one launch covers all of L, and `block_t` only says where the
 // states are requantized (engine_body.cuh). The store and load of the
@@ -18,7 +20,8 @@
 // Bound: operations. Per frame 2*d_in*H (encoder) + n_layers * 0.27 MFLOP
 // + 2*H*d_out (decoder), 1.0 MFLOP at the serving width; at B=8, L=3751
 // that is 30 GFLOP, 0.45 ms at 67 TFLOP/s f32, against 62 MB of input and
-// mask traffic (0.018 ms at 3.35 TB/s). All int8 weights together are
+// mask traffic (0.018 ms at 3.35 TB/s); the int-dot modes count their dots
+// as int8 operations (engine_layer.cu). All int8 weights together are
 // 0.5 MB, more than one SM's shared memory, so they stream from L2. This
 // simple design fills B of the 132 SMs.
 
@@ -40,7 +43,10 @@ struct NetArgs {
   int in_type, out_type;
   int d_in, d_out;
   int L, block_t;
+  int ldq;               // bytes a row of the code tile Q (0: no int dot)
 };
+
+static_assert(sizeof(NetArgs) <= 4096, "kernel parameters above 4 KB");
 
 __global__ void __launch_bounds__(kThreads)
 engine_network_kernel(const __grid_constant__ NetArgs a) {
@@ -55,6 +61,7 @@ engine_network_kernel(const __grid_constant__ NetArgs a) {
   float* S = Y + kT * ldh;
   float* X = S + kT * ldp;
   float* carry = X + kT * ldx;     // n_layers x (2 * p_max)
+  int8_t* Q = reinterpret_cast<int8_t*>(carry + a.n_layers * 2 * a.p_max);
 
   const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * L;
@@ -65,12 +72,12 @@ engine_network_kernel(const __grid_constant__ NetArgs a) {
     const int rows = min(kT, L - t0);
     load_tile(X, ldx, a.x, a.in_type, row0 + t0, a.d_in, rows, 1.f);
     __syncthreads();
-    encode_tile(X, ldx, a.enc, a.d_in, a.mode, R, ldh, rows);
+    encode_tile(X, ldx, a.enc, a.d_in, a.mode, R, ldh, rows, Q, a.ldq);
     __syncthreads();
     for (int l = 0; l < a.n_layers; ++l) {
       const LayerParams& lp = a.layers[l];
       layer_tile(lp, a.mode, R, Z, Y, S, carry + l * 2 * a.p_max, ldh, ldp,
-                 rows, t0, L, a.block_t);
+                 rows, t0, L, a.block_t, Q, a.ldq);
       for (int i = tid; i < rows * H; i += blockDim.x) {
         float* v = R + (i / H) * ldh + i % H;
         *v = stream_value(*v, lp, a.mode.act_bf16);
@@ -78,7 +85,7 @@ engine_network_kernel(const __grid_constant__ NetArgs a) {
       __syncthreads();
     }
     decode_tile(R, ldh, a.dec, H, a.d_out, a.out, a.out_type, row0 + t0,
-                rows);
+                rows, Q, a.ldq);
     __syncthreads();
   }
 }
@@ -98,11 +105,15 @@ extern "C" int engine_network_fwd(
   NetArgs a;
   a.x = x;
   a.out = out;
-  int p_max = 0;
+  const int H = mode->h;
+  int p_max = 0, q_w = enc->in_mode ? d_in : 0;
+  if (dec->in_mode) q_w = engine::imax(q_w, H);
   for (int l = 0; l < n_layers; ++l) {
     a.layers[l] = layers[l];
     p_max = layers[l].p > p_max ? layers[l].p : p_max;
+    q_w = engine::imax(q_w, engine::code_width(layers[l], H));
   }
+  a.ldq = engine::round4(q_w);
   for (int l = n_layers; l < kMaxLayers; ++l) a.layers[l] = layers[0];
   a.enc = *enc;
   a.dec = *dec;
@@ -115,12 +126,12 @@ extern "C" int engine_network_fwd(
   a.d_out = d_out;
   a.L = L;
   a.block_t = block_t;
-  const int H = mode->h;
   const size_t smem =
       sizeof(float) * ((size_t)engine::kT *
                            (3 * engine::round4(H) +
                             engine::round4(2 * p_max) + engine::round4(d_in)) +
-                       (size_t)n_layers * 2 * p_max);
+                       (size_t)n_layers * 2 * p_max) +
+      2 * (size_t)engine::kT * a.ldq;
   cudaError_t err = cudaFuncSetAttribute(
       engine_network_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -1,9 +1,10 @@
 """Kernels K5a / K5b: one quantized serving layer in one kernel.
 
 Replaces ``sparsernns_tpu/ops/pallas/fused_layer.py`` ``fused_layer_apply``
-(K5a) and ``fused_layer_apply_carry`` (K5b, with a carry in and out) in
-float-dot mode. Per batch row, over a residual stream stored as the integer
-codes of its frozen grid (int16 / int8), bf16 or f32::
+(K5a) and ``fused_layer_apply_carry`` (K5b, with a carry in and out), in
+float-dot mode and in the integer-dot modes. Per batch row, over a residual
+stream stored as the integer codes of its frozen grid (int16 / int8), bf16
+or f32::
 
     r  = stream * in_requant scale
     z  = r * nw + nb                       (prenorm; else z = r)
@@ -12,6 +13,19 @@ codes of its frozen grid (int16 / int8), bf16 or f32::
     y  = [xs_re * wc_re | xs_im * wc_im] @ W_c + d * z    (relu on xs)
     x1 = relu(y) or gelu(y);  h = GLU(x1, y) + r
     (postnorm) -> relu if relufication -> codes of out_requant
+
+**Integer dots** (``ops/intdot.py``; the JAX kernels' ``_glu_dense``,
+``_mixer_pre`` and ``_mixer_post``): a dense with a frozen input grid
+(:class:`Dense` ``in_spec``: the GLU denses, the encoder and the decoder)
+runs on the codes of its operand, one int8 plane at 8 bits or fewer (w8a8)
+and two at 9..16 bits (w8a16 with ``mxu16``), and requantizes its output
+after the bias onto ``out_spec``; a layer's ``mixer_in16`` runs the
+B-projection on the codes of the mixer input (the D term takes the same
+codes), ``state16`` the C-projection on the states' codes, and
+``but_requant`` / ``yt_requant`` requantize the B-projection and the mixer
+output. The two-plane formula is picked from the reduction dim the TPU
+kernels see, which pad H and P to 128 (:func:`pad128`) but not the
+encoder's input.
 
 **The time block is numerics.** ``block_t`` frames form one block: inside
 it the recurrence runs on unquantized float32, after it every state of the
@@ -37,6 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from sparsernns_tpu_torch.ops.cuda import build
+from sparsernns_tpu_torch.ops.intdot import (DOT_I8, dot_formula, int16_dot,
+                                             quantize_codes)
 from sparsernns_tpu_torch.ops.scan import (Pair, grid_value, quant_codes,
                                            sequential_diag_scan)
 
@@ -46,8 +62,27 @@ GLU_KINDS = ("full", "half1", "half2", "none")
 launches = 0
 launches_carry = 0
 
-#: (QWeight-like kernel with .data (in, out) and .scale, bias (out,))
-Dense = Tuple[Any, torch.Tensor]
+Spec = Optional[Tuple[float, int]]
+
+
+class Dense(NamedTuple):
+    """A dense layer as the kernels take it."""
+
+    #: QWeight-like: ``.data`` (in, out), ``.scale`` (None: float data),
+    #: ``.colsum`` (out,) int32 column sums of int8 data
+    kernel: Any
+    bias: torch.Tensor
+    #: (scale, bits) frozen grid of the input: the dot runs on its codes
+    #: (int8 weights with a scale only); None: a float dot
+    in_spec: Spec = None
+    #: (scale, bits) requant of the output after the bias; None: none
+    out_spec: Spec = None
+
+
+def pad128(k: int) -> int:
+    """A lane dim as the TPU kernels pad it; the two-plane formula of an
+    integer dot is picked from it."""
+    return -(-k // 128) * 128
 
 
 class LayerMode(NamedTuple):
@@ -80,13 +115,34 @@ def qdq(x: torch.Tensor, spec: Optional[Tuple[float, int]]) -> torch.Tensor:
     return x if spec is None else grid_value(x, *spec)
 
 
-def dense_plain(x: torch.Tensor, dense: Dense) -> torch.Tensor:
-    """(x @ W as float32) * weight scale + bias."""
-    kernel, bias = dense
-    r = x @ kernel.data.to(torch.float32)
-    if kernel.scale is not None:
-        r = r * kernel.scale
-    return r + bias
+def int_dot_spec(kernel, in_spec: Spec) -> Spec:
+    """The input grid a dense's dot runs on: ``in_spec`` for an int8
+    weight with a scale, else None (a float dot), as JAX's
+    ``quantized_dense`` decides."""
+    if (in_spec is None or kernel.scale is None
+            or kernel.data.dtype != torch.int8):
+        return None
+    return in_spec
+
+
+def dense_plain(x: torch.Tensor, dense: Dense,
+                k_dot: Optional[int] = None) -> torch.Tensor:
+    """(x @ W as float32) * weight scale + bias, or with an input grid the
+    integer dot of x's codes times (input scale * weight scale) + bias;
+    then the output requant. ``k_dot``: the reduction dim that picks the
+    two-plane formula (default: x's last dim)."""
+    kernel = dense.kernel
+    spec = int_dot_spec(kernel, dense.in_spec)
+    if spec is None:
+        r = x @ kernel.data.to(torch.float32)
+        if kernel.scale is not None:
+            r = r * kernel.scale
+    else:
+        s, bits = spec
+        acc = int16_dot(x, kernel.data, kernel.colsum, s, bits,
+                        reduction_dim=k_dot)
+        r = acc * (s * kernel.scale)
+    return qdq(r + dense.bias, dense.out_spec)
 
 
 def stream_value(h: torch.Tensor, layer, mode: LayerMode) -> torch.Tensor:
@@ -99,7 +155,7 @@ def stream_value(h: torch.Tensor, layer, mode: LayerMode) -> torch.Tensor:
 
 def encode_plain(x: torch.Tensor, enc: Dense, mode: LayerMode
                  ) -> torch.Tensor:
-    h = dense_plain(x.to(torch.float32), enc)
+    h = dense_plain(x.to(torch.float32), enc)      # K = d_in, unpadded
     if mode.relufication:
         h = torch.relu(h)
     return h.to(mode.act_dtype).to(torch.float32)
@@ -118,20 +174,45 @@ class MixerOps(NamedTuple):
     wc_scales: Optional[Tuple[float, float]] = None
     #: (s_re, s_im, bits) of the blockwise state requant
     state_requant: Optional[Tuple[float, float, int]] = None
+    #: integer-dot modes (module docstring); the mixer kernel K4a keeps
+    #: them off
+    mixer_in16: Spec = None
+    state16: bool = False
+    but_requant: Optional[Tuple[float, float, int]] = None
+    yt_requant: Spec = None
+    cs_wb: Optional[torch.Tensor] = None      # (2P,) int32
+    cs_wc_re: Optional[torch.Tensor] = None   # (H,) int32
+    cs_wc_im: Optional[torch.Tensor] = None
 
 
 def mixer_plain(z: torch.Tensor, layer, relu_state: bool, carry: Pair
                 ) -> Tuple[torch.Tensor, Pair]:
     """The mixer on ONE time block z (B, T, H) float32 from ``carry``:
-    B-projection with the per-half scales, the recurrence, every state on
-    the frozen grid and the requantized last state as the next carry,
-    relu, C-side scales, C-projection + d * z. Returns (y, carry)."""
+    B-projection with the per-half scales (on the codes of z with
+    ``mixer_in16``), quant_but, the recurrence, every state on the frozen
+    grid and the requantized last state as the next carry, relu,
+    C-projection (per half on the states' codes with ``state16``) + d * z
+    (d * the codes' values with ``mixer_in16``), quant_yt. Returns (y,
+    carry)."""
+    h = layer.w_b.shape[0]
     p = layer.w_b.shape[-1] // 2
-    bu = z @ layer.w_b.to(torch.float32)
-    bu_re, bu_im = bu[..., :p], bu[..., p:]
-    if layer.wb_scales is not None:
-        bu_re = bu_re * layer.wb_scales[0]
-        bu_im = bu_im * layer.wb_scales[1]
+    if layer.mixer_in16 is not None:
+        s_ut, bits = layer.mixer_in16
+        q_ut = quantize_codes(z, s_ut, bits)
+        acc = int16_dot(z, layer.w_b, layer.cs_wb, s_ut, bits, codes=q_ut,
+                        reduction_dim=pad128(h))
+        bu_re = acc[..., :p] * (s_ut * layer.wb_scales[0])
+        bu_im = acc[..., p:] * (s_ut * layer.wb_scales[1])
+        z = q_ut * s_ut
+    else:
+        bu = z @ layer.w_b.to(torch.float32)
+        bu_re, bu_im = bu[..., :p], bu[..., p:]
+        if layer.wb_scales is not None:
+            bu_re = bu_re * layer.wb_scales[0]
+            bu_im = bu_im * layer.wb_scales[1]
+    if layer.but_requant is not None:
+        s_br, s_bi, bits = layer.but_requant
+        bu_re, bu_im = qdq(bu_re, (s_br, bits)), qdq(bu_im, (s_bi, bits))
     (x_re, x_im), _ = sequential_diag_scan(layer.lam, (bu_re, bu_im), carry)
     if layer.state_requant is not None:
         s_re, s_im, bits = layer.state_requant
@@ -139,10 +220,31 @@ def mixer_plain(z: torch.Tensor, layer, relu_state: bool, carry: Pair
     carry = (x_re[:, -1], x_im[:, -1])
     if relu_state:
         x_re, x_im = torch.relu(x_re), torch.relu(x_im)
-    if layer.wc_scales is not None:
-        x_re, x_im = x_re * layer.wc_scales[0], x_im * layer.wc_scales[1]
-    y = torch.cat([x_re, x_im], dim=-1) @ layer.w_c.to(torch.float32)
-    return y + layer.d * z, carry
+    if layer.state16:
+        # the states lie on the block-requant grid: their codes are one
+        # exact multiply
+        s_re, s_im, bits = layer.state_requant
+        k = pad128(p)
+        acc_re = int16_dot(None, layer.w_c[:p], layer.cs_wc_re, s_re, bits,
+                           codes=x_re * (1.0 / s_re), reduction_dim=k)
+        acc_im = int16_dot(None, layer.w_c[p:], layer.cs_wc_im, s_im, bits,
+                           codes=x_im * (1.0 / s_im), reduction_dim=k)
+        y = (acc_re * (s_re * layer.wc_scales[0])
+             + acc_im * (s_im * layer.wc_scales[1]))
+    else:
+        if layer.wc_scales is not None:
+            x_re, x_im = (x_re * layer.wc_scales[0],
+                          x_im * layer.wc_scales[1])
+        y = torch.cat([x_re, x_im], dim=-1) @ layer.w_c.to(torch.float32)
+    return qdq(y + layer.d * z, layer.yt_requant), carry
+
+
+def glu_denses(layer) -> Tuple[Dense, Dense]:
+    """The gate dense and the value dense of a layer with their grids."""
+    return (Dense(layer.out2_kernel, layer.out2_bias, layer.out2_in_scale,
+                  layer.out2_out_requant),
+            Dense(layer.out1_kernel, layer.out1_bias, layer.out1_in_scale,
+                  layer.out1_out_requant))
 
 
 def layer_body_plain(r: torch.Tensor, layer, mode: LayerMode,
@@ -157,14 +259,15 @@ def layer_body_plain(r: torch.Tensor, layer, mode: LayerMode,
     if mode.glu == "none":
         h = x1
     else:
-        gate = torch.sigmoid(
-            dense_plain(x1, (layer.out2_kernel, layer.out2_bias)))
+        out2, out1 = glu_denses(layer)
+        k = pad128(x1.shape[-1])
+        gate = torch.sigmoid(dense_plain(x1, out2, k))
         if mode.glu == "half1":
             base = x1
         elif mode.glu == "half2":
             base = y
         else:
-            base = dense_plain(x1, (layer.out1_kernel, layer.out1_bias))
+            base = dense_plain(x1, out1, k)
         h = base * gate
     h = h + r
     if not mode.prenorm:
@@ -187,7 +290,8 @@ def _check_args(r, layer, mode: LayerMode, block_t: int, enc):
         raise ValueError(f"expected (B, L, width), got {tuple(r.shape)}")
     if block_t < 1:
         raise ValueError(f"block_t {block_t}")
-    width = enc[0].data.shape[0] if enc is not None else layer.w_b.shape[0]
+    width = (enc.kernel.data.shape[0] if enc is not None
+             else layer.w_b.shape[0])
     if r.shape[-1] != width:
         raise ValueError(f"last axis {r.shape[-1]}, expected {width}")
 
@@ -217,7 +321,8 @@ def engine_layer_plain(r: torch.Tensor, layer, mode: LayerMode, *,
                 blk = blk * in_requant[0]
         h, state = layer_body_plain(blk, layer, mode, state)
         if dec is not None:
-            out = dense_plain(stream_value(h, layer, mode), dec)
+            out = dense_plain(stream_value(h, layer, mode), dec,
+                              pad128(h.shape[-1]))
             outs.append(out.to(out_dtype))
         elif layer.residual_requant is not None:
             outs.append(quant_codes(h, layer.residual_requant).to(
@@ -233,8 +338,11 @@ def engine_layer_plain(r: torch.Tensor, layer, mode: LayerMode, *,
 class DenseW(ctypes.Structure):
     """``engine::DenseW`` of ``csrc/engine_body.cuh``."""
 
-    _fields_ = [("w", ctypes.c_void_p), ("bias", ctypes.c_void_p),
-                ("scale", ctypes.c_float), ("wtype", ctypes.c_int)]
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("w", "bias", "colsum")]
+                + [(n, ctypes.c_float)
+                   for n in ("scale", "acc_scale", "in_s", "out_s")]
+                + [(n, ctypes.c_int)
+                   for n in ("wtype", "in_mode", "in_bits", "out_bits")])
 
 
 class LayerParams(ctypes.Structure):
@@ -242,13 +350,18 @@ class LayerParams(ctypes.Structure):
 
     _fields_ = (
         [(n, ctypes.c_void_p)
-         for n in ("lam_re", "lam_im", "d", "nw", "nb")]
+         for n in ("lam_re", "lam_im", "d", "nw", "nb", "cs_wb", "cs_wc_re",
+                   "cs_wc_im")]
         + [(n, DenseW) for n in ("wb", "wc", "out2", "out1")]
         + [(n, ctypes.c_float)
            for n in ("wb_s_re", "wb_s_im", "wc_s_re", "wc_s_im", "sq_re",
                      "sq_im", "sq_min", "sq_max", "rq_s", "rq_min",
-                     "rq_max")]
-        + [(n, ctypes.c_int) for n in ("has_sq", "has_rq", "p")])
+                     "rq_max", "ut_s", "ut_sc_re", "ut_sc_im", "st_inv_re",
+                     "st_inv_im", "st_sc_re", "st_sc_im", "but_re",
+                     "but_im", "yt_s")]
+        + [(n, ctypes.c_int) for n in (
+            "has_sq", "has_rq", "p", "ut_mode", "ut_bits", "st_mode",
+            "but_bits", "yt_bits")])
 
 
 class Mode(ctypes.Structure):
@@ -275,6 +388,20 @@ def _ptr(t: torch.Tensor, name: str, shape, dtype, device) -> int:
     return t.data_ptr()
 
 
+def _bits(spec, name: str) -> int:
+    """The width of a grid the kernels quantize onto: at most 16 bits."""
+    bits = int(spec[-1])
+    if not 1 < bits <= 16:
+        raise ValueError(f"{name}: a {bits}-bit grid in the kernel")
+    return bits
+
+
+def _colsum(t: Optional[torch.Tensor], name: str, n: int, device) -> int:
+    if t is None:
+        raise ValueError(f"{name}: a two-plane dot needs its column sums")
+    return _ptr(t, name, (n,), torch.int32, device)
+
+
 def pack_weight(w: torch.Tensor, scale: Optional[float],
                 bias: Optional[torch.Tensor], name: str, shape,
                 device) -> DenseW:
@@ -290,11 +417,28 @@ def pack_weight(w: torch.Tensor, scale: Optional[float],
     return out
 
 
-def pack_dense(dense: Optional[Dense], name: str, shape, device) -> DenseW:
+def pack_dense(dense: Optional[Dense], name: str, shape, device,
+               k_dot: Optional[int] = None) -> DenseW:
+    """A dense as the kernel's struct, with its integer dot (formula from
+    ``k_dot``, default the input width) and its output requant."""
     if dense is None:
         return DenseW()
-    kernel, bias = dense
-    return pack_weight(kernel.data, kernel.scale, bias, name, shape, device)
+    kernel = dense.kernel
+    out = pack_weight(kernel.data, kernel.scale, dense.bias, name, shape,
+                      device)
+    spec = int_dot_spec(kernel, dense.in_spec)
+    if spec is not None:
+        s, bits = float(spec[0]), _bits(spec, f"{name} input")
+        out.in_mode = dot_formula(shape[0] if k_dot is None else k_dot, bits)
+        out.in_s, out.in_bits = s, bits
+        out.acc_scale = s * kernel.scale
+        if out.in_mode != DOT_I8:
+            out.colsum = _colsum(kernel.colsum, f"{name} colsum", shape[1],
+                                 device)
+    if dense.out_spec is not None:
+        out.out_s = float(dense.out_spec[0])
+        out.out_bits = _bits(dense.out_spec, f"{name} output")
+    return out
 
 
 def pack_mixer(layer, device) -> LayerParams:
@@ -316,6 +460,37 @@ def pack_mixer(layer, device) -> LayerParams:
         s_re, s_im, bits = layer.state_requant
         lp.has_sq, lp.sq_re, lp.sq_im = 1, s_re, s_im
         lp.sq_min, lp.sq_max = -(2.0 ** (bits - 1)), 2.0 ** (bits - 1) - 1
+    if layer.mixer_in16 is not None:
+        if layer.w_b.dtype != torch.int8 or layer.wb_scales is None:
+            raise ValueError("mixer_in16 needs int8 W_b with its scales")
+        s_ut = float(layer.mixer_in16[0])
+        lp.ut_bits = _bits(layer.mixer_in16, "mixer_in16")
+        lp.ut_mode = dot_formula(pad128(h), lp.ut_bits)
+        lp.ut_s = s_ut
+        lp.ut_sc_re = s_ut * layer.wb_scales[0]
+        lp.ut_sc_im = s_ut * layer.wb_scales[1]
+        if lp.ut_mode != DOT_I8:
+            lp.cs_wb = _colsum(layer.cs_wb, "cs_wb", 2 * p, device)
+    if layer.state16:
+        if (layer.w_c.dtype != torch.int8 or layer.wc_scales is None
+                or layer.state_requant is None):
+            raise ValueError("state16 needs int8 W_c with its scales and "
+                             "the state requant")
+        s_re, s_im, _ = layer.state_requant
+        bits = _bits(layer.state_requant, "state16")
+        lp.st_mode = dot_formula(pad128(p), bits)
+        lp.st_inv_re, lp.st_inv_im = 1.0 / s_re, 1.0 / s_im
+        lp.st_sc_re = s_re * layer.wc_scales[0]
+        lp.st_sc_im = s_im * layer.wc_scales[1]
+        if lp.st_mode != DOT_I8:
+            lp.cs_wc_re = _colsum(layer.cs_wc_re, "cs_wc_re", h, device)
+            lp.cs_wc_im = _colsum(layer.cs_wc_im, "cs_wc_im", h, device)
+    if layer.but_requant is not None:
+        lp.but_re, lp.but_im = layer.but_requant[:2]
+        lp.but_bits = _bits(layer.but_requant, "but_requant")
+    if layer.yt_requant is not None:
+        lp.yt_s = layer.yt_requant[0]
+        lp.yt_bits = _bits(layer.yt_requant, "yt_requant")
     lp.p = p
     return lp
 
@@ -328,12 +503,11 @@ def pack_layer(layer, mode: LayerMode, device) -> LayerParams:
     lp = pack_mixer(layer, device)
     lp.nw = _ptr(layer.norm_w, "norm_w", (h,), f32, device)
     lp.nb = _ptr(layer.norm_b, "norm_b", (h,), f32, device)
+    out2, out1 = glu_denses(layer)
     if mode.glu != "none":
-        lp.out2 = pack_dense((layer.out2_kernel, layer.out2_bias), "out2",
-                             (h, h), device)
+        lp.out2 = pack_dense(out2, "out2", (h, h), device, pad128(h))
     if mode.glu == "full":
-        lp.out1 = pack_dense((layer.out1_kernel, layer.out1_bias), "out1",
-                             (h, h), device)
+        lp.out1 = pack_dense(out1, "out1", (h, h), device, pad128(h))
     if layer.residual_requant is not None:
         s, bits = layer.residual_requant
         if bits > 16:
@@ -389,15 +563,15 @@ def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
     if r.dtype not in IO_TYPES or out_dtype not in IO_TYPES:
         raise ValueError(f"io dtypes {r.dtype} / {out_dtype}")
     r = r.contiguous()
-    d_in = enc[0].data.shape[0] if enc is not None else 0
-    d_out = dec[0].data.shape[1] if dec is not None else 0
+    d_in = enc.kernel.data.shape[0] if enc is not None else 0
+    d_out = dec.kernel.data.shape[1] if dec is not None else 0
     o_dtype = out_dtype if dec is not None else stream_dtype(layer, mode)
     out = torch.empty((b, l, d_out if dec is not None else h),
                       dtype=o_dtype, device=dev)
     lp = pack_layer(layer, mode, dev)
     md = pack_mode(mode, h)
     enc_w = pack_dense(enc, "encoder", (d_in, h), dev)
-    dec_w = pack_dense(dec, "decoder", (h, d_out), dev)
+    dec_w = pack_dense(dec, "decoder", (h, d_out), dev, pad128(h))
     ci = co = (None, None)
     if carry is not None:
         ci = tuple(c.contiguous() for c in carry)

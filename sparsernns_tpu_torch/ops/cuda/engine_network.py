@@ -1,8 +1,10 @@
 """Kernel K6: the whole serving network in one kernel.
 
 Replaces ``sparsernns_tpu/ops/pallas/fused_network.py``
-``fused_network_apply`` in float-dot mode: per time block, the encoder
-dense (+ relu), every layer as in ``engine_layer.py`` with the store and
+``fused_network_apply`` in float-dot mode and in the integer-dot modes
+(``engine_layer.py``; the encoder's and decoder's as JAX's
+``_boundary_dense``): per time block, the encoder dense (+ its output
+requant, + relu), every layer as in ``engine_layer.py`` with the store and
 load of the stream between two layers reproduced as values, and the
 decoder dense, with every layer's scan carry resident across blocks.
 Input (B, L, d_in) float32 / bfloat16, output (B, L, d_out) in
@@ -25,8 +27,8 @@ import torch
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.cuda.engine_layer import (
     IO_TYPES, Dense, DenseW, LayerMode, LayerParams, Mode, zero_carry,
-    dense_plain, encode_plain, layer_body_plain, pack_dense, pack_layer,
-    pack_mode, stream_value)
+    dense_plain, encode_plain, layer_body_plain, pack_dense, pad128,
+    pack_layer, pack_mode, stream_value)
 
 #: most layers one launch takes (``kMaxLayers`` of the CUDA source)
 MAX_LAYERS = 8
@@ -36,9 +38,9 @@ launches = 0
 
 
 def _check_args(x, enc: Dense, layers: Sequence, dec: Dense, block_t: int):
-    if x.dim() != 3 or x.shape[-1] != enc[0].data.shape[0]:
-        raise ValueError(f"x must be (B, L, {enc[0].data.shape[0]}), got "
-                         f"{tuple(x.shape)}")
+    d_in = enc.kernel.data.shape[0]
+    if x.dim() != 3 or x.shape[-1] != d_in:
+        raise ValueError(f"x must be (B, L, {d_in}), got {tuple(x.shape)}")
     if not 1 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"1..{MAX_LAYERS} layers, got {len(layers)}")
     if block_t < 1:
@@ -60,7 +62,7 @@ def engine_network_plain(x: torch.Tensor, enc: Dense, layers: Sequence,
         for i, layer in enumerate(layers):
             hb, carries[i] = layer_body_plain(hb, layer, mode, carries[i])
             hb = stream_value(hb, layer, mode)
-        outs.append(dense_plain(hb, dec).to(out_dtype))
+        outs.append(dense_plain(hb, dec, pad128(hb.shape[-1])).to(out_dtype))
     return torch.cat(outs, dim=1)
 
 
@@ -90,8 +92,8 @@ def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
         raise ValueError(f"io dtypes {x.dtype} / {out_dtype}")
     dev = x.device
     b, l, d_in = x.shape
-    h = enc[0].data.shape[1]
-    d_out = dec[0].data.shape[1]
+    h = enc.kernel.data.shape[1]
+    d_out = dec.kernel.data.shape[1]
     x = x.contiguous()
     out = torch.empty((b, l, d_out), dtype=out_dtype, device=dev)
     if b == 0 or l == 0:
@@ -100,7 +102,7 @@ def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
         *[pack_layer(layer, mode, dev) for layer in layers])
     md = pack_mode(mode, h)
     enc_w = pack_dense(enc, "encoder", (d_in, h), dev)
-    dec_w = pack_dense(dec, "decoder", (h, d_out), dev)
+    dec_w = pack_dense(dec, "decoder", (h, d_out), dev, pad128(h))
     err = _lib()(
         x.data_ptr(), out.data_ptr(), IO_TYPES[x.dtype], IO_TYPES[out_dtype],
         packed, len(layers), ctypes.byref(md), ctypes.byref(enc_w), d_in,

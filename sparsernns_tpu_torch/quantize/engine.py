@@ -5,8 +5,18 @@
   grid for Λ̄ and D) with frozen power-of-2 scales from calibration, packed
   once, host-side, into the kernels' layouts;
 - activations run at 16 bits: the residual stream between layers is the
-  int16 codes of each layer's calibrated grid (bf16 where a layer has
-  none), the scan state float32;
+  int16 codes of each layer's calibrated grid (int8 at 8 bits, bf16 where
+  a layer has none), the scan state float32;
+- integer dots (``ops/intdot.py``): with activations of 8 bits or fewer
+  (w8a8) the GLU denses, the encoder and the decoder run as int8 x int8 ->
+  int32 dots on the codes of their frozen ``quant_input`` grids; with
+  ``mxu16=True`` a w8a16 engine runs every dot site so, on the two int8
+  planes of its 16-bit codes (the B-projection on the ``quant_ut`` codes,
+  the C-projection on the state codes, the denses), and applies the
+  frozen ``quant_but``, ``quant_yt`` and ``quant_output`` requants of the
+  static-quant model. In the kernels these are the integer-dot modes of
+  K5/K6; on the per-op route ``quantized_dense`` runs them (the per-op
+  route serves no ``mxu16``: the JAX engine demotes it there);
 - the offline call runs the whole network as ONE kernel
   (``ops/cuda/engine_network.py``, K6), or one kernel per layer
   (``ops/cuda/engine_layer.py``, K5a) when the network route is switched
@@ -33,10 +43,9 @@ The engine takes the frozen tree that calibration returns
 (``quantize/calibrate.py``, or the JAX package's: the trees are
 interchangeable), as nested dicts of numpy arrays.
 
-Not ported yet, and refused with ``NotImplementedError``: the int8-dot
-modes (``mxu16=True`` and recipes with activations of 8 bits or fewer,
-``ops/intdot.py``), ``route="xla"``, ``from_artifacts`` and, as in the JAX
-package, chunked streaming with top-k on the states.
+Not ported yet, and refused with ``NotImplementedError``: ``route="xla"``,
+``from_artifacts`` and, as in the JAX package, chunked streaming with top-k
+on the states.
 """
 
 from __future__ import annotations
@@ -52,12 +61,15 @@ from sparsernns_tpu_torch.fxp.derive import FxpModelConfig, _discretize, _get
 from sparsernns_tpu_torch.ops.cuda.block_sparse import (BlockSparseWeight,
                                                         block_sparse_matmul,
                                                         pack_block_sparse)
-from sparsernns_tpu_torch.ops.cuda.engine_layer import (LayerMode,
+from sparsernns_tpu_torch.ops.cuda.engine_layer import (Dense, LayerMode,
                                                         dense_plain,
-                                                        engine_layer, qdq)
+                                                        engine_layer,
+                                                        int_dot_spec, pad128,
+                                                        qdq)
 from sparsernns_tpu_torch.ops.cuda.engine_network import (MAX_LAYERS,
                                                           engine_network)
 from sparsernns_tpu_torch.ops.cuda.fused_s5 import fused_s5_engine
+from sparsernns_tpu_torch.ops.intdot import fits_planewise, weight_colsum
 from sparsernns_tpu_torch.ops.scan import Pair, diag_ssm_scan
 from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity, top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
@@ -97,10 +109,12 @@ def _pow2_quant_values(w: np.ndarray, bits: Optional[int]) -> np.ndarray:
 @dataclasses.dataclass
 class QWeight:
     """Integer-stored weight + static per-tensor pow2 scale (None: the
-    data is float)."""
+    data is float), and the int32 column sums of int8 data (the
+    two-plane integer dot's correction row)."""
 
     data: torch.Tensor
     scale: Optional[float] = None
+    colsum: Optional[torch.Tensor] = None
 
     @property
     def shape(self):
@@ -133,6 +147,24 @@ class _LayerPack:
     #: per-half pow2 scales of the int B/C packs; None for float weights
     wb_scales: Optional[Tuple[float, float]] = None
     wc_scales: Optional[Tuple[float, float]] = None   # incl. conj-sym 2x
+    #: (scale, bits) frozen input grids of the GLU denses' integer dots
+    #: (one plane at 8 bits or fewer, two at 9..16); None: float dots
+    out2_in_scale: Optional[Tuple[float, int]] = None
+    out1_in_scale: Optional[Tuple[float, int]] = None
+    #: mxu16: (scale, bits) quant_ut grid of the integer B-projection, and
+    #: the integer C-projection on the state codes (grid state_requant's)
+    mixer_in16: Optional[Tuple[float, int]] = None
+    state16: bool = False
+    #: mxu16's requants of the static-quant model: quant_but (s_re, s_im,
+    #: bits), quant_yt and the GLU denses' quant_output (scale, bits)
+    but_requant: Optional[Tuple[float, float, int]] = None
+    yt_requant: Optional[Tuple[float, int]] = None
+    out2_out_requant: Optional[Tuple[float, int]] = None
+    out1_out_requant: Optional[Tuple[float, int]] = None
+    #: int32 column sums of int8 W_b (2P,) and of W_c's halves (H,)
+    cs_wb: Optional[torch.Tensor] = None
+    cs_wc_re: Optional[torch.Tensor] = None
+    cs_wc_im: Optional[torch.Tensor] = None
 
     @property
     def p(self) -> int:
@@ -163,17 +195,17 @@ def quantized_dense(x: torch.Tensor, w, bias: torch.Tensor,
                     in_spec: Optional[Tuple[float, int]] = None,
                     out_spec: Optional[Tuple[float, int]] = None
                     ) -> torch.Tensor:
-    """Dense layer on a quantized weight, float branch: dequantize and
-    float dot (a :class:`BlockSparseWeight`: the block-sparse matmul over
-    its kept tiles), then the optional ``out_spec`` requant. ``in_spec``
-    selects the int8-dot path, which is not ported."""
+    """Dense layer on a quantized weight. ``in_spec`` (scale, bits) and
+    an int8 weight with a scale: x is quantized onto that frozen grid and
+    the dot runs exactly on its codes (``ops/intdot.int16_dot``: one plane
+    at 8 bits or fewer, two at 9..16, the formula from x's own width);
+    else dequantize and float dot (a :class:`BlockSparseWeight`: the
+    block-sparse matmul over its kept tiles, which takes no input grid).
+    Then the optional ``out_spec`` requant."""
     if isinstance(w, BlockSparseWeight):
         return qdq(block_sparse_matmul(x, w) + bias, out_spec)
-    if in_spec is not None:
-        raise NotImplementedError(
-            "int8 dots on quantized activations (ops/intdot.py) are not "
-            "ported yet")
-    return qdq(dense_plain(x, (w, bias)), out_spec)
+    return dense_plain(x.to(torch.float32), Dense(w, bias, in_spec,
+                                                  out_spec))
 
 
 def state_activation(cfg: FxpModelConfig, xs: Pair) -> Pair:
@@ -191,8 +223,9 @@ def state_activation(cfg: FxpModelConfig, xs: Pair) -> Pair:
 def engine_layer_forward(cfg: FxpModelConfig, layer: "_LayerPack",
                          h: torch.Tensor, mixer_fn,
                          act_dtype=torch.float32):
-    """The per-op serving layer: norm -> mixer -> activation -> GLU ->
-    residual (-> postnorm) -> relu -> top-k -> residual requant.
+    """The per-op serving layer: norm -> mixer -> activation -> GLU (the
+    denses' integer dots where the layer has input grids) -> residual
+    (-> postnorm) -> relu -> top-k -> residual requant.
     ``mixer_fn(z)`` is the S5 mixer on the norm's output cast to
     ``act_dtype``: (y, the new carry or None). Returns (h, that carry)."""
     use_topk = cfg.topk < 1.0
@@ -206,13 +239,15 @@ def engine_layer_forward(cfg: FxpModelConfig, layer: "_LayerPack",
         x1 = F.gelu(y, approximate="tanh")
     if cfg.glu_variant in ("half1", "half2", "full"):
         gate = torch.sigmoid(quantized_dense(x1, layer.out2_kernel,
-                                             layer.out2_bias))
+                                             layer.out2_bias,
+                                             layer.out2_in_scale))
         if cfg.glu_variant == "half1":
             base = x1
         elif cfg.glu_variant == "half2":
             base = y
         else:
-            base = quantized_dense(x1, layer.out1_kernel, layer.out1_bias)
+            base = quantized_dense(x1, layer.out1_kernel, layer.out1_bias,
+                                   layer.out1_in_scale)
         h = base * gate
     else:
         h = x1
@@ -255,11 +290,6 @@ class W8A16Engine:
             raise NotImplementedError(
                 "route='xla' (the kernel-free blocked_diag_scan route) is "
                 "not ported yet")
-        if mxu16:
-            raise NotImplementedError(
-                "mxu16 (int8 dots on int16 activation codes, "
-                "ops/intdot.py, in the layer and network kernels) is not "
-                "ported yet")
         if act_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"act_dtype {act_dtype}")
         #: the JAX package's paired-row schedule of the network kernel
@@ -287,11 +317,29 @@ class W8A16Engine:
         enc_stats = (batch_stats or {}).get("encoder", {})
         wq = q_config.non_ssm_precision
         a_bits = q_config.non_ssm_act_precision
-        if a_bits is not None and a_bits <= 8 and wq is not None and wq <= 8:
-            raise NotImplementedError(
-                "activations of 8 bits or fewer run their dense dots as "
-                "int8 dots (ops/intdot.py in the layer and network "
-                "kernels), which are not ported yet")
+        # 8-bit activations: the denses run integer dots on the codes of
+        # their frozen quant_input grids; with mxu16, 9..16-bit ones too
+        # (two planes), where the padded reduction dim fits the budget
+        a8 = (a_bits is not None and a_bits <= 8
+              and wq is not None and wq <= 8)
+        dense16 = (mxu16 and a_bits is not None and 8 < a_bits <= 16
+                   and wq is not None and wq <= 8)
+
+        def in_scale(k_dim: int, *path):
+            """(scale, bits) input grid of a dense of reduction dim k_dim."""
+            if not (a8 or dense16):
+                return None
+            if a_bits > 8 and not fits_planewise(pad128(k_dim)):
+                return None
+            s = _get(params, *path, "quant_input", "scale")
+            return None if s is None else (float(np.asarray(s)), int(a_bits))
+
+        def out_requant(*path):
+            """(scale, bits) quant_output grid of a dense: mxu16 only."""
+            if not mxu16 or not a_bits:
+                return None
+            s = _get(params, *path, "quant_output", "scale")
+            return None if s is None else (float(np.asarray(s)), int(a_bits))
 
         def dev(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.array(a, order="C")).to(self.device)
@@ -309,7 +357,17 @@ class W8A16Engine:
                     nt = -(-bsw.shape[1] // bsw.bn)
                     self.dense_blocks[name] = (bsw.nnz, kt * nt)
                     return bsw
-            return QWeight(dev(q), s)
+            data = dev(q)
+            return QWeight(data, s, weight_colsum(data)
+                           if data.dtype == torch.int8 else None)
+
+        d_input = int(np.asarray(enc["encoder"]["kernel"]).shape[0])
+        #: (scale, bits) input grids of the encoder's and decoder's integer
+        #: dots, and mxu16's output requants (None: float dot / none)
+        self.encoder_in_scale = in_scale(d_input, "encoder", "encoder")
+        self.decoder_in_scale = in_scale(cfg.d_model, "decoder")
+        self.encoder_out_requant = out_requant("encoder", "encoder")
+        self.decoder_out_requant = out_requant("decoder")
 
         self.encoder_kernel = pack_dense(
             "encoder", np.asarray(enc["encoder"]["kernel"]), wq)
@@ -398,26 +456,75 @@ class W8A16Engine:
                 res_requant = (float(np.asarray(s_res)),
                                int(q_config.non_ssm_act_precision))
 
+            # mxu16: the B/C projections as integer dots on the codes of
+            # the static path's quant_ut / quant_xt grids; they need int8
+            # weight packs (the two-plane budget assumes int8 weights)
+            ssm_bits = q_config.ssm_act_precision
+            b_i8 = (q_config.b_precision is not None
+                    and q_config.b_precision <= 8)
+            c_i8 = (q_config.c_precision is not None
+                    and q_config.c_precision <= 8)
+            mixer16 = None
+            if (mxu16 and ssm_bits and ssm_bits <= 16
+                    and wb_scales is not None and b_i8
+                    and (ssm_bits <= 8
+                         or fits_planewise(pad128(cfg.d_model)))):
+                s_ut = _get(lp, "mixer", "quant_ut", "scale")
+                if s_ut is not None:
+                    mixer16 = (float(np.asarray(s_ut)), int(ssm_bits))
+            st16 = bool(mxu16 and requant is not None
+                        and wc_scales is not None and c_i8
+                        and (requant[2] <= 8
+                             or fits_planewise(pad128(p_kept))))
+            but_rq = yt_rq = None
+            if mxu16 and ssm_bits:
+                s_br = _get(lp, "mixer", "quant_but", "quant_real", "scale")
+                s_bi = _get(lp, "mixer", "quant_but", "quant_imag", "scale")
+                if s_br is not None and s_bi is not None:
+                    but_rq = (float(np.asarray(s_br)),
+                              float(np.asarray(s_bi)), int(ssm_bits))
+                s_yt = _get(lp, "mixer", "quant_yt", "scale")
+                if s_yt is not None:
+                    yt_rq = (float(np.asarray(s_yt)), int(ssm_bits))
+
             out2_k = out2_b = out1_k = out1_b = None
+            out2_s = out1_s = out2_o = out1_o = None
             if cfg.glu_variant in ("full", "half1", "half2"):
                 out2_k = pack_dense(f"layers_{i}/out2",
                                     np.asarray(lp["out2"]["kernel"]), wq)
                 out2_b = dev(np.asarray(lp["out2"]["bias"], np.float32))
+                out2_s = in_scale(cfg.d_model, "encoder", f"layers_{i}",
+                                  "out2")
+                out2_o = out_requant("encoder", f"layers_{i}", "out2")
             if cfg.glu_variant == "full":
                 out1_k = pack_dense(f"layers_{i}/out1",
                                     np.asarray(lp["out1"]["kernel"]), wq)
                 out1_b = dev(np.asarray(lp["out1"]["bias"], np.float32))
+                out1_s = in_scale(cfg.d_model, "encoder", f"layers_{i}",
+                                  "out1")
+                out1_o = out_requant("encoder", f"layers_{i}", "out1")
 
+            w_b, w_c = dev(w_b), dev(w_c)
+            p = w_b.shape[-1] // 2
+            cs = ((None, None, None) if w_b.dtype != torch.int8 else
+                  (weight_colsum(w_b), weight_colsum(w_c[:p]),
+                   weight_colsum(w_c[p:])))
             self.layers.append(_LayerPack(
                 lam=(dev(lam_bar[0]), dev(lam_bar[1])),
-                w_b=dev(w_b), w_c=dev(w_c), d=dev(d_q),
+                w_b=w_b, w_c=w_c, d=dev(d_q),
                 norm_w=dev(nw.astype(np.float32)),
                 norm_b=dev(nb.astype(np.float32)),
                 out2_kernel=out2_k, out2_bias=out2_b,
                 out1_kernel=out1_k, out1_bias=out1_b,
                 state_requant=requant,
                 wb_scales=wb_scales, wc_scales=wc_scales,
-                residual_requant=res_requant))
+                residual_requant=res_requant,
+                out2_in_scale=out2_s, out1_in_scale=out1_s,
+                mixer_in16=mixer16, state16=st16,
+                but_requant=but_rq, yt_requant=yt_rq,
+                out2_out_requant=out2_o, out1_out_requant=out1_o,
+                cs_wb=cs[0], cs_wc_re=cs[1], cs_wc_im=cs[2]))
+        self._demote_int_sites(mxu16)
 
         self.mode = LayerMode(prenorm=cfg.prenorm,
                               relufication=cfg.relufication,
@@ -429,22 +536,95 @@ class W8A16Engine:
         #: chunk; else the per-op route. Tests force the per-op route by
         #: clearing this flag alone, as the JAX package's tests do.
         self._stack_ok = self._fused_stack_eligible()
+        if mxu16 and not self._stack_ok:
+            self._demote_mxu16()
+            self._stack_ok = self._fused_stack_eligible()
+        #: which dot sites run integer dots, and whether any of mxu16's
+        #: requants applies (the JAX engine's introspection)
+        self.mxu16 = dict(
+            requested=mxu16,
+            mixer=self.layers[0].mixer_in16 is not None,
+            state=bool(self.layers[0].state16),
+            dense=self.encoder_in_scale is not None
+            or self.decoder_in_scale is not None,
+            requants=bool(
+                any(lp.yt_requant is not None
+                    or lp.but_requant is not None
+                    or lp.out2_out_requant is not None
+                    or lp.out1_out_requant is not None
+                    for lp in self.layers)
+                or self.encoder_out_requant is not None
+                or self.decoder_out_requant is not None))
         #: whole-network route (K6): one kernel for the offline call when
         #: the whole-layer route applies and the layer limit allows
         self._network_ok = self._fused_network_eligible()
 
+    def _demote_int_sites(self, mxu16: bool) -> None:
+        """The JAX engine's all-or-none rule: its network kernel shares one
+        operand list across layers, so an integer mixer, state or
+        two-plane GLU site runs in every layer or in none. The port's
+        kernels take per-layer structs, but apply the same demotions, so
+        the same frozen tree serves the same numbers."""
+        layers = self.layers
+        if any(lp.mixer_in16 is None for lp in layers):
+            for lp in layers:
+                lp.mixer_in16 = None
+        if not all(lp.state16 for lp in layers):
+            for lp in layers:
+                lp.state16 = False
+
+        def cs16(spec):
+            return spec is not None and spec[1] > 8
+
+        for name in ("out2_in_scale", "out1_in_scale"):
+            if len({cs16(getattr(lp, name)) for lp in layers}) > 1:
+                for lp in layers:
+                    if cs16(getattr(lp, name)):
+                        setattr(lp, name, None)
+
+    def _demote_mxu16(self) -> None:
+        """mxu16 lives on the whole-layer routes (the per-op mixer kernel
+        has no quant_ut / quant_but / quant_yt hooks): off them the engine
+        drops every mxu16 site, as JAX does, and keeps the 8-bit input
+        grids, which the per-op route serves alike."""
+        for lp in self.layers:
+            lp.mixer_in16 = None
+            lp.state16 = False
+            lp.but_requant = lp.yt_requant = None
+            lp.out2_out_requant = lp.out1_out_requant = None
+            if lp.out2_in_scale is not None and lp.out2_in_scale[1] > 8:
+                lp.out2_in_scale = None
+            if lp.out1_in_scale is not None and lp.out1_in_scale[1] > 8:
+                lp.out1_in_scale = None
+        self.encoder_out_requant = self.decoder_out_requant = None
+        for name in ("encoder_in_scale", "decoder_in_scale"):
+            spec = getattr(self, name)
+            if spec is not None and spec[1] > 8:
+                setattr(self, name, None)
+
+    @staticmethod
+    def _int8_dense_ok(w, in_scale) -> bool:
+        """A kernel's integer dot needs int8 QWeight storage with a scale
+        beside its frozen input grid."""
+        return (isinstance(w, QWeight)
+                and int_dot_spec(w, in_scale) is not None)
+
     def _fused_stack_eligible(self) -> bool:
         """By configuration: the whole-layer kernels express neither
-        model-dim top-k, nor a block-sparse GLU dense, nor a residual
-        requant wider than 16 bits (int16 stream codes); such an engine
-        runs the per-op route, with the same numerics up to f32 summation
-        order. (The JAX package's VMEM budget has no counterpart here.)"""
+        model-dim top-k, nor a block-sparse GLU dense, nor a GLU input
+        grid without an int8 weight, nor a residual requant wider than 16
+        bits (int16 stream codes); such an engine runs the per-op route,
+        with the same numerics up to f32 summation order. (The JAX
+        package's VMEM budget has no counterpart here.)"""
         if self.cfg.topk < 1.0:
             return False
         for lp in self.layers:
-            if any(isinstance(k, BlockSparseWeight)
-                   for k in (lp.out2_kernel, lp.out1_kernel)):
-                return False
+            for k, s in ((lp.out2_kernel, lp.out2_in_scale),
+                         (lp.out1_kernel, lp.out1_in_scale)):
+                if isinstance(k, BlockSparseWeight):
+                    return False
+                if s is not None and not self._int8_dense_ok(k, s):
+                    return False
         return all(lp.residual_requant is None or lp.residual_requant[1] <= 16
                    for lp in self.layers)
 
@@ -455,6 +635,10 @@ class W8A16Engine:
         per-layer stack."""
         if not self._stack_ok or self._bs_encoder or self._bs_decoder:
             return False
+        for w, s in ((self.encoder_kernel, self.encoder_in_scale),
+                     (self.decoder_kernel, self.decoder_in_scale)):
+            if s is not None and not self._int8_dense_ok(w, s):
+                return False
         return 1 <= len(self.layers) <= MAX_LAYERS
 
     @property
@@ -467,8 +651,11 @@ class W8A16Engine:
 
     def _encode_outside(self, x: torch.Tensor) -> torch.Tensor:
         """A block-sparse encoder ahead of the first layer launch (K7):
-        its output as the stream that launch reads, in ``act_dtype``."""
-        return engine_encode(self.cfg, *self._enc, x).to(self.act_dtype)
+        its output (with mxu16's output requant) as the stream that launch
+        reads, in ``act_dtype``."""
+        return engine_encode(self.cfg, self.encoder_kernel,
+                             self.encoder_bias, x, self.encoder_in_scale,
+                             self.encoder_out_requant).to(self.act_dtype)
 
     def _decode_outside(self, r: torch.Tensor,
                         in_rq: Optional[Tuple[float, int]]) -> torch.Tensor:
@@ -481,12 +668,15 @@ class W8A16Engine:
         return quantized_dense(rf, *self._dec)
 
     @property
-    def _enc(self):
-        return self.encoder_kernel, self.encoder_bias
+    def _enc(self) -> Dense:
+        """The encoder as the kernels take it, with its grids."""
+        return Dense(self.encoder_kernel, self.encoder_bias,
+                     self.encoder_in_scale, self.encoder_out_requant)
 
     @property
-    def _dec(self):
-        return self.decoder_kernel, self.decoder_bias
+    def _dec(self) -> Dense:
+        return Dense(self.decoder_kernel, self.decoder_bias,
+                     self.decoder_in_scale, self.decoder_out_requant)
 
     def _apply_stack(self, x: torch.Tensor, block_t: int,
                      out_dtype=torch.float32) -> torch.Tensor:
@@ -584,7 +774,8 @@ class W8A16Engine:
         cfg = self.cfg
         if carries is not None:
             block_t = min(block_t, x.shape[1])
-        h = engine_encode(cfg, *self._enc, x.to(torch.float32))
+        h = engine_encode(cfg, self.encoder_kernel, self.encoder_bias,
+                          x.to(torch.float32), self.encoder_in_scale)
         new_carries = []
         for i, layer in enumerate(self.layers):
             carry = None if carries is None else carries[i]
@@ -592,7 +783,8 @@ class W8A16Engine:
                 cfg, layer, h, self._mixer(layer, block_t, carry),
                 act_dtype=self.act_dtype)
             new_carries.append(new_c)
-        out = quantized_dense(h, *self._dec)
+        out = quantized_dense(h, self.decoder_kernel, self.decoder_bias,
+                              self.decoder_in_scale)
         if carries is None:
             return out.to(self._io_dtype(x))
         return out, tuple(new_carries)

@@ -13,14 +13,18 @@ change the model of the float and ``--engine`` regions: a top-k model
 runs the stand-alone scan (float) and the engine's per-op route (the
 serving mixer kernel, or with ``--relufication`` the scan kernel with its
 block requant and top-k on the states, which streams no chunks, so its
-streaming region is left out) — with
+streaming region is left out). ``--recipe w8a8`` (or any quantization
+recipe) and ``--mxu16`` calibrate and serve the engine at that recipe:
+w8a8 runs its denses as int8 dots, ``--mxu16`` a w8a16 engine's every dot
+on the two int8 planes of its 16-bit codes — with
 ``torch.profiler``, after a warm-up, and prints for each: the wall time,
 the device time summed over kernels, the device busy share (device time
 over wall time) and the kernels that take the most device time. Run on a
 machine with the card, from the repository root::
 
     python -m sparsernns_tpu_torch.utils.profiling [--batch 8] \\
-        [--engine | --train [--prenorm 0] [--bidirectional]] \\
+        [--engine [--recipe w8a8] [--mxu16] |
+         --train [--prenorm 0] [--bidirectional]] \\
         [--topk 0.5] [--relufication]
 
 Prints the card's name and power limit, then one JSON object per
@@ -45,13 +49,19 @@ def _device_us(evt) -> float:
 
 
 def profile_region(name: str, fn, top: int = 10) -> dict:
-    """Run ``fn`` once under the profiler; summarize wall and device time."""
+    """Run ``fn`` once under the profiler; summarize wall and device time.
+
+    The profiler on the H100 machine records no device event for the first
+    kernel of a window, so a one-element fill runs first, outside the
+    timed span, to take that place."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -97,6 +107,11 @@ def main() -> int:
     ap.add_argument("--topk", type=float, default=1.0,
                     help="activation top-k share of the model (< 1: on, "
                          "with approx_topk)")
+    ap.add_argument("--recipe", default=None,
+                    help="with --engine: the quantization recipe "
+                         "(default the recipe's convert_quantization)")
+    ap.add_argument("--mxu16", action="store_true",
+                    help="with --engine: integer dots on 16-bit codes")
     ap.add_argument("--relufication", action="store_true",
                     help="the relufied model (with --topk: top-k on the "
                          "states too)")
@@ -109,7 +124,11 @@ def main() -> int:
     cfg = RunConfig().with_recipe(os.path.join(root, "recipes", "ndns.json"))
     cfg = dataclasses.replace(
         cfg, topk=args.topk, approx_topk=args.topk < 1.0,
-        relufication=cfg.relufication or args.relufication)
+        relufication=cfg.relufication or args.relufication,
+        convert_quantization=args.recipe or cfg.convert_quantization,
+        engine_mxu16=args.mxu16)
+    if (args.recipe or args.mxu16) and not args.engine:
+        raise SystemExit("--recipe and --mxu16 profile the engine only")
     if args.train and (args.topk < 1.0 or args.relufication):
         raise SystemExit("--topk and --relufication profile serving only")
     model = build_model(cfg, 257, 257, device="cuda", seed=0)
@@ -219,7 +238,8 @@ def _profile_engine(cfg, model, noisy, noisy_t) -> int:
         den.process(noisy[:, pos[0]:pos[0] + block * den.hop])
         pos[0] += block * den.hop
 
-    kind = _kind(cfg)
+    kind = _kind(cfg) + f"{cfg.convert_quantization} " + (
+        "mxu16 " if cfg.engine_mxu16 else "")
     regions = [(f"{kind}engine offline call (B={b}, L={x.shape[1]})",
                 lambda: engine(x))]
     engine(x)                       # warm-up: builds kernels

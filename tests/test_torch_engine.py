@@ -254,11 +254,12 @@ def test_state_channel_compaction(frozen):  # noqa: F811
 def test_engine_refusals(frozen):  # noqa: F811
     """Every mode the port leaves out raises and names what is missing;
     model-dim top-k and a residual requant wider than 16 bits are served
-    by the per-op route instead."""
-    with pytest.raises(NotImplementedError, match="mxu16"):
-        port_eng(frozen, engine_kw=dict(mxu16=True))
-    with pytest.raises(NotImplementedError, match="int8 dots"):
-        port_eng(frozen, recipe="w8a8")
+    by the per-op route instead. The integer-dot modes (``mxu16=True``,
+    activations of 8 bits) build engines on the kernel routes."""
+    e16 = port_eng(frozen, engine_kw=dict(mxu16=True))
+    assert e16.mxu16["requested"] and e16._network_ok
+    e8 = port_eng(frozen, recipe="w8a8")
+    assert e8.encoder_in_scale[1] == 8 and e8._network_ok
     with pytest.raises(NotImplementedError, match="xla"):
         port_eng(frozen, engine_kw=dict(route="xla"))
     with pytest.raises(ValueError, match="route"):

@@ -248,9 +248,18 @@ def test_quantized_dense_and_encode_match_jax(frozen):
     # one code of the 2^-6 grid where the two matmuls round a tie apart
     assert np.abs(out.numpy() - np.asarray(ref)).max() <= 2.0 ** -6
     assert (out.numpy() != np.asarray(ref)).mean() <= 0.005
-    with pytest.raises(NotImplementedError, match="int8 dots"):
-        t_engine.quantized_dense(torch.from_numpy(x), t_engine.QWeight(
-            torch.from_numpy(q), s), torch.from_numpy(bias), (0.1, 8))
+    # the integer dots on the codes of a frozen input grid (one plane at 8
+    # bits, two at 16) equal JAX's bit for bit: the dots are exact
+    w_t = torch.from_numpy(q)
+    for spec in ((2.0 ** -5, 8), (2.0 ** -12, 16)):
+        ref = jax_engine.quantized_dense(
+            jnp.asarray(x), jax_engine.QWeight(jnp.asarray(q), s),
+            jnp.asarray(bias), spec)
+        out = t_engine.quantized_dense(
+            torch.from_numpy(x),
+            t_engine.QWeight(w_t, s, t_engine.weight_colsum(w_t)),
+            torch.from_numpy(bias), spec)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
 def test_build_model_quant_refusals():

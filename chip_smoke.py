@@ -3,10 +3,11 @@ holds each against its plain PyTorch version at the flagship shapes, and
 drives the float NDNS serving path, the w8a16 engine serving path, the
 float NDNS training path, the mixer route (training and eval of the models
 outside the whole-layer kernel), top-k serving, pruned training with
-block-sparse serving, quantization-aware and top-k training, and the
-int-dot engines (w8a8, and w8a16 with ``mxu16``) at the width of
-``recipes/ndns.json`` (d_model 192,
-P 128, 3 layers; random weights from a seed):
+block-sparse serving, quantization-aware and top-k training, the int-dot
+engines (w8a8, and w8a16 with ``mxu16``), and the LayerNorm and
+bf16-stream training of the whole-layer kernels at the width of
+``recipes/ndns.json`` (d_model 192, P 128, 3 layers; random weights from
+a seed):
 
 1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail)
    against their plain versions on the card, B=8, L=3751, with times;
@@ -113,7 +114,26 @@ P 128, 3 layers; random weights from a seed):
    route (K5a x 3, bit-identical), streamed by ``from_engine`` at block
    128 (K5b x 3 a forward; chunked = whole), on the card against the
    CPU; the w8a8 top-k engine on the per-op route (K4a-engine x 3, the
-   denses' int8 dots as float64 code products), against the CPU engine.
+   denses' int8 dots as float64 code products), against the CPU engine;
+19. tail modes kernel phase — K2, K3a and K3b in their non-affine mode
+   (float32) and on bf16 streams (affine and non-affine) against their
+   plain versions at B=8, L=3751 (half1 with gelu; with relu and
+   layer_relu; with relu, relu_state and layer_relu; dropout masks) and
+   one odd width (H=20, P=12, L=70, full GLU), timed (median of 5); f32
+   at phase 7's bars, bf16 streams within one bf16 ulp of plain (or, near
+   0, the f32 bar) with at most 1e-3 of the elements different; under
+   relu_state, where recomputed states within rounding of 0 flip the
+   relu, K3b at the JAX package's bar for that case, 2e-2;
+20. LayerNorm training phase — the recipe with ``batchnorm=false`` (K2,
+   K3a, K3b x 3 a step in their non-affine mode, nothing else): three
+   B=32 steps, an eval step (K2 x 3), a step against the CPU, eight
+   dropout-free B=8 steps that must lower the loss, and three B=32 steps
+   of the mixer route (``prenorm=false``) beside it;
+21. bf16 stream training phase — the recipe with
+   ``train_stream_dtype="bfloat16"``: three B=32 steps on a bf16 stream
+   (K2, K3a, K3b x 3 a step, every layer's input and output bf16) and the
+   same three on a float32 stream from the same seed, losses within rtol
+   2e-3; step times and peak memory of both.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -198,8 +218,10 @@ def _code_diff(name: str, out, ref, max_frac: float = 5e-3) -> float:
     return float(worst)
 
 
-BWD_OUTPUTS = ("g_x", "d_lam", "d_w_b", "d_w_c", "d_d", "d_o2k", "d_o2b",
-               "d_o1k", "d_o1b", "d_m1", "d_m2", "d_nw", "d_nb")
+#: the launch counters of the whole-layer training kernels K2, K3a, K3b
+TAIL_KERNELS = ("layer_tail_train", "layer_tail_hist", "layer_tail_bwd")
+BWD_OUTPUTS = ("g_x", "g_skip", "d_lam", "d_w_b", "d_w_c", "d_d", "d_o2k",
+               "d_o2b", "d_o1k", "d_o1b", "d_m1", "d_m2", "d_nw", "d_nb")
 
 
 def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
@@ -479,7 +501,6 @@ def training_phase(cfg, records, counters, batch) -> None:
     n_layers, bsz = cfg.n_layers, cfg.bsz
     assert (bsz, cfg.p_dropout, cfg.opt_config, cfg.weight_decay) == (
         32, 0.1, "noBCdecay", 0.04), cfg
-    train_kernels = ("layer_tail_train", "layer_tail_hist", "layer_tail_bwd")
     noisy, clean, feats = batch
 
     def snapshot(model):
@@ -495,9 +516,9 @@ def training_phase(cfg, records, counters, batch) -> None:
     torch.cuda.reset_peak_memory_stats()
     state, counts, _ = _run_steps(
         f"train B={bsz}", state, step, feats, 3,
-        dict.fromkeys(train_kernels, n_layers), counters)
+        dict.fromkeys(TAIL_KERNELS, n_layers), counters)
     peak_full = torch.cuda.max_memory_allocated()
-    for name in train_kernels:
+    for name in TAIL_KERNELS:
         records[name]["launches"] = counts[name]
     frozen = {id(q) for grp in state.optimizer.param_groups
               if grp["label"] == "none" for q in grp["params"]}
@@ -517,7 +538,7 @@ def training_phase(cfg, records, counters, batch) -> None:
     torch.cuda.reset_peak_memory_stats()
     state, _, _ = _run_steps(
         f"train B={bsz} microbatch=8", state, micro, feats, 1,
-        dict.fromkeys(train_kernels, n_layers * (bsz // 8)), counters)
+        dict.fromkeys(TAIL_KERNELS, n_layers * (bsz // 8)), counters)
     peak_micro = torch.cuda.max_memory_allocated()
     profile = profile_region(f"train step B={bsz} microbatch=8",
                              lambda: micro(state, *feats))
@@ -1351,7 +1372,6 @@ def pruned_serving_phase(cfg, audio, feats, batch, records,
     noisy_mag = feats[0]
     frames = noisy_mag.shape[-1]
     x_eng = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
-    train_kernels = ("layer_tail_train", "layer_tail_hist", "layer_tail_bwd")
 
     def pruned_steps(tag, run_cfg):
         """Three B = 32 steps with the mask update before each; returns
@@ -1364,7 +1384,7 @@ def pruned_serving_phase(cfg, audio, feats, batch, records,
         t0 = time.time()
         state, _, walls = _run_steps(
             tag, state, lambda st, *b: step(update(st), *b), batch[2], 3,
-            dict.fromkeys(train_kernels, n_layers), counters)
+            dict.fromkeys(TAIL_KERNELS, n_layers), counters)
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         prof = profile_region(f"{tag}, one step",
                               lambda: step(update(state), *batch[2]))
@@ -2330,6 +2350,374 @@ def intdot_serving_phase(cfg, trees, audio, feats, records,
     print(json.dumps({"intdot_serving_phase": summary}), flush=True)
 
 
+def _bf16_close(name: str, out, ref, f32_bar: float,
+                max_share: float = 1e-3) -> float:
+    """A bf16 stream against its plain version from the same bf16 inputs:
+    both compute in f32 and round once, so every element is within one
+    bf16 ulp of plain (8 significant bits, at the larger magnitude of the
+    two) or, near 0, where a bf16 ulp is finer than the f32 sums' order
+    difference, within the f32 mode's bar ``f32_bar``; at most
+    ``max_share`` of the elements differ. Prints how many elements are
+    beyond one ulp. Returns the largest absolute difference."""
+    import torch
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    mag = torch.maximum(o.abs(), r.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    beyond = diff > ulp
+    over = int((beyond & (diff > f32_bar)).sum().item())
+    share = (diff > 0).float().mean().item()
+    worst = diff.max().item()
+    worst_beyond = diff[beyond].max().item() if beyond.any() else 0.0
+    print(f"{name}: max abs diff {worst:.3e}, elements beyond one bf16 ulp "
+          f"{int(beyond.sum().item())} of {diff.numel()} (largest "
+          f"{worst_beyond:.3e}, f32 bar {f32_bar:.3e}, beyond both "
+          f"{over}), differing share {share:.2e} (limit {max_share:.0e})",
+          flush=True)
+    if over or share > max_share:
+        raise AssertionError(f"{name}: {over} elements beyond one ulp and "
+                             f"the f32 bar, differing share {share}")
+    return worst
+
+
+def tail_modes_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
+    """Phase 19: K2, K3a and K3b in their non-affine mode (the normed z and
+    the residual skip as two streams, g_z and g_skip back) and on bfloat16
+    streams (affine and non-affine) against their plain versions at B x
+    frames x H with layer 0's operands and dropout masks: the recipe's
+    variant (half1, gelu), half1 with relu and layer_relu, the same with
+    relu_state, and one odd width (H=20, P=12, L=70, full GLU, relu,
+    layer_relu). float32: phase 7's bars. bf16: the streams
+    (out, g_x, g_skip) by ``_bf16_close``, the float32 weight gradients at
+    phase 7's bar. Under relu_state K3b recomputes the states, and at this
+    length some lie within rounding of 0 and pass the relu the other way
+    (d_lam and d_w_b move by up to 1e-2 of their max, in the affine mode
+    too): there every K3b output is held at the JAX package's bar for
+    that case, 2e-2 of max(1, max|ref|). Times: median of 5."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import layer_tail, layer_tail_bwd
+    dev = torch.device("cuda")
+    h, p = cfg.d_model, layer0.mixer.p
+    streams = ("g_x", "g_skip")
+    with torch.no_grad():
+        lam, w_b, w_c, d, _ = layer0.mixer.layer_tail_operands()
+        nw, nb = layer0.bn_affine()
+        o2k, o2b = layer0.out2.weight.T.contiguous(), layer0.out2.bias
+        x = torch.randn((B, frames, h), generator=gen).to(dev)
+        skip = torch.randn((B, frames, h), generator=gen).to(dev)
+        g = torch.randn((B, frames, h), generator=gen).to(dev)
+        keep = 1.0 - cfg.p_dropout
+        m1, m2 = ((torch.rand((B, 1, h), generator=gen) < keep).float().to(
+            dev) / keep for _ in range(2))
+
+        def operands(dtype, affine, x, skip, g, w, masks):
+            """(x, g, positional args, keywords) of one mode."""
+            lam_, w_b_, w_c_, d_, nw_, nb_, o2k_, o2b_, o1k_, o1b_ = w
+            return (x.to(dtype), g.to(dtype),
+                    (lam_, w_b_, w_c_, d_, nw_ if affine else None,
+                     nb_ if affine else None, o2k_, o2b_, o1k_, o1b_),
+                    dict(m1=masks[0], m2=masks[1],
+                         skip=None if affine else skip.to(dtype)))
+
+        def compare(tag, xs, gs, args, kw):
+            """K2, K3a and every output of K3b against the plain versions;
+            returns (K2 error, K3a error, K3b worst relative error)."""
+            bf16 = xs.dtype == torch.bfloat16
+            ref = layer_tail.layer_tail_plain(xs, *args, **kw)
+            out = layer_tail.layer_tail_cuda(xs, *args, **kw)
+            torch.cuda.synchronize()
+            assert out.dtype == ref.dtype == xs.dtype, (out.dtype, ref.dtype)
+            bar = 1e-4 * max(1.0, ref.float().abs().max().item())
+            if bf16:
+                err = _bf16_close(f"K2 {tag} vs plain", out, ref, bar)
+            else:
+                err = (out - ref).abs().max().item()
+                _check(f"K2 {tag} vs plain", err, bar)
+            hist_args = (args[0], args[1], args[4], args[5])
+            hist_ref = layer_tail_bwd.layer_tail_hist_plain(xs, *hist_args)
+            hist = layer_tail_bwd.layer_tail_hist_cuda(xs, *hist_args)
+            torch.cuda.synchronize()
+            hist_err = max((a - b).abs().max().item()
+                           for a, b in zip(hist, hist_ref))
+            _check(f"K3a {tag} vs plain", hist_err, 1e-5 * max(
+                1.0, max(t.abs().max().item() for t in hist_ref)))
+            refs = layer_tail_bwd.layer_tail_bwd_plain(xs, gs, *args, **kw)
+            outs = layer_tail_bwd.layer_tail_bwd_cuda(xs, gs, *args, **kw)
+            torch.cuda.synchronize()
+            # under relu_state the adjoint recomputes the states, and one
+            # within rounding of 0 may pass the relu the other way: the
+            # JAX package's bar for that case (its tail-gradient test)
+            flips = kw["relu_state"]
+            rel_worst, errs = 0.0, {}
+            for name, r, o in zip(BWD_OUTPUTS, refs, outs):
+                if r is None:
+                    assert o is None, name
+                    continue
+                if name == "d_lam":
+                    r, o = torch.stack(r), torch.stack(o)
+                assert r.shape == o.shape and r.dtype == o.dtype, name
+                scale = max(1.0, r.float().abs().max().item())
+                if name in streams:
+                    assert o.dtype == xs.dtype, (name, o.dtype)
+                    if bf16 and not flips:
+                        _bf16_close(f"K3b {tag} {name} vs plain", o, r,
+                                    2e-4 * scale)
+                        continue
+                errs[name] = ((o.float() - r.float()).abs().max().item()
+                              / scale)
+                rel_worst = max(rel_worst, errs[name])
+            assert (refs[1] is None) == (kw["skip"] is None)
+            print(f"K3b {tag}: " + ", ".join(
+                f"{k} {v:.1e}" for k, v in errs.items()), flush=True)
+            _check(f"K3b {tag} vs plain, worst output, relative to max(1, "
+                   "max|ref|)", rel_worst, 2e-2 if flips else 2e-4)
+            return err, hist_err, rel_worst
+
+        weights = (lam, w_b, w_c, d, nw, nb, o2k, o2b, None, None)
+        hs, ps, ls = 20, 12, 70
+        rnd = lambda *shape, sc=1.0: (  # noqa: E731
+            torch.randn(shape, generator=gen) * sc).to(dev)
+        radius = torch.rand(ps, generator=gen) * 0.39 + 0.6
+        angle = torch.rand(ps, generator=gen) * 6.0 - 3.0
+        odd_w = (((radius * torch.cos(angle)).to(dev),
+                  (radius * torch.sin(angle)).to(dev)),
+                 rnd(hs, 2 * ps, sc=0.3), rnd(2 * ps, hs, sc=0.3), rnd(hs),
+                 1.0 + rnd(hs, sc=0.2), rnd(hs, sc=0.1), rnd(hs, hs, sc=0.3),
+                 rnd(hs, sc=0.1), rnd(hs, hs, sc=0.3), rnd(hs, sc=0.1))
+        odd_streams = (rnd(2, ls, hs), rnd(2, ls, hs), rnd(2, ls, hs))
+        odd_masks = (m1[:2, :, :hs].contiguous(), m2[:2, :, :hs].contiguous())
+        modes = {"skip": (torch.float32, False),
+                 "bf16": (torch.bfloat16, True),
+                 "skip_bf16": (torch.bfloat16, False)}
+        errs, times = {}, {}
+        # (act, relu_state, layer_relu); the max error of a row comes from
+        # the variants held at the strict bars
+        variants = (("gelu", False, False), ("relu", False, True),
+                    ("relu", True, True))
+        for mode, (dtype, affine) in modes.items():
+            worst = [0.0, 0.0, 0.0]
+            for act, relu_state, layer_relu in variants:
+                xs, gs, args, kw = operands(dtype, affine, x, skip, g,
+                                            weights, (m1, m2))
+                kw.update(act=act, glu=cfg.glu_variant,
+                          relu_state=relu_state, layer_relu=layer_relu)
+                tag = (f"{mode} {cfg.glu_variant}/{act}"
+                       + " relu_state" * relu_state
+                       + " layer_relu" * layer_relu)
+                errs_v = compare(tag, xs, gs, args, kw)
+                if not relu_state:
+                    worst = [max(a, b) for a, b in zip(worst, errs_v)]
+                if act == "gelu":
+                    timed = (xs, gs, args, kw)
+            xs, gs, args, kw = operands(dtype, affine, *odd_streams, odd_w,
+                                        odd_masks)
+            kw.update(act="relu", glu="full", relu_state=False,
+                      layer_relu=True)
+            compare(f"{mode} H={hs} P={ps} L={ls} full/relu layer_relu", xs,
+                    gs, args, kw)
+            errs[mode] = worst
+            xs, gs, args, kw = timed
+            hist_args = (args[0], args[1], args[4], args[5])
+            fwd = _median_ms(lambda: layer_tail.layer_tail_cuda(
+                xs, *args, **kw))
+            hist = _median_ms(lambda: layer_tail_bwd.layer_tail_hist_cuda(
+                xs, *hist_args))
+            both = _median_ms(lambda: layer_tail_bwd.layer_tail_bwd_cuda(
+                xs, gs, *args, **kw))
+            plain = [_time_ms(fn, 1, 0) for fn in (
+                lambda: layer_tail.layer_tail_plain(xs, *args, **kw),
+                lambda: layer_tail_bwd.layer_tail_hist_plain(xs, *hist_args),
+                lambda: layer_tail_bwd.layer_tail_bwd_plain(xs, gs, *args,
+                                                            **kw))]
+            times[mode] = (fwd, hist, both - hist, *plain)
+            print(f"tail mode {mode}: K2 {fwd:.3f} ms, K3a {hist:.3f} ms, "
+                  f"K3b {both - hist:.3f} ms (plain {plain[0]:.1f}, "
+                  f"{plain[1]:.1f}, {plain[2]:.1f})", flush=True)
+    # bounds: the f32 rows' arithmetic (phase 7) with the streams of each
+    # mode: non-affine reads skip beside z (and K3b writes g_skip beside
+    # g_x); bf16 moves two bytes an element
+    rows = B * frames
+    n_dense = {"full": 2, "half1": 1, "half2": 1, "none": 0}[cfg.glu_variant]
+    mm = 2 * h * 2 * p + 2 * 2 * p * h + n_dense * 2 * h * h
+    w_bytes = (2 * h * 2 * p + n_dense * (h * h + h) + 3 * h + 2 * p) * 4
+    n_t = -(-frames // 32)
+    row_grads = 2 * h * 2 * p + n_dense * h * h + (6 + n_dense) * h + 2 * p
+    for mode, prefix in (("skip", "skip"), ("bf16", "bf16")):
+        dtype, affine = modes[mode]
+        el = rows * h * (2 if dtype == torch.bfloat16 else 4)
+        n_in = 1 if affine else 2           # z (or x), and skip
+        fwd_b = _bound_ms((n_in + 1) * el + w_bytes + 2 * B * h * 4,
+                          rows * (mm + 8 * p + 8 * h))
+        hist_b = _bound_ms(el + (h * 2 * p + 2 * p) * 4 + 2 * B * n_t * p * 4,
+                           rows * (2 * h * 2 * p + 8 * p + 2 * h))
+        bwd_b = _bound_ms(2 * (n_in + 1) * el + w_bytes + 2 * B * h * 4
+                          + B * row_grads * 4 + 2 * B * n_t * p * 4,
+                          rows * (3 * mm + 24 * p + 40 * h))
+        fwd, hist, bwd, p_fwd, p_hist, p_bwd = times[mode]
+        worst = errs[mode] if mode == "skip" else [
+            max(a, b) for a, b in zip(errs["bf16"], errs["skip_bf16"])]
+        common = dict(route="cuda", library_ms=None)
+        records[f"layer_tail_{prefix}"] = dict(
+            name=f"layer_tail_{prefix}",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_layer_train.py:293",
+            max_abs_err=worst[0], ms=fwd, plain_ms=p_fwd,
+            bound_ms=fwd_b[0], bound_by=fwd_b[1], **common)
+        records[f"layer_tail_hist_{prefix}"] = dict(
+            name=f"layer_tail_hist_{prefix}",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail_bwd.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_layer_bwd.py:489",
+            max_abs_err=worst[1], ms=hist, plain_ms=p_hist,
+            bound_ms=hist_b[0], bound_by=hist_b[1], **common)
+        records[f"layer_tail_bwd_{prefix}"] = dict(
+            name=f"layer_tail_bwd_{prefix}",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail_bwd.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_layer_bwd.py:557",
+            max_abs_err=worst[2], ms=bwd, plain_ms=p_bwd,
+            bound_ms=bwd_b[0], bound_by=bwd_b[1], **common)
+    print(json.dumps({"tail_modes_kernel_phase": {
+        k: v for k, v in records.items() if k.endswith(("_skip", "_bf16"))}}),
+        flush=True)
+
+
+
+def layernorm_training_phase(cfg, records, counters, batch) -> None:
+    """Phase 20: the recipe with ``batchnorm=false``: prenorm LayerNorm
+    layers take K2, K3a and K3b in their non-affine mode, as the JAX
+    package routes them. Three B=32 steps with dropout 0.1 (K2, K3a, K3b x
+    3 a step, no other kernel), one eval step (K2 x 3), one step on the
+    card against the CPU, eight dropout-free B=8 steps that must lower the
+    loss; in the same call three B=32 steps of the mixer route (``prenorm=
+    false``, phase 10's model) beside it. Step times, busy share, peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.train.steps import (make_ndns_eval_step,
+                                                  make_ndns_train_step)
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    n_layers, bsz = cfg.n_layers, cfg.bsz
+    ln = dataclasses.replace(cfg, batchnorm=False)
+    noisy, clean, feats = batch
+
+    model, state = _fresh_run(ln)
+    layer = model.encoder.layers[0]
+    assert isinstance(layer.norm, torch.nn.LayerNorm) and layer.takes_tail()
+    step = make_ndns_train_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    state, counts, walls = _run_steps(
+        f"layernorm train B={bsz}", state, step, feats, 3,
+        dict.fromkeys(TAIL_KERNELS, n_layers), counters)
+    peak = torch.cuda.max_memory_allocated()
+    for name, row in zip(TAIL_KERNELS, ("layer_tail_skip",
+                                        "layer_tail_hist_skip",
+                                        "layer_tail_bwd_skip")):
+        records[row]["launches"] = counts[name]
+    profile = profile_region(f"layernorm train step B={bsz}",
+                             lambda: step(state, *feats))
+    print(json.dumps(profile), flush=True)
+    print(f"layernorm train B={bsz}: peak memory {peak / 2**20:.0f} MiB, "
+          f"device busy share {profile['device_busy_share']:.3f}",
+          flush=True)
+    eval_step = make_ndns_eval_step(model)
+    small = tuple(t[:B].contiguous() for t in feats)
+    eval_step(*small)                                   # warm-up
+    counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = eval_step(*small)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = counters()
+    print(f"layernorm eval step B={B}: {wall:.1f} ms, loss "
+          f"{metrics['loss'].item():.4f}, launches {counts}", flush=True)
+    assert np.isfinite(metrics["loss"].item()) and model.training
+    for name, count in counts.items():
+        assert count == (n_layers if name == "layer_tail_train" else 0), \
+            counts
+    del model, state, step, eval_step
+
+    # the mixer route in the same call, for the route question
+    post = dataclasses.replace(cfg, prenorm=False)
+    model, state = _fresh_run(post)
+    step = make_ndns_train_step(model)
+    _, _, mixer_walls = _run_steps(
+        f"postnorm (mixer route) train B={bsz}", state, step, feats, 3,
+        {"fused_s5": n_layers, "diag_scan": n_layers,
+         "diag_scan_rev": n_layers}, counters)
+    print(f"train step B={bsz}, median of the last two: LayerNorm on the "
+          f"whole-layer route {np.median(walls[1:]):.1f} ms, postnorm on "
+          f"the mixer route {np.median(mixer_walls[1:]):.1f} ms", flush=True)
+    del model, state, step
+
+    quiet = dataclasses.replace(ln, p_dropout=0.0)
+    _card_vs_cpu_step("layernorm train step", quiet, noisy, clean)
+    state, step, small, peak_small = _learning_steps("layernorm train",
+                                                     quiet, feats)
+    print(f"layernorm train B={B}: peak memory {peak_small / 2**20:.0f} MiB",
+          flush=True)
+
+
+def bf16_training_phase(cfg, records, counters, batch) -> None:
+    """Phase 21: the recipe with ``train_stream_dtype="bfloat16"``: the
+    stream between the layers is bf16 and K2, K3a, K3b read and write it
+    (x 3 a step, no other kernel). Three B=32 steps on the bf16 stream and
+    the same three on a float32 stream from the same seed (the same
+    dropout draws): losses within rtol 2e-3, the JAX package's own bar
+    between its two streams. Step times and peak memory of both."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+    n_layers, bsz = cfg.n_layers, cfg.bsz
+    feats = batch[2]
+    losses, walls, peaks = {}, {}, {}
+    for sd in ("float32", "bfloat16"):
+        run_cfg = dataclasses.replace(cfg, train_stream_dtype=sd)
+        model, state = _fresh_run(run_cfg)
+        seen = []
+        hook = model.encoder.layers[0].register_forward_hook(
+            lambda mod, args, out: seen.append((args[0].dtype, out.dtype)))
+        step = make_ndns_train_step(model)
+        torch.cuda.reset_peak_memory_stats()
+        losses[sd] = []
+        walls[sd] = []
+        for i in range(3):
+            counters()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, metrics = step(state, *feats)
+            torch.cuda.synchronize()
+            walls[sd].append((time.time() - t0) * 1e3)
+            counts = counters()
+            losses[sd].append(metrics["loss"].item())
+            print(f"{sd} stream train B={bsz} step {i}: {walls[sd][-1]:.1f} "
+                  f"ms, loss {losses[sd][-1]:.6f}, launches {counts}",
+                  flush=True)
+            for name, count in counts.items():
+                assert count == (n_layers if name in TAIL_KERNELS else 0), \
+                    (sd, counts)
+        peaks[sd] = torch.cuda.max_memory_allocated()
+        hook.remove()
+        want = torch.bfloat16 if sd == "bfloat16" else torch.float32
+        assert seen and all(s == (want, want) for s in seen), (sd, seen)
+        if sd == "bfloat16":
+            for name, row in zip(TAIL_KERNELS, ("layer_tail_bf16",
+                                                "layer_tail_hist_bf16",
+                                                "layer_tail_bwd_bf16")):
+                records[row]["launches"] = counts[name]
+        del model, state, step
+    for sd in losses:
+        print(f"{sd} stream B={bsz}: steps {walls[sd]} ms (median of the "
+              f"last two {np.median(walls[sd][1:]):.1f}), peak memory "
+              f"{peaks[sd] / 2**20:.0f} MiB", flush=True)
+    l32, l16 = np.asarray(losses["float32"]), np.asarray(losses["bfloat16"])
+    assert np.isfinite(l16).all(), l16
+    _check("bf16 stream losses vs float32 stream, relative",
+           float((np.abs(l16 - l32) / np.abs(l32)).max()), 2e-3)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2865,6 +3253,18 @@ def main() -> int:
                          (noisy_mag, noisy_phase, clean_mag), records,
                          counters)
     mark("int-dot serving phase")
+
+    # ---------------- tail kernel modes: non-affine, bf16 streams -------
+    tail_modes_kernel_phase(layer0, cfg, frames, gen, records)
+    mark("tail modes kernel phase")
+
+    # ---------------- LayerNorm on the whole-layer route ----------------
+    layernorm_training_phase(cfg, records, counters, batch)
+    mark("LayerNorm training phase")
+
+    # ---------------- bf16 stream training ----------------
+    bf16_training_phase(cfg, records, counters, batch)
+    mark("bf16 stream training phase")
 
     # ---------------- report ----------------
     smi = subprocess.run(

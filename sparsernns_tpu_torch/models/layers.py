@@ -3,20 +3,32 @@
 
 Two routes, as in the JAX package:
 
-- fused (:meth:`SequenceLayer.forward` of a float prenorm-BatchNorm layer
-  around a unidirectional ``scan_mode="fused"`` mixer, as every repo recipe
-  sets), eval and training: BatchNorm folds to a per-feature affine and the
-  whole rest of the layer is one kernel with a kernel backward
+- fused (:meth:`SequenceLayer.forward` of a float prenorm layer around a
+  unidirectional ``scan_mode="fused"`` mixer without top-k, as every repo
+  recipe sets; :meth:`SequenceLayer.takes_tail` decides, as the JAX
+  package's ``_tail_ops``), eval and training: the norm, then the whole
+  rest of the layer as one kernel with a kernel backward
   (``ops/cuda/layer_tail.py``
-  :class:`~sparsernns_tpu_torch.ops.cuda.layer_tail.LayerTailFn`); the raw
-  input is the residual. In eval mode the affine comes from the running
-  statistics. In training mode it comes from the batch statistics, which
-  stay in the autograd graph (the gradients of the affine flowing back to
-  ``x`` are the BatchNorm backward), the running statistics move by
-  ``bn_momentum``, and the dropout masks are drawn per (batch row,
-  feature), constant along time, from the caller's generator;
-- unfused (``forward`` of every other layer: postnorm, LayerNorm, a
-  bidirectional or ``scan_mode="pallas"`` mixer, static quantization; and
+  :class:`~sparsernns_tpu_torch.ops.cuda.layer_tail.LayerTailFn`), in one
+  of its two modes.
+
+  - BatchNorm (affine mode): the norm folds to a per-feature affine that
+    the kernel applies, and the raw input is the residual. In eval mode the
+    affine comes from the running statistics. In training mode it comes
+    from the batch statistics, summed in float32 whatever the stream's
+    dtype, which stay in the autograd graph (the gradients of the affine
+    flowing back to ``x`` are the BatchNorm backward), and the running
+    statistics move by ``bn_momentum`` with the unclamped variance
+    E[x²] − E[x]², as the JAX package's padded-stream path moves them. A
+    training stack whose layers all take this mode may run on a bfloat16
+    stream (``seq_model.py``); the layer then reads and writes bf16.
+  - LayerNorm (non-affine mode): ``z = LayerNorm(x)`` in autograd and the
+    raw ``x`` as the residual go to the kernel as two streams.
+
+  In training mode the dropout masks are drawn per (batch row, feature),
+  constant along time, from the caller's generator;
+- unfused (``forward`` of every other layer: postnorm, a bidirectional or
+  ``scan_mode="pallas"`` mixer, quantization, top-k; and
   :meth:`SequenceLayer.forward_stream` of any layer), eval and training:
   norm, then the mixer, then the activation and the GLU with the same two
   dropout masks, then the residual, then the norm of a postnorm layer, all
@@ -26,9 +38,7 @@ Two routes, as in the JAX package:
   flax's own: in training mode it normalizes with the batch mean and the
   biased variance max(0, E[x²] − E[x]²) of the stream it sees (for a
   postnorm layer the post-residual stream) and moves the running
-  statistics by ``bn_momentum``. A prenorm LayerNorm layer, which the JAX
-  package runs through its tail kernel's non-affine mode, runs this route
-  here, with the same values. Under static quantization the dense layers
+  statistics by ``bn_momentum``. Under static quantization the dense layers
   are ``QuantizedDense``, the gate product a ``QuantizedMultiply`` and the
   layer output goes through the ``quant_residual`` quantizer; such a layer
   does not train yet. A QAT layer (dynamic fake-quant) runs this route
@@ -62,6 +72,29 @@ GLU_VARIANTS = ("full", "half1", "half2", "none")
 #: BatchNorm and LayerNorm epsilons of the JAX package (flax defaults)
 BN_EPS = 1e-5
 LN_EPS = 1e-6
+
+
+class StreamMoments(torch.autograd.Function):
+    """(E[x], E[x²]) over (B, L) of a (B, L, H) stream, in float32 whatever
+    the stream's dtype. The backward saves the stream as it is: a bf16
+    stream is widened again there, never kept as an f32 copy (the JAX
+    package's padded-stream path fuses the widening into its sums). For an
+    f32 stream the gradient is autograd's of ``x.mean``, ``(x * x).mean``,
+    bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        xf = x.float()
+        return xf.mean(dim=(0, 1)), (xf * xf).mean(dim=(0, 1))
+
+    @staticmethod
+    def backward(ctx, g_mean, g_sq):
+        x, = ctx.saved_tensors
+        n = x.shape[0] * x.shape[1]
+        xf = x.float()
+        # the square's two paths, x * (g_sq / n) each, as autograd sums them
+        return (g_mean / n + xf * (2.0 * (g_sq / n))).to(x.dtype)
 
 
 class QATDense(nn.Linear):
@@ -169,16 +202,20 @@ class SequenceLayer(nn.Module):
     def batch_affine(self, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """BatchNorm (training) as x * nw + nb from the statistics of ``x``
-        over (B, L), differentiable in ``x``; moves the running statistics
-        (biased variance) by ``bn_momentum``. ``nn.BatchNorm1d``'s own
-        training forward is not used: it stores the unbiased variance."""
+        over (B, L), summed in float32 whatever the dtype of ``x`` and
+        differentiable in ``x``; moves the running statistics by
+        ``bn_momentum`` with the biased variance E[x²] − E[x]², unclamped,
+        as the JAX package's padded-stream path does (flax's BatchNorm,
+        which the unfused route follows, clamps it at 0).
+        ``nn.BatchNorm1d``'s own training forward is not used: it stores
+        the unbiased variance."""
         n = self.norm
-        mean = x.mean(dim=(0, 1))
-        var = (x * x).mean(dim=(0, 1)) - mean * mean
+        mean, sq = StreamMoments.apply(x)
+        var = sq - mean * mean
         with torch.no_grad():
             mom = self.bn_momentum
             n.running_mean.mul_(mom).add_(mean, alpha=1.0 - mom)
-            n.running_var.mul_(mom).add_(var.clamp(min=0.0), alpha=1.0 - mom)
+            n.running_var.mul_(mom).add_(var, alpha=1.0 - mom)
         nw = n.weight * torch.rsqrt(var + n.eps)
         return nw, n.bias - mean * nw
 
@@ -234,22 +271,32 @@ class SequenceLayer(nn.Module):
             return self.mult_gate(a, b)
         return fake_quant(a, self.gate_bits) * fake_quant(b, self.gate_bits)
 
+    def takes_tail(self) -> bool:
+        """Whether :meth:`forward` runs the whole-layer kernel (the JAX
+        package's ``_tail_ops``): a float prenorm layer around a mixer that
+        the kernel expresses."""
+        return (self.prenorm and not self.quantized
+                and self.mixer.expresses_tail())
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator``: the source of the training dropout masks, on the
-        device of ``x`` (unused in eval mode and without dropout)."""
-        tail = None
-        if self.batchnorm and self.prenorm and not self.quantized:
-            tail = self.mixer.layer_tail_operands()
-        if tail is None:
+        device of ``x`` (unused in eval mode and without dropout). On the
+        whole-layer route ``x`` may be a bfloat16 stream (BatchNorm only);
+        the output keeps its dtype."""
+        if not self.takes_tail():
             return self._unfused(x, generator, None, streaming=False)[0]
-        lam, w_b, w_c, d, relu_state = tail
-        if self.training:
-            nw, nb = self.batch_affine(x)
-            m1, m2 = self.dropout_masks(x.shape[0], x.device, generator)
+        lam, w_b, w_c, d, relu_state = self.mixer.layer_tail_operands()
+        skip = nw = nb = None
+        if not self.batchnorm:
+            z, skip = self.norm(x), x
+        elif self.training:
+            z, (nw, nb) = x, self.batch_affine(x)
         else:
-            nw, nb = self.bn_affine()
-            m1 = m2 = None
+            z, (nw, nb) = x, self.bn_affine()
+        m1 = m2 = None
+        if self.training:
+            m1, m2 = self.dropout_masks(x.shape[0], x.device, generator)
         glu = self.glu_variant
         o2k = o2b = o1k = o1b = None
         if glu != "none":
@@ -257,9 +304,9 @@ class SequenceLayer(nn.Module):
         if glu == "full":
             o1k, o1b = self.out1.weight.T, self.out1.bias
         return LayerTailFn.apply(
-            x, lam[0], lam[1], w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b, m1,
+            z, lam[0], lam[1], w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b, m1,
             m2, "relu" if self.relufication else "gelu", glu, relu_state,
-            self.relufication)
+            self.relufication, skip)
 
     def forward_stream(self, x: torch.Tensor, carry: Optional[Pair]
                        ) -> Tuple[torch.Tensor, Pair]:

@@ -6,7 +6,11 @@ The JAX package pads the stream to its TPU kernel geometry (L to a
 multiple of the time block, H to 128 lanes) and takes the training
 BatchNorm statistics from sums over the padded stream divided by the true
 count; the port computes on the true (B, L, H) region, where the values
-and the statistics are the same. The stream stays float32.
+and the statistics are the same. The stream between the layers is float32,
+or, in training mode with ``stream_dtype="bfloat16"``, bfloat16 when every
+layer takes the whole-layer kernel with BatchNorm: the JAX package's
+padded-stream path, the only one where it uses the stream dtype. Eval,
+streaming and every other stack stay float32.
 """
 
 from __future__ import annotations
@@ -23,6 +27,16 @@ from sparsernns_tpu_torch.quantize.config import QuantizationConfig
 
 #: per-layer streaming state: one (carry_re, carry_im) (B, P) pair a layer
 Cache = List[Pair]
+
+#: the stream dtypes of a training stack (``RunConfig.train_stream_dtype``)
+STREAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_stream_dtype(name: str) -> str:
+    if name not in STREAM_DTYPES:
+        raise ValueError(f"stream dtype {name!r}: one of "
+                         f"{sorted(STREAM_DTYPES)}")
+    return name
 
 
 def quant_input_fn(x: torch.Tensor, quant_input_exp: Optional[float] = None
@@ -44,11 +58,14 @@ class StackedEncoderModel(nn.Module):
                  prenorm: bool = True,
                  q_config: Optional[QuantizationConfig] = None,
                  dropout: float = 0.0, bn_momentum: float = 0.90,
-                 topk: float = 1.0, approx_topk: bool = False):
+                 topk: float = 1.0, approx_topk: bool = False,
+                 stream_dtype: str = "float32"):
         super().__init__()
         q_config = q_config or QuantizationConfig.none()
         if topk < 1.0 and not approx_topk:
             raise NotImplementedError("exact top-k not implemented")
+        #: the stream between the layers in training mode (module doc)
+        self.stream_dtype = check_stream_dtype(stream_dtype)
         self.relufication = relufication
         self.d_model = d_model
         self.topk = topk
@@ -70,12 +87,20 @@ class StackedEncoderModel(nn.Module):
             return relu_top_k_sparsity(x, int(self.topk * self.d_model))
         return torch.relu(x) if self.relufication else x
 
+    def _stream_dtype(self) -> torch.dtype:
+        """The dtype of the stream between the layers of this forward."""
+        if (self.training and len(self.layers) > 0
+                and all(lay.batchnorm and lay.takes_tail()
+                        for lay in self.layers)):
+            return STREAM_DTYPES[self.stream_dtype]
+        return torch.float32
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self._encode(x)
+        x = self._encode(x).to(self._stream_dtype())
         for layer in self.layers:
             x = layer(x, generator)
-        return x
+        return x.to(torch.float32)
 
     def forward_stream(self, x: torch.Tensor, cache: Optional[Cache]
                        ) -> Tuple[torch.Tensor, Cache]:
@@ -109,12 +134,13 @@ class RegressionModel(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Offline forward (the whole-layer kernel route for a float
-        prenorm-BatchNorm model, else the unfused route around the mixer
-        kernel or the stand-alone scans). In training mode every layer, on
-        either route, normalizes with the batch statistics, moves its
-        running statistics and draws its dropout masks from
-        ``generator``. With ``quant_input`` the input is first rounded to
-        its grid."""
+        prenorm model, BatchNorm or LayerNorm, else the unfused route
+        around the mixer kernel or the stand-alone scans). In training mode
+        every layer, on either route, normalizes with the batch statistics
+        (BatchNorm), moves its running statistics and draws its dropout
+        masks from ``generator``, and the stream between the layers is the
+        encoder's ``stream_dtype`` where the module doc says. With
+        ``quant_input`` the input is first rounded to its grid."""
         x = quant_input_fn(x, self.quant_input)
         return self.decoder(self.encoder(x, generator))
 

@@ -218,15 +218,19 @@ class S5SSM(nn.Module):
         return scale * torch.cat([fake_quant(c_re, bits).T,
                                   -fake_quant(c_im, bits).T], dim=0)
 
+    def expresses_tail(self) -> bool:
+        """Whether the whole-layer tail kernel can express this mixer: not
+        bidirectional, ``scan_mode="fused"``, no static or dynamic
+        quantization, no activation top-k (which the tail kernel applies at
+        none of its sites)."""
+        return (self.scan_mode == "fused" and not self.bidirectional
+                and not self.q_config.any_quantized and self.topk >= 1.0)
+
     def layer_tail_operands(self):
         """Operands of the whole-layer tail kernel: (lam_bar, w_b, w_c, d,
         relu_state), or None where that kernel cannot express the mixer
-        (bidirectional, another ``scan_mode`` than ``"fused"``, static or
-        dynamic quantization, activation top-k, which the tail kernel
-        applies at none of its sites) and the layer runs its unfused
-        route."""
-        if (self.scan_mode != "fused" or self.bidirectional
-                or self.q_config.any_quantized or self.topk < 1.0):
+        (:meth:`expresses_tail`) and the layer runs its unfused route."""
+        if not self.expresses_tail():
             return None
         lam_bar, b_bar = self.discretized()
         return (lam_bar, self._w_b(b_bar), self._w_c(), self.D,

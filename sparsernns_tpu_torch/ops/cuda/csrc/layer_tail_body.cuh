@@ -7,6 +7,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "scan_step.cuh"
@@ -97,18 +98,44 @@ __device__ inline float gated_out(float base, float gate, const float* m2,
   return fmaf(__fmul_rn(base, gate), m2[c], x);
 }
 
-// Load rows [t0, t0 + rows) of one batch row's x into X and the normed rows
-// z = x * nw + nb into Z; rows past the end are zero.
-__device__ inline void load_tile(const float* __restrict__ xb, int t0,
-                                 int rows, int H, int ldh,
+// Element i of a (B, L, H) stream stored as float32 (bf16 == 0) or bfloat16;
+// a bf16 value widens to f32 exactly.
+__device__ inline float load_stream(const void* p, long long i, int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+// Store v into element i of a stream, rounded once to its type (round to
+// nearest even, as the JAX kernels' `astype` rounds).
+__device__ inline void store_stream(void* p, long long i, float v, int bf16) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
+// Load rows [t0, t0 + rows) of one batch row (element offset `row0` in the
+// streams) into Z, the normed rows, and X, the residual rows (X may be
+// null); rows past the end are zero. Affine mode (nw given): `zs` holds the
+// raw x, z = x * nw + nb and the residual is x itself. Non-affine mode (nw
+// null): `zs` holds the normed z and `skip` the residual.
+__device__ inline void load_tile(const void* zs, const void* skip,
+                                 long long row0, int bf16, int t0, int rows,
+                                 int H, int ldh,
                                  const float* __restrict__ nw,
                                  const float* __restrict__ nb, float* X,
                                  float* Z) {
   for (int i = threadIdx.x; i < kT * H; i += blockDim.x) {
     const int r = i / H, c = i % H;
-    const float v = r < rows ? xb[(long long)(t0 + r) * H + c] : 0.f;
-    if (X) X[r * ldh + c] = v;
-    Z[r * ldh + c] = r < rows ? fmaf(v, nw[c], nb[c]) : 0.f;
+    const long long at = row0 + (long long)(t0 + r) * H + c;
+    const float v = r < rows ? load_stream(zs, at, bf16) : 0.f;
+    if (nw) {
+      if (X) X[r * ldh + c] = v;
+      Z[r * ldh + c] = r < rows ? fmaf(v, nw[c], nb[c]) : 0.f;
+    } else {
+      if (X) X[r * ldh + c] = r < rows ? load_stream(skip, at, bf16) : 0.f;
+      Z[r * ldh + c] = v;
+    }
   }
 }
 

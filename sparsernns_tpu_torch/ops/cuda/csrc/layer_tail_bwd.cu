@@ -1,20 +1,25 @@
 // Backward of the whole-layer tail (layer_tail.cu), two kernels, one CTA per
 // batch row each:
 //
-//   layer_tail_hist  walks the row forward (z = x * nw + nb, bu = z @ W_b,
-//                    scan) and writes only the state that enters every time
-//                    tile: (B, n_tiles, P) re and im, tile 0 zero;
+//   layer_tail_hist  walks the row forward (z = x * nw + nb, or the z stream
+//                    itself in non-affine mode; bu = z @ W_b, scan) and
+//                    writes only the state that enters every time tile:
+//                    (B, n_tiles, P) re and im, tile 0 zero;
 //   layer_tail_bwd   walks the tiles last to first. Per tile it recomputes the
 //                    forward chain from the tile's entry state, runs the
 //                    adjoint chain top down, the reverse-time recurrence
 //                    v_t = g_t + conj(lam) * v_{t+1} with its carry kept
-//                    across tiles, and writes g_x; every weight gradient is
-//                    accumulated per batch row.
+//                    across tiles, and writes g_x (non-affine mode: g_z and
+//                    g_skip); every weight gradient is accumulated per
+//                    batch row.
 //
 // They replace the TPU kernels of sparsernns_tpu/ops/pallas/
 // fused_layer_bwd.py `fused_tail_bwd` (:364): the carry-history pre-pass
 // (pallas_call at :489, body `_make_hist_kernel` :75) and the adjoint
-// (pallas_call at :557, body `_make_bwd_kernel` :118), in affine mode. On the
+// (pallas_call at :557, body `_make_bwd_kernel` :118), in the affine and the
+// non-affine mode, on float32 and bfloat16 streams (x or z, skip, g read as
+// the stream's type and widened to f32; g_x, g_skip rounded once at the
+// store; every weight gradient f32, as the JAX kernels keep them). On the
 // TPU both walk a sequential grid with the carry in VMEM scratch and the
 // gradients resident in VMEM; here a CTA loops over its row's tiles itself,
 // the adjoint carry lives in shared memory, and the checkpoint block is the
@@ -35,9 +40,11 @@
 //
 // Shared memory of the adjoint: six (32, H) buffers, two (32, 2P) buffers,
 // the scan carries and the vector accumulators: 222,464 bytes at H=192,
-// P=128, under the 227 KB a block can have. The raw x tile is not kept to
-// the end (its buffer takes the masked g); the last pass reads x again for
-// d_nw.
+// P=128, under the 227 KB a block can have. The residual tile (x, or skip in
+// non-affine mode) is not kept to the end (its buffer takes the masked g,
+// which is g_skip in non-affine mode); the last pass of the affine mode
+// reads x again for d_nw. A seventh (32, H) buffer would not fit, so the
+// non-affine mode reuses the same six.
 //
 // Bound: operations. The adjoint does the forward's four products again,
 // four transposed products and four weight-gradient products, about three
@@ -57,14 +64,15 @@ using namespace tail;
 constexpr int kMT = 8;  // weight-gradient rows per thread
 
 __global__ void __launch_bounds__(kThreads)
-layer_tail_hist_kernel(const float* __restrict__ x,
+layer_tail_hist_kernel(const void* __restrict__ x,
                        const float* __restrict__ nw,
                        const float* __restrict__ nb,
                        const float* __restrict__ wb,
                        const float* __restrict__ lam_re,
                        const float* __restrict__ lam_im,
                        float* __restrict__ hist_re,
-                       float* __restrict__ hist_im, int L, int H, int P) {
+                       float* __restrict__ hist_im, int L, int H, int P,
+                       int bf16) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ldh = round4(H);
@@ -75,7 +83,7 @@ layer_tail_hist_kernel(const float* __restrict__ x,
 
   const int b = blockIdx.x;
   const int n_tiles = (L + kT - 1) / kT;
-  const float* xb = x + (long long)b * L * H;
+  const long long row0 = (long long)b * L * H;
   float* hr = hist_re + (long long)b * n_tiles * P;
   float* hi = hist_im + (long long)b * n_tiles * P;
 
@@ -89,7 +97,7 @@ layer_tail_hist_kernel(const float* __restrict__ x,
       hi[(long long)tile * P + p] = carry[P + p];
     }
     if (tile == n_tiles - 1) break;   // its exit state is not needed
-    load_tile(xb, t0, rows, H, ldh, nw, nb, nullptr, Z);
+    load_tile(x, nullptr, row0, bf16, t0, rows, H, ldh, nw, nb, nullptr, Z);
     __syncthreads();
     tile_matmul(Z, ldh, wb, H, 2 * P, rows,
                 [&](int r, int c, float acc) { S[r * ldp + c] = acc; });
@@ -160,8 +168,9 @@ __device__ inline void tile_outer_accum(const float* A, int lda,
 
 struct BwdArgs {
   // inputs
-  const float* x; const float* g;            // (B, L, H)
-  const float* nw; const float* nb;          // (H)
+  const void* x; const void* g;              // (B, L, H) streams
+  const void* skip;                          // (B, L, H) or null (affine)
+  const float* nw; const float* nb;          // (H), null in non-affine mode
   const float* wb; const float* wc;          // (H, 2P), (2P, H)
   const float* wbT; const float* wcT;        // (2P, H), (H, 2P)
   const float* d;                            // (H)
@@ -171,14 +180,15 @@ struct BwdArgs {
   const float* m1; const float* m2;          // (B, H) or null
   const float* hist_re; const float* hist_im;  // (B, n_tiles, P)
   // outputs; every gradient but gx is per batch row
-  float* gx;                                 // (B, L, H)
+  void* gx;                                  // (B, L, H) stream
+  void* gskip;                               // (B, L, H) or null (affine)
   float* dwb; float* dwc;                    // (B, H, 2P), (B, 2P, H)
   float* do2k; float* do1k;                  // (B, H, H) or null
   float* dd; float* do2b; float* do1b;       // (B, H)
   float* dm1; float* dm2;                    // (B, H) or null
-  float* dnw; float* dnb;                    // (B, H)
+  float* dnw; float* dnb;                    // (B, H) or null
   float* dlam_re; float* dlam_im;            // (B, P)
-  int L, H, P, glu, act, relu_state, layer_relu;
+  int L, H, P, glu, act, relu_state, layer_relu, bf16;
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -188,7 +198,7 @@ layer_tail_bwd_kernel(const BwdArgs a) {
   const int L = a.L, H = a.H, P = a.P, glu = a.glu, act = a.act;
   const int ldh = round4(H);
   const int ldp = round4(2 * P);
-  float* XG = smem;               // raw x rows, then the masked g
+  float* XG = smem;               // residual rows, then the masked g
   float* Z = XG + kT * ldh;       // normed rows
   float* Y = Z + kT * ldh;        // y
   float* D = Y + kT * ldh;        // x1 after m1; g_x1d; g_zn
@@ -214,9 +224,9 @@ layer_tail_bwd_kernel(const BwdArgs a) {
   const int n_tiles = (L + kT - 1) / kT;
   const bool relu_state = a.relu_state != 0;
   const bool layer_relu = a.layer_relu != 0;
-  const float* xb = a.x + (long long)b * L * H;
-  const float* gb = a.g + (long long)b * L * H;
-  float* gxb = a.gx + (long long)b * L * H;
+  const int bf16 = a.bf16;
+  const bool affine = a.nw != nullptr;
+  const long long row0 = (long long)b * L * H;
   const float* m1 = a.m1 ? a.m1 + (long long)b * H : nullptr;
   const float* m2 = a.m2 ? a.m2 + (long long)b * H : nullptr;
   float* dwb = a.dwb + (long long)b * H * 2 * P;
@@ -237,7 +247,7 @@ layer_tail_bwd_kernel(const BwdArgs a) {
     const bool first = tile == n_tiles - 1;
 
     // ======== forward chain of this tile, from its entry state ========
-    load_tile(xb, t0, rows, H, ldh, a.nw, a.nb, XG, Z);
+    load_tile(a.x, a.skip, row0, bf16, t0, rows, H, ldh, a.nw, a.nb, XG, Z);
     for (int p = tid; p < P; p += blockDim.x) {
       const long long at = ((long long)b * n_tiles + tile) * P + p;
       entry[p] = fcarry[p] = a.hist_re[at];
@@ -281,8 +291,8 @@ layer_tail_bwd_kernel(const BwdArgs a) {
       float s_m2 = 0.f, s_o2b = 0.f, s_o1b = 0.f;
       for (int r = 0; r < rows; ++r) {
         const int at = r * ldh + c;
-        const float xv = XG[at];
-        float g = gb[(long long)(t0 + r) * H + c];
+        const float xv = XG[at];   // the residual
+        float g = load_stream(a.g, row0 + (long long)(t0 + r) * H + c, bf16);
         if (glu == kNone) {
           if (layer_relu && !(D[at] + xv > 0.f)) g = 0.f;
         } else {
@@ -382,19 +392,30 @@ layer_tail_bwd_kernel(const BwdArgs a) {
     });
     tile_outer_accum(Z, ldh, V, ldp, dwb, H, 2 * P, rows, false, first);
     __syncthreads();
-    // g_x = g_zn * nw + g; d_nw, d_nb
+    // affine: g_x = g_zn * nw + g, d_nw, d_nb; non-affine: g_z = g_zn and
+    // g_skip = g (the masked g)
     for (int c = tid; c < H; c += blockDim.x) {
-      const float w = a.nw[c];
-      float s_nw = 0.f, s_nb = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const int at = r * ldh + c;
-        const float g_zn = D[at];
-        s_nw += g_zn * xb[(long long)(t0 + r) * H + c];
-        s_nb += g_zn;
-        gxb[(long long)(t0 + r) * H + c] = fmaf(g_zn, w, XG[at]);
+      if (affine) {
+        const float w = a.nw[c];
+        float s_nw = 0.f, s_nb = 0.f;
+        for (int r = 0; r < rows; ++r) {
+          const int at = r * ldh + c;
+          const long long el = row0 + (long long)(t0 + r) * H + c;
+          const float g_zn = D[at];
+          s_nw += g_zn * load_stream(a.x, el, bf16);
+          s_nb += g_zn;
+          store_stream(a.gx, el, fmaf(g_zn, w, XG[at]), bf16);
+        }
+        acc_nw[c] += s_nw;
+        acc_nb[c] += s_nb;
+      } else {
+        for (int r = 0; r < rows; ++r) {
+          const int at = r * ldh + c;
+          const long long el = row0 + (long long)(t0 + r) * H + c;
+          store_stream(a.gx, el, D[at], bf16);
+          store_stream(a.gskip, el, XG[at], bf16);
+        }
       }
-      acc_nw[c] += s_nw;
-      acc_nb[c] += s_nb;
     }
     __syncthreads();
   }
@@ -402,8 +423,8 @@ layer_tail_bwd_kernel(const BwdArgs a) {
   for (int c = tid; c < H; c += blockDim.x) {
     const long long at = (long long)b * H + c;
     a.dd[at] = acc_dd[c];
-    a.dnw[at] = acc_nw[c];
-    a.dnb[at] = acc_nb[c];
+    if (a.dnw) a.dnw[at] = acc_nw[c];
+    if (a.dnb) a.dnb[at] = acc_nb[c];
     if (a.do2b) a.do2b[at] = acc_o2b[c];
     if (a.do1b) a.do1b[at] = acc_o1b[c];
     if (a.dm1) a.dm1[at] = acc_m1[c];
@@ -422,13 +443,15 @@ size_t bwd_smem_bytes(int H, int P) {
 
 }  // namespace
 
-// Entry state of every 32-row time tile. x: (B, L, H); hist_re, hist_im:
-// (B, ceil(L / 32), P). Returns cudaGetLastError() after the launch.
-extern "C" int layer_tail_hist(const float* x, const float* nw,
+// Entry state of every 32-row time tile. x: (B, L, H), float32 (bf16 = 0)
+// or bfloat16 (bf16 = 1): the raw input with nw, nb, or the normed z with
+// nw = nb = null; hist_re, hist_im: (B, ceil(L / 32), P). Returns
+// cudaGetLastError() after the launch.
+extern "C" int layer_tail_hist(const void* x, const float* nw,
                                const float* nb, const float* wb,
                                const float* lam_re, const float* lam_im,
                                float* hist_re, float* hist_im, int B, int L,
-                               int H, int P, void* stream) {
+                               int H, int P, int bf16, void* stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kT * (round4(H) + round4(2 * P)) + 2 * P);
   cudaError_t err = cudaFuncSetAttribute(
@@ -436,34 +459,38 @@ extern "C" int layer_tail_hist(const float* x, const float* nw,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   layer_tail_hist_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      x, nw, nb, wb, lam_re, lam_im, hist_re, hist_im, L, H, P);
+      x, nw, nb, wb, lam_re, lam_im, hist_re, hist_im, L, H, P, bf16);
   return (int)cudaGetLastError();
 }
 
 // The time rows of a tile, so that the wrapper sizes the history.
 extern "C" int layer_tail_tile_rows() { return kT; }
 
-// The adjoint. `ptrs` holds the 35 pointers of BwdArgs in declaration order
-// (null where a GLU variant or a missing mask leaves one out). Returns
-// cudaGetLastError() after the launch.
+// The adjoint. `ptrs` holds the 37 pointers of BwdArgs in declaration order
+// (null where the mode, a GLU variant or a missing mask leaves one out); the
+// streams x, g, skip, gx, gskip are float32 (bf16 = 0) or bfloat16 (bf16 =
+// 1). Returns cudaGetLastError() after the launch.
 extern "C" int layer_tail_bwd(const void* const* ptrs, int B, int L, int H,
                               int P, int glu, int act, int relu_state,
-                              int layer_relu, void* stream) {
+                              int layer_relu, int bf16, void* stream) {
   BwdArgs a;
   int i = 0;
   auto in = [&]() { return static_cast<const float*>(ptrs[i++]); };
   auto out = [&]() {
     return const_cast<float*>(static_cast<const float*>(ptrs[i++]));
   };
-  a.x = in(); a.g = in(); a.nw = in(); a.nb = in(); a.wb = in(); a.wc = in();
+  a.x = ptrs[i++]; a.g = ptrs[i++]; a.skip = ptrs[i++];
+  a.nw = in(); a.nb = in(); a.wb = in(); a.wc = in();
   a.wbT = in(); a.wcT = in(); a.d = in(); a.lam_re = in(); a.lam_im = in();
   a.o2k = in(); a.o2kT = in(); a.o2b = in(); a.o1k = in(); a.o1kT = in();
   a.o1b = in(); a.m1 = in(); a.m2 = in(); a.hist_re = in(); a.hist_im = in();
-  a.gx = out(); a.dwb = out(); a.dwc = out(); a.do2k = out(); a.do1k = out();
+  a.gx = const_cast<void*>(ptrs[i++]);
+  a.gskip = const_cast<void*>(ptrs[i++]);
+  a.dwb = out(); a.dwc = out(); a.do2k = out(); a.do1k = out();
   a.dd = out(); a.do2b = out(); a.do1b = out(); a.dm1 = out(); a.dm2 = out();
   a.dnw = out(); a.dnb = out(); a.dlam_re = out(); a.dlam_im = out();
   a.L = L; a.H = H; a.P = P; a.glu = glu; a.act = act;
-  a.relu_state = relu_state; a.layer_relu = layer_relu;
+  a.relu_state = relu_state; a.layer_relu = layer_relu; a.bf16 = bf16;
   const size_t smem = bwd_smem_bytes(H, P);
   cudaError_t err = cudaFuncSetAttribute(
       layer_tail_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,19 +1,25 @@
 """Kernel K2: the whole layer after the norm, forward, in one kernel.
 
 Replaces ``sparsernns_tpu/ops/pallas/fused_layer_train.py``
-``fused_layer_tail`` in affine mode (BatchNorm folded to a per-feature
-affine from its running or batch statistics), the eval and the training
-forward: per batch row
+``fused_layer_tail``, the eval and the training forward, in its two modes:
+affine (``skip`` None: ``x`` is the raw layer input and BatchNorm folds to
+the per-feature affine ``nw``, ``nb`` from its running or batch statistics)
+and non-affine (``x`` is the normed ``z`` of a LayerNorm, ``skip`` the raw
+input, ``nw = nb = None``). Per batch row
 
-    z = x ⊙ nw + nb
+    z, res = x ⊙ nw + nb, x               (affine)  |  x, skip  (non-affine)
     xs = scan(λ, z @ W_b)                 (in order over time, with carry)
     y = [xs_re xs_im] @ W_c + D ⊙ z       (relu on xs if relu_state)
     x1 = act(y) ⊙ m1                      (dropout mask, constant in time)
     h = GLU(x1, y) ⊙ m2                   (full / half1 / half2 / none)
-    out = h + x                           (relu if layer_relu)
+    out = h + res                         (relu if layer_relu)
 
 ``m1``, ``m2`` are (B, 1, H) float32 masks already scaled by 1/keep, or
-None (eval). The CUDA source is ``csrc/layer_tail.cu``; its header note
+None (eval). The streams (``x``, ``skip`` and the output) are float32 or
+bfloat16, one dtype for all; a bf16 stream is computed on in f32 and the
+output rounds once to bf16, as the JAX kernel stores
+``o.astype(out_ref.dtype)``. Weights, masks and the affine are float32.
+The CUDA source is ``csrc/layer_tail.cu``; its header note
 gives the bound and the design. :func:`layer_tail` launches the kernel for
 CUDA tensors and takes the plain version :func:`layer_tail_plain` only for
 tensors on the CPU. :class:`LayerTailFn` is the differentiable form (the
@@ -34,6 +40,8 @@ from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
 
 GLU_KINDS = ("full", "half1", "half2", "none")
 ACTS = ("gelu", "relu")
+#: dtypes of the (B, L, H) streams that the tail kernels read and write
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches made by :func:`layer_tail` in this process
 launches = 0
@@ -44,15 +52,37 @@ def _act(y: torch.Tensor, act: str) -> torch.Tensor:
     return torch.relu(y) if act == "relu" else F.gelu(y, approximate="tanh")
 
 
+def check_mode(nw, nb, skip) -> None:
+    """Affine mode takes ``nw`` and ``nb`` and no ``skip``; non-affine mode
+    takes ``skip`` and neither of the two."""
+    if skip is None and (nw is None or nb is None):
+        raise ValueError("affine mode (skip None) takes nw and nb")
+    if skip is not None and (nw is not None or nb is not None):
+        raise ValueError("non-affine mode (skip given) takes no nw / nb: x "
+                         "is the normed stream")
+
+
+def norm_and_residual(x, nw, nb, skip):
+    """(z, res) in float32: ``(x ⊙ nw + nb, x)`` in affine mode, ``(x,
+    skip)`` in non-affine mode."""
+    check_mode(nw, nb, skip)
+    xf = x.float()
+    if skip is None:
+        return xf * nw + nb, xf
+    return xf, skip.float()
+
+
 def layer_tail_plain(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
                      o1k=None, o1b=None, act: str = "gelu",
                      glu: str = "none", relu_state: bool = False,
-                     layer_relu: bool = False, m1=None, m2=None
+                     layer_relu: bool = False, m1=None, m2=None, skip=None
                      ) -> torch.Tensor:
-    """Plain PyTorch version. x: (B, L, H); w_b (H, 2P); w_c (2P, H) with
-    the conj-sym factor folded in; o2k/o1k (H, H) in (in, out) layout;
-    m1/m2 (B, 1, H) dropout masks or None."""
-    z = x * nw + nb
+    """Plain PyTorch version. x: (B, L, H), the raw input (affine mode) or
+    the normed z with ``skip`` the residual (non-affine mode); w_b (H, 2P);
+    w_c (2P, H) with the conj-sym factor folded in; o2k/o1k (H, H) in (in,
+    out) layout; m1/m2 (B, 1, H) dropout masks or None. Computes in f32 and
+    returns the stream's dtype."""
+    z, res = norm_and_residual(x, nw, nb, skip)
     p = w_b.shape[-1] // 2
     bu = z @ w_b
     xs, _ = sequential_diag_scan(lam, (bu[..., :p], bu[..., p:]))
@@ -72,12 +102,14 @@ def layer_tail_plain(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
         h = base * gate
         if m2 is not None:
             h = h * m2
-    out = h + x
-    return torch.relu(out) if layer_relu else out
+    out = h + res
+    if layer_relu:
+        out = torch.relu(out)
+    return out.to(x.dtype)
 
 
-_argtypes = ([ctypes.c_void_p] * 15
-             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_argtypes = ([ctypes.c_void_p] * 16
+             + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def _lib():
@@ -88,40 +120,54 @@ def _lib():
     return fn
 
 
-def check_tensors(shapes, device) -> Dict[str, torch.Tensor]:
+def check_tensors(shapes, device, streams=()) -> Dict[str, torch.Tensor]:
     """``shapes``: name -> (tensor, expected shape). Every tensor must have
-    its shape, be float32 and lie on ``device``; returns them detached and
-    contiguous."""
+    its shape and lie on ``device``; the tensors named in ``streams`` share
+    one dtype of :data:`STREAM_DTYPES`, every other one is float32. Returns
+    them detached and contiguous."""
     out = {}
+    stream_dtype = None
     for name, (t, shape) in shapes.items():
         if t is None or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got "
                              f"{None if t is None else tuple(t.shape)}")
-        if t.dtype != torch.float32 or t.device != device:
-            raise ValueError(f"{name}: expected float32 on {device}, got "
+        want = "float32"
+        ok = t.dtype == torch.float32
+        if name in streams:
+            stream_dtype = stream_dtype or t.dtype
+            want = (f"{stream_dtype} (float32 or bfloat16, as every "
+                    "stream)")
+            ok = t.dtype in STREAM_DTYPES and t.dtype == stream_dtype
+        if not ok or t.device != device:
+            raise ValueError(f"{name}: expected {want} on {device}, got "
                              f"{t.dtype} on {t.device}")
         out[name] = t.detach().contiguous()
     return out
 
 
 def checked_operands(x, lam: Pair, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
-                     m1, m2, act: str, glu: str, **more
+                     m1, m2, act: str, glu: str, skip=None, **more
                      ) -> Dict[str, torch.Tensor]:
-    """The kernels' operands by name, each checked for shape, float32 and
-    the device of ``x``, and made contiguous. Operands that the GLU variant
-    does not use, and masks that are None, are left out (the kernels take a
-    null pointer for them). ``more`` adds (B, L, H) streams (the backward's
-    cotangent)."""
+    """The kernels' operands by name, each checked for shape, dtype (the
+    streams float32 or bfloat16, one dtype for all; the rest float32) and
+    the device of ``x``, and made contiguous. Operands that the mode or the
+    GLU variant does not use, and masks that are None, are left out (the
+    kernels take a null pointer for them). ``more`` adds (B, L, H) streams
+    (the backward's cotangent)."""
     if glu not in GLU_KINDS or act not in ACTS:
         raise ValueError(f"glu {glu!r} / act {act!r}")
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, H), got {tuple(x.shape)}")
+    check_mode(nw, nb, skip)
     b, l, h = x.shape
     p = w_b.shape[-1] // 2
     shapes = {"x": (x, (b, l, h)), "lam_re": (lam[0], (p,)),
               "lam_im": (lam[1], (p,)), "w_b": (w_b, (h, 2 * p)),
-              "w_c": (w_c, (2 * p, h)), "d": (d, (h,)), "nw": (nw, (h,)),
-              "nb": (nb, (h,))}
+              "w_c": (w_c, (2 * p, h)), "d": (d, (h,))}
+    if skip is None:
+        shapes.update(nw=(nw, (h,)), nb=(nb, (h,)))
+    else:
+        shapes["skip"] = (skip, (b, l, h))
     shapes.update({k: (v, (b, l, h)) for k, v in more.items()})
     if glu != "none":
         shapes.update(o2k=(o2k, (h, h)), o2b=(o2b, (h,)))
@@ -134,7 +180,7 @@ def checked_operands(x, lam: Pair, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
             raise ValueError("m2 masks the gated product: glu 'none' has "
                              "none")
         shapes["m2"] = (m2, (b, 1, h))
-    return check_tensors(shapes, x.device)
+    return check_tensors(shapes, x.device, ("x", "skip", *more))
 
 
 def data_ptr(ops: Dict[str, torch.Tensor], name: str) -> Optional[int]:
@@ -145,26 +191,28 @@ def data_ptr(ops: Dict[str, torch.Tensor], name: str) -> Optional[int]:
 def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
                     o1k=None, o1b=None, act: str = "gelu",
                     glu: str = "none", relu_state: bool = False,
-                    layer_relu: bool = False, m1=None, m2=None
+                    layer_relu: bool = False, m1=None, m2=None, skip=None
                     ) -> torch.Tensor:
     """Launch the kernel (one CTA per batch row). Same arguments as
-    :func:`layer_tail_plain`; every tensor float32 on one CUDA device."""
+    :func:`layer_tail_plain`; every tensor on one CUDA device, the streams
+    float32 or bfloat16, the rest float32."""
     global launches
     ops = checked_operands(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
-                           m1, m2, act, glu)
+                           m1, m2, act, glu, skip=skip)
     b, l, h = x.shape
     p = w_b.shape[-1] // 2
-    out = torch.empty((b, l, h), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, l, h), dtype=x.dtype, device=x.device)
     if b == 0 or l == 0:
         return out
     fn = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda name: data_ptr(ops, name)  # noqa: E731
-    err = fn(ptr("x"), out.data_ptr(), ptr("nw"), ptr("nb"), ptr("w_b"),
-             ptr("w_c"), ptr("d"), ptr("lam_re"), ptr("lam_im"), ptr("o2k"),
-             ptr("o2b"), ptr("o1k"), ptr("o1b"), ptr("m1"), ptr("m2"), b, l,
-             h, p, GLU_KINDS.index(glu), ACTS.index(act), int(relu_state),
-             int(layer_relu), stream)
+    err = fn(ptr("x"), ptr("skip"), out.data_ptr(), ptr("nw"), ptr("nb"),
+             ptr("w_b"), ptr("w_c"), ptr("d"), ptr("lam_re"), ptr("lam_im"),
+             ptr("o2k"), ptr("o2b"), ptr("o1k"), ptr("o1b"), ptr("m1"),
+             ptr("m2"), b, l, h, p, GLU_KINDS.index(glu), ACTS.index(act),
+             int(relu_state), int(layer_relu),
+             int(x.dtype == torch.bfloat16), stream)
     build.check(err, "layer_tail")
     launches += 1
     return out
@@ -173,13 +221,14 @@ def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
 def layer_tail(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
                o1k=None, o1b=None, act: str = "gelu", glu: str = "none",
                relu_state: bool = False, layer_relu: bool = False,
-               m1=None, m2=None) -> torch.Tensor:
-    """One layer's tail, (B, L, H) -> (B, L, H). CUDA tensors launch the
-    kernel (or raise); CPU tensors take the plain version."""
+               m1=None, m2=None, skip=None) -> torch.Tensor:
+    """One layer's tail, (B, L, H) -> (B, L, H) in the stream's dtype. CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
     fn = layer_tail_cuda if x.is_cuda else layer_tail_plain
     return fn(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b, act=act,
               glu=glu, relu_state=relu_state, layer_relu=layer_relu,
-              m1=m1, m2=m2)
+              m1=m1, m2=m2, skip=skip)
 
 
 class LayerTailFn(torch.autograd.Function):
@@ -188,28 +237,33 @@ class LayerTailFn(torch.autograd.Function):
     every tensor input (``ops/cuda/layer_tail_bwd.py``: the history and
     adjoint kernels for CUDA tensors, the plain adjoint for CPU tensors).
     Call as ``LayerTailFn.apply(x, lam_re, lam_im, w_b, w_c, d, nw, nb, o2k,
-    o2b, o1k, o1b, m1, m2, act, glu, relu_state, layer_relu)``."""
+    o2b, o1k, o1b, m1, m2, act, glu, relu_state, layer_relu[, skip])``:
+    without ``skip`` (affine mode) the gradient of ``x`` takes both of its
+    paths and ``nw``/``nb`` get theirs; with ``skip`` (non-affine mode, the
+    counterpart of passing ``z, skip`` to ``fused_layer_tail_diff``) ``x``
+    and ``skip`` get ``g_z`` and ``g_skip`` and ``nw``/``nb`` are None."""
 
     @staticmethod
     def forward(ctx, x, lam_re, lam_im, w_b, w_c, d, nw, nb, o2k, o2b, o1k,
-                o1b, m1, m2, act, glu, relu_state, layer_relu):
+                o1b, m1, m2, act, glu, relu_state, layer_relu, skip=None):
         ctx.save_for_backward(x, lam_re, lam_im, w_b, w_c, d, nw, nb, o2k,
-                              o2b, o1k, o1b, m1, m2)
+                              o2b, o1k, o1b, m1, m2, skip)
         ctx.flags = dict(act=act, glu=glu, relu_state=relu_state,
                          layer_relu=layer_relu)
         return layer_tail(x, (lam_re, lam_im), w_b, w_c, d, nw, nb, o2k,
-                          o2b, o1k, o1b, m1=m1, m2=m2, **ctx.flags)
+                          o2b, o1k, o1b, m1=m1, m2=m2, skip=skip,
+                          **ctx.flags)
 
     @staticmethod
     def backward(ctx, g):
         from sparsernns_tpu_torch.ops.cuda.layer_tail_bwd import \
             layer_tail_bwd
         (x, lam_re, lam_im, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b, m1,
-         m2) = ctx.saved_tensors
-        (g_x, d_lam, d_w_b, d_w_c, d_d, d_o2k, d_o2b, d_o1k, d_o1b, d_m1,
-         d_m2, d_nw, d_nb) = layer_tail_bwd(
+         m2, skip) = ctx.saved_tensors
+        (g_x, g_skip, d_lam, d_w_b, d_w_c, d_d, d_o2k, d_o2b, d_o1k, d_o1b,
+         d_m1, d_m2, d_nw, d_nb) = layer_tail_bwd(
             x, g, (lam_re, lam_im), w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
-            m1=m1, m2=m2, **ctx.flags)
+            m1=m1, m2=m2, skip=skip, **ctx.flags)
         return (g_x, d_lam[0], d_lam[1], d_w_b, d_w_c, d_d, d_nw, d_nb,
                 d_o2k, d_o2b, d_o1k, d_o1b, d_m1, d_m2, None, None, None,
-                None)
+                None, g_skip)

@@ -1,7 +1,8 @@
 """Kernels K3a and K3b: the backward of the whole-layer tail.
 
 Replaces ``sparsernns_tpu/ops/pallas/fused_layer_bwd.py`` ``fused_tail_bwd``
-in affine mode, the two kernels it launches:
+in its affine and non-affine modes, on float32 and bfloat16 streams, the
+two kernels it launches:
 
 - K3a, the carry history (:func:`layer_tail_hist`): the scan state that
   enters every time block of a batch row, in forward order, (B, n_blocks, P)
@@ -9,10 +10,18 @@ in affine mode, the two kernels it launches:
 - K3b, the reverse-time adjoint (:func:`layer_tail_bwd`): per block, from
   its entry state, the forward chain again and then its adjoint, with the
   recurrence ``v_t = g_t + conj(λ) ⊙ v_{t+1}`` carried across blocks. It
-  returns ``g_x`` and the gradient of every operand of
+  returns the gradient of every operand of
   :func:`~sparsernns_tpu_torch.ops.cuda.layer_tail.layer_tail`, in the
-  order of the JAX package's ``_bwd``: ``(g_x, (d_lam_re, d_lam_im),
-  d_w_b, d_w_c, d_d, d_o2k, d_o2b, d_o1k, d_o1b, d_m1, d_m2, d_nw, d_nb)``.
+  order of the JAX package's ``_bwd``: ``(g_x, g_skip, (d_lam_re,
+  d_lam_im), d_w_b, d_w_c, d_d, d_o2k, d_o2b, d_o1k, d_o1b, d_m1, d_m2,
+  d_nw, d_nb)``. Affine mode: ``g_x`` takes both paths of the raw input,
+  ``g_skip`` is None. Non-affine mode: ``g_x`` is the gradient of the
+  normed ``z``, ``g_skip`` that of the residual (the masked cotangent),
+  ``d_nw``, ``d_nb`` are None.
+
+On a bfloat16 stream ``x`` / ``skip`` and the cotangent ``g`` are read as
+bf16 and computed on in f32; ``g_x`` and ``g_skip`` round once to bf16,
+and every weight gradient stays float32, as the JAX kernels keep them.
 
 The CUDA source is ``csrc/layer_tail_bwd.cu``; its header note gives the
 bounds and the design. The kernel emits the weight gradients per batch row
@@ -33,7 +42,8 @@ from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.cuda.layer_tail import (ACTS, GLU_KINDS,
                                                       check_tensors,
                                                       checked_operands,
-                                                      data_ptr)
+                                                      data_ptr,
+                                                      norm_and_residual)
 from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
 
 #: time rows of one history block (the kernels' tile)
@@ -61,9 +71,11 @@ def _act_and_grad(y: torch.Tensor, act: str):
 def layer_tail_hist_plain(x, lam: Pair, w_b, nw, nb,
                           block: int = HIST_BLOCK) -> Pair:
     """Plain PyTorch version of K3a: the state entering each block of
-    ``block`` rows, (B, ceil(L / block), P) re and im."""
+    ``block`` rows, (B, ceil(L / block), P) re and im. ``nw = nb = None``:
+    ``x`` is the normed stream (non-affine mode)."""
     p = w_b.shape[-1] // 2
-    bu = (x * nw + nb) @ w_b
+    z = x.float() if nw is None else x.float() * nw + nb
+    bu = z @ w_b
     xs, _ = sequential_diag_scan(lam, (bu[..., :p], bu[..., p:]))
     n_blocks = -(-x.shape[1] // block)
     last = torch.arange(1, n_blocks, device=x.device) * block - 1
@@ -75,14 +87,18 @@ def layer_tail_hist_plain(x, lam: Pair, w_b, nw, nb,
 def layer_tail_bwd_plain(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
                          o2b=None, o1k=None, o1b=None, act: str = "gelu",
                          glu: str = "none", relu_state: bool = False,
-                         layer_relu: bool = False, m1=None, m2=None):
+                         layer_relu: bool = False, m1=None, m2=None,
+                         skip=None):
     """Plain PyTorch version of K3b: the explicit adjoint of
     ``layer_tail_plain``, a forward scan and a time-reversed scan with
-    conj λ. ``g``: the cotangent of the output, (B, L, H)."""
+    conj λ. ``g``: the cotangent of the output, (B, L, H), in the stream's
+    dtype."""
     p = w_b.shape[-1] // 2
     axes = (0, 1)
+    stream_dtype = x.dtype
+    g = g.float()
     # ---- the forward chain again ----
-    z = x * nw + nb
+    z, res = norm_and_residual(x, nw, nb, skip)
     bu = z @ w_b
     xs, _ = sequential_diag_scan(lam, (bu[..., :p], bu[..., p:]))
     xs_cat = torch.cat(xs, dim=-1)
@@ -105,7 +121,7 @@ def layer_tail_bwd_plain(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
         hd = x1d
     # ---- adjoint chain, top down ----
     if layer_relu:
-        g = g * ((hd + x) > 0).to(g.dtype)
+        g = g * ((hd + res) > 0).to(g.dtype)
     d_o2k = d_o2b = d_o1k = d_o1b = d_m1 = d_m2 = g_y_extra = None
     if glu != "none":
         g_h = g
@@ -151,11 +167,17 @@ def layer_tail_bwd_plain(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
     xp_im = torch.cat([torch.zeros_like(xs[1][:, :1]), xs[1][:, :-1]], dim=1)
     d_lam = ((v[0] * xp_re + v[1] * xp_im).sum(dim=axes),
              (v[1] * xp_re - v[0] * xp_im).sum(dim=axes))
-    d_nw = (g_z * x).sum(dim=axes)
+    grads = (d_lam, d_w_b, d_w_c, d_d, d_o2k, d_o2b, d_o1k, d_o1b, d_m1,
+             d_m2)
+    if skip is not None:
+        # z and skip are two inputs: g_z and the masked g (g_skip)
+        return (g_z.to(stream_dtype), g.to(stream_dtype), *grads, None,
+                None)
+    # z = x ⊙ nw + nb and the residual x: both paths into g_x
+    d_nw = (g_z * res).sum(dim=axes)
     d_nb = g_z.sum(dim=axes)
     g_x = g_z * nw + g
-    return (g_x, d_lam, d_w_b, d_w_c, d_d, d_o2k, d_o2b, d_o1k, d_o1b,
-            d_m1, d_m2, d_nw, d_nb)
+    return (g_x.to(stream_dtype), None, *grads, d_nw, d_nb)
 
 
 def _fn(name: str, argtypes):
@@ -175,27 +197,33 @@ def _hist_launch(ops, b: int, l: int, h: int, p: int, device) -> Pair:
     hist = tuple(torch.empty((b, n_blocks, p), dtype=torch.float32,
                              device=device) for _ in range(2))
     fn = _fn("layer_tail_hist",
-             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(*(data_ptr(ops, k) for k in ("x", "nw", "nb", "w_b", "lam_re",
                                           "lam_im")),
-             hist[0].data_ptr(), hist[1].data_ptr(), b, l, h, p, stream)
+             hist[0].data_ptr(), hist[1].data_ptr(), b, l, h, p,
+             int(ops["x"].dtype == torch.bfloat16), stream)
     build.check(err, "layer_tail_hist")
     launches_hist += 1
     return hist
 
 
 def layer_tail_hist_cuda(x, lam: Pair, w_b, nw, nb) -> Pair:
-    """Launch K3a (one CTA per batch row)."""
+    """Launch K3a (one CTA per batch row). ``nw = nb = None``: ``x`` is the
+    normed stream (non-affine mode)."""
     if x.dim() != 3 or 0 in x.shape:
         raise ValueError(f"x must be a non-empty (B, L, H), got "
                          f"{tuple(x.shape)}")
+    if (nw is None) != (nb is None):
+        raise ValueError("nw and nb come together (affine mode) or not at "
+                         "all (non-affine mode)")
     b, l, h = x.shape
     p = w_b.shape[-1] // 2
-    ops = check_tensors(
-        {"x": (x, (b, l, h)), "lam_re": (lam[0], (p,)),
-         "lam_im": (lam[1], (p,)), "w_b": (w_b, (h, 2 * p)),
-         "nw": (nw, (h,)), "nb": (nb, (h,))}, x.device)
+    shapes = {"x": (x, (b, l, h)), "lam_re": (lam[0], (p,)),
+              "lam_im": (lam[1], (p,)), "w_b": (w_b, (h, 2 * p))}
+    if nw is not None:
+        shapes.update(nw=(nw, (h,)), nb=(nb, (h,)))
+    ops = check_tensors(shapes, x.device, ("x",))
     return _hist_launch(ops, b, l, h, p, x.device)
 
 
@@ -208,14 +236,16 @@ def layer_tail_hist(x, lam: Pair, w_b, nw, nb) -> Pair:
 def layer_tail_bwd_cuda(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
                         o2b=None, o1k=None, o1b=None, act: str = "gelu",
                         glu: str = "none", relu_state: bool = False,
-                        layer_relu: bool = False, m1=None, m2=None):
+                        layer_relu: bool = False, m1=None, m2=None,
+                        skip=None):
     """Launch K3a, then K3b (one CTA per batch row each), and sum the
     per-row weight gradients over B. Same arguments and result as
-    :func:`layer_tail_bwd_plain`; every tensor float32 on one CUDA
-    device."""
+    :func:`layer_tail_bwd_plain`; every tensor on one CUDA device, the
+    streams (``x``, ``g``, ``skip``) float32 or bfloat16, the rest
+    float32."""
     global launches_bwd
     ops = checked_operands(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
-                           m1, m2, act, glu, g=g)
+                           m1, m2, act, glu, skip=skip, g=g)
     b, l, h = x.shape
     p = w_b.shape[-1] // 2
     if l == 0 or b == 0:
@@ -229,9 +259,13 @@ def layer_tail_bwd_cuda(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
             ops[name + "T"] = ops[name].T.contiguous()
     new = lambda *shape: torch.empty(  # noqa: E731
         shape, dtype=torch.float32, device=dev)
-    outs = {"gx": new(b, l, h), "dwb": new(b, h, 2 * p),
-            "dwc": new(b, 2 * p, h), "dd": new(b, h), "dnw": new(b, h),
-            "dnb": new(b, h), "dlam_re": new(b, p), "dlam_im": new(b, p)}
+    outs = {"gx": torch.empty((b, l, h), dtype=x.dtype, device=dev),
+            "dwb": new(b, h, 2 * p), "dwc": new(b, 2 * p, h),
+            "dd": new(b, h), "dlam_re": new(b, p), "dlam_im": new(b, p)}
+    if skip is None:
+        outs.update(dnw=new(b, h), dnb=new(b, h))
+    else:
+        outs["gskip"] = torch.empty((b, l, h), dtype=x.dtype, device=dev)
     if glu != "none":
         outs.update(do2k=new(b, h, h), do2b=new(b, h))
     if glu == "full":
@@ -241,25 +275,27 @@ def layer_tail_bwd_cuda(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
     if m2 is not None:
         outs["dm2"] = new(b, 1, h)
     # the order of BwdArgs in csrc/layer_tail_bwd.cu
-    in_names = ("x", "g", "nw", "nb", "w_b", "w_c", "w_bT", "w_cT", "d",
-                "lam_re", "lam_im", "o2k", "o2kT", "o2b", "o1k", "o1kT",
+    in_names = ("x", "g", "skip", "nw", "nb", "w_b", "w_c", "w_bT", "w_cT",
+                "d", "lam_re", "lam_im", "o2k", "o2kT", "o2b", "o1k", "o1kT",
                 "o1b", "m1", "m2")
-    out_names = ("gx", "dwb", "dwc", "do2k", "do1k", "dd", "do2b", "do1b",
-                 "dm1", "dm2", "dnw", "dnb", "dlam_re", "dlam_im")
+    out_names = ("gx", "gskip", "dwb", "dwc", "do2k", "do1k", "dd", "do2b",
+                 "do1b", "dm1", "dm2", "dnw", "dnb", "dlam_re", "dlam_im")
     ptrs = [data_ptr(ops, k) for k in in_names]
     ptrs += [hist[0].data_ptr(), hist[1].data_ptr()]
     ptrs += [data_ptr(outs, k) for k in out_names]
     table = (ctypes.c_void_p * len(ptrs))(*ptrs)
     fn = _fn("layer_tail_bwd",
-             [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+             [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(table, b, l, h, p, GLU_KINDS.index(glu), ACTS.index(act),
-             int(relu_state), int(layer_relu), stream)
+             int(relu_state), int(layer_relu),
+             int(x.dtype == torch.bfloat16), stream)
     build.check(err, "layer_tail_bwd")
     launches_bwd += 1
     # the sums over the batch stay outside the kernel, as in the JAX package
     total = lambda k: outs[k].sum(dim=0) if k in outs else None  # noqa: E731
-    return (outs["gx"], (total("dlam_re"), total("dlam_im")), total("dwb"),
+    return (outs["gx"], outs.get("gskip"),
+            (total("dlam_re"), total("dlam_im")), total("dwb"),
             total("dwc"), total("dd"), total("do2k"), total("do2b"),
             total("do1k"), total("do1b"), outs.get("dm1"), outs.get("dm2"),
             total("dnw"), total("dnb"))
@@ -268,10 +304,10 @@ def layer_tail_bwd_cuda(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
 def layer_tail_bwd(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
                    o1k=None, o1b=None, act: str = "gelu", glu: str = "none",
                    relu_state: bool = False, layer_relu: bool = False,
-                   m1=None, m2=None):
+                   m1=None, m2=None, skip=None):
     """Backward of one layer's tail. CUDA tensors launch the history and
     adjoint kernels (or raise); CPU tensors take the plain adjoint."""
     fn = layer_tail_bwd_cuda if x.is_cuda else layer_tail_bwd_plain
     return fn(x, g, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b, act=act,
               glu=glu, relu_state=relu_state, layer_relu=layer_relu,
-              m1=m1, m2=m2)
+              m1=m1, m2=m2, skip=skip)

@@ -23,7 +23,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from sparsernns_tpu_torch.data.ndns import create_ndns_dataset
-from sparsernns_tpu_torch.models.seq_model import RegressionModel
+from sparsernns_tpu_torch.models.seq_model import (RegressionModel,
+                                                   check_stream_dtype)
 from sparsernns_tpu_torch.models.ssm import S5SSM
 from sparsernns_tpu_torch.models.ssm_init import (blocked_dplr_init,
                                                   lecun_normal)
@@ -80,9 +81,16 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     ``"pallas"`` (the JAX package's name for the stand-alone scan kernel
     between two matmuls) or ``"associative"`` (the associative scan in
     plain PyTorch, with the QAT hadamards); the other scan modes of the
-    JAX package are not ported."""
+    JAX package are not ported.
+
+    A training model takes ``cfg.train_stream_dtype`` as the dtype of the
+    stream between its layers (``"bfloat16"``: bf16 where every layer runs
+    the whole-layer kernel with BatchNorm, ``models/seq_model.py``); an
+    eval model keeps float32, as the JAX package builds it. Another value
+    raises ``ValueError``."""
     if cfg.dataset != "ndns":
         raise NotImplementedError(f"dataset {cfg.dataset!r}: only ndns")
+    check_stream_dtype(cfg.train_stream_dtype)
     if q_config is None:
         q_config = quantization_recipes[cfg.quantization]()
     scan_mode = scan_mode or cfg.scan_mode
@@ -122,7 +130,8 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
         relufication=cfg.relufication, batchnorm=cfg.batchnorm,
         prenorm=cfg.prenorm, dropout=cfg.p_dropout,
         bn_momentum=cfg.bn_momentum, topk=cfg.topk,
-        approx_topk=cfg.approx_topk)
+        approx_topk=cfg.approx_topk,
+        stream_dtype=cfg.train_stream_dtype if training else "float32")
     # dense layers: lecun_normal kernel, zero bias (as in the JAX package)
     with torch.no_grad():
         for mod in model.modules():

@@ -47,6 +47,10 @@ class RunConfig:
     topk: float = 1.0                   # activation top-k share (< 1: on)
     approx_topk: bool = False           # required with topk < 1 (as JAX)
     scan_mode: str = "fused"            # "fused", "pallas", "associative"
+    #: the stream between the layers of a training model: "float32", or
+    #: "bfloat16" where every layer runs the whole-layer kernel with
+    #: BatchNorm (the weights, gradients and statistics stay float32)
+    train_stream_dtype: str = "float32"
 
     # --- quantization-aware training (train/loop.py build_model) ---
     quantization: str = "none"          # a quantization_recipes name

@@ -1,7 +1,8 @@
 """Training and offline forward on the port's mixer route against the JAX
 package's, at a small size: the models that the whole-layer tail kernel does
-not run (postnorm BatchNorm, LayerNorm prenorm and postnorm, bidirectional,
-``scan_mode="pallas"``). The same flax weights (carried over by
+not run (postnorm BatchNorm, LayerNorm postnorm, bidirectional,
+``scan_mode="pallas"``), and the prenorm LayerNorm model, which both
+packages run through the tail kernel's non-affine mode. The same flax weights (carried over by
 ``weights.from_flax``) and the same numpy inputs go through both; the JAX
 model runs its Pallas kernels in interpret mode with an explicit
 ``block_t``, the port its kernels' plain versions. Dropout is 0 where
@@ -42,7 +43,8 @@ D_IO = 257
 AUDIO = 36 * 128            # 37 STFT frames
 
 #: the model switches off the whole-layer route, one changed at a time (and
-#: relufication with the full GLU once)
+#: relufication with the full GLU once); "layernorm" keeps it, in the
+#: kernel's non-affine mode
 CONFIGS = {
     "postnorm": dict(prenorm=False),
     "postnorm_relu": dict(prenorm=False, relufication=True,
@@ -324,13 +326,15 @@ def test_routes_and_what_still_raises():
     for name, kw in {**CONFIGS, "flagship": {}}.items():
         tm = loop.build_model(small_config(**kw), D_IO, D_IO, device="cpu")
         layer = tm.encoder.layers[0]
-        routes[name] = (layer.mixer.layer_tail_operands() is not None
-                        and layer.batchnorm and layer.prenorm,
-                        layer.mixer(x)[1] is None)
+        routes[name] = (layer.takes_tail(), layer.mixer(x)[1] is None)
+        assert layer.takes_tail() == (
+            layer.mixer.layer_tail_operands() is not None
+            and layer.prenorm)
         assert layer.mixer(x)[0].shape == x.shape
-    # (whole-layer kernel, mixer returns no state)
-    assert routes["flagship"] == (True, True)
-    for name in ("postnorm", "layernorm", "layernorm_postnorm"):
+    # (whole-layer kernel, mixer returns no state); a prenorm LayerNorm
+    # layer takes the kernel's non-affine mode
+    assert routes["flagship"] == routes["layernorm"] == (True, True)
+    for name in ("postnorm", "layernorm_postnorm"):
         assert routes[name] == (False, True), name
     assert routes["bidirectional"] == routes["scan_pallas"] == (False, True)
     assert counters() == before     # CPU tensors launch nothing

@@ -84,9 +84,11 @@ def test_regression_forward_matches_jax(glu, relu):
 
 @pytest.mark.parametrize("glu", ["half1", "none"])
 def test_layernorm_forward_matches_jax(glu):
-    """``batchnorm=False``: prenorm LayerNorm. The JAX model runs its
-    non-affine tail kernel; the port runs the unfused route (LayerNorm,
-    mixer, GLU, residual). Offline and chunked forwards both."""
+    """``batchnorm=False``: prenorm LayerNorm. Offline, both packages run
+    the tail kernel's non-affine mode (LayerNorm outside, the normed stream
+    and the raw input into the kernel); chunked, the port runs the unfused
+    route (LayerNorm, mixer with a carry, GLU, residual). Offline and
+    chunked forwards both."""
     cfg = small_config(glu_variant=glu, batchnorm=False)
     jm, variables, tm = paired_models(cfg, d_io=17, seed=8)
     assert isinstance(tm.encoder.layers[0].norm, torch.nn.LayerNorm)
@@ -188,7 +190,7 @@ def test_build_model_shapes_and_state_dict_keys():
     assert not tm.training
     trainer = build_model(cfg, 9, 9, training=True, device="cpu")
     assert trainer.training and set(trainer.state_dict()) == set(sd)
-    # a LayerNorm model trains too, on the unfused route
+    # a LayerNorm model trains too, on the tail kernel's non-affine mode
     ln = build_model(dataclasses.replace(cfg, batchnorm=False,
                                          p_dropout=0.0), 9, 9,
                      training=True, device="cpu")

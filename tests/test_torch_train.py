@@ -306,8 +306,8 @@ def test_microbatch_step_with_batchnorm_runs_and_learns():
 
 
 def test_what_still_raises():
-    # LayerNorm and postnorm layers train on the unfused route (the mixer
-    # kernel's plain version here)
+    # LayerNorm layers train on the tail kernel's non-affine mode, postnorm
+    # layers on the unfused route (the kernels' plain versions here)
     for kw in (dict(batchnorm=False), dict(prenorm=False)):
         model = loop.build_model(small_config(**kw), D_IO, D_IO,
                                  training=True, device="cpu")

@@ -26,11 +26,14 @@ a seed):
 6. engine streaming phase — ``StreamingDenoiser.from_engine`` at
    block_t=128 over the same audio (K5b on every forward), and chunked
    ``process_chunk`` against one whole call;
-7. training kernel phase — K2 with dropout masks, K3a (carry history) and
-   K3b (reverse-time adjoint, every output) against their plain versions,
-   B=8, L=3751 for the recipe's variant, with times, and L=1000 for the
-   other seven of the four GLU kinds x (gelu | relu + relu_state +
-   layer_relu);
+7. training kernel phase — K2 with dropout masks, K3a (carry history and
+   every state) and K3b (the adjoint's passes, every output) against
+   their plain versions, B=8, L=3751 for the recipe's variant, and L=1000
+   for the other seven of the four GLU kinds x (gelu | relu + relu_state +
+   layer_relu); the recipe's variant again at B=32, the train step's
+   batch; two K3b launches equal bit for bit; K3a and K3b timed at B=8
+   and B=32 with their bounds, the passes' device times, the grids as
+   launched and registers;
 8. training phase — ``build_model(training=True)``, ``create_run_state``
    and ``make_ndns_train_step`` as the recipe sets them (B=32 clips of
    30 s, dropout 0.1, noBCdecay, weight decay 0.04): three steps, then
@@ -224,11 +227,29 @@ BWD_OUTPUTS = ("g_x", "g_skip", "d_lam", "d_w_b", "d_w_c", "d_d", "d_o2k",
                "d_o2b", "d_o1k", "d_o1b", "d_m1", "d_m2", "d_nw", "d_nb")
 
 
+def _check_tail_kernels(profile) -> None:
+    """Every ``__global__`` that the last K3a and K3b call launched, as the
+    CUDA source recorded it, appears in ``profile`` (``profile_region``'s
+    summary of a region that ends with that call)."""
+    from sparsernns_tpu_torch.ops.cuda import layer_tail_bwd
+    seen = " ".join(k["name"] for k in profile["top_kernels"])
+    names = [k for grids in layer_tail_bwd.launched().values()
+             for k in grids]
+    missing = [k for k in names if k not in seen]
+    assert names and not missing, f"kernels not in the profile: {missing}"
+
+
 def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
     """Phase 7: K2 with masks, K3a and K3b against their plain versions at
     B x frames x H, layer 0's operands; limits 2e-4 of max(1, max|ref|)
     (the JAX package's bar between its adjoint kernel and its XLA
-    backward)."""
+    backward), K3a 1e-5; the recipe's variant also at 4 B (the recipe's
+    batch, which the train step runs), whose plan differs. Two K3b
+    launches on the same inputs must give the same bits; K3a and K3b are
+    timed at B and 4 B beside their bounds, with each pass's device time
+    at 4 B from the profiler, every launch's grid as the CUDA source
+    recorded it (more CTAs than B; at B, as many as the card has SMs) and
+    the kernels' registers and spills from ``nvcc -Xptxas -v``."""
     import torch
 
     from sparsernns_tpu_torch.ops.cuda import layer_tail, layer_tail_bwd
@@ -317,6 +338,20 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
                 rnd(2, ls, hs), odd_args, odd_kw)
 
         args, kw = variant(cfg.glu_variant, "gelu")
+        # the passes' partial sums have a fixed order: two launches on the
+        # same inputs give the same bits
+        first = layer_tail_bwd.layer_tail_bwd_cuda(x, g, *args, **kw)
+        again = layer_tail_bwd.layer_tail_bwd_cuda(x, g, *args, **kw)
+        torch.cuda.synchronize()
+        for name, o1, o2 in zip(BWD_OUTPUTS, first, again):
+            for a1, a2 in zip(*((o1, o2) if name == "d_lam" else
+                                ((o1,), (o2,)))):
+                assert (a1 is None) == (a2 is None), name
+                assert a1 is None or torch.equal(a1, a2), (
+                    f"K3b {name}: two launches differ")
+        print("K3b: two launches on the same inputs equal bit for bit",
+              flush=True)
+        del first, again
         hist_ref = layer_tail_bwd.layer_tail_hist_plain(x, lam, w_b, nw, nb)
         hist = layer_tail_bwd.layer_tail_hist_cuda(x, lam, w_b, nw, nb)
         torch.cuda.synchronize()
@@ -327,14 +362,50 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
                1e-5 * max(1.0, hist_scale))
         assert hist[0].shape == (B, -(-frames // 32), p), hist[0].shape
 
-        # times: the recipe's variant; K3b alone = (K3a + K3b) - K3a, since
-        # the backward wrapper launches both
+        # B=32 data from a generator of its own, so that the later phases
+        # draw what they drew before
+        gen32 = torch.Generator().manual_seed(32)
+        x32 = torch.randn((4 * B, frames, h), generator=gen32).to(dev)
+        g32 = torch.randn((4 * B, frames, h), generator=gen32).to(dev)
+        kw32 = dict(kw, m1=m1.repeat(4, 1, 1), m2=m2.repeat(4, 1, 1))
+        # the train step's batch: another plan (chunks, slices, partials)
+        # than at B=8, held against the plain versions at the same bars
+        # (the records keep the worse of the two batches)
+        worst["bwd"] = max(worst["bwd"], compare(
+            f"{cfg.glu_variant}/gelu B={4 * B}", x32, g32, args, kw32)[1])
+        hist32_ref = layer_tail_bwd.layer_tail_hist_plain(x32, lam, w_b, nw,
+                                                          nb)
+        hist32 = layer_tail_bwd.layer_tail_hist_cuda(x32, lam, w_b, nw, nb)
+        torch.cuda.synchronize()
+        hist32_err = max((a - b).abs().max().item()
+                         for a, b in zip(hist32, hist32_ref))
+        _check(f"K3a layer_tail_hist B={4 * B} vs plain", hist32_err,
+               1e-5 * max(1.0, max(t.abs().max().item() for t in hist32_ref)))
+        hist_err = max(hist_err, hist32_err)
+        del hist32, hist32_ref
+        # times: the recipe's variant at B=8 and at the recipe's B=32; K3b
+        # alone = (K3a + K3b) - K3a, since the backward wrapper launches
+        # both
         ms_fwd = _median_ms(lambda: layer_tail.layer_tail_cuda(
             x, *args, **kw))
-        ms_hist = _median_ms(lambda: layer_tail_bwd.layer_tail_hist_cuda(
-            x, lam, w_b, nw, nb))
-        ms_both = _median_ms(lambda: layer_tail_bwd.layer_tail_bwd_cuda(
-            x, g, *args, **kw))
+        ms_hist, ms_bwd, grids = {}, {}, {}
+        for bsz, xb, gb, kwb in ((B, x, g, kw), (4 * B, x32, g32, kw32)):
+            ms_hist[bsz] = _median_ms(
+                lambda: layer_tail_bwd.layer_tail_hist_cuda(
+                    xb, lam, w_b, nw, nb))
+            ms_bwd[bsz] = _median_ms(
+                lambda: layer_tail_bwd.layer_tail_bwd_cuda(
+                    xb, gb, *args, **kwb)) - ms_hist[bsz]
+            # the grids of the last of those launches, as they launched
+            grids[bsz] = layer_tail_bwd.launched()
+        # where the backward's time goes, pass by pass, at B=32
+        from sparsernns_tpu_torch.utils.profiling import profile_region
+        profile = profile_region(
+            f"K3a + K3b B={4 * B}", lambda: layer_tail_bwd.layer_tail_bwd_cuda(
+                x32, g32, *args, **kw32), top=40)
+        print(json.dumps(profile), flush=True)
+        _check_tail_kernels(profile)
+        del x32, g32
         plain_fwd = _time_ms(lambda: layer_tail.layer_tail_plain(
             x, *args, **kw), 1, 0)
         plain_hist = _time_ms(lambda: layer_tail_bwd.layer_tail_hist_plain(
@@ -348,17 +419,44 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
     stream = rows * h * 4
     fwd_bound = _bound_ms(2 * stream + (weights + 2 * B * h) * 4,
                           rows * (mm + 8 * p + 8 * h))
+    # the history pass: x read, every state and the history written
+    states = rows * 2 * p * 4
     hist_bound = _bound_ms(
-        stream + (h * 2 * p + 2 * h + 2 * p) * 4 + 2 * hist[0].numel() * 4,
-        rows * (2 * h * 2 * p + 8 * p + 2 * h))
-    # the adjoint: the forward's products again, as many transposed
-    # products and as many weight-gradient products; x and g read, g_x
-    # written, the per-row weight gradients written
-    row_grads = 2 * h * 2 * p + n_dense * h * h + (6 + n_dense) * h + 2 * p
-    bwd_bound = _bound_ms(
-        3 * stream + (weights + 2 * B * h + B * row_grads) * 4
-        + 2 * hist[0].numel() * 4,
-        rows * (3 * mm + 24 * p + 40 * h))
+        stream + states + (h * 2 * p + 2 * h + 2 * p) * 4
+        + 2 * hist[0].numel() * 4, rows * (2 * h * 2 * p + 8 * p + 2 * h))
+    # the adjoint from the states: the forward's products but the
+    # B-projection again, as many transposed products and as many
+    # weight-gradient products; x, g and the states read, g_x written, the
+    # weight gradients written
+    grads = 2 * h * 2 * p + n_dense * h * h + (6 + n_dense) * h + 2 * p
+    bwd_work = (3 * stream + states + (weights + 2 * B * h + grads) * 4,
+                rows * (3 * mm - 2 * h * 2 * p + 24 * p + 40 * h))
+    bwd_bound = _bound_ms(*bwd_work)
+    # at B=32 the same work four times over
+    hist_bound32 = _bound_ms(
+        4 * (stream + states + 2 * hist[0].numel() * 4)
+        + (h * 2 * p + 2 * h + 2 * p) * 4,
+        4 * rows * (2 * h * 2 * p + 8 * p + 2 * h))
+    bwd_bound32 = _bound_ms(4 * bwd_work[0], 4 * bwd_work[1])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bsz in (B, 4 * B):
+        print(f"K3a + K3b grids at B={bsz}, L={frames} ({sms} SMs), as "
+              "launched: " + ", ".join(
+                  f"{k} {v}" for kernel in grids[bsz].values()
+                  for k, v in kernel.items()), flush=True)
+        for kernel, mine in grids[bsz].items():
+            assert mine and max(mine.values()) > bsz and (
+                bsz > B or max(mine.values()) >= sms), (kernel, bsz, mine)
+    from sparsernns_tpu_torch.ops.cuda import build
+    for line in build.build_logs.get("layer_tail_bwd", "").splitlines():
+        if "Compiling entry" in line or "registers" in line or (
+                "spill" in line and " 0 bytes spill" not in line):
+            print(f"nvcc layer_tail_bwd: {line.strip()}", flush=True)
+    print(f"K3a: {ms_hist[B]:.3f} ms at B={B} (bound {hist_bound[0]:.4f}), "
+          f"{ms_hist[4 * B]:.3f} ms at B={4 * B} (bound "
+          f"{hist_bound32[0]:.4f}); K3b: {ms_bwd[B]:.3f} ms at B={B} (bound "
+          f"{bwd_bound[0]:.4f}), {ms_bwd[4 * B]:.3f} ms at B={4 * B} (bound "
+          f"{bwd_bound32[0]:.4f})", flush=True)
     common = dict(route="cuda", library_ms=None)
     records["layer_tail_train"] = dict(
         name="layer_tail_train",
@@ -370,14 +468,16 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
         name="layer_tail_hist",
         source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail_bwd.cu",
         replaces="sparsernns_tpu/ops/pallas/fused_layer_bwd.py:489",
-        max_abs_err=hist_err, ms=ms_hist, plain_ms=plain_hist,
-        bound_ms=hist_bound[0], bound_by=hist_bound[1], **common)
+        max_abs_err=hist_err, ms=ms_hist[B], plain_ms=plain_hist,
+        bound_ms=hist_bound[0], bound_by=hist_bound[1],
+        ms_b32=ms_hist[4 * B], bound_ms_b32=hist_bound32[0], **common)
     records["layer_tail_bwd"] = dict(
         name="layer_tail_bwd",
         source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail_bwd.cu",
         replaces="sparsernns_tpu/ops/pallas/fused_layer_bwd.py:557",
-        max_abs_err=worst["bwd"], ms=ms_both - ms_hist, plain_ms=plain_bwd,
-        bound_ms=bwd_bound[0], bound_by=bwd_bound[1], **common)
+        max_abs_err=worst["bwd"], ms=ms_bwd[B], plain_ms=plain_bwd,
+        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+        ms_b32=ms_bwd[4 * B], bound_ms_b32=bwd_bound32[0], **common)
     print(json.dumps({"training_kernel_phase": {
         k: records[k] for k in ("layer_tail_train", "layer_tail_hist",
                                 "layer_tail_bwd")}}), flush=True)
@@ -529,8 +629,10 @@ def training_phase(cfg, records, counters, batch) -> None:
             assert not torch.equal(b, stats0[n]), n
     assert state.step == 3
     profile = profile_region(f"train step B={bsz}",
-                             lambda: step(state, *feats))
+                             lambda: step(state, *feats), top=40)
     print(json.dumps(profile), flush=True)
+    # the step's backward runs the passes of K3a and K3b
+    _check_tail_kernels(profile)
     print(f"train B={bsz}: peak memory {peak_full / 2**20:.0f} MiB, device "
           f"busy share {profile['device_busy_share']:.3f}", flush=True)
 
@@ -2536,24 +2638,27 @@ def tail_modes_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
                   f"{plain[1]:.1f}, {plain[2]:.1f})", flush=True)
     # bounds: the f32 rows' arithmetic (phase 7) with the streams of each
     # mode: non-affine reads skip beside z (and K3b writes g_skip beside
-    # g_x); bf16 moves two bytes an element
+    # g_x); bf16 moves two bytes an element; K3a writes every f32 state,
+    # which K3b reads
     rows = B * frames
     n_dense = {"full": 2, "half1": 1, "half2": 1, "none": 0}[cfg.glu_variant]
     mm = 2 * h * 2 * p + 2 * 2 * p * h + n_dense * 2 * h * h
     w_bytes = (2 * h * 2 * p + n_dense * (h * h + h) + 3 * h + 2 * p) * 4
     n_t = -(-frames // 32)
-    row_grads = 2 * h * 2 * p + n_dense * h * h + (6 + n_dense) * h + 2 * p
+    grads = 2 * h * 2 * p + n_dense * h * h + (6 + n_dense) * h + 2 * p
+    states = rows * 2 * p * 4
     for mode, prefix in (("skip", "skip"), ("bf16", "bf16")):
         dtype, affine = modes[mode]
         el = rows * h * (2 if dtype == torch.bfloat16 else 4)
         n_in = 1 if affine else 2           # z (or x), and skip
         fwd_b = _bound_ms((n_in + 1) * el + w_bytes + 2 * B * h * 4,
                           rows * (mm + 8 * p + 8 * h))
-        hist_b = _bound_ms(el + (h * 2 * p + 2 * p) * 4 + 2 * B * n_t * p * 4,
+        hist_b = _bound_ms(el + states + (h * 2 * p + 2 * p) * 4
+                           + 2 * B * n_t * p * 4,
                            rows * (2 * h * 2 * p + 8 * p + 2 * h))
-        bwd_b = _bound_ms(2 * (n_in + 1) * el + w_bytes + 2 * B * h * 4
-                          + B * row_grads * 4 + 2 * B * n_t * p * 4,
-                          rows * (3 * mm + 24 * p + 40 * h))
+        bwd_b = _bound_ms(2 * (n_in + 1) * el + states + w_bytes
+                          + 2 * B * h * 4 + grads * 4,
+                          rows * (3 * mm - 2 * h * 2 * p + 24 * p + 40 * h))
         fwd, hist, bwd, p_fwd, p_hist, p_bwd = times[mode]
         worst = errs[mode] if mode == "skip" else [
             max(a, b) for a, b in zip(errs["bf16"], errs["skip_bf16"])]

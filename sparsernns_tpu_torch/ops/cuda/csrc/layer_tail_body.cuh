@@ -1,9 +1,11 @@
 // Device functions shared by the whole-layer tail kernels: the forward
-// (layer_tail.cu), the carry-history pre-pass and the reverse-time adjoint
-// (layer_tail_bwd.cu). The adjoint recomputes the forward chain of each time
-// tile, and its relu / layer-relu / gate decisions must equal the forward's,
-// so every step of that chain is one function here, written with explicit
-// fmaf / __fmul_rn so that no kernel contracts it differently.
+// (layer_tail.cu), the carry history and the adjoint (layer_tail_bwd.cu).
+// The adjoint recomputes the forward chain from the history's states, and
+// its relu / layer-relu / gate decisions must equal the forward's, so
+// every elementwise step of that chain is one function here, written with
+// explicit fmaf / __fmul_rn so that no kernel contracts it differently;
+// the adjoint's products sum as tile_matmul does (one fmaf chain in
+// ascending k).
 
 #pragma once
 

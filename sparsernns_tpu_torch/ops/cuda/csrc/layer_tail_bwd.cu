@@ -1,17 +1,6 @@
-// Backward of the whole-layer tail (layer_tail.cu), two kernels, one CTA per
-// batch row each:
-//
-//   layer_tail_hist  walks the row forward (z = x * nw + nb, or the z stream
-//                    itself in non-affine mode; bu = z @ W_b, scan) and
-//                    writes only the state that enters every time tile:
-//                    (B, n_tiles, P) re and im, tile 0 zero;
-//   layer_tail_bwd   walks the tiles last to first. Per tile it recomputes the
-//                    forward chain from the tile's entry state, runs the
-//                    adjoint chain top down, the reverse-time recurrence
-//                    v_t = g_t + conj(lam) * v_{t+1} with its carry kept
-//                    across tiles, and writes g_x (non-affine mode: g_z and
-//                    g_skip); every weight gradient is accumulated per
-//                    batch row.
+// Backward of the whole-layer tail (layer_tail.cu): K3a, the carry history
+// with every state, and K3b, the adjoint, as passes that are parallel over
+// time wherever the maths allows, so that one backward fills the card.
 //
 // They replace the TPU kernels of sparsernns_tpu/ops/pallas/
 // fused_layer_bwd.py `fused_tail_bwd` (:364): the carry-history pre-pass
@@ -20,40 +9,86 @@
 // non-affine mode, on float32 and bfloat16 streams (x or z, skip, g read as
 // the stream's type and widened to f32; g_x, g_skip rounded once at the
 // store; every weight gradient f32, as the JAX kernels keep them). On the
-// TPU both walk a sequential grid with the carry in VMEM scratch and the
-// gradients resident in VMEM; here a CTA loops over its row's tiles itself,
-// the adjoint carry lives in shared memory, and the checkpoint block is the
-// 32-row tile, so the entry state of a tile is one row of the history.
+// TPU both walk a sequential grid over the time blocks of a batch row, the
+// carries in VMEM scratch. Here only the two linear recurrences walk time:
+// the forward states and the adjoint v_t = g_t + conj(lam) v_{t+1}. Every
+// product, activation and gradient of a time row depends on nothing but
+// that row and those two recurrences, so it runs in a pass over all rows.
 //
-// The recomputed chain uses the forward's device functions
-// (layer_tail_body.cuh), so every relu, layer-relu and gate decision equals
-// the forward's. Products with a transposed weight (g_s @ W2^T, g_base @
-// W1^T, g_y @ W_c^T, v @ W_b^T) read transposed copies that the wrapper
-// makes once per call and go through the same tile_matmul. The
-// time-contracted weight gradients (z^T v, xs^T g_y, x1^T g_s, x1^T g_base)
-// are H*2P, 2P*H and H*H floats per batch row, more than shared memory holds
-// beside the tile, so each CTA accumulates them into its own row of a
-// (B, ...) device buffer: the first tile it processes stores, later tiles
-// add, no atomics, a fixed order; the wrapper sums over B. Vector gradients
-// (d, biases, masks, nw, nb, lam) accumulate in shared memory and are
-// written once.
+// Rows are the B*L time rows of the (B, L, .) arrays. A product pass cuts
+// them into chunks of kBM rows of one batch row (the wrapper's plan,
+// `bwd_plan` in layer_tail_bwd.py: B*ceil(L/kBM) chunks, 240 at B=8,
+// L=3751) and the columns into kBN-wide tiles: one CTA per (column tile,
+// chunk), 720 CTAs at B=8 for an H-wide product. The scratch arrays between
+// the passes are (B*L, width) f32 in device memory: S (2P, the raw states),
+// Y, X1D, F, G, GY (H), GS (2H), V (2P); 799 MB at B=32, L=3751 (half1).
 //
-// Shared memory of the adjoint: six (32, H) buffers, two (32, 2P) buffers,
-// the scan carries and the vector accumulators: 222,464 bytes at H=192,
-// P=128, under the 227 KB a block can have. The residual tile (x, or skip in
-// non-affine mode) is not kept to the end (its buffer takes the masked g,
-// which is g_skip in non-affine mode); the last pass of the affine mode
-// reads x again for d_nw. A seventh (32, H) buffer would not fit, so the
-// non-affine mode reuses the same six.
+// Every product is `gemm_tile`: a 128x64 CTA tile, 128 threads of 8x8
+// outputs each in registers, both operands staged through shared memory in
+// k-slices of 8, double-buffered (the next slice is fetched into registers
+// while the current one is multiplied); three CTAs an SM (at most 168
+// registers a thread), since more warps in flight hid more latency than
+// unspilled registers or deeper slices gained on the card. The epilogue
+// (`tile_epilogue`) puts the accumulator tile through shared memory, so
+// its loads and stores run along rows, 32 consecutive elements a warp.
+// Each output is one fmaf chain over k in ascending order from 0, as
+// tile_matmul (layer_tail_body.cuh) sums it, so the products that
+// recompute the forward (B-projection, C-projection, the GLU denses) equal
+// K2's bit for bit, and with them every relu, layer-relu and gate
+// decision; the elementwise steps are the forward's device functions. The
+// adjoint-only products use the same tile in f32 FMA too, each output one
+// chain in ascending k (the full GLU's two products into g_x1d as two
+// chains, summed). The tensor cores (a 3xTF32 tile) are later work.
 //
-// Bound: operations. The adjoint does the forward's four products again,
-// four transposed products and four weight-gradient products, about three
-// times the forward's count: 0.81 MFLOP a row at H=192, P=128, half1; at
-// B=8, L=3751 24 GFLOP, 0.36 ms at the card's 67 TFLOP/s f32 peak, against
-// 73 MB of device memory traffic (x, g read, g_x written, per-row weight
-// gradients written), 0.022 ms at 3.35 TB/s. The history pass does the
-// B-projection and the scan: 3.0 GFLOP, 0.045 ms. Like the forward, B CTAs
-// fill B of the 132 SMs and the products are plain f32 FMA.
+// The weight gradients contract over time: each is a product of two
+// (rows, .) arrays, split over `split_rows` slices of rows (about 48
+// slices, the plan's), each CTA writing its slice's partial to its own
+// slot of a (n_splits, M, N) buffer; vector gradients go per chunk into a
+// (n_chunks, 7, H) buffer, d_lam per (batch row, channel). No atomics: the
+// wrapper sums the partials in a fixed order, so two launches on the same
+// inputs give the same bits. Each launch is recorded with its grid, and
+// layer_tail_launched hands the wrapper the kernels and grids of the last
+// K3a and K3b call, as they launched.
+//
+// The kernels, in launch order; bounds at H=192, P=128, half1, B=8,
+// L=3751 (30,008 rows), the card's 67 TFLOP/s f32 and 3.35 TB/s:
+//
+// K3a (layer_tail_hist; replaces the pallas_call at fused_layer_bwd.py
+// :489), bound 0.045 ms by operations (3.0 GFLOP):
+//   tail_hist_bproj_kernel  bu = z @ W_b into S, z = x*nw + nb or the z
+//                           stream; one CTA per (column tile, chunk).
+//   tail_hist_scan_kernel   x_t = lam x_{t-1} + bu_t in place over S, per
+//                           (batch row, channel), the whole length in
+//                           order with scan_step (scan_step.cuh), as K2;
+//                           writes the state entering every 32-row tile
+//                           (the history). One warp of channels a CTA;
+//                           each thread keeps 32 steps of loads in flight,
+//                           since the chain itself is short.
+// K3b (layer_tail_bwd; replaces the pallas_call at :557), bound 0.32 ms
+// by operations (21.7 GFLOP; the B-projection is K3a's):
+//   tail_bwd_proj_kernel    y = relu?(S) @ W_c + d*z, x1d = act(y)*m1; no
+//                           GLU: also the masked g and g_y.
+//   tail_bwd_base_kernel    full GLU: the base x1d @ W1 + b1.
+//   tail_bwd_gate_kernel    gate = sigmoid(x1d @ W2 + b2), the layer-relu
+//                           mask, g_s and g_base into GS.
+//   tail_bwd_gx1d_kernel    g_x1d = g_s @ W2^T (half1: + g_base; full:
+//                           + g_base @ W1^T, a launch of its own first),
+//                           g_y = g_x1d*m1*act'(y) (half2: + g_base).
+//   tail_bwd_gxs_kernel     g_xs = g_y @ W_c^T, the relu_state mask, into V.
+//   tail_bwd_wgrad_kernel   d_w_c = relu?(S)^T g_y, [d_o2k | d_o1k] =
+//                           x1d^T [g_s | g_base]; after the adjoint scan
+//                           d_w_b^T = v^T z.
+//   tail_bwd_rev_kernel     v_t = g_xs,t + conj(lam) v_{t+1} in place over
+//                           V per (batch row, channel), in the order and
+//                           arithmetic of the TPU kernel's loop, and d_lam
+//                           from the previous step's raw states.
+//   tail_bwd_gz_kernel      g_zn = v @ W_b^T + g_y*d; affine: g_x = g_zn*nw
+//                           + g, d_nw, d_nb; non-affine: g_z, g_skip.
+// The product passes are bound by operations and fill every SM from B=8
+// on (720-960 CTAs a pass); they run at 10-25 TFLOP/s of the f32 peak's
+// 67. The two scans walk 3751 steps per (batch row, channel), 1024
+// threads at B=8, and are bound by the latency of their loads, which the
+// deep prefetch hides in part.
 
 #include "layer_tail_body.cuh"
 
@@ -61,109 +96,153 @@ namespace {
 
 using namespace tail;
 
-constexpr int kMT = 8;  // weight-gradient rows per thread
+constexpr int kBM = 128;  // rows of a product tile: a chunk of time rows
+constexpr int kBN = 64;   // columns of a product tile
+constexpr int kBK = 8;    // depth of one shared-memory stage
+constexpr int kGT = 128;  // threads of a product CTA: 16 x 8, 8x8 outputs each
+constexpr int kMinCtas = 3;  // product CTAs an SM holds at once (<= 168 regs)
+constexpr int kLdA = kBM + 4;
+constexpr int kLdB = kBN + 4;
+constexpr int kScanT = 32;  // threads (state channels) of a scan CTA
+constexpr int kNVec = 7;    // vector-gradient slots of a chunk
+enum VecSlot { kDd = 0, kO2b, kO1b, kM1, kM2, kNw, kNb };
 
-__global__ void __launch_bounds__(kThreads)
-layer_tail_hist_kernel(const void* __restrict__ x,
-                       const float* __restrict__ nw,
-                       const float* __restrict__ nb,
-                       const float* __restrict__ wb,
-                       const float* __restrict__ lam_re,
-                       const float* __restrict__ lam_im,
-                       float* __restrict__ hist_re,
-                       float* __restrict__ hist_im, int L, int H, int P,
-                       int bf16) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ldh = round4(H);
-  const int ldp = round4(2 * P);
-  float* Z = smem;
-  float* S = Z + kT * ldh;
-  float* carry = S + kT * ldp;
+struct GemmSmem {
+  float a[2][kBK][kLdA];
+  float b[2][kBK][kLdB];
+};
 
-  const int b = blockIdx.x;
-  const int n_tiles = (L + kT - 1) / kT;
-  const long long row0 = (long long)b * L * H;
-  float* hr = hist_re + (long long)b * n_tiles * P;
-  float* hi = hist_im + (long long)b * n_tiles * P;
+// The product's stages, then its accumulator tile for the epilogue.
+union TileSmem {
+  GemmSmem g;
+  float c[kBM][kBN + 4];
+};
 
-  for (int p = threadIdx.x; p < 2 * P; p += blockDim.x) carry[p] = 0.f;
-  __syncthreads();
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int t0 = tile * kT;
-    const int rows = min(kT, L - t0);
-    for (int p = threadIdx.x; p < P; p += blockDim.x) {
-      hr[(long long)tile * P + p] = carry[p];
-      hi[(long long)tile * P + p] = carry[P + p];
+// acc[i][j] = sum_k A(ty*8 + i, k) * Bm(k, n_j) for this thread's 8x8
+// outputs of the CTA tile, ty = tid / 8, tx = tid % 8, n_j = tx*4 + j and,
+// for j >= 4, 32 + tx*4 + j - 4 (a warp's shared-memory reads of B and
+// stores of the tile are then free of bank conflicts); fa(m, k) and
+// fb(k, n) give the operands, 0 outside their ranges. Each output is one fmaf chain
+// over k in ascending order from 0. kRowA: A(m, k) runs along k in memory
+// (a row of a (rows, K) array), so consecutive threads fetch consecutive k;
+// otherwise A runs along m (a row of a (rows, M) array with k the row).
+// Ends with the shared memory free for the caller.
+template <bool kRowA, class FA, class FB>
+__device__ __forceinline__ void gemm_tile(int K, const FA& fa, const FB& fb,
+                                          TileSmem& tsm, float (&acc)[8][8]) {
+  GemmSmem& sm = tsm.g;
+  constexpr int kNA = kBM * kBK / kGT;
+  constexpr int kNB = kBK * kBN / kGT;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 3, tx = tid & 7;
+  float ra[kNA], rb[kNB];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kNA; ++i) {
+      const int e = i * kGT + tid;
+      const int m = kRowA ? e / kBK : e % kBM;
+      const int k = kRowA ? e % kBK : e / kBM;
+      ra[i] = fa(m, k0 + k);
     }
-    if (tile == n_tiles - 1) break;   // its exit state is not needed
-    load_tile(x, nullptr, row0, bf16, t0, rows, H, ldh, nw, nb, nullptr, Z);
-    __syncthreads();
-    tile_matmul(Z, ldh, wb, H, 2 * P, rows,
-                [&](int r, int c, float acc) { S[r * ldp + c] = acc; });
-    __syncthreads();
-    scan_tile(S, ldp, P, rows, lam_re, lam_im, carry, false, nullptr);
+#pragma unroll
+    for (int i = 0; i < kNB; ++i) {
+      const int e = i * kGT + tid;
+      rb[i] = fb(k0 + e / kBN, e % kBN);
+    }
+  };
+  auto stash = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < kNA; ++i) {
+      const int e = i * kGT + tid;
+      const int m = kRowA ? e / kBK : e % kBM;
+      const int k = kRowA ? e % kBK : e / kBM;
+      sm.a[s][k][m] = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kNB; ++i) {
+      const int e = i * kGT + tid;
+      sm.b[s][e / kBN][e % kBN] = rb[i];
+    }
+  };
+  const int n_k = (K + kBK - 1) / kBK;
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < n_k) fetch((kt + 1) * kBK);
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&sm.a[s][kk][ty * 8]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&sm.a[s][kk][ty * 8 + 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&sm.b[s][kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&sm.b[s][kk][32 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (kt + 1 < n_k) stash(s ^ 1);
     __syncthreads();
   }
 }
 
-// dW(m, n) (+)= sum_r A[r*lda + m] * Bm[r*ldb + n] over the tile's rows; A
-// and Bm in shared memory, dW (M, N) row-major in this batch row's slice of
-// device memory. `relu_a` applies the mixer relu to A on load. The first
-// tile stores, later tiles add.
-__device__ inline void tile_outer_accum(const float* A, int lda,
-                                        const float* Bm, int ldb,
-                                        float* __restrict__ dW, int M, int N,
-                                        int rows, bool relu_a, bool first) {
-  const int m_groups = (M + kMT - 1) / kMT;
-  const int n_items = m_groups * N;
-  for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
-    const int n = item % N;
-    const int m0 = (item / N) * kMT;
-    float acc[kMT];
+// The epilogue of a product tile: the threads' 8x8 accumulators go to
+// shared memory, then epi(m, c, value) runs for every element of the
+// first `rows` rows and `cols` columns in row order, thread t on column
+// t % kBN of rows t / kBN, t / kBN + 2, ...: a warp reads and writes 32
+// consecutive elements of a row. Every thread of the CTA calls it.
+template <class Epi>
+__device__ __forceinline__ void tile_epilogue(const float (&acc)[8][8],
+                                              TileSmem& sm, int rows,
+                                              int cols, const Epi& epi) {
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
 #pragma unroll
-    for (int i = 0; i < kMT; ++i) acc[i] = 0.f;
-    if (m0 + kMT <= M) {
-      for (int r = 0; r < rows; ++r) {
-        const float bv = Bm[r * ldb + n];
-        float4 a0 = *reinterpret_cast<const float4*>(A + r * lda + m0);
-        float4 a1 = *reinterpret_cast<const float4*>(A + r * lda + m0 + 4);
-        if (relu_a) {
-          a0.x = fmaxf(a0.x, 0.f); a0.y = fmaxf(a0.y, 0.f);
-          a0.z = fmaxf(a0.z, 0.f); a0.w = fmaxf(a0.w, 0.f);
-          a1.x = fmaxf(a1.x, 0.f); a1.y = fmaxf(a1.y, 0.f);
-          a1.z = fmaxf(a1.z, 0.f); a1.w = fmaxf(a1.w, 0.f);
-        }
-        acc[0] = fmaf(a0.x, bv, acc[0]);
-        acc[1] = fmaf(a0.y, bv, acc[1]);
-        acc[2] = fmaf(a0.z, bv, acc[2]);
-        acc[3] = fmaf(a0.w, bv, acc[3]);
-        acc[4] = fmaf(a1.x, bv, acc[4]);
-        acc[5] = fmaf(a1.y, bv, acc[5]);
-        acc[6] = fmaf(a1.z, bv, acc[6]);
-        acc[7] = fmaf(a1.w, bv, acc[7]);
-      }
-    } else {
-      for (int r = 0; r < rows; ++r) {
-        const float bv = Bm[r * ldb + n];
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) {
-          if (m0 + i < M) {
-            float a = A[r * lda + m0 + i];
-            if (relu_a) a = fmaxf(a, 0.f);
-            acc[i] = fmaf(a, bv, acc[i]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-      if (m0 + i < M) {
-        float* o = dW + (long long)(m0 + i) * N + n;
-        *o = first ? acc[i] : *o + acc[i];
-      }
-    }
+  for (int i = 0; i < 8; ++i) {
+    *reinterpret_cast<float4*>(&sm.c[ty * 8 + i][tx * 4]) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(&sm.c[ty * 8 + i][32 + tx * 4]) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
+  __syncthreads();
+  const int c = threadIdx.x % kBN;
+  if (c < cols)
+    for (int m = threadIdx.x / kBN; m < rows; m += kGT / kBN)
+      epi(m, c, sm.c[m][c]);
+  __syncthreads();
+}
+
+// out[c] = the sum over the tile's rows of a column's partials, which the
+// kGT / kBN = 2 threads of column c hold (`v`), in a fixed order. Every
+// thread of the CTA calls it, after tile_epilogue.
+__device__ inline void tile_col_sum(float v, TileSmem& sm,
+                                    float* __restrict__ out, int cols) {
+  float* red = &sm.c[0][0];
+  red[threadIdx.x] = v;
+  __syncthreads();
+  if ((int)threadIdx.x < cols)
+    out[threadIdx.x] = red[threadIdx.x] + red[threadIdx.x + kBN];
+  __syncthreads();
+}
+
+// A chunk of time rows: `rows` rows of batch row b from element row `row0`
+// of the (B*L, .) arrays.
+struct Chunk {
+  long long row0;
+  int rows, b;
+};
+
+__device__ inline Chunk chunk_of(int ci, int L, int cpr) {
+  const int b = ci / cpr, t0 = (ci % cpr) * kBM;
+  return {(long long)b * L + t0, min(kBM, L - t0), b};
 }
 
 struct BwdArgs {
@@ -175,304 +254,532 @@ struct BwdArgs {
   const float* wbT; const float* wcT;        // (2P, H), (H, 2P)
   const float* d;                            // (H)
   const float* lam_re; const float* lam_im;  // (P)
-  const float* o2k; const float* o2kT; const float* o2b;
-  const float* o1k; const float* o1kT; const float* o1b;
+  const float* o2k; const float* o2b;        // (H, H), (H) or null
+  const float* o1k; const float* o1b;        // (H, H), (H) or null (full)
+  const float* gluT;                         // (n_glu*H, H): W2^T [; W1^T]
   const float* m1; const float* m2;          // (B, H) or null
-  const float* hist_re; const float* hist_im;  // (B, n_tiles, P)
-  // outputs; every gradient but gx is per batch row
+  // scratch, (B*L, width) f32; S holds the raw states of K3a
+  float* S; float* Y; float* X1D; float* F; float* G; float* GS; float* GY;
+  float* V;
+  // outputs
   void* gx;                                  // (B, L, H) stream
   void* gskip;                               // (B, L, H) or null (affine)
-  float* dwb; float* dwc;                    // (B, H, 2P), (B, 2P, H)
-  float* do2k; float* do1k;                  // (B, H, H) or null
-  float* dd; float* do2b; float* do1b;       // (B, H)
-  float* dm1; float* dm2;                    // (B, H) or null
-  float* dnw; float* dnb;                    // (B, H) or null
-  float* dlam_re; float* dlam_im;            // (B, P)
-  int L, H, P, glu, act, relu_state, layer_relu, bf16;
+  float* vec;                                // (n_chunks, kNVec, H)
+  float* dlam;                               // (2, B, P)
+  float* dwc;                                // (n_splits, 2P, H)
+  float* dglu;                               // (n_splits, H, n_glu*H)
+  float* dwb;                                // (n_splits, 2P, H): d_w_b^T
+  int B, L, H, P, glu, act, relu_state, layer_relu, bf16, cpr, split_rows;
 };
 
-__global__ void __launch_bounds__(kThreads)
-layer_tail_bwd_kernel(const BwdArgs a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int L = a.L, H = a.H, P = a.P, glu = a.glu, act = a.act;
-  const int ldh = round4(H);
-  const int ldp = round4(2 * P);
-  float* XG = smem;               // residual rows, then the masked g
-  float* Z = XG + kT * ldh;       // normed rows
-  float* Y = Z + kT * ldh;        // y
-  float* D = Y + kT * ldh;        // x1 after m1; g_x1d; g_zn
-  float* E = D + kT * ldh;        // gate; g_s; g_y
-  float* F = E + kT * ldh;        // "full" base; g_base
-  float* S = F + kT * ldh;        // bu, then the raw states [re | im]
-  float* V = S + kT * ldp;        // relu'd states; g_xs; v
-  float* entry = V + kT * ldp;    // (2P) state entering the tile
-  float* fcarry = entry + 2 * P;  // (2P) the recomputed scan's moving carry
-  float* vcarry = fcarry + 2 * P; // (2P) adjoint carry across tiles
-  float* acc_dd = vcarry + 2 * P;   // (H) each, then (P) each
-  float* acc_o2b = acc_dd + H;
-  float* acc_o1b = acc_o2b + H;
-  float* acc_m1 = acc_o1b + H;
-  float* acc_m2 = acc_m1 + H;
-  float* acc_nw = acc_m2 + H;
-  float* acc_nb = acc_nw + H;
-  float* acc_lr = acc_nb + H;
-  float* acc_li = acc_lr + P;
+// z at element `el` of column c: x*nw + nb (affine) or the z stream, as
+// load_tile computes it for K2
+__device__ inline float z_at(const BwdArgs& a, long long el, int c) {
+  const float v = load_stream(a.x, el, a.bf16);
+  return a.nw ? fmaf(v, a.nw[c], a.nb[c]) : v;
+}
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int n_tiles = (L + kT - 1) / kT;
-  const bool relu_state = a.relu_state != 0;
-  const bool layer_relu = a.layer_relu != 0;
-  const int bf16 = a.bf16;
-  const bool affine = a.nw != nullptr;
-  const long long row0 = (long long)b * L * H;
-  const float* m1 = a.m1 ? a.m1 + (long long)b * H : nullptr;
-  const float* m2 = a.m2 ? a.m2 + (long long)b * H : nullptr;
-  float* dwb = a.dwb + (long long)b * H * 2 * P;
-  float* dwc = a.dwc + (long long)b * 2 * P * H;
-  float* do2k = a.do2k ? a.do2k + (long long)b * H * H : nullptr;
-  float* do1k = a.do1k ? a.do1k + (long long)b * H * H : nullptr;
-  const float* dvec = a.d;
-  const float* o2b = a.o2b;
-  const float* o1b = a.o1b;
+// the residual at element `el`: x (affine) or skip
+__device__ inline float res_at(const BwdArgs& a, long long el) {
+  return load_stream(a.nw ? a.x : a.skip, el, a.bf16);
+}
 
-  for (int i = tid; i < 2 * P; i += blockDim.x) vcarry[i] = 0.f;
-  for (int i = tid; i < 7 * H + 2 * P; i += blockDim.x) acc_dd[i] = 0.f;
-  __syncthreads();
+// this CTA's columns of a vector-gradient slot of chunk ci
+__device__ inline float* vec_slot(const BwdArgs& a, int ci, int slot,
+                                  int n0) {
+  return a.vec + ((long long)ci * kNVec + slot) * a.H + n0;
+}
 
-  for (int tile = n_tiles - 1; tile >= 0; --tile) {
-    const int t0 = tile * kT;
-    const int rows = min(kT, L - t0);
-    const bool first = tile == n_tiles - 1;
+// ---------------------------------------------------------------- K3a
 
-    // ======== forward chain of this tile, from its entry state ========
-    load_tile(a.x, a.skip, row0, bf16, t0, rows, H, ldh, a.nw, a.nb, XG, Z);
-    for (int p = tid; p < P; p += blockDim.x) {
-      const long long at = ((long long)b * n_tiles + tile) * P + p;
-      entry[p] = fcarry[p] = a.hist_re[at];
-      entry[P + p] = fcarry[P + p] = a.hist_im[at];
-    }
-    __syncthreads();
-    tile_matmul(Z, ldh, a.wb, H, 2 * P, rows,
-                [&](int r, int c, float acc) { S[r * ldp + c] = acc; });
-    __syncthreads();
-    // raw states stay in S (d_lam and the relu mask need them); the relu'd
-    // states, the C-projection's operand, go to V
-    scan_tile(S, ldp, P, rows, a.lam_re, a.lam_im, fcarry, false,
-              relu_state ? V : nullptr);
-    __syncthreads();
-    tile_matmul(relu_state ? V : S, ldp, a.wc, 2 * P, H, rows,
-                [&](int r, int c, float acc) {
-                  Y[r * ldh + c] = fmaf(dvec[c], Z[r * ldh + c], acc);
+__global__ void __launch_bounds__(kGT, kMinCtas)
+tail_hist_bproj_kernel(const void* __restrict__ x,
+                       const float* __restrict__ nw,
+                       const float* __restrict__ nb,
+                       const float* __restrict__ wb, float* __restrict__ S,
+                       int L, int H, int P, int bf16, int cpr) {
+  __shared__ __align__(16) TileSmem sm;
+  const Chunk ch = chunk_of(blockIdx.y, L, cpr);
+  const int N = 2 * P, n0 = blockIdx.x * kBN;
+  auto fa = [&](int m, int k) -> float {
+    if (m >= ch.rows || k >= H) return 0.f;
+    const float v = load_stream(x, (ch.row0 + m) * H + k, bf16);
+    return nw ? fmaf(v, nw[k], nb[k]) : v;
+  };
+  auto fb = [&](int k, int n) -> float {
+    return k < H && n0 + n < N ? __ldg(wb + (long long)k * N + n0 + n) : 0.f;
+  };
+  float acc[8][8];
+  gemm_tile<true>(H, fa, fb, sm, acc);
+  tile_epilogue(acc, sm, ch.rows, min(kBN, N - n0),
+                [&](int m, int c, float v) {
+                  S[(ch.row0 + m) * N + n0 + c] = v;
                 });
-    __syncthreads();
-    for (int i = tid; i < rows * H; i += blockDim.x) {
-      const int r = i / H, c = i % H;
-      D[r * ldh + c] = x1_dropped(Y[r * ldh + c], act, m1, c);
-    }
-    __syncthreads();
-    if (glu == kFull) {
-      tile_matmul(D, ldh, a.o1k, H, H, rows, [&](int r, int c, float acc) {
-        F[r * ldh + c] = acc + o1b[c];
-      });
-    }
-    if (glu != kNone) {
-      tile_matmul(D, ldh, a.o2k, H, H, rows, [&](int r, int c, float acc) {
-        E[r * ldh + c] = sigmoid_fn(acc + o2b[c]);
-      });
-    }
-    __syncthreads();
+}
 
-    // ======== adjoint chain, top down; a thread owns a column ========
-    for (int c = tid; c < H; c += blockDim.x) {
-      const float* base_buf = glu == kHalf1 ? D : (glu == kHalf2 ? Y : F);
-      const float mask2 = m2 ? m2[c] : 1.f;
-      float s_m2 = 0.f, s_o2b = 0.f, s_o1b = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const int at = r * ldh + c;
-        const float xv = XG[at];   // the residual
-        float g = load_stream(a.g, row0 + (long long)(t0 + r) * H + c, bf16);
-        if (glu == kNone) {
-          if (layer_relu && !(D[at] + xv > 0.f)) g = 0.f;
-        } else {
-          const float base = base_buf[at], gate = E[at];
-          if (layer_relu && !(gated_out(base, gate, m2, c, xv) > 0.f))
-            g = 0.f;
-          s_m2 += g * (base * gate);
-          const float g_h = g * mask2;
-          const float g_base = g_h * gate;
-          const float g_s = (g_h * base) * gate * (1.f - gate);
-          E[at] = g_s;
-          F[at] = g_base;
-          s_o2b += g_s;
-          s_o1b += g_base;
-        }
-        XG[at] = g;
-      }
-      acc_m2[c] += s_m2;
-      acc_o2b[c] += s_o2b;
-      acc_o1b[c] += s_o1b;
-    }
-    __syncthreads();
-    if (glu != kNone) {
-      // weight gradients of the GLU denses: x1^T g_s, x1^T g_base
-      tile_outer_accum(D, ldh, E, ldh, do2k, H, H, rows, false, first);
-      if (glu == kFull)
-        tile_outer_accum(D, ldh, F, ldh, do1k, H, H, rows, false, first);
-      __syncthreads();
-      // g_x1d = g_s @ W2^T (+ g_base | + g_base @ W1^T), into D
-      tile_matmul(E, ldh, a.o2kT, H, H, rows, [&](int r, int c, float acc) {
-        D[r * ldh + c] = glu == kHalf1 ? acc + F[r * ldh + c] : acc;
-      });
-      if (glu == kFull) {
-        // the same thread owns (r, c) in both products
-        tile_matmul(F, ldh, a.o1kT, H, H, rows, [&](int r, int c, float acc) {
-          D[r * ldh + c] += acc;
-        });
-      }
-      __syncthreads();
-    }
-    // g_y = g_x1d * m1 * act'(y) (+ g_base for half2), into E
-    for (int c = tid; c < H; c += blockDim.x) {
-      const float* gx1d = glu == kNone ? XG : D;
-      const float mask1 = m1 ? m1[c] : 1.f;
-      float s_m1 = 0.f, s_dd = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const int at = r * ldh + c;
-        const float y = Y[at];
-        const float g1 = gx1d[at];
-        s_m1 += g1 * act_fn(y, act);
-        float g_y = (g1 * mask1) * act_grad(y, act);
-        if (glu == kHalf2) g_y += F[at];
-        E[at] = g_y;
-        s_dd += g_y * Z[at];
-      }
-      acc_m1[c] += s_m1;
-      acc_dd[c] += s_dd;
-    }
-    __syncthreads();
-    // g_xs = g_y @ W_c^T into V; d_w_c += xs^T g_y (xs = relu'd S)
-    tile_matmul(E, ldh, a.wcT, H, 2 * P, rows,
-                [&](int r, int c, float acc) { V[r * ldp + c] = acc; });
-    tile_outer_accum(S, ldp, E, ldh, dwc, 2 * P, H, rows, relu_state, first);
-    __syncthreads();
-    // reverse-time recurrence with conj(lam), the carry kept across tiles;
-    // d_lam from the previous-step raw states (row 0: the entry state)
-    for (int p = tid; p < P; p += blockDim.x) {
-      const float lr = a.lam_re[p], li = a.lam_im[p];
-      float vr = vcarry[p], vi = vcarry[P + p];
-      float s_lr = 0.f, s_li = 0.f;
-      for (int r = rows - 1; r >= 0; --r) {
-        float gr = V[r * ldp + p], gi = V[r * ldp + P + p];
-        if (relu_state) {
-          if (!(S[r * ldp + p] > 0.f)) gr = 0.f;
-          if (!(S[r * ldp + P + p] > 0.f)) gi = 0.f;
-        }
-        const float nr = gr + (lr * vr + li * vi);
-        const float ni = gi + (lr * vi - li * vr);
-        vr = nr;
-        vi = ni;
-        V[r * ldp + p] = vr;
-        V[r * ldp + P + p] = vi;
-        const float xpr = r > 0 ? S[(r - 1) * ldp + p] : entry[p];
-        const float xpi = r > 0 ? S[(r - 1) * ldp + P + p] : entry[P + p];
-        s_lr += vr * xpr + vi * xpi;
-        s_li += vi * xpr - vr * xpi;
-      }
-      vcarry[p] = vr;
-      vcarry[P + p] = vi;
-      acc_lr[p] += s_lr;
-      acc_li[p] += s_li;
-    }
-    __syncthreads();
-    // g_zn = v @ W_b^T + g_y * d into D; d_w_b += z^T v
-    tile_matmul(V, ldp, a.wbT, 2 * P, H, rows, [&](int r, int c, float acc) {
-      D[r * ldh + c] = fmaf(E[r * ldh + c], dvec[c], acc);
-    });
-    tile_outer_accum(Z, ldh, V, ldp, dwb, H, 2 * P, rows, false, first);
-    __syncthreads();
-    // affine: g_x = g_zn * nw + g, d_nw, d_nb; non-affine: g_z = g_zn and
-    // g_skip = g (the masked g)
-    for (int c = tid; c < H; c += blockDim.x) {
-      if (affine) {
-        const float w = a.nw[c];
-        float s_nw = 0.f, s_nb = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          const int at = r * ldh + c;
-          const long long el = row0 + (long long)(t0 + r) * H + c;
-          const float g_zn = D[at];
-          s_nw += g_zn * load_stream(a.x, el, bf16);
-          s_nb += g_zn;
-          store_stream(a.gx, el, fmaf(g_zn, w, XG[at]), bf16);
-        }
-        acc_nw[c] += s_nw;
-        acc_nb[c] += s_nb;
-      } else {
-        for (int r = 0; r < rows; ++r) {
-          const int at = r * ldh + c;
-          const long long el = row0 + (long long)(t0 + r) * H + c;
-          store_stream(a.gx, el, D[at], bf16);
-          store_stream(a.gskip, el, XG[at], bf16);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int c = tid; c < H; c += blockDim.x) {
-    const long long at = (long long)b * H + c;
-    a.dd[at] = acc_dd[c];
-    if (a.dnw) a.dnw[at] = acc_nw[c];
-    if (a.dnb) a.dnb[at] = acc_nb[c];
-    if (a.do2b) a.do2b[at] = acc_o2b[c];
-    if (a.do1b) a.do1b[at] = acc_o1b[c];
-    if (a.dm1) a.dm1[at] = acc_m1[c];
-    if (a.dm2) a.dm2[at] = acc_m2[c];
-  }
-  for (int p = tid; p < P; p += blockDim.x) {
-    a.dlam_re[(long long)b * P + p] = acc_lr[p];
-    a.dlam_im[(long long)b * P + p] = acc_li[p];
+// Loads of `kU` consecutive steps of one channel's re and im columns of a
+// (L, 2P) slice, rows t0 + u * step (0 outside [0, L)).
+template <int kU>
+__device__ inline void fetch_steps(const float* __restrict__ s, int P, int L,
+                                   int p, int t0, int step, float (&re)[kU],
+                                   float (&im)[kU]) {
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const int t = t0 + u * step;
+    const bool in = t >= 0 && t < L;
+    re[u] = in ? s[(long long)t * 2 * P + p] : 0.f;
+    im[u] = in ? s[(long long)t * 2 * P + P + p] : 0.f;
   }
 }
 
-size_t bwd_smem_bytes(int H, int P) {
-  return sizeof(float) * ((size_t)kT * (6 * round4(H) + 2 * round4(2 * P)) +
-                          6 * P + 7 * H + 2 * P);
+__global__ void __launch_bounds__(kScanT)
+tail_hist_scan_kernel(float* __restrict__ S, const float* __restrict__ lam_re,
+                      const float* __restrict__ lam_im,
+                      float* __restrict__ hist_re,
+                      float* __restrict__ hist_im, int L, int P) {
+  constexpr int kU = 32;
+  const int groups = (P + kScanT - 1) / kScanT;
+  const int b = blockIdx.x / groups;
+  const int p = (blockIdx.x % groups) * kScanT + threadIdx.x;
+  if (p >= P) return;
+  const int n_tiles = (L + kT - 1) / kT;
+  float* s = S + (long long)b * L * 2 * P;
+  float* hr = hist_re + (long long)b * n_tiles * P + p;
+  float* hi = hist_im + (long long)b * n_tiles * P + p;
+  const float lr = lam_re[p], li = lam_im[p];
+  float xr = 0.f, xi = 0.f;
+  float cr[kU], ci[kU], nr[kU], ni[kU];
+  fetch_steps<kU>(s, P, L, p, 0, 1, cr, ci);
+  for (int t0 = 0; t0 < L; t0 += kU) {
+    // the next steps' loads go out before this block's dependent chain
+    if (t0 + kU < L) fetch_steps<kU>(s, P, L, p, t0 + kU, 1, nr, ni);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int t = t0 + u;
+      if (t < L) {
+        if (t % kT == 0) {
+          hr[(long long)(t / kT) * P] = xr;
+          hi[(long long)(t / kT) * P] = xi;
+        }
+        scan_step(lr, li, cr[u], ci[u], xr, xi);
+        s[(long long)t * 2 * P + p] = xr;
+        s[(long long)t * 2 * P + P + p] = xi;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      cr[u] = nr[u];
+      ci[u] = ni[u];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K3b
+
+// y = relu?(S) @ W_c + d*z and x1d; without a GLU the adjoint of the
+// element follows at once: the masked g, g_y, d_m1 and d_d
+__global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_proj_kernel(const BwdArgs a) {
+  __shared__ __align__(16) TileSmem sm;
+  const int H = a.H, N2 = 2 * a.P;
+  const Chunk ch = chunk_of(blockIdx.y, a.L, a.cpr);
+  const int n0 = blockIdx.x * kBN;
+  const bool rs = a.relu_state != 0;
+  auto fa = [&](int m, int k) -> float {
+    if (m >= ch.rows || k >= N2) return 0.f;
+    const float v = a.S[(ch.row0 + m) * N2 + k];
+    return rs ? fmaxf(v, 0.f) : v;
+  };
+  auto fb = [&](int k, int n) -> float {
+    return k < N2 && n0 + n < H ? __ldg(a.wc + (long long)k * H + n0 + n)
+                                : 0.f;
+  };
+  float acc[8][8];
+  gemm_tile<true>(N2, fa, fb, sm, acc);
+  const int cols = min(kBN, H - n0);
+  const float* m1 = a.m1 ? a.m1 + (long long)ch.b * H : nullptr;
+  const bool gated = a.glu != kNone;
+  float s_m1 = 0.f, s_dd = 0.f;
+  tile_epilogue(acc, sm, ch.rows, cols, [&](int m, int cl, float v) {
+    const int c = n0 + cl;
+    const long long el = (ch.row0 + m) * H + c;
+    const float z = z_at(a, el, c);
+    const float y = fmaf(a.d[c], z, v);
+    const float x1d = x1_dropped(y, a.act, m1, c);
+    if (gated) {
+      a.Y[el] = y;
+      a.X1D[el] = x1d;
+      return;
+    }
+    float gv = load_stream(a.g, el, a.bf16);
+    if (a.layer_relu && !(x1d + res_at(a, el) > 0.f)) gv = 0.f;
+    a.G[el] = gv;
+    s_m1 += gv * act_fn(y, a.act);
+    const float g_y = (gv * (m1 ? m1[c] : 1.f)) * act_grad(y, a.act);
+    a.GY[el] = g_y;
+    s_dd += g_y * z;
+  });
+  if (gated) return;
+  if (m1) tile_col_sum(s_m1, sm, vec_slot(a, blockIdx.y, kM1, n0), cols);
+  tile_col_sum(s_dd, sm, vec_slot(a, blockIdx.y, kDd, n0), cols);
+}
+
+// the full GLU's base: F = x1d @ W1 + b1
+__global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_base_kernel(const BwdArgs a) {
+  __shared__ __align__(16) TileSmem sm;
+  const int H = a.H;
+  const Chunk ch = chunk_of(blockIdx.y, a.L, a.cpr);
+  const int n0 = blockIdx.x * kBN;
+  auto fa = [&](int m, int k) -> float {
+    return m < ch.rows && k < H ? a.X1D[(ch.row0 + m) * H + k] : 0.f;
+  };
+  auto fb = [&](int k, int n) -> float {
+    return k < H && n0 + n < H ? __ldg(a.o1k + (long long)k * H + n0 + n)
+                               : 0.f;
+  };
+  float acc[8][8];
+  gemm_tile<true>(H, fa, fb, sm, acc);
+  tile_epilogue(acc, sm, ch.rows, min(kBN, H - n0),
+                [&](int m, int cl, float v) {
+                  const int c = n0 + cl;
+                  a.F[(ch.row0 + m) * H + c] = v + a.o1b[c];
+                });
+}
+
+// gate = sigmoid(x1d @ W2 + b2), the layer-relu mask on g, g_s and g_base
+// into GS = [g_s | g_base]; d_m2, d_o2b, d_o1b
+__global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_gate_kernel(const BwdArgs a) {
+  __shared__ __align__(16) TileSmem sm;
+  const int H = a.H, glu = a.glu;
+  const Chunk ch = chunk_of(blockIdx.y, a.L, a.cpr);
+  const int n0 = blockIdx.x * kBN;
+  auto fa = [&](int m, int k) -> float {
+    return m < ch.rows && k < H ? a.X1D[(ch.row0 + m) * H + k] : 0.f;
+  };
+  auto fb = [&](int k, int n) -> float {
+    return k < H && n0 + n < H ? __ldg(a.o2k + (long long)k * H + n0 + n)
+                               : 0.f;
+  };
+  float acc[8][8];
+  gemm_tile<true>(H, fa, fb, sm, acc);
+  const int cols = min(kBN, H - n0);
+  const float* m2 = a.m2 ? a.m2 + (long long)ch.b * H : nullptr;
+  const float* base_buf = glu == kHalf1 ? a.X1D : (glu == kHalf2 ? a.Y : a.F);
+  float s_m2 = 0.f, s_o2b = 0.f, s_o1b = 0.f;
+  tile_epilogue(acc, sm, ch.rows, cols, [&](int m, int cl, float v) {
+    const int c = n0 + cl;
+    const long long row = ch.row0 + m;
+    const long long el = row * H + c;
+    const float gate = sigmoid_fn(v + a.o2b[c]);
+    const float base = base_buf[el];
+    float gv = load_stream(a.g, el, a.bf16);
+    if (a.layer_relu && !(gated_out(base, gate, m2, c, res_at(a, el)) > 0.f))
+      gv = 0.f;
+    s_m2 += gv * (base * gate);
+    const float g_h = gv * (m2 ? m2[c] : 1.f);
+    const float g_base = g_h * gate;
+    const float g_s = (g_h * base) * gate * (1.f - gate);
+    a.GS[row * 2 * H + c] = g_s;
+    a.GS[row * 2 * H + H + c] = g_base;
+    a.G[el] = gv;
+    s_o2b += g_s;
+    s_o1b += g_base;
+  });
+  if (m2) tile_col_sum(s_m2, sm, vec_slot(a, blockIdx.y, kM2, n0), cols);
+  tile_col_sum(s_o2b, sm, vec_slot(a, blockIdx.y, kO2b, n0), cols);
+  if (glu == kFull)
+    tile_col_sum(s_o1b, sm, vec_slot(a, blockIdx.y, kO1b, n0), cols);
+}
+
+// g_x1d = g_s @ W2^T, plus g_base (half1) or g_base @ W1^T (full: kBase
+// runs that product first into GY, and the sum is of the two chains);
+// then g_y = g_x1d*m1*act'(y)
+// (half2: + g_base); d_m1, d_d
+template <bool kBase>
+__global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_gx1d_kernel(const BwdArgs a) {
+  __shared__ __align__(16) TileSmem sm;
+  const int H = a.H, glu = a.glu;
+  const Chunk ch = chunk_of(blockIdx.y, a.L, a.cpr);
+  const int n0 = blockIdx.x * kBN;
+  const int k0 = kBase ? H : 0;   // g_base and W1^T, or g_s and W2^T
+  auto fa = [&](int m, int k) -> float {
+    return m < ch.rows && k < H ? a.GS[(ch.row0 + m) * 2 * H + k0 + k] : 0.f;
+  };
+  auto fb = [&](int k, int n) -> float {
+    return k < H && n0 + n < H
+               ? __ldg(a.gluT + (long long)(k0 + k) * H + n0 + n)
+               : 0.f;
+  };
+  float acc[8][8];
+  gemm_tile<true>(H, fa, fb, sm, acc);
+  const int cols = min(kBN, H - n0);
+  if (kBase) {
+    tile_epilogue(acc, sm, ch.rows, cols, [&](int m, int cl, float v) {
+      a.GY[(ch.row0 + m) * H + n0 + cl] = v;
+    });
+    return;
+  }
+  const float* m1 = a.m1 ? a.m1 + (long long)ch.b * H : nullptr;
+  float s_m1 = 0.f, s_dd = 0.f;
+  tile_epilogue(acc, sm, ch.rows, cols, [&](int m, int cl, float v) {
+    const int c = n0 + cl;
+    const long long row = ch.row0 + m;
+    const long long el = row * H + c;
+    const float g_base = a.GS[row * 2 * H + H + c];
+    const float g1 = glu == kHalf1   ? v + g_base
+                     : glu == kFull ? v + a.GY[el]
+                                    : v;
+    const float y = a.Y[el];
+    s_m1 += g1 * act_fn(y, a.act);
+    float g_y = (g1 * (m1 ? m1[c] : 1.f)) * act_grad(y, a.act);
+    if (glu == kHalf2) g_y += g_base;
+    a.GY[el] = g_y;
+    s_dd += g_y * z_at(a, el, c);
+  });
+  if (m1) tile_col_sum(s_m1, sm, vec_slot(a, blockIdx.y, kM1, n0), cols);
+  tile_col_sum(s_dd, sm, vec_slot(a, blockIdx.y, kDd, n0), cols);
+}
+
+// g_xs = g_y @ W_c^T into V, zero where relu_state cut the raw state
+__global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_gxs_kernel(const BwdArgs a) {
+  __shared__ __align__(16) TileSmem sm;
+  const int H = a.H, N2 = 2 * a.P;
+  const Chunk ch = chunk_of(blockIdx.y, a.L, a.cpr);
+  const int n0 = blockIdx.x * kBN;
+  auto fa = [&](int m, int k) -> float {
+    return m < ch.rows && k < H ? a.GY[(ch.row0 + m) * H + k] : 0.f;
+  };
+  auto fb = [&](int k, int n) -> float {
+    return k < H && n0 + n < N2 ? __ldg(a.wcT + (long long)k * N2 + n0 + n)
+                                : 0.f;
+  };
+  float acc[8][8];
+  gemm_tile<true>(H, fa, fb, sm, acc);
+  tile_epilogue(acc, sm, ch.rows, min(kBN, N2 - n0),
+                [&](int m, int cl, float v) {
+                  const long long at = (ch.row0 + m) * N2 + n0 + cl;
+                  a.V[at] = a.relu_state && !(a.S[at] > 0.f) ? 0.f : v;
+                });
+}
+
+// A weight gradient's partial over one slice of rows: part[s](m, n) = sum
+// over rows r of the slice of A(r, m) * Bm(r, n). kWhich 0: d_w_c =
+// relu?(S)^T g_y (2P x H); 1: x1d^T [g_s | g_base] (H x n_glu*H); 2:
+// d_w_b^T = v^T z (2P x H: M a multiple of the tile's 128 rows, so no
+// tile is half empty; the wrapper transposes the sum).
+template <int kWhich>
+__global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_wgrad_kernel(const BwdArgs a) {
+  __shared__ __align__(16) TileSmem sm;
+  const int H = a.H, N2 = 2 * a.P;
+  const int n_glu = a.glu == kFull ? 2 : 1;
+  const int M = kWhich == 1 ? H : N2;
+  const int N = kWhich == 1 ? n_glu * H : H;
+  const long long rows = (long long)a.B * a.L;
+  const long long r0 = (long long)blockIdx.z * a.split_rows;
+  const int n_rows = (int)min((long long)a.split_rows, rows - r0);
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const bool rs = a.relu_state != 0;
+  auto fa = [&](int m, int k) -> float {
+    const int f = m0 + m;
+    if (k >= n_rows || f >= M) return 0.f;
+    const long long r = r0 + k;
+    if (kWhich == 0) {
+      const float v = a.S[r * N2 + f];
+      return rs ? fmaxf(v, 0.f) : v;
+    }
+    if (kWhich == 1) return a.X1D[r * H + f];
+    return a.V[r * N2 + f];
+  };
+  // z's affine at this thread's column of every B fetch (tid % kBN)
+  const int fz = n0 + (int)threadIdx.x % kBN;
+  const bool zin = kWhich == 2 && a.nw && fz < H;
+  const float zw = zin ? a.nw[fz] : 1.f, zb = zin ? a.nb[fz] : 0.f;
+  auto fb = [&](int k, int n) -> float {
+    const int f = n0 + n;
+    if (k >= n_rows || f >= N) return 0.f;
+    const long long r = r0 + k;
+    if (kWhich == 0) return a.GY[r * H + f];
+    if (kWhich == 1) return a.GS[r * 2 * H + f];
+    const float v = load_stream(a.x, r * H + f, a.bf16);
+    return a.nw ? fmaf(v, zw, zb) : v;
+  };
+  float acc[8][8];
+  gemm_tile<false>(n_rows, fa, fb, sm, acc);
+  float* part = (kWhich == 0 ? a.dwc : (kWhich == 1 ? a.dglu : a.dwb)) +
+                (long long)blockIdx.z * M * N;
+  tile_epilogue(acc, sm, min(kBM, M - m0), min(kBN, N - n0),
+                [&](int m, int c, float v) {
+                  part[(long long)(m0 + m) * N + n0 + c] = v;
+                });
+}
+
+// v_t = g_xs,t + conj(lam) v_{t+1} over the whole row, last step first, in
+// place over V; d_lam from the previous step's raw states (step 0: the
+// zero initial state)
+__global__ void __launch_bounds__(kScanT) tail_bwd_rev_kernel(const BwdArgs a) {
+  constexpr int kU = 16;
+  const int P = a.P, L = a.L;
+  const int groups = (P + kScanT - 1) / kScanT;
+  const int b = blockIdx.x / groups;
+  const int p = (blockIdx.x % groups) * kScanT + threadIdx.x;
+  if (p >= P) return;
+  float* v = a.V + (long long)b * L * 2 * P;
+  const float* s = a.S + (long long)b * L * 2 * P;
+  const float lr = a.lam_re[p], li = a.lam_im[p];
+  float vr = 0.f, vi = 0.f, s_lr = 0.f, s_li = 0.f;
+  float gr[kU], gi[kU], xr[kU], xi[kU], ngr[kU], ngi[kU], nxr[kU], nxi[kU];
+  auto fetch = [&](int t_hi, float (&r)[kU], float (&i)[kU], float (&pr)[kU],
+                   float (&pi)[kU]) {
+    fetch_steps<kU>(v, P, L, p, t_hi, -1, r, i);
+    fetch_steps<kU>(s, P, L, p, t_hi - 1, -1, pr, pi);  // step t's previous
+  };
+  fetch(L - 1, gr, gi, xr, xi);
+  for (int t_hi = L - 1; t_hi >= 0; t_hi -= kU) {
+    if (t_hi - kU >= 0) fetch(t_hi - kU, ngr, ngi, nxr, nxi);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int t = t_hi - u;
+      if (t >= 0) {
+        const float nr = gr[u] + (lr * vr + li * vi);
+        const float ni = gi[u] + (lr * vi - li * vr);
+        vr = nr;
+        vi = ni;
+        v[(long long)t * 2 * P + p] = vr;
+        v[(long long)t * 2 * P + P + p] = vi;
+        s_lr += vr * xr[u] + vi * xi[u];
+        s_li += vi * xr[u] - vr * xi[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      gr[u] = ngr[u];
+      gi[u] = ngi[u];
+      xr[u] = nxr[u];
+      xi[u] = nxi[u];
+    }
+  }
+  a.dlam[(long long)b * P + p] = s_lr;
+  a.dlam[(long long)(a.B + b) * P + p] = s_li;
+}
+
+// g_zn = v @ W_b^T + g_y*d; affine: g_x = g_zn*nw + g, d_nw, d_nb;
+// non-affine: g_z = g_zn and g_skip = the masked g
+__global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_gz_kernel(const BwdArgs a) {
+  __shared__ __align__(16) TileSmem sm;
+  const int H = a.H, N2 = 2 * a.P;
+  const Chunk ch = chunk_of(blockIdx.y, a.L, a.cpr);
+  const int n0 = blockIdx.x * kBN;
+  const bool affine = a.nw != nullptr;
+  auto fa = [&](int m, int k) -> float {
+    return m < ch.rows && k < N2 ? a.V[(ch.row0 + m) * N2 + k] : 0.f;
+  };
+  auto fb = [&](int k, int n) -> float {
+    return k < N2 && n0 + n < H ? __ldg(a.wbT + (long long)k * H + n0 + n)
+                                : 0.f;
+  };
+  float acc[8][8];
+  gemm_tile<true>(N2, fa, fb, sm, acc);
+  const int cols = min(kBN, H - n0);
+  float s_nw = 0.f, s_nb = 0.f;
+  tile_epilogue(acc, sm, ch.rows, cols, [&](int m, int cl, float v) {
+    const int c = n0 + cl;
+    const long long el = (ch.row0 + m) * H + c;
+    const float g_zn = fmaf(a.GY[el], a.d[c], v);
+    const float gv = a.G[el];
+    if (affine) {
+      s_nw += g_zn * load_stream(a.x, el, a.bf16);
+      s_nb += g_zn;
+      store_stream(a.gx, el, fmaf(g_zn, a.nw[c], gv), a.bf16);
+    } else {
+      store_stream(a.gx, el, g_zn, a.bf16);
+      store_stream(a.gskip, el, gv, a.bf16);
+    }
+  });
+  if (!affine) return;
+  tile_col_sum(s_nw, sm, vec_slot(a, blockIdx.y, kNw, n0), cols);
+  tile_col_sum(s_nb, sm, vec_slot(a, blockIdx.y, kNb, n0), cols);
+}
+
+int scan_ctas(int B, int P) { return B * ((P + kScanT - 1) / kScanT); }
+
+// The kernels that the last call of layer_tail_hist (entry 0) and of
+// layer_tail_bwd (entry 1) launched, in launch order, with their grids'
+// CTAs: the record that layer_tail_launched hands the wrapper.
+struct Launched {
+  const char* name;
+  long long ctas;
+};
+constexpr int kMaxLaunches = 16;
+Launched g_launched[2][kMaxLaunches];
+int g_n_launched[2];
+
+void record_launch(int call, const char* name, dim3 grid) {
+  if (g_n_launched[call] < kMaxLaunches)
+    g_launched[call][g_n_launched[call]++] = {
+        name, (long long)grid.x * grid.y * grid.z};
 }
 
 }  // namespace
 
-// Entry state of every 32-row time tile. x: (B, L, H), float32 (bf16 = 0)
-// or bfloat16 (bf16 = 1): the raw input with nw, nb, or the normed z with
-// nw = nb = null; hist_re, hist_im: (B, ceil(L / 32), P). Returns
-// cudaGetLastError() after the launch.
+// Launch `kernel` on `grid` x `threads` with the parenthesised `args` on
+// stream st, record it for layer_tail_launched, and return the error of a
+// launch that fails.
+#define LAUNCH(call, kernel, grid, threads, args)          \
+  kernel<<<grid, threads, 0, st>>> args;                   \
+  record_launch(call, #kernel, grid);                      \
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err
+
+// K3a: every state and the entry state of every 32-row time tile. x: (B, L,
+// H), float32 (bf16 = 0) or bfloat16 (bf16 = 1): the raw input with nw, nb,
+// or the normed z with nw = nb = null; states: (B, L, 2P) f32 [re | im];
+// hist_re, hist_im: (B, ceil(L / 32), P). Returns cudaGetLastError() after
+// the launches.
 extern "C" int layer_tail_hist(const void* x, const float* nw,
                                const float* nb, const float* wb,
                                const float* lam_re, const float* lam_im,
-                               float* hist_re, float* hist_im, int B, int L,
-                               int H, int P, int bf16, void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kT * (round4(H) + round4(2 * P)) + 2 * P);
-  cudaError_t err = cudaFuncSetAttribute(
-      layer_tail_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  layer_tail_hist_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      x, nw, nb, wb, lam_re, lam_im, hist_re, hist_im, L, H, P, bf16);
-  return (int)cudaGetLastError();
+                               float* states, float* hist_re, float* hist_im,
+                               int B, int L, int H, int P, int bf16,
+                               void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int cpr = (L + kBM - 1) / kBM;
+  const dim3 grid((2 * P + kBN - 1) / kBN, B * cpr);
+  const dim3 grid_scan(scan_ctas(B, P));
+  cudaError_t err;
+  g_n_launched[0] = 0;
+  LAUNCH(0, tail_hist_bproj_kernel, grid, kGT,
+         (x, nw, nb, wb, states, L, H, P, bf16, cpr));
+  LAUNCH(0, tail_hist_scan_kernel, grid_scan, kScanT,
+         (states, lam_re, lam_im, hist_re, hist_im, L, P));
+  return 0;
 }
 
-// The time rows of a tile, so that the wrapper sizes the history.
+// The time rows of a history tile, so that the wrapper sizes the history.
 extern "C" int layer_tail_tile_rows() { return kT; }
 
-// The adjoint. `ptrs` holds the 37 pointers of BwdArgs in declaration order
-// (null where the mode, a GLU variant or a missing mask leaves one out); the
-// streams x, g, skip, gx, gskip are float32 (bf16 = 0) or bfloat16 (bf16 =
-// 1). Returns cudaGetLastError() after the launch.
+// The time rows of a product pass's chunk, the wrapper's plan unit.
+extern "C" int layer_tail_chunk_rows() { return kBM; }
+
+// The kernels that the last layer_tail_hist (call = 0) or layer_tail_bwd
+// (call = 1) launched, in order: up to `cap` of their names and grid sizes
+// in CTAs into `names` and `ctas`. Returns how many it launched.
+extern "C" int layer_tail_launched(int call, const char** names,
+                                   long long* ctas, int cap) {
+  const int n = g_n_launched[call];
+  for (int i = 0; i < n && i < cap; ++i) {
+    names[i] = g_launched[call][i].name;
+    ctas[i] = g_launched[call][i].ctas;
+  }
+  return n;
+}
+
+// K3b. `ptrs` holds the pointers of BwdArgs in declaration order up to the
+// scratch and outputs (null where the mode, a GLU variant or a missing
+// mask leaves one out); S must hold K3a's states. The streams x, g, skip,
+// gx, gskip are float32 (bf16 = 0) or bfloat16 (bf16 = 1). Returns
+// cudaGetLastError() after the first launch that fails, or 0.
 extern "C" int layer_tail_bwd(const void* const* ptrs, int B, int L, int H,
                               int P, int glu, int act, int relu_state,
-                              int layer_relu, int bf16, void* stream) {
+                              int layer_relu, int bf16, int split_rows,
+                              void* stream) {
   BwdArgs a;
   int i = 0;
   auto in = [&]() { return static_cast<const float*>(ptrs[i++]); };
@@ -482,20 +789,50 @@ extern "C" int layer_tail_bwd(const void* const* ptrs, int B, int L, int H,
   a.x = ptrs[i++]; a.g = ptrs[i++]; a.skip = ptrs[i++];
   a.nw = in(); a.nb = in(); a.wb = in(); a.wc = in();
   a.wbT = in(); a.wcT = in(); a.d = in(); a.lam_re = in(); a.lam_im = in();
-  a.o2k = in(); a.o2kT = in(); a.o2b = in(); a.o1k = in(); a.o1kT = in();
-  a.o1b = in(); a.m1 = in(); a.m2 = in(); a.hist_re = in(); a.hist_im = in();
+  a.o2k = in(); a.o2b = in(); a.o1k = in(); a.o1b = in(); a.gluT = in();
+  a.m1 = in(); a.m2 = in();
+  a.S = out(); a.Y = out(); a.X1D = out(); a.F = out(); a.G = out();
+  a.GS = out(); a.GY = out(); a.V = out();
   a.gx = const_cast<void*>(ptrs[i++]);
   a.gskip = const_cast<void*>(ptrs[i++]);
-  a.dwb = out(); a.dwc = out(); a.do2k = out(); a.do1k = out();
-  a.dd = out(); a.do2b = out(); a.do1b = out(); a.dm1 = out(); a.dm2 = out();
-  a.dnw = out(); a.dnb = out(); a.dlam_re = out(); a.dlam_im = out();
-  a.L = L; a.H = H; a.P = P; a.glu = glu; a.act = act;
+  a.vec = out(); a.dlam = out(); a.dwc = out(); a.dglu = out();
+  a.dwb = out();
+  a.B = B; a.L = L; a.H = H; a.P = P; a.glu = glu; a.act = act;
   a.relu_state = relu_state; a.layer_relu = layer_relu; a.bf16 = bf16;
-  const size_t smem = bwd_smem_bytes(H, P);
-  cudaError_t err = cudaFuncSetAttribute(
-      layer_tail_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  layer_tail_bwd_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  a.cpr = (L + kBM - 1) / kBM;
+  a.split_rows = split_rows;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int n_chunks = B * a.cpr;
+  const int n_splits = (int)(((long long)B * L + split_rows - 1) / split_rows);
+  const int n_glu = glu == kFull ? 2 : 1;
+  const dim3 grid_h((H + kBN - 1) / kBN, n_chunks);
+  const dim3 grid_p((2 * P + kBN - 1) / kBN, n_chunks);
+  // the weight-gradient products: (column tiles, row tiles, slices)
+  const dim3 grid_wp((H + kBN - 1) / kBN, (2 * P + kBM - 1) / kBM, n_splits);
+  const dim3 grid_wglu((n_glu * H + kBN - 1) / kBN, (H + kBM - 1) / kBM,
+                       n_splits);
+  const dim3 grid_scan(scan_ctas(B, P));
+  cudaError_t err;
+  g_n_launched[1] = 0;
+  LAUNCH(1, tail_bwd_proj_kernel, grid_h, kGT, (a));
+  if (glu == kFull) {
+    LAUNCH(1, tail_bwd_base_kernel, grid_h, kGT, (a));
+  }
+  if (glu != kNone) {
+    LAUNCH(1, tail_bwd_gate_kernel, grid_h, kGT, (a));
+    if (glu == kFull) {
+      LAUNCH(1, tail_bwd_gx1d_kernel<true>, grid_h, kGT, (a));
+    }
+    LAUNCH(1, tail_bwd_gx1d_kernel<false>, grid_h, kGT, (a));
+  }
+  LAUNCH(1, tail_bwd_gxs_kernel, grid_p, kGT, (a));
+  LAUNCH(1, tail_bwd_wgrad_kernel<0>, grid_wp, kGT, (a));
+  if (glu != kNone) {
+    LAUNCH(1, tail_bwd_wgrad_kernel<1>, grid_wglu, kGT, (a));
+  }
+  LAUNCH(1, tail_bwd_rev_kernel, grid_scan, kScanT, (a));
+  LAUNCH(1, tail_bwd_gz_kernel, grid_h, kGT, (a));
+  LAUNCH(1, tail_bwd_wgrad_kernel<2>, grid_wp, kGT, (a));
+  return 0;
 }
+#undef LAUNCH

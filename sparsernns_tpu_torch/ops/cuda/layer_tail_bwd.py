@@ -6,11 +6,13 @@ two kernels it launches:
 
 - K3a, the carry history (:func:`layer_tail_hist`): the scan state that
   enters every time block of a batch row, in forward order, (B, n_blocks, P)
-  re and im, block 0 zero;
-- K3b, the reverse-time adjoint (:func:`layer_tail_bwd`): per block, from
-  its entry state, the forward chain again and then its adjoint, with the
-  recurrence ``v_t = g_t + conj(λ) ⊙ v_{t+1}`` carried across blocks. It
-  returns the gradient of every operand of
+  re and im, block 0 zero. On the card it computes every state on the way
+  (a B-projection pass over all rows, then one sequential scan per batch
+  row and channel) and the backward keeps them;
+- K3b, the adjoint (:func:`layer_tail_bwd`): the forward chain again from
+  those states, then its adjoint, with the recurrence ``v_t = g_t +
+  conj(λ) ⊙ v_{t+1}`` walked in reverse time. It returns the gradient of
+  every operand of
   :func:`~sparsernns_tpu_torch.ops.cuda.layer_tail.layer_tail`, in the
   order of the JAX package's ``_bwd``: ``(g_x, g_skip, (d_lam_re,
   d_lam_im), d_w_b, d_w_c, d_d, d_o2k, d_o2b, d_o1k, d_o1b, d_m1, d_m2,
@@ -24,9 +26,15 @@ bf16 and computed on in f32; ``g_x`` and ``g_skip`` round once to bf16,
 and every weight gradient stays float32, as the JAX kernels keep them.
 
 The CUDA source is ``csrc/layer_tail_bwd.cu``; its header note gives the
-bounds and the design. The kernel emits the weight gradients per batch row
-and this wrapper sums them over B, as the JAX package sums them outside its
-kernel. The block of the history is the kernel's 32-row tile; it is not
+passes, their bounds and the design. Only the two recurrences walk time;
+every other pass runs over chunks of :data:`CHUNK` rows of one batch row
+(:func:`bwd_plan`), with the arrays between the passes in device memory
+(:func:`scratch_shapes`). The kernels write every sum over time as
+partials, per chunk or per slice of rows, and :func:`reduce_partials` sums
+them in a fixed order, as the JAX package sums over the batch outside its
+kernel. :func:`launched` reads back the kernels and grids of the last call
+on the card, as the CUDA source recorded them. The block of the history is
+32 rows; it is not
 numerics on this float path, so it need not equal the JAX ``block_t``.
 CUDA tensors launch the kernels (or raise); CPU tensors take the plain
 versions :func:`layer_tail_hist_plain` and :func:`layer_tail_bwd_plain`.
@@ -35,6 +43,8 @@ versions :func:`layer_tail_hist_plain` and :func:`layer_tail_bwd_plain`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -46,8 +56,16 @@ from sparsernns_tpu_torch.ops.cuda.layer_tail import (ACTS, GLU_KINDS,
                                                       norm_and_residual)
 from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
 
-#: time rows of one history block (the kernels' tile)
+#: time rows of one history block
 HIST_BLOCK = 32
+#: time rows of a chunk: the product passes' row tile (``kBM`` in the CUDA
+#: source, which the wrapper checks)
+CHUNK = 128
+#: the weight-gradient products cut the B * L rows into about this many
+#: slices of whole chunks
+WGRAD_SPLITS = 48
+#: the vector gradients that the kernels sum per chunk, in their slot order
+VEC_SLOTS = ("d", "o2b", "o1b", "m1", "m2", "nw", "nb")
 
 #: launches of the history kernel and of the adjoint kernel in this process
 launches_hist = 0
@@ -180,6 +198,116 @@ def layer_tail_bwd_plain(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
     return (g_x.to(stream_dtype), None, *grads, d_nw, d_nb)
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How K3a and K3b cut one backward over the card: the product passes
+    take chunks of ``chunk`` time rows of one batch row (a CTA per chunk
+    and column tile), the weight-gradient products slices of
+    ``split_rows`` of the B * L rows (a CTA per slice and output tile),
+    each CTA writing its partial to its own slot."""
+
+    batch: int
+    length: int
+    chunk: int
+    split_rows: int
+
+    @property
+    def chunks_per_row(self) -> int:
+        return -(-self.length // self.chunk)
+
+    @property
+    def n_chunks(self) -> int:
+        return self.batch * self.chunks_per_row
+
+    @property
+    def rows(self) -> int:
+        return self.batch * self.length
+
+    @property
+    def n_splits(self) -> int:
+        return -(-self.rows // self.split_rows)
+
+    def chunks(self) -> List[Tuple[int, int, int]]:
+        """(batch row, first step, end step) of every chunk, in the
+        kernels' order: chunk ``b * chunks_per_row + i``."""
+        return [(b, t0, min(t0 + self.chunk, self.length))
+                for b in range(self.batch)
+                for t0 in range(0, self.length, self.chunk)]
+
+    def splits(self) -> List[Tuple[int, int]]:
+        """(first row, end row) of every weight-gradient slice of the
+        flattened B * L rows."""
+        return [(r0, min(r0 + self.split_rows, self.rows))
+                for r0 in range(0, self.rows, self.split_rows)]
+
+
+def bwd_plan(batch: int, length: int) -> BwdPlan:
+    """The plan of one backward, a pure function of (B, L), so the order of
+    every partial sum is fixed. Chunks are the passes' row tile: B *
+    ceil(L / 128) of them, 240 at B = 8, L = 3751, each times the column
+    tiles of a product (three for H = 192), so every SM has work from B = 8
+    on. The weight gradients take about :data:`WGRAD_SPLITS` slices of
+    whole chunks' rows."""
+    if batch < 1 or length < 1:
+        raise ValueError(f"empty backward: B={batch}, L={length}")
+    per_split = -(-batch * length // WGRAD_SPLITS)
+    return BwdPlan(batch, length, CHUNK, CHUNK * -(-per_split // CHUNK))
+
+
+def scratch_shapes(plan: BwdPlan, h: int, p: int,
+                   glu: str) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the float32 arrays between the passes (``S``: the raw
+    states [re | im]; ``Y``, ``X1D``: y and x1 after m1; ``F``: the full
+    GLU's base; ``G``: the masked cotangent; ``GS``: [g_s | g_base]; ``GY``:
+    g_y; ``V``: g_xs, then v) and of the partial sums (``vec``: per chunk
+    and :data:`VEC_SLOTS` slot; ``dlam``: per batch row; ``dwc``, ``dglu``
+    ([d_o2k | d_o1k]), ``dwb`` (d_w_b transposed): per slice). Arrays that the GLU variant
+    does not use are left out."""
+    rows = plan.rows
+    gated = glu != "none"
+    shapes = {"S": (rows, 2 * p)}
+    if gated:
+        shapes.update(Y=(rows, h), X1D=(rows, h))
+    if glu == "full":
+        shapes["F"] = (rows, h)
+    shapes["G"] = (rows, h)
+    if gated:
+        shapes["GS"] = (rows, 2 * h)
+    shapes.update(GY=(rows, h), V=(rows, 2 * p),
+                  vec=(plan.n_chunks, len(VEC_SLOTS), h),
+                  dlam=(2, plan.batch, p), dwc=(plan.n_splits, 2 * p, h))
+    if gated:
+        shapes["dglu"] = (plan.n_splits, h, (2 if glu == "full" else 1) * h)
+    shapes["dwb"] = (plan.n_splits, 2 * p, h)
+    return shapes
+
+
+def reduce_partials(plan: BwdPlan, parts: Dict[str, torch.Tensor],
+                    glu: str, affine: bool, masks: Tuple[bool, bool]):
+    """The weight gradients of the ``_bwd`` tuple, ``((d_lam_re, d_lam_im),
+    d_w_b, d_w_c, d_d, d_o2k, d_o2b, d_o1k, d_o1b, d_m1, d_m2, d_nw,
+    d_nb)``, from the kernels' partials: each a sum over the slices, chunks
+    or batch rows in their fixed order (d_m1, d_m2 per batch row, (B, 1,
+    H)). ``masks``: whether m1 and m2 were given."""
+    vec = parts["vec"]
+    h = vec.shape[-1]
+    vec = vec.view(plan.batch, plan.chunks_per_row, len(VEC_SLOTS), h)
+    slot = lambda name: vec[:, :, VEC_SLOTS.index(name)]  # noqa: E731
+    total = lambda name: slot(name).sum(dim=(0, 1))  # noqa: E731
+    d_glu = parts["dglu"].sum(dim=0) if glu != "none" else None
+    dlam = parts["dlam"].sum(dim=1)
+    return ((dlam[0], dlam[1]), parts["dwb"].sum(dim=0).T.contiguous(),
+            parts["dwc"].sum(dim=0), total("d"),
+            None if d_glu is None else d_glu[:, :h].contiguous(),
+            None if d_glu is None else total("o2b"),
+            d_glu[:, h:].contiguous() if glu == "full" else None,
+            total("o1b") if glu == "full" else None,
+            slot("m1").sum(dim=1, keepdim=True) if masks[0] else None,
+            slot("m2").sum(dim=1, keepdim=True) if masks[1] else None,
+            total("nw") if affine else None,
+            total("nb") if affine else None)
+
+
 def _fn(name: str, argtypes):
     fn = getattr(build.load("layer_tail_bwd"), name)
     if fn.argtypes is None:
@@ -188,29 +316,57 @@ def _fn(name: str, argtypes):
     return fn
 
 
-def _hist_launch(ops, b: int, l: int, h: int, p: int, device) -> Pair:
+def launched() -> Dict[str, Dict[str, int]]:
+    """The kernels that the last K3a and the last K3b call on the card
+    launched, each with its grid's CTAs, in launch order, as the CUDA
+    source recorded them at the launch: ``{"K3a": {name: ctas}, "K3b":
+    {name: ctas}}``. The names are the ``__global__`` s' (with their
+    template arguments), as the profiler shows them."""
+    lib = build.load("layer_tail_bwd")
+    fn = lib.layer_tail_launched
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int]
+    fn.restype = ctypes.c_int
+    cap = 16
+    res = {}
+    for call, kernel in enumerate(("K3a", "K3b")):
+        names = (ctypes.c_char_p * cap)()
+        ctas = (ctypes.c_longlong * cap)()
+        n = fn(call, names, ctas, cap)
+        res[kernel] = {names[i].decode(): ctas[i] for i in range(min(n, cap))}
+    return res
+
+
+def _hist_launch(ops, plan: BwdPlan, h: int, p: int, states) -> Pair:
+    """Launch K3a: every state into ``states`` ((B, L, 2P) float32), and
+    the history, which it returns."""
     global launches_hist
-    tile = build.load("layer_tail_bwd").layer_tail_tile_rows()
-    if tile != HIST_BLOCK:
-        raise RuntimeError(f"kernel tile {tile} != HIST_BLOCK {HIST_BLOCK}")
+    lib = build.load("layer_tail_bwd")
+    if (lib.layer_tail_tile_rows(), lib.layer_tail_chunk_rows()) != (
+            HIST_BLOCK, plan.chunk):
+        raise RuntimeError("the kernels' tiles differ from HIST_BLOCK / "
+                           "CHUNK")
+    b, l = plan.batch, plan.length
+    device = states.device
     n_blocks = -(-l // HIST_BLOCK)
     hist = tuple(torch.empty((b, n_blocks, p), dtype=torch.float32,
                              device=device) for _ in range(2))
     fn = _fn("layer_tail_hist",
-             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(*(data_ptr(ops, k) for k in ("x", "nw", "nb", "w_b", "lam_re",
                                           "lam_im")),
-             hist[0].data_ptr(), hist[1].data_ptr(), b, l, h, p,
-             int(ops["x"].dtype == torch.bfloat16), stream)
+             states.data_ptr(), hist[0].data_ptr(), hist[1].data_ptr(), b, l,
+             h, p, int(ops["x"].dtype == torch.bfloat16), stream)
     build.check(err, "layer_tail_hist")
     launches_hist += 1
     return hist
 
 
 def layer_tail_hist_cuda(x, lam: Pair, w_b, nw, nb) -> Pair:
-    """Launch K3a (one CTA per batch row). ``nw = nb = None``: ``x`` is the
-    normed stream (non-affine mode)."""
+    """Launch K3a (a B-projection pass over all rows, then the scan per
+    batch row and channel). ``nw = nb = None``: ``x`` is the normed stream
+    (non-affine mode)."""
     if x.dim() != 3 or 0 in x.shape:
         raise ValueError(f"x must be a non-empty (B, L, H), got "
                          f"{tuple(x.shape)}")
@@ -224,7 +380,8 @@ def layer_tail_hist_cuda(x, lam: Pair, w_b, nw, nb) -> Pair:
     if nw is not None:
         shapes.update(nw=(nw, (h,)), nb=(nb, (h,)))
     ops = check_tensors(shapes, x.device, ("x",))
-    return _hist_launch(ops, b, l, h, p, x.device)
+    states = torch.empty((b, l, 2 * p), dtype=torch.float32, device=x.device)
+    return _hist_launch(ops, bwd_plan(b, l), h, p, states)
 
 
 def layer_tail_hist(x, lam: Pair, w_b, nw, nb) -> Pair:
@@ -238,11 +395,10 @@ def layer_tail_bwd_cuda(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
                         glu: str = "none", relu_state: bool = False,
                         layer_relu: bool = False, m1=None, m2=None,
                         skip=None):
-    """Launch K3a, then K3b (one CTA per batch row each), and sum the
-    per-row weight gradients over B. Same arguments and result as
-    :func:`layer_tail_bwd_plain`; every tensor on one CUDA device, the
-    streams (``x``, ``g``, ``skip``) float32 or bfloat16, the rest
-    float32."""
+    """Launch K3a, then K3b's passes, and sum their partials. Same
+    arguments and result as :func:`layer_tail_bwd_plain`; every tensor on
+    one CUDA device, the streams (``x``, ``g``, ``skip``) float32 or
+    bfloat16, the rest float32."""
     global launches_bwd
     ops = checked_operands(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
                            m1, m2, act, glu, skip=skip, g=g)
@@ -251,54 +407,40 @@ def layer_tail_bwd_cuda(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
     if l == 0 or b == 0:
         raise ValueError(f"empty stream {tuple(x.shape)}")
     dev = x.device
-    hist = _hist_launch(ops, b, l, h, p, dev)
+    plan = bwd_plan(b, l)
+    bufs = {k: torch.empty(shape, dtype=torch.float32, device=dev)
+            for k, shape in scratch_shapes(plan, h, p, glu).items()}
+    _hist_launch(ops, plan, h, p, bufs["S"])
     # transposed copies for the products with a transposed weight: layout,
-    # made once per call; the products themselves run in the kernel
-    for name in ("w_b", "w_c", "o2k", "o1k"):
-        if name in ops:
-            ops[name + "T"] = ops[name].T.contiguous()
-    new = lambda *shape: torch.empty(  # noqa: E731
-        shape, dtype=torch.float32, device=dev)
-    outs = {"gx": torch.empty((b, l, h), dtype=x.dtype, device=dev),
-            "dwb": new(b, h, 2 * p), "dwc": new(b, 2 * p, h),
-            "dd": new(b, h), "dlam_re": new(b, p), "dlam_im": new(b, p)}
-    if skip is None:
-        outs.update(dnw=new(b, h), dnb=new(b, h))
-    else:
-        outs["gskip"] = torch.empty((b, l, h), dtype=x.dtype, device=dev)
-    if glu != "none":
-        outs.update(do2k=new(b, h, h), do2b=new(b, h))
-    if glu == "full":
-        outs.update(do1k=new(b, h, h), do1b=new(b, h))
-    if m1 is not None:
-        outs["dm1"] = new(b, 1, h)
-    if m2 is not None:
-        outs["dm2"] = new(b, 1, h)
+    # made once per call; the products themselves run in the kernels
+    ops["w_bT"] = ops["w_b"].T.contiguous()
+    ops["w_cT"] = ops["w_c"].T.contiguous()
+    if glu != "none":   # [W2^T; W1^T] for the full GLU, one array
+        ops["gluT"] = torch.cat([ops[k].T for k in ("o2k", "o1k")
+                                 if k in ops]).contiguous()
+    bufs["gx"] = torch.empty((b, l, h), dtype=x.dtype, device=dev)
+    if skip is not None:
+        bufs["gskip"] = torch.empty((b, l, h), dtype=x.dtype, device=dev)
     # the order of BwdArgs in csrc/layer_tail_bwd.cu
     in_names = ("x", "g", "skip", "nw", "nb", "w_b", "w_c", "w_bT", "w_cT",
-                "d", "lam_re", "lam_im", "o2k", "o2kT", "o2b", "o1k", "o1kT",
-                "o1b", "m1", "m2")
-    out_names = ("gx", "gskip", "dwb", "dwc", "do2k", "do1k", "dd", "do2b",
-                 "do1b", "dm1", "dm2", "dnw", "dnb", "dlam_re", "dlam_im")
+                "d", "lam_re", "lam_im", "o2k", "o2b", "o1k", "o1b", "gluT",
+                "m1", "m2")
+    buf_names = ("S", "Y", "X1D", "F", "G", "GS", "GY", "V", "gx", "gskip",
+                 "vec", "dlam", "dwc", "dglu", "dwb")
     ptrs = [data_ptr(ops, k) for k in in_names]
-    ptrs += [hist[0].data_ptr(), hist[1].data_ptr()]
-    ptrs += [data_ptr(outs, k) for k in out_names]
+    ptrs += [data_ptr(bufs, k) for k in buf_names]
     table = (ctypes.c_void_p * len(ptrs))(*ptrs)
     fn = _fn("layer_tail_bwd",
-             [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+             [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(table, b, l, h, p, GLU_KINDS.index(glu), ACTS.index(act),
              int(relu_state), int(layer_relu),
-             int(x.dtype == torch.bfloat16), stream)
+             int(x.dtype == torch.bfloat16), plan.split_rows, stream)
     build.check(err, "layer_tail_bwd")
     launches_bwd += 1
-    # the sums over the batch stay outside the kernel, as in the JAX package
-    total = lambda k: outs[k].sum(dim=0) if k in outs else None  # noqa: E731
-    return (outs["gx"], outs.get("gskip"),
-            (total("dlam_re"), total("dlam_im")), total("dwb"),
-            total("dwc"), total("dd"), total("do2k"), total("do2b"),
-            total("do1k"), total("do1b"), outs.get("dm1"), outs.get("dm2"),
-            total("dnw"), total("dnb"))
+    return (bufs["gx"], bufs.get("gskip"),
+            *reduce_partials(plan, bufs, glu, skip is None,
+                             (m1 is not None, m2 is not None)))
 
 
 def layer_tail_bwd(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,

@@ -18,14 +18,21 @@ a seed):
    the offline forward;
 4. engine kernel phase — the float model is calibrated on two synthetic
    batches, its scales are frozen and a ``W8A16Engine`` is built; K5a (one
-   serving layer), K5b (with a non-zero carry) and K6 (the whole network)
-   against their plain versions, B=8, L=3751, block_t=512, with times;
-5. engine offline phase — ``engine(x)`` on the 30 s batch (one K6 launch),
-   the same through the per-layer stack (three K5a launches, bit-identical
-   mask), and the engine on the card against the engine on the CPU;
+   serving layer), K5b (with a non-zero carry) and K6 (the whole network),
+   each a sequence of row and scan passes, against their plain versions,
+   B=8, L=3751, block_t=512, with times and the device time of K6's and
+   K5b's passes; K6 and K5a at B=32; a ragged call (B=3, L=70: B*L not a
+   multiple of the row tile, L below the block; the K5a stack = K6);
+   every pass's grid as the CUDA source recorded it, held against the
+   pass plan;
+5. engine offline phase — ``engine(x)`` on the 30 s batch (one K6 call:
+   its seven passes, every row pass at least one CTA an SM), the SHA-256
+   of its mask, median call times and peak memory at B=8 and 32, the same
+   through the per-layer stack (three K5a calls, bit-identical mask), and
+   the engine on the card against the engine on the CPU;
 6. engine streaming phase — ``StreamingDenoiser.from_engine`` at
-   block_t=128 over the same audio (K5b on every forward), and chunked
-   ``process_chunk`` against one whole call;
+   block_t=128 over the same audio (K5b on every forward), chunked
+   ``process_chunk`` against one whole call, and one chunk's passes;
 7. training kernel phase — K2 with dropout masks, K3a (carry history and
    every state) and K3b (the adjoint's passes, every output) against
    their plain versions, B=8, L=3751 for the recipe's variant, and L=1000
@@ -109,7 +116,8 @@ a seed):
    (first launch with the encoder, a middle one, the last with the
    decoder) and K5b (one 128-frame block from a carry) in those modes
    against their plain versions at B=8, L=3751, timed (median of 5 and
-   the profiler's device time); GLU full / half2 / none and f32
+   the profiler's device time of a call's passes; K6's pass grids); GLU
+   full / half2 / none and f32
    activations at a short length (network vs plain, network = stack); an
    odd-width network (H=400: the plane-wise formula; P=18);
 18. int-dot serving phase — the w8a8, w8a8A8 and ``mxu16`` engines
@@ -2011,18 +2019,26 @@ def _int_work(tag: str, h: int, p: int, n_dense: int):
     return rest, 2 * 2 * (bc + glu)
 
 
-def _device_ms(tag, fn, kernel: str, reps: int = 3) -> float:
-    """Device time of one launch of ``kernel`` (a part of its name) from
-    ``torch.profiler``: the mean over the launches of ``reps`` calls of
-    ``fn`` in one profiled window."""
+def _device_ms(tag, fn, reps: int = 3) -> float:
+    """Device time of one call of ``fn`` (a K5 or K6 call: its row and scan
+    passes) from ``torch.profiler``: the passes' device time over ``reps``
+    calls in one profiled window, divided by ``reps``. The card's profiler
+    sometimes records no device event in a window (also in the parent's
+    windows, phase 18's busy shares of 0): such a window is profiled again,
+    up to three times."""
+    from sparsernns_tpu_torch.ops.cuda.engine_layer import ROW_PASS, SCAN_PASS
     from sparsernns_tpu_torch.utils.profiling import profile_region
-    prof = profile_region(tag, lambda: [fn() for _ in range(reps)], top=3)
-    print(json.dumps(prof), flush=True)
-    hits = [k for k in prof["top_kernels"] if kernel in k["name"]]
-    count = sum(k["count"] for k in hits)
-    if not count:
-        raise AssertionError(f"{tag}: the profiler saw no {kernel} launch")
-    return sum(k["device_ms"] for k in hits) / count
+    for _ in range(3):
+        prof = profile_region(tag, lambda: [fn() for _ in range(reps)],
+                              top=6)
+        print(json.dumps(prof), flush=True)
+        hits = [k for k in prof["top_kernels"]
+                if ROW_PASS in k["name"] or SCAN_PASS in k["name"]]
+        if any(ROW_PASS in k["name"] for k in hits):
+            return sum(k["device_ms"] for k in hits) / reps
+        print(f"{tag}: the profiler recorded no {ROW_PASS} in this window",
+              flush=True)
+    raise AssertionError(f"{tag}: the profiler saw no {ROW_PASS}")
 
 
 def _full_glu_tree(params, n_layers: int):
@@ -2117,6 +2133,7 @@ def intdot_kernel_phase(cfg, model, cal_x, x_eng, frames, gen,
     import torch
 
     from sparsernns_tpu_torch.ops.cuda import engine_layer, engine_network
+    from sparsernns_tpu_torch.ops.cuda.engine_layer import pass_plan
     from sparsernns_tpu_torch.quantize.calibrate import calibrate
     from sparsernns_tpu_torch.quantize.config import quantization_recipes
     from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
@@ -2167,8 +2184,11 @@ def intdot_kernel_phase(cfg, model, cal_x, x_eng, frames, gen,
             run = lambda: en.engine_network_cuda(  # noqa: E731
                 *net_args, block_t=512)
             ms = _median_ms(run)
-            dev_ms = _device_ms(f"K6 {tag} x 3", run,
-                                "engine_network_kernel")
+            dev_ms = _device_ms(f"K6 {tag} x 3", run)
+            _check_passes(f"K6 {tag}", en.launched(),
+                          pass_plan(B, frames, h, p, n_layers),
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
             plain_ms = _time_ms(lambda: en.engine_network_plain(
                 *net_args, block_t=512), 1, 0)
             bound, by = _bound_ms(
@@ -2208,7 +2228,7 @@ def intdot_kernel_phase(cfg, model, cal_x, x_eng, frames, gen,
             run = lambda: el.engine_layer_cuda(  # noqa: E731
                 r0, layers[1], mode, **mid)
             ms = _median_ms(run)
-            dev_ms = _device_ms(f"K5a {tag} x 3", run, "engine_layer_kernel")
+            dev_ms = _device_ms(f"K5a {tag} x 3", run)
             plain_ms = _time_ms(lambda: el.engine_layer_plain(
                 r0, layers[1], mode, **mid), 1, 0)
             bound, by = _bound_ms(
@@ -2241,7 +2261,7 @@ def intdot_kernel_phase(cfg, model, cal_x, x_eng, frames, gen,
             run = lambda: el.engine_layer_cuda(  # noqa: E731
                 r_in, layers[1], mode, **kwc)
             ms = _median_ms(run)
-            dev_ms = _device_ms(f"K5b {tag} x 3", run, "engine_layer_kernel")
+            dev_ms = _device_ms(f"K5b {tag} x 3", run)
             plain_ms = _time_ms(lambda: el.engine_layer_plain(
                 r_in, layers[1], mode, **kwc), 1, 0)
             bound, by = _bound_ms(
@@ -2823,6 +2843,466 @@ def bf16_training_phase(cfg, records, counters, batch) -> None:
            float((np.abs(l16 - l32) / np.abs(l32)).max()), 2e-3)
 
 
+def _reset_counts() -> None:
+    """Every kernel wrapper's launch counter to 0."""
+    from sparsernns_tpu_torch.ops.cuda import (block_sparse, diag_scan,
+                                               engine_layer, engine_network,
+                                               fused_s5, layer_tail, qat_scan)
+    diag_scan.launches = diag_scan.launches_rev = 0
+    diag_scan.launches_requant = 0
+    fused_s5.launches = layer_tail.launches = 0
+    fused_s5.launches_engine = fused_s5.launches_engine_carry = 0
+    engine_layer.launches = engine_layer.launches_carry = 0
+    engine_network.launches = 0
+    block_sparse.launches = 0
+    qat_scan.launches = fused_s5.launches_qat = 0
+
+
+def engine_setup(cfg, model, noisy_mag):
+    """Calibrate the float model on two synthetic batches of 8 clips of 4 s,
+    freeze it and build the w8a16 engine (block 512). Returns a namespace:
+    ``engine``, ``frozen`` (params, stats), ``cal_x`` (the calibration
+    features), ``x_eng`` (the engine's features of the 30 s batch)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
+    from sparsernns_tpu_torch.ops.stft import stft_splitter
+    from sparsernns_tpu_torch.quantize.calibrate import calibrate
+    from sparsernns_tpu_torch.quantize.config import quantization_recipes
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+    dev = torch.device("cuda")
+    t0 = time.time()
+    recipe = quantization_recipes[cfg.convert_quantization]
+    cal_model = build_model(
+        cfg, 257, 257, device=dev, seed=0, scan_mode="sequential",
+        q_config=recipe(static_quant=True, calibrating=True))
+    cal_ds = SyntheticNDNS(size=2 * B, length=CAL_SECONDS * 16000, seed=7)
+    cal_audio = torch.from_numpy(np.stack(
+        [cal_ds[i][0] for i in range(2 * B)])).to(dev)
+    cal_x = (stft_splitter(cal_audio)[0] - STFT_MAG_MEAN).transpose(1, 2)
+    frozen = calibrate(cal_model, model.state_dict(),
+                       [cal_x[:B], cal_x[B:]])
+    engine = engine_from_frozen(cfg, *frozen, device=dev, block_t=512)
+    print(f"engine set-up (calibrate 2 x {B} clips of {CAL_SECONDS} s, "
+          f"freeze, pack): {time.time() - t0:.1f} s", flush=True)
+    x_eng = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    assert all(lay.w_b.dtype == torch.int8 and lay.state_requant is not None
+               and lay.residual_requant is not None for lay in engine.layers)
+    return types.SimpleNamespace(engine=engine, frozen=frozen, cal_x=cal_x,
+                                 x_eng=x_eng)
+
+
+def _engine_work(cfg, p: int):
+    """(f32 flops, weight bytes) a frame of one float-dot engine layer."""
+    h = cfg.d_model
+    n_dense = {"full": 2, "half1": 1, "half2": 1, "none": 0}[cfg.glu_variant]
+    flops = (2 * h * 2 * p + 2 * 2 * p * h + n_dense * 2 * h * h + 8 * p
+             + 6 * h)
+    w_bytes = 2 * h * 2 * p + n_dense * h * h + 4 * (3 * h + 2 * p
+                                                     + n_dense * h)
+    return flops, w_bytes
+
+
+def _check_passes(name: str, got, plan, min_row_ctas: int = 1) -> None:
+    """The passes a call launched, as its CUDA source recorded them, are the
+    plan's, and every row pass has at least ``min_row_ctas`` CTAs."""
+    from sparsernns_tpu_torch.ops.cuda.engine_layer import ROW_PASS
+    print(f"{name} passes (kernel, CTAs): {got}", flush=True)
+    assert got == plan.passes(), (name, got, plan.passes())
+    rows = [c for k, c in got if k == ROW_PASS]
+    assert rows and min(rows) >= min_row_ctas, (name, rows, min_row_ctas)
+
+
+def engine_kernel_phase(cfg, eng, gen, records) -> None:
+    """Phase 4: K6 (the whole network, its row and scan passes), K5a (one
+    layer over the int16-code stream) and K5b (from a non-zero carry, at
+    the full length and one 128-frame block) against their plain versions
+    at B = 8, L = 3751, block 512, timed; K6 and K5a at B = 32; a ragged
+    call (B = 3, L = 70: 210 rows, not a multiple of the row tile, L below
+    the block); every variant of the engine kernels on both routes. B = 32
+    and ragged inputs come from a generator of their own, so that later
+    phases draw what they drew before."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import engine_layer, engine_network
+    from sparsernns_tpu_torch.ops.cuda.engine_layer import pass_plan
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    dev = torch.device("cuda")
+    engine, x_eng = eng.engine, eng.x_eng
+    frozen_params, frozen_stats = eng.frozen
+    mode, layers = engine.mode, engine.layers
+    h, n_layers, frames = cfg.d_model, cfg.n_layers, x_eng.shape[1]
+    p = layers[0].p
+    rows = B * frames
+    layer_flops, layer_w_bytes = _engine_work(cfg, p)
+    summary = {}
+    with torch.no_grad():
+        # K6, the default offline route, at its own block rule
+        net_args = (x_eng, engine._enc, layers, engine._dec, mode)
+        ref = engine_network.engine_network_plain(*net_args, block_t=512)
+        out = engine_network.engine_network_cuda(*net_args, block_t=512)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ref_scale = max(1.0, ref.abs().max().item())
+        _check("K6 engine_network vs plain (mask)", err, 2e-3 * ref_scale)
+        _check("K6 engine_network vs plain (mask, mean)",
+               (out - ref).abs().mean().item(), 1e-4 * ref_scale)
+        ms = _time_ms(lambda: engine_network.engine_network_cuda(
+            *net_args, block_t=512), 3)
+        plain_ms = _time_ms(lambda: engine_network.engine_network_plain(
+            *net_args, block_t=512), 1, 0)
+        bound, by = _bound_ms(
+            2 * rows * 257 * 4 + n_layers * layer_w_bytes + 2 * 257 * h
+            + 4 * (h + 257),
+            rows * (2 * 257 * h + n_layers * layer_flops + 2 * h * 257))
+        records["engine_network"] = dict(
+            name="engine_network", route="cuda",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/engine_network.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_network.py:299",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+        # the device time of its row passes and of its scans
+        print(json.dumps(profile_region(
+            "K6 B=8, one call", lambda: engine_network.engine_network_cuda(
+                *net_args, block_t=512), top=6)), flush=True)
+
+        # K5a: the middle layer over the int16-code stream that the plain
+        # first layer writes
+        r0 = engine_layer.engine_layer_plain(
+            x_eng, layers[0], mode, block_t=512, enc=engine._enc)
+        assert r0.dtype == torch.int16, r0.dtype
+        kw = dict(block_t=512, in_requant=layers[0].residual_requant)
+        ref = engine_layer.engine_layer_plain(r0, layers[1], mode, **kw)
+        out = engine_layer.engine_layer_cuda(r0, layers[1], mode, **kw)
+        torch.cuda.synchronize()
+        err = _code_diff("K5a engine_layer vs plain (int16 codes)", out, ref)
+        ms = _time_ms(lambda: engine_layer.engine_layer_cuda(
+            r0, layers[1], mode, **kw), 5)
+        plain_ms = _time_ms(lambda: engine_layer.engine_layer_plain(
+            r0, layers[1], mode, **kw), 1, 0)
+        bound, by = _bound_ms(2 * rows * h * 2 + layer_w_bytes,
+                              rows * layer_flops)
+        records["engine_layer"] = dict(
+            name="engine_layer", route="cuda",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/engine_layer.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_layer.py:629",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+
+        # K5b: the same layer from a non-zero carry, at the full length
+        # and at the streaming shape (one block of 128 frames), which is
+        # the one timed
+        carry = tuple(0.05 * torch.randn((B, p), generator=gen).to(dev)
+                      for _ in range(2))
+        errs = []
+        for name, r_in, bt in (("L=3751, block 512", r0, 512),
+                               ("L=128, block 128", r0[:, :STREAM_BLOCK],
+                                STREAM_BLOCK)):
+            kw = dict(block_t=bt, in_requant=layers[0].residual_requant,
+                      carry=carry)
+            ref, ref_c = engine_layer.engine_layer_plain(
+                r_in, layers[1], mode, **kw)
+            out, out_c = engine_layer.engine_layer_cuda(
+                r_in, layers[1], mode, **kw)
+            torch.cuda.synchronize()
+            errs.append(_code_diff(f"K5b engine_layer_carry vs plain, {name}",
+                                   out, ref))
+            scale = max(c.abs().max().item() for c in ref_c)
+            _check(f"K5b carry out, {name}",
+                   max((a - b).abs().max().item()
+                       for a, b in zip(out_c, ref_c)), 1e-5 * scale)
+        ms = _time_ms(lambda: engine_layer.engine_layer_cuda(
+            r_in, layers[1], mode, **kw), 20)
+        plain_ms = _time_ms(lambda: engine_layer.engine_layer_plain(
+            r_in, layers[1], mode, **kw), 1, 0)
+        s_rows = B * STREAM_BLOCK
+        bound, by = _bound_ms(
+            2 * s_rows * h * 2 + layer_w_bytes + 4 * B * p * 4,
+            s_rows * layer_flops)
+        records["engine_layer_carry"] = dict(
+            name="engine_layer_carry", route="cuda",
+            source="sparsernns_tpu_torch/ops/cuda/csrc/engine_layer.cu",
+            replaces="sparsernns_tpu/ops/pallas/fused_layer.py:729",
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+        _check_passes("K5b one 128-frame block", engine_layer.launched(),
+                      pass_plan(B, STREAM_BLOCK, h, p, 1, encoder=False))
+        print(json.dumps(profile_region(
+            "K5b one 128-frame block, one call",
+            lambda: engine_layer.engine_layer_cuda(r_in, layers[1], mode,
+                                                   **kw), top=6)),
+              flush=True)
+
+        # ---- B = 32: K6 and K5a against plain (the plain calls take
+        # seconds), timed ----
+        g32 = torch.Generator().manual_seed(32)
+        x32 = torch.cat([x_eng] + [
+            x_eng + 0.1 * torch.randn(x_eng.shape, generator=g32).to(dev)
+            for _ in range(3)])
+        eng.x32 = x32
+        a32 = (x32, engine._enc, layers, engine._dec, mode)
+        ref = engine_network.engine_network_plain(*a32, block_t=512)
+        out = engine_network.engine_network_cuda(*a32, block_t=512)
+        _engine_close("K6 engine_network vs plain at B=32 (mask)", out, ref)
+        _check_passes("K6 B=32", engine_network.launched(),
+                      pass_plan(4 * B, frames, h, p, n_layers))
+        summary["K6 B=32 ms"] = _median_ms(
+            lambda: engine_network.engine_network_cuda(*a32, block_t=512))
+        r32 = engine_layer.engine_layer_plain(
+            x32, layers[0], mode, block_t=512, enc=engine._enc)
+        kw = dict(block_t=512, in_requant=layers[0].residual_requant)
+        _code_diff("K5a engine_layer vs plain at B=32 (int16 codes)",
+                   engine_layer.engine_layer_cuda(r32, layers[1], mode, **kw),
+                   engine_layer.engine_layer_plain(r32, layers[1], mode,
+                                                   **kw))
+        summary["K5a B=32 ms"] = _median_ms(
+            lambda: engine_layer.engine_layer_cuda(r32, layers[1], mode,
+                                                   **kw))
+        del ref, out, r32
+
+        # ---- ragged: 210 rows (6 row tiles and one of 18), L < block_t;
+        # K6, the K5a stack (= K6 exactly), K5a with the decoder on the
+        # plain stream, K5b ----
+        xr = x_eng[:3, :70].contiguous()
+        ref = engine_network.engine_network_plain(
+            xr, engine._enc, layers, engine._dec, mode, block_t=512)
+        out = engine_network.engine_network_cuda(
+            xr, engine._enc, layers, engine._dec, mode, block_t=512)
+        _engine_close("K6 ragged B=3, L=70 vs plain (mask)", out, ref)
+        _check_passes("K6 ragged", engine_network.launched(),
+                      pass_plan(3, 70, h, p, n_layers))
+        stk, in_rq = xr, None
+        for i, lay in enumerate(layers):
+            stk = engine_layer.engine_layer_cuda(
+                stk, lay, mode, block_t=512, in_requant=in_rq,
+                enc=engine._enc if i == 0 else None,
+                dec=engine._dec if i == n_layers - 1 else None)
+            in_rq = lay.residual_requant
+        _check("K6 ragged vs the K5a stack (bit-identical)",
+               (out - stk).abs().max().item(), 0.0)
+        r0r = engine_layer.engine_layer_plain(xr, layers[0], mode,
+                                              block_t=512, enc=engine._enc)
+        kw = dict(block_t=512, in_requant=layers[0].residual_requant,
+                  dec=engine._dec)
+        _engine_close("K5a ragged, with the decoder, vs plain",
+                      engine_layer.engine_layer_cuda(r0r, layers[1], mode,
+                                                     **kw),
+                      engine_layer.engine_layer_plain(r0r, layers[1], mode,
+                                                      **kw))
+        carry = tuple(0.05 * torch.randn((3, p), generator=g32).to(dev)
+                      for _ in range(2))
+        kw = dict(block_t=512, in_requant=layers[0].residual_requant,
+                  carry=carry)
+        ref, ref_c = engine_layer.engine_layer_plain(r0r, layers[1], mode,
+                                                     **kw)
+        out, out_c = engine_layer.engine_layer_cuda(r0r, layers[1], mode,
+                                                    **kw)
+        _code_diff("K5b ragged vs plain", out, ref)
+        _check("K5b ragged carry out",
+               max((a - b).abs().max().item() for a, b in zip(out_c, ref_c)),
+               1e-5 * max(c.abs().max().item() for c in ref_c))
+        _check_passes("K5b ragged", engine_layer.launched(),
+                      pass_plan(3, 70, h, p, 1, encoder=False))
+
+        # every variant of the engine kernels (the recipe runs half1 +
+        # gelu + prenorm over int8 weights and an int16-code stream): GLU
+        # kinds, relufication, postnorm, float32 activations, bf16 io,
+        # int16 and float weights with a bf16 stream, at the full width on
+        # a short sequence with a short last block; both routes against
+        # the plain network and against each other
+        full_params = copy.deepcopy(frozen_params)
+        for i in range(n_layers):       # a value dense for the "full" GLU
+            lay = full_params["encoder"][f"layers_{i}"]
+            lay["out1"] = {k: np.roll(lay["out2"][k], 1, axis=0)
+                           for k in ("kernel", "bias")}
+        xs = x_eng[:2, :300]
+        variants = [dict(glu_variant=g, relufication=r, prenorm=pn)
+                    for g in ("full", "half1", "half2", "none")
+                    for r, pn in ((False, True), (True, False))]
+        variants += [dict(act_dtype=torch.float32),
+                     dict(convert_quantization="w16a16"),
+                     dict(convert_quantization="none"),
+                     dict(io=torch.bfloat16)]
+        for var in variants:
+            var = dict(var)
+            io = var.pop("io", torch.float32)
+            act = var.pop("act_dtype", torch.bfloat16)
+            v_eng = engine_from_frozen(
+                dataclasses.replace(cfg, **var), full_params, frozen_stats,
+                device=dev, block_t=128, act_dtype=act)
+            x_in = xs.to(io)
+            v_args = (x_in, v_eng._enc, v_eng.layers, v_eng._dec, v_eng.mode)
+            ref = engine_network.engine_network_plain(
+                *v_args, block_t=128, out_dtype=io).float()
+            net = v_eng._apply_network(x_in, 128, io)
+            stk = v_eng._apply_stack(x_in, 128, io)
+            assert net.dtype == stk.dtype == io
+            scale = max(1.0, ref.abs().max().item())
+            name = f"K6/K5a {var or ''} act {act} io {io}"
+            _check(f"{name} vs plain", (net.float() - ref).abs().max().item(),
+                   (2e-2 if io == torch.bfloat16 else 2e-3) * scale)
+            _check(f"{name} network vs stack",
+                   (net.float() - stk.float()).abs().max().item(), 0.0)
+    print(json.dumps({"engine_kernel_phase": {
+        **{k: records[k] for k in ("engine_network", "engine_layer",
+                                   "engine_layer_carry")}, **summary}}),
+          flush=True)
+
+
+def engine_offline_phase(cfg, eng, feats, clean_t, float_metrics,
+                         records) -> None:
+    """Phase 5: ``engine(x)`` on the 30 s batch (K6 x 1: its passes as the
+    CUDA source recorded them, every row pass at least one CTA an SM), the
+    SHA-256 of its mask, median call times and peak memory at B = 8 and
+    B = 32; the same through the per-layer stack (K5a x 3, bit-identical
+    mask), and the engine on the card against the engine on the CPU."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import (diag_scan, engine_layer,
+                                               engine_network, layer_tail)
+    from sparsernns_tpu_torch.ops.cuda.engine_layer import pass_plan
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.train.losses import ndns_loss_from_mask_tm
+    engine, x_eng = eng.engine, eng.x_eng
+    frozen_params, frozen_stats = eng.frozen
+    noisy_mag, noisy_phase, clean_mag = feats
+    loss, snr = float_metrics
+    h, n_layers, frames = cfg.d_model, cfg.n_layers, x_eng.shape[1]
+    p = engine.layers[0].p
+
+    def engine_metrics(mask):
+        nm = noisy_mag.transpose(1, 2)
+        loss_e, snr_e, _ = ndns_loss_from_mask_tm(
+            mask, nm, noisy_phase.transpose(1, 2),
+            clean_mag.transpose(1, 2), clean_t)
+        return loss_e.item(), snr_e.item()
+
+    _reset_counts()
+    t0 = time.time()
+    mask_net = engine(x_eng)
+    torch.cuda.synchronize()
+    eng_s = time.time() - t0
+    records["engine_network"]["launches"] = engine_network.launches
+    loss_e, snr_e = engine_metrics(mask_net)
+    print(f"engine offline: call {eng_s * 1e3:.1f} ms, loss {loss_e:.4f}, "
+          f"si_snr {snr_e:.3f} dB (float model: loss {loss:.4f}, si_snr "
+          f"{snr:.3f} dB), K6 launches {engine_network.launches}, K5a "
+          f"{engine_layer.launches}, K5b {engine_layer.launches_carry}",
+          flush=True)
+    assert mask_net.shape == (B, frames, 257), mask_net.shape
+    assert torch.isfinite(mask_net).all()
+    assert np.isfinite(loss_e) and np.isfinite(snr_e)
+    assert engine_network.launches == 1, engine_network.launches
+    assert engine_layer.launches == engine_layer.launches_carry == 0
+    assert diag_scan.launches == layer_tail.launches == 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _check_passes("K6 engine offline call B=8", engine_network.launched(),
+                  pass_plan(B, frames, h, p, n_layers), sms)
+    digest = hashlib.sha256(
+        mask_net.contiguous().cpu().numpy().tobytes()).hexdigest()
+    print(f"K6 mask sha256 (engine offline call, B={B}): {digest}",
+          flush=True)
+    times = {}
+    for bsz, x in ((B, x_eng), (4 * B, eng.x32)):
+        times[f"offline call B={bsz} ms"] = _median_ms(lambda: engine(x))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine(x)
+        torch.cuda.synchronize()
+        times[f"offline call B={bsz} peak MiB above the inputs"] = (
+            torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        times[f"scratch B={bsz} MiB"] = pass_plan(
+            bsz, frames, h, p, n_layers).scratch_bytes() / 2 ** 20
+    print(json.dumps({"engine_offline_phase": times}), flush=True)
+
+    stack_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
+                                      device=x_eng.device, block_t=512)
+    stack_engine._network_ok = False
+    _reset_counts()
+    mask_stack = stack_engine(x_eng)
+    torch.cuda.synchronize()
+    records["engine_layer"]["launches"] = engine_layer.launches
+    print(f"engine stack route: K5a launches {engine_layer.launches}, K6 "
+          f"{engine_network.launches}, K5b {engine_layer.launches_carry}",
+          flush=True)
+    assert engine_layer.launches == n_layers, engine_layer.launches
+    assert engine_network.launches == engine_layer.launches_carry == 0
+    _check_passes("K5a stack route, last launch", engine_layer.launched(),
+                  pass_plan(B, frames, h, p, 1, encoder=False), sms)
+    _check("engine network route vs stack route (bit-identical)",
+           (mask_net - mask_stack).abs().max().item(), 0.0)
+    cpu_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
+                                    device="cpu", block_t=512)
+    x_small = x_eng[:2, :200]
+    _check("engine on the card vs engine on the CPU (plain)",
+           (engine(x_small).cpu() - cpu_engine(x_small.cpu())).abs().max()
+           .item(), 2e-3)
+
+
+def engine_streaming_phase(cfg, eng, noisy, out_shape, records) -> None:
+    """Phase 6: ``StreamingDenoiser.from_engine`` at block 128 over the 30 s
+    audio in 1 s chunks (K5b on every forward, nothing else; the output of
+    the float stream's shape ``out_shape`` where given), the passes of one
+    128-frame ``process_chunk``, and chunked ``process_chunk`` against one
+    whole call (exact)."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import (diag_scan, engine_layer,
+                                               engine_network, layer_tail)
+    from sparsernns_tpu_torch.ops.cuda.engine_layer import pass_plan
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
+    x_eng = eng.x_eng
+    n_layers, frames = cfg.n_layers, x_eng.shape[1]
+    n_chunks = -(-noisy.shape[1] // CHUNK)
+    stream_engine = engine_from_frozen(cfg, *eng.frozen, device=x_eng.device,
+                                       block_t=STREAM_BLOCK)
+    eden = StreamingDenoiser.from_engine(stream_engine, batch_size=B)
+    _reset_counts()
+    t0 = time.time()
+    out_eng = eden.process_offline(noisy, chunk_samples=CHUNK)
+    torch.cuda.synchronize()
+    estream_s = time.time() - t0
+    records["engine_layer_carry"]["launches"] = engine_layer.launches_carry
+    n_forwards = engine_layer.launches_carry // n_layers
+    print(f"engine streaming: {n_chunks} chunks of {CHUNK} samples in "
+          f"{estream_s * 1e3:.1f} ms, {n_forwards} forwards of "
+          f"{STREAM_BLOCK}-frame blocks, K5b launches "
+          f"{engine_layer.launches_carry}, K5a {engine_layer.launches}, K6 "
+          f"{engine_network.launches}", flush=True)
+    assert out_shape is None or out_eng.shape == out_shape, out_eng.shape
+    assert np.isfinite(out_eng).all()
+    assert engine_layer.launches_carry % n_layers == 0
+    assert n_forwards >= frames // STREAM_BLOCK, n_forwards
+    assert engine_layer.launches == engine_network.launches == 0
+    assert diag_scan.launches == layer_tail.launches == 0
+    carries, parts = None, []
+    for start in range(0, frames, STREAM_BLOCK):
+        part, carries = stream_engine.process_chunk(
+            x_eng[:, start:start + STREAM_BLOCK], carries)
+        parts.append(part)
+    _check("engine chunked process_chunk vs one whole call",
+           (torch.cat(parts, dim=1) - stream_engine(x_eng)).abs().max()
+           .item(), 0.0)    # the same device functions, the same blocks
+    stream_engine.process_chunk(x_eng[:, :STREAM_BLOCK])
+    _check_passes("K5b process_chunk, 128-frame block (last layer)",
+                  engine_layer.launched(),
+                  pass_plan(B, STREAM_BLOCK, cfg.d_model,
+                            stream_engine.layers[-1].p, 1, encoder=False))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2838,11 +3318,7 @@ def main() -> int:
     from sparsernns_tpu_torch.ops.stft import stft_splitter
     from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
     from sparsernns_tpu_torch.train.loop import build_model
-    from sparsernns_tpu_torch.quantize.calibrate import calibrate
-    from sparsernns_tpu_torch.quantize.config import quantization_recipes
-    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
-    from sparsernns_tpu_torch.train.losses import (STFT_MAG_MEAN,
-                                                   ndns_loss_from_mask_tm)
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
     from sparsernns_tpu_torch.train.steps import make_ndns_eval_step
     from sparsernns_tpu_torch.utils.config import RunConfig
 
@@ -3026,255 +3502,20 @@ def main() -> int:
     mark("streaming phase")
 
     # ---------------- engine set-up: calibrate, freeze, build ----------
-    def reset_counts():
-        diag_scan.launches = diag_scan.launches_rev = 0
-        diag_scan.launches_requant = 0
-        fused_s5.launches = layer_tail.launches = 0
-        fused_s5.launches_engine = fused_s5.launches_engine_carry = 0
-        engine_layer.launches = engine_layer.launches_carry = 0
-        engine_network.launches = 0
-        block_sparse.launches = 0
-        qat_scan.launches = fused_s5.launches_qat = 0
-
-    t0 = time.time()
-    recipe = quantization_recipes[cfg.convert_quantization]
-    cal_model = build_model(
-        cfg, 257, 257, device=dev, seed=0, scan_mode="sequential",
-        q_config=recipe(static_quant=True, calibrating=True))
-    cal_ds = SyntheticNDNS(size=2 * B, length=CAL_SECONDS * 16000, seed=7)
-    cal_audio = torch.from_numpy(np.stack(
-        [cal_ds[i][0] for i in range(2 * B)])).to(dev)
-    cal_x = (stft_splitter(cal_audio)[0] - STFT_MAG_MEAN).transpose(1, 2)
-    frozen_params, frozen_stats = calibrate(
-        cal_model, model.state_dict(), [cal_x[:B], cal_x[B:]])
-    engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
-                                device=dev, block_t=512)
-    print(f"engine set-up (calibrate 2 x {B} clips of {CAL_SECONDS} s, "
-          f"freeze, pack): {time.time() - t0:.1f} s", flush=True)
-    x_eng = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
-    mode, layers = engine.mode, engine.layers
-    assert all(lay.w_b.dtype == torch.int8 and lay.state_requant is not None
-               and lay.residual_requant is not None for lay in layers)
-    rows = B * frames
-    layer_flops = (2 * h * 2 * p + 2 * 2 * p * h + n_dense * 2 * h * h
-                   + 8 * p + 6 * h)
-    layer_w_bytes = 2 * h * 2 * p + n_dense * h * h + 4 * (
-        3 * h + 2 * p + n_dense * h)
-
+    eng = engine_setup(cfg, model, noisy_mag)
     mark("engine set-up")
 
     # ---------------- engine kernel phase (K5a, K5b, K6) ----------------
-    with torch.no_grad():
-        # K6, the default offline route, at its own block rule
-        net_args = (x_eng, engine._enc, layers, engine._dec, mode)
-        ref = engine_network.engine_network_plain(*net_args, block_t=512)
-        out = engine_network.engine_network_cuda(*net_args, block_t=512)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        ref_scale = max(1.0, ref.abs().max().item())
-        _check("K6 engine_network vs plain (mask)", err, 2e-3 * ref_scale)
-        _check("K6 engine_network vs plain (mask, mean)",
-               (out - ref).abs().mean().item(), 1e-4 * ref_scale)
-        ms = _time_ms(lambda: engine_network.engine_network_cuda(
-            *net_args, block_t=512), 3)
-        plain_ms = _time_ms(lambda: engine_network.engine_network_plain(
-            *net_args, block_t=512), 1, 0)
-        bound, by = _bound_ms(
-            2 * rows * 257 * 4 + n_layers * layer_w_bytes + 2 * 257 * h
-            + 4 * (h + 257),
-            rows * (2 * 257 * h + n_layers * layer_flops + 2 * h * 257))
-        records["engine_network"] = dict(
-            name="engine_network", route="cuda",
-            source="sparsernns_tpu_torch/ops/cuda/csrc/engine_network.cu",
-            replaces="sparsernns_tpu/ops/pallas/fused_network.py:299",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=None)
-
-        # K5a: the middle layer over the int16-code stream that the plain
-        # first layer writes
-        r0 = engine_layer.engine_layer_plain(
-            x_eng, layers[0], mode, block_t=512, enc=engine._enc)
-        assert r0.dtype == torch.int16, r0.dtype
-        kw = dict(block_t=512, in_requant=layers[0].residual_requant)
-        ref = engine_layer.engine_layer_plain(r0, layers[1], mode, **kw)
-        out = engine_layer.engine_layer_cuda(r0, layers[1], mode, **kw)
-        torch.cuda.synchronize()
-        err = _code_diff("K5a engine_layer vs plain (int16 codes)", out, ref)
-        ms = _time_ms(lambda: engine_layer.engine_layer_cuda(
-            r0, layers[1], mode, **kw), 5)
-        plain_ms = _time_ms(lambda: engine_layer.engine_layer_plain(
-            r0, layers[1], mode, **kw), 1, 0)
-        bound, by = _bound_ms(2 * rows * h * 2 + layer_w_bytes,
-                              rows * layer_flops)
-        records["engine_layer"] = dict(
-            name="engine_layer", route="cuda",
-            source="sparsernns_tpu_torch/ops/cuda/csrc/engine_layer.cu",
-            replaces="sparsernns_tpu/ops/pallas/fused_layer.py:629",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=None)
-
-        # K5b: the same layer from a non-zero carry, at the full length
-        # and at the streaming shape (one block of 128 frames), which is
-        # the one timed
-        carry = tuple(0.05 * torch.randn((B, p), generator=gen).to(dev)
-                      for _ in range(2))
-        errs = []
-        for name, r_in, bt in (("L=3751, block 512", r0, 512),
-                               ("L=128, block 128", r0[:, :STREAM_BLOCK],
-                                STREAM_BLOCK)):
-            kw = dict(block_t=bt, in_requant=layers[0].residual_requant,
-                      carry=carry)
-            ref, ref_c = engine_layer.engine_layer_plain(
-                r_in, layers[1], mode, **kw)
-            out, out_c = engine_layer.engine_layer_cuda(
-                r_in, layers[1], mode, **kw)
-            torch.cuda.synchronize()
-            errs.append(_code_diff(f"K5b engine_layer_carry vs plain, {name}",
-                                   out, ref))
-            scale = max(c.abs().max().item() for c in ref_c)
-            _check(f"K5b carry out, {name}",
-                   max((a - b).abs().max().item()
-                       for a, b in zip(out_c, ref_c)), 1e-5 * scale)
-        ms = _time_ms(lambda: engine_layer.engine_layer_cuda(
-            r_in, layers[1], mode, **kw), 20)
-        plain_ms = _time_ms(lambda: engine_layer.engine_layer_plain(
-            r_in, layers[1], mode, **kw), 1, 0)
-        s_rows = B * STREAM_BLOCK
-        bound, by = _bound_ms(
-            2 * s_rows * h * 2 + layer_w_bytes + 4 * B * p * 4,
-            s_rows * layer_flops)
-        records["engine_layer_carry"] = dict(
-            name="engine_layer_carry", route="cuda",
-            source="sparsernns_tpu_torch/ops/cuda/csrc/engine_layer.cu",
-            replaces="sparsernns_tpu/ops/pallas/fused_layer.py:729",
-            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=None)
-        # every variant of the engine kernels (the recipe runs half1 +
-        # gelu + prenorm over int8 weights and an int16-code stream): GLU
-        # kinds, relufication, postnorm, float32 activations, bf16 io,
-        # int16 and float weights with a bf16 stream, at the full width on
-        # a short sequence with a short last block; both routes against
-        # the plain network and against each other
-        full_params = copy.deepcopy(frozen_params)
-        for i in range(n_layers):       # a value dense for the "full" GLU
-            lay = full_params["encoder"][f"layers_{i}"]
-            lay["out1"] = {k: np.roll(lay["out2"][k], 1, axis=0)
-                           for k in ("kernel", "bias")}
-        xs = x_eng[:2, :300]
-        variants = [dict(glu_variant=g, relufication=r, prenorm=pn)
-                    for g in ("full", "half1", "half2", "none")
-                    for r, pn in ((False, True), (True, False))]
-        variants += [dict(act_dtype=torch.float32),
-                     dict(convert_quantization="w16a16"),
-                     dict(convert_quantization="none"),
-                     dict(io=torch.bfloat16)]
-        for var in variants:
-            var = dict(var)
-            io = var.pop("io", torch.float32)
-            act = var.pop("act_dtype", torch.bfloat16)
-            v_eng = engine_from_frozen(
-                dataclasses.replace(cfg, **var), full_params, frozen_stats,
-                device=dev, block_t=128, act_dtype=act)
-            x_in = xs.to(io)
-            v_args = (x_in, v_eng._enc, v_eng.layers, v_eng._dec, v_eng.mode)
-            ref = engine_network.engine_network_plain(
-                *v_args, block_t=128, out_dtype=io).float()
-            net = v_eng._apply_network(x_in, 128, io)
-            stk = v_eng._apply_stack(x_in, 128, io)
-            assert net.dtype == stk.dtype == io
-            scale = max(1.0, ref.abs().max().item())
-            name = f"K6/K5a {var or ''} act {act} io {io}"
-            _check(f"{name} vs plain", (net.float() - ref).abs().max().item(),
-                   (2e-2 if io == torch.bfloat16 else 2e-3) * scale)
-            _check(f"{name} network vs stack",
-                   (net.float() - stk.float()).abs().max().item(), 0.0)
-    print(json.dumps({"engine_kernel_phase": {
-        k: records[k] for k in ("engine_network", "engine_layer",
-                                "engine_layer_carry")}}), flush=True)
-
+    engine_kernel_phase(cfg, eng, gen, records)
     mark("engine kernel phase")
 
     # ---------------- engine offline phase (K6, then the K5a stack) -----
-    def engine_metrics(mask):
-        nm = noisy_mag.transpose(1, 2)
-        loss_e, snr_e, _ = ndns_loss_from_mask_tm(
-            mask, nm, noisy_phase.transpose(1, 2),
-            clean_mag.transpose(1, 2), clean_t)
-        return loss_e.item(), snr_e.item()
-
-    reset_counts()
-    t0 = time.time()
-    mask_net = engine(x_eng)
-    torch.cuda.synchronize()
-    eng_s = time.time() - t0
-    records["engine_network"]["launches"] = engine_network.launches
-    loss_e, snr_e = engine_metrics(mask_net)
-    print(f"engine offline: call {eng_s * 1e3:.1f} ms, loss {loss_e:.4f}, "
-          f"si_snr {snr_e:.3f} dB (float model: loss {loss:.4f}, si_snr "
-          f"{snr:.3f} dB), K6 launches {engine_network.launches}, K5a "
-          f"{engine_layer.launches}, K5b {engine_layer.launches_carry}",
-          flush=True)
-    assert mask_net.shape == (B, frames, 257), mask_net.shape
-    assert torch.isfinite(mask_net).all()
-    assert np.isfinite(loss_e) and np.isfinite(snr_e)
-    assert engine_network.launches == 1, engine_network.launches
-    assert engine_layer.launches == engine_layer.launches_carry == 0
-    assert diag_scan.launches == layer_tail.launches == 0
-
-    stack_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
-                                      device=dev, block_t=512)
-    stack_engine._network_ok = False
-    reset_counts()
-    mask_stack = stack_engine(x_eng)
-    torch.cuda.synchronize()
-    records["engine_layer"]["launches"] = engine_layer.launches
-    print(f"engine stack route: K5a launches {engine_layer.launches}, K6 "
-          f"{engine_network.launches}, K5b {engine_layer.launches_carry}",
-          flush=True)
-    assert engine_layer.launches == n_layers, engine_layer.launches
-    assert engine_network.launches == engine_layer.launches_carry == 0
-    _check("engine network route vs stack route (bit-identical)",
-           (mask_net - mask_stack).abs().max().item(), 0.0)
-    cpu_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
-                                    device="cpu", block_t=512)
-    x_small = x_eng[:2, :200]
-    _check("engine on the card vs engine on the CPU (plain)",
-           (engine(x_small).cpu() - cpu_engine(x_small.cpu())).abs().max()
-           .item(), 2e-3)
-
+    engine_offline_phase(cfg, eng, (noisy_mag, noisy_phase, clean_mag),
+                         clean_t, (loss, snr), records)
     mark("engine offline phase")
 
     # ---------------- engine streaming phase (K5b) ----------------
-    stream_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
-                                       device=dev, block_t=STREAM_BLOCK)
-    eden = StreamingDenoiser.from_engine(stream_engine, batch_size=B)
-    reset_counts()
-    t0 = time.time()
-    out_eng = eden.process_offline(noisy, chunk_samples=CHUNK)
-    torch.cuda.synchronize()
-    estream_s = time.time() - t0
-    records["engine_layer_carry"]["launches"] = engine_layer.launches_carry
-    n_forwards = engine_layer.launches_carry // n_layers
-    print(f"engine streaming: {n_chunks} chunks of {CHUNK} samples in "
-          f"{estream_s * 1e3:.1f} ms, {n_forwards} forwards of "
-          f"{STREAM_BLOCK}-frame blocks, K5b launches "
-          f"{engine_layer.launches_carry}, K5a {engine_layer.launches}, K6 "
-          f"{engine_network.launches}", flush=True)
-    assert out_eng.shape == out_chunked.shape, out_eng.shape
-    assert np.isfinite(out_eng).all()
-    assert engine_layer.launches_carry % n_layers == 0
-    assert n_forwards >= frames // STREAM_BLOCK, n_forwards
-    assert engine_layer.launches == engine_network.launches == 0
-    assert diag_scan.launches == layer_tail.launches == 0
-    carries, parts = None, []
-    for start in range(0, frames, STREAM_BLOCK):
-        part, carries = stream_engine.process_chunk(
-            x_eng[:, start:start + STREAM_BLOCK], carries)
-        parts.append(part)
-    _check("engine chunked process_chunk vs one whole call",
-           (torch.cat(parts, dim=1) - stream_engine(x_eng)).abs().max()
-           .item(), 0.0)    # the same device functions, the same blocks
-
+    engine_streaming_phase(cfg, eng, noisy, out_chunked.shape, records)
     mark("engine streaming phase")
 
     # ---------------- training kernel phase (K2-train, K3a, K3b) --------
@@ -3300,7 +3541,7 @@ def main() -> int:
             "block_sparse": block_sparse.launches,
             "qat_scan": qat_scan.launches,
             "fused_s5_qat": fused_s5.launches_qat}
-        reset_counts()
+        _reset_counts()
         layer_tail_bwd.launches_hist = layer_tail_bwd.launches_bwd = 0
         return counts
 
@@ -3318,8 +3559,8 @@ def main() -> int:
     mark("mixer-route training phase")
 
     # ---------------- top-k kernel phase (K1 requant, K4a engine, K4b) ---
-    topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
-                      (frozen_params, frozen_stats))
+    topk_kernel_phase(cfg, eng.engine, eng.x_eng, frames, gen, records,
+                      eng.frozen)
     mark("top-k kernel phase")
 
     # ---------------- top-k serving phase ----------------
@@ -3345,11 +3586,12 @@ def main() -> int:
     # ---------------- QAT and top-k training, w32a32 engine -------------
     qat_training_phase(cfg, (noisy, clean_t),
                        (noisy_mag, noisy_phase, clean_mag), batch,
-                       (frozen_params, frozen_stats), records, counters)
+                       eng.frozen, records, counters)
     mark("QAT and top-k training phase")
 
     # ---------------- int-dot kernel phase (K5a, K5b, K6 int modes) -----
-    int_trees = intdot_kernel_phase(cfg, model, cal_x, x_eng, frames, gen,
+    int_trees = intdot_kernel_phase(cfg, model, eng.cal_x, eng.x_eng,
+                                    frames, gen,
                                     records)
     mark("int-dot kernel phase")
 

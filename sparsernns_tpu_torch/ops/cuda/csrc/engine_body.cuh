@@ -1,10 +1,12 @@
-// Shared device code of the serving-engine kernels: one quantized serving
-// layer (and the encoder / decoder dense) on a tile of kT frames of one
-// batch row, held in shared memory. Included by engine_layer.cu (one layer
-// per launch, optional carry) and engine_network.cu (the whole network per
-// launch). Both kernels compute every product and every requantization
-// through the functions below, with each output element summed over k in
-// ascending order by fmaf, so the two routes give bit-identical results.
+// Shared device code of the serving-engine kernels: the parts of one
+// quantized serving layer (and the encoder / decoder dense) on a tile of
+// kT frames held in shared memory. The serving passes (engine_passes.cuh,
+// for engine_layer.cu and engine_network.cu) and the mixer kernels
+// (fused_s5.cu's mixer_tile, qat_scan.cu) compute every product and every
+// requantization through the functions below, with each output element
+// summed over k in ascending order by fmaf, so every route gives
+// bit-identical results. The passes take the 4-column register tiles
+// (kWide), the mixer kernels one column a thread.
 //
 // The layer body is the TPU kernels' (sparsernns_tpu/ops/pallas/
 // fused_layer.py `_mixer_pre`, scan_kernel.py `scan_block_body`,
@@ -45,7 +47,8 @@
 // qat_scan.cu) leave every integer field zero and take none of these
 // branches.
 //
-// The result h (before the output requant) replaces r in shared memory.
+// The layer's result h (before the output requant) replaces r in shared
+// memory.
 // Rounding is round-half-to-even (rintf) with the clip after it; scales
 // divide, as in the reference. No fast-math intrinsics.
 
@@ -188,9 +191,117 @@ __device__ inline void tile_matmul_t(const float* A, int lda,
   }
 }
 
-template <class Epi>
+// W[i .. i + 3] (four neighbouring columns of one row) as floats. int8
+// goes through the exponent trick (0x4B000000 | (b + 128)) - (2^23 + 128),
+// exact, on the integer and FMA pipes instead of the slower conversion.
+__device__ inline void ldw4(const float* w, long long i, float* v) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(w + i));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ inline void ldw4(const int8_t* w, long long i, float* v) {
+  const unsigned q =
+      __ldg(reinterpret_cast<const unsigned*>(w + i)) ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = __fsub_rn(__uint_as_float(__byte_perm(q, 0x4B000000u, 0x7440 + j)),
+                     8388736.f);
+}
+__device__ inline void ldw4(const int16_t* w, long long i, float* v) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(w + i));
+  v[0] = (float)(int16_t)(q.x & 0xffffu);
+  v[1] = (float)(int16_t)(q.x >> 16);
+  v[2] = (float)(int16_t)(q.y & 0xffffu);
+  v[3] = (float)(int16_t)(q.y >> 16);
+}
+
+// tile_matmul_t with a register tile of kRT rows x 4 neighbouring columns
+// a thread (N % 4 == 0, W aligned for a 4-column load): every output the
+// same fmaf chain in ascending k, each weight load shared by kRT rows and
+// each row's operand load by 4 columns.
+template <class WT, class Epi>
+__device__ inline void tile_matmul4_t(const float* A, int lda,
+                                      const WT* __restrict__ W, int K, int N,
+                                      int rows, Epi epi) {
+  const int n_cg = N / 4;
+  const int n_items = n_cg * (kT / kRT);
+  for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
+    const int c0 = (item % n_cg) * 4;
+    const int r0 = (item / n_cg) * kRT;
+    if (r0 >= rows) continue;
+    const float* a = A + r0 * lda;
+    float acc[kRT][4];
+#pragma unroll
+    for (int r = 0; r < kRT; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+    int k = 0;
+    for (; k + 4 <= K; k += 4) {
+      float w[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldw4(W, (long long)(k + kk) * N + c0, w[kk]);
+#pragma unroll
+      for (int r = 0; r < kRT; ++r) {
+        const float4 av = *reinterpret_cast<const float4*>(a + r * lda + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[r][j] = fmaf(av.x, w[0][j], acc[r][j]);
+          acc[r][j] = fmaf(av.y, w[1][j], acc[r][j]);
+          acc[r][j] = fmaf(av.z, w[2][j], acc[r][j]);
+          acc[r][j] = fmaf(av.w, w[3][j], acc[r][j]);
+        }
+      }
+    }
+    for (; k < K; ++k) {
+      float w[4];
+      ldw4(W, (long long)k * N + c0, w);
+#pragma unroll
+      for (int r = 0; r < kRT; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[r][j] = fmaf(a[r * lda + k], w[j], acc[r][j]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRT; ++r)
+      if (r0 + r < rows)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) epi(r0 + r, c0 + j, acc[r][j]);
+  }
+}
+
+// Whether the 4-column tiles take W (K, N) of `bytes` a weight: whole
+// groups of 4 columns, each group's load aligned.
+__device__ inline bool wide_ok(const void* w, int N, int bytes) {
+  return N % 4 == 0 &&
+         ((unsigned long long)w & (unsigned long long)(4 * bytes - 1)) == 0;
+}
+
+// A @ W through the dense's weight type; with kWide the 4-column register
+// tiles where the width allows (the serving passes), else one column a
+// thread (the mixer kernels).
+template <bool kWide = false, class Epi>
 __device__ inline void tile_matmul(const float* A, int lda, const DenseW& w,
                                    int K, int N, int rows, Epi epi) {
+  if (kWide) {
+    if (w.wtype == kWI8 && wide_ok(w.w, N, 1)) {
+      tile_matmul4_t(A, lda, static_cast<const int8_t*>(w.w), K, N, rows,
+                     epi);
+      return;
+    }
+    if (w.wtype == kWI16 && wide_ok(w.w, N, 2)) {
+      tile_matmul4_t(A, lda, static_cast<const int16_t*>(w.w), K, N, rows,
+                     epi);
+      return;
+    }
+    if (w.wtype == kWF32 && wide_ok(w.w, N, 4)) {
+      tile_matmul4_t(A, lda, static_cast<const float*>(w.w), K, N, rows,
+                     epi);
+      return;
+    }
+  }
   if (w.wtype == kWI8)
     tile_matmul_t(A, lda, static_cast<const int8_t*>(w.w), K, N, rows, epi);
   else if (w.wtype == kWI16)
@@ -238,20 +349,26 @@ __device__ inline float int_dot_value(int hi, int lo, int cs, int mode) {
 // grid (s, qmin, qmax) as the int8 planes of Q (ld ldq; the hi plane at Q,
 // the lo plane at Q + kT * ldq): for kDotI8 the code itself in the lo
 // plane. With `zd`, also code * s into zd[r * lda + c] (may be A itself).
+// The integer code q at row r, column c of the code tile Q (ld ldq): the
+// code itself in the lo plane (kDotI8), or its hi and lo planes.
+__device__ inline void put_code(int8_t* Q, int ldq, int r, int c, int q,
+                                int mode) {
+  int8_t* Qlo = Q + kT * ldq;
+  if (mode == kDotI8) {
+    Qlo[r * ldq + c] = (int8_t)q;
+  } else {
+    Q[r * ldq + c] = (int8_t)(q >> 8);
+    Qlo[r * ldq + c] = (int8_t)((q & 255) - 128);
+  }
+}
+
 __device__ inline void quant_tile(const float* A, int lda, int K, int rows,
                                   float s, float qmin, float qmax, int mode,
                                   int8_t* Q, int ldq, float* zd) {
-  int8_t* Qlo = Q + kT * ldq;
   for (int i = threadIdx.x; i < rows * K; i += blockDim.x) {
     const int r = i / K, c = i % K;
     const float code = quant_code(A[r * lda + c], s, qmin, qmax);
-    const int q = (int)code;
-    if (mode == kDotI8) {
-      Qlo[r * ldq + c] = (int8_t)q;
-    } else {
-      Q[r * ldq + c] = (int8_t)(q >> 8);
-      Qlo[r * ldq + c] = (int8_t)((q & 255) - 128);
-    }
+    put_code(Q, ldq, r, c, (int)code, mode);
     if (zd) zd[r * lda + c] = __fmul_rn(code, s);
   }
 }
@@ -305,10 +422,89 @@ __device__ inline void tile_matmul_q_t(const int8_t* Q, int ldq,
   }
 }
 
-template <class Epi>
+// tile_matmul_q_t with a register tile of kRT rows x 4 neighbouring
+// columns a thread (N % 4 == 0, W 4-byte aligned): per 4 k one word of
+// each of the four weight rows, transposed by byte permutes into one word
+// per column, then one __dp4a per row, column and plane.
+template <bool kTwo, class Epi>
+__device__ inline void tile_matmul_q4_t(const int8_t* Q, int ldq,
+                                        const int8_t* __restrict__ W, int K,
+                                        int N, int rows, int mode,
+                                        const int* colsum, Epi epi) {
+  const int8_t* Qlo = Q + kT * ldq;
+  const int n_cg = N / 4;
+  const int n_items = n_cg * (kT / kRT);
+  for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
+    const int c0 = (item % n_cg) * 4;
+    const int r0 = (item / n_cg) * kRT;
+    if (r0 >= rows) continue;
+    int hi[kRT][4], lo[kRT][4];
+#pragma unroll
+    for (int r = 0; r < kRT; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hi[r][j] = lo[r][j] = 0;
+    int k = 0;
+    for (; k + 4 <= K; k += 4) {
+      unsigned w[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        w[kk] = __ldg(reinterpret_cast<const unsigned*>(
+            W + (long long)(k + kk) * N + c0));
+      // col[j] = bytes (w[0].j, w[1].j, w[2].j, w[3].j): k ascending
+      const unsigned t01l = __byte_perm(w[0], w[1], 0x5140);
+      const unsigned t01h = __byte_perm(w[0], w[1], 0x7362);
+      const unsigned t23l = __byte_perm(w[2], w[3], 0x5140);
+      const unsigned t23h = __byte_perm(w[2], w[3], 0x7362);
+      const int col[4] = {(int)__byte_perm(t01l, t23l, 0x5410),
+                          (int)__byte_perm(t01l, t23l, 0x7632),
+                          (int)__byte_perm(t01h, t23h, 0x5410),
+                          (int)__byte_perm(t01h, t23h, 0x7632)};
+#pragma unroll
+      for (int r = 0; r < kRT; ++r) {
+        const int off = (r0 + r) * ldq + k;
+        const int ql = *reinterpret_cast<const int*>(Qlo + off);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) lo[r][j] = __dp4a(ql, col[j], lo[r][j]);
+        if (kTwo) {
+          const int qh = *reinterpret_cast<const int*>(Q + off);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) hi[r][j] = __dp4a(qh, col[j], hi[r][j]);
+        }
+      }
+    }
+    for (; k < K; ++k) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int w = __ldg(W + (long long)k * N + c0 + j);
+#pragma unroll
+        for (int r = 0; r < kRT; ++r) {
+          lo[r][j] += (int)Qlo[(r0 + r) * ldq + k] * w;
+          if (kTwo) hi[r][j] += (int)Q[(r0 + r) * ldq + k] * w;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cs = kTwo ? colsum[c0 + j] : 0;
+#pragma unroll
+      for (int r = 0; r < kRT; ++r)
+        if (r0 + r < rows)
+          epi(r0 + r, c0 + j, int_dot_value(hi[r][j], lo[r][j], cs, mode));
+    }
+  }
+}
+
+template <bool kWide = false, class Epi>
 __device__ inline void tile_matmul_q(const int8_t* Q, int ldq,
                                      const int8_t* W, int K, int N, int rows,
                                      int mode, const int* colsum, Epi epi) {
+  if (kWide && wide_ok(W, N, 1)) {
+    if (mode == kDotI8)
+      tile_matmul_q4_t<false>(Q, ldq, W, K, N, rows, mode, colsum, epi);
+    else
+      tile_matmul_q4_t<true>(Q, ldq, W, K, N, rows, mode, colsum, epi);
+    return;
+  }
   if (mode == kDotI8)
     tile_matmul_q_t<false>(Q, ldq, W, K, N, rows, mode, colsum, epi);
   else
@@ -330,15 +526,15 @@ __device__ inline void dense_tile(const float* A, int lda, const DenseW& w,
                                   int K, int N, int rows, int8_t* Q, int ldq,
                                   Epi epi) {
   if (w.in_mode == kDotFloat) {
-    tile_matmul(A, lda, w, K, N, rows, epi);
+    tile_matmul<true>(A, lda, w, K, N, rows, epi);
     return;
   }
   const float qmax = grid_max(w.in_bits);
   quant_tile(A, lda, K, rows, w.in_s, -qmax - 1.f, qmax, w.in_mode, Q, ldq,
              nullptr);
   __syncthreads();
-  tile_matmul_q(Q, ldq, static_cast<const int8_t*>(w.w), K, N, rows,
-                w.in_mode, w.colsum, epi);
+  tile_matmul_q<true>(Q, ldq, static_cast<const int8_t*>(w.w), K, N, rows,
+                       w.in_mode, w.colsum, epi);
 }
 
 __device__ inline float bf16_round(float v) {
@@ -419,13 +615,114 @@ __device__ inline void decode_tile(const float* R, int ldh, const DenseW& dec,
              });
 }
 
+// The B-projection of the S5 mixer on a tile Z (rows x H, the mixer
+// input): bu = (Z @ W_b) * (per-half scale), then quant_but; `out(r, c, v)`
+// consumes bu. In the mixer_in16 mode the dot runs on the codes of Z (the
+// planes in Q, ld ldq) and Z is overwritten with code * s, the D term's
+// operand. The 4-column register tiles, as every dot of the passes.
+template <class Out>
+__device__ inline void mixer_bproj(const LayerParams& lp, int H, float* Z,
+                                   int ldh, int rows, int8_t* Q, int ldq,
+                                   Out out) {
+  const int P = lp.p;
+  auto bu_out = [&](int r, int c, float v) {
+    if (lp.but_bits)
+      v = requant(v, c < P ? lp.but_re : lp.but_im, lp.but_bits);
+    out(r, c, v);
+  };
+  if (lp.ut_mode) {
+    const float qmax = grid_max(lp.ut_bits);
+    quant_tile(Z, ldh, H, rows, lp.ut_s, -qmax - 1.f, qmax, lp.ut_mode, Q,
+               ldq, Z);
+    __syncthreads();
+    tile_matmul_q<true>(Q, ldq, static_cast<const int8_t*>(lp.wb.w), H,
+                         2 * P, rows, lp.ut_mode, lp.cs_wb,
+                         [&](int r, int c, float acc) {
+                    bu_out(r, c,
+                           __fmul_rn(acc, c < P ? lp.ut_sc_re : lp.ut_sc_im));
+                  });
+  } else {
+    tile_matmul<true>(Z, ldh, lp.wb, H, 2 * P, rows,
+                       [&](int r, int c, float acc) {
+      bu_out(r, c, __fmul_rn(acc, c < P ? lp.wb_s_re : lp.wb_s_im));
+    });
+  }
+}
+
+// A state (xr, xi) on the frozen block-requant grid, or the state itself
+// without one: (sr, si).
+__device__ inline void mixer_grid(const LayerParams& lp, float xr, float xi,
+                                  float& sr, float& si) {
+  sr = xr;
+  si = xi;
+  if (lp.has_sq) {
+    sr = __fmul_rn(quant_code(xr, lp.sq_re, lp.sq_min, lp.sq_max), lp.sq_re);
+    si = __fmul_rn(quant_code(xi, lp.sq_im, lp.sq_min, lp.sq_max), lp.sq_im);
+  }
+}
+
+// What the C-projection reads of a state on the grid (sr, si): relu, then
+// the state times the C-side scale, or the state's code for the integer
+// C-projection.
+__device__ inline void mixer_read(const LayerParams& lp, int relu_state,
+                                  float sr, float si, float& wr, float& wi) {
+  if (relu_state) {
+    sr = fmaxf(sr, 0.f);
+    si = fmaxf(si, 0.f);
+  }
+  if (lp.st_mode) {
+    wr = __fmul_rn(sr, lp.st_inv_re);
+    wi = __fmul_rn(si, lp.st_inv_im);
+  } else {
+    wr = __fmul_rn(sr, lp.wc_s_re);
+    wi = __fmul_rn(si, lp.wc_s_im);
+  }
+}
+
+// The C-projection of the states (as mixer_read leaves them) + d * Z, then
+// quant_yt, into Y: on S (rows x [re | im], ld ldp), or in the state16 mode
+// one integer dot per half on the states' codes, which the caller put in
+// Q (the re half's at column 0, the im half's at round4(P)).
+__device__ inline void mixer_cproj(const LayerParams& lp, int H,
+                                   const float* Z, float* Y, const float* S,
+                                   int ldh, int ldp, int rows, int8_t* Q,
+                                   int ldq) {
+  const int P = lp.p;
+  auto y_out = [&](int r, int c, float v) {
+    float y = __fadd_rn(v, __fmul_rn(lp.d[c], Z[r * ldh + c]));
+    if (lp.yt_bits) y = requant(y, lp.yt_s, lp.yt_bits);
+    Y[r * ldh + c] = y;
+  };
+  if (lp.st_mode) {
+    const int p4 = round4(P);
+    const int8_t* wc = static_cast<const int8_t*>(lp.wc.w);
+    tile_matmul_q<true>(Q, ldq, wc, P, H, rows, lp.st_mode, lp.cs_wc_re,
+                         [&](int r, int c, float acc) {
+                    Y[r * ldh + c] = __fmul_rn(acc, lp.st_sc_re);
+                  });
+    __syncthreads();
+    tile_matmul_q<true>(Q + p4, ldq, wc + (long long)P * H, P, H, rows,
+                         lp.st_mode, lp.cs_wc_im,
+                         [&](int r, int c, float acc) {
+                    y_out(r, c, __fadd_rn(Y[r * ldh + c],
+                                          __fmul_rn(acc, lp.st_sc_im)));
+                  });
+  } else {
+    tile_matmul<true>(S, ldp, lp.wc, 2 * P, H, rows,
+                       [&](int r, int c, float acc) { y_out(r, c, acc); });
+  }
+}
+
 // The S5 mixer on a tile: Z (rows x H, the mixer input) -> Y = the mixer
 // output. S: (kT, ldp) scratch, ldp >= 2P; carry: (2P) running state
 // [re | im] of this layer, kept across tiles. `t0` is the index of the
-// tile's first frame in the sequence of length L. Shared by the layer
-// (layer_tile) and the stand-alone mixer kernel (fused_s5.cu), so
-// both round every product, state and requant alike. Q (ld ldq): the code
-// tile of the integer modes, which overwrite Z with the D term's operand.
+// tile's first frame in the sequence of length L. The stand-alone mixer
+// kernel (fused_s5.cu) runs it on tiles of one batch row. The serving
+// passes (engine_passes.cuh) compute the same arithmetic in parts, in the
+// same order on every element: mixer_bproj, scan_step_rn with mixer_grid
+// where a block ends, mixer_grid and mixer_read on every state,
+// mixer_cproj. Q (ld ldq): the code tile of the integer modes, which
+// overwrite Z with the D term's operand.
 __device__ inline void mixer_tile(const LayerParams& lp, int relu_state,
                                   int H, float* Z, float* Y, float* S,
                                   float* carry, int ldh, int ldp, int rows,
@@ -522,25 +819,28 @@ __device__ inline void mixer_tile(const LayerParams& lp, int relu_state,
   __syncthreads();
 }
 
-// One layer on the tile R (rows x H, f32 stream values); h replaces R.
-// Z, Y: (kT, ldh) scratch; S, carry, t0 as for mixer_tile; Q (kT rows of
-// ldq bytes, two planes) for the integer dots.
-__device__ inline void layer_tile(const LayerParams& lp, const Mode& m,
-                                  float* R, float* Z, float* Y, float* S,
-                                  float* carry, int ldh, int ldp, int rows,
-                                  int t0, int L, int block_t, int8_t* Q,
-                                  int ldq) {
+// z = r * nw + nb (prenorm) or r, on a tile: R -> Z.
+__device__ inline void layer_norm(const LayerParams& lp, const Mode& m,
+                                  const float* R, float* Z, int ldh,
+                                  int rows) {
   const int H = m.h;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < rows * H; i += blockDim.x) {
+  for (int i = threadIdx.x; i < rows * H; i += blockDim.x) {
     const int r = i / H, c = i % H;
     const float v = R[r * ldh + c];
     Z[r * ldh + c] =
         m.prenorm ? __fadd_rn(__fmul_rn(v, lp.nw[c]), lp.nb[c]) : v;
   }
-  __syncthreads();
-  mixer_tile(lp, m.relu_state, H, Z, Y, S, carry, ldh, ldp, rows, t0, L,
-             block_t, Q, ldq);
+}
+
+// The layer after its mixer, on a tile: x1 = act(Y) (replaces Z), the GLU
+// (4-column register tiles), the residual R, the postnorm affine and
+// relufication; h replaces R. Y may be overwritten (the full GLU's value
+// dense).
+__device__ inline void layer_finish(const LayerParams& lp, const Mode& m,
+                                    float* R, float* Z, float* Y, int ldh,
+                                    int rows, int8_t* Q, int ldq) {
+  const int H = m.h;
+  const int tid = threadIdx.x;
   // ---- activation (x1 replaces z); no GLU: residual here ----
   for (int i = tid; i < rows * H; i += blockDim.x) {
     const int r = i / H, c = i % H;

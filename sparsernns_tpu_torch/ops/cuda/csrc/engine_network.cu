@@ -1,142 +1,108 @@
-// The whole serving network per launch, one CTA per batch row: encoder
-// dense (+ relu), every layer, decoder dense, per tile of kT frames, with
-// every layer's scan state resident in shared memory and the stream
-// between layers never leaving the SM.
+// K6: the whole serving network, encoder dense (+ relu), every layer,
+// decoder dense, as passes over the whole card (engine_passes.cuh): a row
+// pass runs the tail of layer l and the head of layer l + 1 on a tile of
+// 32 frames of the flattened B * L stream, a scan pass walks each (batch
+// row, state channel) through all of L. n_layers + 1 row passes and
+// n_layers scans, enqueued by one call.
 //
 // Replaces the TPU kernel sparsernns_tpu/ops/pallas/fused_network.py
 // `fused_network_apply` -> `_net_call` (pallas_call at :299, main and tail
 // calls), in float-dot mode and in the integer-dot modes (the encoder's and
 // decoder's `_boundary_dense` :125 and every layer's, engine_body.cuh). The
-// TPU version needs a main grid of 8-aligned time blocks plus a
-// tail call chained by carries, and lambda-power tables per block size;
-// here one launch covers all of L, and `block_t` only says where the
-// states are requantized (engine_body.cuh). The store and load of the
-// stream between two layers of the per-layer route (integer codes of the
-// residual grid, or the activation type) happens as values:
-// `stream_value`. Every product and requantization goes through the same
-// device functions as engine_layer.cu, so the two routes are bit-identical
-// at the same block_t.
+// TPU version walks 8-aligned time blocks of a row in order with every
+// layer's carry in VMEM (plus a tail call chained by carries), so the
+// stream never leaves the core. Here the row passes have no order and the
+// recurrence is a pass of its own: between passes the stream (float32
+// values) and bu / the scanned states (float32) go through device memory,
+// in scratch the wrapper allocates ((B, L, H) and (B, L, 2P), updated in
+// place). `block_t` only says where the states are requantized. Every
+// product and requantization goes through the same device functions as
+// engine_layer.cu, so the two routes are bit-identical at the same
+// block_t.
 //
 // Bound: operations. Per frame 2*d_in*H (encoder) + n_layers * 0.27 MFLOP
 // + 2*H*d_out (decoder), 1.0 MFLOP at the serving width; at B=8, L=3751
 // that is 30 GFLOP, 0.45 ms at 67 TFLOP/s f32, against 62 MB of input and
-// mask traffic (0.018 ms at 3.35 TB/s); the int-dot modes count their dots
-// as int8 operations (engine_layer.cu). All int8 weights together are
-// 0.5 MB, more than one SM's shared memory, so they stream from L2. This
-// simple design fills B of the 132 SMs.
+// mask traffic (0.018 ms at 3.35 TB/s); the scratch adds 2 x (H + 2P) x 4
+// bytes a frame and layer (52 MB a layer at B=8). The int-dot modes count
+// their dots as int8 operations (engine_layer.cu). A row pass is
+// ceil(B * L / 32) CTAs (938 at B=8), two an SM where shared memory allows;
+// a scan is B * P / 32 one-warp CTAs, latency-bound like K1. The products
+// run on the CUDA cores (f32 fmaf, __dp4a): the tensor cores are unused.
 
-#include "engine_body.cuh"
-
-namespace {
+#include "engine_passes.cuh"
 
 using namespace engine;
 
+namespace {
+
 constexpr int kMaxLayers = 8;
-
-struct NetArgs {
-  const void* x;         // (B, L, d_in) f32 / bf16
-  void* out;             // (B, L, d_out) f32 / bf16
-  LayerParams layers[kMaxLayers];
-  DenseW enc, dec;
-  Mode mode;
-  int n_layers, p_max;
-  int in_type, out_type;
-  int d_in, d_out;
-  int L, block_t;
-  int ldq;               // bytes a row of the code tile Q (0: no int dot)
-};
-
-static_assert(sizeof(NetArgs) <= 4096, "kernel parameters above 4 KB");
-
-__global__ void __launch_bounds__(kThreads)
-engine_network_kernel(const __grid_constant__ NetArgs a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H = a.mode.h, L = a.L;
-  const int ldh = round4(H), ldp = round4(2 * a.p_max);
-  const int ldx = round4(a.d_in);
-  float* R = smem;
-  float* Z = R + kT * ldh;
-  float* Y = Z + kT * ldh;
-  float* S = Y + kT * ldh;
-  float* X = S + kT * ldp;
-  float* carry = X + kT * ldx;     // n_layers x (2 * p_max)
-  int8_t* Q = reinterpret_cast<int8_t*>(carry + a.n_layers * 2 * a.p_max);
-
-  const int tid = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * L;
-  for (int i = tid; i < a.n_layers * 2 * a.p_max; i += blockDim.x)
-    carry[i] = 0.f;
-
-  for (int t0 = 0; t0 < L; t0 += kT) {
-    const int rows = min(kT, L - t0);
-    load_tile(X, ldx, a.x, a.in_type, row0 + t0, a.d_in, rows, 1.f);
-    __syncthreads();
-    encode_tile(X, ldx, a.enc, a.d_in, a.mode, R, ldh, rows, Q, a.ldq);
-    __syncthreads();
-    for (int l = 0; l < a.n_layers; ++l) {
-      const LayerParams& lp = a.layers[l];
-      layer_tile(lp, a.mode, R, Z, Y, S, carry + l * 2 * a.p_max, ldh, ldp,
-                 rows, t0, L, a.block_t, Q, a.ldq);
-      for (int i = tid; i < rows * H; i += blockDim.x) {
-        float* v = R + (i / H) * ldh + i % H;
-        *v = stream_value(*v, lp, a.mode.act_bf16);
-      }
-      __syncthreads();
-    }
-    decode_tile(R, ldh, a.dec, H, a.d_out, a.out, a.out_type, row0 + t0,
-                rows, Q, a.ldq);
-    __syncthreads();
-  }
-}
 
 }  // namespace
 
 // x: (B, L, d_in) of in_type (f32 / bf16); out: (B, L, d_out) of out_type.
-// layers: n_layers (<= 8) host structs. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for too many layers.
+// layers: n_layers (<= 8) host structs. bu: (B * L, 2 * the widest P) f32
+// and stream: (B * L, H) f32 scratch. Returns the error of the first
+// launch that fails, cudaErrorInvalidValue for too many layers, or 0.
 extern "C" int engine_network_fwd(
     const void* x, void* out, int in_type, int out_type,
     const engine::LayerParams* layers, int n_layers,
     const engine::Mode* mode, const engine::DenseW* enc, int d_in,
     const engine::DenseW* dec, int d_out, int B, int L, int block_t,
-    void* stream) {
+    float* bu, float* stream_buf, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
-  NetArgs a;
-  a.x = x;
-  a.out = out;
-  const int H = mode->h;
-  int p_max = 0, q_w = enc->in_mode ? d_in : 0;
-  if (dec->in_mode) q_w = engine::imax(q_w, H);
-  for (int l = 0; l < n_layers; ++l) {
-    a.layers[l] = layers[l];
-    p_max = layers[l].p > p_max ? layers[l].p : p_max;
-    q_w = engine::imax(q_w, engine::code_width(layers[l], H));
+  const cudaStream_t st = (cudaStream_t)stream;
+  int p_max = 0;
+  for (int l = 0; l < n_layers; ++l) p_max = imax(p_max, layers[l].p);
+  RowPass base = {};
+  base.mode = *mode;
+  base.n_rows = (long long)B * L;
+  base.in_scale = 1.f;
+  base.d_in = d_in;
+  base.d_out = d_out;
+  base.ld_bu = 2 * p_max;
+  base.ldp = round4(base.ld_bu);
+  g_n_launched = 0;
+  cudaError_t err;
+  for (int l = 0; l <= n_layers; ++l) {
+    RowPass a = base;
+    if (l == 0) {          // encoder -> head of layer 0
+      a.in = x;
+      a.in_type = in_type;
+      a.enc = *enc;
+    } else {               // tail of layer l - 1
+      a.in = stream_buf;
+      a.in_type = kIoF32;
+      a.has_tail = 1;
+      a.tail = layers[l - 1];
+      a.s_in = bu;
+    }
+    if (l < n_layers) {    // -> the stream, head of layer l
+      a.stream_out = stream_buf;
+      a.has_head = 1;
+      a.head = layers[l];
+      a.bu_out = bu;
+    } else {               // -> decoder
+      a.dec = *dec;
+      a.out = out;
+      a.out_type = out_type;
+    }
+    if ((err = launch_row_pass(a, st)) != cudaSuccess) return (int)err;
+    if (l == n_layers) break;
+    ScanPass s = {};
+    s.lp = layers[l];
+    s.S = bu;
+    s.ld = base.ld_bu;
+    s.B = B;
+    s.L = L;
+    s.block_t = block_t;
+    if ((err = launch_scan_pass(s, st)) != cudaSuccess) return (int)err;
   }
-  a.ldq = engine::round4(q_w);
-  for (int l = n_layers; l < kMaxLayers; ++l) a.layers[l] = layers[0];
-  a.enc = *enc;
-  a.dec = *dec;
-  a.mode = *mode;
-  a.n_layers = n_layers;
-  a.p_max = p_max;
-  a.in_type = in_type;
-  a.out_type = out_type;
-  a.d_in = d_in;
-  a.d_out = d_out;
-  a.L = L;
-  a.block_t = block_t;
-  const size_t smem =
-      sizeof(float) * ((size_t)engine::kT *
-                           (3 * engine::round4(H) +
-                            engine::round4(2 * p_max) + engine::round4(d_in)) +
-                       (size_t)n_layers * 2 * p_max) +
-      2 * (size_t)engine::kT * a.ldq;
-  cudaError_t err = cudaFuncSetAttribute(
-      engine_network_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  engine_network_kernel<<<B, engine::kThreads, smem, (cudaStream_t)stream>>>(
-      a);
-  return (int)cudaGetLastError();
+  return 0;
+}
+
+// The passes of the last call: see engine::read_launched.
+extern "C" int engine_network_launched(const char** names, long long* ctas,
+                                       int cap) {
+  return read_launched(names, ctas, cap);
 }

@@ -37,15 +37,26 @@ layer (``enc``) and its last launch the decoder dense after it (``dec``),
 so that the stack route sums every product exactly as the whole-network
 kernel does (``engine_network.py``) and the two stay bit-identical.
 
-The CUDA source is ``csrc/engine_layer.cu`` over ``csrc/engine_body.cuh``.
-:func:`engine_layer` launches the kernel for CUDA tensors (or raises) and
-takes the plain version :func:`engine_layer_plain` only for CPU tensors.
+**Passes.** On the card a call is three kernels over the whole card
+(``csrc/engine_passes.cuh``), enqueued by one C call: a row pass over
+tiles of :data:`ROW_TILE` frames of the flattened B * L stream (the
+stream, or the encoder, then the layer's head: bu), the scan (a thread per
+(batch row, state channel), all L in order, the carry in and out), and a
+row pass (the layer's tail, then the stream's codes or the decoder).
+:func:`pass_plan` gives the tiles, grids and scratch of a call, a pure
+function of the shapes; :func:`launched` reads back what ran.
+
+The CUDA source is ``csrc/engine_layer.cu`` over ``csrc/engine_passes.cuh``
+and ``csrc/engine_body.cuh``. :func:`engine_layer` launches the passes for
+CUDA tensors (or raises) and takes the plain version
+:func:`engine_layer_plain` only for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, NamedTuple, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,9 +69,19 @@ from sparsernns_tpu_torch.ops.scan import (Pair, grid_value, quant_codes,
 
 GLU_KINDS = ("full", "half1", "half2", "none")
 
-#: kernel launches made in this process without / with a carry (K5a / K5b)
+#: calls made in this process without / with a carry (K5a / K5b), each
+#: one enqueue of its three passes
 launches = 0
 launches_carry = 0
+
+#: frames of the flattened B * L stream that one row-pass CTA owns (``kT``
+#: of ``csrc/engine_body.cuh``)
+ROW_TILE = 32
+#: state channels of one scan CTA (``kScanThreads`` of
+#: ``csrc/engine_passes.cuh``)
+SCAN_CHANNELS = 32
+ROW_PASS = "engine_row_pass_kernel"
+SCAN_PASS = "engine_scan_pass_kernel"
 
 Spec = Optional[Tuple[float, int]]
 
@@ -333,6 +354,89 @@ def engine_layer_plain(r: torch.Tensor, layer, mode: LayerMode, *,
     return out if carry is None else (out, state)
 
 
+# ----------------------------------------------------------------- plan
+
+@dataclasses.dataclass(frozen=True)
+class PassPlan:
+    """How K5 and K6 cut one call over the card: ``n_layers + 1`` row
+    passes, each over tiles of :data:`ROW_TILE` consecutive frames of the
+    flattened (B * L) stream (a tile may straddle two batch rows: nothing
+    in a row pass is per sequence), and before each but the first a scan
+    of one layer, a thread per (batch row, state channel) in CTAs of
+    :data:`SCAN_CHANNELS` channels of one batch row. ``p``: the widest
+    layer's state channels; ``encoder``: whether the first pass runs the
+    encoder, whose output the later passes then read from scratch."""
+
+    batch: int
+    length: int
+    h: int
+    p: int
+    n_layers: int
+    encoder: bool = True
+
+    @property
+    def rows(self) -> int:
+        return self.batch * self.length
+
+    @property
+    def row_ctas(self) -> int:
+        return -(-self.rows // ROW_TILE)
+
+    @property
+    def scan_ctas(self) -> int:
+        return self.batch * -(-self.p // SCAN_CHANNELS)
+
+    def tiles(self) -> List[Tuple[int, int]]:
+        """(first row, end row) of the flattened stream, per row-pass CTA
+        in grid order."""
+        return [(r0, min(r0 + ROW_TILE, self.rows))
+                for r0 in range(0, self.rows, ROW_TILE)]
+
+    def channels(self) -> List[Tuple[int, int]]:
+        """(batch row, channel) of every scan thread that walks one, CTA by
+        CTA in grid order."""
+        groups = -(-self.p // SCAN_CHANNELS)
+        return [(cta // groups, p)
+                for cta in range(self.scan_ctas)
+                for p in range((cta % groups) * SCAN_CHANNELS,
+                               min((cta % groups + 1) * SCAN_CHANNELS,
+                                   self.p))]
+
+    def passes(self) -> List[Tuple[str, int]]:
+        """(kernel, CTAs) of every launch of the call, in order."""
+        out = [(ROW_PASS, self.row_ctas)]
+        for _ in range(self.n_layers):
+            out += [(SCAN_PASS, self.scan_ctas), (ROW_PASS, self.row_ctas)]
+        return out
+
+    def scratch_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """The float32 scratch between the passes: ``bu`` (bu, then the
+        scan's raw states, one layer at a time, in place) and, after an
+        encoder, ``stream`` (the stream values, in place)."""
+        shapes = {"bu": (self.rows, 2 * self.p)}
+        if self.encoder:
+            shapes["stream"] = (self.rows, self.h)
+        return shapes
+
+    def scratch_bytes(self) -> int:
+        return 4 * sum(a * b for a, b in self.scratch_shapes().values())
+
+
+def pass_plan(batch: int, length: int, h: int, p: int, n_layers: int,
+              encoder: bool = True) -> PassPlan:
+    """The plan of one K5 (``n_layers`` 1) or K6 call, a pure function of
+    the shapes."""
+    if min(batch, length, h, p, n_layers) < 1:
+        raise ValueError(f"empty call: B={batch}, L={length}, H={h}, P={p}, "
+                         f"{n_layers} layers")
+    return PassPlan(batch, length, h, p, n_layers, encoder)
+
+
+def alloc_scratch(plan: PassPlan, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.empty(v, dtype=torch.float32, device=device)
+            for k, v in plan.scratch_shapes().items()}
+
+
 # ----------------------------------------------------------------- CUDA
 
 class DenseW(ctypes.Structure):
@@ -534,9 +638,29 @@ def _lib():
              ctypes.POINTER(Mode), ctypes.POINTER(DenseW), ctypes.c_int,
              ctypes.POINTER(DenseW), ctypes.c_int]
             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p])
+            + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return fn
+
+
+def read_launched(lib_name: str) -> List[Tuple[str, int]]:
+    """(kernel, CTAs) of every pass that the last call of the library's
+    entry launched on the card, in order, as its CUDA source recorded
+    them at the launch."""
+    fn = getattr(build.load(lib_name), f"{lib_name}_launched")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    cap = 2 * 8 + 1
+    names = (ctypes.c_char_p * cap)()
+    ctas = (ctypes.c_longlong * cap)()
+    n = fn(names, ctas, cap)
+    return [(names[i].decode(), ctas[i]) for i in range(min(n, cap))]
+
+
+def launched() -> List[Tuple[str, int]]:
+    """The passes of the last K5a / K5b call on the card: see
+    :func:`read_launched`."""
+    return read_launched("engine_layer")
 
 
 def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
@@ -546,7 +670,7 @@ def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
                       enc: Optional[Dense] = None,
                       dec: Optional[Dense] = None,
                       out_dtype: torch.dtype = torch.float32):
-    """Launch the kernel (one CTA per batch row). Same arguments and
+    """Enqueue the three passes (:func:`pass_plan`). Same arguments and
     results as :func:`engine_layer_plain`; every tensor on ``r``'s CUDA
     device."""
     global launches, launches_carry
@@ -583,11 +707,14 @@ def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
         ci_ptr = co_ptr = [None, None]
     if b == 0 or l == 0:
         return out if carry is None else (out, carry)
+    scratch = alloc_scratch(pass_plan(b, l, h, p, 1, enc is not None), dev)
     err = _lib()(
         r.data_ptr(), out.data_ptr(), IO_TYPES[r.dtype], IO_TYPES[o_dtype],
         1.0 if in_requant is None else float(in_requant[0]),
         ctypes.byref(lp), ctypes.byref(md), ctypes.byref(enc_w), d_in,
         ctypes.byref(dec_w), d_out, *ci_ptr, *co_ptr, b, l, int(block_t),
+        scratch["bu"].data_ptr(),
+        scratch["stream"].data_ptr() if "stream" in scratch else None,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "engine_layer")
     if carry is None:
@@ -599,6 +726,6 @@ def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
 
 def engine_layer(r: torch.Tensor, layer, mode: LayerMode, **kw):
     """One serving layer over the stored stream. CUDA tensors launch the
-    kernel (or raise); CPU tensors take the plain version."""
+    passes (or raise); CPU tensors take the plain version."""
     fn = engine_layer_cuda if r.is_cuda else engine_layer_plain
     return fn(r, layer, mode, **kw)

@@ -1,4 +1,4 @@
-"""Kernel K6: the whole serving network in one kernel.
+"""Kernel K6: the whole serving network in one call.
 
 Replaces ``sparsernns_tpu/ops/pallas/fused_network.py``
 ``fused_network_apply`` in float-dot mode and in the integer-dot modes
@@ -11,10 +11,15 @@ Input (B, L, d_in) float32 / bfloat16, output (B, L, d_out) in
 ``out_dtype``. Bit-identical to the per-layer stack (``engine_layer`` with
 ``enc`` on the first launch and ``dec`` on the last) at the same block.
 
-The CUDA source is ``csrc/engine_network.cu`` over ``csrc/engine_body.cuh``
-(the layer body shared with K5). :func:`engine_network` launches the
-kernel for CUDA tensors (or raises) and takes :func:`engine_network_plain`
-only for CPU tensors.
+On the card the call is ``n_layers + 1`` row passes and ``n_layers``
+scans over the whole card (``engine_layer.py``'s :func:`pass_plan`; the
+tail of layer l and the head of layer l + 1 share a row pass), enqueued by
+one C call, with the stream and bu in scratch that this wrapper allocates.
+
+The CUDA source is ``csrc/engine_network.cu`` over ``csrc/engine_passes.cuh``
+and ``csrc/engine_body.cuh`` (shared with K5). :func:`engine_network`
+launches the passes for CUDA tensors (or raises) and takes
+:func:`engine_network_plain` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,14 +31,15 @@ import torch
 
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.cuda.engine_layer import (
-    IO_TYPES, Dense, DenseW, LayerMode, LayerParams, Mode, zero_carry,
-    dense_plain, encode_plain, layer_body_plain, pack_dense, pad128,
-    pack_layer, pack_mode, stream_value)
+    IO_TYPES, Dense, DenseW, LayerMode, LayerParams, Mode, alloc_scratch,
+    zero_carry, dense_plain, encode_plain, layer_body_plain, pack_dense,
+    pad128, pack_layer, pack_mode, pass_plan, read_launched, stream_value)
 
-#: most layers one launch takes (``kMaxLayers`` of the CUDA source)
+#: most layers one call takes (``kMaxLayers`` of the CUDA source)
 MAX_LAYERS = 8
 
-#: kernel launches made by :func:`engine_network_cuda` in this process
+#: calls of :func:`engine_network_cuda` in this process, each one enqueue
+#: of all its passes
 launches = 0
 
 
@@ -73,17 +79,23 @@ def _lib():
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.POINTER(LayerParams), ctypes.c_int, ctypes.POINTER(Mode),
              ctypes.POINTER(DenseW), ctypes.c_int, ctypes.POINTER(DenseW),
-             ctypes.c_int] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             ctypes.c_int] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return fn
+
+
+def launched():
+    """The passes of the last K6 call on the card, (kernel, CTAs) in
+    order, as the CUDA source recorded them at the launch."""
+    return read_launched("engine_network")
 
 
 def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
                         dec: Dense, mode: LayerMode, *, block_t: int,
                         out_dtype: torch.dtype = torch.float32
                         ) -> torch.Tensor:
-    """Launch the kernel (one CTA per batch row, one launch for all of L).
-    Same arguments as :func:`engine_network_plain`, every tensor on ``x``'s
+    """Enqueue the passes (:func:`pass_plan`) for all of L. Same
+    arguments as :func:`engine_network_plain`, every tensor on ``x``'s
     CUDA device."""
     global launches
     _check_args(x, enc, layers, dec, block_t)
@@ -103,10 +115,13 @@ def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
     md = pack_mode(mode, h)
     enc_w = pack_dense(enc, "encoder", (d_in, h), dev)
     dec_w = pack_dense(dec, "decoder", (h, d_out), dev, pad128(h))
+    p_max = max(layer.w_b.shape[-1] // 2 for layer in layers)
+    scratch = alloc_scratch(pass_plan(b, l, h, p_max, len(layers)), dev)
     err = _lib()(
         x.data_ptr(), out.data_ptr(), IO_TYPES[x.dtype], IO_TYPES[out_dtype],
         packed, len(layers), ctypes.byref(md), ctypes.byref(enc_w), d_in,
         ctypes.byref(dec_w), d_out, b, l, int(block_t),
+        scratch["bu"].data_ptr(), scratch["stream"].data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "engine_network")
     launches += 1
@@ -115,7 +130,7 @@ def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
 
 def engine_network(x: torch.Tensor, enc: Dense, layers: Sequence, dec: Dense,
                    mode: LayerMode, **kw) -> torch.Tensor:
-    """The whole network on (B, L, d_in). CUDA tensors launch the kernel
+    """The whole network on (B, L, d_in). CUDA tensors launch the passes
     (or raise); CPU tensors take the plain version."""
     fn = engine_network_cuda if x.is_cuda else engine_network_plain
     return fn(x, enc, layers, dec, mode, **kw)

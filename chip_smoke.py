@@ -9,8 +9,13 @@ bf16-stream training of the whole-layer kernels at the width of
 ``recipes/ndns.json`` (d_model 192, P 128, 3 layers; random weights from
 a seed):
 
-1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail)
-   against their plain versions on the card, B=8, L=3751, with times;
+1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail:
+   a B-projection pass, the scan, a tail pass over tiles of the flattened
+   B x L rows) against their plain versions on the card, B=8, L=3751, and
+   K2 also at B=32, with times (K2 at B=8 a mean of 5 calls, at B=32 a
+   median of 5); K2's passes and grids as the CUDA source recorded them,
+   every product pass at least ceil(B x L / 128) CTAs; the SHA-256 digest
+   of K2's output;
 2. offline phase — the eval step on a synthetic 30 s batch of 8 clips
    (goes through K2), checked against the same model on the CPU;
 3. streaming phase — a StreamingDenoiser over the same audio in 1 s chunks
@@ -38,7 +43,8 @@ a seed):
    their plain versions, B=8, L=3751 for the recipe's variant, and L=1000
    for the other seven of the four GLU kinds x (gelu | relu + relu_state +
    layer_relu); the recipe's variant again at B=32, the train step's
-   batch; two K3b launches equal bit for bit; K3a and K3b timed at B=8
+   batch; K2's passes checked and its outputs' digests printed after each
+   call; two K3b launches equal bit for bit; K2, K3a and K3b timed at B=8
    and B=32 with their bounds, the passes' device times, the grids as
    launched and registers;
 8. training phase — ``build_model(training=True)``, ``create_run_state``
@@ -49,10 +55,11 @@ a seed):
    step on the CPU at a short length; eight dropout-free steps on one
    B=8 batch must lower the loss; step wall time, device busy share and
    peak memory at B=32 and B=8;
-9. mixer kernel phase — K1 in reverse and K4a (the S5 mixer in one kernel,
-   float mode, with and without relu_state) against their plain versions,
-   B=8, L=3751
-   and one odd-width case, with times; the gradients of ``FusedS5Fn`` and
+9. mixer kernel phase — K1 in reverse and K4a (the S5 mixer as a head row
+   pass, the scan, a tail row pass; float mode, with and without
+   relu_state) against their plain versions, B=8, L=3751, B=32, one
+   odd-width case and a wide one (H=640, P=128), with times, K4a's passes
+   against its plan and its output's digest; the gradients of ``FusedS5Fn`` and
    of the scan in both directions on the card against autograd through
    the plain versions on the card;
 10. mixer-route training phase — the recipe with ``prenorm=false``
@@ -68,9 +75,10 @@ a seed):
    scales, bf16 and f32 input, block 512, relu_state off and on, one
    odd-width case; f32 weights on a 32-bit state grid) and K4b (one
    128-frame block from a carry) against their plain versions at B=8,
-   L=3751 with layer 1 of the w8a16 engine, with times; chunked K4b
-   against one K4a-engine call (exact); the engine's per-op route forced
-   against its stack route;
+   L=3751 with layer 1 of the w8a16 engine, and K4a-engine at B=32, with
+   times, every call's passes against its plan and the outputs' digests;
+   chunked K4b against one K4a-engine call (exact); the engine's per-op
+   route forced against its stack route;
 12. top-k serving phase — the recipe with ``topk=0.5, approx_topk=true``:
    the float eval step (3 x K1, no K2, no K4a) and a 30-chunk stream
    (3 x K1 a forward); calibrate, freeze, the w8a16 engine (bf16) offline
@@ -130,7 +138,8 @@ a seed):
    (float32) and on bf16 streams (affine and non-affine) against their
    plain versions at B=8, L=3751 (half1 with gelu; with relu and
    layer_relu; with relu, relu_state and layer_relu; dropout masks) and
-   one odd width (H=20, P=12, L=70, full GLU), timed (median of 5); f32
+   one odd width (H=20, P=12, L=70, full GLU), timed (median of 5), K2's
+   passes checked and its outputs' digests printed; f32
    at phase 7's bars, bf16 streams within one bf16 ulp of plain (or, near
    0, the f32 bar) with at most 1e-3 of the elements different; under
    relu_state, where recomputed states within rounding of 0 flip the
@@ -295,6 +304,9 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
             err = (out - ref).abs().max().item()
             _check(f"K2-train {tag} vs plain", err,
                    1e-4 * max(1.0, ref.abs().max().item()))
+            _check_k2_passes(f"K2-train {tag}", *x.shape[:2])
+            print(f"K2-train {tag} output digest: {_digest(out)}",
+                  flush=True)
             refs = layer_tail_bwd.layer_tail_bwd_plain(x, g, *args, **kw)
             outs = layer_tail_bwd.layer_tail_bwd_cuda(x, g, *args, **kw)
             torch.cuda.synchronize()
@@ -396,6 +408,8 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
         # both
         ms_fwd = _median_ms(lambda: layer_tail.layer_tail_cuda(
             x, *args, **kw))
+        ms_fwd32 = _median_ms(lambda: layer_tail.layer_tail_cuda(
+            x32, *args, **kw32))
         ms_hist, ms_bwd, grids = {}, {}, {}
         for bsz, xb, gb, kwb in ((B, x, g, kw), (4 * B, x32, g32, kw32)):
             ms_hist[bsz] = _median_ms(
@@ -446,6 +460,8 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
         + (h * 2 * p + 2 * h + 2 * p) * 4,
         4 * rows * (2 * h * 2 * p + 8 * p + 2 * h))
     bwd_bound32 = _bound_ms(4 * bwd_work[0], 4 * bwd_work[1])
+    fwd_bound32 = _bound_ms(4 * (2 * stream + 2 * B * h * 4) + weights * 4,
+                            4 * rows * (mm + 8 * p + 8 * h))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for bsz in (B, 4 * B):
         print(f"K3a + K3b grids at B={bsz}, L={frames} ({sms} SMs), as "
@@ -460,6 +476,9 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
         if "Compiling entry" in line or "registers" in line or (
                 "spill" in line and " 0 bytes spill" not in line):
             print(f"nvcc layer_tail_bwd: {line.strip()}", flush=True)
+    print(f"K2-train: {ms_fwd:.3f} ms at B={B} (bound {fwd_bound[0]:.4f}), "
+          f"{ms_fwd32:.3f} ms at B={4 * B} (bound {fwd_bound32[0]:.4f})",
+          flush=True)
     print(f"K3a: {ms_hist[B]:.3f} ms at B={B} (bound {hist_bound[0]:.4f}), "
           f"{ms_hist[4 * B]:.3f} ms at B={4 * B} (bound "
           f"{hist_bound32[0]:.4f}); K3b: {ms_bwd[B]:.3f} ms at B={B} (bound "
@@ -471,7 +490,8 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
         source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail.cu",
         replaces="sparsernns_tpu/ops/pallas/fused_layer_train.py:336",
         max_abs_err=worst["fwd"], ms=ms_fwd, plain_ms=plain_fwd,
-        bound_ms=fwd_bound[0], bound_by=fwd_bound[1], **common)
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1], ms_b32=ms_fwd32,
+        bound_ms_b32=fwd_bound32[0], **common)
     records["layer_tail_hist"] = dict(
         name="layer_tail_hist",
         source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail_bwd.cu",
@@ -748,23 +768,60 @@ def mixer_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
                 err = (out - ref).abs().max().item()
                 _check(f"K4a fused_s5 relu_state={relu} {tag} vs plain", err,
                        1e-4 * max(1.0, ref.abs().max().item()))
+                _check_mixer_passes(f"K4a relu_state={relu} {tag}",
+                                    *args[0].shape, args[2].shape[-1] // 2)
                 if not tag:
                     errs[relu] = err
+                    print(f"K4a relu_state={relu} output digest: "
+                          f"{_digest(out)}", flush=True)
+        # a wide layer, H=640 at P=128, from a generator of its own
+        gw = torch.Generator().manual_seed(640)
+        rw = lambda *shape, sc=1.0: (  # noqa: E731
+            torch.randn(shape, generator=gw) * sc).to(dev)
+        hw = 640
+        wide = (rw(2, 300, hw), lam, rw(hw, 2 * p, sc=hw ** -0.5),
+                rw(2 * p, hw, sc=(2 * p) ** -0.5), rw(hw))
+        ref = fused_s5.fused_s5_plain(*wide, relu_state=True)
+        out = fused_s5.fused_s5_cuda(*wide, relu_state=True)
+        torch.cuda.synchronize()
+        _check(f"K4a fused_s5 H={hw} P={p} L=300 vs plain",
+               (out - ref).abs().max().item(),
+               1e-4 * max(1.0, ref.abs().max().item()))
+        _check_mixer_passes(f"K4a H={hw}", 2, 300, hw, p)
+        del wide, ref, out
         relu_state = layer0.mixer.relufication
         ms = _median_ms(lambda: fused_s5.fused_s5_cuda(
             u, lam, w_b, w_c, d, relu_state=relu_state))
         plain_ms = _time_ms(lambda: fused_s5.fused_s5_plain(
             u, lam, w_b, w_c, d, relu_state=relu_state), 1, 0)
+        # B=32 from a generator of its own
+        u32 = torch.randn((4 * B, frames, h),
+                          generator=torch.Generator().manual_seed(322)).to(dev)
+        ref = fused_s5.fused_s5_plain(u32, lam, w_b, w_c, d, relu_state)
+        out = fused_s5.fused_s5_cuda(u32, lam, w_b, w_c, d, relu_state)
+        torch.cuda.synchronize()
+        _check(f"K4a fused_s5 B={4 * B} vs plain",
+               (out - ref).abs().max().item(),
+               1e-4 * max(1.0, ref.abs().max().item()))
+        _check_mixer_passes(f"K4a B={4 * B}", 4 * B, frames, h, p)
+        ms32 = _median_ms(lambda: fused_s5.fused_s5_cuda(
+            u32, lam, w_b, w_c, d, relu_state=relu_state))
+        del u32, ref, out
     rows = B * frames
-    bound, by = _bound_ms(
-        2 * rows * h * 4 + (2 * h * 2 * p + h + 2 * p) * 4,
-        rows * (2 * h * 2 * p + 2 * 2 * p * h + 8 * p + 2 * h))
+    work = (2 * rows * h * 4, rows * (2 * h * 2 * p + 2 * 2 * p * h + 8 * p
+                                      + 2 * h))
+    w_bytes = (2 * h * 2 * p + h + 2 * p) * 4
+    bound, by = _bound_ms(work[0] + w_bytes, work[1])
+    bound32, _ = _bound_ms(4 * work[0] + w_bytes, 4 * work[1])
+    print(f"K4a: {ms:.3f} ms at B={B} (bound {bound:.4f}), {ms32:.3f} ms at "
+          f"B={4 * B} (bound {bound32:.4f}), medians of 5", flush=True)
     records["fused_s5"] = dict(
         name="fused_s5", route="cuda",
         source="sparsernns_tpu_torch/ops/cuda/csrc/fused_s5.cu",
         replaces="sparsernns_tpu/ops/pallas/fused_s5.py:204",
         max_abs_err=errs[relu_state], ms=ms, plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=None)
+        bound_ms=bound, bound_by=by, library_ms=None, ms_b32=ms32,
+        bound_ms_b32=bound32)
 
     # ---- gradients on the card vs autograd through the plain versions ----
     def leaf(t):
@@ -1025,6 +1082,11 @@ def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
                 errs[(name, relu)] = _kernel_close(
                     f"K4a engine u {name} relu_state={relu} vs plain", out,
                     ref)
+                _check_mixer_passes(f"K4a engine u {name} relu_state={relu}",
+                                    *u.shape, p)
+                if (name, relu) == ("bf16", False):
+                    print(f"K4a engine u bf16 output digest: {_digest(out)}",
+                          flush=True)
         hs, ps, ls = 20, 12, 70
         odd_w_b = torch.randint(-127, 128, (hs, 2 * ps), generator=gen,
                                 dtype=torch.int8).to(dev)
@@ -1046,6 +1108,7 @@ def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
                       fused_s5.fused_s5_engine_plain(*args, block_t=16,
                                                      relu_state=True,
                                                      **odd_kw))
+        _check_mixer_passes(f"K4a engine H={hs} P={ps} L={ls}", 2, ls, hs, ps)
         # the w32a32 mode: f32 weights without scales, a 32-bit grid
         kw32 = dict(block_requant=(s_re * 2.0 ** -16, s_im * 2.0 ** -16, 32))
         args32 = (u32, lay.lam, lay.wb_f32().contiguous(),
@@ -1055,20 +1118,41 @@ def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
                                                     **kw32),
                       fused_s5.fused_s5_engine_plain(*args32, block_t=block,
                                                      **kw32))
+        _check_mixer_passes("K4a engine f32 weights, 32-bit state grid", B,
+                            frames, h, p)
         ms = _median_ms(lambda: fused_s5.fused_s5_engine_cuda(
             u16, *ops, block_t=block, **kw))
         plain_ms = _time_ms(lambda: fused_s5.fused_s5_engine_plain(
             u16, *ops, block_t=block, **kw), 1, 0)
+        # B=32: a random input of the same spread, from a generator of its
+        # own
+        u32b = (torch.randn((4 * B, frames, h),
+                            generator=torch.Generator().manual_seed(323))
+                .to(dev) * u32.std()).to(torch.bfloat16)
+        _kernel_close(f"K4a engine u bf16 B={4 * B} vs plain",
+                      fused_s5.fused_s5_engine_cuda(u32b, *ops,
+                                                    block_t=block, **kw),
+                      fused_s5.fused_s5_engine_plain(u32b, *ops,
+                                                     block_t=block, **kw))
+        _check_mixer_passes(f"K4a engine B={4 * B}", 4 * B, frames, h, p)
+        ms32 = _median_ms(lambda: fused_s5.fused_s5_engine_cuda(
+            u32b, *ops, block_t=block, **kw))
         row_flops = 2 * h * 2 * p + 2 * 2 * p * h + 22 * p + 2 * h
         w_bytes = 2 * h * 2 * p + 4 * (h + 2 * p)
         bound, by = _bound_ms(rows * h * (2 + 4) + w_bytes,
                               rows * row_flops)
+        bound32, _ = _bound_ms(4 * rows * h * (2 + 4) + w_bytes,
+                               4 * rows * row_flops)
+        print(f"K4a engine: {ms:.3f} ms at B={B} (bound {bound:.4f}), "
+              f"{ms32:.3f} ms at B={4 * B} (bound {bound32:.4f})",
+              flush=True)
         records["fused_s5_engine"] = dict(
             name="fused_s5_engine", route="cuda",
             source="sparsernns_tpu_torch/ops/cuda/csrc/fused_s5.cu",
             replaces="sparsernns_tpu/ops/pallas/fused_s5.py:204",
             max_abs_err=errs[("bf16", False)], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None)
+            bound_ms=bound, bound_by=by, library_ms=None, ms_b32=ms32,
+            bound_ms_b32=bound32)
 
         # ---- K4b: one 128-frame block from a carry on the grid ----
         ub = u16[:, :STREAM_BLOCK].contiguous()
@@ -1080,19 +1164,31 @@ def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
         err = _kernel_close("K4b one 128-frame block vs plain", out, ref)
         for half, o, r, sc in zip(("re", "im"), out_c, ref_c, (s_re, s_im)):
             _codes_of(f"K4b carry out {half}", o, r, sc)
+        _check_mixer_passes("K4b one 128-frame block", B, STREAM_BLOCK, h, p)
+        print(f"K4b output digest: {_digest(out)}, carry "
+              f"{_digest(out_c[0])} {_digest(out_c[1])}", flush=True)
         ms = _median_ms(lambda: fused_s5.fused_s5_engine_cuda(
             ub, *ops, block_t=STREAM_BLOCK, carry=carry, **kw))
+        ub32 = u32b[:, :STREAM_BLOCK].contiguous()
+        carry32 = tuple(c.repeat(4, 1) for c in carry)
+        ms32 = _median_ms(lambda: fused_s5.fused_s5_engine_cuda(
+            ub32, *ops, block_t=STREAM_BLOCK, carry=carry32, **kw))
+        del u32b, ub32
         plain_ms = _time_ms(lambda: fused_s5.fused_s5_engine_plain(
             ub, *ops, block_t=STREAM_BLOCK, carry=carry, **kw), 1, 0)
         s_rows = B * STREAM_BLOCK
         bound, by = _bound_ms(s_rows * h * (2 + 4) + w_bytes + 4 * B * p * 4,
                               s_rows * row_flops)
+        bound32, _ = _bound_ms(4 * (s_rows * h * (2 + 4) + 4 * B * p * 4)
+                               + w_bytes, 4 * s_rows * row_flops)
+        print(f"K4b: {ms:.3f} ms at B={B} (bound {bound:.5f}), {ms32:.3f} "
+              f"ms at B={4 * B} (bound {bound32:.5f})", flush=True)
         records["fused_s5_engine_carry"] = dict(
             name="fused_s5_engine_carry", route="cuda",
             source="sparsernns_tpu_torch/ops/cuda/csrc/fused_s5.cu",
             replaces="sparsernns_tpu/ops/pallas/fused_s5.py:290",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=None)
+            bound_by=by, library_ms=None, ms_b32=ms32, bound_ms_b32=bound32)
 
         # ---- chunked K4b at chunk = block == one K4a-engine call ----
         n = (frames // STREAM_BLOCK) * STREAM_BLOCK
@@ -2556,6 +2652,8 @@ def tail_modes_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
             else:
                 err = (out - ref).abs().max().item()
                 _check(f"K2 {tag} vs plain", err, bar)
+            _check_k2_passes(f"K2 {tag}", *xs.shape[:2])
+            print(f"K2 {tag} output digest: {_digest(out)}", flush=True)
             hist_args = (args[0], args[1], args[4], args[5])
             hist_ref = layer_tail_bwd.layer_tail_hist_plain(xs, *hist_args)
             hist = layer_tail_bwd.layer_tail_hist_cuda(xs, *hist_args)
@@ -2916,6 +3014,44 @@ def _check_passes(name: str, got, plan, min_row_ctas: int = 1) -> None:
     assert got == plan.passes(), (name, got, plan.passes())
     rows = [c for k, c in got if k == ROW_PASS]
     assert rows and min(rows) >= min_row_ctas, (name, rows, min_row_ctas)
+
+
+def _digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes (bf16
+    read as its bits): equal digests, equal values."""
+    import hashlib
+
+    import torch
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()[:16]
+
+
+def _check_k2_passes(name: str, b: int, length: int) -> None:
+    """K2's last call launched its three passes, as the CUDA source
+    recorded them: the B-projection, the scan and the tail, each product
+    pass at least ceil(B * L / 128) CTAs."""
+    from sparsernns_tpu_torch.ops.cuda import layer_tail
+    got = layer_tail.launched()
+    print(f"{name} passes (kernel, CTAs): {got}", flush=True)
+    assert [k for k, _ in got] == [layer_tail.BPROJ_PASS,
+                                   layer_tail.SCAN_PASS,
+                                   layer_tail.ROW_PASS], (name, got)
+    floor = -(-b * length // 128)
+    assert all(c >= floor for k, c in got if k != layer_tail.SCAN_PASS), (
+        name, got, floor)
+
+
+def _check_mixer_passes(name: str, b: int, length: int, h: int,
+                        p: int) -> None:
+    """K4a's / K4b's last call launched the passes of its plan (a head row
+    pass, the scan, a tail row pass), each row pass at least
+    ceil(B * L / 128) CTAs."""
+    from sparsernns_tpu_torch.ops.cuda import engine_layer, fused_s5
+    _check_passes(name, fused_s5.launched(),
+                  engine_layer.pass_plan(b, length, h, p, 1, encoder=False),
+                  -(-b * length // 128))
 
 
 def engine_kernel_phase(cfg, eng, gen, records) -> None:
@@ -3398,9 +3534,26 @@ def main() -> int:
         err = (out - ref).abs().max().item()
         _check("K2 layer_tail vs plain", err,
                1e-4 * max(1.0, ref.abs().max().item()))
+        _check_k2_passes(f"K2 B={B}", B, frames)
+        print(f"K2 output digest (phase 1 input, B={B}): {_digest(out)}",
+              flush=True)
         ms = _time_ms(lambda: layer_tail.layer_tail_cuda(*args, **kw), 5)
         plain_ms = _time_ms(lambda: layer_tail.layer_tail_plain(*args, **kw),
                             1, 0)
+        # B=32 from a generator of its own, so that the later phases draw
+        # what they drew before
+        x32 = torch.randn((4 * B, frames, h),
+                          generator=torch.Generator().manual_seed(321)).to(dev)
+        args32 = (x32, *args[1:])
+        ref32 = layer_tail.layer_tail_plain(*args32, **kw)
+        out32 = layer_tail.layer_tail_cuda(*args32, **kw)
+        torch.cuda.synchronize()
+        _check(f"K2 layer_tail B={4 * B} vs plain",
+               (out32 - ref32).abs().max().item(),
+               1e-4 * max(1.0, ref32.abs().max().item()))
+        _check_k2_passes(f"K2 B={4 * B}", 4 * B, frames)
+        ms32 = _median_ms(lambda: layer_tail.layer_tail_cuda(*args32, **kw))
+        del x32, args32, ref32, out32
         rows = B * frames
         n_dense = {"full": 2, "half1": 1, "half2": 1, "none": 0}[
             cfg.glu_variant]
@@ -3408,12 +3561,17 @@ def main() -> int:
                         + 8 * p + 6 * h)
         weights = (2 * h * 2 * p + n_dense * (h * h + h) + 3 * h + 2 * p)
         bound, by = _bound_ms(2 * rows * h * 4 + weights * 4, flops)
+        bound32, _ = _bound_ms(8 * rows * h * 4 + weights * 4, 4 * flops)
+        print(f"K2: {ms:.3f} ms at B={B} (bound {bound:.4f}; mean of 5), "
+              f"{ms32:.3f} ms at B={4 * B} (bound {bound32:.4f}; median of "
+              "5)", flush=True)
         records["layer_tail"] = dict(
             name="layer_tail", route="cuda",
             source="sparsernns_tpu_torch/ops/cuda/csrc/layer_tail.cu",
             replaces="sparsernns_tpu/ops/pallas/fused_layer_train.py:162",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=None)
+            bound_by=by, library_ms=None, ms_b32=ms32,
+            bound_ms_b32=bound32)
 
         # every GLU variant and activation of K2 (the recipe runs half1 +
         # gelu), at the full width on a short sequence
@@ -3430,6 +3588,34 @@ def main() -> int:
                 _check(f"K2 {glu}/{act} vs plain",
                        (out - ref).abs().max().item(),
                        1e-4 * max(1.0, ref.abs().max().item()))
+                _check_k2_passes(f"K2 {glu}/{act}", *xs.shape[:2])
+        # the widest layer whose 64-row x1 tile fits (H=872), from a
+        # generator of its own; one column more is refused
+        gw = torch.Generator().manual_seed(872)
+        for hw in (872, 880):
+            rw = lambda *shape, sc=1.0: (  # noqa: E731
+                torch.randn(shape, generator=gw) * sc).to(dev)
+            args = (rw(2, 300, hw), lam, rw(hw, 2 * p, sc=hw ** -0.5),
+                    rw(2 * p, hw, sc=(2 * p) ** -0.5), rw(hw),
+                    1.0 + 0.1 * rw(hw), 0.1 * rw(hw),
+                    rw(hw, hw, sc=hw ** -0.5), 0.1 * rw(hw),
+                    rw(hw, hw, sc=hw ** -0.5), 0.1 * rw(hw))
+            kw = dict(act="relu", glu="full", relu_state=True,
+                      layer_relu=True)
+            if hw == 880:
+                try:
+                    layer_tail.layer_tail_cuda(*args, **kw)
+                except ValueError as e:
+                    print(f"K2 H={hw} refused: {e}", flush=True)
+                else:
+                    raise AssertionError(f"K2 H={hw} was not refused")
+                continue
+            ref = layer_tail.layer_tail_plain(*args, **kw)
+            out = layer_tail.layer_tail_cuda(*args, **kw)
+            _check(f"K2 full/relu H={hw} vs plain",
+                   (out - ref).abs().max().item(),
+                   1e-4 * max(1.0, ref.abs().max().item()))
+            _check_k2_passes(f"K2 H={hw}", 2, 300)
     print(json.dumps({"kernel_phase": records}), flush=True)
 
     mark("kernel phase")

@@ -1,12 +1,12 @@
 // Shared device code of the serving-engine kernels: the parts of one
 // quantized serving layer (and the encoder / decoder dense) on a tile of
 // kT frames held in shared memory. The serving passes (engine_passes.cuh,
-// for engine_layer.cu and engine_network.cu) and the mixer kernels
-// (fused_s5.cu's mixer_tile, qat_scan.cu) compute every product and every
+// for engine_layer.cu, engine_network.cu and the mixer alone, fused_s5.cu)
+// and the QAT mixer (qat_scan.cu) compute every product and every
 // requantization through the functions below, with each output element
 // summed over k in ascending order by fmaf, so every route gives
-// bit-identical results. The passes take the 4-column register tiles
-// (kWide), the mixer kernels one column a thread.
+// bit-identical results. The passes take the 4-column register tiles where
+// the width allows, qat_scan.cu one column a thread.
 //
 // The layer body is the TPU kernels' (sparsernns_tpu/ops/pallas/
 // fused_layer.py `_mixer_pre`, scan_kernel.py `scan_block_body`,
@@ -279,28 +279,23 @@ __device__ inline bool wide_ok(const void* w, int N, int bytes) {
          ((unsigned long long)w & (unsigned long long)(4 * bytes - 1)) == 0;
 }
 
-// A @ W through the dense's weight type; with kWide the 4-column register
-// tiles where the width allows (the serving passes), else one column a
-// thread (the mixer kernels).
-template <bool kWide = false, class Epi>
+// A @ W through the dense's weight type: the 4-column register tiles where
+// the width allows, else one column a thread.
+template <class Epi>
 __device__ inline void tile_matmul(const float* A, int lda, const DenseW& w,
                                    int K, int N, int rows, Epi epi) {
-  if (kWide) {
-    if (w.wtype == kWI8 && wide_ok(w.w, N, 1)) {
-      tile_matmul4_t(A, lda, static_cast<const int8_t*>(w.w), K, N, rows,
-                     epi);
-      return;
-    }
-    if (w.wtype == kWI16 && wide_ok(w.w, N, 2)) {
-      tile_matmul4_t(A, lda, static_cast<const int16_t*>(w.w), K, N, rows,
-                     epi);
-      return;
-    }
-    if (w.wtype == kWF32 && wide_ok(w.w, N, 4)) {
-      tile_matmul4_t(A, lda, static_cast<const float*>(w.w), K, N, rows,
-                     epi);
-      return;
-    }
+  if (w.wtype == kWI8 && wide_ok(w.w, N, 1)) {
+    tile_matmul4_t(A, lda, static_cast<const int8_t*>(w.w), K, N, rows, epi);
+    return;
+  }
+  if (w.wtype == kWI16 && wide_ok(w.w, N, 2)) {
+    tile_matmul4_t(A, lda, static_cast<const int16_t*>(w.w), K, N, rows,
+                   epi);
+    return;
+  }
+  if (w.wtype == kWF32 && wide_ok(w.w, N, 4)) {
+    tile_matmul4_t(A, lda, static_cast<const float*>(w.w), K, N, rows, epi);
+    return;
   }
   if (w.wtype == kWI8)
     tile_matmul_t(A, lda, static_cast<const int8_t*>(w.w), K, N, rows, epi);
@@ -494,11 +489,11 @@ __device__ inline void tile_matmul_q4_t(const int8_t* Q, int ldq,
   }
 }
 
-template <bool kWide = false, class Epi>
+template <class Epi>
 __device__ inline void tile_matmul_q(const int8_t* Q, int ldq,
                                      const int8_t* W, int K, int N, int rows,
                                      int mode, const int* colsum, Epi epi) {
-  if (kWide && wide_ok(W, N, 1)) {
+  if (wide_ok(W, N, 1)) {
     if (mode == kDotI8)
       tile_matmul_q4_t<false>(Q, ldq, W, K, N, rows, mode, colsum, epi);
     else
@@ -526,14 +521,14 @@ __device__ inline void dense_tile(const float* A, int lda, const DenseW& w,
                                   int K, int N, int rows, int8_t* Q, int ldq,
                                   Epi epi) {
   if (w.in_mode == kDotFloat) {
-    tile_matmul<true>(A, lda, w, K, N, rows, epi);
+    tile_matmul(A, lda, w, K, N, rows, epi);
     return;
   }
   const float qmax = grid_max(w.in_bits);
   quant_tile(A, lda, K, rows, w.in_s, -qmax - 1.f, qmax, w.in_mode, Q, ldq,
              nullptr);
   __syncthreads();
-  tile_matmul_q<true>(Q, ldq, static_cast<const int8_t*>(w.w), K, N, rows,
+  tile_matmul_q(Q, ldq, static_cast<const int8_t*>(w.w), K, N, rows,
                        w.in_mode, w.colsum, epi);
 }
 
@@ -635,14 +630,14 @@ __device__ inline void mixer_bproj(const LayerParams& lp, int H, float* Z,
     quant_tile(Z, ldh, H, rows, lp.ut_s, -qmax - 1.f, qmax, lp.ut_mode, Q,
                ldq, Z);
     __syncthreads();
-    tile_matmul_q<true>(Q, ldq, static_cast<const int8_t*>(lp.wb.w), H,
+    tile_matmul_q(Q, ldq, static_cast<const int8_t*>(lp.wb.w), H,
                          2 * P, rows, lp.ut_mode, lp.cs_wb,
                          [&](int r, int c, float acc) {
                     bu_out(r, c,
                            __fmul_rn(acc, c < P ? lp.ut_sc_re : lp.ut_sc_im));
                   });
   } else {
-    tile_matmul<true>(Z, ldh, lp.wb, H, 2 * P, rows,
+    tile_matmul(Z, ldh, lp.wb, H, 2 * P, rows,
                        [&](int r, int c, float acc) {
       bu_out(r, c, __fmul_rn(acc, c < P ? lp.wb_s_re : lp.wb_s_im));
     });
@@ -696,127 +691,21 @@ __device__ inline void mixer_cproj(const LayerParams& lp, int H,
   if (lp.st_mode) {
     const int p4 = round4(P);
     const int8_t* wc = static_cast<const int8_t*>(lp.wc.w);
-    tile_matmul_q<true>(Q, ldq, wc, P, H, rows, lp.st_mode, lp.cs_wc_re,
+    tile_matmul_q(Q, ldq, wc, P, H, rows, lp.st_mode, lp.cs_wc_re,
                          [&](int r, int c, float acc) {
                     Y[r * ldh + c] = __fmul_rn(acc, lp.st_sc_re);
                   });
     __syncthreads();
-    tile_matmul_q<true>(Q + p4, ldq, wc + (long long)P * H, P, H, rows,
+    tile_matmul_q(Q + p4, ldq, wc + (long long)P * H, P, H, rows,
                          lp.st_mode, lp.cs_wc_im,
                          [&](int r, int c, float acc) {
                     y_out(r, c, __fadd_rn(Y[r * ldh + c],
                                           __fmul_rn(acc, lp.st_sc_im)));
                   });
   } else {
-    tile_matmul<true>(S, ldp, lp.wc, 2 * P, H, rows,
+    tile_matmul(S, ldp, lp.wc, 2 * P, H, rows,
                        [&](int r, int c, float acc) { y_out(r, c, acc); });
   }
-}
-
-// The S5 mixer on a tile: Z (rows x H, the mixer input) -> Y = the mixer
-// output. S: (kT, ldp) scratch, ldp >= 2P; carry: (2P) running state
-// [re | im] of this layer, kept across tiles. `t0` is the index of the
-// tile's first frame in the sequence of length L. The stand-alone mixer
-// kernel (fused_s5.cu) runs it on tiles of one batch row. The serving
-// passes (engine_passes.cuh) compute the same arithmetic in parts, in the
-// same order on every element: mixer_bproj, scan_step_rn with mixer_grid
-// where a block ends, mixer_grid and mixer_read on every state,
-// mixer_cproj. Q (ld ldq): the code tile of the integer modes, which
-// overwrite Z with the D term's operand.
-__device__ inline void mixer_tile(const LayerParams& lp, int relu_state,
-                                  int H, float* Z, float* Y, float* S,
-                                  float* carry, int ldh, int ldp, int rows,
-                                  int t0, int L, int block_t,
-                                  int8_t* Q = nullptr, int ldq = 0) {
-  const int P = lp.p;
-  const int tid = threadIdx.x;
-  // ---- B-projection, per-half scale on the result, quant_but ----
-  auto bu_out = [&](int r, int c, float v) {
-    if (lp.but_bits)
-      v = requant(v, c < P ? lp.but_re : lp.but_im, lp.but_bits);
-    S[r * ldp + c] = v;
-  };
-  if (lp.ut_mode) {
-    const float qmax = grid_max(lp.ut_bits);
-    quant_tile(Z, ldh, H, rows, lp.ut_s, -qmax - 1.f, qmax, lp.ut_mode, Q,
-               ldq, Z);
-    __syncthreads();
-    tile_matmul_q(Q, ldq, static_cast<const int8_t*>(lp.wb.w), H, 2 * P,
-                  rows, lp.ut_mode, lp.cs_wb, [&](int r, int c, float acc) {
-                    bu_out(r, c,
-                           __fmul_rn(acc, c < P ? lp.ut_sc_re : lp.ut_sc_im));
-                  });
-  } else {
-    tile_matmul(Z, ldh, lp.wb, H, 2 * P, rows, [&](int r, int c, float acc) {
-      bu_out(r, c, __fmul_rn(acc, c < P ? lp.wb_s_re : lp.wb_s_im));
-    });
-  }
-  __syncthreads();
-  // ---- recurrence in order, block requant, relu and C-side scale (or
-  // the state's code for the integer C-projection) ----
-  for (int p = tid; p < P; p += blockDim.x) {
-    const float lr = lp.lam_re[p], li = lp.lam_im[p];
-    float xr = carry[p], xi = carry[P + p];
-    for (int r = 0; r < rows; ++r) {
-      scan::scan_step_rn(lr, li, S[r * ldp + p], S[r * ldp + P + p], xr,
-                         xi);
-      float sr = xr, si = xi;
-      if (lp.has_sq) {
-        sr = __fmul_rn(quant_code(xr, lp.sq_re, lp.sq_min, lp.sq_max),
-                       lp.sq_re);
-        si = __fmul_rn(quant_code(xi, lp.sq_im, lp.sq_min, lp.sq_max),
-                       lp.sq_im);
-        const int t = t0 + r + 1;
-        if (t % block_t == 0 || t == L) {   // the block ends: carry on grid
-          xr = sr;
-          xi = si;
-        }
-      }
-      if (relu_state) {
-        sr = fmaxf(sr, 0.f);
-        si = fmaxf(si, 0.f);
-      }
-      if (lp.st_mode) {
-        S[r * ldp + p] = __fmul_rn(sr, lp.st_inv_re);
-        S[r * ldp + P + p] = __fmul_rn(si, lp.st_inv_im);
-      } else {
-        S[r * ldp + p] = __fmul_rn(sr, lp.wc_s_re);
-        S[r * ldp + P + p] = __fmul_rn(si, lp.wc_s_im);
-      }
-    }
-    carry[p] = xr;
-    carry[P + p] = xi;
-  }
-  __syncthreads();
-  // ---- C-projection + D * z, quant_yt ----
-  auto y_out = [&](int r, int c, float v) {
-    float y = __fadd_rn(v, __fmul_rn(lp.d[c], Z[r * ldh + c]));
-    if (lp.yt_bits) y = requant(y, lp.yt_s, lp.yt_bits);
-    Y[r * ldh + c] = y;
-  };
-  if (lp.st_mode) {
-    const int p4 = round4(P);
-    quant_tile(S, ldp, P, rows, 1.f, lp.sq_min, lp.sq_max, lp.st_mode, Q,
-               ldq, nullptr);
-    quant_tile(S + P, ldp, P, rows, 1.f, lp.sq_min, lp.sq_max, lp.st_mode,
-               Q + p4, ldq, nullptr);
-    __syncthreads();
-    const int8_t* wc = static_cast<const int8_t*>(lp.wc.w);
-    tile_matmul_q(Q, ldq, wc, P, H, rows, lp.st_mode, lp.cs_wc_re,
-                  [&](int r, int c, float acc) {
-                    Y[r * ldh + c] = __fmul_rn(acc, lp.st_sc_re);
-                  });
-    __syncthreads();
-    tile_matmul_q(Q + p4, ldq, wc + (long long)P * H, P, H, rows,
-                  lp.st_mode, lp.cs_wc_im, [&](int r, int c, float acc) {
-                    y_out(r, c, __fadd_rn(Y[r * ldh + c],
-                                          __fmul_rn(acc, lp.st_sc_im)));
-                  });
-  } else {
-    tile_matmul(S, ldp, lp.wc, 2 * P, H, rows,
-                [&](int r, int c, float acc) { y_out(r, c, acc); });
-  }
-  __syncthreads();
 }
 
 // z = r * nw + nb (prenorm) or r, on a tile: R -> Z.

@@ -27,17 +27,20 @@
 //              loads the states.
 //
 // K6 = n_layers + 1 row passes and n_layers scans; K5 = a head pass, a
-// scan, a tail pass. Every product and requant is the same device
-// function, in the same order, as in the mixer of one tile
-// (engine_body.cuh mixer_tile): each output element of a product is one
-// fmaf chain in ascending k from 0, integer dots are exact, the scan steps
-// without contraction. So the passes give the values the one-CTA-per-row
-// kernels gave, K6 equals the K5 stack bit for bit, and K5b over chunks of
-// whole blocks equals one call.
+// scan, a tail pass; the mixer alone (fused_s5.cu, K4a / K4b) the same
+// three, with no norm (prenorm off), no GLU, residual or stream requant:
+// its tail pass stores y = the C-projection + d * u and stops. Every
+// product and requant is the same device function of engine_body.cuh, in
+// the same order, as in the one-CTA-per-row kernels the passes replaced:
+// each output element of a product is one fmaf chain in ascending k from
+// 0, integer dots are exact, the scan steps without contraction. So the
+// passes give the values those kernels gave, K6 equals the K5 stack bit
+// for bit, the per-op route's mixer rounds as the stack does, and K5b /
+// K4b over chunks of whole blocks equal one call.
 //
 // Each launch is recorded with its grid (read_launched, behind
-// engine_network_launched and engine_layer_launched), so the wrapper can
-// read back the passes that ran.
+// engine_network_launched, engine_layer_launched and fused_s5_launched), so
+// the wrapper can read back the passes that ran.
 
 #pragma once
 
@@ -56,6 +59,9 @@ struct RowPass {
   float* stream_out;   // the stream values (rows, H) f32; null: not stored
   void* out;           // decoder output (rows, d_out), or with codes_out
                        // the layer's stream as stored (rows, H)
+  float* y_out;        // the mixer alone (K4a / K4b): y (rows, H) f32, and
+                       // the tail stops after the C-projection, with no
+                       // residual tile (Z is R); else null
   LayerParams tail, head;
   DenseW enc, dec;     // w null: stage absent
   Mode mode;
@@ -105,7 +111,8 @@ engine_row_pass_kernel(const __grid_constant__ RowPass a) {
   const Mode& m = a.mode;
   const int H = m.h, ldh = round4(H);
   float* R = smem;
-  float* Z = R + kT * ldh;
+  // the mixer alone has no residual: its input is z, and R its tile
+  float* Z = a.y_out ? R : R + kT * ldh;
   float* Y = Z + kT * ldh;
   float* S = Y + kT * ldh;
   float* X = Y;
@@ -161,6 +168,11 @@ engine_row_pass_kernel(const __grid_constant__ RowPass a) {
     }
     mixer_cproj(lp, H, Z, Y, S, ldh, a.ldp, rows, Q, a.ldq);
     __syncthreads();
+    if (a.y_out) {   // the mixer alone: y is the result
+      for (int i = tid; i < rows * H; i += blockDim.x)
+        a.y_out[row0 * H + i] = Y[(i / H) * ldh + i % H];
+      return;
+    }
     layer_finish(lp, m, R, Z, Y, ldh, rows, Q, a.ldq);
     if (a.codes_out) {   // the layer's stream as stored: the last pass
       for (int i = tid; i < rows * H; i += blockDim.x) {
@@ -312,7 +324,7 @@ inline int pass_ldq(const RowPass& a) {
 
 inline size_t row_pass_smem(const RowPass& a) {
   return sizeof(float) * (size_t)kT *
-             (2 * round4(a.mode.h) + union_width(a)) +
+             ((a.y_out ? 1 : 2) * round4(a.mode.h) + union_width(a)) +
          (q_in_s(a) ? 0 : 2 * (size_t)kT * a.ldq);
 }
 

@@ -1,5 +1,5 @@
-// The S5 mixer in one kernel, one CTA per batch row, with an optional carry
-// in and out:
+// K4a / K4b: the S5 mixer alone, with an optional carry in and out, as
+// three passes over the whole card:
 //
 //   bu = (u @ W_b) * (s_b_re | s_b_im)      (weights int8 / int16 / f32)
 //   x_t = lam * x_{t-1} + bu_t              (f32, in order over time)
@@ -16,114 +16,97 @@
 // of the engine's per-op route; with a carry `fused_s5_apply_carry` (:327).
 // On the TPU the grid walks the time blocks of a row in order with the
 // carry in VMEM scratch, and a block's states come from doubling passes
-// with tables of powers of lam. Here one CTA owns a row and walks tiles of
-// kT frames itself, the carry in shared memory; the time block is only
-// where states are requantized. Every step is engine_body.cuh's
-// `mixer_tile`, the mixer of the whole-layer serving kernels
-// (engine_layer.cu, engine_network.cu), so the per-op route and the stack
-// route round alike, and a chunked call at chunk = block equals one whole
-// call bit for bit. Each product and sum of the scan is rounded on its own
-// (scan_step_rn), as in the plain recurrence.
+// with tables of powers of lam. Only the recurrence couples frames, so here
+// the mixer runs as the serving layer's passes (engine_passes.cuh) with
+// the layer around it switched off (no norm, GLU, residual or stream
+// requant):
 //
-// Only u is read (f32 or bf16) and only y written (f32): the states never
-// reach device memory. Per tile the input, the output and the states live
-// in shared memory (kT*(2H + 2P) floats, 82 KB at H=192, P=128); W_b and
-// W_c stream from L2 in their storage type and are scaled on the result.
-// Plain f32 FMA on the CUDA cores, no tensor cores.
+//   head row pass  a CTA per 32 consecutive rows of the flattened B*L
+//                  stream (938 CTAs at B = 8), u -> bu (mixer_bproj) into
+//                  scratch (B*L, 2P) f32 that the wrapper allocates;
+//   scan pass      a thread per (batch row, channel) over all of L
+//                  (scan_step_rn), the raw states in place of bu, the carry
+//                  on the grid where a block ends, the carry in and out;
+//   tail row pass  u again, each state on the grid, relu and the C-side
+//                  scale as the pass loads it (mixer_grid, mixer_read),
+//                  mixer_cproj + d * u -> y, stored as f32. Its tile of u,
+//                  y and the states takes 32 x (2H + 2P) floats of shared
+//                  memory (80 KB at H=192, P=128; H up to 780 at P=128).
+//
+// These are the device functions of the whole-layer serving kernels
+// (engine_layer.cu, engine_network.cu), in the same order, so the per-op
+// route and the stack route round alike, and a chunked call at chunk =
+// block equals one whole call bit for bit. Each product output is one fmaf
+// chain over k in ascending order from 0; each product and sum of the scan
+// is rounded on its own (scan_step_rn), as in the plain recurrence. Plain
+// f32 FMA on the CUDA cores, no tensor cores. Each launch is recorded with
+// its grid; fused_s5_launched hands the wrapper the record of the last
+// call.
 //
 // Bound: operations. Per row 2*H*2P (B-projection) + 2*2P*H
 // (C-projection) = 196,608 flop at H=192, P=128; at B=8, L=3751 that is
 // 5.9 GFLOP, 0.088 ms at the card's 67 TFLOP/s f32 peak, against 46 MB of
-// device memory traffic (u read, y written), 0.014 ms at 3.35 TB/s.
-// B CTAs in all fill B of the 132 SMs, as for the other serving kernels.
+// device memory traffic (u read, y written; bu / the states add 31 MB
+// written and read twice), 0.014 ms at 3.35 TB/s.
 
-#include "engine_body.cuh"
-
-namespace {
+#include "engine_passes.cuh"
 
 using namespace engine;
-
-struct MixerArgs {
-  const void* u;         // (B, L, H) f32 or bf16
-  float* y;              // (B, L, H) f32
-  const float* ci_re;    // (B, P) carry in, null: zero
-  const float* ci_im;
-  float* co_re;          // (B, P) carry out, null: not returned
-  float* co_im;
-  LayerParams mixer;     // lam, d, W_b, W_c, scales, state grid
-  int relu_state, in_type, H, L, block_t;
-};
-
-__global__ void __launch_bounds__(kThreads)
-fused_s5_kernel(const __grid_constant__ MixerArgs a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const LayerParams& lp = a.mixer;
-  const int H = a.H, P = lp.p, L = a.L;
-  const int ldh = round4(H), ldp = round4(2 * P);
-  float* Z = smem;
-  float* Y = Z + kT * ldh;
-  float* S = Y + kT * ldh;
-  float* carry = S + kT * ldp;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const long long row0 = (long long)b * L;
-  for (int p = tid; p < P; p += blockDim.x) {
-    carry[p] = a.ci_re ? a.ci_re[(long long)b * P + p] : 0.f;
-    carry[P + p] = a.ci_im ? a.ci_im[(long long)b * P + p] : 0.f;
-  }
-  for (int t0 = 0; t0 < L; t0 += kT) {
-    const int rows = min(kT, L - t0);
-    load_tile(Z, ldh, a.u, a.in_type, row0 + t0, H, rows, 1.f);
-    __syncthreads();
-    mixer_tile(lp, a.relu_state, H, Z, Y, S, carry, ldh, ldp, rows, t0, L,
-               a.block_t);
-    for (int i = tid; i < rows * H; i += blockDim.x)
-      a.y[(row0 + t0) * H + i] = Y[(i / H) * ldh + i % H];
-    __syncthreads();
-  }
-  if (a.co_re) {
-    for (int p = tid; p < P; p += blockDim.x) {
-      a.co_re[(long long)b * P + p] = carry[p];
-      a.co_im[(long long)b * P + p] = carry[P + p];
-    }
-  }
-}
-
-}  // namespace
 
 // u: (B, L, H) of in_type (IoType f32 or bf16); y: (B, L, H) f32. mixer:
 // lam, d, wb, wc, the per-half scales (1 for float weights) and the state
 // grid (has_sq 0: none; nw, nb and the GLU fields are not read). Carries
-// (B, P) f32, null pointers for none. Returns cudaGetLastError() after the
-// launch.
+// (B, P) f32, null pointers for none. bu: (B * L, 2P) f32 scratch. Returns
+// the error of the first launch that fails, or 0.
 extern "C" int fused_s5_fwd(
     const void* u, float* y, int in_type, const engine::LayerParams* mixer,
     int relu_state, const float* ci_re, const float* ci_im, float* co_re,
-    float* co_im, int B, int L, int H, int block_t, void* stream) {
-  MixerArgs a;
-  a.u = u;
-  a.y = y;
-  a.ci_re = ci_re;
-  a.ci_im = ci_im;
-  a.co_re = co_re;
-  a.co_im = co_im;
-  a.mixer = *mixer;
-  a.relu_state = relu_state;
-  a.in_type = in_type;
-  a.H = H;
-  a.L = L;
-  a.block_t = block_t;
-  const int P = mixer->p;
-  const size_t smem =
-      sizeof(float) *
-      ((size_t)engine::kT * (2 * engine::round4(H) + engine::round4(2 * P)) +
-       2 * P);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_s5_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_s5_kernel<<<B, engine::kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+    float* co_im, int B, int L, int H, int block_t, float* bu,
+    void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  RowPass base = {};
+  base.mode.h = H;
+  base.mode.glu = kNone;
+  base.mode.relu_state = relu_state;
+  base.n_rows = (long long)B * L;
+  base.ld_bu = 2 * mixer->p;
+  base.ldp = round4(base.ld_bu);
+  base.in = u;
+  base.in_type = in_type;
+  base.in_scale = 1.f;
+  g_n_launched = 0;
+  cudaError_t err;
+  // ---- u -> bu ----
+  RowPass a = base;
+  a.has_head = 1;
+  a.head = *mixer;
+  a.bu_out = bu;
+  if ((err = launch_row_pass(a, st)) != cudaSuccess) return (int)err;
+  // ---- the recurrence, the carry in and out ----
+  ScanPass s = {};
+  s.lp = *mixer;
+  s.S = bu;
+  s.ld = base.ld_bu;
+  s.ci_re = ci_re;
+  s.ci_im = ci_im;
+  s.co_re = co_re;
+  s.co_im = co_im;
+  s.B = B;
+  s.L = L;
+  s.block_t = block_t;
+  if ((err = launch_scan_pass(s, st)) != cudaSuccess) return (int)err;
+  // ---- the states and u -> y ----
+  a = base;
+  a.has_tail = 1;
+  a.tail = *mixer;
+  a.s_in = bu;
+  a.y_out = y;
+  if ((err = launch_row_pass(a, st)) != cudaSuccess) return (int)err;
+  return 0;
+}
+
+// The passes of the last call: see engine::read_launched.
+extern "C" int fused_s5_launched(const char** names, long long* ctas,
+                                 int cap) {
+  return read_launched(names, ctas, cap);
 }

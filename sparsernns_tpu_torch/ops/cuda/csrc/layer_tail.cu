@@ -1,5 +1,5 @@
-// Whole S5 layer after the norm, forward (eval and training), one CTA per
-// batch row:
+// K2: the whole S5 layer after the norm, forward (eval and training), as
+// three passes over the whole card:
 //
 //   z = x * nw + nb, res = x             (affine: BatchNorm folded)
 //   z, res = the two streams z, skip     (non-affine: LayerNorm, outside)
@@ -16,38 +16,50 @@
 // f32, and the output rounds once at the store. Replaces the TPU kernel
 // sparsernns_tpu/ops/pallas/fused_layer_train.py `fused_layer_tail`
 // (pallas_call at :293, body `_make_tail_kernel` :69) in its affine and
-// non-affine modes, on f32 and bf16 streams. The steps of the chain are the
-// device functions of layer_tail_body.cuh, which the adjoint kernel
-// (layer_tail_bwd.cu) recomputes with. On the TPU the grid walks time
-// blocks of a batch row in order with the carry in VMEM scratch. CUDA
-// blocks run in no order, so here one CTA owns one batch row and loops over
-// time tiles of kT rows itself, the carry in shared memory.
+// non-affine modes, on f32 and bf16 streams. On the TPU the grid walks time
+// blocks of a batch row in order with the carry in VMEM scratch. Only the
+// recurrence couples time rows, so here it runs apart, and everything else
+// in passes over all B*L rows:
 //
-// Per tile: the residual rows (x, or skip in non-affine mode), the normed
-// rows z, the states and y live in shared memory (kT*(3H + 2P) floats,
-// 107 KB at H=192, P=128); nothing but the streams and out touches device
-// memory. Non-affine mode loads skip into the buffer that holds the raw x
-// in affine mode, so it needs no more shared memory. The four weights (W_b,
-// W_c: H*2P each, W2 and W1: H*H, 0.5 MB in f32 at the serving width) do
-// not fit in shared memory beside the tile, so every product streams its
-// weight from L2 (coalesced along the output column, each thread keeping
-// kRT rows of accumulators; the A operand is a broadcast float4
-// shared-memory read).
+//   tail_hist_bproj_kernel  S = z @ W_b, one CTA per (64 state columns,
+//                           chunk of 128 rows of one batch row): K3a's own
+//                           pass (layer_tail_body.cuh), 960 CTAs at B = 8.
+//   tail_hist_scan_kernel   the states in place over S, a thread per (batch
+//                           row, channel) over all of L: K3a's scan, with no
+//                           history kept. S (B*L, 2P) f32 is scratch that
+//                           the wrapper allocates (123 MB at B = 32).
+//   layer_tail_row_kernel   a CTA owns 64 consecutive rows of the
+//                           flattened B*L stream, which may straddle two
+//                           batch rows (each row looks up its own m1, m2),
+//                           and all H columns: y and x1 column tile by
+//                           column tile (64 wide) from relu?(S) @ W_c, x1
+//                           kept in shared memory; then per column tile the
+//                           gate dense (with the full GLU's value dense, or
+//                           half2's y again, in a second accumulator), the
+//                           gating, the residual, the layer relu and the
+//                           store. Without a GLU the first sweep stores.
+//
+// Every product is `gemm_tile` (layer_tail_body.cuh; here a 64x64 tile, 4x8
+// outputs a thread in registers), each output one fmaf chain over k in
+// ascending order from 0, and every elementwise step the device function
+// of layer_tail_body.cuh in the same order. The states are the ones K3a
+// computes, and K3b recomputes y, x1 and the gate with the same tile, so
+// the backward's relu / layer-relu / gate decisions equal the forward's.
 // The products are plain f32 FMA on the CUDA cores, no tensor cores: the
-// layer is held to f32 accuracy.
+// layer is held to f32 accuracy. Each launch is recorded with its grid;
+// layer_tail_fwd_launched hands the wrapper the record of the last call.
 //
 // Bound: operations. Per row 2*H*2P (B-proj) + 2*2P*H (C-proj) + 2*H*H
 // per GLU dense, about 0.27 MFLOP at H=192, P=128 with half1; at B=8,
 // L=3751 that is 8.1 GFLOP, 0.12 ms at the card's 67 TFLOP/s f32 peak,
-// against 46 MB of device memory traffic (x read, out written, weights),
-// 0.014 ms at 3.35 TB/s; the non-affine mode reads one stream more (69 MB),
-// a bf16 stream halves the stream bytes. Both stay bound by operations.
-//
-// Limits of this simple design: B CTAs in all (8 at B=8) fill B of the
-// 132 SMs, so the kernel runs at most B/132 of the card's peak; within an
-// SM it is bound by shared-memory reads and L2 weight streaming. Splitting
-// a row's state channels over a thread-block cluster (reducing the
-// C-projection through distributed shared memory) is the way to more SMs.
+// against 46 MB of stream and weight traffic (0.014 ms at 3.35 TB/s; the
+// states add 31 MB written and read twice); the non-affine mode reads one
+// stream more, a bf16 stream halves the stream bytes. All stay bound by
+// operations. Shared memory of the row pass: 64 x ldx floats of x1 (51 KB
+// at H = 192: three CTAs an SM, 12 warps, at most 168 registers a thread)
+// beside the product's stages. A layer whose x1 tile does not fit in what
+// the card lets a block opt in to (H above 872 on an H100) is refused
+// before anything is launched.
 
 #include "layer_tail_body.cuh"
 
@@ -55,90 +67,134 @@ namespace {
 
 using namespace tail;
 
-__global__ void __launch_bounds__(kThreads)
-layer_tail_kernel(const void* __restrict__ x, const void* __restrict__ skip,
-                  void* __restrict__ out,
-                  const float* __restrict__ nw, const float* __restrict__ nb,
-                  const float* __restrict__ wb, const float* __restrict__ wc,
-                  const float* __restrict__ dvec,
-                  const float* __restrict__ lam_re,
-                  const float* __restrict__ lam_im,
-                  const float* __restrict__ o2k,
-                  const float* __restrict__ o2b,
-                  const float* __restrict__ o1k,
-                  const float* __restrict__ o1b,
-                  const float* __restrict__ m1, const float* __restrict__ m2,
-                  int L, int H, int P, int glu, int act, int relu_state,
-                  int layer_relu, int bf16) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ldh = round4(H);
-  const int ldp = round4(2 * P);
-  float* X = smem;                 // the residual rows (x or skip)
-  float* Z = X + kT * ldh;         // normed rows, later x1 = act(y)
-  float* Y = Z + kT * ldh;         // y, later the "full" GLU base
-  float* S = Y + kT * ldh;         // bu, then the states [re | im]
-  float* carry = S + kT * ldp;     // (2P) carry [re | im] across tiles
+// A row of the x1 tile in shared memory: H rounded up to 8 mod 32 floats,
+// so the four rows a warp's operand fetch reads fall in distinct banks.
+__host__ __device__ inline int x1_ld(int H) { return (H + 23) / 32 * 32 + 8; }
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const long long row0 = (long long)b * L * H;
-  if (m1) m1 += (long long)b * H;
-  if (m2) m2 += (long long)b * H;
+struct TailArgs {
+  const void* x;      // (B, L, H) stream: raw x (affine) or z
+  const void* skip;   // (B, L, H) residual (non-affine) or null
+  void* out;          // (B, L, H) stream
+  const float* nw; const float* nb;          // (H) or null (non-affine)
+  const float* wc; const float* d;           // (2P, H), (H)
+  const float* o2k; const float* o2b;        // (H, H), (H) or null
+  const float* o1k; const float* o1b;        // (H, H), (H) or null
+  const float* m1; const float* m2;          // (B, H) or null
+  const float* S;                            // (B*L, 2P) raw states
+  long long n_rows;                          // B * L
+  int L, H, P, glu, act, relu_state, layer_relu, bf16;
+};
 
-  for (int p = tid; p < 2 * P; p += blockDim.x) carry[p] = 0.f;
+constexpr int kTail = 64;        // rows of the tail pass's product tile
+constexpr int kTailR = kTail / 16;  // accumulator rows a thread
+constexpr int kTooWide = -1;     // layer_tail_fwd: the x1 tile does not fit
 
-  for (int t0 = 0; t0 < L; t0 += kT) {
-    const int rows = min(kT, L - t0);
-    // ---- load the tile (and apply the norm affine) ----
-    load_tile(x, skip, row0, bf16, t0, rows, H, ldh, nw, nb, X, Z);
-    __syncthreads();
-    // ---- B-projection: S = Z @ W_b ----
-    tile_matmul(Z, ldh, wb, H, 2 * P, rows,
-                [&](int r, int c, float acc) { S[r * ldp + c] = acc; });
-    __syncthreads();
-    // ---- in-order scan over the tile, carry in shared memory ----
-    scan_tile(S, ldp, P, rows, lam_re, lam_im, carry, relu_state != 0,
-              nullptr);
-    __syncthreads();
-    // ---- C-projection + D * z: Y = S @ W_c + d * Z ----
-    tile_matmul(S, ldp, wc, 2 * P, H, rows, [&](int r, int c, float acc) {
-      Y[r * ldh + c] = fmaf(dvec[c], Z[r * ldh + c], acc);
-    });
-    __syncthreads();
-    // ---- activation (x1 replaces z); no GLU: residual and store ----
-    for (int i = tid; i < rows * H; i += blockDim.x) {
-      const int r = i / H, c = i % H;
-      const float x1 = x1_dropped(Y[r * ldh + c], act, m1, c);
-      if (glu == kNone) {
-        float o = x1 + X[r * ldh + c];
-        if (layer_relu) o = fmaxf(o, 0.f);
-        store_stream(out, row0 + (long long)(t0 + r) * H + c, o, bf16);
-      } else {
-        Z[r * ldh + c] = x1;
-      }
-    }
-    __syncthreads();
-    if (glu != kNone) {
-      if (glu == kFull) {
-        // value dense: Y = x1 @ W1 + b1 (y itself is no longer needed)
-        tile_matmul(Z, ldh, o1k, H, H, rows, [&](int r, int c, float acc) {
-          Y[r * ldh + c] = acc + o1b[c];
-        });
-        __syncthreads();
-      }
-      const float* base = glu == kHalf1 ? Z : Y;
-      // gate dense, sigmoid, gating, residual, store
-      tile_matmul(Z, ldh, o2k, H, H, rows, [&](int r, int c, float acc) {
-        const float gate = sigmoid_fn(acc + o2b[c]);
-        float o = gated_out(base[r * ldh + c], gate, m2, c, X[r * ldh + c]);
-        if (layer_relu) o = fmaxf(o, 0.f);
-        store_stream(out, row0 + (long long)(t0 + r) * H + c, o, bf16);
-      });
-      __syncthreads();
+// epi(m, c, i, j) for every output (m, c) of a thread's kTailR x 8
+// accumulators (gemm_tile's layout) inside the first `rows` rows and
+// `cols` columns.
+template <class Epi>
+__device__ __forceinline__ void tile_each(int rows, int cols, const Epi& epi) {
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+#pragma unroll
+  for (int i = 0; i < kTailR; ++i) {
+    const int m = ty * kTailR + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = (j < 4 ? 0 : 32) + tx * 4 + (j & 3);
+      if (m < rows && c < cols) epi(m, c, i, j);
     }
   }
 }
+
+__global__ void __launch_bounds__(kGT, 3)
+layer_tail_row_kernel(const __grid_constant__ TailArgs a) {
+  __shared__ __align__(16) GemmSmemT<kTail> sm;
+  extern __shared__ float4 smem4[];
+  float* X1 = reinterpret_cast<float*>(smem4);   // (kTail, ldx)
+  const int H = a.H, N2 = 2 * a.P, ldx = x1_ld(H);
+  const long long r0 = (long long)blockIdx.x * kTail;
+  const int rows = (int)min((long long)kTail, a.n_rows - r0);
+  const bool rs = a.relu_state != 0;
+  const bool affine = a.nw != nullptr;
+  auto states = [&](int m, int k) -> float {   // relu?(S), the C-proj's A
+    if (m >= rows || k >= N2) return 0.f;
+    const float v = a.S[(r0 + m) * N2 + k];
+    return rs ? fmaxf(v, 0.f) : v;
+  };
+  auto x1_op = [&](int m, int k) -> float {    // x1, the GLU denses' A
+    return m < rows && k < H ? X1[m * ldx + k] : 0.f;
+  };
+  // z and the residual at element el of column c, as K3a / K3b load them
+  auto z_at = [&](long long el, int c) -> float {
+    const float v = load_stream(a.x, el, a.bf16);
+    return affine ? fmaf(v, a.nw[c], a.nb[c]) : v;
+  };
+  auto res_at = [&](long long el) -> float {
+    return load_stream(affine ? a.x : a.skip, el, a.bf16);
+  };
+  // a mask's row for time row `row` (B*L < 2^31: 32-bit division)
+  auto mask = [&](const float* mk, long long row) -> const float* {
+    return mk ? mk + (long long)((int)row / a.L) * H : nullptr;
+  };
+  auto store = [&](long long el, float o) {
+    if (a.layer_relu) o = fmaxf(o, 0.f);
+    store_stream(a.out, el, o, a.bf16);
+  };
+  float acc[kTailR][8], acc2[kTailR][8];
+
+  // ---- y = relu?(S) @ W_c + d*z, x1 = act(y) * m1 (no GLU: the store) ----
+  for (int n0 = 0; n0 < H; n0 += kBN) {
+    gemm_tile<true>(N2, states, [&](int k, int n) -> float {
+      return k < N2 && n0 + n < H ? __ldg(a.wc + (long long)k * H + n0 + n)
+                                  : 0.f;
+    }, sm, acc);
+    tile_each(rows, min(kBN, H - n0), [&](int m, int cl, int i, int j) {
+      const int c = n0 + cl;
+      const long long row = r0 + m;
+      const long long el = row * H + c;
+      const float y = fmaf(a.d[c], z_at(el, c), acc[i][j]);
+      const float x1 = x1_dropped(y, a.act, mask(a.m1, row), c);
+      if (a.glu == kNone) {
+        store(el, x1 + res_at(el));
+      } else {
+        X1[m * ldx + c] = x1;
+      }
+    });
+  }
+  if (a.glu == kNone) return;
+  __syncthreads();
+
+  // ---- per column tile: the base, the gate, gating, residual, store ----
+  for (int n0 = 0; n0 < H; n0 += kBN) {
+    auto weight = [&](const float* w, int K) {
+      return [=](int k, int n) -> float {
+        return k < K && n0 + n < H ? __ldg(w + (long long)k * H + n0 + n)
+                                   : 0.f;
+      };
+    };
+    if (a.glu == kFull)          // the value dense x1 @ W1
+      gemm_tile<true>(H, x1_op, weight(a.o1k, H), sm, acc2);
+    else if (a.glu == kHalf2)    // y's product again, as the first sweep
+      gemm_tile<true>(N2, states, weight(a.wc, N2), sm, acc2);
+    gemm_tile<true>(H, x1_op, weight(a.o2k, H), sm, acc);
+    tile_each(rows, min(kBN, H - n0), [&](int m, int cl, int i, int j) {
+      const int c = n0 + cl;
+      const long long row = r0 + m;
+      const long long el = row * H + c;
+      const float gate = sigmoid_fn(acc[i][j] + a.o2b[c]);
+      float base;
+      if (a.glu == kHalf1)
+        base = X1[m * ldx + c];
+      else if (a.glu == kHalf2)
+        base = fmaf(a.d[c], z_at(el, c), acc2[i][j]);
+      else
+        base = acc2[i][j] + a.o1b[c];
+      store(el, gated_out(base, gate, mask(a.m2, row), c, res_at(el)));
+    });
+  }
+}
+
+LaunchRecord g_launched;
 
 }  // namespace
 
@@ -148,25 +204,69 @@ layer_tail_kernel(const void* __restrict__ x, const void* __restrict__ skip,
 // null. d, o2b, o1b, nw, nb: (H). wb: (H, 2P);
 // wc: (2P, H), conj-sym factor folded in; o2k, o1k: (H, H) in (in, out)
 // layout, null when the GLU variant does not use them. lam_re, lam_im: (P).
-// m1, m2: (B, H) dropout masks or null.
+// m1, m2: (B, H) dropout masks or null. states: (B*L, 2P) f32 scratch.
 // glu: 0 full, 1 half1, 2 half2, 3 none; act: 0 gelu, 1 relu. Returns
-// cudaGetLastError() after the launch.
+// kTooWide, launching nothing, where the row pass's x1 tile does not fit
+// in the shared memory a block may opt in to on the current device; else
+// the error of the first launch that fails, or 0.
 extern "C" int layer_tail_fwd(
     const void* x, const void* skip, void* out, const float* nw,
     const float* nb,
     const float* wb, const float* wc, const float* d, const float* lam_re,
     const float* lam_im, const float* o2k, const float* o2b,
     const float* o1k, const float* o1b, const float* m1, const float* m2,
-    int B, int L, int H, int P, int glu, int act, int relu_state,
-    int layer_relu, int bf16, void* stream) {
+    float* states, int B, int L, int H, int P, int glu, int act,
+    int relu_state, int layer_relu, int bf16, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  g_launched.n = 0;
+  cudaError_t err;
+  // ---- the x1 tile beside the product's staging, or refused ----
   const size_t smem =
-      sizeof(float) * ((size_t)kT * (3 * round4(H) + round4(2 * P)) + 2 * P);
-  cudaError_t err = cudaFuncSetAttribute(
-      layer_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      glu == kNone ? 0 : sizeof(float) * (size_t)kTail * x1_ld(H);
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (err = cudaFuncGetAttributes(&fa, layer_tail_row_kernel)) !=
+          cudaSuccess)
+    return (int)err;
+  if (fa.sharedSizeBytes + smem > (size_t)optin) return kTooWide;
+  // ---- S = z @ W_b, then the states in place ----
+  const int cpr = (L + kBM - 1) / kBM;
+  const dim3 grid_b((2 * P + kBN - 1) / kBN, B * cpr);
+  tail_hist_bproj_kernel<<<grid_b, kGT, 0, st>>>(x, nw, nb, wb, states, L, H,
+                                                 P, bf16, cpr);
+  g_launched.add("tail_hist_bproj_kernel", grid_b);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 grid_s(B * ((P + kScanT - 1) / kScanT));
+  tail_hist_scan_kernel<<<grid_s, kScanT, 0, st>>>(states, lam_re, lam_im,
+                                                   nullptr, nullptr, L, P);
+  g_launched.add("tail_hist_scan_kernel", grid_s);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // ---- the tail over tiles of the flattened rows ----
+  TailArgs a = {x, skip, out, nw, nb, wc, d, o2k, o2b, o1k, o1b, m1, m2,
+                states, (long long)B * L, L, H, P, glu, act, relu_state,
+                layer_relu, bf16};
+  err = cudaFuncSetAttribute(layer_tail_row_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
-  layer_tail_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      x, skip, out, nw, nb, wb, wc, d, lam_re, lam_im, o2k, o2b, o1k, o1b, m1,
-      m2, L, H, P, glu, act, relu_state, layer_relu, bf16);
+  // three CTAs an SM where they fit: the carveout all shared memory
+  err = cudaFuncSetAttribute(layer_tail_row_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_r((unsigned)((a.n_rows + kTail - 1) / kTail));
+  layer_tail_row_kernel<<<grid_r, kGT, smem, st>>>(a);
+  g_launched.add("layer_tail_row_kernel", grid_r);
   return (int)cudaGetLastError();
+}
+
+// The kernels that the last layer_tail_fwd launched, in order: up to `cap`
+// of their names and grid sizes in CTAs. Returns how many it launched.
+extern "C" int layer_tail_fwd_launched(const char** names, long long* ctas,
+                                       int cap) {
+  return g_launched.read(names, ctas, cap);
 }

@@ -31,13 +31,14 @@
 // unspilled registers or deeper slices gained on the card. The epilogue
 // (`tile_epilogue`) puts the accumulator tile through shared memory, so
 // its loads and stores run along rows, 32 consecutive elements a warp.
-// Each output is one fmaf chain over k in ascending order from 0, as
-// tile_matmul (layer_tail_body.cuh) sums it, so the products that
-// recompute the forward (B-projection, C-projection, the GLU denses) equal
-// K2's bit for bit, and with them every relu, layer-relu and gate
-// decision; the elementwise steps are the forward's device functions. The
-// adjoint-only products use the same tile in f32 FMA too, each output one
-// chain in ascending k (the full GLU's two products into g_x1d as two
+// Each output is one fmaf chain over k in ascending order from 0, and the
+// products that recompute the forward (C-projection, the GLU denses) are
+// the ones K2's tail pass computes (layer_tail.cu), over K2's own states
+// (the B-projection and scan passes are one code, layer_tail_body.cuh), so
+// they equal K2's bit for bit, and with them every relu, layer-relu and
+// gate decision; the elementwise steps are the forward's device functions.
+// The adjoint-only products use the same tile in f32 FMA too, each output
+// one chain in ascending k (the full GLU's two products into g_x1d as two
 // chains, summed). The tensor cores (a 3xTF32 tile) are later work.
 //
 // The weight gradients contract over time: each is a product of two
@@ -54,7 +55,8 @@
 // L=3751 (30,008 rows), the card's 67 TFLOP/s f32 and 3.35 TB/s:
 //
 // K3a (layer_tail_hist; replaces the pallas_call at fused_layer_bwd.py
-// :489), bound 0.045 ms by operations (3.0 GFLOP):
+// :489), bound 0.045 ms by operations (3.0 GFLOP); its two kernels are in
+// layer_tail_body.cuh, which K2 launches too:
 //   tail_hist_bproj_kernel  bu = z @ W_b into S, z = x*nw + nb or the z
 //                           stream; one CTA per (column tile, chunk).
 //   tail_hist_scan_kernel   x_t = lam x_{t-1} + bu_t in place over S, per
@@ -96,154 +98,8 @@ namespace {
 
 using namespace tail;
 
-constexpr int kBM = 128;  // rows of a product tile: a chunk of time rows
-constexpr int kBN = 64;   // columns of a product tile
-constexpr int kBK = 8;    // depth of one shared-memory stage
-constexpr int kGT = 128;  // threads of a product CTA: 16 x 8, 8x8 outputs each
-constexpr int kMinCtas = 3;  // product CTAs an SM holds at once (<= 168 regs)
-constexpr int kLdA = kBM + 4;
-constexpr int kLdB = kBN + 4;
-constexpr int kScanT = 32;  // threads (state channels) of a scan CTA
 constexpr int kNVec = 7;    // vector-gradient slots of a chunk
 enum VecSlot { kDd = 0, kO2b, kO1b, kM1, kM2, kNw, kNb };
-
-struct GemmSmem {
-  float a[2][kBK][kLdA];
-  float b[2][kBK][kLdB];
-};
-
-// The product's stages, then its accumulator tile for the epilogue.
-union TileSmem {
-  GemmSmem g;
-  float c[kBM][kBN + 4];
-};
-
-// acc[i][j] = sum_k A(ty*8 + i, k) * Bm(k, n_j) for this thread's 8x8
-// outputs of the CTA tile, ty = tid / 8, tx = tid % 8, n_j = tx*4 + j and,
-// for j >= 4, 32 + tx*4 + j - 4 (a warp's shared-memory reads of B and
-// stores of the tile are then free of bank conflicts); fa(m, k) and
-// fb(k, n) give the operands, 0 outside their ranges. Each output is one fmaf chain
-// over k in ascending order from 0. kRowA: A(m, k) runs along k in memory
-// (a row of a (rows, K) array), so consecutive threads fetch consecutive k;
-// otherwise A runs along m (a row of a (rows, M) array with k the row).
-// Ends with the shared memory free for the caller.
-template <bool kRowA, class FA, class FB>
-__device__ __forceinline__ void gemm_tile(int K, const FA& fa, const FB& fb,
-                                          TileSmem& tsm, float (&acc)[8][8]) {
-  GemmSmem& sm = tsm.g;
-  constexpr int kNA = kBM * kBK / kGT;
-  constexpr int kNB = kBK * kBN / kGT;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3, tx = tid & 7;
-  float ra[kNA], rb[kNB];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kNA; ++i) {
-      const int e = i * kGT + tid;
-      const int m = kRowA ? e / kBK : e % kBM;
-      const int k = kRowA ? e % kBK : e / kBM;
-      ra[i] = fa(m, k0 + k);
-    }
-#pragma unroll
-    for (int i = 0; i < kNB; ++i) {
-      const int e = i * kGT + tid;
-      rb[i] = fb(k0 + e / kBN, e % kBN);
-    }
-  };
-  auto stash = [&](int s) {
-#pragma unroll
-    for (int i = 0; i < kNA; ++i) {
-      const int e = i * kGT + tid;
-      const int m = kRowA ? e / kBK : e % kBM;
-      const int k = kRowA ? e % kBK : e / kBM;
-      sm.a[s][k][m] = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kNB; ++i) {
-      const int e = i * kGT + tid;
-      sm.b[s][e / kBN][e % kBN] = rb[i];
-    }
-  };
-  const int n_k = (K + kBK - 1) / kBK;
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < n_k) fetch((kt + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sm.a[s][kk][ty * 8]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&sm.a[s][kk][ty * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sm.b[s][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&sm.b[s][kk][32 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (kt + 1 < n_k) stash(s ^ 1);
-    __syncthreads();
-  }
-}
-
-// The epilogue of a product tile: the threads' 8x8 accumulators go to
-// shared memory, then epi(m, c, value) runs for every element of the
-// first `rows` rows and `cols` columns in row order, thread t on column
-// t % kBN of rows t / kBN, t / kBN + 2, ...: a warp reads and writes 32
-// consecutive elements of a row. Every thread of the CTA calls it.
-template <class Epi>
-__device__ __forceinline__ void tile_epilogue(const float (&acc)[8][8],
-                                              TileSmem& sm, int rows,
-                                              int cols, const Epi& epi) {
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    *reinterpret_cast<float4*>(&sm.c[ty * 8 + i][tx * 4]) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(&sm.c[ty * 8 + i][32 + tx * 4]) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-  __syncthreads();
-  const int c = threadIdx.x % kBN;
-  if (c < cols)
-    for (int m = threadIdx.x / kBN; m < rows; m += kGT / kBN)
-      epi(m, c, sm.c[m][c]);
-  __syncthreads();
-}
-
-// out[c] = the sum over the tile's rows of a column's partials, which the
-// kGT / kBN = 2 threads of column c hold (`v`), in a fixed order. Every
-// thread of the CTA calls it, after tile_epilogue.
-__device__ inline void tile_col_sum(float v, TileSmem& sm,
-                                    float* __restrict__ out, int cols) {
-  float* red = &sm.c[0][0];
-  red[threadIdx.x] = v;
-  __syncthreads();
-  if ((int)threadIdx.x < cols)
-    out[threadIdx.x] = red[threadIdx.x] + red[threadIdx.x + kBN];
-  __syncthreads();
-}
-
-// A chunk of time rows: `rows` rows of batch row b from element row `row0`
-// of the (B*L, .) arrays.
-struct Chunk {
-  long long row0;
-  int rows, b;
-};
-
-__device__ inline Chunk chunk_of(int ci, int L, int cpr) {
-  const int b = ci / cpr, t0 = (ci % cpr) * kBM;
-  return {(long long)b * L + t0, min(kBM, L - t0), b};
-}
 
 struct BwdArgs {
   // inputs
@@ -273,7 +129,7 @@ struct BwdArgs {
 };
 
 // z at element `el` of column c: x*nw + nb (affine) or the z stream, as
-// load_tile computes it for K2
+// K2 computes it (layer_tail.cu)
 __device__ inline float z_at(const BwdArgs& a, long long el, int c) {
   const float v = load_stream(a.x, el, a.bf16);
   return a.nw ? fmaf(v, a.nw[c], a.nb[c]) : v;
@@ -288,90 +144,6 @@ __device__ inline float res_at(const BwdArgs& a, long long el) {
 __device__ inline float* vec_slot(const BwdArgs& a, int ci, int slot,
                                   int n0) {
   return a.vec + ((long long)ci * kNVec + slot) * a.H + n0;
-}
-
-// ---------------------------------------------------------------- K3a
-
-__global__ void __launch_bounds__(kGT, kMinCtas)
-tail_hist_bproj_kernel(const void* __restrict__ x,
-                       const float* __restrict__ nw,
-                       const float* __restrict__ nb,
-                       const float* __restrict__ wb, float* __restrict__ S,
-                       int L, int H, int P, int bf16, int cpr) {
-  __shared__ __align__(16) TileSmem sm;
-  const Chunk ch = chunk_of(blockIdx.y, L, cpr);
-  const int N = 2 * P, n0 = blockIdx.x * kBN;
-  auto fa = [&](int m, int k) -> float {
-    if (m >= ch.rows || k >= H) return 0.f;
-    const float v = load_stream(x, (ch.row0 + m) * H + k, bf16);
-    return nw ? fmaf(v, nw[k], nb[k]) : v;
-  };
-  auto fb = [&](int k, int n) -> float {
-    return k < H && n0 + n < N ? __ldg(wb + (long long)k * N + n0 + n) : 0.f;
-  };
-  float acc[8][8];
-  gemm_tile<true>(H, fa, fb, sm, acc);
-  tile_epilogue(acc, sm, ch.rows, min(kBN, N - n0),
-                [&](int m, int c, float v) {
-                  S[(ch.row0 + m) * N + n0 + c] = v;
-                });
-}
-
-// Loads of `kU` consecutive steps of one channel's re and im columns of a
-// (L, 2P) slice, rows t0 + u * step (0 outside [0, L)).
-template <int kU>
-__device__ inline void fetch_steps(const float* __restrict__ s, int P, int L,
-                                   int p, int t0, int step, float (&re)[kU],
-                                   float (&im)[kU]) {
-#pragma unroll
-  for (int u = 0; u < kU; ++u) {
-    const int t = t0 + u * step;
-    const bool in = t >= 0 && t < L;
-    re[u] = in ? s[(long long)t * 2 * P + p] : 0.f;
-    im[u] = in ? s[(long long)t * 2 * P + P + p] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kScanT)
-tail_hist_scan_kernel(float* __restrict__ S, const float* __restrict__ lam_re,
-                      const float* __restrict__ lam_im,
-                      float* __restrict__ hist_re,
-                      float* __restrict__ hist_im, int L, int P) {
-  constexpr int kU = 32;
-  const int groups = (P + kScanT - 1) / kScanT;
-  const int b = blockIdx.x / groups;
-  const int p = (blockIdx.x % groups) * kScanT + threadIdx.x;
-  if (p >= P) return;
-  const int n_tiles = (L + kT - 1) / kT;
-  float* s = S + (long long)b * L * 2 * P;
-  float* hr = hist_re + (long long)b * n_tiles * P + p;
-  float* hi = hist_im + (long long)b * n_tiles * P + p;
-  const float lr = lam_re[p], li = lam_im[p];
-  float xr = 0.f, xi = 0.f;
-  float cr[kU], ci[kU], nr[kU], ni[kU];
-  fetch_steps<kU>(s, P, L, p, 0, 1, cr, ci);
-  for (int t0 = 0; t0 < L; t0 += kU) {
-    // the next steps' loads go out before this block's dependent chain
-    if (t0 + kU < L) fetch_steps<kU>(s, P, L, p, t0 + kU, 1, nr, ni);
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int t = t0 + u;
-      if (t < L) {
-        if (t % kT == 0) {
-          hr[(long long)(t / kT) * P] = xr;
-          hi[(long long)(t / kT) * P] = xi;
-        }
-        scan_step(lr, li, cr[u], ci[u], xr, xi);
-        s[(long long)t * 2 * P + p] = xr;
-        s[(long long)t * 2 * P + P + p] = xi;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      cr[u] = nr[u];
-      ci[u] = ni[u];
-    }
-  }
 }
 
 // ---------------------------------------------------------------- K3b
@@ -394,7 +166,7 @@ __global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_proj_kernel(const BwdA
                                 : 0.f;
   };
   float acc[8][8];
-  gemm_tile<true>(N2, fa, fb, sm, acc);
+  gemm_tile<true>(N2, fa, fb, sm.g, acc);
   const int cols = min(kBN, H - n0);
   const float* m1 = a.m1 ? a.m1 + (long long)ch.b * H : nullptr;
   const bool gated = a.glu != kNone;
@@ -437,7 +209,7 @@ __global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_base_kernel(const BwdA
                                : 0.f;
   };
   float acc[8][8];
-  gemm_tile<true>(H, fa, fb, sm, acc);
+  gemm_tile<true>(H, fa, fb, sm.g, acc);
   tile_epilogue(acc, sm, ch.rows, min(kBN, H - n0),
                 [&](int m, int cl, float v) {
                   const int c = n0 + cl;
@@ -460,7 +232,7 @@ __global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_gate_kernel(const BwdA
                                : 0.f;
   };
   float acc[8][8];
-  gemm_tile<true>(H, fa, fb, sm, acc);
+  gemm_tile<true>(H, fa, fb, sm.g, acc);
   const int cols = min(kBN, H - n0);
   const float* m2 = a.m2 ? a.m2 + (long long)ch.b * H : nullptr;
   const float* base_buf = glu == kHalf1 ? a.X1D : (glu == kHalf2 ? a.Y : a.F);
@@ -510,7 +282,7 @@ __global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_gx1d_kernel(const BwdA
                : 0.f;
   };
   float acc[8][8];
-  gemm_tile<true>(H, fa, fb, sm, acc);
+  gemm_tile<true>(H, fa, fb, sm.g, acc);
   const int cols = min(kBN, H - n0);
   if (kBase) {
     tile_epilogue(acc, sm, ch.rows, cols, [&](int m, int cl, float v) {
@@ -553,7 +325,7 @@ __global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_gxs_kernel(const BwdAr
                                 : 0.f;
   };
   float acc[8][8];
-  gemm_tile<true>(H, fa, fb, sm, acc);
+  gemm_tile<true>(H, fa, fb, sm.g, acc);
   tile_epilogue(acc, sm, ch.rows, min(kBN, N2 - n0),
                 [&](int m, int cl, float v) {
                   const long long at = (ch.row0 + m) * N2 + n0 + cl;
@@ -603,7 +375,7 @@ __global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_wgrad_kernel(const Bwd
     return a.nw ? fmaf(v, zw, zb) : v;
   };
   float acc[8][8];
-  gemm_tile<false>(n_rows, fa, fb, sm, acc);
+  gemm_tile<false>(n_rows, fa, fb, sm.g, acc);
   float* part = (kWhich == 0 ? a.dwc : (kWhich == 1 ? a.dglu : a.dwb)) +
                 (long long)blockIdx.z * M * N;
   tile_epilogue(acc, sm, min(kBM, M - m0), min(kBN, N - n0),
@@ -677,7 +449,7 @@ __global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_gz_kernel(const BwdArg
                                 : 0.f;
   };
   float acc[8][8];
-  gemm_tile<true>(N2, fa, fb, sm, acc);
+  gemm_tile<true>(N2, fa, fb, sm.g, acc);
   const int cols = min(kBN, H - n0);
   float s_nw = 0.f, s_nb = 0.f;
   tile_epilogue(acc, sm, ch.rows, cols, [&](int m, int cl, float v) {
@@ -702,21 +474,9 @@ __global__ void __launch_bounds__(kGT, kMinCtas) tail_bwd_gz_kernel(const BwdArg
 int scan_ctas(int B, int P) { return B * ((P + kScanT - 1) / kScanT); }
 
 // The kernels that the last call of layer_tail_hist (entry 0) and of
-// layer_tail_bwd (entry 1) launched, in launch order, with their grids'
-// CTAs: the record that layer_tail_launched hands the wrapper.
-struct Launched {
-  const char* name;
-  long long ctas;
-};
-constexpr int kMaxLaunches = 16;
-Launched g_launched[2][kMaxLaunches];
-int g_n_launched[2];
-
-void record_launch(int call, const char* name, dim3 grid) {
-  if (g_n_launched[call] < kMaxLaunches)
-    g_launched[call][g_n_launched[call]++] = {
-        name, (long long)grid.x * grid.y * grid.z};
-}
+// layer_tail_bwd (entry 1) launched: the record that layer_tail_launched
+// hands the wrapper.
+LaunchRecord g_launched[2];
 
 }  // namespace
 
@@ -725,7 +485,7 @@ void record_launch(int call, const char* name, dim3 grid) {
 // launch that fails.
 #define LAUNCH(call, kernel, grid, threads, args)          \
   kernel<<<grid, threads, 0, st>>> args;                   \
-  record_launch(call, #kernel, grid);                      \
+  g_launched[call].add(#kernel, grid);                     \
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err
 
 // K3a: every state and the entry state of every 32-row time tile. x: (B, L,
@@ -744,7 +504,7 @@ extern "C" int layer_tail_hist(const void* x, const float* nw,
   const dim3 grid((2 * P + kBN - 1) / kBN, B * cpr);
   const dim3 grid_scan(scan_ctas(B, P));
   cudaError_t err;
-  g_n_launched[0] = 0;
+  g_launched[0].n = 0;
   LAUNCH(0, tail_hist_bproj_kernel, grid, kGT,
          (x, nw, nb, wb, states, L, H, P, bf16, cpr));
   LAUNCH(0, tail_hist_scan_kernel, grid_scan, kScanT,
@@ -763,12 +523,7 @@ extern "C" int layer_tail_chunk_rows() { return kBM; }
 // in CTAs into `names` and `ctas`. Returns how many it launched.
 extern "C" int layer_tail_launched(int call, const char** names,
                                    long long* ctas, int cap) {
-  const int n = g_n_launched[call];
-  for (int i = 0; i < n && i < cap; ++i) {
-    names[i] = g_launched[call][i].name;
-    ctas[i] = g_launched[call][i].ctas;
-  }
-  return n;
+  return g_launched[call].read(names, ctas, cap);
 }
 
 // K3b. `ptrs` holds the pointers of BwdArgs in declaration order up to the
@@ -813,7 +568,7 @@ extern "C" int layer_tail_bwd(const void* const* ptrs, int B, int L, int H,
                        n_splits);
   const dim3 grid_scan(scan_ctas(B, P));
   cudaError_t err;
-  g_n_launched[1] = 0;
+  g_launched[1].n = 0;
   LAUNCH(1, tail_bwd_proj_kernel, grid_h, kGT, (a));
   if (glu == kFull) {
     LAUNCH(1, tail_bwd_base_kernel, grid_h, kGT, (a));

@@ -1,4 +1,4 @@
-"""Kernels K4a and K4b: the S5 mixer in one kernel.
+"""Kernels K4a and K4b: the S5 mixer alone, as passes over the card.
 
 Replaces ``sparsernns_tpu/ops/pallas/fused_s5.py`` ``fused_s5_apply``:
 per batch row
@@ -7,10 +7,14 @@ per batch row
     xs = scan(λ, bu)                      (in order over time)
     y = [xs_re xs_im] @ W_c + D ⊙ u       (relu on xs if relu_state)
 
-with the states never in device memory. One CUDA source,
-``csrc/fused_s5.cu`` (its header note gives the bound and the design),
-runs every mode through the serving layer kernels' own mixer steps
-(``csrc/engine_body.cuh`` ``mixer_tile``):
+One CUDA source, ``csrc/fused_s5.cu`` (its header note gives the bound and
+the design), runs every mode as the serving layer kernels' own passes
+(``csrc/engine_passes.cuh``, with the layer around the mixer switched off):
+a head row pass u -> bu, a scan over all of L per (batch row, channel), a
+tail row pass -> y, the row passes over tiles of 32 rows of the flattened
+B * L stream (``engine_layer.pass_plan`` with one layer and no encoder; bu
+and then the states in scratch). :func:`launched` reads back the passes of
+the last call on the card:
 
 - :func:`fused_s5`: the float mode (f32 weights and input, no scales, no
   state grid), the mixer of the float models' mixer route;
@@ -59,9 +63,10 @@ from sparsernns_tpu_torch.ops.cuda.layer_tail import check_tensors
 from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, QatBits,
                                            sequential_diag_scan)
 
-#: kernel launches made in this process: by :func:`fused_s5` (K4a float),
-#: by :func:`fused_s5_engine` without a carry (K4a engine modes) and with
-#: one (K4b), by :func:`fused_s5_qat` (K4a QAT mode, one a call)
+#: kernel calls made in this process, one a call (K4a and K4b: three
+#: passes each): by :func:`fused_s5` (K4a float), by
+#: :func:`fused_s5_engine` without a carry (K4a engine modes) and with one
+#: (K4b), by :func:`fused_s5_qat` (K4a QAT mode)
 launches = 0
 launches_engine = 0
 launches_engine_carry = 0
@@ -91,22 +96,36 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                         ctypes.POINTER(engine_layer.LayerParams),
                         ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
 
+def launched():
+    """(kernel, CTAs) of every pass that the last K4a / K4b call launched
+    on the card, in order, as the CUDA source recorded them."""
+    return engine_layer.read_launched("fused_s5")
+
+
+def check_width(h: int, p: int) -> None:
+    """Raise ValueError where the tail row pass's tile (u, y and the
+    states of :data:`engine_layer.ROW_TILE` rows) does not fit in a
+    block's shared memory: H up to 780 at P = 128."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    smem = 4 * engine_layer.ROW_TILE * (2 * r4(h) + r4(2 * p))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"H={h}, P={p}: a tail tile needs {smem} bytes of "
+                         f"shared memory, the card gives {_MAX_SMEM}")
+
+
 def _launch(u, ops: engine_layer.MixerOps, relu_state: bool, block_t: int,
             carry: Optional[Pair]):
-    """One launch of the kernel on a checked (B, L, H) input ``u``:
-    y, or with ``carry`` (y, new carry)."""
+    """One call of the kernel's three passes on a checked (B, L, H) input
+    ``u``: y, or with ``carry`` (y, new carry)."""
     dev = u.device
     b, l, h = u.shape
     p = ops.w_b.shape[-1] // 2
-    smem = 4 * (32 * (2 * (-(-h // 4) * 4) + -(-2 * p // 4) * 4) + 2 * p)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"H={h}, P={p}: a tile needs {smem} bytes of "
-                         f"shared memory, the card gives {_MAX_SMEM}")
+    check_width(h, p)
     u = u.contiguous()
     lp = engine_layer.pack_mixer(ops, dev)
     y = torch.empty((b, l, h), dtype=torch.float32, device=dev)
@@ -121,19 +140,21 @@ def _launch(u, ops: engine_layer.MixerOps, relu_state: bool, block_t: int,
         co_ptr = [c.data_ptr() for c in co]
     if b == 0 or l == 0:
         return y if carry is None else (y, carry)
+    scratch = engine_layer.alloc_scratch(
+        engine_layer.pass_plan(b, l, h, p, 1, encoder=False), dev)
     err = _lib()(
         u.data_ptr(), y.data_ptr(), engine_layer.IO_TYPES[u.dtype],
         ctypes.byref(lp), int(relu_state), *ci_ptr, *co_ptr, b, l, h,
-        block_t, torch.cuda.current_stream(dev).cuda_stream)
+        block_t, scratch["bu"].data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "fused_s5")
     return y if carry is None else (y, co)
 
 
 def fused_s5_cuda(u, lam: Pair, w_b, w_c, d, relu_state: bool = False
                   ) -> torch.Tensor:
-    """Launch the kernel in its float mode (one CTA per batch row). Same
-    arguments as :func:`fused_s5_plain`; every tensor float32 on one CUDA
-    device."""
+    """Enqueue the kernel's passes in its float mode. Same arguments as
+    :func:`fused_s5_plain`; every tensor float32 on one CUDA device."""
     global launches
     if u.dim() != 3:
         raise ValueError(f"u must be (B, L, H), got {tuple(u.shape)}")
@@ -370,9 +391,9 @@ def fused_s5_engine_cuda(u, lam: Pair, w_b, w_c, d, *, block_t: int,
                          block_requant: Optional[BlockRequant] = None,
                          relu_state: bool = False,
                          carry: Optional[Pair] = None):
-    """Launch the kernel (one CTA per batch row). Same arguments and
-    results as :func:`fused_s5_engine_plain`; u float32 or bfloat16,
-    weights int8 / int16 / float32, every tensor on ``u``'s CUDA device."""
+    """Enqueue the kernel's passes. Same arguments and results as
+    :func:`fused_s5_engine_plain`; u float32 or bfloat16, weights int8 /
+    int16 / float32, every tensor on ``u``'s CUDA device."""
     global launches_engine, launches_engine_carry
     t = _engine_args(u, w_b, block_t, carry)
     if u.dtype not in (torch.float32, torch.bfloat16):

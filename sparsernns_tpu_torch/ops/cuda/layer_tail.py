@@ -1,4 +1,5 @@
-"""Kernel K2: the whole layer after the norm, forward, in one kernel.
+"""Kernel K2: the whole layer after the norm, forward, as passes over the
+card.
 
 Replaces ``sparsernns_tpu/ops/pallas/fused_layer_train.py``
 ``fused_layer_tail``, the eval and the training forward, in its two modes:
@@ -19,8 +20,11 @@ None (eval). The streams (``x``, ``skip`` and the output) are float32 or
 bfloat16, one dtype for all; a bf16 stream is computed on in f32 and the
 output rounds once to bf16, as the JAX kernel stores
 ``o.astype(out_ref.dtype)``. Weights, masks and the affine are float32.
-The CUDA source is ``csrc/layer_tail.cu``; its header note
-gives the bound and the design. :func:`layer_tail` launches the kernel for
+The CUDA source is ``csrc/layer_tail.cu``; its header note gives the
+bound and the design: K3a's B-projection pass and scan (the states of every
+row into scratch), then a tail pass over tiles of 64 rows of the flattened
+B * L stream. :func:`launched` reads back the kernels and grids of the
+last call on the card. :func:`layer_tail` launches the kernels for
 CUDA tensors and takes the plain version :func:`layer_tail_plain` only for
 tensors on the CPU. :class:`LayerTailFn` is the differentiable form (the
 counterpart of ``fused_layer_tail_diff``): its forward saves only its
@@ -30,7 +34,7 @@ inputs and its backward is ``ops/cuda/layer_tail_bwd.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,8 +47,17 @@ ACTS = ("gelu", "relu")
 #: dtypes of the (B, L, H) streams that the tail kernels read and write
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
-#: kernel launches made by :func:`layer_tail` in this process
+#: calls of the kernel made by :func:`layer_tail` in this process (one a
+#: call, whose three passes :func:`launched` reads back)
 launches = 0
+
+#: the passes of one call, as the CUDA source names its kernels
+BPROJ_PASS = "tail_hist_bproj_kernel"
+SCAN_PASS = "tail_hist_scan_kernel"
+ROW_PASS = "layer_tail_row_kernel"
+#: what the kernel's entry returns where the tail pass's x1 tile does not
+#: fit in the card's shared memory (``kTooWide`` in the CUDA source)
+_TOO_WIDE = -1
 
 
 def _act(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -108,7 +121,7 @@ def layer_tail_plain(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
     return out.to(x.dtype)
 
 
-_argtypes = ([ctypes.c_void_p] * 16
+_argtypes = ([ctypes.c_void_p] * 17
              + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
@@ -118,6 +131,20 @@ def _lib():
         fn.argtypes = _argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def launched() -> List[Tuple[str, int]]:
+    """(kernel, CTAs) of every pass that the last K2 call launched on the
+    card, in order, as the CUDA source recorded them at the launch."""
+    lib = build.load("layer_tail")
+    fn = lib.layer_tail_fwd_launched
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    cap = 16
+    names = (ctypes.c_char_p * cap)()
+    ctas = (ctypes.c_longlong * cap)()
+    n = fn(names, ctas, cap)
+    return [(names[i].decode(), ctas[i]) for i in range(min(n, cap))]
 
 
 def check_tensors(shapes, device, streams=()) -> Dict[str, torch.Tensor]:
@@ -193,9 +220,11 @@ def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
                     glu: str = "none", relu_state: bool = False,
                     layer_relu: bool = False, m1=None, m2=None, skip=None
                     ) -> torch.Tensor:
-    """Launch the kernel (one CTA per batch row). Same arguments as
+    """Enqueue the three passes. Same arguments as
     :func:`layer_tail_plain`; every tensor on one CUDA device, the streams
-    float32 or bfloat16, the rest float32."""
+    float32 or bfloat16, the rest float32. With a GLU the tail pass keeps
+    64 rows of x1 in shared memory: H up to 872 on an H100; a wider layer
+    raises ValueError."""
     global launches
     ops = checked_operands(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
                            m1, m2, act, glu, skip=skip)
@@ -205,14 +234,20 @@ def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
     if b == 0 or l == 0:
         return out
     fn = _lib()
+    # S: bu, then the raw states [re | im] in place
+    states = torch.empty((b * l, 2 * p), dtype=torch.float32,
+                         device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda name: data_ptr(ops, name)  # noqa: E731
     err = fn(ptr("x"), ptr("skip"), out.data_ptr(), ptr("nw"), ptr("nb"),
              ptr("w_b"), ptr("w_c"), ptr("d"), ptr("lam_re"), ptr("lam_im"),
              ptr("o2k"), ptr("o2b"), ptr("o1k"), ptr("o1b"), ptr("m1"),
-             ptr("m2"), b, l, h, p, GLU_KINDS.index(glu), ACTS.index(act),
-             int(relu_state), int(layer_relu),
+             ptr("m2"), states.data_ptr(), b, l, h, p, GLU_KINDS.index(glu),
+             ACTS.index(act), int(relu_state), int(layer_relu),
              int(x.dtype == torch.bfloat16), stream)
+    if err == _TOO_WIDE:
+        raise ValueError(f"H={h}: 64 rows of x1 do not fit in the shared "
+                         "memory the card gives a block")
     build.check(err, "layer_tail")
     launches += 1
     return out
@@ -223,8 +258,8 @@ def layer_tail(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
                relu_state: bool = False, layer_relu: bool = False,
                m1=None, m2=None, skip=None) -> torch.Tensor:
     """One layer's tail, (B, L, H) -> (B, L, H) in the stream's dtype. CUDA
-    tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    tensors launch the kernel's passes (or raise); CPU tensors take the
+    plain version."""
     fn = layer_tail_cuda if x.is_cuda else layer_tail_plain
     return fn(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b, act=act,
               glu=glu, relu_state=relu_state, layer_relu=layer_relu,

@@ -101,17 +101,25 @@ a seed):
    dense GLU kernels on the stack route (K7 x 2, K5a x 3) against its
    per-op route; three steps of ``recipes/ndns_sparse.json`` (magnitude
    masks through K2/K3) and its weight sparsity;
-15. QAT kernel phase — K1 and K4a in their QAT modes (w8a16's bits, 16
-   and 16) against their plain versions at B=8, L=3751 under the
-   quantized-state bar: K1 at t=1024 forward, reverse and from a carry,
-   one odd width; K4a at t=512 with per-block and global state scales,
-   relu_state off and on, and its states over an exact B-projection;
-   times and profiles;
+15. QAT kernel phase — the λ tables kernel against
+   ``lambda_power_tables`` (bit for bit, or the first differing entry);
+   K1 and K4a in their QAT modes (w8a16's bits, 16 and 16) against their
+   plain versions at B=8, L=3751 under the quantized-state bar: K1 at
+   t=1024 forward, reverse and from a carry, with the block requant (codes
+   on the frozen grid), at t=256 and the largest block the plan takes, one
+   odd width; K4a at t=512 with per-block and global state scales,
+   relu_state off and on, its states over an exact B-projection, at t=256
+   and the largest block, over int8 weights with per-half scales and the
+   block requant, one odd width; every call's launches (one cluster per
+   (batch row, block): grids and cluster shapes as the CUDA source
+   recorded them) against the plan, the scan's residency; times (K4a also
+   at B=32) and profiles (at most 3 / 5 kernels a call);
 16. QAT and top-k training phase — the recipe with
    ``quantization="w8a16"``, ``block_t=512``: three B=32 steps (K4a qat
    x 3, K1 x 3 each way a step), three with ``qat_global_scales`` (K1 x 3
-   more), a step against the CPU, eight dropout-free B=8 steps that must
-   lower the loss, an eval step (K4a qat x 3), a 30-chunk QAT stream (K1
+   more), each profiled (busy share, device events a step), a step
+   against the CPU, eight dropout-free B=8 steps that must lower the
+   loss, an eval step (K4a qat x 3, profiled), a 30-chunk QAT stream (K1
    qat x 3 a forward; three chunks against the CPU), the per-block and
    global forwards against the associative QAT forward (printed); three
    B=32 steps of the top-k recipe (K1 x 3 each way); the ``w32a32``
@@ -1767,48 +1775,136 @@ def _qat_mixer_operands(mixer, u):
                 mixer._global_state_absmax(u_q, lam, w_b))
 
 
+def _region_kernels(profile) -> int:
+    """Kernel launches in a profiled region, the window's opening fill
+    aside (``profile_region`` asks for enough top rows to list all)."""
+    return sum(k["count"] for k in profile["top_kernels"]
+               if "Fill" not in k["name"])
+
+
+def _check_qat_launches(name: str, plan, mixer_rows=None) -> None:
+    """The last K1 qat / K4a qat call launched the plan's kernels, with its
+    grids and cluster shapes, as the CUDA source recorded them."""
+    from sparsernns_tpu_torch.ops.cuda import qat_scan
+    got = qat_scan.launched()
+    print(f"{name} launches (kernel, CTAs, cluster, shared memory bytes): "
+          f"{got}", flush=True)
+    want = plan.launches(mixer_rows)
+    assert [g[:3] for g in got] == want, (name, got, want)
+    assert len(got) <= (3 if mixer_rows is None else 5), got
+
+
+def _tables_vs_torch(lam, t: int, a_bits) -> str:
+    """The tables kernel's λ tables against ``lambda_power_tables`` on the
+    card: "equal", or the first differing entry, its size in ulps and
+    where it arises (the unquantized carry-fold table, a_bits None, tells
+    the math functions' values from the fake-quant's)."""
+    import numpy as np
+
+    from sparsernns_tpu_torch.ops.cuda import qat_scan
+    n_pass = max(1, (t - 1).bit_length())
+    names = ("pow_re", "pow_im", "ctab_re", "ctab_im")
+
+    def first_diff(bits):
+        got = qat_scan.tables_cuda(lam, t, n_pass, bits)
+        ref = qat_scan.lambda_power_tables(lam, t, n_pass, bits)
+        for name, g, r in zip(names, got, ref):
+            idx = (g != r).nonzero()
+            if len(idx):
+                i = tuple(idx[0].tolist())
+                gi, ri = (np.array([x[i].item()], np.float32).view(np.int32)
+                          for x in (g, r))
+                return (f"{name}{list(i)} kernel {g[i].item()!r} torch "
+                        f"{r[i].item()!r} ({abs(int(gi[0]) - int(ri[0]))} "
+                        f"ulps, {len(idx)} of {g.numel()} entries)")
+        return None
+
+    diff = first_diff(a_bits)
+    if diff is None:
+        return "equal"
+    raw = first_diff(None)
+    return diff + ("; unquantized tables equal: the fake-quant's rounding"
+                   if raw is None else f"; unquantized first: {raw} "
+                   "(the CUDA math functions against PyTorch's kernels)")
+
+
 def qat_kernel_phase(cfg, frames: int, gen, records) -> None:
     """Phase 15: K1 and K4a in their QAT modes against their plain
     versions at B=8, L=3751, H=192, P=128 with the w8a16 recipe's bits
-    (16, 16): K1 forward at t=1024, reverse and from a carry, and one odd
-    width (L not a multiple of t); K4a at t=512, per-block and global
-    scale, relu_state off and on, with layer 0's QAT operands of the
-    flagship, and its states alone (W_c the identity, d = 0) over a
-    B-projection that is exact in any summation order. Median of 5 timed
-    calls beside the plain version's time and the bound."""
+    (16, 16). The λ tables kernel against ``lambda_power_tables`` (bit for
+    bit, or the first differing entry and its cause). K1 at t=1024
+    forward, reverse and from a carry, with the block requant (with and
+    without a carry: codes on the frozen grid), at t=256 and at the
+    largest block the plan takes, and one odd width (L not a multiple of
+    t); K4a at t=512, per-block and global scale, relu_state off and on,
+    with layer 0's QAT operands of the flagship, and its states alone (W_c
+    the identity, d = 0) over a B-projection that is exact in any
+    summation order, at t=256 and the largest block, over int8 weights with
+    per-half scales and the block requant, and one odd width. Every call's
+    launches (grids, cluster shapes) from the CUDA source's record against
+    the plan, the scan's residency, medians of 5 timed calls (K4a also at
+    B=32) beside the plain version's time, the bound and a profile of one
+    call (at most 3 kernels for K1 qat, 5 for K4a qat)."""
     import torch
 
-    from sparsernns_tpu_torch.ops.cuda import fused_s5, qat_scan
+    from sparsernns_tpu_torch.ops.cuda import engine_layer, fused_s5, qat_scan
     from sparsernns_tpu_torch.train.loop import build_model
     from sparsernns_tpu_torch.utils.profiling import profile_region
     dev = torch.device("cuda")
     bits = (16, 16)
+    grid16 = (2.0 ** -8, 2.0 ** -9, 16)
     qcfg = dataclasses.replace(cfg, quantization="w8a16", block_t=512)
     mixer = build_model(qcfg, 257, 257, device=dev, seed=0
                         ).encoder.layers[0].mixer
     h, p = cfg.d_model, mixer.p
+    t_max = qat_scan.max_block(p)
     rnd = lambda *shape, sc=1.0: (  # noqa: E731
         torch.randn(shape, generator=gen) * sc).to(dev)
     with torch.no_grad():
         lam, _ = mixer.discretized()
         lam = tuple(x.contiguous() for x in lam)
 
+    # ---- the λ tables kernel against the PyTorch ops ----
+    tables = {}
+    with torch.no_grad():
+        for t in (256, 512, 1024):
+            for a_bits in (16, 8):
+                tables[f"t={t} a_bits={a_bits}"] = _tables_vs_torch(
+                    lam, t, a_bits)
+    print(f"QAT tables kernel vs lambda_power_tables: {tables}", flush=True)
+
     # ---- K1: halves of one (B, L, 2P) projection, as the mixer gives ----
     bu_cat = rnd(B, frames, 2 * p)
     bu = (bu_cat[..., :p], bu_cat[..., p:])
     carry = (rnd(B, p), rnd(B, p))
-    errs = {}
+    errs, equal = {}, {}
     with torch.no_grad():
-        for tag, kw in (("forward", {}), ("reverse", dict(reverse=True)),
-                        ("carry", dict(carry_init=carry))):
-            ref = qat_scan.qat_scan_plain(lam, bu, bits, 1024, **kw)
-            out = qat_scan.qat_scan_cuda(lam, bu, bits, 1024, **kw)
+        for tag, t, kw in (
+                ("forward", 1024, {}), ("reverse", 1024, dict(reverse=True)),
+                ("carry", 1024, dict(carry_init=carry)),
+                ("forward", 256, {}), ("forward", t_max, {}),
+                ("requant", 1024, dict(block_requant=grid16)),
+                ("requant carry", 1024,
+                 dict(block_requant=grid16, carry_init=carry))):
+            ref = qat_scan.qat_scan_plain(lam, bu, bits, t, **kw)
+            out = qat_scan.qat_scan_cuda(lam, bu, bits, t, **kw)
             torch.cuda.synchronize()
+            name = f"K1 qat {tag} t={t}"
+            plan = qat_scan.qat_plan(B, frames, p, t)
+            _check_qat_launches(name, plan)
+            if t == 1024 and (B, frames) == (8, 3751):
+                assert plan.ctas >= 256, plan
+            equal[name] = all(torch.equal(o, r) for o, r in zip(out, ref))
+            if "requant" in tag:
+                errs[name] = max(_codes_of(
+                    f"{name} vs plain ({half})", o, r, s)
+                    for half, o, r, s in zip(("re", "im"), out, ref, grid16))
+                continue
             rev = tag == "reverse"
-            t = min(1024, -(-frames // 8) * 8)
-            errs[tag] = max(_states_close(
-                f"K1 qat {tag} t=1024 vs plain ({half})", o, r,
-                _qat_steps(r, t, bits[1], rev))
+            blk = min(t, -(-frames // 8) * 8)
+            errs[name] = max(_states_close(
+                f"{name} vs plain ({half})", o, r,
+                _qat_steps(r, blk, bits[1], rev))
                 for half, o, r in zip(("re", "im"), out, ref))
         ps, ls = 12, 70
         radius = torch.rand(ps, generator=gen) * 0.05 + 0.94
@@ -1825,6 +1921,13 @@ def qat_kernel_phase(cfg, frames: int, gen, records) -> None:
                 _states_close(f"K1 qat P={ps} L={ls} t=32 (8, 8) "
                               f"reverse={rev} vs plain", o, r,
                               _qat_steps(r, 32, 8, rev))
+        print(f"K1 qat bit-equal to plain on the card: {equal}", flush=True)
+        plan = qat_scan.qat_plan(B, frames, p, 1024)
+        print(f"K1 qat t=1024 scan: {plan.n_clusters} clusters of "
+              f"{plan.cluster} CTAs ({plan.ctas} CTAs, {plan.smem} bytes of "
+              f"shared memory a CTA), at most "
+              f"{qat_scan.max_active_clusters(plan)} clusters resident",
+              flush=True)
         ms = _median_ms(lambda: qat_scan.qat_scan_cuda(lam, bu, bits, 1024))
         plain_ms = _median_ms(lambda: qat_scan.qat_scan_plain(
             lam, bu, bits, 1024), 1)
@@ -1841,38 +1944,45 @@ def qat_kernel_phase(cfg, frames: int, gen, records) -> None:
         max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None)
     print(f"K1 qat at B={B}, t=1024: forward {ms:.3f} ms, reverse "
-          f"{ms_rev:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms",
-          flush=True)
-    print(json.dumps(profile_region(
-        "K1 qat t=1024, one call (tables, passes, carry walk)",
-        lambda: qat_scan.qat_scan_cuda(lam, bu, bits, 1024), top=8)),
-        flush=True)
+          f"{ms_rev:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+          f"({by}), {100 * bound / ms:.1f} % of the bound", flush=True)
+    prof = profile_region(
+        "K1 qat t=1024, one call (the tables kernel, the scan)",
+        lambda: qat_scan.qat_scan_cuda(lam, bu, bits, 1024), top=8)
+    print(json.dumps(prof), flush=True)
+    assert _region_kernels(prof) <= 3, prof
 
     # ---- K4a: layer 0's QAT operands of the flagship ----
     u_q, lam_q, w_b, w_c, d, g_amax = _qat_mixer_operands(
         mixer, rnd(B, frames, h))
     state_step = g_amax.item() / (2.0 ** (bits[1] - 1) - 1)
     col = w_c.abs().sum(dim=0).max().item()
+    rows8 = engine_layer.pass_plan(B, frames, h, p, 1, encoder=False
+                                   ).row_ctas
     k4a = {}
     with torch.no_grad():
-        for scale in (None, g_amax):
-            for relu in (False, True):
-                args = (u_q, lam_q, w_b, w_c, d, bits, 512, relu, scale)
-                ref = fused_s5.fused_s5_qat_plain(*args)
-                out = fused_s5.fused_s5_qat_cuda(*args)
-                torch.cuda.synchronize()
-                diff = (out - ref).abs()
-                top = max(1.0, ref.abs().max().item())
-                share = (diff > 1e-4 * top).float().mean().item()
-                kind = "per-block" if scale is None else "global"
-                tag = f"K4a qat t=512 {kind} scale relu_state={relu}"
-                print(f"{tag} vs plain: share above 1e-4 x max(1, max|ref|) "
-                      f"{share:.2e}", flush=True)
-                # a state code the two B-projection sums round apart moves
-                # the row's outputs by a state step times W_c's weights
-                _check(f"{tag} vs plain", diff.max().item(),
-                       2 * 4 * state_step * col + 1e-4 * top)
-                k4a[(scale is None, relu)] = diff.max().item()
+        for t, scale, relu in ((512, None, False), (512, None, True),
+                               (512, g_amax, False), (512, g_amax, True),
+                               (256, None, False), (t_max, None, False)):
+            args = (u_q, lam_q, w_b, w_c, d, bits, t, relu, scale)
+            ref = fused_s5.fused_s5_qat_plain(*args)
+            out = fused_s5.fused_s5_qat_cuda(*args)
+            torch.cuda.synchronize()
+            diff = (out - ref).abs()
+            top = max(1.0, ref.abs().max().item())
+            share = (diff > 1e-4 * top).float().mean().item()
+            kind = "per-block" if scale is None else "global"
+            tag = f"K4a qat t={t} {kind} scale relu_state={relu}"
+            _check_qat_launches(tag, qat_scan.qat_plan(B, frames, p, t),
+                                rows8)
+            print(f"{tag} vs plain: share above 1e-4 x max(1, max|ref|) "
+                  f"{share:.2e}, bit-equal {torch.equal(out, ref)}",
+                  flush=True)
+            # a state code the two B-projection sums round apart moves
+            # the row's outputs by a state step times W_c's weights
+            _check(f"{tag} vs plain", diff.max().item(),
+                   2 * 4 * state_step * col + 1e-4 * top)
+            k4a[(t, scale is None, relu)] = diff.max().item()
         # the states alone over an exact B-projection: the same codes
         hs = 2 * p
         u_x = (torch.randint(-16, 17, (B, frames, hs), generator=gen) / 8.0
@@ -1895,6 +2005,36 @@ def qat_kernel_phase(cfg, frames: int, gen, records) -> None:
                 kind, steps = "global", scale.item() / 32767.0
             _states_close(f"K4a qat states, {kind} scale, exact "
                           "B-projection, vs plain", out, ref, steps)
+        # int8 weights with per-half scales and the block requant: the
+        # states alone (the int8 identity, unit scales) on the frozen grid,
+        # then the output at random int8 weights
+        i8 = lambda *s: torch.randint(-127, 128, s, generator=gen,  # noqa
+                                      dtype=torch.int8).to(dev)
+        wb8, wc8 = i8(h, 2 * p), i8(2 * p, h)
+        sc8 = (2.0 ** -10, 2.0 ** -11)
+        eye8 = torch.eye(hs, dtype=torch.int8, device=dev)
+        kw = dict(wb_scales=sc8, wc_scales=(1.0, 1.0), block_requant=grid16)
+        args = (rnd(B, frames, hs), lam_q, i8(hs, 2 * p), eye8, zero, bits,
+                512, True)
+        ref = fused_s5.fused_s5_qat_plain(*args, **kw)
+        out = fused_s5.fused_s5_qat_cuda(*args, **kw)
+        for half, sl, s in (("re", slice(0, p), grid16[0]),
+                            ("im", slice(p, 2 * p), grid16[1])):
+            _codes_of(f"K4a qat int8 scales requant relu, states ({half}) "
+                      "vs plain", out[..., sl], ref[..., sl], s)
+        kw = dict(wb_scales=sc8, wc_scales=sc8, block_requant=grid16)
+        args = (rnd(B, frames, h), lam_q, wb8, wc8, d, bits, 512, True)
+        ref = fused_s5.fused_s5_qat_plain(*args, **kw)
+        out = fused_s5.fused_s5_qat_cuda(*args, **kw)
+        _check_qat_launches("K4a qat int8 scales requant",
+                            qat_scan.qat_plan(B, frames, p, 512), rows8)
+        col8 = (wc8.abs().float() * torch.tensor(
+            [sc8[0] * grid16[0]] * p + [sc8[1] * grid16[1]] * p,
+            device=dev)[:, None]).sum(dim=0).max().item()
+        top = max(1.0, ref.abs().max().item())
+        k4a["int8"] = (out - ref).abs().max().item()
+        _check("K4a qat t=512 int8 scales requant relu vs plain",
+               k4a["int8"], 2 * col8 + 1e-4 * top)
         odd = (rnd(2, 45, 20), odd_lam, rnd(20, 2 * ps, sc=0.3),
                rnd(2 * ps, 20, sc=0.3), rnd(20))
         ref = fused_s5.fused_s5_qat_plain(*odd, (8, 8), 16, True)
@@ -1902,31 +2042,55 @@ def qat_kernel_phase(cfg, frames: int, gen, records) -> None:
         _check(f"K4a qat H=20 P={ps} L=45 t=16 (8, 8) relu vs plain",
                (out - ref).abs().max().item(),
                2e-2 * max(1.0, ref.abs().max().item()))
+        plan = qat_scan.qat_plan(B, frames, p, 512)
+        print(f"K4a qat t=512 scan: {plan.n_clusters} clusters of "
+              f"{plan.cluster} CTAs ({plan.ctas} CTAs), at most "
+              f"{qat_scan.max_active_clusters(plan, mixer=True)} resident",
+              flush=True)
         ms = _median_ms(lambda: fused_s5.fused_s5_qat_cuda(
             u_q, lam_q, w_b, w_c, d, bits, 512))
         ms_glob = _median_ms(lambda: fused_s5.fused_s5_qat_cuda(
             u_q, lam_q, w_b, w_c, d, bits, 512, False, g_amax))
         plain_ms = _median_ms(lambda: fused_s5.fused_s5_qat_plain(
             u_q, lam_q, w_b, w_c, d, bits, 512), 1)
-    rows = B * frames
+        u32 = torch.cat([u_q] * 4)
+        ms32 = _median_ms(lambda: fused_s5.fused_s5_qat_cuda(
+            u32, lam_q, w_b, w_c, d, bits, 512))
+        ms32_glob = _median_ms(lambda: fused_s5.fused_s5_qat_cuda(
+            u32, lam_q, w_b, w_c, d, bits, 512, False, g_amax))
+        _check_qat_launches(
+            "K4a qat t=512 B=32", qat_scan.qat_plan(4 * B, frames, p, 512),
+            engine_layer.pass_plan(4 * B, frames, h, p, 1,
+                                   encoder=False).row_ctas)
+        del u32
     n_pass = max(1, (512 - 1).bit_length())
-    bound, by = _bound_ms(
-        2 * rows * h * 4 + (2 * h * 2 * p + h + 2 * p) * 4,
-        rows * (2 * h * 2 * p + 2 * 2 * p * h + 8 * p * (n_pass + 1)
-                + 2 * h))
+
+    def k4a_bound(batch):
+        rows = batch * frames
+        return _bound_ms(
+            2 * rows * h * 4 + (2 * h * 2 * p + h + 2 * p) * 4,
+            rows * (2 * h * 2 * p + 2 * 2 * p * h + 8 * p * (n_pass + 1)
+                    + 2 * h))
+
+    bound, by = k4a_bound(B)
     records["fused_s5_qat"] = dict(
         name="fused_s5_qat", route="cuda",
         source="sparsernns_tpu_torch/ops/cuda/csrc/qat_scan.cu",
         replaces="sparsernns_tpu/ops/pallas/fused_s5.py:204",
-        max_abs_err=k4a[(True, False)], ms=ms, plain_ms=plain_ms,
+        max_abs_err=k4a[(512, True, False)], ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None)
+    bound32 = k4a_bound(4 * B)[0]
     print(f"K4a qat at B={B}, t=512: per-block {ms:.3f} ms, global scale "
-          f"{ms_glob:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms",
-          flush=True)
-    print(json.dumps(profile_region(
-        "K4a qat t=512, one call (tables, three launches)",
+          f"{ms_glob:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+          f"({by}), {100 * bound / ms:.1f} % of the bound; B={4 * B}: "
+          f"per-block {ms32:.3f} ms, global {ms32_glob:.3f} ms, bound "
+          f"{bound32:.4f} ms, {100 * bound32 / ms32:.1f} %", flush=True)
+    prof = profile_region(
+        "K4a qat t=512, one call (tables, head pass, scan, tail pass)",
         lambda: fused_s5.fused_s5_qat_cuda(u_q, lam_q, w_b, w_c, d, bits,
-                                           512), top=8)), flush=True)
+                                           512), top=8)
+    print(json.dumps(prof), flush=True)
+    assert _region_kernels(prof) <= 5, prof
     print(json.dumps({"qat_kernel_phase": {
         k: records[k] for k in ("qat_scan", "fused_s5_qat")}}), flush=True)
 
@@ -1982,8 +2146,8 @@ def qat_training_phase(cfg, audio, feats, batch, frozen, records,
                                  lambda: step(state, *tr_feats), top=16)
         print(json.dumps(profile), flush=True)
         print(f"{tag} train B={bsz}: peak memory {peak / 2**20:.0f} MiB, "
-              f"device busy share {profile['device_busy_share']:.3f}",
-              flush=True)
+              f"device busy share {profile['device_busy_share']:.3f}, "
+              f"{profile['device_events']} device events a step", flush=True)
         del model, state, step
 
     quiet = dataclasses.replace(qcfg, p_dropout=0.0)
@@ -2008,6 +2172,13 @@ def qat_training_phase(cfg, audio, feats, batch, frozen, records,
     assert np.isfinite(metrics["loss"].item())
     for name, count in counts.items():
         assert count == (n_layers if name == "fused_s5_qat" else 0), counts
+    profile = profile_region(f"QAT eval step B={B}",
+                             lambda: eval_step(*small), top=12)
+    print(json.dumps(profile), flush=True)
+    print(f"QAT eval step B={B}: device busy share "
+          f"{profile['device_busy_share']:.3f}, {profile['device_events']} "
+          "device events", flush=True)
+    counters()
 
     # ---- the 30-chunk QAT stream (K1 qat with a carry) ----
     model.eval()

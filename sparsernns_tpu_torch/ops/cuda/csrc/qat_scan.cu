@@ -1,268 +1,328 @@
 // The QAT modes of the diagonal scan (K1) and of the S5 mixer (K4a): the
-// scan with in-scan activation fake-quant over time blocks of t rows,
-// L padded with zero rows to a multiple of t (qat_scan.cuh has the
-// numerics).
+// scan with in-scan activation fake-quant over time blocks of t rows, L
+// padded with zero rows to a multiple of t (qat_scan.cuh has the numerics
+// and the kernels).
 //
 // Replaces the TPU kernels sparsernns_tpu/ops/pallas/scan_kernel.py
 // `pallas_diag_scan` (pallas_call at :494) with `qat_bits`, in both
-// directions and with a carry, and sparsernns_tpu/ops/pallas/fused_s5.py
-// `fused_s5_apply` (pallas_call at :258) with `qat_bits` and
-// `qat_state_scale`. On the TPU the grid walks a row's time blocks in
-// order, each block resident in VMEM, the carry in scratch. Here a block
-// (t x 2P floats: 256 KB at t = 256, P = 128) does not fit in the 227 KB
-// of shared memory a CTA may use, and the passes of one block need no
-// carry, so a mode is three launches:
+// directions, with a carry and with `block_requant` (forward), and
+// sparsernns_tpu/ops/pallas/fused_s5.py `fused_s5_apply` (pallas_call at
+// :258) with `qat_bits`, `qat_state_scale`, int8 / int16 weights with
+// per-half scales and `block_requant`. On the TPU the grid walks a row's
+// time blocks in order, each block resident in VMEM, the carry in scratch,
+// and the wrapper builds the lambda tables with XLA ops.
 //
-//   A  one CTA per (batch row, block): load the block (K1: bu, flipped for
-//      the reverse direction, lam*carry added to the first row; K4a: its
-//      rows of bu = u @ W_b, by engine_body.cuh's tile_matmul over tiles of
-//      kT rows) into a device-memory scratch, then the doubling passes,
-//      ping-ponging between two scratch buffers, with a CTA-wide absmax
-//      reduction before each pass;
-//   B  one CTA per batch row: the carry walk over the row's blocks in
-//      order (carry fake-quant, fold, block absmax, output fake-quant);
-//      K1 writes the states out (unflipped, unpadded), K4a back into the
-//      scratch;
-//   C  (K4a) one CTA per (batch row, tile of kT rows): relu if relu_state,
-//      y = [x_re x_im] @ W_c + d * u by tile_matmul.
+// Here a block (t x 2P floats: 512 KB at t = 512, 1 MB at t = 1024, P =
+// 128) is more than one CTA's 227 KB of shared memory, but the doubling
+// passes couple rows only within a channel. So a block is split by
+// channel over the CTAs of a thread-block cluster (cpc channels a CTA, a
+// power of two; the wrapper's plan picks it: 64 KB of a block a CTA, two
+// CTAs an SM, so 16 channels and a cluster of 8 at t = 512, 8 and a
+// cluster of 16 at t = 1024, up to t = 3592 at 227 KB a CTA), each CTA
+// holding all t rows of its channels in its own shared memory; only the
+// block maxima of a per-block scale cross CTAs, through distributed shared
+// memory. A mode is:
 //
-// Bound. K1: bytes, as the float K1 (bu read once, the states written
-// once: 61.5 MB at B=8, L=3751, P=128); K4a: operations, the float K4a's
-// two projections (5.9 GFLOP at B=8, L=3751, H=192, P=128) plus the
-// passes. This design moves far more: every pass reads and writes the
-// block in the scratch (31 MB at B=8, t=512, mostly L2-resident on the
-// card's 50 MB), and phase B walks a row's blocks in order on B CTAs.
-// Keeping a block in the shared memory of a CTA cluster is the way to the
-// bound.
+//   K1    tables (a cluster of 8 CTAs: lam^(2^k) by squaring, lam^(r+1)
+//         in polar form, each fake-quantized; it also zeroes the scan's
+//         counters), then
+//         the scan: one cluster per (batch row, block), passes and carry
+//         fold in shared memory, the carry of block j - 1 read from the
+//         cluster that published it (look-back), states out (unflipped,
+//         unpadded). 2 launches.
+//   K4a   tables; the serving layer's head row pass (engine_passes.cuh: u
+//         -> bu into a (B * L, 2P) scratch over tiles of 32 flattened
+//         rows, bu = (u @ W_b) * per-half scale, each output one fmaf
+//         chain in ascending k); the scan over that scratch (the padding
+//         rows only in shared memory), the states back in place; the tail
+//         row pass (relu, the C-side scale, the C-projection + d * u). 4
+//         launches.
+//
+// Bound. K1: bytes (bu read once, the states written once: 61.5 MB at
+// B = 8, L = 3751, P = 128, 0.018 ms); K4a: operations, the two
+// projections (5.9 GFLOP at B = 8, L = 3751, H = 192, P = 128) plus the
+// passes, 0.093 ms at the f32 peak. The scan moves no block through device
+// memory: a CTA reads its slice of bu once and writes its states once; the
+// tables (1 MB at t = 1024) stay in L2. What remains is the passes'
+// arithmetic (two IEEE divisions an element a pass, num_passes = 9-10
+// passes) over B * ceil(L / t) clusters, and the in-order chain of each
+// row's carries (one fold, one cluster maximum and one publish a block).
+//
+// Each launch is recorded with its grid, cluster and shared memory;
+// qat_scan_launched hands the wrapper the record of the last call.
 
-#include "engine_body.cuh"
+#include "engine_passes.cuh"
 #include "qat_scan.cuh"
 
 namespace {
 
-using qat::Grid;
+struct Launch {
+  const char* name;
+  long long ctas;
+  int cluster;
+  int smem;
+};
+constexpr int kMaxRecord = 8;
+Launch g_record[kMaxRecord];
+int g_n_record = 0;
 
-// ---- K1, phase A: load a block of bu, then the passes ----
-__global__ void __launch_bounds__(qat::kThreads)
-scan_passes_kernel(const float* __restrict__ bu_re,
-                   const float* __restrict__ bu_im, long long sb,
-                   long long st, const float* __restrict__ lam_re,
-                   const float* __restrict__ lam_im,
-                   const float* __restrict__ c_re,
-                   const float* __restrict__ c_im,
-                   const float* __restrict__ pow_re,
-                   const float* __restrict__ pow_im, int num_passes,
-                   float* x0, float* x1, int L, int L_pad, int P, int t,
-                   int reverse, Grid g) {
-  const int j = blockIdx.x, b = blockIdx.y;
-  const long long blk0 = ((long long)b * L_pad + (long long)j * t) * 2 * P;
-  float2 m = make_float2(0.f, 0.f);
-  for (int i = threadIdx.x; i < t * P; i += blockDim.x) {
-    const int r = i / P, p = i - r * P;
-    const int row = j * t + r;   // in the (flipped) padded sequence
-    float vr = 0.f, vi = 0.f;
-    if (row < L) {
-      const long long tau = reverse ? L - 1 - row : row;
-      const long long at = b * sb + tau * st + p;
-      vr = bu_re[at];
-      vi = bu_im[at];
-      if (c_re != nullptr && tau == 0) {   // x_0 = lam * c + bu_0
-        const float lr = lam_re[p], li = lam_im[p];
-        const float cr = c_re[(long long)b * P + p];
-        const float ci = c_im[(long long)b * P + p];
-        vr = __fadd_rn(vr, __fsub_rn(__fmul_rn(lr, cr), __fmul_rn(li, ci)));
-        vi = __fadd_rn(vi, __fadd_rn(__fmul_rn(lr, ci), __fmul_rn(li, cr)));
-      }
-    }
-    x0[blk0 + (long long)r * 2 * P + p] = vr;
-    x0[blk0 + (long long)r * 2 * P + P + p] = vi;
-    if (r < t - 1) {
-      m.x = fmaxf(m.x, fabsf(vr));
-      m.y = fmaxf(m.y, fabsf(vi));
-    }
+void record(const char* name, long long ctas, int cluster, int smem) {
+  if (g_n_record < kMaxRecord)
+    g_record[g_n_record++] = {name, ctas, cluster, smem};
+}
+
+int cpc_log2(int cpc) {
+  int l = 0;
+  while ((1 << l) < cpc) ++l;
+  return l;
+}
+
+cudaError_t launch_tables(const float* lam_re, const float* lam_im,
+                          float* tables, int* sync, int n_sync, int P, int t,
+                          int num_passes, int a_bits, cudaStream_t st) {
+  qat::TableArgs a = {};
+  a.lam_re = lam_re;
+  a.lam_im = lam_im;
+  a.pow_re = tables;
+  a.pow_im = tables + (size_t)num_passes * P;
+  a.ct_re = tables + 2 * (size_t)num_passes * P;
+  a.ct_im = a.ct_re + (size_t)t * P;
+  a.sync = sync;
+  a.n_sync = n_sync;
+  a.P = P;
+  a.t = t;
+  a.num_passes = num_passes;
+  a.ga = qat::make_grid(a_bits);
+  const size_t smem = sizeof(float) * 4 * (size_t)P;
+  cudaError_t err = cudaFuncSetAttribute(
+      qat::qat_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  qat::qat_tables_kernel<<<qat::kTableCluster, qat::kTableThreads, smem,
+                           st>>>(a);
+  record("qat_tables_kernel", qat::kTableCluster, qat::kTableCluster,
+         (int)smem);
+  return cudaGetLastError();
+}
+
+// The launch configuration of the scan over `n_clusters` clusters of
+// `cluster` CTAs; `attr` must outlive the config.
+template <bool kMixer>
+cudaError_t scan_config(int n_clusters, int cluster, size_t smem,
+                        cudaStream_t st, cudaLaunchConfig_t* cfg,
+                        cudaLaunchAttribute* attr) {
+  auto kernel = qat::qat_scan_kernel<kMixer>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (cluster > qat::kPortableCluster) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
   }
-  m = qat::cta_max2(m);
-  qat::doubling_passes(x0, x1, blk0, t, P, pow_re, pow_im, num_passes, g,
-                       -1.f, m);
+  *cfg = {};
+  cfg->gridDim = dim3((unsigned)(n_clusters * cluster));
+  cfg->blockDim = dim3(qat::kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
-// ---- K1, phase B: the carry walk, states out ----
-__global__ void __launch_bounds__(qat::kThreads)
-scan_carry_kernel(const float* x, const float* __restrict__ ct_re,
-                  const float* __restrict__ ct_im, float* __restrict__ out_re,
-                  float* __restrict__ out_im, int L, int L_pad, int P,
-                  int t, int reverse, Grid g) {
-  extern __shared__ float4 smem4[];
-  const int b = blockIdx.x;
-  const float* row = x + (long long)b * L_pad * 2 * P;
-  float* o_re = out_re + (long long)b * L * P;
-  float* o_im = out_im + (long long)b * L * P;
-  qat::carry_walk(row, L_pad / t, t, P, ct_re, ct_im, g, -1.f,
-                  reinterpret_cast<float*>(smem4),
-                  [&](int r, int p, float vr, float vi) {
-                    if (r >= L) return;
-                    const long long tau = reverse ? L - 1 - r : r;
-                    o_re[tau * P + p] = vr;
-                    o_im[tau * P + p] = vi;
-                  });
+// The scan over B * n_blocks clusters of ceil(P / cpc) CTAs.
+template <bool kMixer>
+cudaError_t launch_scan(qat::ScanArgs a, int cpc, cudaStream_t st) {
+  const int cluster = (a.P + cpc - 1) / cpc;
+  if (cpc > 256 || (cpc & (cpc - 1)) || cluster > qat::kMaxCluster)
+    return cudaErrorInvalidValue;
+  a.cpc_log2 = cpc_log2(cpc);
+  const int n_clusters = a.B * a.n_blocks;
+  const size_t smem = qat::scan_smem(a.t, a.P, cpc);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      scan_config<kMixer>(n_clusters, cluster, smem, st, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, qat::qat_scan_kernel<kMixer>, a);
+  record(kMixer ? "qat_scan_kernel<mixer>" : "qat_scan_kernel<scan>",
+         (long long)n_clusters * cluster, cluster, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
-// ---- K4a, phase A: bu = u @ W_b for the block's rows, then the passes --
-__global__ void __launch_bounds__(qat::kMixThreads)
-mixer_passes_kernel(const float* __restrict__ u, const float* __restrict__ wb,
-                    const float* __restrict__ pow_re,
-                    const float* __restrict__ pow_im, int num_passes,
-                    const float* __restrict__ gmax_ptr, float* x0, float* x1,
-                    int L, int L_pad, int H, int P, int t, Grid g) {
-  extern __shared__ float4 smem4[];
-  float* U = reinterpret_cast<float*>(smem4);
-  const int ldh = engine::round4(H);
-  const int j = blockIdx.x, b = blockIdx.y;
-  const long long blk0 = ((long long)b * L_pad + (long long)j * t) * 2 * P;
-  float2 m = make_float2(0.f, 0.f);
-  for (int r0 = 0; r0 < t; r0 += engine::kT) {
-    const int row0 = j * t + r0;
-    const int rows = max(0, min(engine::kT, min(t - r0, L - row0)));
-    if (rows > 0) {
-      engine::load_tile(U, ldh, u, engine::kIoF32, (long long)b * L + row0,
-                        H, rows, 1.f);
-      __syncthreads();
-      engine::tile_matmul_t(U, ldh, wb, H, 2 * P, rows,
-                            [&](int r, int c, float acc) {
-        x0[blk0 + (long long)(r0 + r) * 2 * P + c] = acc;
-        if (r0 + r < t - 1) {
-          if (c < P)
-            m.x = fmaxf(m.x, fabsf(acc));
-          else
-            m.y = fmaxf(m.y, fabsf(acc));
-        }
-      });
-      __syncthreads();
-    }
-    // the padding rows past L: zero bu, as u @ W_b of zero rows
-    const int zr0 = r0 + max(rows, 0);
-    const int zrows = min(engine::kT, t - r0) - max(rows, 0);
-    for (int i = threadIdx.x; i < zrows * 2 * P; i += blockDim.x)
-      x0[blk0 + (long long)zr0 * 2 * P + i] = 0.f;
-  }
-  m = qat::cta_max2(m);
-  qat::doubling_passes(x0, x1, blk0, t, P, pow_re, pow_im, num_passes, g,
-                       gmax_ptr != nullptr ? *gmax_ptr : -1.f, m);
+void fill_common(qat::ScanArgs& a, float* tables, int num_passes,
+                 float* cbuf, int* sync, int B, int L, int P, int t,
+                 int act_bits, float rq_re, float rq_im, int rq_bits) {
+  a.pow_re = tables;
+  a.pow_im = tables + (size_t)num_passes * P;
+  a.ct_re = tables + 2 * (size_t)num_passes * P;
+  a.ct_im = a.ct_re + (size_t)t * P;
+  a.cbuf = cbuf;
+  a.sync = sync;
+  a.B = B;
+  a.L = L;
+  a.P = P;
+  a.t = t;
+  a.n_blocks = (L + t - 1) / t;
+  a.num_passes = num_passes;
+  a.g = qat::make_grid(act_bits);
+  a.rq = qat::make_requant(rq_re, rq_im, rq_bits);
 }
-
-// ---- K4a, phase B: the carry walk, states back into the scratch ----
-__global__ void __launch_bounds__(qat::kThreads)
-mixer_carry_kernel(float* x, const float* __restrict__ ct_re,
-                   const float* __restrict__ ct_im,
-                   const float* __restrict__ gmax_ptr, int L_pad, int P,
-                   int t, Grid g) {
-  extern __shared__ float4 smem4[];
-  float* row = x + (long long)blockIdx.x * L_pad * 2 * P;
-  qat::carry_walk(row, L_pad / t, t, P, ct_re, ct_im, g,
-                  gmax_ptr != nullptr ? *gmax_ptr : -1.f,
-                  reinterpret_cast<float*>(smem4),
-                  [&](int r, int p, float vr, float vi) {
-                    row[(long long)r * 2 * P + p] = vr;
-                    row[(long long)r * 2 * P + P + p] = vi;
-                  });
-}
-
-// ---- K4a, phase C: relu, C-projection, d * u ----
-__global__ void __launch_bounds__(engine::kThreads)
-mixer_out_kernel(const float* __restrict__ x, const float* __restrict__ u,
-                 const float* __restrict__ wc, const float* __restrict__ d,
-                 float* __restrict__ y, int L, int L_pad, int H, int P,
-                 int relu_state) {
-  extern __shared__ float4 smem4[];
-  const int ldh = engine::round4(H), ldp = engine::round4(2 * P);
-  float* S = reinterpret_cast<float*>(smem4);
-  float* U = S + engine::kT * ldp;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * engine::kT;
-  const int rows = min(engine::kT, L - t0);
-  for (int i = threadIdx.x; i < rows * 2 * P; i += blockDim.x) {
-    const int r = i / (2 * P), c = i - r * 2 * P;
-    const float v = x[((long long)b * L_pad + t0 + r) * 2 * P + c];
-    S[r * ldp + c] = relu_state ? fmaxf(v, 0.f) : v;
-  }
-  engine::load_tile(U, ldh, u, engine::kIoF32, (long long)b * L + t0, H,
-                    rows, 1.f);
-  __syncthreads();
-  float* yb = y + ((long long)b * L + t0) * H;
-  engine::tile_matmul_t(S, ldp, wc, 2 * P, H, rows,
-                        [&](int r, int c, float acc) {
-    yb[(long long)r * H + c] = __fadd_rn(acc, __fmul_rn(d[c], U[r * ldh + c]));
-  });
-}
-
-size_t carry_smem(int P) { return sizeof(float) * 4 * (size_t)P; }
 
 }  // namespace
 
 // K1 in its QAT mode. bu_re/bu_im: (B, L, P) views with element strides
 // (sb, st, 1); lam (P); c_re/c_im: (B, P) contiguous or null (forward only:
-// the caller refuses a carry with reverse); pow_re/pow_im: (num_passes, P)
-// tables of lam^(2^k); ctab_re/ctab_im: (t, P) table of lam^(r+1), both
-// already fake-quantized; x0, x1: (B, L_pad, 2P) scratch, L_pad = L
-// rounded up to a multiple of t; out_re/out_im: (B, L, P) contiguous.
-// act_bits >= 32: no state fake-quant. Returns the first launch error.
+// the caller refuses a carry with reverse); tables: 2 (num_passes + t) P
+// floats (pow re, pow im, ctab re, ctab im), written by the tables kernel;
+// cbuf: (B, ceil(L / t), 2P) floats; sync: 1 + B * ceil(L / t) ints;
+// out_re/out_im: (B, L, P) contiguous. cpc: channels a CTA (a power of two
+// up to 256; the cluster is ceil(P / cpc) CTAs). a_bits 0 or >= 32: no
+// fake-quant of the tables; act_bits >= 32: none of the states. rq_bits 0:
+// no block requant, else the states on the frozen grid (rq_re, rq_im,
+// rq_bits) after their fake-quant (forward). Returns the first launch
+// error.
 extern "C" int qat_scan_run(
     const float* bu_re, const float* bu_im, long long sb, long long st,
     const float* lam_re, const float* lam_im, const float* c_re,
-    const float* c_im, const float* pow_re, const float* pow_im,
-    int num_passes, const float* ctab_re, const float* ctab_im, float* x0,
-    float* x1, float* out_re, float* out_im, int B, int L, int P, int t,
-    int reverse, int act_bits, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const Grid g = qat::make_grid(act_bits);
-  const int L_pad = (L + t - 1) / t * t;
-  scan_passes_kernel<<<dim3(L_pad / t, B), qat::kThreads, 0, s>>>(
-      bu_re, bu_im, sb, st, lam_re, lam_im, c_re, c_im, pow_re, pow_im,
-      num_passes, x0, x1, L, L_pad, P, t, reverse, g);
-  cudaError_t err = cudaGetLastError();
+    const float* c_im, float* tables, int num_passes, float* cbuf,
+    int* sync, float* out_re, float* out_im, int B, int L, int P, int t,
+    int cpc, int reverse, int a_bits, int act_bits, float rq_re,
+    float rq_im, int rq_bits, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  g_n_record = 0;
+  const int nb = (L + t - 1) / t;
+  cudaError_t err = launch_tables(lam_re, lam_im, tables, sync, 1 + B * nb,
+                                  P, t, num_passes, a_bits, s);
   if (err != cudaSuccess) return (int)err;
-  scan_carry_kernel<<<B, qat::kThreads, carry_smem(P), s>>>(
-      (num_passes & 1) ? x1 : x0, ctab_re, ctab_im, out_re, out_im, L, L_pad,
-      P, t, reverse, g);
-  return (int)cudaGetLastError();
+  qat::ScanArgs a = {};
+  a.bu_re = bu_re;
+  a.bu_im = bu_im;
+  a.sb = sb;
+  a.st = st;
+  a.lam_re = lam_re;
+  a.lam_im = lam_im;
+  a.ci_re = c_re;
+  a.ci_im = c_im;
+  a.out_re = out_re;
+  a.out_im = out_im;
+  a.reverse = reverse;
+  fill_common(a, tables, num_passes, cbuf, sync, B, L, P, t, act_bits,
+              rq_re, rq_im, rq_bits);
+  return (int)launch_scan<false>(a, cpc, s);
 }
 
-// K4a in its QAT mode. u: (B, L, H); w_b (H, 2P) [B_re^T | B_im^T]; w_c
-// (2P, H) with the conj-sym factor folded in; d (H); tables as for
-// qat_scan_run; amax: a device scalar, the global state absmax, or null
-// for per-block scales; x0, x1: (B, L_pad, 2P) scratch; y: (B, L, H). All
-// f32 and contiguous. Returns the first launch error.
+// K4a in its QAT mode. u: (B, L, H) f32; y: (B, L, H) f32. mixer: lam, d,
+// W_b (H, 2P) and W_c (2P, H) (int8 / int16 / f32) with their per-half
+// scales (1 for float weights; W_c's with the conj-sym factor), no state
+// grid in the struct (the scan requantizes). amax: a device scalar, the
+// global state absmax, or null for per-block scales. tables, cbuf, sync,
+// cpc, the bits and the requant as for qat_scan_run; bu: (B * L, 2P)
+// scratch. Returns the first launch error.
 extern "C" int fused_s5_qat_run(
-    const float* u, const float* w_b, const float* w_c, const float* d,
-    const float* pow_re, const float* pow_im, int num_passes,
-    const float* ctab_re, const float* ctab_im, const float* amax, float* x0,
-    float* x1, float* y, int B, int L, int H, int P, int t, int relu_state,
-    int act_bits, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const Grid g = qat::make_grid(act_bits);
-  const int L_pad = (L + t - 1) / t * t;
-  const size_t smem_a = sizeof(float) * engine::kT * engine::round4(H);
-  cudaError_t err = cudaFuncSetAttribute(
-      mixer_passes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_a);
+    const float* u, float* y, const engine::LayerParams* mixer,
+    int relu_state, const float* amax, float* tables, int num_passes,
+    float* cbuf, int* sync, float* bu, int B, int L, int H, int t, int cpc,
+    int a_bits, int act_bits, float rq_re, float rq_im, int rq_bits,
+    void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  g_n_record = 0;
+  const int P = mixer->p;
+  const int nb = (L + t - 1) / t;
+  cudaError_t err = launch_tables(mixer->lam_re, mixer->lam_im, tables, sync,
+                                  1 + B * nb, P, t, num_passes, a_bits, s);
   if (err != cudaSuccess) return (int)err;
-  mixer_passes_kernel<<<dim3(L_pad / t, B), qat::kMixThreads, smem_a, s>>>(
-      u, w_b, pow_re, pow_im, num_passes, amax, x0, x1, L, L_pad, H, P, t,
-      g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  float* states = (num_passes & 1) ? x1 : x0;
-  mixer_carry_kernel<<<B, qat::kThreads, carry_smem(P), s>>>(
-      states, ctab_re, ctab_im, amax, L_pad, P, t, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t smem_c =
-      sizeof(float) * engine::kT *
-      (engine::round4(2 * P) + engine::round4(H));
-  err = cudaFuncSetAttribute(mixer_out_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_c);
-  if (err != cudaSuccess) return (int)err;
-  mixer_out_kernel<<<dim3((L + engine::kT - 1) / engine::kT, B),
-                     engine::kThreads, smem_c, s>>>(
-      states, u, w_c, d, y, L, L_pad, H, P, relu_state);
-  return (int)cudaGetLastError();
+  engine::RowPass base = {};
+  base.mode.h = H;
+  base.mode.glu = engine::kNone;
+  base.mode.relu_state = relu_state;
+  base.n_rows = (long long)B * L;
+  base.ld_bu = 2 * P;
+  base.ldp = engine::round4(base.ld_bu);
+  base.in = u;
+  base.in_type = engine::kIoF32;
+  base.in_scale = 1.f;
+  const long long row_ctas = (base.n_rows + engine::kT - 1) / engine::kT;
+  // ---- u -> bu ----
+  engine::RowPass head = base;
+  head.has_head = 1;
+  head.head = *mixer;
+  head.bu_out = bu;
+  if ((err = engine::launch_row_pass(head, s)) != cudaSuccess)
+    return (int)err;
+  head.ldq = engine::pass_ldq(head);
+  record("engine_row_pass_kernel", row_ctas, 1,
+         (int)engine::row_pass_smem(head));
+  // ---- the QAT scan over bu, the states in place ----
+  qat::ScanArgs a = {};
+  a.io = bu;
+  a.ld = 2 * P;
+  a.gmax = amax;
+  fill_common(a, tables, num_passes, cbuf, sync, B, L, P, t, act_bits,
+              rq_re, rq_im, rq_bits);
+  if ((err = launch_scan<true>(a, cpc, s)) != cudaSuccess) return (int)err;
+  // ---- the states and u -> y ----
+  engine::RowPass tail = base;
+  tail.has_tail = 1;
+  tail.tail = *mixer;
+  tail.s_in = bu;
+  tail.y_out = y;
+  if ((err = engine::launch_row_pass(tail, s)) != cudaSuccess)
+    return (int)err;
+  tail.ldq = engine::pass_ldq(tail);
+  record("engine_row_pass_kernel", row_ctas, 1,
+         (int)engine::row_pass_smem(tail));
+  return 0;
+}
+
+// The tables kernel alone (for holding it against the PyTorch ops): lam
+// (P); tables: 2 (num_passes + t) P floats; sync: n_sync ints, zeroed.
+extern "C" int qat_tables_run(const float* lam_re, const float* lam_im,
+                              float* tables, int* sync, int n_sync, int P,
+                              int t, int num_passes, int a_bits,
+                              void* stream) {
+  g_n_record = 0;
+  return (int)launch_tables(lam_re, lam_im, tables, sync, n_sync, P, t,
+                            num_passes, a_bits, (cudaStream_t)stream);
+}
+
+// The launches of the last call, in order: up to `cap` kernel names, CTAs,
+// cluster sizes and dynamic shared memory; returns how many it made.
+extern "C" int qat_scan_launched(const char** names, long long* ctas,
+                                 int* clusters, int* smem, int cap) {
+  for (int i = 0; i < g_n_record && i < cap; ++i) {
+    names[i] = g_record[i].name;
+    ctas[i] = g_record[i].ctas;
+    clusters[i] = g_record[i].cluster;
+    smem[i] = g_record[i].smem;
+  }
+  return g_n_record;
+}
+
+// The most clusters of the scan (t rows, P channels, cpc a CTA) that the
+// card keeps resident at once (cudaOccupancyMaxActiveClusters), into *out.
+extern "C" int qat_scan_max_clusters(int t, int P, int cpc, int mixer,
+                                     int* out) {
+  const int cluster = (P + cpc - 1) / cpc;
+  const size_t smem = qat::scan_smem(t, P, cpc);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err;
+  if (mixer) {
+    err = scan_config<true>(1, cluster, smem, 0, &cfg, &attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(
+          out, qat::qat_scan_kernel<true>, &cfg);
+  } else {
+    err = scan_config<false>(1, cluster, smem, 0, &cfg, &attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(
+          out, qat::qat_scan_kernel<false>, &cfg);
+  }
+  return (int)err;
 }

@@ -24,9 +24,12 @@ the last call on the card:
   of ``fused_s5_apply_carry`` (K4b): the mixer of the engine's per-op
   route.
 
-:func:`fused_s5_qat` is the QAT mode (``qat_bits``, ``qat_state_scale``):
-the in-scan fake-quant of ``ops/cuda/qat_scan.py`` between the two
-projections, three launches of ``csrc/qat_scan.cu``.
+:func:`fused_s5_qat` is the QAT mode (``qat_bits``, ``qat_state_scale``,
+also over int8 / int16 weights with per-half scales and with the block
+requant): four launches of ``csrc/qat_scan.cu``, the λ tables, the same
+head row pass, the QAT scan of ``ops/cuda/qat_scan.py`` (one thread-block
+cluster per (batch row, time block)) and the same tail row pass;
+``qat_scan.launched`` reads them back.
 
 Each launches the kernel for CUDA tensors and takes its plain version
 (:func:`fused_s5_plain`, :func:`fused_s5_engine_plain`,
@@ -66,7 +69,7 @@ from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, QatBits,
 #: kernel calls made in this process, one a call (K4a and K4b: three
 #: passes each): by :func:`fused_s5` (K4a float), by
 #: :func:`fused_s5_engine` without a carry (K4a engine modes) and with one
-#: (K4b), by :func:`fused_s5_qat` (K4a QAT mode)
+#: (K4b), by :func:`fused_s5_qat` (K4a QAT mode: four launches)
 launches = 0
 launches_engine = 0
 launches_engine_carry = 0
@@ -245,74 +248,103 @@ class FusedS5Fn(torch.autograd.Function):
 
 def fused_s5_qat_plain(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
                        block_t: int, relu_state: bool = False,
-                       qat_scale: Optional[torch.Tensor] = None
+                       qat_scale: Optional[torch.Tensor] = None, *,
+                       wb_scales: Scales = None, wc_scales: Scales = None,
+                       block_requant: Optional[BlockRequant] = None
                        ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_s5_qat`: the B-projection,
-    the QAT scan of its zero-padded blocks
-    (``qat_scan.qat_blocks_plain``), relu, the C-projection and d ⊙ u."""
+    """Plain PyTorch version of :func:`fused_s5_qat`: the B-projection
+    (times the per-half ``wb_scales``), the QAT scan of its zero-padded
+    blocks (``qat_scan.qat_blocks_plain``, with the block requant), relu,
+    the C-side scales, the C-projection and d ⊙ u."""
     a_bits, act_bits = qat_scan._check_bits(qat_bits)
+    qat_scan._check_requant(block_requant)
     b, length, _ = u.shape
     p = w_b.shape[-1] // 2
     t, l_pad, n_pass = qat_scan.scan_geometry(length, block_t)
-    bu = torch.nn.functional.pad(u @ w_b, (0, 0, 0, l_pad - length))
+    bu = u @ w_b.to(torch.float32)
+    bu_re, bu_im = bu[..., :p], bu[..., p:]
+    if wb_scales is not None:
+        bu_re, bu_im = bu_re * wb_scales[0], bu_im * wb_scales[1]
+    pad = (0, 0, 0, l_pad - length)
     xs = qat_scan.qat_blocks_plain(
-        (bu[..., :p], bu[..., p:]),
+        (torch.nn.functional.pad(bu_re, pad),
+         torch.nn.functional.pad(bu_im, pad)),
         qat_scan.lambda_power_tables(lam, t, n_pass, a_bits), t, act_bits,
-        qat_scale)
+        qat_scale, block_requant)
     xs = torch.cat(xs, dim=-1)[:, :length]
     if relu_state:
         xs = torch.relu(xs)
-    return xs @ w_c + d * u
+    if wc_scales is not None:
+        xs = torch.cat([xs[..., :p] * wc_scales[0],
+                        xs[..., p:] * wc_scales[1]], dim=-1)
+    return xs @ w_c.to(torch.float32) + d * u
 
 
 def _qat_lib():
-    fn = build.load("qat_scan").fused_s5_qat_run
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return qat_scan._fn(
+        "fused_s5_qat_run",
+        [vp, vp, ctypes.POINTER(engine_layer.LayerParams), i, vp, vp, i, vp,
+         vp, vp] + [i] * 7 + [f, f, i, vp])
+
+
+def qat_plan(u, w_b, block_t: int
+             ) -> Tuple[qat_scan.QatPlan, engine_layer.PassPlan]:
+    """The QAT scan's plan of one call on ``u`` (B, L, H) and the plan of
+    its row passes (``engine_layer.pass_plan`` with one layer and no
+    encoder); raises before any launch where a block or the tail's tile
+    does not fit."""
+    b, length, h = u.shape
+    p = w_b.shape[-1] // 2
+    check_width(h, p)
+    return (qat_scan.qat_plan(b, length, p, block_t),
+            engine_layer.pass_plan(b, length, h, p, 1, encoder=False))
 
 
 def fused_s5_qat_cuda(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
                       block_t: int, relu_state: bool = False,
-                      qat_scale: Optional[torch.Tensor] = None
+                      qat_scale: Optional[torch.Tensor] = None, *,
+                      wb_scales: Scales = None, wc_scales: Scales = None,
+                      block_requant: Optional[BlockRequant] = None
                       ) -> torch.Tensor:
-    """Launch the kernel in its QAT mode (three launches of hand-written
-    kernels: B-projection and doubling passes per (row, block), the carry
-    walk per row, relu and C-projection per (row, tile)). Same arguments
-    as :func:`fused_s5_qat_plain`; every tensor float32 on one CUDA
-    device, ``qat_scale`` a one-element tensor or None."""
+    """Launch the kernels in the QAT mode: the λ tables, the head row pass
+    (u -> bu), the QAT scan (one cluster per (batch row, block)), the tail
+    row pass (relu, C-projection + d ⊙ u). Same arguments as
+    :func:`fused_s5_qat_plain`; u, λ, d float32, the weights int8 / int16
+    / float32, every tensor on one CUDA device, ``qat_scale`` a one-element
+    float32 tensor or None."""
     global launches_qat
     a_bits, act_bits = qat_scan._check_bits(qat_bits)
+    qat_scan._check_requant(block_requant)
     if u.dim() != 3:
         raise ValueError(f"u must be (B, L, H), got {tuple(u.shape)}")
     b, length, h = u.shape
     p = w_b.shape[-1] // 2
+    plan, rows = qat_plan(u, w_b, block_t) if b and length else (None,) * 2
     t = check_tensors(
         {"u": (u, (b, length, h)), "lam_re": (lam[0], (p,)),
-         "lam_im": (lam[1], (p,)), "w_b": (w_b, (h, 2 * p)),
-         "w_c": (w_c, (2 * p, h)), "d": (d, (h,))}, u.device)
+         "lam_im": (lam[1], (p,)), "d": (d, (h,))}, u.device)
     amax_ptr = None
     if qat_scale is not None:
         amax = qat_scale.reshape(()).contiguous()
         _check_f32_cuda("qat_scale", amax, u.device)
         amax_ptr = amax.data_ptr()
+    ops = engine_layer.MixerOps((t["lam_re"], t["lam_im"]),
+                                w_b.detach().contiguous(),
+                                w_c.detach().contiguous(), t["d"], wb_scales,
+                                wc_scales)
+    lp = engine_layer.pack_mixer(ops, u.device)
     y = torch.empty((b, length, h), dtype=torch.float32, device=u.device)
-    if b == 0 or length == 0:
+    if plan is None:
         return y
-    blk, l_pad, n_pass = qat_scan.scan_geometry(length, block_t)
-    tables = [x.contiguous() for x in qat_scan.lambda_power_tables(
-        (t["lam_re"], t["lam_im"]), blk, n_pass, a_bits)]
-    scratch = torch.empty((2, b, l_pad, 2 * p), dtype=torch.float32,
-                          device=u.device)
+    tables, cbuf, sync = qat_scan.call_buffers(plan, u.device)
+    scratch = engine_layer.alloc_scratch(rows, u.device)
     err = _qat_lib()(
-        t["u"].data_ptr(), t["w_b"].data_ptr(), t["w_c"].data_ptr(),
-        t["d"].data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
-        n_pass, tables[2].data_ptr(), tables[3].data_ptr(), amax_ptr,
-        scratch[0].data_ptr(), scratch[1].data_ptr(), y.data_ptr(), b,
-        length, h, p, blk, int(relu_state), act_bits,
+        t["u"].data_ptr(), y.data_ptr(), ctypes.byref(lp), int(relu_state),
+        amax_ptr, tables.data_ptr(), plan.num_passes, cbuf.data_ptr(),
+        sync.data_ptr(), scratch["bu"].data_ptr(), b, length, h, plan.t,
+        plan.cpc, a_bits or 0, act_bits, *qat_scan.requant_args(
+            block_requant),
         torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "fused_s5_qat")
     launches_qat += 1
@@ -321,19 +353,26 @@ def fused_s5_qat_cuda(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
 
 def fused_s5_qat(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
                  block_t: int, relu_state: bool = False,
-                 qat_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 qat_scale: Optional[torch.Tensor] = None, *,
+                 wb_scales: Scales = None, wc_scales: Scales = None,
+                 block_requant: Optional[BlockRequant] = None
+                 ) -> torch.Tensor:
     """The mixer in its QAT mode, (B, L, H) -> (B, L, H): the states of
-    ``bu = u @ w_b`` through the QAT scan (``qat_scan.py``: per-block
-    fake-quant to ``qat_bits`` (a_bits, act_bits) over time blocks of
-    ``block_t``, L padded with zero rows to a multiple of the block), relu
-    if ``relu_state``, then ``[x_re x_im] @ w_c + d ⊙ u``. ``qat_scale``:
-    one global state absmax for every in-scan fake-quant (the global-scale
-    QAT mode), else per-block scales.
+    ``bu = u @ w_b`` (times the per-half ``wb_scales`` of int8 / int16
+    weights) through the QAT scan (``qat_scan.py``: per-block fake-quant
+    to ``qat_bits`` (a_bits, act_bits) over time blocks of ``block_t``, L
+    padded with zero rows to a multiple of the block; with
+    ``block_requant`` every state then on that frozen grid), relu if
+    ``relu_state``, then ``[x_re x_im] * wc_scales @ w_c + d ⊙ u``.
+    ``qat_scale``: one global state absmax for every in-scan fake-quant
+    (the global-scale QAT mode), else per-block scales.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    CUDA tensors launch the kernels (or raise); CPU tensors take the plain
     version."""
     fn = fused_s5_qat_cuda if u.is_cuda else fused_s5_qat_plain
-    return fn(u, lam, w_b, w_c, d, qat_bits, block_t, relu_state, qat_scale)
+    return fn(u, lam, w_b, w_c, d, qat_bits, block_t, relu_state, qat_scale,
+              wb_scales=wb_scales, wc_scales=wc_scales,
+              block_requant=block_requant)
 
 
 # ------------------------------------------------ engine modes and K4b

@@ -267,7 +267,8 @@ def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
     the serving engine's state requant, see :func:`sequential_diag_scan`)
     it is not, as in the JAX package: inputs that require grad raise while
     grad mode is on. ``qat_bits`` (a_bits, act_bits) runs the kernel's QAT
-    mode over time blocks of ``block_t`` (no requant then).
+    mode over time blocks of ``block_t``, with ``block_requant`` (forward)
+    every state then on the frozen grid after its fake-quant.
 
     ``mode="associative"`` is the associative scan with the hadamards
     ``had_aa`` / ``had_ax`` (differentiable; a carry folds in with the
@@ -281,8 +282,6 @@ def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
         return xs
     if mode != "kernel":
         raise ValueError(f"unknown scan mode {mode!r}")
-    if qat_bits is not None and block_requant is not None:
-        raise ValueError("qat_bits and block_requant exclude each other")
     if carry_init is None and block_requant is None:
         return DiagScanFn.apply(lam[0], lam[1], bu[0], bu[1], reverse,
                                 qat_bits, block_t)
@@ -298,7 +297,7 @@ def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
     if qat_bits is not None:
         from sparsernns_tpu_torch.ops.cuda.qat_scan import qat_scan
         return qat_scan(lam, _kernel_operand(bu), qat_bits, block_t,
-                        carry_init=carry_init)
+                        carry_init=carry_init, block_requant=block_requant)
     from sparsernns_tpu_torch.ops.cuda.diag_scan import diag_scan
     return diag_scan(lam, _kernel_operand(bu), carry_init=carry_init,
                      block_requant=block_requant, block_t=block_t)

@@ -76,6 +76,7 @@ def profile_region(name: str, fn, top: int = 10) -> dict:
         "region": name, "wall_ms": wall_us / 1e3,
         "device_ms": device_us / 1e3,
         "device_busy_share": device_us / wall_us if wall_us else None,
+        "device_events": sum(e.count for e in events),
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "device_ms": _device_us(e) / 1e3}
                         for e in events[:top]],

@@ -498,6 +498,11 @@ def test_qat_modes_refuse_what_they_do_not_take():
         qat_scan.qat_scan(lam, bu, (8, None), 8)
     with pytest.raises(ValueError, match="block_t"):
         qat_scan.qat_scan(lam, bu, (8, 8), None)
-    with pytest.raises(ValueError, match="exclude"):
-        tscan.diag_ssm_scan(lam, bu, qat_bits=(8, 8), block_t=8,
-                            block_requant=(0.1, 0.1, 8))
+    # qat_bits with block_requant runs forward only (the reverse scan's
+    # block requant is not ported)
+    with pytest.raises(NotImplementedError, match="reverse"):
+        tscan.diag_ssm_scan(lam, bu, reverse=True, qat_bits=(8, 8),
+                            block_t=8, block_requant=(0.1, 0.1, 8))
+    with pytest.raises(NotImplementedError, match="reverse"):
+        qat_scan.qat_scan(lam, bu, (8, 8), 8, reverse=True,
+                          block_requant=(0.1, 0.1, 8))

@@ -9,18 +9,21 @@ bf16-stream training of the whole-layer kernels at the width of
 ``recipes/ndns.json`` (d_model 192, P 128, 3 layers; random weights from
 a seed):
 
-1. kernel phase — K1 (diagonal scan with carry) and K2 (whole-layer tail:
-   a B-projection pass, the scan, a tail pass over tiles of the flattened
-   B x L rows) against their plain versions on the card, B=8, L=3751, and
-   K2 also at B=32, with times (K2 at B=8 a mean of 5 calls, at B=32 a
-   median of 5); K2's passes and grids as the CUDA source recorded them,
-   every product pass at least ceil(B x L / 128) CTAs; the SHA-256 digest
-   of K2's output;
+1. kernel phase — K1 (the time-chunked diagonal scan, from a carry) and
+   K2 (whole-layer tail: a B-projection pass, the scan, a tail pass over
+   tiles of the flattened B x L rows) against their plain versions on the
+   card, B=8, L=3751, and at B=32, with times (K1 at B=8 a mean of 20
+   calls, K2 of 5, at B=32 medians of 5); K1 also bit for bit against the
+   plain mirror of its plan, its passes' grids as the CUDA source
+   recorded them against ``scan_plan`` (at least 132 CTAs a pass over
+   (B, L, P)); K2's passes and grids, every product pass at least
+   ceil(B x L / 128) CTAs; the SHA-256 digests of K1's and K2's outputs;
 2. offline phase — the eval step on a synthetic 30 s batch of 8 clips
    (goes through K2), checked against the same model on the CPU;
 3. streaming phase — a StreamingDenoiser over the same audio in 1 s chunks
-   (goes through K1), checked against its one-chunk output and against
-   the offline forward;
+   (goes through K1: one pass a call, as its plan states for a chunk's
+   125 frames), checked against its one-chunk output and against the
+   offline forward;
 4. engine kernel phase — the float model is calibrated on two synthetic
    batches, its scales are frozen and a ``W8A16Engine`` is built; K5a (one
    serving layer), K5b (with a non-zero carry) and K6 (the whole network),
@@ -55,13 +58,15 @@ a seed):
    step on the CPU at a short length; eight dropout-free steps on one
    B=8 batch must lower the loss; step wall time, device busy share and
    peak memory at B=32 and B=8;
-9. mixer kernel phase — K1 in reverse and K4a (the S5 mixer as a head row
-   pass, the scan, a tail row pass; float mode, with and without
-   relu_state) against their plain versions, B=8, L=3751, B=32, one
-   odd-width case and a wide one (H=640, P=128), with times, K4a's passes
-   against its plan and its output's digest; the gradients of ``FusedS5Fn`` and
-   of the scan in both directions on the card against autograd through
-   the plain versions on the card;
+9. mixer kernel phase — K1 in reverse (against plain and bit for bit
+   against its plan's mirror, its passes against the plan, digests) and
+   K4a (the S5 mixer as a head row pass, the scan, a tail row pass; float
+   mode, with and without relu_state) against their plain versions, B=8,
+   L=3751, B=32, one odd-width case and a wide one (H=640, P=128), with
+   times, K4a's passes against its plan and its output's digest; the relu
+   decisions of K4a's forward states that K1's recompute flips; the
+   gradients of ``FusedS5Fn`` and of the scan in both directions on the
+   card against autograd through the plain versions on the card;
 10. mixer-route training phase — the recipe with ``prenorm=false``
    (postnorm BatchNorm: the unfused layer around K4a): three B=32 train
    steps with dropout 0.1 (per step 3 x K4a, 3 x K1 forward, 3 x K1
@@ -70,8 +75,10 @@ a seed):
    loss; then the bidirectional model at B=8, two steps (6 x K1 forward
    and 6 x K1 reverse a step); step wall time, device busy share, peak
    memory;
-11. top-k kernel phase — K1 with the block requant (no carry, and from a
-   carry), K4a in the serving engine's modes (int8 weights with per-half
+11. top-k kernel phase — K1 with the block requant (no carry, from a
+   carry, and reverse, its blocks from the end; B=8 and 32; bit for bit
+   against its plan's mirror, its passes against the plan), K4a in the
+   serving engine's modes (int8 weights with per-half
    scales, bf16 and f32 input, block 512, relu_state off and on, one
    odd-width case; f32 weights on a 32-bit state grid) and K4b (one
    128-frame block from a carry) against their plain versions at B=8,
@@ -106,9 +113,9 @@ a seed):
    K1 and K4a in their QAT modes (w8a16's bits, 16 and 16) against their
    plain versions at B=8, L=3751 under the quantized-state bar: K1 at
    t=1024 forward, reverse and from a carry, with the block requant (codes
-   on the frozen grid), at t=256 and the largest block the plan takes, one
-   odd width; K4a at t=512 with per-block and global state scales,
-   relu_state off and on, its states over an exact B-projection, at t=256
+   on the frozen grid; forward, from a carry and reverse), at t=256 and
+   the largest block the plan takes, one odd width; K4a at t=512 with
+   per-block and global state scales, relu_state off and on, its states over an exact B-projection, at t=256
    and the largest block, over int8 weights with per-half scales and the
    block requant, one odd width; every call's launches (one cluster per
    (batch row, block): grids and cluster shapes as the CUDA source
@@ -252,16 +259,22 @@ BWD_OUTPUTS = ("g_x", "g_skip", "d_lam", "d_w_b", "d_w_c", "d_d", "d_o2k",
                "d_o2b", "d_o1k", "d_o1b", "d_m1", "d_m2", "d_nw", "d_nb")
 
 
-def _check_tail_kernels(profile) -> None:
-    """Every ``__global__`` that the last K3a and K3b call launched, as the
-    CUDA source recorded it, appears in ``profile`` (``profile_region``'s
-    summary of a region that ends with that call)."""
+def _missing_tail_kernels(profile) -> list:
+    """The ``__global__``s that the last K3a and K3b call launched, as the
+    CUDA source recorded them, that ``profile`` (``profile_region``'s
+    summary of a region that ends with that call) does not show."""
     from sparsernns_tpu_torch.ops.cuda import layer_tail_bwd
     seen = " ".join(k["name"] for k in profile["top_kernels"])
     names = [k for grids in layer_tail_bwd.launched().values()
              for k in grids]
-    missing = [k for k in names if k not in seen]
-    assert names and not missing, f"kernels not in the profile: {missing}"
+    assert names, "no K3a / K3b launch recorded"
+    return [k for k in names if k not in seen]
+
+
+def _check_tail_kernels(profile) -> None:
+    """Every kernel the last K3a and K3b call launched is in ``profile``."""
+    missing = _missing_tail_kernels(profile)
+    assert not missing, f"kernels not in the profile: {missing}"
 
 
 def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
@@ -430,10 +443,21 @@ def training_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
             grids[bsz] = layer_tail_bwd.launched()
         # where the backward's time goes, pass by pass, at B=32
         from sparsernns_tpu_torch.utils.profiling import profile_region
-        profile = profile_region(
-            f"K3a + K3b B={4 * B}", lambda: layer_tail_bwd.layer_tail_bwd_cuda(
-                x32, g32, *args, **kw32), top=40)
-        print(json.dumps(profile), flush=True)
+        # the profiler drops device events now and then (PERF.md §7): a
+        # window that lacks a launched kernel is taken once more, and the
+        # second must show every one
+        for window in (1, 2):
+            profile = profile_region(
+                f"K3a + K3b B={4 * B}",
+                lambda: layer_tail_bwd.layer_tail_bwd_cuda(
+                    x32, g32, *args, **kw32), top=40)
+            print(json.dumps(profile), flush=True)
+            missing = _missing_tail_kernels(profile)
+            if not missing or window == 2:
+                break
+            print(f"K3a + K3b B={4 * B}: profiler window 1 lacks {missing} "
+                  f"({profile['device_events']} device events); again",
+                  flush=True)
         _check_tail_kernels(profile)
         del x32, g32
         plain_fwd = _time_ms(lambda: layer_tail.layer_tail_plain(
@@ -703,7 +727,8 @@ def _rel_err(out, ref) -> float:
 
 def mixer_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
     """Phase 9: K1 reverse and K4a against their plain versions at
-    B x frames, layer 0's operands, and at odd widths; the gradient
+    B x frames, layer 0's operands, and at odd widths (K1 also bit for bit
+    against its plan's mirror, and at B = 32); the gradient
     Functions on the card against autograd through the plain versions on
     the card (B x 1000 frames). Limits: K1 1e-5 of max|x|; K4a 1e-4 of
     max(1, max|ref|); gradients 2e-4 of max(1, max|ref|) (f32 sums over
@@ -735,32 +760,38 @@ def mixer_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
     def scan_case(tag, lam_, bu_cat, pp):
         bu = (bu_cat[..., :pp], bu_cat[..., pp:])
         with torch.no_grad():
-            ref = diag_scan.diag_scan_plain(lam_, bu, reverse=True)
-            out = diag_scan.diag_scan_cuda(lam_, bu, reverse=True)
-        torch.cuda.synchronize()
-        scale = max(r.abs().max().item() for r in ref)
-        err = max((o - r).abs().max().item() for o, r in zip(out, ref))
-        _check(f"K1 reverse {tag} vs plain", err, 1e-5 * scale)
+            err = _check_k1(f"K1 reverse {tag}", lam_, bu, reverse=True)
         return bu, err
 
-    bu, err_rev = scan_case("", lam, rnd(B, frames, 2 * p), p)
+    bu, err_rev = scan_case(f"B={B}", lam, rnd(B, frames, 2 * p), p)
     scan_case(f"P={ps} L={ls}", odd_lam, rnd(2, ls, 2 * ps), ps)
+    # B=32 from a generator of its own
+    g32 = torch.Generator().manual_seed(324)
+    bu32_cat = torch.randn((4 * B, frames, 2 * p), generator=g32).to(dev)
+    bu32, _ = scan_case(f"B={4 * B}", lam, bu32_cat, p)
     with torch.no_grad():
         ms = _median_ms(lambda: diag_scan.diag_scan_cuda(lam, bu,
                                                          reverse=True))
         ms_fwd = _median_ms(lambda: diag_scan.diag_scan_cuda(lam, bu))
+        ms32 = _median_ms(lambda: diag_scan.diag_scan_cuda(lam, bu32,
+                                                           reverse=True))
         plain_ms = _time_ms(lambda: diag_scan.diag_scan_plain(
             lam, bu, reverse=True), 1, 0)
+    del bu32_cat, bu32
     elems = B * frames * p
-    bound, by = _bound_ms(2 * elems * 4 * 2 + 2 * p * 4, 8 * elems)
+    bound, by = _bound_ms(_k1_bytes(B, frames, p, False), 8 * elems)
+    bound32, _ = _bound_ms(_k1_bytes(4 * B, frames, p, False), 32 * elems)
     records["diag_scan_rev"] = dict(
         name="diag_scan_rev", route="cuda",
         source="sparsernns_tpu_torch/ops/cuda/csrc/diag_scan.cu",
         replaces="sparsernns_tpu/ops/pallas/scan_kernel.py:433",
         max_abs_err=err_rev, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=by, library_ms=None)
-    print(f"K1 at B={B}, no carry: reverse {ms:.3f} ms, forward "
-          f"{ms_fwd:.3f} ms", flush=True)
+        bound_by=by, library_ms=None, ms_b32=ms32, bound_ms_b32=bound32)
+    print(f"K1 at B={B}, no carry: reverse {ms:.4f} ms, forward "
+          f"{ms_fwd:.4f} ms (bound {bound:.4f}, {100 * bound / ms:.1f} % "
+          f"reverse); reverse at B={4 * B} {ms32:.4f} ms (bound "
+          f"{bound32:.4f}, {100 * bound32 / ms32:.1f} %); medians of 5",
+          flush=True)
 
     # ---- K4a ----
     u = rnd(B, frames, h)
@@ -853,6 +884,28 @@ def mixer_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
         share = max(((o - r).abs() > 2e-4 * max(1.0, r.abs().max().item()))
                     .float().mean().item() for o, r in zip(ours, refs))
         _check(f"{tag}: share of elements above 2e-4", share, 1e-4)
+
+    # K4a's backward recomputes the forward's states through K1: its relu
+    # decisions against the forward's own (K4a's output with W_c the
+    # identity and d = 0 is its relu'd states; H = 2P), and K1's against
+    # the sequential recurrence's, from a generator of its own
+    gf = torch.Generator().manual_seed(325)
+    uf = torch.randn((B, 1000, 2 * p), generator=gf).to(dev)
+    wf = (torch.randn((2 * p, 2 * p), generator=gf) * (2 * p) ** -0.5).to(dev)
+    with torch.no_grad():
+        y_eye = fused_s5.fused_s5_cuda(
+            uf, lam, wf, torch.eye(2 * p, device=dev),
+            torch.zeros(2 * p, device=dev), relu_state=True)
+        bu_f = uf @ wf
+        k1_f = torch.cat(diag_scan.diag_scan_cuda(
+            lam, (bu_f[..., :p], bu_f[..., p:])), dim=-1)
+        seq_f = torch.cat(diag_scan.diag_scan_plain(
+            lam, (bu_f[..., :p], bu_f[..., p:])), dim=-1)
+    print(f"relu decisions flipped, B={B} L=1000 H={2 * p}: K4a forward vs "
+          f"K1 recompute {int(((y_eye > 0) != (k1_f > 0)).sum().item())}, "
+          f"K1 vs sequential {int(((k1_f > 0) != (seq_f > 0)).sum().item())}"
+          f" of {k1_f.numel()}", flush=True)
+    del uf, wf, y_eye, bu_f, k1_f, seq_f
 
     # at the full width over B x 1000 frames: autograd through the plain
     # loop keeps every step's state
@@ -1020,7 +1073,9 @@ def _topk_close(name, out, ref, limit) -> None:
 
 def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
                       frozen) -> None:
-    """Phase 11: K1 with the block requant, K4a's engine modes and K4b
+    """Phase 11: K1 with the block requant (forward, from a carry, and
+    reverse with its blocks from the end; also at B = 32), K4a's engine
+    modes and K4b
     against their plain versions on the card at B x frames, full width,
     layer 1 of the flagship w8a16 engine (int8 weights, per-half scales,
     16-bit state grid), and K4a with that layer's dequantized f32 weights
@@ -1055,28 +1110,39 @@ def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
         carry = tuple(torch.round(rnd(B, p, sc=200.0)) * s
                       for s in (s_re, s_im))
         k1 = {}
-        for tag, c in (("no carry", None), ("carry", carry)):
-            ref = diag_scan.diag_scan_plain(lay.lam, bu, c, False,
-                                            lay.state_requant, block)
-            out = diag_scan.diag_scan_cuda(lay.lam, bu, c, False,
-                                           lay.state_requant, block)
-            torch.cuda.synchronize()
-            k1[tag] = max(_codes_of(f"K1 block requant {tag} {half}", o, r,
-                                    sc)
-                          for half, o, r, sc in zip(("re", "im"), out, ref,
-                                                    (s_re, s_im)))
+        for tag, c, rev in (("no carry", None, False), ("carry", carry, False),
+                            ("reverse", None, True)):
+            k1[tag] = _check_k1(f"K1 block requant {tag} B={B}", lay.lam,
+                                bu, c, rev, lay.state_requant, block)
+        # B=32: the batch's stream four times
+        bu32 = tuple(x.repeat(4, 1, 1) for x in bu)
+        for tag, rev in (("no carry", False), ("reverse", True)):
+            _check_k1(f"K1 block requant {tag} B={4 * B}", lay.lam, bu32,
+                      None, rev, lay.state_requant, block)
         ms = _median_ms(lambda: diag_scan.diag_scan_cuda(
             lay.lam, bu, None, False, lay.state_requant, block))
+        ms_rev = _median_ms(lambda: diag_scan.diag_scan_cuda(
+            lay.lam, bu, None, True, lay.state_requant, block))
+        ms32 = _median_ms(lambda: diag_scan.diag_scan_cuda(
+            lay.lam, bu32, None, False, lay.state_requant, block))
         plain_ms = _time_ms(lambda: diag_scan.diag_scan_plain(
             lay.lam, bu, None, False, lay.state_requant, block), 1, 0)
+        del bu32
         elems = B * frames * p
-        bound, by = _bound_ms(2 * elems * 4 * 2 + 2 * p * 4, 18 * elems)
+        bound, by = _bound_ms(_k1_bytes(B, frames, p, False), 18 * elems)
+        bound32, _ = _bound_ms(_k1_bytes(4 * B, frames, p, False),
+                               72 * elems)
+        print(f"K1 block requant at B={B}: {ms:.4f} ms, reverse "
+              f"{ms_rev:.4f} ms (bound {bound:.4f}, {100 * bound / ms:.1f} "
+              f"%); B={4 * B} {ms32:.4f} ms (bound {bound32:.4f}, "
+              f"{100 * bound32 / ms32:.1f} %); medians of 5", flush=True)
         records["diag_scan_requant"] = dict(
             name="diag_scan_requant", route="cuda",
             source="sparsernns_tpu_torch/ops/cuda/csrc/diag_scan.cu",
             replaces="sparsernns_tpu/ops/pallas/scan_kernel.py:433",
             max_abs_err=max(k1.values()), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None)
+            bound_ms=bound, bound_by=by, library_ms=None, ms_rev=ms_rev,
+            ms_b32=ms32, bound_ms_b32=bound32)
 
         # ---- K4a engine modes: bf16 / f32 input, relu_state off / on ----
         errs = {}
@@ -1834,7 +1900,8 @@ def qat_kernel_phase(cfg, frames: int, gen, records) -> None:
     (16, 16). The λ tables kernel against ``lambda_power_tables`` (bit for
     bit, or the first differing entry and its cause). K1 at t=1024
     forward, reverse and from a carry, with the block requant (with and
-    without a carry: codes on the frozen grid), at t=256 and at the
+    without a carry, and reverse: codes on the frozen grid), at t=256 and
+    at the
     largest block the plan takes, and one odd width (L not a multiple of
     t); K4a at t=512, per-block and global scale, relu_state off and on,
     with layer 0's QAT operands of the flagship, and its states alone (W_c
@@ -1885,7 +1952,9 @@ def qat_kernel_phase(cfg, frames: int, gen, records) -> None:
                 ("forward", 256, {}), ("forward", t_max, {}),
                 ("requant", 1024, dict(block_requant=grid16)),
                 ("requant carry", 1024,
-                 dict(block_requant=grid16, carry_init=carry))):
+                 dict(block_requant=grid16, carry_init=carry)),
+                ("requant reverse", 1024,
+                 dict(block_requant=grid16, reverse=True))):
             ref = qat_scan.qat_scan_plain(lam, bu, bits, t, **kw)
             out = qat_scan.qat_scan_cuda(lam, bu, bits, t, **kw)
             torch.cuda.synchronize()
@@ -3225,6 +3294,64 @@ def _check_mixer_passes(name: str, b: int, length: int, h: int,
                   -(-b * length // 128))
 
 
+def _check_k1(name: str, lam, bu, carry=None, reverse=False,
+              block_requant=None, block_t=None) -> float:
+    """One K1 call on the card held against its plain version (the
+    sequential recurrence; float modes 1e-5 of max|x|, the block requant
+    ``_codes_of``'s bar, and whether it is bit-equal, as the block pass
+    makes it) and bit for bit against the plain mirror of its
+    plan (``diag_scan_chunked_plain``); its launches, as the CUDA source
+    recorded them, against ``scan_plan`` (at B >= 8, L = 3751, P = 128
+    every pass over (B, L, P) at least 132 CTAs); prints the digest of
+    its output. Returns the error against plain."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import diag_scan
+    args = (lam, bu, carry, reverse, block_requant, block_t)
+    out = diag_scan.diag_scan_cuda(*args)
+    torch.cuda.synchronize()
+    got = diag_scan.launched()
+    b, length, p = bu[0].shape
+    plan = diag_scan.scan_plan(
+        b, length, p, None if block_requant is None else block_t, reverse)
+    print(f"{name} launches (pass, grid, threads): {got}", flush=True)
+    assert got == plan.launches(), (name, got, plan.launches())
+    if b >= 8 and (length, p) == (3751, 128):
+        assert all(g[0] * g[1] * g[2] >= 132 for k, g, _ in got
+                   if k != diag_scan.CARRY_PASS), (name, got)
+    mirror = diag_scan.diag_scan_chunked_plain(*args)
+    same = all(torch.equal(o, m) for o, m in zip(out, mirror))
+    print(f"{name} vs the plain mirror of its plan: bit-equal {same}",
+          flush=True)
+    assert same, name
+    ref = diag_scan.diag_scan_plain(*args)
+    if block_requant is None:
+        scale = max(r.abs().max().item() for r in ref)
+        err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+        _check(f"{name} vs plain", err, 1e-5 * scale)
+    else:
+        err = max(_codes_of(f"{name} vs plain ({half})", o, r, sc)
+                  for half, o, r, sc in zip(("re", "im"), out, ref,
+                                            block_requant[:2]))
+        again = diag_scan.block_rewalks(*args)
+        print(f"{name}: bit-equal to plain "
+              f"{all(torch.equal(o, r) for o, r in zip(out, ref))}; block "
+              f"pass warps that walked again {int(again.sum().item())} of "
+              f"{again.numel()}, at most "
+              f"{int(again.sum(dim=1).max().item())} in one (batch row, "
+              f"slice)", flush=True)
+    print(f"{name} output digest: {_digest(out[0])}-{_digest(out[1])}",
+          flush=True)
+    return err
+
+
+def _k1_bytes(b: int, length: int, p: int, carry: bool) -> int:
+    """Bytes K1 must move: bu read once, the states written once, λ, and
+    the carry in."""
+    return 2 * b * length * p * 4 * 2 + 2 * p * 4 + (
+        2 * b * p * 4 if carry else 0)
+
+
 def engine_kernel_phase(cfg, eng, gen, records) -> None:
     """Phase 4: K6 (the whole network, its row and scan passes), K5a (one
     layer over the int16-code stream) and K5b (from a non-zero carry, at
@@ -3672,25 +3799,35 @@ def main() -> int:
         bu = (bu_cat[..., :p], bu_cat[..., p:])
         carry = tuple(torch.randn((B, p), generator=gen).to(dev)
                       for _ in range(2))
-        ref = diag_scan.diag_scan_plain(lam, bu, carry)
-        out = diag_scan.diag_scan_cuda(lam, bu, carry)
-        torch.cuda.synchronize()
-        scale = max(ref[0].abs().max().item(), ref[1].abs().max().item())
-        err = max((out[0] - ref[0]).abs().max().item(),
-                  (out[1] - ref[1]).abs().max().item())
-        _check("K1 diag_scan vs plain", err, 1e-5 * scale)
+        err = _check_k1(f"K1 diag_scan carry B={B}", lam, bu, carry)
         ms = _time_ms(lambda: diag_scan.diag_scan_cuda(lam, bu, carry), 20)
         plain_ms = _time_ms(
             lambda: diag_scan.diag_scan_plain(lam, bu, carry), 1, 0)
         elems = B * frames * p
-        bound, by = _bound_ms(2 * elems * 4 * 2 + 2 * p * 4 + 2 * B * p * 4,
-                              8 * elems)
+        bound, by = _bound_ms(_k1_bytes(B, frames, p, True), 8 * elems)
+        # B=32 from a generator of its own, so that the later phases draw
+        # what they drew before
+        g32 = torch.Generator().manual_seed(323)
+        bu32_cat = torch.randn((4 * B, frames, 2 * p), generator=g32).to(dev)
+        bu32 = (bu32_cat[..., :p], bu32_cat[..., p:])
+        carry32 = tuple(torch.randn((4 * B, p), generator=g32).to(dev)
+                        for _ in range(2))
+        _check_k1(f"K1 diag_scan carry B={4 * B}", lam, bu32, carry32)
+        ms32 = _median_ms(lambda: diag_scan.diag_scan_cuda(lam, bu32,
+                                                           carry32))
+        bound32, _ = _bound_ms(_k1_bytes(4 * B, frames, p, True), 32 * elems)
+        del bu32_cat, bu32, carry32
+        print(f"K1 with carry: {ms:.4f} ms at B={B} (mean of 20; bound "
+              f"{bound:.4f}, {100 * bound / ms:.1f} %), {ms32:.4f} ms at "
+              f"B={4 * B} (median of 5; bound {bound32:.4f}, "
+              f"{100 * bound32 / ms32:.1f} %)", flush=True)
         records["diag_scan"] = dict(
             name="diag_scan", route="cuda",
             source="sparsernns_tpu_torch/ops/cuda/csrc/diag_scan.cu",
             replaces="sparsernns_tpu/ops/pallas/scan_kernel.py:433",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=None)
+            bound_by=by, library_ms=None, ms_b32=ms32,
+            bound_ms_b32=bound32)
 
         # K2 at the offline shape, layer 0's operands
         x = torch.randn((B, frames, h), generator=gen).to(dev)
@@ -3830,7 +3967,7 @@ def main() -> int:
 
     # ---------------- streaming phase (K1) ----------------
     den = StreamingDenoiser(model, batch_size=B)
-    diag_scan.launches = layer_tail.launches = 0
+    diag_scan.launches = diag_scan.passes = layer_tail.launches = 0
     t0 = time.time()
     out_chunked = den.process_offline(noisy, chunk_samples=CHUNK)
     torch.cuda.synchronize()
@@ -3838,9 +3975,17 @@ def main() -> int:
     records["diag_scan"]["launches"] = diag_scan.launches
     n_chunks = -(-audio_len // CHUNK)
     print(f"streaming: {n_chunks} chunks of {CHUNK} samples in "
-          f"{stream_s * 1e3:.1f} ms, K1 launches {diag_scan.launches}, "
-          f"K2 launches {layer_tail.launches}", flush=True)
+          f"{stream_s * 1e3:.1f} ms, K1 launches {diag_scan.launches} "
+          f"(kernel passes {diag_scan.passes}), K2 launches "
+          f"{layer_tail.launches}", flush=True)
     assert diag_scan.launches >= n_layers * (n_chunks - 1), diag_scan.launches
+    # a chunk of CHUNK samples is at most SHORT_LENGTH frames: the plan
+    # makes each K1 call one pass, so a chunk launches n_layers kernels
+    chunk_plan = diag_scan.scan_plan(B, CHUNK // 128 + 1, p)
+    assert CHUNK // 128 + 1 <= diag_scan.SHORT_LENGTH
+    assert len(chunk_plan.launches()) == 1, chunk_plan
+    assert diag_scan.passes == diag_scan.launches, (diag_scan.passes,
+                                                    diag_scan.launches)
     assert layer_tail.launches == 0, layer_tail.launches
     whole = StreamingDenoiser(model, batch_size=B)
     out_whole = np.concatenate([whole.process(noisy), whole.flush()], axis=-1)

@@ -5,7 +5,9 @@
 //
 // Replaces the TPU kernels sparsernns_tpu/ops/pallas/scan_kernel.py
 // `pallas_diag_scan` (pallas_call at :494) with `qat_bits`, in both
-// directions, with a carry and with `block_requant` (forward), and
+// directions, with a carry (forward) and with `block_requant` (both
+// directions: the reverse scan walks the flipped sequence, so its blocks,
+// and the carries it puts on the grid, align from the end), and
 // sparsernns_tpu/ops/pallas/fused_s5.py `fused_s5_apply` (pallas_call at
 // :258) with `qat_bits`, `qat_state_scale`, int8 / int16 weights with
 // per-half scales and `block_requant`. On the TPU the grid walks a row's
@@ -185,8 +187,8 @@ void fill_common(qat::ScanArgs& a, float* tables, int num_passes,
 // up to 256; the cluster is ceil(P / cpc) CTAs). a_bits 0 or >= 32: no
 // fake-quant of the tables; act_bits >= 32: none of the states. rq_bits 0:
 // no block requant, else the states on the frozen grid (rq_re, rq_im,
-// rq_bits) after their fake-quant (forward). Returns the first launch
-// error.
+// rq_bits) after their fake-quant (either direction). Returns the first
+// launch error.
 extern "C" int qat_scan_run(
     const float* bu_re, const float* bu_im, long long sb, long long st,
     const float* lam_re, const float* lam_im, const float* c_re,

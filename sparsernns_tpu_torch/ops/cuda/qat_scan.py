@@ -1,6 +1,6 @@
 """Kernel K1 in its QAT mode: the diagonal complex scan with in-scan
 activation fake-quant, forward or reverse in time, with an optional carry
-and, forward, an optional block requant.
+(forward) and an optional block requant.
 
 Replaces ``sparsernns_tpu/ops/pallas/scan_kernel.py`` ``pallas_diag_scan``
 with ``qat_bits=(a_bits, act_bits)`` (body ``scan_block_body``). Over time
@@ -26,7 +26,8 @@ kernel; the CUDA path with one kernel that does the same operations in the
 same order. An incoming carry c is not fake-quantized: λ·c is added to the
 first row of bu before the scan, as the JAX package does. ``reverse``
 scans the flipped sequence, so blocks start at the end and the padding
-lies before time 0.
+lies before time 0; a block requant then puts the carry on its grid at the
+end of every block of the flipped sequence, as the JAX kernel does.
 
 :func:`qat_scan` launches the kernels (``csrc/qat_scan.cu``, whose header
 note gives the bound and the design: the tables kernel, then one
@@ -289,8 +290,6 @@ def _check_args(bu: Pair, carry_init: Optional[Pair], reverse: bool,
                 block_requant: Optional[BlockRequant] = None):
     if reverse and carry_init is not None:
         raise NotImplementedError("carry with reverse scan")
-    if reverse and block_requant is not None:
-        raise NotImplementedError("block requant with reverse scan")
     _check_requant(block_requant)
     if bu[0].dim() != 3 or bu[0].shape != bu[1].shape:
         raise ValueError(f"bu must be a (B, L, P) pair, got "
@@ -418,7 +417,7 @@ def qat_scan(lam: Pair, bu: Pair, qat_bits: QatBits, block_t: int,
              block_requant: Optional[BlockRequant] = None) -> Pair:
     """All-prefix states (B, L, P) of the QAT scan over bu (B, L, P):
     x_t = λ x_{t-1} + bu_t, or with ``reverse`` x_t = λ x_{t+1} + bu_t (no
-    carry and no block requant then), with the in-scan fake-quant of
+    carry then; blocks counted from the end), with the in-scan fake-quant of
     ``qat_bits`` (a_bits, act_bits) over time blocks of ``block_t``, and
     with ``block_requant`` (s_re, s_im, bits) every state then on that
     frozen grid. Not differentiable (``ops/scan.py`` ``DiagScanFn`` is,

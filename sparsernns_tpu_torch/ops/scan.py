@@ -56,6 +56,15 @@ def grid_value(x: torch.Tensor, scale: float, bits: int) -> torch.Tensor:
     return quant_codes(x, (scale, bits)) * scale
 
 
+def block_end(step: int, length: int, block_t: int) -> bool:
+    """Whether the walk's ``step``-th row (0-based, in the order the scan
+    visits time) ends a block of the block requant: every ``block_t`` rows
+    from the walk's start, and the last row. Forward the walk starts at
+    t = 0, reverse at t = L - 1, so reverse blocks align from the
+    sequence's end, as the JAX kernel's flip aligns them."""
+    return (step + 1) % block_t == 0 or step + 1 == length
+
+
 def sequential_diag_scan(lam: Pair, bu: Pair,
                          carry_init: Optional[Pair] = None,
                          state_requant: Optional[Callable[[Pair], Pair]] = None,
@@ -72,18 +81,19 @@ def sequential_diag_scan(lam: Pair, bu: Pair,
     static-quant inference semantics, which no associative scan can
     express.
 
-    ``block_requant`` (s_re, s_im, bits), forward only, is the serving
-    engine's blockwise requant (the JAX kernel ``pallas_diag_scan``'s
-    ``block_requant``): inside a time block of ``block_t`` steps the
-    recurrence runs in float32 from the block's carry, every state of the
-    block is output on the frozen grid, and the carry into the next block
-    (and the final state) is the requantized last state of the block."""
+    ``block_requant`` (s_re, s_im, bits) is the serving engine's blockwise
+    requant (the JAX kernel ``pallas_diag_scan``'s ``block_requant``):
+    inside a time block of ``block_t`` steps the recurrence runs in float32
+    from the block's carry, every state of the block is output on the
+    frozen grid, and the carry into the next block (and the final state)
+    is the requantized last state of the block. Blocks are counted in the
+    walk's order (:func:`block_end`): forward from t = 0, reverse from
+    t = L - 1."""
     bu_r, bu_i = bu
     if reverse and carry_init is not None:
         raise NotImplementedError("carry with reverse scan")
-    if block_requant is not None and (reverse or not block_t
-                                      or block_t < 1):
-        raise ValueError("block_requant runs forward, with block_t >= 1")
+    if block_requant is not None and (not block_t or block_t < 1):
+        raise ValueError("block_requant needs block_t >= 1")
     if carry_init is None:
         x_r = torch.zeros_like(bu_r[..., 0, :])
         x_i = torch.zeros_like(bu_i[..., 0, :])
@@ -92,7 +102,8 @@ def sequential_diag_scan(lam: Pair, bu: Pair,
     out_r = torch.empty_like(bu_r)
     out_i = torch.empty_like(bu_i)
     length = bu_r.shape[-2]
-    for t in (range(length - 1, -1, -1) if reverse else range(length)):
+    for step in range(length):
+        t = length - 1 - step if reverse else step
         ax_r, ax_i = complex_mul(lam, (x_r, x_i))
         x_r = ax_r + bu_r[..., t, :]
         x_i = ax_i + bu_i[..., t, :]
@@ -106,7 +117,7 @@ def sequential_diag_scan(lam: Pair, bu: Pair,
         q_r, q_i = grid_value(x_r, s_re, bits), grid_value(x_i, s_im, bits)
         out_r[..., t, :] = q_r
         out_i[..., t, :] = q_i
-        if (t + 1) % block_t == 0 or t + 1 == length:
+        if block_end(step, length, block_t):
             x_r, x_i = q_r, q_i
     return (out_r, out_i), (x_r, x_i)
 
@@ -263,12 +274,13 @@ def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
     ``mode="kernel"`` (the JAX package's ``"pallas"``) runs the
     diagonal-scan kernel. Without a carry and a requant the call is
     differentiable in λ and bu. With ``carry_init`` (forward only,
-    streaming) or ``block_requant`` (forward only, per ``block_t`` steps:
-    the serving engine's state requant, see :func:`sequential_diag_scan`)
-    it is not, as in the JAX package: inputs that require grad raise while
-    grad mode is on. ``qat_bits`` (a_bits, act_bits) runs the kernel's QAT
-    mode over time blocks of ``block_t``, with ``block_requant`` (forward)
-    every state then on the frozen grid after its fake-quant.
+    streaming) or ``block_requant`` (either direction, per ``block_t``
+    steps counted from the walk's start: the serving engine's state
+    requant, see :func:`sequential_diag_scan`) it is not, as in the JAX
+    package: inputs that require grad raise while grad mode is on.
+    ``qat_bits`` (a_bits, act_bits) runs the kernel's QAT mode over time
+    blocks of ``block_t``, with ``block_requant`` every state then on the
+    frozen grid after its fake-quant.
 
     ``mode="associative"`` is the associative scan with the hadamards
     ``had_aa`` / ``had_ax`` (differentiable; a carry folds in with the
@@ -285,9 +297,8 @@ def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
     if carry_init is None and block_requant is None:
         return DiagScanFn.apply(lam[0], lam[1], bu[0], bu[1], reverse,
                                 qat_bits, block_t)
-    if reverse:
-        raise NotImplementedError(
-            "the reverse scan takes no carry and no block requant")
+    if reverse and carry_init is not None:
+        raise NotImplementedError("carry with reverse scan")
     operands = (*lam, *bu, *(carry_init or ()))
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         raise NotImplementedError(
@@ -297,7 +308,9 @@ def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
     if qat_bits is not None:
         from sparsernns_tpu_torch.ops.cuda.qat_scan import qat_scan
         return qat_scan(lam, _kernel_operand(bu), qat_bits, block_t,
-                        carry_init=carry_init, block_requant=block_requant)
+                        reverse=reverse, carry_init=carry_init,
+                        block_requant=block_requant)
     from sparsernns_tpu_torch.ops.cuda.diag_scan import diag_scan
     return diag_scan(lam, _kernel_operand(bu), carry_init=carry_init,
-                     block_requant=block_requant, block_t=block_t)
+                     reverse=reverse, block_requant=block_requant,
+                     block_t=block_t)

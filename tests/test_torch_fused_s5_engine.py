@@ -87,7 +87,8 @@ def test_scan_block_requant_matches_pallas(carry, l, p, block_t, bits):
 def test_scan_block_requant_carry_is_requantized_last_state():
     """Inside a block the recurrence runs on float32; at a block end the
     state is replaced by its grid value (plain version against a
-    hand-written loop)."""
+    hand-written loop), forward and, with blocks counted from the end,
+    reverse."""
     rng = np.random.RandomState(3)
     lam = tuple(torch.from_numpy(a) for a in _lam(rng, 4))
     bu = tuple(torch.from_numpy(rng.randn(1, 10, 4).astype(np.float32))
@@ -104,9 +105,17 @@ def test_scan_block_requant_carry_is_requantized_last_state():
         if t in (3, 7, 9):
             x = q
     assert torch.equal(final[0], x[0]) and torch.equal(final[1], x[1])
-    with pytest.raises(NotImplementedError, match="reverse"):
-        diag_scan.diag_scan(lam, bu, reverse=True, block_requant=(s, s, bits),
-                            block_t=4)
+    # reverse: the walk starts at t = 9, so the blocks end at t = 6, 2, 0
+    xs = diag_scan.diag_scan(lam, bu, reverse=True,
+                             block_requant=(s, s, bits), block_t=4)
+    x = (torch.zeros(1, 4), torch.zeros(1, 4))
+    for t in range(9, -1, -1):
+        x = tscan.complex_mul(lam, x)
+        x = (x[0] + bu[0][:, t], x[1] + bu[1][:, t])
+        q = tuple(tscan.grid_value(v, s, bits) for v in x)
+        assert torch.equal(xs[0][:, t], q[0]) and torch.equal(xs[1][:, t], q[1])
+        if t in (6, 2, 0):
+            x = q
     with pytest.raises(ValueError, match="block_t"):
         diag_scan.diag_scan(lam, bu, block_requant=(s, s, bits))
     with pytest.raises(NotImplementedError, match="no gradient"):

@@ -498,11 +498,13 @@ def test_qat_modes_refuse_what_they_do_not_take():
         qat_scan.qat_scan(lam, bu, (8, None), 8)
     with pytest.raises(ValueError, match="block_t"):
         qat_scan.qat_scan(lam, bu, (8, 8), None)
-    # qat_bits with block_requant runs forward only (the reverse scan's
-    # block requant is not ported)
+    # qat_bits with block_requant runs in both directions, but the reverse
+    # scan takes no carry
+    carry = (torch.zeros(1, 3), torch.zeros(1, 3))
     with pytest.raises(NotImplementedError, match="reverse"):
         tscan.diag_ssm_scan(lam, bu, reverse=True, qat_bits=(8, 8),
-                            block_t=8, block_requant=(0.1, 0.1, 8))
+                            block_t=8, block_requant=(0.1, 0.1, 8),
+                            carry_init=carry)
     with pytest.raises(NotImplementedError, match="reverse"):
         qat_scan.qat_scan(lam, bu, (8, 8), 8, reverse=True,
-                          block_requant=(0.1, 0.1, 8))
+                          block_requant=(0.1, 0.1, 8), carry_init=carry)

@@ -94,10 +94,13 @@ a seed):
    no K4a), checked against the CPU engine, and its refusal to stream
    chunks; wall time, device busy share and peak memory per region;
 13. block-sparse kernel phase — K7 (the block-sparse matmul over kept
-   (32, 128) int8 tiles) against its plain version at M = B x 3751 on the
-   encoder, GLU gate and decoder shapes, 90 % and 50 % zero tiles, x f32
-   and bf16, an edge tile and a fully zero output tile, one exact-grid
-   case; times beside ``torch.matmul`` of the dequantized dense weight;
+   (32, 128) tiles, on the tensor cores as exact bf16 planes) against its
+   plain version at M = B x 3751 on the encoder, GLU gate and decoder
+   shapes, int8 tiles at 90 % and 50 % zero tiles, int16 and f32 tiles on
+   the encoder at 90 %, x f32 and bf16, an edge tile and a fully zero
+   output tile, the chunk shape M = B x 128, one exact-grid case; each
+   launch and the tiles' planes against the plan and the planes' plain
+   mirror; device, event, host, plain and ``torch.matmul`` times;
 14. pruned training and block-sparse serving phase — the recipe with
    ``pruning="iterative-ste-block-0.9"``: three B = 32 train steps with
    tile-mask updates (K2, K3a, K3b x 3 a step) and the final update (every
@@ -188,17 +191,20 @@ import time
 B, SECONDS, CHUNK = 8, 30, 16000
 #: seconds of audio in a calibration clip; frames per streaming engine block
 CAL_SECONDS, STREAM_BLOCK = 4, 128
-#: published H100 SXM peaks: f32 on the CUDA cores, int8 on the tensor
-#: cores (dense), device memory rate
-F32_FLOPS, INT8_OPS, MEM_BYTES_S = 67e12, 1979e12, 3.35e12
+#: published H100 SXM peaks: f32 on the CUDA cores, int8 and bf16 on the
+#: tensor cores (dense), device memory rate
+F32_FLOPS, INT8_OPS, BF16_FLOPS, MEM_BYTES_S = 67e12, 1979e12, 989e12, 3.35e12
 
 
-def _bound_ms(n_bytes: float, n_flops: float, int8_ops: float = 0.0):
+def _bound_ms(n_bytes: float, n_flops: float, int8_ops: float = 0.0,
+              bf16_flops: float = 0.0):
     """The least time: the larger of the bytes at the memory rate and the
     operations at the peak of their type (f32 flops on the CUDA cores,
-    int8 dot operations on the tensor cores, which can run at once)."""
+    int8 dot operations and bf16 flops on the tensor cores, which can run
+    at once)."""
     t_bytes = n_bytes / MEM_BYTES_S
-    t_ops = max(n_flops / F32_FLOPS, int8_ops / INT8_OPS)
+    t_ops = max(n_flops / F32_FLOPS, int8_ops / INT8_OPS,
+                bf16_flops / BF16_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1499,27 +1505,35 @@ def topk_serving_phase(cfg, audio, feats, records, counters) -> None:
         raise AssertionError("state top-k process_chunk must raise")
 
 
-def _bs_weight(rng, k, n, zero_share, kept=None):
-    """A (k, n) int8 weight whose (32, 128) tiles are zero but for a
-    ``1 - zero_share`` share (or the (input, output) tiles ``kept``)."""
+def _bs_weight(rng, k, n, zero_share, kept=None, dtype="int8"):
+    """A (k, n) weight of ``dtype`` (int8, int16 or float32) whose (32,
+    128) tiles are zero but for a ``1 - zero_share`` share (or the (input,
+    output) tiles ``kept``)."""
     import numpy as np
     kt, nt = -(-k // 32), -(-n // 128)
     if kept is None:
         tiles = [(i, j) for i in range(kt) for j in range(nt)]
         rng.shuffle(tiles)
         kept = tiles[int(zero_share * len(tiles)):]
-    w = np.zeros((k, n), np.int8)
+    w = np.zeros((k, n), dtype)
+    hi = {"int8": 127, "int16": 32767}.get(dtype)
     for i, j in kept:
         blk = w[i * 32:(i + 1) * 32, j * 128:(j + 1) * 128]
-        blk[...] = rng.randint(-127, 128, size=blk.shape)
+        blk[...] = (rng.randn(*blk.shape) if hi is None
+                    else rng.randint(-hi, hi + 1, size=blk.shape))
     return w
 
 
-def _bs_work(w, m: int, x_bytes: int):
-    """(bytes, flops) that y = x @ w needs over its kept tiles only: the x
-    columns of the input tiles that some kept tile uses, the kept tiles,
-    the (m, N) f32 output; 2 flops per multiply-add of each kept tile's
-    valid rows and columns (pad blocks of empty output tiles do no work)."""
+def _bs_work(w, m: int, x_dtype):
+    """(bytes, bf16 tensor-core flops) that y = x @ w needs over its kept
+    tiles only: the x columns of the input tiles that some kept tile uses,
+    the kept tiles, the (m, N) f32 output; 2 flops per multiply-add of each
+    kept tile's valid rows and columns, once for every pair of exact bf16
+    planes the product needs (``block_sparse.n_planes`` of the tile, three
+    of f32 x; pad blocks of empty output tiles do no work)."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import block_sparse as bs
     k_dim, n_dim = w.shape
     ks = w.blk_k.tolist()
     real = [(k, j) for k, j, t in zip(ks, w.blk_j.tolist(), w.data)
@@ -1527,9 +1541,55 @@ def _bs_work(w, m: int, x_bytes: int):
     rows = lambda k: min(w.bk, k_dim - k * w.bk)       # noqa: E731
     cols = lambda j: min(w.bn, n_dim - j * w.bn)       # noqa: E731
     x_cols = sum(rows(k) for k in {k for k, _ in real})
+    x_bytes = 2 if x_dtype == torch.bfloat16 else 4
     n_bytes = (m * x_cols * x_bytes + w.data.numel() * w.data.element_size()
                + m * n_dim * 4)
-    return n_bytes, sum(2 * m * rows(k) * cols(j) for k, j in real)
+    pairs = (1 if x_bytes == 2 else 3) * bs.n_planes(x_dtype, w.data.dtype)
+    return n_bytes, pairs * sum(2 * m * rows(k) * cols(j) for k, j in real)
+
+
+def _graph_ms(fn, calls: int = 20, iters: int = 5) -> float:
+    """Device time of one call: ``calls`` calls captured in a CUDA graph,
+    CUDA events around its replay, over ``calls``; median of ``iters``
+    (the host's launch time drops out)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
+def _host_us(fn, calls: int = 1000) -> float:
+    """Host time of one call, ``time.perf_counter`` over ``calls`` calls
+    without a sync (where the card is slower, the launch queue's
+    back-pressure is in it)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def block_sparse_kernel_phase(frames: int, records) -> None:
@@ -1538,10 +1598,15 @@ def block_sparse_kernel_phase(frames: int, records) -> None:
     GLU gate 192 -> 192, decoder 192 -> 257), int8 tiles with 90 % and
     50 % of the (32, 128) tiles zero, x float32 and bf16; the encoder at
     90 % with both kept tiles in output tile 0 (output tile 1 fully zero,
-    K = 257: an edge tile). Bar 1e-5 x max(1, max|ref|); an exact-grid
-    case (bf16 x of small integers, small integer weights) must be exact.
-    Times: medians of 5 of the kernel and of ``torch.matmul`` of x with
-    the dequantized dense weight (TF32 off), the plain version once."""
+    K = 257: an edge tile), also with int16 and f32 tiles and at the chunk
+    shape M = B x 128. Bar 1e-5 x max(1, max|ref|); an exact-grid case
+    (bf16 x of small integers, small integer weights) must be exact. Each
+    launch as the CUDA source recorded it against ``launch_plan``; the
+    tiles' planes (made when the weight is packed) against their plain
+    mirror ``tile_planes``, bit for bit. Times: device (a CUDA graph of 20
+    calls), event (one call, median of 5), host µs a call (1000 calls, no
+    sync), ``torch.matmul`` of x with the dequantized dense weight (TF32
+    off, median of 5), the plain version once."""
     import numpy as np
     import torch
 
@@ -1551,38 +1616,65 @@ def block_sparse_kernel_phase(frames: int, records) -> None:
     rng = np.random.RandomState(13)
     gen = torch.Generator().manual_seed(13)
     x32 = {k: torch.randn((m, k), generator=gen).to(dev) for k in (192, 257)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = [(name, k, n, zero, "int8", m)
+            for name, k, n in (("encoder", 257, 192), ("gate", 192, 192),
+                               ("decoder", 192, 257))
+            for zero in (0.9, 0.5)]
+    rows += [("encoder", 257, 192, 0.9, dtype, m)
+             for dtype in ("int16", "float32")]
+    rows += [("encoder", 257, 192, 0.9, "int8", B * STREAM_BLOCK)]
     table, worst = [], 0.0
     with torch.no_grad():
-        for name, k, n in (("encoder", 257, 192), ("gate", 192, 192),
-                           ("decoder", 192, 257)):
-            for zero in (0.9, 0.5):
-                kept = ([(0, 0), (8, 0)] if (name, zero) == ("encoder", 0.9)
-                        else None)
-                q = _bs_weight(rng, k, n, zero, kept)
-                w = bs.pack_block_sparse(q, 32, 128, scale=2.0 ** -7,
-                                         device=dev)
-                dense = w.dequant()
-                for x_name, x in (("f32", x32[k]),
-                                  ("bf16", x32[k].to(torch.bfloat16))):
-                    ref = bs.block_sparse_matmul_plain(x, w)
-                    out = bs.block_sparse_matmul_cuda(x, w)
-                    torch.cuda.synchronize()
-                    err = _kernel_close(
-                        f"K7 {name} {k}->{n} {zero:.0%} zero tiles, x "
-                        f"{x_name} vs plain", out, ref)
-                    worst = max(worst, err)
-                    row = dict(
-                        shape=f"{k}->{n}", zero_tiles=zero, x=x_name,
-                        nnz=w.nnz, max_abs_err=err,
-                        ms=_median_ms(lambda: bs.block_sparse_matmul_cuda(
-                            x, w)),
-                        plain_ms=_time_ms(lambda: bs.block_sparse_matmul_plain(
-                            x, w), 1, 0),
-                        library_ms=_median_ms(lambda: torch.matmul(
-                            x.float(), dense)))
-                    row["bound_ms"], row["bound_by"] = _bound_ms(
-                        *_bs_work(w, m, x.element_size()))
-                    table.append(row)
+        for name, k, n, zero, dtype, rows_m in rows:
+            kept = ([(0, 0), (8, 0)] if (name, zero) == ("encoder", 0.9)
+                    else None)
+            q = _bs_weight(rng, k, n, zero, kept, dtype)
+            w = bs.pack_block_sparse(
+                q, 32, 128, device=dev,
+                scale={"int8": 2.0 ** -7, "int16": 2.0 ** -15}.get(dtype))
+            dense = w.dequant()
+            for x_name, x in (("f32", x32[k][:rows_m]),
+                              ("bf16", x32[k][:rows_m].to(torch.bfloat16))):
+                ref = bs.block_sparse_matmul_plain(x, w)
+                out = bs.block_sparse_matmul_cuda(x, w)
+                torch.cuda.synchronize()
+                err = _kernel_close(
+                    f"K7 {name} {k}->{n} {zero:.0%} zero {dtype} tiles, x "
+                    f"{x_name}, M={rows_m} vs plain", out, ref)
+                worst = max(worst, err)
+                planes = bs.n_planes(x.dtype, w.data.dtype)
+                plan = bs.launch_plan(rows_m, n, x.dtype == torch.bfloat16,
+                                      planes, sms)
+                got = bs.launched()
+                assert got == dict(ctas=plan.ctas, bm=plan.bm,
+                                   stages=plan.stages, smem=plan.smem), (
+                    got, plan)
+                assert plan.smem == bs.smem_on_card(
+                    x.dtype == torch.bfloat16, planes, plan.bm, plan.stages)
+                mirror = torch.stack(bs.tile_planes(
+                    w.data.reshape(-1, 32, 128), x.dtype), dim=1)
+                assert torch.equal(w.kernel.planes[x.dtype].view(torch.int16),
+                                   mirror.view(torch.int16)), (name, dtype)
+
+                def call(x=x, w=w):
+                    return bs.block_sparse_matmul_cuda(x, w)
+                row = dict(
+                    shape=f"{k}->{n}", zero_tiles=zero, tiles=dtype,
+                    x=x_name, m=rows_m, nnz=w.nnz, max_abs_err=err,
+                    launch=got, device_ms=_graph_ms(call),
+                    ms=_median_ms(call), host_us=_host_us(call),
+                    plain_ms=_time_ms(lambda x=x, w=w:
+                                      bs.block_sparse_matmul_plain(x, w),
+                                      1, 0),
+                    library_ms=_median_ms(lambda x=x, d=dense: torch.matmul(
+                        x.float(), d)))
+                n_bytes, tc_flops = _bs_work(w, rows_m, x.dtype)
+                row["bound_ms"], row["bound_by"] = _bound_ms(
+                    n_bytes, 0.0, bf16_flops=tc_flops)
+                print(f"K7 {name} {k}->{n} {zero:.0%} {dtype} x {x_name} "
+                      f"M={rows_m}: {row}", flush=True)
+                table.append(row)
         # exact grid: every product and every sum an integer below 2^24
         xi = torch.randint(-8, 9, (m, 257), generator=gen).to(
             dev, torch.bfloat16)

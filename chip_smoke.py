@@ -107,7 +107,11 @@ a seed):
    dense kernel at least 83 % zero tiles); masks applied, calibrate,
    freeze; the w8a16 engine (bf16) offline (K7 x 5, K4a-engine x 3) and
    ``process_chunk`` at block 128 (K7 x 5, K4b x 3 a chunk, float32
-   mask), chunks against one whole call, card against CPU; an engine with
+   mask), chunks against one whole call, card against CPU; the requant
+   code flips of the block-sparse engine against the same engine with
+   K7's plain version on the card (each layer on the plain run's input:
+   its stream codes at most 1 apart in at most 0.5 %, the share printed,
+   the whole call's beside it); an engine with
    dense GLU kernels on the stack route (K7 x 2, K5a x 3) against its
    per-op route; three steps of ``recipes/ndns_sparse.json`` (magnitude
    masks through K2/K3) and its weight sparsity;
@@ -171,7 +175,25 @@ a seed):
    ``train_stream_dtype="bfloat16"``: three B=32 steps on a bf16 stream
    (K2, K3a, K3b x 3 a step, every layer's input and output bf16) and the
    same three on a float32 stream from the same seed, losses within rtol
-   2e-3; step times and peak memory of both.
+   2e-3; step times and peak memory of both;
+22. pipeline phase — the conversion pipeline from a training run's
+   checkpoint, through the command line a user calls: ``cli.main train``
+   on the recipe at full width (PIPE_EPOCHS epochs of 4 B=8 steps:
+   K2-train, K3a, K3b x 3 a step, K2 x 3 an eval batch; the JAX package's
+   quality protocol trains 25 epochs before its gates, and after 2 the
+   model is untrained: SI-SNR -11 dB, static quantization 1-3 dB off it
+   in both packages), ``cli.main convert`` over its
+   checkpoint with every stage on (baseline: K2 x 3; the activation dump:
+   the unfused route, K4a x 3; naive scan, QAT validation, QAT
+   finetuning, calibration, static-quant validation and static-quant
+   finetuning: plain PyTorch, no kernel; engine validation: K6 x 1 a
+   batch), each stage's loss, SI-SNR, wall seconds and launches, the JAX
+   package's SI-SNR gates (static and engine within 1 dB of the float
+   baseline, engine within 0.5 dB of static), the artifacts, then
+   ``W8A16Engine.from_artifacts`` on the same directory, whose offline
+   call (K6 x 1) equals the convert stage's engine bit for bit. Cuts:
+   clips of PIPE_SECONDS s (L = 373 frames), 32 training clips, one
+   epoch of each finetuning stage; no width is cut.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -191,6 +213,11 @@ import time
 B, SECONDS, CHUNK = 8, 30, 16000
 #: seconds of audio in a calibration clip; frames per streaming engine block
 CAL_SECONDS, STREAM_BLOCK = 4, 128
+#: seconds of a clip of the pipeline phase (22): the sequential scan of its
+#: plain stages walks every frame, so the clips are short; its training
+#: epochs: the JAX package's quality protocol (tools/quality_sweep.py)
+#: trains 25 before it holds a converted model to the SI-SNR gates
+PIPE_SECONDS, PIPE_EPOCHS = 3, 25
 #: published H100 SXM peaks: f32 on the CUDA cores, int8 and bf16 on the
 #: tensor cores (dense), device memory rate
 F32_FLOPS, INT8_OPS, BF16_FLOPS, MEM_BYTES_S = 67e12, 1979e12, 989e12, 3.35e12
@@ -1816,6 +1843,7 @@ def pruned_serving_phase(cfg, audio, feats, batch, records,
                                     block_t=512)
     _engine_close("block-sparse engine on the card vs on the CPU (plain)",
                   engine(x_small).cpu(), cpu_engine(x_small.cpu()))
+    _k7_code_flips(engine, x_eng)
 
     # ---- process_chunk at block 128: K7 x 5, K4b x 3 a chunk ----
     s_engine = engine_from_frozen(bcfg, *frozen, device=dev,
@@ -1881,6 +1909,99 @@ def pruned_serving_phase(cfg, audio, feats, batch, records,
     print(f"ndns_sparse after 3 steps: weight_sparsity "
           f"{summarize_sparsity(s_model, s_state.masks)['_total_sparsity']:.4f}",
           flush=True)
+
+
+def _k7_code_flips(engine, x) -> None:
+    """The requant code flips that K7's rounding causes, against the same
+    engine with K7's plain version (``block_sparse_matmul_plain`` on the
+    card). The encoder (K7) runs on the call's input with K7 and with
+    plain K7, and its outputs' codes on the stream's grid (the encoder's
+    output requant where the engine has one, else the grid the first
+    layer's residual requant puts the stream on) are compared. The
+    offline call runs once with plain K7, recording every layer's input
+    and output; then each layer runs again with K7 on the input the plain
+    run gave it (its GLU dense is K7), and its residual stream's codes
+    are compared with the plain run's. The encoder's codes, and all the
+    codes together, must be at most 1 apart in at most 0.5 % of the
+    elements (the engine's code bar); each share is printed. The whole
+    call with K7 is printed beside it: there a flip upstream moves the
+    later layers' inputs, so its codes are reported, not held (the mask
+    is held at the engine bar against the CPU engine above)."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import block_sparse
+    from sparsernns_tpu_torch.quantize import engine as engine_mod
+    layer_fwd = engine_mod.engine_layer_forward
+    matmul = engine_mod.block_sparse_matmul
+    plain_matmul = block_sparse.block_sparse_matmul_plain
+
+    def run(plain: bool):
+        calls = []
+
+        def record(*args, **kw):
+            h, carry = layer_fwd(*args, **kw)
+            calls.append((args, kw, h))
+            return h, carry
+        engine_mod.engine_layer_forward = record
+        if plain:
+            engine_mod.block_sparse_matmul = plain_matmul
+        try:
+            mask = engine(x)
+        finally:
+            engine_mod.engine_layer_forward = layer_fwd
+            engine_mod.block_sparse_matmul = matmul
+        return calls, mask
+
+    def codes(h, layer):
+        return (h / layer.residual_requant[0]).round()
+
+    def encode():
+        return engine_mod.engine_encode(
+            engine.cfg, engine.encoder_kernel, engine.encoder_bias,
+            engine._input(x).to(torch.float32), engine.encoder_in_scale)
+
+    with torch.no_grad():
+        assert isinstance(engine.encoder_kernel,
+                          engine_mod.BlockSparseWeight)
+        grid = engine.encoder_out_requant or engine.layers[0].residual_requant
+        before = block_sparse.launches
+        enc = encode()
+        assert block_sparse.launches == before + 1
+        engine_mod.block_sparse_matmul = plain_matmul
+        try:
+            enc_ref = encode()
+        finally:
+            engine_mod.block_sparse_matmul = matmul
+        diff = ((enc / grid[0]).round() - (enc_ref / grid[0]).round()).abs()
+        enc_flips, enc_worst = int((diff > 0).sum()), diff.max().item()
+        enc_share = enc_flips / diff.numel()
+        print(f"K7 code flips, encoder (the call's input): {enc_flips} of "
+              f"{diff.numel()} ({100 * enc_share:.5f} %), max "
+              f"{enc_worst:.0f}", flush=True)
+        (ref, ref_mask), (ours, mask) = run(True), run(False)
+        assert len(ref) == len(ours) == len(engine.layers)
+        flips, total, worst = enc_flips, diff.numel(), enc_worst
+        for i, ((args, kw, h_ref), layer) in enumerate(zip(ref,
+                                                           engine.layers)):
+            h, _ = layer_fwd(*args, **kw)      # K7 on the plain input
+            diff = (codes(h, layer) - codes(h_ref, layer)).abs()
+            whole = (codes(ours[i][2], layer) - codes(h_ref, layer)).abs()
+            n = int((diff > 0).sum())
+            worst = max(worst, diff.max().item())
+            flips += n
+            total += diff.numel()
+            print(f"K7 code flips, layer {i} (its plain input): {n} of "
+                  f"{diff.numel()} ({100 * n / diff.numel():.5f} %), max "
+                  f"{diff.max().item():.0f}; whole call: "
+                  f"{100 * (whole > 0).float().mean().item():.4f} %, max "
+                  f"{whole.max().item():.0f}", flush=True)
+    share = flips / total
+    print(f"K7 code flips against plain K7 on the card: {flips} of {total} "
+          f"stream codes ({100 * share:.5f} %), max {worst:.0f}; whole "
+          f"call's mask max |diff| {(mask - ref_mask).abs().max().item():.3e}",
+          flush=True)
+    assert worst <= 1 and share <= 5e-3, (worst, share)
+    assert enc_worst <= 1 and enc_share <= 5e-3, (enc_worst, enc_share)
 
 
 def _qat_steps(ref, t: int, bits: int, reverse: bool = False):
@@ -3273,6 +3394,153 @@ def bf16_training_phase(cfg, records, counters, batch) -> None:
            float((np.abs(l16 - l32) / np.abs(l32)).max()), 2e-3)
 
 
+def pipeline_phase(root: str, counters) -> None:
+    """Phase 22: ``cli.main train`` then ``cli.main convert`` over its
+    checkpoint, every stage on, then ``W8A16Engine.from_artifacts`` (module
+    docstring, item 22). Fails on a non-finite metric, a launch count off
+    its stage's, a missed SI-SNR gate, a missing artifact, or a
+    ``from_artifacts`` output that differs from the convert stage's
+    engine."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch import cli
+    from sparsernns_tpu_torch.quantize import convert as convert_mod
+    from sparsernns_tpu_torch.quantize.engine import W8A16Engine
+    from sparsernns_tpu_torch.train.checkpoint import (ArtifactStore,
+                                                       CheckpointManager)
+    from sparsernns_tpu_torch.train.loop import build_dataset
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+    from sparsernns_tpu_torch.utils.config import RunConfig
+
+    with open(os.path.join(root, "recipes", "ndns.json")) as f:
+        recipe = json.load(f)
+    recipe.update(bsz=B, epochs=PIPE_EPOCHS, synthetic_data=True,
+                  synthetic_size=32, synthetic_seconds=float(PIPE_SECONDS))
+    n_layers = recipe["n_layers"]
+    with tempfile.TemporaryDirectory(prefix="pipeline_") as tmp:
+        path = os.path.join(tmp, "recipe.json")
+        with open(path, "w") as f:
+            json.dump(recipe, f)
+        run = os.path.join(tmp, "run")
+        cfg = dataclasses.replace(RunConfig().with_recipe(path),
+                                  checkpoint_dir=run)
+        trainloader, valloader, testloader = build_dataset(cfg)[:3]
+        steps = cfg.epochs * len(trainloader)
+        evals = cfg.epochs * (len(valloader) + len(testloader))
+        common = ["--recipe", path, "--checkpoint_dir", run]
+
+        # ---- train: K2-train / K3a / K3b a step, K2 an eval batch ----
+        counters()
+        t0 = time.time()
+        assert cli.main(["train", *common]) == 0
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {k: v for k, v in counters().items() if v}
+        mngr = CheckpointManager(run)
+        last = torch.load(mngr._path(mngr.latest_step()), map_location="cpu",
+                          weights_only=True)["metadata"]["last_log"]
+        print(f"pipeline train: {steps} steps of B={B} x {PIPE_SECONDS} s "
+              f"and {evals} eval batches in {wall:.2f} s; last epoch train "
+              f"loss {last['train_loss']:.4f}, val loss "
+              f"{last['val_loss']:.4f}, val si_snr {last['val_si_snr']:.3f} "
+              f"dB; launches {counts}", flush=True)
+        assert all(np.isfinite(v) for v in last.values()), last
+        assert counts == {"layer_tail_train": n_layers * (steps + evals),
+                          "layer_tail_hist": n_layers * steps,
+                          "layer_tail_bwd": n_layers * steps}, counts
+
+        # ---- convert: every stage, its metrics, time and launches ----
+        n_val = len(valloader)
+        expect = {
+            "restore": {}, "baseline": {"layer_tail_train": n_layers * n_val},
+            "store_activations": {"fused_s5": n_layers},
+            "naive_scan": {}, "qat": {}, "qaft": {}, "calibrate": {},
+            "static_quant": {}, "engine": {"engine_network": n_val},
+            "qaft_static": {}}
+        stages = []
+
+        def listen(name, seconds, results):
+            launched = {k: v for k, v in counters().items() if v}
+            stages.append(name)
+            res = results.get(name)
+            metrics = (res["history"][-1] if isinstance(res, dict)
+                       and "history" in res else res)
+            print(f"pipeline stage {name}: {seconds:.3f} s, "
+                  f"{_stage_metrics(metrics)}, launches {launched}",
+                  flush=True)
+            assert launched == expect[name], (name, launched)
+            if isinstance(metrics, dict):
+                assert all(np.isfinite(float(v)) for v in metrics.values()
+                           if not isinstance(v, (dict, list))), metrics
+            captured.update(results)
+
+        captured = {}
+        convert_mod.stage_listeners.append(listen)
+        stage_flags = ["--validate_baseline", "true",
+                       "--store_activations", "true",
+                       "--validate_naive_scan", "true",
+                       "--validate_aqt", "true", "--train_aqt", "true",
+                       "--calibrate_quant", "true",
+                       "--validate_static_quant", "true",
+                       "--validate_engine", "true",
+                       "--train_static_quant", "true", "--qaft_epochs", "1"]
+        counters()
+        t0 = time.time()
+        try:
+            assert cli.main(["convert", *common, *stage_flags]) == 0
+        finally:
+            convert_mod.stage_listeners.remove(listen)
+        print(f"pipeline convert: {time.time() - t0:.2f} s", flush=True)
+        assert stages == list(expect), stages
+        base = captured["baseline"]["si_snr"]
+        static = captured["static_quant"]["si_snr"]
+        eng = captured["engine"]["si_snr"]
+        print(f"pipeline SI-SNR gates: |static - baseline| "
+              f"{abs(static - base):.4f} dB (< 1), |engine - baseline| "
+              f"{abs(eng - base):.4f} dB (< 1), |engine - static| "
+              f"{abs(eng - static):.4f} dB (< 0.5)", flush=True)
+        assert abs(static - base) < 1.0 and abs(eng - base) < 1.0
+        assert abs(eng - static) < 0.5
+        store = ArtifactStore(os.path.join(run, "conversion"))
+        for name in ("frozen_params", "frozen_stats", "activations",
+                     "activation_inputs", "qaft_params"):
+            assert store.exists(name), name
+        assert os.path.exists(os.path.join(run, "val_metrics.json"))
+
+        # ---- from_artifacts: the stored tree serves the same engine ----
+        noisy, clean = next(iter(valloader))
+        noisy_mag = convert_mod._features(noisy, clean, "cuda")[0]
+        x = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+        served = W8A16Engine.from_artifacts(run, cfg)
+        stage_engine = convert_mod.engine_from_frozen(
+            cfg, captured["frozen_params"], captured["frozen_stats"])
+        counters()
+        t0 = time.time()
+        mask = served(x)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        counts = {k: v for k, v in counters().items() if v}
+        ref = stage_engine(x)
+        print(f"pipeline from_artifacts: offline call B={x.shape[0]}, "
+              f"L={x.shape[1]} in {wall:.2f} ms, launches {counts}, equal "
+              f"to the convert stage's engine: "
+              f"{bool(torch.equal(mask, ref))}", flush=True)
+        assert counts == {"engine_network": 1}, counts
+        assert torch.isfinite(mask).all() and torch.equal(mask, ref)
+
+
+def _stage_metrics(metrics) -> str:
+    if not isinstance(metrics, dict):
+        return "no metrics"
+    keys = [k for k in ("loss", "si_snr", "train_loss", "train_si_snr",
+                        "val_loss", "val_si_snr", "train_scale_grad_leak",
+                        "n") if k in metrics]
+    return ", ".join(f"{k} {float(metrics[k]):.4f}" for k in keys)
+
+
 def _reset_counts() -> None:
     """Every kernel wrapper's launch counter to 0."""
     from sparsernns_tpu_torch.ops.cuda import (block_sparse, diag_scan,
@@ -4206,6 +4474,10 @@ def main() -> int:
     # ---------------- bf16 stream training ----------------
     bf16_training_phase(cfg, records, counters, batch)
     mark("bf16 stream training phase")
+
+    # ---------------- the conversion pipeline from a checkpoint ---------
+    pipeline_phase(root, counters)
+    mark("pipeline phase")
 
     # ---------------- report ----------------
     smi = subprocess.run(

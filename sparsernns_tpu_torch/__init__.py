@@ -20,7 +20,10 @@ directions under autograd (``ops/scan.py``) — and activation top-k
 serving (``ops/topk.py``, the engine's per-op route) — and pruned training
 (magnitude, state-channel and tile masks with STE, ``train/pruning.py``)
 with block-sparse engine serving over the block-sparse matmul kernel
-(``ops/cuda/block_sparse.py``).
+(``ops/cuda/block_sparse.py``) — and the conversion pipeline from a
+training run's checkpoint (``quantize/convert.convert``, its artifacts
+served by ``W8A16Engine.from_artifacts``) behind the command line
+``python -m sparsernns_tpu_torch.cli train|convert``.
 Module names follow the JAX package. Entry points run on ``"cuda"`` unless
 the caller passes another device.
 """

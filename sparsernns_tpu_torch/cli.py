@@ -1,0 +1,63 @@
+"""Command-line entry point (counterpart of ``sparsernns_tpu/cli.py``):
+
+    python -m sparsernns_tpu_torch.cli train   --recipe recipes/ndns.json ...
+    python -m sparsernns_tpu_torch.cli convert --checkpoint_dir runs/x ...
+
+Every :class:`~sparsernns_tpu_torch.utils.config.RunConfig` field is a
+flag (``--<field> value``); a ``--recipe`` JSON file overlays the flags
+(the recipe wins, as in the JAX package), then ``dim_scale`` rescales the
+model. ``--device`` (default ``cuda``) is where the model runs. ``fxp``
+is accepted and raises: the fixed-point golden engine is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+from sparsernns_tpu_torch.utils.config import add_config_args, \
+    config_from_args
+
+logger = logging.getLogger("sparsernns_tpu_torch")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser("sparsernns_tpu_torch")
+    parser.add_argument("command", choices=["train", "convert", "fxp"],
+                        help="pipeline stage to run")
+    parser.add_argument("--recipe", default=None,
+                        help="JSON recipe overlay (see recipes/)")
+    parser.add_argument("--device", default="cuda",
+                        help="device of the run: cuda (default) or cpu")
+    add_config_args(parser)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    if args.recipe:
+        cfg = cfg.with_recipe(args.recipe)
+    cfg = cfg.apply_dim_scale()
+    logging.basicConfig(level=logging.INFO)
+    logger.info("command=%s device=%s config=%s", args.command, args.device,
+                cfg)
+    if args.command == "train":
+        from sparsernns_tpu_torch.train.loop import train
+        train(cfg, device=args.device)
+    elif args.command == "convert":
+        from sparsernns_tpu_torch.quantize.convert import convert
+        results = convert(cfg, device=args.device)
+        logger.info("conversion results: %s", {
+            k: v for k, v in results.items()
+            if k not in ("frozen_params", "frozen_stats")})
+    else:
+        raise NotImplementedError(
+            "fxp: the fixed-point golden engine (fxp/model.py, runner.py) is "
+            "not ported yet (ROADMAP Queue A 2)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -41,7 +41,8 @@ Two routes, as in the JAX package:
   statistics by ``bn_momentum``. Under static quantization the dense layers
   are ``QuantizedDense``, the gate product a ``QuantizedMultiply`` and the
   layer output goes through the ``quant_residual`` quantizer; such a layer
-  does not train yet. A QAT layer (dynamic fake-quant) runs this route
+  trains with its scales frozen (straight-through quant-dequant,
+  ``quantize/static.py``). A QAT layer (dynamic fake-quant) runs this route
   too, its dense layers ``QATDense`` and its gate product of two
   fake-quantized operands. A layer with activation top-k (``topk < 1``, with
   ``approx_topk``: the JAX package raises for exact top-k) runs this route
@@ -168,6 +169,9 @@ class SequenceLayer(nn.Module):
         #: any quantization (static or QAT) keeps the layer off the
         #: whole-layer kernel
         self.quantized = q_config.any_quantized
+        #: set while ``train/steps.capture_intermediates`` records the
+        #: layer: the unfused route, as the JAX package's capture runs it
+        self.capturing = False
         #: the QAT gate product: both operands fake-quantized to act_bits
         self.gate_bits = None if self.static_quant else act_bits
         if self.static_quant and act_bits is not None:
@@ -241,12 +245,6 @@ class SequenceLayer(nn.Module):
         m1 = draw()
         return m1, (draw() if self.glu_variant != "none" else None)
 
-    def _check_eval(self):
-        if self.training and self.static_quant:
-            raise NotImplementedError(
-                "static-quant finetuning is not ported yet: call .eval() "
-                "first")
-
     def _norm(self, x: torch.Tensor) -> torch.Tensor:
         """The unfused route's norm: LayerNorm, or BatchNorm as flax
         computes it (running statistics in eval mode; in training mode the
@@ -275,7 +273,7 @@ class SequenceLayer(nn.Module):
         """Whether :meth:`forward` runs the whole-layer kernel (the JAX
         package's ``_tail_ops``): a float prenorm layer around a mixer that
         the kernel expresses."""
-        return (self.prenorm and not self.quantized
+        return (self.prenorm and not self.quantized and not self.capturing
                 and self.mixer.expresses_tail())
 
     def forward(self, x: torch.Tensor,
@@ -318,7 +316,6 @@ class SequenceLayer(nn.Module):
                  generator: Optional[torch.Generator],
                  carry: Optional[Pair], streaming: bool
                  ) -> Tuple[torch.Tensor, Optional[Pair]]:
-        self._check_eval()
         m1 = m2 = None
         if self.training:
             m1, m2 = self.dropout_masks(x.shape[0], x.device, generator)

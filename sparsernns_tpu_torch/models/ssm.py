@@ -22,6 +22,10 @@ stacked (H, 2P) / (2P, H) weight. The routes through the mixer:
   one C of 2P columns (``C1`` and ``C2`` when C is projected from the
   eigenbasis); only the forward states pass the relu, or with top-k and
   ``approx_topk`` a relu top-k of ``int(topk * P)`` per state half;
+- a ``scan_mode="sequential"`` mixer (float or QAT) runs the same
+  projections around the step-by-step scan in plain PyTorch
+  (``ops/scan.py`` ``sequential_diag_scan``): the JAX package's naive
+  scan, which its conversion pipeline validates the model with;
 - under dynamic fake-quant (QAT: a ``q_config`` with precisions and no
   static quant) the same routes with fake-quantized operands, as the JAX
   package's ``_apply``: the mixer kernel's and the scan kernel's QAT modes
@@ -103,7 +107,8 @@ class S5SSM(nn.Module):
 
     ``scan_mode``: ``"fused"`` (the mixer kernel where it applies),
     ``"pallas"`` (always the stand-alone scan kernel; the name is the JAX
-    package's) or, for the static-quant model, ``"sequential"``.
+    package's), ``"associative"`` or ``"sequential"`` (plain PyTorch; the
+    static-quant model runs the latter).
     """
 
     def __init__(self, lambda_init, v, vinv, h: int, p: int,
@@ -239,11 +244,14 @@ class S5SSM(nn.Module):
     def forward(self, u: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[Pair]]:
         """The offline, differentiable call. u: (B, L, H) -> (ys (B, L, H),
-        final state). A unidirectional ``scan_mode="fused"`` mixer without
-        top-k runs the mixer kernel, which has no state to return (None, as
-        in the JAX package), every other float or QAT mixer the stand-alone
-        scans without a carry (None as well); the static-quant path returns
-        the final state of its sequential scan.
+        states). A unidirectional ``scan_mode="fused"`` mixer without top-k
+        runs the mixer kernel, which has no state to return (None, as in
+        the JAX package); every other float or QAT mixer runs the
+        stand-alone scans without a carry and returns the (re, im) pair of
+        its states as the C-projection reads them (after the relu; both
+        directions of a bidirectional mixer), as the JAX package's
+        ``_apply`` does; the static-quant path returns the final state of
+        its sequential scan.
 
         Under QAT (dynamic fake-quant) the mixer kernel gets the
         fake-quantized W_b and W_c halves and, when an activation precision
@@ -305,14 +313,17 @@ class S5SSM(nn.Module):
         """B-projection, stand-alone scan(s), state relu, C-projection: the
         JAX package's unfused mixer. Under QAT u enters the B-projection
         fake-quantized, the scans run the kernel's QAT mode (or, with
-        ``scan_mode="associative"``, the associative scan with the QAT
-        hadamards), the states are fake-quantized once more before the
-        C-projection, and D ⊙ u is ``d_had`` of the two fake-quantized
-        operands."""
+        ``scan_mode="associative"`` / ``"sequential"``, the plain scan with
+        the QAT hadamards), the states are fake-quantized once more before
+        the C-projection, and D ⊙ u is ``d_had`` of the two fake-quantized
+        operands. Returns (ys, the final state) with a carry, else (ys, the
+        states the C-projection reads)."""
         cfg = self.q_config
         bu_cat = fake_quant(u, cfg.ssm_act_precision) @ w_b
         bu = (bu_cat[..., :self.p], bu_cat[..., self.p:])
-        mode = "associative" if self.scan_mode == "associative" else "kernel"
+        mode = (self.scan_mode
+                if self.scan_mode in ("associative", "sequential")
+                else "kernel")
         had_aa, had_ax = self.q_ops.a_had
         kw = dict(mode=mode, qat_bits=act_qat_bits(cfg), block_t=self.block_t,
                   had_aa=had_aa, had_ax=had_ax)
@@ -331,7 +342,8 @@ class S5SSM(nn.Module):
         bits = cfg.ssm_act_precision
         xs_cat = torch.cat([fake_quant(xs[0], bits), fake_quant(xs[1], bits)],
                            dim=-1)
-        return xs_cat @ self._w_c() + self.q_ops.d_had(self.D, u), final
+        ys = xs_cat @ self._w_c() + self.q_ops.d_had(self.D, u)
+        return ys, (xs if carry is None else final)
 
     def _state_act(self, xs: Pair) -> Pair:
         """The relufied states' activation: relu, or with top-k a relu

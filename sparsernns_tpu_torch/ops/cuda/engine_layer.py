@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -629,6 +630,76 @@ def pack_mode(mode: LayerMode, h: int) -> Mode:
                 int(mode.act_dtype == torch.bfloat16))
 
 
+#: bytes of shared memory a block may opt in to on the H100 (227 KB)
+MAX_SMEM = 232448
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _code_width(lp: LayerParams, h: int) -> int:
+    """``code_width`` of ``csrc/engine_body.cuh``: bytes a row of the code
+    tile needs for a layer's integer dots."""
+    w = h if (lp.ut_mode or lp.out2.in_mode or lp.out1.in_mode) else 0
+    if lp.st_mode:
+        w = max(w, 2 * _round4(lp.p))
+    return w
+
+
+def row_pass_smem(h: int, ld_bu: int, *, d_in: int = 0,
+                  tail: Optional[LayerParams] = None,
+                  head: Optional[LayerParams] = None,
+                  enc: Optional[DenseW] = None, dec: Optional[DenseW] = None,
+                  y_out: bool = False) -> int:
+    """Bytes of dynamic shared memory one row pass takes: ``row_pass_smem``
+    of ``csrc/engine_passes.cuh`` (with ``pass_ldq``, ``union_width`` and
+    ``q_in_s``) over the packed structs of the pass: the layer whose tail
+    and the layer whose head it runs, the encoder and the decoder (None or
+    a struct without ``w``: absent), ``y_out`` for the mixer alone."""
+    has_enc = enc is not None and bool(enc.w)
+    has_dec = dec is not None and bool(dec.w)
+    ldh, ldp = _round4(h), _round4(ld_bu)
+    q_w = d_in if has_enc and enc.in_mode else 0
+    if has_dec and dec.in_mode:
+        q_w = max(q_w, h)
+    for lp in (tail, head):
+        if lp is not None:
+            q_w = max(q_w, _code_width(lp, h))
+    ldq = _round4(q_w)
+    union = max(ldh + ldp if tail is not None else 0,
+                _round4(d_in) if has_enc else 0)
+    q_in_s = tail is not None and 2 * ldq <= 4 * ldp
+    return (4 * ROW_TILE * ((1 if y_out else 2) * ldh + union)
+            + (0 if q_in_s else 2 * ROW_TILE * ldq))
+
+
+@functools.lru_cache(maxsize=256)
+def widest_row_pass(h: int, p: int, d_in: int) -> int:
+    """An upper bound of :func:`row_pass_smem` over every pass a K5 / K6
+    call of these widths can launch (layers of at most ``p`` states, the
+    state row ``2 * p``): two row tiles and the widest union, and the
+    widest code tile beside them. Cached: a call whose bound fits skips
+    the exact count of :func:`check_row_passes`."""
+    ldh = _round4(h)
+    union = max(ldh + _round4(2 * p), _round4(d_in))
+    ldq = _round4(max(d_in, h, 2 * _round4(p)))
+    return 4 * ROW_TILE * (2 * ldh + union) + 2 * ROW_TILE * ldq
+
+
+def check_row_passes(h: int, ld_bu: int, passes) -> None:
+    """Raise ValueError, before any launch, where a row pass of a K5 / K6
+    call (``passes``: keyword dicts of :func:`row_pass_smem`) needs more
+    shared memory than a block may opt in to: H above 520 at P = 128 with
+    float dots, above 512 with integer dots."""
+    for i, kw in enumerate(passes):
+        smem = row_pass_smem(h, ld_bu, **kw)
+        if smem > MAX_SMEM:
+            raise ValueError(
+                f"H={h}, state row {ld_bu}: row pass {i} needs {smem} bytes "
+                f"of shared memory, the card gives {MAX_SMEM}")
+
+
 def _lib():
     fn = build.load("engine_layer").engine_layer_fwd
     if fn.argtypes is None:
@@ -696,6 +767,9 @@ def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
     md = pack_mode(mode, h)
     enc_w = pack_dense(enc, "encoder", (d_in, h), dev)
     dec_w = pack_dense(dec, "decoder", (h, d_out), dev, pad128(h))
+    if widest_row_pass(h, p, d_in) > MAX_SMEM:
+        check_row_passes(h, 2 * p, [dict(d_in=d_in, head=lp, enc=enc_w),
+                                    dict(d_in=d_in, tail=lp, dec=dec_w)])
     ci = co = (None, None)
     if carry is not None:
         ci = tuple(c.contiguous() for c in carry)

@@ -31,9 +31,10 @@ import torch
 
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.cuda.engine_layer import (
-    IO_TYPES, Dense, DenseW, LayerMode, LayerParams, Mode, alloc_scratch,
-    zero_carry, dense_plain, encode_plain, layer_body_plain, pack_dense,
-    pad128, pack_layer, pack_mode, pass_plan, read_launched, stream_value)
+    IO_TYPES, MAX_SMEM, Dense, DenseW, LayerMode, LayerParams, Mode,
+    alloc_scratch, check_row_passes, zero_carry, dense_plain, encode_plain,
+    layer_body_plain, pack_dense, pad128, pack_layer, pack_mode, pass_plan,
+    read_launched, stream_value, widest_row_pass)
 
 #: most layers one call takes (``kMaxLayers`` of the CUDA source)
 MAX_LAYERS = 8
@@ -116,6 +117,13 @@ def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
     enc_w = pack_dense(enc, "encoder", (d_in, h), dev)
     dec_w = pack_dense(dec, "decoder", (h, d_out), dev, pad128(h))
     p_max = max(layer.w_b.shape[-1] // 2 for layer in layers)
+    n = len(layers)
+    if widest_row_pass(h, p_max, d_in) > MAX_SMEM:
+        check_row_passes(h, 2 * p_max, [
+            dict(d_in=d_in, enc=enc_w if i == 0 else None,
+                 dec=dec_w if i == n else None,
+                 tail=packed[i - 1] if i > 0 else None,
+                 head=packed[i] if i < n else None) for i in range(n + 1)])
     scratch = alloc_scratch(pass_plan(b, l, h, p_max, len(layers)), dev)
     err = _lib()(
         x.data_ptr(), out.data_ptr(), IO_TYPES[x.dtype], IO_TYPES[out_dtype],

@@ -75,9 +75,6 @@ launches_engine = 0
 launches_engine_carry = 0
 launches_qat = 0
 
-#: shared memory one block may ask for on the card
-_MAX_SMEM = 232448
-
 Scales = Optional[Tuple[float, float]]
 
 
@@ -116,9 +113,10 @@ def check_width(h: int, p: int) -> None:
     block's shared memory: H up to 780 at P = 128."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     smem = 4 * engine_layer.ROW_TILE * (2 * r4(h) + r4(2 * p))
-    if smem > _MAX_SMEM:
+    limit = engine_layer.MAX_SMEM
+    if smem > limit:
         raise ValueError(f"H={h}, P={p}: a tail tile needs {smem} bytes of "
-                         f"shared memory, the card gives {_MAX_SMEM}")
+                         f"shared memory, the card gives {limit}")
 
 
 def _launch(u, ops: engine_layer.MixerOps, relu_state: bool, block_t: int,

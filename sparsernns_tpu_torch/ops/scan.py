@@ -70,7 +70,8 @@ def sequential_diag_scan(lam: Pair, bu: Pair,
                          state_requant: Optional[Callable[[Pair], Pair]] = None,
                          reverse: bool = False,
                          block_requant: Optional[BlockRequant] = None,
-                         block_t: Optional[int] = None
+                         block_t: Optional[int] = None,
+                         had_ax: Callable = torch.mul
                          ) -> Tuple[Pair, Pair]:
     """Step-by-step scan along axis -2. Returns (all states, final state).
 
@@ -88,7 +89,12 @@ def sequential_diag_scan(lam: Pair, bu: Pair,
     frozen grid, and the carry into the next block (and the final state)
     is the requantized last state of the block. Blocks are counted in the
     walk's order (:func:`block_end`): forward from t = 0, reverse from
-    t = L - 1."""
+    t = L - 1.
+
+    ``had_ax`` is the λ·x hadamard (a QAT model's fake-quantized one).
+    Differentiable in λ, bu and the carry where ``state_requant`` is (the
+    static-quant model's straight-through requant) and without a block
+    requant: the states are stacked, not written in place."""
     bu_r, bu_i = bu
     if reverse and carry_init is not None:
         raise NotImplementedError("carry with reverse scan")
@@ -99,27 +105,31 @@ def sequential_diag_scan(lam: Pair, bu: Pair,
         x_i = torch.zeros_like(bu_i[..., 0, :])
     else:
         x_r, x_i = carry_init
-    out_r = torch.empty_like(bu_r)
-    out_i = torch.empty_like(bu_i)
+    out_r, out_i = [], []
     length = bu_r.shape[-2]
     for step in range(length):
         t = length - 1 - step if reverse else step
-        ax_r, ax_i = complex_mul(lam, (x_r, x_i))
+        ax_r, ax_i = complex_mul(lam, (x_r, x_i), had_ax)
         x_r = ax_r + bu_r[..., t, :]
         x_i = ax_i + bu_i[..., t, :]
         if state_requant is not None:
             x_r, x_i = state_requant((x_r, x_i))
         if block_requant is None:
-            out_r[..., t, :] = x_r
-            out_i[..., t, :] = x_i
+            out_r.append(x_r)
+            out_i.append(x_i)
             continue
         s_re, s_im, bits = block_requant
         q_r, q_i = grid_value(x_r, s_re, bits), grid_value(x_i, s_im, bits)
-        out_r[..., t, :] = q_r
-        out_i[..., t, :] = q_i
+        out_r.append(q_r)
+        out_i.append(q_i)
         if block_end(step, length, block_t):
             x_r, x_i = q_r, q_i
-    return (out_r, out_i), (x_r, x_i)
+    if reverse:
+        out_r.reverse()
+        out_i.reverse()
+    if not out_r:
+        return (bu_r.clone(), bu_i.clone()), (x_r, x_i)
+    return (torch.stack(out_r, dim=-2), torch.stack(out_i, dim=-2)), (x_r, x_i)
 
 
 def lambda_powers(lam: Pair, length: int) -> Pair:
@@ -284,7 +294,16 @@ def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
 
     ``mode="associative"`` is the associative scan with the hadamards
     ``had_aa`` / ``had_ax`` (differentiable; a carry folds in with the
-    λ powers afterwards, forward only)."""
+    λ powers afterwards, forward only). ``mode="sequential"`` walks the
+    steps one by one (:func:`sequential_diag_scan`, differentiable, with
+    ``had_ax``): the JAX package's naive scan. Both express QAT through
+    the hadamards and ignore ``qat_bits``, as in the JAX package."""
+    if mode == "sequential":
+        if block_requant is not None:
+            raise NotImplementedError("the sequential scan has no block "
+                                      "requant")
+        return sequential_diag_scan(lam, bu, carry_init=carry_init,
+                                    reverse=reverse, had_ax=had_ax)[0]
     if mode == "associative":
         xs = associative_diag_scan(lam, bu, reverse, had_aa, had_ax)
         if carry_init is not None:

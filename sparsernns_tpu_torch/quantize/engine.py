@@ -41,11 +41,11 @@
 
 The engine takes the frozen tree that calibration returns
 (``quantize/calibrate.py``, or the JAX package's: the trees are
-interchangeable), as nested dicts of numpy arrays.
+interchangeable), as nested dicts of numpy arrays, or reads the one that
+the conversion pipeline stored (:meth:`W8A16Engine.from_artifacts`).
 
-Not ported yet, and refused with ``NotImplementedError``: ``route="xla"``,
-``from_artifacts`` and, as in the JAX package, chunked streaming with top-k
-on the states.
+Not ported yet, and refused with ``NotImplementedError``: ``route="xla"``
+and, as in the JAX package, chunked streaming with top-k on the states.
 """
 
 from __future__ import annotations
@@ -873,8 +873,20 @@ class W8A16Engine:
         return self._apply_per_op(x, self.block_t, carries)
 
     @staticmethod
-    def from_artifacts(checkpoint_dir: str, cfg) -> "W8A16Engine":
-        raise NotImplementedError(
-            "from_artifacts reads the conversion ArtifactStore of the "
-            "checkpoint module, which is not ported yet; build the engine "
-            "from the frozen tree that quantize.calibrate returns")
+    def from_artifacts(checkpoint_dir: str, cfg,
+                       device="cuda") -> "W8A16Engine":
+        """The engine of ``cfg`` over the frozen tree that the conversion
+        pipeline (``quantize/convert.convert``) stored under
+        ``<checkpoint_dir>/conversion``, built as ``engine_from_frozen``
+        builds it there."""
+        import os
+        from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+        from sparsernns_tpu_torch.train.checkpoint import ArtifactStore
+        store = ArtifactStore(os.path.join(checkpoint_dir, "conversion"))
+        for name in ("frozen_params", "frozen_stats"):
+            if not store.exists(name):
+                raise FileNotFoundError(
+                    f"no {name} under {store.directory}: run the "
+                    "conversion pipeline with calibrate_quant first")
+        return engine_from_frozen(cfg, store.load("frozen_params"),
+                                  store.load("frozen_stats"), device=device)

@@ -4,9 +4,10 @@
 Every quantizer is an ``nn.Module`` whose observer min/max and ``scale``
 are buffers. ``calibrating=True`` runs the observer, stores the scale it
 derives and passes the input through unchanged; ``calibrating=False``
-applies quant-dequant with the stored (frozen) scale. Complex tensors are
-(re, im) pairs. No straight-through gradient yet: the port runs these
-modules for calibration and inference only.
+applies quant-dequant with the stored (frozen) scale, with the
+straight-through gradient: the identity in the input and nothing to the
+scale, which is a buffer. So a static-quant model finetunes its weights
+with its scales frozen. Complex tensors are (re, im) pairs.
 
 The JAX package creates its variables by running the model once on a
 zeros example, so each of its observers starts from the value it saw
@@ -16,7 +17,7 @@ start at min = max = 0, which gives the same symmetric scales.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -77,14 +78,15 @@ def calculate_qparams(minval: torch.Tensor, maxval: torch.Tensor, bits: int,
 def quant_dequant(x: torch.Tensor, scale: torch.Tensor,
                   zero_point: Union[torch.Tensor, float], bits: int
                   ) -> torch.Tensor:
-    """Quantize-dequantize. The value is ``x + (xdq - x)``, the forward
-    value of the JAX package's straight-through form."""
+    """Quantize-dequantize with the straight-through gradient:
+    ``x + (xdq - x).detach()``, the JAX package's form, so the gradient is
+    the identity in ``x`` and zero in ``scale`` and ``zero_point``."""
     quant_min = -(2.0 ** (bits - 1))
     quant_max = 2.0 ** (bits - 1) - 1.0
     xq = torch.clamp(torch.round(x / scale + zero_point), quant_min,
                      quant_max)
     xdq = (xq - zero_point) * scale
-    return x + (xdq - x)
+    return x + (xdq - x).detach()
 
 
 class FakeQuant(nn.Module):
@@ -177,3 +179,19 @@ class QuantizedDense(nn.Linear):
                                            pow2scale=self.pow2scale)
             kernel = quant_dequant(kernel, w_scale, 0.0, self.w_bits)
         return self.quant_output(x @ kernel + self.bias)
+
+
+def merge_trained_params_into_calibrated(trained: Mapping[str, Any],
+                                         calibrated: Mapping[str, Any]
+                                         ) -> Dict[str, Any]:
+    """A copy of the nested dict ``calibrated`` with every leaf that
+    ``trained`` has at the same path (the JAX leaf paths) replaced by the
+    trained one; leaves only ``calibrated`` has (its ``scale`` leaves) are
+    kept."""
+    out = dict(calibrated)
+    for key, val in trained.items():
+        if isinstance(val, Mapping) and isinstance(out.get(key), Mapping):
+            out[key] = merge_trained_params_into_calibrated(val, out[key])
+        else:
+            out[key] = val
+    return out

@@ -1,6 +1,6 @@
 """Checkpoints of a training run over ``torch.save`` / ``torch.load``
 (counterpart of ``sparsernns_tpu/train/checkpoint.py``
-``CheckpointManager``).
+``CheckpointManager`` and ``ArtifactStore``).
 
 One file per saved step, ``ckpt_<step>.pt``, holding the model's
 ``state_dict`` (parameters and BatchNorm running statistics), the
@@ -11,6 +11,12 @@ count of optimizer steps, the dropout generator's state, the pruning masks
 bridge to the JAX package's checkpoints. Files are written whole under a
 temporary name and renamed, and read with ``weights_only=True`` (tensors
 and plain containers only).
+
+:class:`ArtifactStore` keeps the conversion pipeline's artifacts (frozen
+parameters and statistics, activation dumps, finetuned parameters) in the
+same way: one file per named item, ``<name>.pt``, holding a nested dict of
+numpy arrays or tensors. The JAX package writes orbax items there, which
+the port does not read.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import os
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sparsernns_tpu_torch.train.state import TrainState
@@ -59,10 +66,7 @@ class CheckpointManager:
             "masks": state.masks,
             "metadata": dict(metadata or {}),
         }
-        path = self._path(step)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        _save_whole(payload, self._path(step))
         for old in self.all_steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
 
@@ -118,3 +122,58 @@ def _restore_model(state: TrainState, payload: Dict[str, Any]) -> None:
     if state.masks is not None and saved is not None:
         for key, mask in saved.items():
             state.masks[key] = mask
+
+
+def _save_whole(payload: Any, path: str) -> None:
+    """``torch.save`` under a temporary name, then renamed over ``path``:
+    a reader never sees half a file."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _to_tensors(tree: Any) -> Any:
+    """Nested dicts with numpy leaves -> the same with tensor leaves
+    (``weights_only`` loading takes tensors and plain containers; numpy
+    arrays of any dtype go through ``torch.from_numpy`` unchanged)."""
+    if isinstance(tree, dict):
+        return {k: _to_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) or np.isscalar(tree):
+        return {"__numpy__": torch.from_numpy(np.array(tree))}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    raise TypeError(f"artifact leaf of type {type(tree).__name__}: nested "
+                    "dicts of numpy arrays or tensors only")
+
+
+def _from_tensors(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        if set(tree) == {"__numpy__"}:
+            return tree["__numpy__"].numpy()
+        return {k: _from_tensors(v) for k, v in tree.items()}
+    return tree
+
+
+class ArtifactStore:
+    """Named conversion artifacts under ``directory`` (the pipeline's
+    ``<checkpoint_dir>/conversion``): nested dicts whose leaves are numpy
+    arrays or tensors, each item one ``<name>.pt`` file. A numpy leaf loads
+    back as a numpy array of the same dtype and shape, a tensor leaf as a
+    CPU tensor."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.directory, f"{name}.pt")
+
+    def save(self, name: str, tree: Dict[str, Any]) -> None:
+        os.makedirs(self.directory, exist_ok=True)
+        _save_whole(_to_tensors(tree), self._path(name))
+
+    def load(self, name: str) -> Dict[str, Any]:
+        return _from_tensors(torch.load(self._path(name), map_location="cpu",
+                                        weights_only=True))
+
+    def exists(self, name: str) -> bool:
+        return os.path.exists(self._path(name))

@@ -2,7 +2,8 @@
 (counterpart of ``sparsernns_tpu/train/loop.py``), for the NDNS task on the
 synthetic loader.
 
-:func:`build_model` assembles the model of a :class:`RunConfig`;
+:func:`build_model` assembles the model of a :class:`RunConfig` and
+:func:`build_dataset` its loaders (shared with the conversion pipeline);
 :func:`create_run_state` adds the optimizer, the step count, the dropout
 generator and, for a ``cfg.pruning`` recipe, the pruner and its masks;
 :func:`run_ndns_epoch` and :func:`validate_ndns` drive one pass over a
@@ -75,13 +76,15 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     in the mixer kernel. ``q_config`` with ``static_quant`` builds the
     static-quant model (the calibration model when it is ``calibrating``);
     it runs the sequential scan, so ``scan_mode`` must then be
-    ``"sequential"``, as the JAX package's conversion pipeline passes it,
-    and it does not train. The float and QAT models run ``"fused"`` (the
-    whole-layer kernel or the mixer kernel, whichever the layer admits),
-    ``"pallas"`` (the JAX package's name for the stand-alone scan kernel
-    between two matmuls) or ``"associative"`` (the associative scan in
-    plain PyTorch, with the QAT hadamards); the other scan modes of the
-    JAX package are not ported.
+    ``"sequential"``, as the JAX package's conversion pipeline passes it;
+    with ``training`` it finetunes its weights with the scales frozen. The
+    float and QAT models run ``"fused"`` (the whole-layer kernel or the
+    mixer kernel, whichever the layer admits), ``"pallas"`` (the JAX
+    package's name for the stand-alone scan kernel between two matmuls),
+    ``"associative"`` (the associative scan in plain PyTorch, with the QAT
+    hadamards) or ``"sequential"`` (the step-by-step scan in plain
+    PyTorch: the naive scan of the conversion pipeline); the other scan
+    modes of the JAX package are not ported.
 
     A training model takes ``cfg.train_stream_dtype`` as the dtype of the
     stream between its layers (``"bfloat16"``: bf16 where every layer runs
@@ -94,19 +97,15 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     if q_config is None:
         q_config = quantization_recipes[cfg.quantization]()
     scan_mode = scan_mode or cfg.scan_mode
-    if training and q_config.static_quant:
-        raise NotImplementedError(
-            "static-quant finetuning is not ported yet: the float and the "
-            "QAT models train")
     if q_config.static_quant:
         if scan_mode != "sequential":
             raise NotImplementedError(
                 "the static-quant model requantizes the state every step: "
                 "build it with scan_mode='sequential'")
-    elif scan_mode not in ("fused", "pallas", "associative"):
+    elif scan_mode not in ("fused", "pallas", "associative", "sequential"):
         raise NotImplementedError(
             f"scan_mode {scan_mode!r}: the float and QAT port runs 'fused', "
-            "'pallas' and 'associative'")
+            "'pallas', 'associative' and 'sequential'")
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     init = blocked_dplr_init(cfg.ssm_size_base, cfg.blocks, cfg.conj_sym)
     block_t = QAT_BLOCK_T if cfg.block_t is None else cfg.block_t
@@ -140,6 +139,21 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
                 mod.weight.copy_(k.T)
                 mod.bias.zero_()
     return model.to(device).train(training)
+
+
+def build_dataset(cfg: RunConfig):
+    """The NDNS loaders of ``cfg`` (seeded with ``cfg.seed``):
+    (trainloader, valloader, testloader, n_out, seq_len, d_input,
+    train_size), as ``data/ndns.create_ndns_dataset`` returns them. As in
+    the JAX package, ``synthetic_data`` False leaves the choice to the
+    loader, which takes the synthetic set (the WAV-corpus reader is not
+    ported). ``train`` and the conversion pipeline share it."""
+    if cfg.dataset != "ndns":
+        raise NotImplementedError(f"dataset {cfg.dataset!r}: only ndns")
+    return create_ndns_dataset(
+        cfg.bsz, seed=cfg.seed, synthetic=True if cfg.synthetic_data else None,
+        synthetic_size=cfg.synthetic_size,
+        synthetic_length=int(cfg.synthetic_seconds * 16000))
 
 
 def prep_ndns_batch(noisy: torch.Tensor, clean: torch.Tensor):
@@ -233,20 +247,19 @@ def validate_ndns(model: RegressionModel, eval_fn: Callable, loader
 
 
 def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
-    """Full training run of ``cfg`` on the synthetic NDNS set. Returns
-    ``{"state", "metadata"}``; with ``cfg.checkpoint_dir`` the latest
-    checkpoints go there and the best one to ``<dir>/best``, and a run that
-    finds a checkpoint resumes from it (``cfg.restore_checkpoint``; with
-    ``cfg.reset_optimizer`` only the weights are restored)."""
+    """Full training run of ``cfg`` (after :meth:`RunConfig.apply_dim_scale`)
+    on the synthetic NDNS set. Returns ``{"state", "metadata"}``; with
+    ``cfg.checkpoint_dir`` the latest checkpoints go there and the best one
+    to ``<dir>/best``, and a run that finds a checkpoint resumes from it
+    (``cfg.restore_checkpoint``; with ``cfg.reset_optimizer`` only the
+    weights are restored)."""
+    cfg = cfg.apply_dim_scale()
     _check_ported(cfg)
     if not cfg.synthetic_data:
         raise NotImplementedError(
             "the WAV-corpus reader is not ported yet: set synthetic_data")
     trainloader, valloader, testloader, n_out, _, d_input, _ = \
-        create_ndns_dataset(
-            cfg.bsz, seed=cfg.seed, synthetic=True,
-            synthetic_size=cfg.synthetic_size,
-            synthetic_length=int(cfg.synthetic_seconds * 16000))
+        build_dataset(cfg)
     steps_per_epoch = max(1, len(trainloader))
     model = build_model(cfg, d_input, n_out, training=True, device=device)
     state = create_run_state(cfg, model, steps_per_epoch)

@@ -15,7 +15,11 @@ schedule as plain numbers (``base_lr``, ``schedule``, ``total_steps``,
 holds all of it, and :func:`optimizer_step` is the update: it sets each
 group's ``lr`` from the step (the counterpart of optax's
 ``inject_hyperparams``), clips each group's raw gradients to a global norm
-where asked, and calls ``optimizer.step()``. The arithmetic is optax's:
+where asked, and calls ``optimizer.step()``. A group's optional
+``schedule_start`` is the step at which its schedule's count is 0: optax
+counts the schedule in the optimizer's own state, so a fresh optimizer on a
+state whose step count goes on (the conversion pipeline's finetuning over
+the frozen tree) starts its schedule again. The arithmetic is optax's:
 ``adamw`` decays by ``lr * weight_decay * p`` (biases too), bias-corrected
 moments, eps 1e-8 outside the root.
 """
@@ -145,7 +149,8 @@ def scheduled_lr(group: dict, step: int) -> float:
     if group["schedule"] == "constant":
         return group["base_lr"]
     return warmup_cosine(group["base_lr"], group["total_steps"],
-                         group["warmup_steps"], group["lr_min"])(step)
+                         group["warmup_steps"], group["lr_min"])(
+        step - group.get("schedule_start", 0))
 
 
 def clip_group_gradients(optimizer: torch.optim.Optimizer) -> None:

@@ -1,7 +1,8 @@
 """NDNS train and eval steps (counterpart of
 ``sparsernns_tpu/train/steps.py`` ``make_ndns_train_step``,
 ``_make_ndns_microbatch_step``, ``make_ndns_eval_step``,
-``_forward_params`` and ``make_mask_update_fn``).
+``_forward_params``, ``make_mask_update_fn`` and
+``capture_intermediates``).
 
 The train step updates the model, the optimizer and the state's step count
 in place (the JAX step returns a new immutable state; here the tensors are
@@ -14,14 +15,18 @@ module's and move in place).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import re
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from sparsernns_tpu_torch.train.losses import (STFT_MAG_MEAN,
                                                ndns_loss_from_mask_tm)
-from sparsernns_tpu_torch.train.optim import optimizer_step
+from sparsernns_tpu_torch.train.optim import (optimizer_step,
+                                              scale_gradient_leak_norm,
+                                              zero_scale_gradients)
 from sparsernns_tpu_torch.train.pruning import MagnitudePruner, Masks
 from sparsernns_tpu_torch.train.state import TrainState
 
@@ -90,7 +95,8 @@ def _grad_norm_metrics(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def make_ndns_train_step(model: torch.nn.Module,
-                         microbatch: Optional[int] = None) -> Callable:
+                         microbatch: Optional[int] = None,
+                         static_quant: bool = False) -> Callable:
     """NDNS denoising train step: ``step(state, noisy_mag, noisy_phase,
     clean_mag, clean)`` -> ``(state, metrics)``. Spectra are (B, F, L) as
     :func:`~sparsernns_tpu_torch.ops.stft.stft_splitter` gives them, clean
@@ -108,7 +114,13 @@ def make_ndns_train_step(model: torch.nn.Module,
 
     With ``state.pruner`` the forward sees the weights times
     ``state.masks`` (STE: the gradient reaches the dense weights whole);
-    in hard mode the pruned weights are zeroed after the update."""
+    in hard mode the pruned weights are zeroed after the update.
+
+    ``static_quant`` (the finetuning of a static-quant model): the metrics
+    add ``scale_grad_leak``, the gradient mass on quantization-scale
+    parameters before they are zeroed. The port keeps the scales as
+    buffers, out of every param group, so it is 0 unless a scale became a
+    parameter."""
 
     def step(state: TrainState, noisy_mag, noisy_phase, clean_mag, clean):
         if state.model is not model:
@@ -139,6 +151,9 @@ def make_ndns_train_step(model: torch.nn.Module,
         metrics = {"loss": torch.stack(losses).mean(),
                    "si_snr": torch.stack(snrs).mean()}
         metrics.update(_grad_norm_metrics(model))
+        if static_quant:
+            metrics["scale_grad_leak"] = scale_gradient_leak_norm(model)
+            zero_scale_gradients(model)
         optimizer_step(state.optimizer, state.step)
         if state.pruner is not None:
             state.pruner.post_gradient_update(model, state.masks)
@@ -172,3 +187,91 @@ def make_ndns_eval_step(model: torch.nn.Module,
         return {"loss": loss, "si_snr": snr}
 
     return step
+
+
+def _flax_module_path(name: str) -> str:
+    """A ``named_modules`` name under the JAX package's module names
+    (``layers.0`` -> ``layers_0``), as ``weights.flax_path`` maps them."""
+    return re.sub(r"layers\.(\d+)", r"layers_\1", name)
+
+
+def _numeric_leaves(value, key: str, out: Dict[str, np.ndarray]) -> None:
+    """Tensors of a (nested tuple) output under ``key.<i>...``; None
+    entries are no leaves, as in a JAX pytree."""
+    if isinstance(value, (tuple, list)):
+        for i, item in enumerate(value):
+            _numeric_leaves(item, f"{key}.{i}", out)
+    elif isinstance(value, torch.Tensor):
+        out[key] = value.detach().float().cpu().numpy()
+
+
+@torch.no_grad()
+def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
+                          ) -> Tuple[torch.Tensor, Dict[str, np.ndarray]]:
+    """Eval forward of ``model`` on ``x`` (B, L, d_input) recording the
+    output of every submodule's ``forward``, the golden-activation dump of
+    the conversion pipeline (the JAX package's ``capture_intermediates``
+    over ``__call__``). Returns (the output, {key: numpy array}) with the
+    keys of the JAX package's flattened dump: ``<module path>.__call__.
+    <call>[.<tuple index>...]``, and for the values the JAX package sows,
+    ``<layer>.input`` (a layer's input), ``<layer>.pre_s5`` (the mixer's
+    input), ``<layer>.pre_C`` (the mixer's states, where it returns them),
+    ``<layer>.pre_GLU`` (the mixer's output), ``encoder.pre_encoder`` and
+    ``pre_decoder``, each ``.<call>[.<index>]``. As in the JAX package the
+    layers run their unfused route while capturing (no whole-layer
+    kernel). Modules the port computes inline (BatchNorm, dropout) have no
+    key."""
+    from sparsernns_tpu_torch.models.layers import SequenceLayer
+    from sparsernns_tpu_torch.models.ssm import S5SSM
+    out: Dict[str, np.ndarray] = {}
+    calls: Dict[str, int] = {}
+
+    def record(key: str, value) -> None:
+        i = calls.get(key, 0)
+        calls[key] = i + 1
+        _numeric_leaves(value, f"{key}.{i}", out)
+
+    def prefix(name: str) -> str:
+        return _flax_module_path(name) + "." if name else ""
+
+    handles = []
+    layers = []
+    for name, mod in model.named_modules():
+        base = prefix(name)
+        handles.append(mod.register_forward_hook(
+            lambda m, args, y, base=base: record(f"{base}__call__", y)))
+        if isinstance(mod, SequenceLayer):
+            layers.append(mod)
+            handles.append(mod.register_forward_pre_hook(
+                lambda m, args, base=base: record(f"{base}input", args[0])))
+        elif isinstance(mod, S5SSM):
+            layer = base[:-len("mixer.")]
+            handles.append(mod.register_forward_pre_hook(
+                lambda m, args, layer=layer: record(f"{layer}pre_s5",
+                                                    args[0])))
+
+            def states(m, args, y, layer=layer):
+                # the static-quant mixer returns its final state instead
+                if y[1] is not None and not m.q_config.static_quant:
+                    record(f"{layer}pre_C", y[1])
+                record(f"{layer}pre_GLU", y[0])
+            handles.append(mod.register_forward_hook(states))
+        elif name == "encoder" and hasattr(mod, "layers"):
+            handles.append(mod.register_forward_pre_hook(
+                lambda m, args: record("encoder.pre_encoder", args[0])))
+        elif name == "decoder":
+            handles.append(mod.register_forward_pre_hook(
+                lambda m, args: record("pre_decoder", args[0])))
+    was_training = model.training
+    model.eval()
+    for layer in layers:
+        layer.capturing = True
+    try:
+        y = model(x)
+    finally:
+        for h in handles:
+            h.remove()
+        for layer in layers:
+            layer.capturing = False
+        model.train(was_training)
+    return y, out

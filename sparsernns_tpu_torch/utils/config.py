@@ -1,9 +1,12 @@
 """Run configuration with JSON recipe overlay (counterpart of
 ``sparsernns_tpu/utils/config.py``), reduced to the fields the ported
-serving and training paths read, with the JAX package's defaults."""
+serving, training and conversion paths read, with the JAX package's
+defaults. The command line (``cli.py``) is generated from the fields
+(:func:`add_config_args`, :func:`config_from_args`)."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from typing import Optional
@@ -46,7 +49,10 @@ class RunConfig:
     relufication: bool = False
     topk: float = 1.0                   # activation top-k share (< 1: on)
     approx_topk: bool = False           # required with topk < 1 (as JAX)
-    scan_mode: str = "fused"            # "fused", "pallas", "associative"
+    #: uniform rescale of d_model and the state size (:meth:`apply_dim_scale`)
+    dim_scale: float = 1.0
+    #: "associative", "fused", "pallas" or "sequential"
+    scan_mode: str = "associative"
     #: the stream between the layers of a training model: "float32", or
     #: "bfloat16" where every layer runs the whole-layer kernel with
     #: BatchNorm (the weights, gradients and statistics stay float32)
@@ -66,9 +72,18 @@ class RunConfig:
     block_t: Optional[int] = None
     engine_mxu16: bool = False
     engine_route: str = "auto"
+    # the stage gates of quantize/convert.convert, in the order it runs them
+    validate_baseline: bool = False
+    store_activations: bool = False
+    validate_naive_scan: bool = False
+    validate_aqt: bool = False
+    train_aqt: bool = False
     calibrate_quant: bool = True
     validate_static_quant: bool = True
     validate_engine: bool = True
+    train_static_quant: bool = False
+    #: epochs of each finetuning stage (train_aqt, train_static_quant)
+    qaft_epochs: int = 10
 
     # --- regularization / optimization ---
     p_dropout: float = 0.1
@@ -97,6 +112,22 @@ class RunConfig:
     def lr(self) -> float:
         return self.lr_factor * self.ssm_lr_base
 
+    def apply_dim_scale(self) -> "RunConfig":
+        """d_model and ssm_size_base times ``dim_scale`` (the state size
+        rounded down to a multiple of 2 * blocks, at least ``blocks``), and
+        ``dim_scale`` back to 1: the JAX package's formula."""
+        if self.dim_scale == 1.0:
+            return self
+        s = self.dim_scale
+        return dataclasses.replace(
+            self,
+            d_model=int(self.d_model * s),
+            ssm_size_base=max(self.blocks,
+                              int(self.ssm_size_base * s) // (2 * self.blocks)
+                              * 2 * self.blocks),
+            dim_scale=1.0,
+        )
+
     def with_recipe(self, path: str) -> "RunConfig":
         """Overlay a JSON recipe; unknown keys raise."""
         with open(path) as f:
@@ -109,3 +140,39 @@ class RunConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def _parse_bool(text: str) -> bool:
+    return text.lower() in ("1", "true", "yes")
+
+
+def _element_type(annotation) -> type:
+    """The type of an ``Optional[...]`` field's values (annotations are
+    strings under ``from __future__ import annotations``)."""
+    text = str(annotation)
+    if "float" in text:
+        return float
+    if "int" in text:
+        return int
+    return str
+
+
+def add_config_args(parser: argparse.ArgumentParser) -> None:
+    """One ``--<field>`` flag per :class:`RunConfig` field, defaulting to
+    the field's default (booleans parse "1", "true", "yes" as true)."""
+    for f in dataclasses.fields(RunConfig):
+        name = f"--{f.name}"
+        if isinstance(f.default, bool):
+            parser.add_argument(name, type=_parse_bool, default=f.default)
+        elif f.default is None:
+            parser.add_argument(name, type=_element_type(f.type),
+                                default=None)
+        else:
+            parser.add_argument(name, type=type(f.default),
+                                default=f.default)
+
+
+def config_from_args(args: argparse.Namespace) -> RunConfig:
+    """The :class:`RunConfig` of parsed flags (other attributes ignored)."""
+    known = {f.name for f in dataclasses.fields(RunConfig)}
+    return RunConfig(**{k: v for k, v in vars(args).items() if k in known})

@@ -286,8 +286,10 @@ def test_engine_refusals(frozen):  # noqa: F811
     assert bs._stack_ok and not bs._network_ok
     dense = port_eng(sparse, engine_kw=dict(block_sparse_dense=None))
     assert dense.dense_blocks == {} and dense._network_ok
-    with pytest.raises(NotImplementedError, match="from_artifacts"):
-        W8A16Engine.from_artifacts("runs", None)
+    # from_artifacts reads the conversion pipeline's store; a directory
+    # without one is refused
+    with pytest.raises(FileNotFoundError, match="frozen_params"):
+        W8A16Engine.from_artifacts("runs", None, device="cpu")
     # row_pair is a TPU schedule with the same bits: accepted, no effect
     x = torch.from_numpy(frozen["batches"][0])
     assert torch.equal(port_eng(frozen, engine_kw=dict(row_pair=True))(x),

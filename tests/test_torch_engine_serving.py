@@ -38,7 +38,8 @@ from tests.test_torch_quantize import frozen  # noqa: F401
 BLOCK = 8
 CFG = dataclasses.replace(
     RunConfig(), n_layers=2, d_model=12, ssm_size_base=16, blocks=2,
-    block_t=BLOCK, bsz=2, synthetic_size=8, synthetic_seconds=0.25)
+    block_t=BLOCK, bsz=2, synthetic_size=8, synthetic_seconds=0.25,
+    scan_mode="fused")
 
 
 @pytest.fixture(scope="module")

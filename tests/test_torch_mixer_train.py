@@ -332,11 +332,12 @@ def test_routes_and_what_still_raises():
             and layer.prenorm)
         assert layer.mixer(x)[0].shape == x.shape
     # (whole-layer kernel, mixer returns no state); a prenorm LayerNorm
-    # layer takes the kernel's non-affine mode
+    # layer takes the kernel's non-affine mode; the stand-alone scans
+    # return their states, as the JAX package's mixer does
     assert routes["flagship"] == routes["layernorm"] == (True, True)
     for name in ("postnorm", "layernorm_postnorm"):
         assert routes[name] == (False, True), name
-    assert routes["bidirectional"] == routes["scan_pallas"] == (False, True)
+    assert routes["bidirectional"] == routes["scan_pallas"] == (False, False)
     assert counters() == before     # CPU tensors launch nothing
 
     tm = loop.build_model(small_config(prenorm=False), D_IO, D_IO,
@@ -353,15 +354,17 @@ def test_routes_and_what_still_raises():
                           device="cpu")
     with pytest.raises(NotImplementedError, match="bidirectional"):
         bi.forward_stream(torch.zeros(1, 8, D_IO))
-    for mode in ("blocked", "sp", "sequential"):
+    for mode in ("blocked", "sp"):
         with pytest.raises(NotImplementedError, match="scan_mode"):
             loop.build_model(small_config(scan_mode=mode), D_IO, D_IO,
                              device="cpu")
-    # the associative scan (plain PyTorch) builds and runs the unfused route
-    assoc = loop.build_model(small_config(scan_mode="associative"), D_IO,
-                             D_IO, device="cpu")
-    assert assoc.encoder.layers[0].mixer.layer_tail_operands() is None
-    assert assoc.encoder.layers[0].mixer(x)[0].shape == x.shape
+    # the associative and the sequential scan (plain PyTorch) build and
+    # run the unfused route
+    for mode in ("associative", "sequential"):
+        assoc = loop.build_model(small_config(scan_mode=mode), D_IO, D_IO,
+                                 device="cpu")
+        assert assoc.encoder.layers[0].mixer.layer_tail_operands() is None
+        assert assoc.encoder.layers[0].mixer(x)[0].shape == x.shape
 
 
 def test_unfused_batchnorm_is_flax_batchnorm_with_the_variance_clamp():

@@ -195,8 +195,8 @@ def test_build_model_shapes_and_state_dict_keys():
                                          p_dropout=0.0), 9, 9,
                      training=True, device="cpu")
     assert ln(torch.zeros(1, 4, 9)).requires_grad
-    with pytest.raises(NotImplementedError):   # "fused" and "pallas" only
-        build_model(dataclasses.replace(cfg, scan_mode="sequential"), 9, 9,
+    with pytest.raises(NotImplementedError):   # not a ported scan mode
+        build_model(dataclasses.replace(cfg, scan_mode="blocked"), 9, 9,
                     device="cpu")
 
 

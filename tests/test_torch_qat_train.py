@@ -1,6 +1,6 @@
 """Quantization-aware training on the CPU against the JAX package, on the
 same flax weights and numpy inputs: the QAT forward (w8a16 and w8a8;
-``scan_mode`` fused, pallas and associative; per-block and global state
+``scan_mode`` fused, pallas, associative and sequential; per-block and global state
 scales; bidirectional; relufication), the NDNS-loss gradients, three train
 steps, a three-chunk QAT stream, the routes the QAT and top-k models take,
 and the JAX package's own QAT comparison on its own small model (top-k
@@ -63,15 +63,18 @@ CONFIGS = {
     "w8a16_associative": dict(quantization="w8a16",
                               scan_mode="associative"),
     "w8a8_associative": dict(quantization="w8a8", scan_mode="associative"),
+    "w8a16_sequential": dict(quantization="w8a16", scan_mode="sequential"),
     "w8a16_bidirectional": dict(quantization="w8a16", bidirectional=True),
     "w8a16_relu": dict(quantization="w8a16", relufication=True),
 }
 #: the configurations whose gradients are compared, and whose train steps
 #: but for the associative one's
 TRAINED = ("w8a16_fused", "w8a16_global", "w8a8_pallas",
-           "w8a16_associative", "w8a16_bidirectional", "w8a16_relu")
+           "w8a16_associative", "w8a16_sequential", "w8a16_bidirectional",
+           "w8a16_relu")
 #: the configurations whose eval forward is compared too
-EVALUATED = ("w8a16_fused", "w8a8_pallas", "w8a16_associative")
+EVALUATED = ("w8a16_fused", "w8a8_pallas", "w8a16_associative",
+             "w8a16_sequential")
 TOPK = {"topk": dict(topk=0.5, approx_topk=True),
         "topk_relu": dict(topk=0.5, approx_topk=True, relufication=True)}
 
@@ -362,13 +365,18 @@ def test_global_scales_tighten_parity_as_in_the_jax_package():
 def test_what_the_qat_and_topk_models_still_refuse():
     cfg = qat_config()
     sq = quantization_recipes["w8a16"](static_quant=True, calibrating=False)
-    with pytest.raises(NotImplementedError, match="finetuning"):
+    # the static-quant model finetunes (its scales frozen), on the
+    # sequential scan only
+    sq_train = loop.build_model(cfg, D_IO, D_IO, training=True, device="cpu",
+                                q_config=sq, scan_mode="sequential")
+    assert sq_train.training
+    with pytest.raises(NotImplementedError, match="sequential"):
         loop.build_model(cfg, D_IO, D_IO, training=True, device="cpu",
-                         q_config=sq, scan_mode="sequential")
+                         q_config=sq, scan_mode="associative")
     with pytest.raises(NotImplementedError, match="exact top-k"):
         loop.build_model(qat_config(topk=0.5), D_IO, D_IO, training=True,
                          device="cpu")
-    for mode in ("blocked", "sequential", "sp"):
+    for mode in ("blocked", "sp"):
         with pytest.raises(NotImplementedError, match="scan_mode"):
             loop.build_model(qat_config(quantization="w8a16",
                                         scan_mode=mode), D_IO, D_IO,

@@ -53,7 +53,8 @@ def jax_model(q_config, glu="full", relu=True, prenorm=True,
 def port_config(glu="full", relu=True, prenorm=True, **kw) -> RunConfig:
     return dataclasses.replace(
         RunConfig(), n_layers=LAYERS, d_model=H, ssm_size_base=P_SIZE,
-        blocks=2, glu_variant=glu, relufication=relu, prenorm=prenorm, **kw)
+        blocks=2, glu_variant=glu, relufication=relu, prenorm=prenorm,
+        **{"scan_mode": "fused", **kw})
 
 
 def port_model(q_config=None, **kw):

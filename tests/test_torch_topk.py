@@ -78,7 +78,7 @@ def test_topk_model_refusals():
     exact top-k raises, as in the JAX package."""
     cfg = dataclasses.replace(RunConfig(), n_layers=1, d_model=8,
                               ssm_size_base=8, blocks=1, topk=0.5,
-                              approx_topk=True)
+                              approx_topk=True, scan_mode="fused")
     trainer = build_model(cfg, 5, 5, training=True, device="cpu")
     assert trainer.training
     assert trainer.encoder.layers[0].mixer.layer_tail_operands() is None

@@ -315,13 +315,15 @@ def test_what_still_raises():
         out.sum().backward()
         assert all(p.grad is not None for p in model.parameters())
     with pytest.raises(NotImplementedError, match="scan_mode"):
-        loop.build_model(small_config(scan_mode="sequential"), D_IO, D_IO,
+        loop.build_model(small_config(scan_mode="blocked"), D_IO, D_IO,
                          training=True, device="cpu")
-    # the associative scan trains (plain PyTorch, on the unfused route)
-    assoc = loop.build_model(small_config(scan_mode="associative"), D_IO,
-                             D_IO, training=True, device="cpu")
-    assoc(torch.zeros(1, 8, D_IO)).sum().backward()
-    assert all(p.grad is not None for p in assoc.parameters())
+    # the associative and the sequential scan train (plain PyTorch, on the
+    # unfused route)
+    for mode in ("associative", "sequential"):
+        assoc = loop.build_model(small_config(scan_mode=mode), D_IO, D_IO,
+                                 training=True, device="cpu")
+        assoc(torch.zeros(1, 8, D_IO)).sum().backward()
+        assert all(p.grad is not None for p in assoc.parameters())
     tm = loop.build_model(small_config(), D_IO, D_IO, training=True,
                           device="cpu")
     # every pruning recipe is accepted; an unknown name is not

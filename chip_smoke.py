@@ -4,8 +4,9 @@ drives the float NDNS serving path, the w8a16 engine serving path, the
 float NDNS training path, the mixer route (training and eval of the models
 outside the whole-layer kernel), top-k serving, pruned training with
 block-sparse serving, quantization-aware and top-k training, the int-dot
-engines (w8a8, and w8a16 with ``mxu16``), and the LayerNorm and
-bf16-stream training of the whole-layer kernels at the width of
+engines (w8a8, and w8a16 with ``mxu16``), the LayerNorm and
+bf16-stream training of the whole-layer kernels, the conversion pipeline
+and the fixed-point golden engine over its artifacts at the width of
 ``recipes/ndns.json`` (d_model 192, P 128, 3 layers; random weights from
 a seed):
 
@@ -191,9 +192,26 @@ a seed):
    package's SI-SNR gates (static and engine within 1 dB of the float
    baseline, engine within 0.5 dB of static), the artifacts, then
    ``W8A16Engine.from_artifacts`` on the same directory, whose offline
-   call (K6 x 1) equals the convert stage's engine bit for bit. Cuts:
-   clips of PIPE_SECONDS s (L = 373 frames), 32 training clips, one
-   epoch of each finetuning stage; no width is cut.
+   call (K6 x 1) equals the convert stage's engine bit for bit; then the
+   fixed-point golden engine over the same artifacts, ``cli.main fxp`` in
+   each mode (inference: fxp_scan x 3 a validation batch, JAX's SI-SNR
+   gates, within 1.5 dB of the float baseline and 0.5 dB of static
+   quantization; verify: fxp_scan x 3, every block's statistics equal to
+   the CPU run's on the same artifacts, the encoder's block and 2 per
+   layer, 4 where the float mixer dumped its states (not on the
+   recipe's fused route); export:
+   the bundle's files), each mode's wall time and launches, one
+   validation batch's integer output on the card equal to the CPU's bit
+   for bit, and a full-length forward (B=8 clips of 30 s, L = 3751;
+   fxp_scan x 3) timed with its busy share and equal to the CPU's bit for
+   bit. Cuts: clips of PIPE_SECONDS s (L = 373 frames), 32 training clips,
+   one epoch of each finetuning stage; no width is cut;
+23. fxp_scan kernel phase (run before phase 22) — the fixed-point
+   engine's integer recurrence (``ops/cuda/csrc/fxp_scan.cu``; JAX runs it
+   as ``lax.scan``, no ``pallas_call``) against its plain version on the
+   card at B=8, L=3751, P=128 on seeded codes at the flagship's formats
+   (16-bit states, a at 2^-15, g = 12), a quarter of the channels near
+   |lambda| = 1 driven into saturation: bit for bit, timed (median of 5).
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -3394,7 +3412,7 @@ def bf16_training_phase(cfg, records, counters, batch) -> None:
            float((np.abs(l16 - l32) / np.abs(l32)).max()), 2e-3)
 
 
-def pipeline_phase(root: str, counters) -> None:
+def pipeline_phase(root: str, counters, records, full_x) -> None:
     """Phase 22: ``cli.main train`` then ``cli.main convert`` over its
     checkpoint, every stage on, then ``W8A16Engine.from_artifacts`` (module
     docstring, item 22). Fails on a non-finite metric, a launch count off
@@ -3531,6 +3549,166 @@ def pipeline_phase(root: str, counters) -> None:
         assert counts == {"engine_network": 1}, counts
         assert torch.isfinite(mask).all() and torch.equal(mask, ref)
 
+        # ---- fxp: the integer golden engine over the same artifacts ----
+        fxp_pipeline_phase(cfg, common, run, captured, valloader, counters,
+                           records, full_x)
+
+
+#: the flagship's formats in the fixed-point recurrence: 16-bit states,
+#: Lambda-bar at 2^-15, 12 guard bits (``FxpSSM.guard_bits``)
+FXP_STATE_BITS, FXP_A_EXP, FXP_GUARD = 16, 15, 12
+
+
+def _fxp_scan_args(gen, b: int, length: int, p: int):
+    """Seeded operands of ``fxp_scan`` at the flagship's formats on the
+    card: 16-bit B-bar-u codes (a quarter of the channels 8 x larger),
+    |lambda| in [0.9, 0.999) and 0.9995 on that quarter, so those states
+    saturate at both bounds."""
+    import torch
+    q = p // 4
+    ang = 0.5 * torch.rand(p, generator=gen)
+    mag = 0.9 + 0.099 * torch.rand(p, generator=gen)
+    mag[:q] = 0.9995
+    top = (1 << (FXP_STATE_BITS - 1)) - 1
+    scale = float(1 << FXP_A_EXP)
+    a_re = torch.round(mag * torch.cos(ang) * scale).clamp(-top, top)
+    a_im = torch.round(mag * torch.sin(ang) * scale).clamp(-top, top)
+    bu = 2000.0 * torch.randn((2, b, length, p), generator=gen)
+    bu[..., :q] *= 8.0
+    bu = torch.round(bu).clamp(-top - 1, top).to(torch.int32).to("cuda")
+    shift = FXP_A_EXP - FXP_GUARD
+    bounds = (-top - 1, top)
+    return (bu[0], bu[1], a_re.to(torch.int32).to("cuda"),
+            a_im.to(torch.int32).to("cuda"), (shift, shift), FXP_GUARD,
+            bounds, bounds)
+
+
+def fxp_scan_kernel_phase(frames: int, gen, records) -> None:
+    """Phase 23: fxp_scan against its plain version on the card (module
+    docstring, item 23)."""
+    import torch
+
+    from sparsernns_tpu_torch.ops.cuda import fxp_scan
+    p = 128
+    args = _fxp_scan_args(gen, B, frames, p)
+    out = fxp_scan.fxp_scan_cuda(*args)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = fxp_scan.fxp_scan_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max((o.long() - r.long()).abs().max().item()
+              for o, r in zip(out, ref))
+    lo, hi = args[6]
+    sat = [((x == lo) | (x == hi)).float().mean().item() for x in ref]
+    print(f"fxp_scan B={B} L={frames} P={p}: max code diff {err} (limit "
+          f"0), saturated share re {sat[0]:.4f} im {sat[1]:.4f}, plain "
+          f"{plain_ms:.1f} ms", flush=True)
+    assert err == 0, "fxp_scan differs from its plain version"
+    assert all(bool((x == lo).any()) and bool((x == hi).any())
+               for x in ref), "no state saturated"
+    ms = _median_ms(lambda: fxp_scan.fxp_scan_cuda(*args))
+    # 16 bytes per (b, t, p): bu re / im in, x re / im out; about 30
+    # integer operations per (b, t, p), counted at the CUDA cores' rate
+    elems = B * frames * p
+    bound, by = _bound_ms(16 * elems, 30 * elems)
+    print(f"fxp_scan: {ms:.4f} ms (median of 5; bound {bound:.4f} by "
+          f"{by}, {100 * bound / ms:.1f} %)", flush=True)
+    records["fxp_scan"] = dict(
+        name="fxp_scan", route="cuda",
+        source="sparsernns_tpu_torch/ops/cuda/csrc/fxp_scan.cu",
+        replaces="sparsernns_tpu/fxp/model.py:362-378 lax.scan "
+                 "(no pallas_call)",
+        launches=0, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def fxp_pipeline_phase(cfg, common, run, captured, valloader, counters,
+                       records, full_x) -> None:
+    """Phase 22's fixed-point part: ``cli.main fxp`` in each mode over
+    the run's artifacts, the gates, the CPU run of the same artifacts, the
+    full-length forward (module docstring, item 22)."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch import cli
+    from sparsernns_tpu_torch.fxp import runner
+    from sparsernns_tpu_torch.quantize import convert as convert_mod
+    from sparsernns_tpu_torch.train.checkpoint import ArtifactStore
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+
+    n_layers, n_val = cfg.n_layers, len(valloader)
+    expect = {"inference": {"fxp_scan": n_layers * n_val},
+              "verify": {"fxp_scan": n_layers}, "export": {}}
+    for mode, want in expect.items():
+        counters()
+        t0 = time.time()
+        assert cli.main(["fxp", *common, "--fxp_mode", mode]) == 0
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {k: v for k, v in counters().items() if v}
+        print(f"pipeline fxp {mode}: {wall:.2f} s, launches {counts}",
+              flush=True)
+        assert counts == want, (mode, counts)
+        if mode == "inference":
+            records["fxp_scan"]["launches"] = counts["fxp_scan"]
+
+    metrics = json.load(open(os.path.join(run, "fxp_val_metrics.json")))
+    acc = metrics["Val Acc - fxp"]
+    base = captured["baseline"]["si_snr"]
+    static = captured["static_quant"]["si_snr"]
+    print(f"pipeline fxp: val loss {metrics['Val Loss - fxp']:.4f}, SI-SNR "
+          f"{acc:.4f} dB; gates |fxp - baseline| {abs(acc - base):.4f} dB "
+          f"(< 1.5), |fxp - static| {abs(acc - static):.4f} dB (< 0.5)",
+          flush=True)
+    assert np.isfinite(metrics["Val Loss - fxp"])
+    assert abs(acc - base) < 1.5 and abs(acc - static) < 0.5
+
+    card = json.load(open(os.path.join(run, "verification", "stats.json")))
+    cpu_dir = os.path.join(run, "verification_cpu")
+    cpu_summary = runner.run_verification(cfg, output_dir=cpu_dir,
+                                          device="cpu")
+    cpu = json.load(open(os.path.join(cpu_dir, "stats.json")))
+    # the encoder's output, and per layer the mixer's input and pre_GLU,
+    # and the states (re, im) where the float mixer returned them (not on
+    # the fused route, as in the JAX package)
+    golden = ArtifactStore(os.path.join(run, "conversion")).load(
+        "activations")
+    with_states = any("pre_C" in key for key in golden)
+    want = 1 + n_layers * (4 if with_states else 2)
+    print(f"pipeline fxp verify: {len(card['blocks'])} blocks on the card, "
+          f"{cpu_summary['matched_blocks']} on the CPU (want {want}), "
+          f"statistics equal: {card == cpu}; worst "
+          f"{card['summary']['worst_block']} rel_mean "
+          f"{card['summary']['worst_rel_mean']:.3e}", flush=True)
+    assert cpu_summary["matched_blocks"] == len(card["blocks"]) == want
+    assert card == cpu
+    export = os.path.join(run, "fxp_export")
+    manifest = json.load(open(os.path.join(export, "manifest.json")))
+    assert manifest["format_version"] == 1
+    assert np.load(os.path.join(export, "weights.npz")).files
+
+    # one validation batch, and the full length: card = CPU bit for bit
+    card_model = runner.load_fxp_model(cfg, "cuda")[0]
+    cpu_model = runner.load_fxp_model(cfg, "cpu")[0]
+    noisy, clean = next(iter(valloader))
+    x = (convert_mod._features(noisy, clean, "cpu")[0]
+         - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    same = torch.equal(card_model(x.cuda()).data.cpu(), cpu_model(x).data)
+    print(f"pipeline fxp: validation batch B={x.shape[0]}, L={x.shape[1]}: "
+          f"card = CPU bit for bit: {same}", flush=True)
+    assert same
+    tag = f"fxp forward B={full_x.shape[0]} L={full_x.shape[1]}"
+    y, _ = _timed_region(tag, lambda: card_model(full_x),
+                         {"fxp_scan": n_layers}, counters)
+    t0 = time.time()
+    y_cpu = cpu_model(full_x.cpu())
+    cpu_s = time.time() - t0
+    same = torch.equal(y.data.cpu(), y_cpu.data)
+    print(f"{tag}: card = CPU bit for bit: {same} (CPU {cpu_s:.1f} s)",
+          flush=True)
+    assert same
+
 
 def _stage_metrics(metrics) -> str:
     if not isinstance(metrics, dict):
@@ -3545,14 +3723,15 @@ def _reset_counts() -> None:
     """Every kernel wrapper's launch counter to 0."""
     from sparsernns_tpu_torch.ops.cuda import (block_sparse, diag_scan,
                                                engine_layer, engine_network,
-                                               fused_s5, layer_tail, qat_scan)
+                                               fused_s5, fxp_scan, layer_tail,
+                                               qat_scan)
     diag_scan.launches = diag_scan.launches_rev = 0
     diag_scan.launches_requant = 0
     fused_s5.launches = layer_tail.launches = 0
     fused_s5.launches_engine = fused_s5.launches_engine_carry = 0
     engine_layer.launches = engine_layer.launches_carry = 0
     engine_network.launches = 0
-    block_sparse.launches = 0
+    block_sparse.launches = fxp_scan.launches = 0
     qat_scan.launches = fused_s5.launches_qat = 0
 
 
@@ -4108,7 +4287,8 @@ def main() -> int:
     from sparsernns_tpu_torch.ops.cuda import (block_sparse, build,
                                                diag_scan, engine_layer,
                                                engine_network, fused_s5,
-                                               layer_tail, qat_scan)
+                                               fxp_scan, layer_tail,
+                                               qat_scan)
     from sparsernns_tpu_torch.ops.stft import stft_splitter
     from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
     from sparsernns_tpu_torch.train.loop import build_model
@@ -4402,7 +4582,8 @@ def main() -> int:
             "engine_network": engine_network.launches,
             "block_sparse": block_sparse.launches,
             "qat_scan": qat_scan.launches,
-            "fused_s5_qat": fused_s5.launches_qat}
+            "fused_s5_qat": fused_s5.launches_qat,
+            "fxp_scan": fxp_scan.launches}
         _reset_counts()
         layer_tail_bwd.launches_hist = layer_tail_bwd.launches_bwd = 0
         return counts
@@ -4475,8 +4656,13 @@ def main() -> int:
     bf16_training_phase(cfg, records, counters, batch)
     mark("bf16 stream training phase")
 
+    # ---------------- the fixed-point recurrence (fxp_scan) -------------
+    fxp_scan_kernel_phase(frames, gen, records)
+    mark("fxp_scan kernel phase")
+
     # ---------------- the conversion pipeline from a checkpoint ---------
-    pipeline_phase(root, counters)
+    full_x = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    pipeline_phase(root, counters, records, full_x)
     mark("pipeline phase")
 
     # ---------------- report ----------------

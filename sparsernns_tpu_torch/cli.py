@@ -2,12 +2,15 @@
 
     python -m sparsernns_tpu_torch.cli train   --recipe recipes/ndns.json ...
     python -m sparsernns_tpu_torch.cli convert --checkpoint_dir runs/x ...
+    python -m sparsernns_tpu_torch.cli fxp     --checkpoint_dir runs/x \
+        --fxp_mode inference|verify|export
 
 Every :class:`~sparsernns_tpu_torch.utils.config.RunConfig` field is a
 flag (``--<field> value``); a ``--recipe`` JSON file overlays the flags
 (the recipe wins, as in the JAX package), then ``dim_scale`` rescales the
 model. ``--device`` (default ``cuda``) is where the model runs. ``fxp``
-is accepted and raises: the fixed-point golden engine is not ported yet.
+runs the fixed-point golden engine over ``convert``'s artifacts
+(``fxp/runner.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="pipeline stage to run")
     parser.add_argument("--recipe", default=None,
                         help="JSON recipe overlay (see recipes/)")
+    parser.add_argument("--fxp_mode", default="inference",
+                        choices=["inference", "verify", "export"])
     parser.add_argument("--device", default="cuda",
                         help="device of the run: cuda (default) or cpu")
     add_config_args(parser)
@@ -53,9 +58,13 @@ def main(argv=None) -> int:
             k: v for k, v in results.items()
             if k not in ("frozen_params", "frozen_stats")})
     else:
-        raise NotImplementedError(
-            "fxp: the fixed-point golden engine (fxp/model.py, runner.py) is "
-            "not ported yet (ROADMAP Queue A 2)")
+        from sparsernns_tpu_torch.fxp import runner
+        if args.fxp_mode == "inference":
+            runner.run_inference(cfg, device=args.device)
+        elif args.fxp_mode == "verify":
+            runner.run_verification(cfg, device=args.device)
+        else:
+            runner.export_bundle(cfg, device=args.device)
     return 0
 
 

@@ -28,7 +28,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("diag_scan", "fused_s5", "layer_tail", "layer_tail_bwd",
-           "engine_layer", "engine_network", "block_sparse", "qat_scan")
+           "engine_layer", "engine_network", "block_sparse", "qat_scan",
+           "fxp_scan")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

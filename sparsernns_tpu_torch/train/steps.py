@@ -216,8 +216,10 @@ def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
     <call>[.<tuple index>...]``, and for the values the JAX package sows,
     ``<layer>.input`` (a layer's input), ``<layer>.pre_s5`` (the mixer's
     input), ``<layer>.pre_C`` (the mixer's states, where it returns them),
-    ``<layer>.pre_GLU`` (the mixer's output), ``encoder.pre_encoder`` and
-    ``pre_decoder``, each ``.<call>[.<index>]``. As in the JAX package the
+    ``<layer>.pre_GLU`` (the mixer's output), ``encoder.pre_encoder``,
+    ``encoder.encoder_output`` (the encoder dense after its activation,
+    the JAX package's ``topk_op``) and ``pre_decoder``, each
+    ``.<call>[.<index>]``. As in the JAX package the
     layers run their unfused route while capturing (no whole-layer
     kernel). Modules the port computes inline (BatchNorm, dropout) have no
     key."""
@@ -236,6 +238,7 @@ def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
 
     handles = []
     layers = []
+    encoders = []
     for name, mod in model.named_modules():
         base = prefix(name)
         handles.append(mod.register_forward_hook(
@@ -259,6 +262,13 @@ def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
         elif name == "encoder" and hasattr(mod, "layers"):
             handles.append(mod.register_forward_pre_hook(
                 lambda m, args: record("encoder.pre_encoder", args[0])))
+
+            def encode(x, encode=mod._encode):
+                y = encode(x)
+                record("encoder.encoder_output", y)
+                return y
+            mod._encode = encode
+            encoders.append(mod)
         elif name == "decoder":
             handles.append(mod.register_forward_pre_hook(
                 lambda m, args: record("pre_decoder", args[0])))
@@ -273,5 +283,7 @@ def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
             h.remove()
         for layer in layers:
             layer.capturing = False
+        for mod in encoders:
+            del mod._encode
         model.train(was_training)
     return y, out

@@ -3,7 +3,8 @@
 engine of the frozen tree that ``convert`` returned (bit for bit), the
 best-epoch restore from the single-slot ``<dir>/best`` (the port's
 analogue of ``tests/test_pipeline.py``'s retention test), and
-``cli.main`` ``train`` -> ``convert`` on a recipe file; ``fxp`` raises.
+``cli.main`` ``train`` -> ``convert`` -> ``fxp`` (each mode) on a recipe
+file.
 Port only: the parity of each stage with the JAX package is
 ``tests/test_torch_convert.py``.
 """
@@ -154,6 +155,29 @@ def test_convert_restores_the_best_epoch_from_its_slot(tmp_path):
                for path, val in flat_leaves(want))
 
 
-def test_fxp_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A 2"):
-        cli.main(["fxp", "--recipe", _recipe(tmp_path), "--device", "cpu"])
+@pytest.mark.parametrize("mode", ["inference", "verify", "export"])
+def test_cli_fxp_over_the_conversion_artifacts(trained, tmp_path, mode):
+    """``cli.main fxp`` in each mode over the CLI run's artifacts: the
+    validation metrics under JAX's keys, one verified block for the
+    encoder and four per layer, and the integer export."""
+    cfg, run = trained
+    argv = ["fxp", "--recipe", _recipe(tmp_path), "--device", "cpu",
+            "--checkpoint_dir", run, "--fxp_mode", mode]
+    assert cli.main(argv) == 0
+    if mode == "inference":
+        metrics = json.load(open(os.path.join(run, "fxp_val_metrics.json")))
+        assert set(metrics) == {"Val Loss - fxp", "Val Acc - fxp",
+                                "fxp_forward_seconds"}
+        assert all(np.isfinite(v) for v in metrics.values())
+    elif mode == "verify":
+        stats = json.load(open(os.path.join(run, "verification",
+                                            "stats.json")))
+        assert len(stats["blocks"]) == 1 + 4 * cfg.n_layers
+        assert "encoder.encoder.output" in stats["blocks"]
+    else:
+        path = os.path.join(run, "fxp_export")
+        manifest = json.load(open(os.path.join(path, "manifest.json")))
+        assert manifest["format_version"] == 1
+        assert manifest["model"]["type"] == "FxpRegressionModel"
+        assert any("ssm" in k for k in np.load(
+            os.path.join(path, "weights.npz")).files)

@@ -53,10 +53,8 @@ SHARED = dict(
     train_static_quant=True, qaft_epochs=1)
 
 #: JAX dump keys with no counterpart in the port: BatchNorm is computed
-#: inline (no module call), dropout is no module, and the encoder's output
-#: after its activation is not sown
+#: inline (no module call) and dropout is no module
 NO_COUNTERPART = {
-    "encoder.encoder_output.0",
     *(f"encoder.layers_{i}.{k}" for i in range(2)
       for k in ("norm.__call__.0", "drop.__call__.0", "drop.__call__.1"))}
 

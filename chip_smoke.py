@@ -6,7 +6,10 @@ outside the whole-layer kernel), top-k serving, pruned training with
 block-sparse serving, quantization-aware and top-k training, the int-dot
 engines (w8a8, and w8a16 with ``mxu16``), the LayerNorm and
 bf16-stream training of the whole-layer kernels, the conversion pipeline
-and the fixed-point golden engine over its artifacts at the width of
+and the fixed-point golden engine over its artifacts, the classification
+and retrieval heads, BatchNorm folding, the kernel-free routes
+(``scan_mode="blocked"``, the engine's ``route="xla"``), truncated
+backpropagation through time and the WAV corpus at the width of
 ``recipes/ndns.json`` (d_model 192, P 128, 3 layers; random weights from
 a seed):
 
@@ -211,7 +214,50 @@ a seed):
    as ``lax.scan``, no ``pallas_call``) against its plain version on the
    card at B=8, L=3751, P=128 on seeded codes at the flagship's formats
    (16-bit states, a at 2^-15, g = 12), a quarter of the channels near
-   |lambda| = 1 driven into saturation: bit for bit, timed (median of 5).
+   |lambda| = 1 driven into saturation: bit for bit, timed (median of 5);
+24. classification phase (after 22, as 25-29) — the flagship's layers
+   under ``ClassificationModel(mode="pool")`` with 10 classes on the
+   synthetic set at the sMNIST shape (784 steps of one input), B = 32:
+   three recipe steps (K2-train, K3a, K3b x 3 each a step, nothing
+   else), an eval step (K2 x 3), both profiled (wall, device ms, busy
+   share); one dropout-free step on the card against the CPU at the
+   training bars (``_grads_close``); eight dropout-free steps that lower the loss; eval forwards on
+   the card against the CPU at 1e-4 x max(1, |ref|): ``mode="last"``, a
+   padded batch through ``masked_meanpool`` and ``RetrievalModel`` on
+   2 x 16 sequences (K2 x 3); ``cli.main train`` on a classification
+   recipe in a temporary directory (one epoch), its wall seconds;
+25. BatchNorm folding phase — three training steps move the running
+   statistics, then the eval forward at B = 8 x 30 s with
+   ``fuse_batchnorm_linear`` (K1 x 3, the stand-alone scan; no K2)
+   against the unfolded model on the card and against the CPU (a
+   2 x 500-frame slice) at 1e-4 x max(1, |ref|);
+26. blocked scan phase — ``scan_mode="blocked"`` (no kernel at all): the
+   eval step at B = 8 x 30 s against the fused route (1e-3), the eval
+   forward against the CPU, one train step against the CPU at the
+   training bars, a timed and a profiled B = 8 train step;
+27. xla route phase — the w8a16 engine of phase 4's frozen tree on
+   ``route="xla"`` (no kernel at all): the offline call at B = 8 x 3751
+   and ``process_chunk`` over 128-frame blocks against the ``"auto"``
+   engine (K6 offline, K5b chunked) at the engine bar with float32
+   activations, chunked against one whole call, timed and profiled;
+   with phase 4's bf16 activations the card against the CPU (the per-op
+   route rounds the mixer input to bf16 where the kernels do not, in the
+   JAX package too: that difference is printed);
+28. TBPTT phase — the flagship with ``scan_mode="associative"`` on the
+   STFT features of B = 8 x 30 s clips in chunks of 375 frames: the
+   chunked eval forward with the carry against the whole forward
+   (1e-4 x max(1, |ref|)), the first ``make_tbptt_train_step`` step
+   (dropout 0, mean-squared error against the clean magnitude) on the
+   card against the CPU at the training bars, a pass over the batch's
+   chunks that moves the carry and lowers the first chunk's loss, ms a
+   chunk step;
+29. WAV corpus phase — an N-DNS-layout corpus of 30 s PCM16 clips written
+   to a temporary directory (16 train pairs, 8 each for validation and
+   test): the native decoder's batch against the ``wave`` reader's bit
+   for bit (``native.available()`` printed), then ``train(cfg)`` with
+   ``synthetic_data`` false and the ``NDNS_*_SET`` variables, one epoch at
+   B = 8 (K2-train, K3a, K3b x 3 a step, K2 x 3 an eval batch), its wall
+   seconds. The whole run's wall time is printed last.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -645,35 +691,19 @@ def _run_steps(tag, state, step, batch, n, expect, counters):
 def _card_vs_cpu_step(tag, config, noisy, clean) -> None:
     """One dropout-free train step at B=2, L=65 on the card against the
     same step on the CPU (the kernels' plain versions)."""
-    import torch
-
     from sparsernns_tpu_torch.train.loop import prep_ndns_batch
     from sparsernns_tpu_torch.train.steps import make_ndns_train_step
     short = tuple(t[:2, ..., :64 * 128].contiguous() for t in (noisy, clean))
-    results = []
-    for device in (torch.device("cuda"), torch.device("cpu")):
-        model, state = _fresh_run(config, device)
+
+    def one_step(pair, device):
+        model, state = pair
         batch = tuple(t.to(device) for t in short)
         state, metrics = make_ndns_train_step(model)(
             state, *prep_ndns_batch(*batch), batch[1])
-        results.append((metrics, {n: (q.detach().cpu(), q.grad.cpu())
-                                  for n, q in model.named_parameters()}))
-    (m_gpu, p_gpu), (m_cpu, p_cpu) = results
-    for key in ("loss", "grad_norm"):
-        ref = m_cpu[key].item()
-        _check(f"{tag} on the card vs on the CPU (plain), {key}",
-               abs(m_gpu[key].item() - ref), 1e-3 * max(1.0, abs(ref)))
-    _check(f"{tag} on the card vs on the CPU (plain), gradients, "
-           "relative to each parameter's max(1, max|grad|)",
-           max(((p_gpu[n][1] - g).abs().max() / max(1.0, g.abs().max()))
-               .item() for n, (_, g) in p_cpu.items()), 2e-4)
-    # Adam's first step moves an element by about the learning rate in the
-    # direction of its gradient's sign, so an element whose gradient is
-    # rounding noise may differ by that much: the mean is held, not the max
-    _check(f"{tag} on the card vs on the CPU (plain), parameters, "
-           "mean abs difference",
-           max((p_gpu[n][0] - q).abs().mean().item()
-               for n, (q, _) in p_cpu.items()), 1e-5)
+        return metrics, model
+
+    _grads_close(f"{tag} (plain on the CPU)", *_card_and_cpu(
+        lambda device: _fresh_run(config, device), one_step))
 
 
 def _learning_steps(tag, config, feats):
@@ -3735,6 +3765,35 @@ def _reset_counts() -> None:
     qat_scan.launches = fused_s5.launches_qat = 0
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count by record name, then every
+    count set to 0."""
+    from sparsernns_tpu_torch.ops.cuda import (block_sparse, diag_scan,
+                                               engine_layer, engine_network,
+                                               fused_s5, fxp_scan, layer_tail,
+                                               layer_tail_bwd, qat_scan)
+    counts = {
+        "diag_scan": diag_scan.launches,
+        "diag_scan_rev": diag_scan.launches_rev,
+        "diag_scan_requant": diag_scan.launches_requant,
+        "fused_s5": fused_s5.launches,
+        "fused_s5_engine": fused_s5.launches_engine,
+        "fused_s5_engine_carry": fused_s5.launches_engine_carry,
+        "layer_tail_train": layer_tail.launches,
+        "layer_tail_hist": layer_tail_bwd.launches_hist,
+        "layer_tail_bwd": layer_tail_bwd.launches_bwd,
+        "engine_layer": engine_layer.launches,
+        "engine_layer_carry": engine_layer.launches_carry,
+        "engine_network": engine_network.launches,
+        "block_sparse": block_sparse.launches,
+        "qat_scan": qat_scan.launches,
+        "fused_s5_qat": fused_s5.launches_qat,
+        "fxp_scan": fxp_scan.launches}
+    _reset_counts()
+    layer_tail_bwd.launches_hist = layer_tail_bwd.launches_bwd = 0
+    return counts
+
+
 def engine_setup(cfg, model, noisy_mag):
     """Calibrate the float model on two synthetic batches of 8 clips of 4 s,
     freeze it and build the w8a16 engine (block 512). Returns a namespace:
@@ -4276,6 +4335,596 @@ def engine_streaming_phase(cfg, eng, noisy, out_shape, records) -> None:
                             stream_engine.layers[-1].p, 1, encoder=False))
 
 
+def _cls_batch(bsz: int, seq_len: int = 784, n_classes: int = 10):
+    """The first batch of the synthetic classification set at the sMNIST
+    shape (``seq_len`` steps of one input, ``n_classes`` classes), on the
+    card: (inputs (B, L, 1), labels (B,) int64)."""
+    import torch
+
+    from sparsernns_tpu_torch.data.classification import \
+        create_classification_dataset
+    train = create_classification_dataset(
+        bsz, seed=0, size=2 * bsz, seq_len=seq_len, d_input=1,
+        n_classes=n_classes)[0]
+    xs, ys = next(iter(train))
+    return (torch.from_numpy(xs).cuda(),
+            torch.from_numpy(ys).to(device="cuda", dtype=torch.int64))
+
+
+def _grads_close(tag, metrics, params) -> None:
+    """One train step on the card against the same step on the CPU at
+    the training bars (loss and gradient norm 1e-3 relative, gradients
+    2e-4 of each parameter's max(1, max|grad|), parameters 1e-5 in the
+    mean): ``metrics`` and ``params`` are [card, CPU] lists of the
+    step's metrics and {name: (parameter, gradient)} on the host. Adam's
+    first step moves an element by about the learning rate in the
+    direction of its gradient's sign, so an element whose gradient is
+    rounding noise may differ by that much: the parameters are held in
+    the mean, not the max."""
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = zip(metrics, params)
+    for key in ("loss", "grad_norm"):
+        if key not in m_cpu:
+            continue
+        ref = m_cpu[key].item()
+        _check(f"{tag} on the card vs on the CPU, {key}",
+               abs(m_gpu[key].item() - ref), 1e-3 * max(1.0, abs(ref)))
+    _check(f"{tag} on the card vs on the CPU, gradients, relative to each "
+           "parameter's max(1, max|grad|)",
+           max(((p_gpu[n][1] - g).abs().max() / max(1.0, g.abs().max()))
+               .item() for n, (_, g) in p_cpu.items()), 2e-4)
+    _check(f"{tag} on the card vs on the CPU, parameters, mean abs "
+           "difference", max((p_gpu[n][0] - q).abs().mean().item()
+                             for n, (q, _) in p_cpu.items()), 1e-5)
+
+
+def _host_params(model):
+    return {n: (q.detach().cpu(), q.grad.cpu())
+            for n, q in model.named_parameters()}
+
+
+def _card_and_cpu(build, fn):
+    """``fn(model, device)`` -> (metrics, model) for a model ``build(device)``
+    on the card and on the CPU: ([metrics], [host parameters])."""
+    import torch
+    metrics, params = [], []
+    for device in (torch.device("cuda"), torch.device("cpu")):
+        m, model = fn(build(device), device)
+        metrics.append(m)
+        params.append(_host_params(model))
+    return metrics, params
+
+
+def classification_phase(cfg, root, records, counters) -> None:
+    """Phase 24: the classification head at the flagship's width
+    (module docstring, item 24)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch import cli
+    from sparsernns_tpu_torch.models.seq_model import RetrievalModel
+    from sparsernns_tpu_torch.models.ssm import S5SSM
+    from sparsernns_tpu_torch.models.ssm_init import blocked_dplr_init
+    from sparsernns_tpu_torch.train.loop import build_model, create_run_state
+    from sparsernns_tpu_torch.train.steps import (
+        make_classification_eval_step, make_classification_train_step)
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    n_layers, bsz, n_cls = cfg.n_layers, 32, 10
+    ccfg = dataclasses.replace(cfg, dataset="synthetic-classification",
+                               bsz=bsz, mode="pool")
+    xs, ys = _cls_batch(bsz)
+    tail = dict.fromkeys(TAIL_KERNELS, n_layers)
+
+    def fresh(config, device="cuda"):
+        model = build_model(config, 1, n_cls, training=True, device=device,
+                            seed=0)
+        return model, create_run_state(config, model, steps_per_epoch=2)
+
+    # ---- three recipe steps (dropout 0.1): K2-train, K3a, K3b x 3 each --
+    model, state = fresh(ccfg)
+    step = make_classification_train_step(model)
+    for i in range(3):
+        counters()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m = step(state, xs, ys)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        counts = counters()
+        print(f"classification train B={bsz} step {i}: {wall:.1f} ms, loss "
+              f"{m['loss'].item():.4f}, accuracy {m['accuracy'].item():.3f}, "
+              f"grad_norm {m['grad_norm'].item():.3f}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        assert np.isfinite(m["loss"].item()), m
+        assert {k: v for k, v in counts.items() if v} == tail, counts
+    prof = profile_region(f"classification train step B={bsz}",
+                          lambda: step(state, xs, ys), top=12)
+    print(json.dumps(prof), flush=True)
+    print(f"classification train step B={bsz}: wall "
+          f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms, "
+          f"busy share {prof['device_busy_share']:.3f}", flush=True)
+    evaluate = make_classification_eval_step(model)
+    counters()
+    t0 = time.time()
+    ev = evaluate(xs, ys)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = {k: v for k, v in counters().items() if v}
+    print(f"classification eval B={bsz}: {wall:.1f} ms, loss "
+          f"{ev['loss'].item():.4f}, accuracy {ev['accuracy'].item():.3f}, "
+          f"launches {counts}", flush=True)
+    assert counts == {"layer_tail_train": n_layers}, counts
+    assert np.isfinite(ev["loss"].item()) and 0 <= ev["accuracy"].item() <= 1
+    prof = profile_region(f"classification eval step B={bsz}",
+                          lambda: evaluate(xs, ys), top=8)
+    print(json.dumps(prof), flush=True)
+    print(f"classification eval step B={bsz}: wall {prof['wall_ms']:.2f} "
+          f"ms, device {prof['device_ms']:.2f} ms, busy share "
+          f"{prof['device_busy_share']:.3f}", flush=True)
+    del model, state, step
+
+    # ---- one dropout-free step on the card against the CPU (B = 4) ----
+    quiet = dataclasses.replace(ccfg, p_dropout=0.0)
+
+    def one_step(pair, device):
+        model, state = pair
+        state, m = make_classification_train_step(model)(
+            state, xs[:4].to(device), ys[:4].to(device))
+        return m, model
+
+    _grads_close("classification train step",
+                 *_card_and_cpu(lambda d: fresh(quiet, d), one_step))
+
+    # ---- eight dropout-free steps lower the loss ----
+    model, state = fresh(quiet)
+    step = make_classification_train_step(model)
+    losses = [step(state, xs, ys)[1]["loss"].item() for _ in range(8)]
+    print(f"classification dropout 0 steps: losses {losses}", flush=True)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+    # ---- eval forwards on the card against the CPU ----
+    model.eval()
+    sd = model.state_dict()
+
+    def eval_close(tag, make, inputs):
+        with torch.no_grad():
+            card = make("cuda")
+            card.load_state_dict(sd)
+            out = card(inputs).cpu()
+            host = make("cpu")
+            host.load_state_dict({k: v.cpu() for k, v in sd.items()})
+            ref = host(tuple(t.cpu() for t in inputs)
+                       if isinstance(inputs, tuple) else inputs.cpu())
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        _check(f"{tag} eval, card vs CPU", _rel_err(out, ref), 1e-4)
+
+    small = xs[:8]
+    eval_close("classification mode=last", lambda d: build_model(
+        dataclasses.replace(quiet, mode="last"), 1, n_cls, device=d,
+        seed=0), small)
+    lengths = torch.tensor([784, 700, 512, 333, 100, 64, 9, 1],
+                           device="cuda")
+
+    def padded(d):
+        m = build_model(quiet, 1, n_cls, device=d, seed=0)
+        m.padded = True
+        return m
+    eval_close("classification padded (masked_meanpool)", padded,
+               (small, lengths))
+    init = blocked_dplr_init(cfg.ssm_size_base, cfg.blocks, cfg.conj_sym)
+    gen = torch.Generator().manual_seed(24)
+
+    def retrieval(d):
+        def make_mixer():
+            return S5SSM(init["Lambda"], init["V"], init["Vinv"],
+                         h=cfg.d_model, p=init["P"], c_init=cfg.C_init,
+                         clip_eigs=cfg.clip_eigs, generator=gen,
+                         scan_mode=cfg.scan_mode)
+        return RetrievalModel(make_mixer, 1, 2, n_layers, cfg.d_model,
+                              glu_variant=cfg.glu_variant,
+                              bn_momentum=cfg.bn_momentum).to(d).eval()
+    rmodel = retrieval("cuda")
+    sd = rmodel.state_dict()
+    counters()
+    docs = torch.cat([xs[:16], xs[16:32]])
+    eval_close("retrieval on 2 x 16 sequences", retrieval, docs)
+    counts = {k: v for k, v in counters().items() if v}
+    print(f"retrieval eval launches {counts}", flush=True)
+    assert counts == {"layer_tail_train": n_layers}, counts
+
+    # ---- cli.main train on a classification recipe ----
+    with open(os.path.join(root, "recipes", "ndns.json")) as f:
+        recipe = json.load(f)
+    recipe.update(dataset="synthetic-classification", epochs=1, bsz=bsz,
+                  synthetic_size=2 * bsz)
+    with tempfile.TemporaryDirectory(prefix="cls_") as tmp:
+        path = os.path.join(tmp, "recipe.json")
+        with open(path, "w") as f:
+            json.dump(recipe, f)
+        counters()
+        t0 = time.time()
+        assert cli.main(["train", "--recipe", path, "--checkpoint_dir",
+                         os.path.join(tmp, "run")]) == 0
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {k: v for k, v in counters().items() if v}
+        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
+            log = json.loads(f.readline())
+    print(f"cli train synthetic-classification (1 epoch, 2 steps of "
+          f"B={bsz} x 128 steps): {wall:.2f} s, train loss "
+          f"{log['train_loss']:.4f}, val accuracy {log['val_accuracy']:.3f}, "
+          f"launches {counts}", flush=True)
+    assert counts["layer_tail_hist"] == counts["layer_tail_bwd"] == \
+        2 * n_layers, counts
+
+
+def bn_fusion_phase(cfg, batch, counters) -> None:
+    """Phase 25: ``fuse_batchnorm_linear`` (module docstring, item 25)."""
+    import torch
+
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+    from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+    n_layers = cfg.n_layers
+    quiet = dataclasses.replace(cfg, p_dropout=0.0)
+    _, _, feats = batch
+    # three steps first, so that the running statistics have moved
+    model, state = _fresh_run(quiet)
+    step = make_ndns_train_step(model)
+    small = tuple(t[:B].contiguous() for t in feats)
+    for _ in range(3):
+        state, _ = step(state, *small)
+    stats = model.encoder.layers[0].norm.running_var
+    assert not torch.allclose(stats, torch.ones_like(stats))
+    x = (small[0] - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    folded_cfg = dataclasses.replace(quiet, fuse_batchnorm_linear=True)
+    folded = build_model(folded_cfg, 257, 257, device="cuda", seed=0)
+    folded.load_state_dict(model.state_dict())
+    model.eval()
+    with torch.no_grad():
+        counters()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        y_fold = folded(x)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        counts = {k: v for k, v in counters().items() if v}
+        y_plain = model(x)
+        print(f"BatchNorm folded eval forward B={B} x {SECONDS} s: "
+              f"{wall:.1f} ms, launches {counts}", flush=True)
+        assert counts == {"diag_scan": n_layers}, counts
+        _check("folded vs unfolded eval forward on the card",
+               _rel_err(y_fold, y_plain), 1e-4)
+        host = build_model(folded_cfg, 257, 257, device="cpu", seed=0)
+        host.load_state_dict({k: v.cpu() for k, v in
+                              folded.state_dict().items()})
+        xs = x[:2, :500]
+        _check("folded eval forward, card vs CPU",
+               _rel_err(folded(xs).cpu(), host(xs.cpu())), 1e-4)
+
+
+def blocked_phase(cfg, model, batch, counters) -> None:
+    """Phase 26: ``scan_mode="blocked"`` (module docstring, item 26)."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+    from sparsernns_tpu_torch.train.steps import (make_ndns_eval_step,
+                                                  make_ndns_train_step)
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    noisy, clean, feats = batch
+    small = tuple(t[:B].contiguous() for t in feats)
+    bcfg = dataclasses.replace(cfg, scan_mode="blocked", p_dropout=0.0)
+    blocked = build_model(bcfg, 257, 257, device="cuda", seed=0)
+    blocked.load_state_dict(model.state_dict())
+    fused_eval = make_ndns_eval_step(model)
+    blocked_eval = make_ndns_eval_step(blocked)
+    ref = fused_eval(*small)
+    counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = blocked_eval(*small)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = {k: v for k, v in counters().items() if v}
+    print(f"blocked eval step B={B} x {SECONDS} s: {wall:.1f} ms, loss "
+          f"{got['loss'].item():.4f} (fused {ref['loss'].item():.4f}), "
+          f"si_snr {got['si_snr'].item():.3f} dB, launches {counts}",
+          flush=True)
+    assert not counts, counts
+    for key in ("loss", "si_snr"):
+        _check(f"blocked eval step {key} vs the fused route",
+               abs(got[key].item() - ref[key].item()),
+               1e-3 * max(1.0, abs(ref[key].item())))
+    x = (small[0] - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    with torch.no_grad():
+        _check("blocked eval forward vs the fused route's",
+               _rel_err(blocked(x), model(x)), 1e-3)
+        host = build_model(bcfg, 257, 257, device="cpu", seed=0)
+        host.load_state_dict({k: v.cpu() for k, v in
+                              blocked.state_dict().items()})
+        xs = x[:2, :500]
+        _check("blocked eval forward, card vs CPU",
+               _rel_err(blocked(xs).cpu(), host(xs.cpu())), 1e-4)
+    prof = profile_region(f"blocked eval step B={B}",
+                          lambda: blocked_eval(*small), top=8)
+    print(json.dumps(prof), flush=True)
+    _card_vs_cpu_step("blocked train step", bcfg, noisy, clean)
+    model_b, state = _fresh_run(bcfg)
+    step = make_ndns_train_step(model_b)
+    state, _ = step(state, *small)
+    counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, m = step(state, *small)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = {k: v for k, v in counters().items() if v}
+    print(f"blocked train step B={B} x {SECONDS} s: {wall:.1f} ms, loss "
+          f"{m['loss'].item():.4f}, launches {counts}", flush=True)
+    assert not counts and np.isfinite(m["loss"].item()), (counts, m)
+    prof = profile_region(f"blocked train step B={B}",
+                          lambda: step(state, *small), top=8)
+    print(json.dumps(prof), flush=True)
+
+
+def xla_route_phase(cfg, eng, counters) -> None:
+    """Phase 27: the engine's ``route="xla"`` (module docstring, item
+    27). Held against ``"auto"`` with float32 activations: with bf16
+    ones the per-op route rounds each mixer input to bf16 where the
+    whole-layer kernels do not, in the JAX package too (its xla and auto
+    engines differ by 3.4e-3 at most, 6e-4 in the mean on the CPU tests'
+    tree), so the bf16 engines are held card against CPU instead and
+    their difference to ``"auto"`` is printed."""
+    import torch
+
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    dev = torch.device("cuda")
+    x = eng.x_eng
+
+    def engine(route, block_t, act=torch.float32, device=dev):
+        return engine_from_frozen(cfg, *eng.frozen, device=device,
+                                  block_t=block_t, route=route,
+                                  act_dtype=act)
+
+    xla, auto = engine("xla", 512), engine("auto", 512)
+    assert xla.route == "xla" and not xla._stack_ok and not xla._network_ok
+    ref = auto(x)
+    counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = xla(x)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = {k: v for k, v in counters().items() if v}
+    print(f"xla engine offline B={B} x {x.shape[1]} (f32 activations): "
+          f"{wall:.1f} ms, launches {counts}", flush=True)
+    assert not counts, counts
+    _engine_close("xla engine offline vs auto (f32 activations)", out, ref)
+    prof = profile_region(f"xla engine offline B={B}", lambda: xla(x),
+                          top=8)
+    print(json.dumps(prof), flush=True)
+    # phase 4's bf16 engine on the xla route: the card against the CPU
+    xla16 = engine("xla", 512, act=torch.bfloat16)
+    counters()
+    out16 = xla16(x)
+    assert not any(counters().values())
+    diff = (out16.float() - eng.engine(x).float()).abs()
+    print(f"xla engine (bf16 activations) vs auto (bf16): max "
+          f"{diff.max().item():.3e}, mean {diff.mean().item():.3e} (the "
+          "per-op route's bf16 mixer input, as in the JAX package)",
+          flush=True)
+    host = engine("xla", 512, act=torch.bfloat16, device="cpu")
+    _engine_close("xla engine (bf16 activations), card vs CPU",
+                  out16[:2].cpu(), host(x[:2].cpu()))
+    # chunked at 128 frames against the auto engine's chunks and against
+    # one whole call of a 128-frame engine
+    xla128, auto128 = engine("xla", STREAM_BLOCK), engine("auto",
+                                                          STREAM_BLOCK)
+    outs, refs, c_x, c_a = [], [], None, None
+    counters()
+    t0 = time.time()
+    for i in range(0, x.shape[1], STREAM_BLOCK):
+        y, c_x = xla128.process_chunk(x[:, i:i + STREAM_BLOCK], c_x)
+        outs.append(y)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    counts = {k: v for k, v in counters().items() if v}
+    assert not counts, counts
+    for i in range(0, x.shape[1], STREAM_BLOCK):
+        y, c_a = auto128.process_chunk(x[:, i:i + STREAM_BLOCK], c_a)
+        refs.append(y)
+    chunked = torch.cat(outs, dim=1)
+    n = len(outs)
+    print(f"xla engine process_chunk: {n} chunks of {STREAM_BLOCK} frames "
+          f"in {wall:.1f} ms ({wall / n:.2f} ms a chunk), launches {counts}",
+          flush=True)
+    _engine_close("xla engine chunked vs auto chunked", chunked,
+                  torch.cat(refs, dim=1))
+    _engine_close("xla engine chunked vs whole", chunked, xla128(x))
+    chunk = x[:, :STREAM_BLOCK]
+    prof = profile_region("xla engine one chunk",
+                          lambda: xla128.process_chunk(chunk), top=8)
+    print(json.dumps(prof), flush=True)
+
+
+def tbptt_phase(cfg, feats, counters) -> None:
+    """Phase 28: truncated backpropagation through time (module
+    docstring, item 28)."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.data import tbptt
+    from sparsernns_tpu_torch.train.loop import build_model, create_run_state
+    from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+    chunk_len = 375
+    acfg = dataclasses.replace(cfg, scan_mode="associative", p_dropout=0.0)
+    noisy_mag, _, clean_mag, _ = (t[:B] for t in feats)
+    x = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
+    y = clean_mag.transpose(1, 2).contiguous()
+    chunks = list(tbptt.tbptt_chunks(x.cpu().numpy(), y.cpu().numpy(),
+                                     chunk_len))
+    assert len(chunks) == x.shape[1] // chunk_len, len(chunks)
+    covered = len(chunks) * chunk_len
+
+    def fresh(device):
+        model = build_model(acfg, 257, 257, training=True, device=device,
+                            seed=0)
+        return model, create_run_state(acfg, model, steps_per_epoch=2)
+
+    model, state = fresh("cuda")
+    model.eval()
+    with torch.no_grad():
+        whole = model(x[:, :covered])
+        carry, outs = None, []
+        for xc, _, reset in chunks:
+            if reset:
+                carry = tbptt.init_carry(model, xc)
+            out, carry = model.forward_stream(torch.from_numpy(xc).cuda(),
+                                              carry)
+            outs.append(out)
+    _check(f"TBPTT chunked eval forward ({len(chunks)} x {chunk_len}) vs "
+           "the whole forward", _rel_err(torch.cat(outs, dim=1), whole),
+           1e-4)
+
+    def mse(pred, tgt):
+        return torch.mean((pred - tgt) ** 2)
+
+    def first_step(pair, device):
+        model, state = pair
+        xc, yc, _ = chunks[0]
+        step = tbptt.make_tbptt_train_step(model, mse)
+        state, _, m = step(state, tbptt.init_carry(model, xc),
+                           torch.from_numpy(xc).to(device),
+                           torch.from_numpy(yc).to(device))
+        return m, model
+
+    _grads_close("TBPTT first chunk step", *_card_and_cpu(fresh, first_step))
+
+    model, state = fresh("cuda")
+    step = tbptt.make_tbptt_train_step(model, mse)
+    x0 = torch.from_numpy(chunks[0][0]).cuda()
+    y0 = torch.from_numpy(chunks[0][1]).cuda()
+
+    def chunk0_loss():
+        with torch.no_grad():
+            model.eval()
+            out, _ = model.forward_stream(x0, None)
+            model.train()
+            return mse(out, y0).item()
+
+    before = chunk0_loss()
+    walls, carry = [], None
+    for xc, yc, reset in chunks:
+        if reset:
+            carry = tbptt.init_carry(model, xc)
+        counters()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, carry, m = step(state, carry, torch.from_numpy(xc).cuda(),
+                               torch.from_numpy(yc).cuda())
+        torch.cuda.synchronize()
+        walls.append((time.time() - t0) * 1e3)
+        counts = {k: v for k, v in counters().items() if v}
+        assert not counts and np.isfinite(m["loss"].item()), (counts, m)
+    after = chunk0_loss()
+    moved = max(c.abs().max().item() for pair in carry for c in pair)
+    print(f"TBPTT pass over {len(chunks)} chunks of {chunk_len} frames at "
+          f"B={B}: {np.median(walls):.1f} ms a chunk step (median; first "
+          f"{walls[0]:.1f}), chunk-0 loss {before:.5f} -> {after:.5f}, "
+          f"largest carry {moved:.3e}", flush=True)
+    assert after < before and moved > 0, (before, after, moved)
+
+
+def wav_corpus_phase(cfg, counters) -> None:
+    """Phase 29: the WAV corpus and the native decoder (module docstring,
+    item 29)."""
+    import tempfile
+    import wave
+
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.data import native
+    from sparsernns_tpu_torch.data.ndns import (AUDIO_LEN, DNSAudioDataset,
+                                                SyntheticNDNS, read_wav)
+    from sparsernns_tpu_torch.train.loop import train
+    n_layers = cfg.n_layers
+    print(f"native WAV decoder available: {native.available()}", flush=True)
+    assert native.available(), "g++ builds the native decoder here"
+
+    def write(path, audio):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        pcm = np.clip(np.round(audio * 32767.0), -32768, 32767)
+        with wave.open(path, "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(16000)
+            f.writeframes(pcm.astype("<i2").tobytes())
+
+    env = {}
+    with tempfile.TemporaryDirectory(prefix="ndns_corpus_") as tmp:
+        t0 = time.time()
+        for split, pairs, seed in (("TRAIN", 16, 10), ("VALIDATION", 8, 11),
+                                   ("TEST", 8, 12)):
+            root = os.path.join(tmp, split.lower())
+            ds = SyntheticNDNS(size=pairs, length=AUDIO_LEN, seed=seed)
+            for i in range(pairs):
+                noisy, clean = ds[i]
+                write(os.path.join(root, "noisy",
+                                   f"synthetic_fileid_{i}.wav"), noisy)
+                write(os.path.join(root, "clean", f"clean_fileid_{i}.wav"),
+                      clean)
+            env[f"NDNS_{split}_SET"] = root
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp) for f in fs)
+        print(f"WAV corpus: 32 pairs of {AUDIO_LEN // 16000} s PCM16, "
+              f"{size / 1e6:.1f} MB written in {time.time() - t0:.1f} s",
+              flush=True)
+        ds = DNSAudioDataset(env["NDNS_TRAIN_SET"])
+        noisy_paths, clean_paths = ds.batch_paths(range(B))
+        t0 = time.time()
+        got = native.decode_batch(noisy_paths + clean_paths, AUDIO_LEN)
+        native_s = time.time() - t0
+        t0 = time.time()
+        ref = np.stack([read_wav(p) for p in noisy_paths + clean_paths])
+        wave_s = time.time() - t0
+        assert np.array_equal(got, ref), np.abs(got - ref).max()
+        print(f"native decode of {2 * B} clips {native_s * 1e3:.1f} ms, "
+              f"wave reader {wave_s * 1e3:.1f} ms: equal bit for bit",
+              flush=True)
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            run = dataclasses.replace(cfg, bsz=B, epochs=1,
+                                      synthetic_data=False)
+            counters()
+            t0 = time.time()
+            out = train(run)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        counts = {k: v for k, v in counters().items() if v}
+    log = out["metadata"]["last_log"]
+    steps, evals = 16 // B, 2 * (8 // B)
+    print(f"train on the WAV corpus: one epoch, {steps} steps of B={B} x "
+          f"30 s and {evals} eval batches in {wall:.2f} s; train loss "
+          f"{log['train_loss']:.4f}, val si_snr {log['val_si_snr']:.3f} dB; "
+          f"launches {counts}", flush=True)
+    assert out["state"].step == steps, out["state"].step
+    assert counts == {"layer_tail_train": n_layers * (steps + evals),
+                      "layer_tail_hist": n_layers * steps,
+                      "layer_tail_bwd": n_layers * steps}, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4284,11 +4933,7 @@ def main() -> int:
     import numpy as np
 
     from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
-    from sparsernns_tpu_torch.ops.cuda import (block_sparse, build,
-                                               diag_scan, engine_layer,
-                                               engine_network, fused_s5,
-                                               fxp_scan, layer_tail,
-                                               qat_scan)
+    from sparsernns_tpu_torch.ops.cuda import build, diag_scan, layer_tail
     from sparsernns_tpu_torch.ops.stft import stft_splitter
     from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
     from sparsernns_tpu_torch.train.loop import build_model
@@ -4301,7 +4946,7 @@ def main() -> int:
     dev = torch.device("cuda")
     root = os.path.dirname(os.path.abspath(__file__))
 
-    t0 = time.time()
+    run_start = t0 = time.time()
     build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, log in build.build_logs.items():
@@ -4561,33 +5206,11 @@ def main() -> int:
     mark("engine streaming phase")
 
     # ---------------- training kernel phase (K2-train, K3a, K3b) --------
-    from sparsernns_tpu_torch.ops.cuda import layer_tail_bwd
     training_kernel_phase(layer0, cfg, frames, gen, records)
     mark("training kernel phase")
 
     # ---------------- training phase ----------------
-    def counters():
-        counts = {
-            "diag_scan": diag_scan.launches,
-            "diag_scan_rev": diag_scan.launches_rev,
-            "diag_scan_requant": diag_scan.launches_requant,
-            "fused_s5": fused_s5.launches,
-            "fused_s5_engine": fused_s5.launches_engine,
-            "fused_s5_engine_carry": fused_s5.launches_engine_carry,
-            "layer_tail_train": layer_tail.launches,
-            "layer_tail_hist": layer_tail_bwd.launches_hist,
-            "layer_tail_bwd": layer_tail_bwd.launches_bwd,
-            "engine_layer": engine_layer.launches,
-            "engine_layer_carry": engine_layer.launches_carry,
-            "engine_network": engine_network.launches,
-            "block_sparse": block_sparse.launches,
-            "qat_scan": qat_scan.launches,
-            "fused_s5_qat": fused_s5.launches_qat,
-            "fxp_scan": fxp_scan.launches}
-        _reset_counts()
-        layer_tail_bwd.launches_hist = layer_tail_bwd.launches_bwd = 0
-        return counts
-
+    counters = launch_counts
     batch = _train_batch(cfg.bsz)
     training_phase(cfg, records, counters, batch)
     mark("training phase")
@@ -4664,6 +5287,21 @@ def main() -> int:
     full_x = (noisy_mag - STFT_MAG_MEAN).transpose(1, 2).contiguous()
     pipeline_phase(root, counters, records, full_x)
     mark("pipeline phase")
+
+    # ---------------- the rest of the run surface ----------------
+    classification_phase(cfg, root, records, counters)
+    mark("classification phase")
+    bn_fusion_phase(cfg, batch, counters)
+    mark("BatchNorm folding phase")
+    blocked_phase(cfg, model, batch, counters)
+    mark("blocked scan phase")
+    xla_route_phase(cfg, eng, counters)
+    mark("xla route phase")
+    tbptt_phase(cfg, batch[2], counters)
+    mark("TBPTT phase")
+    wav_corpus_phase(cfg, counters)
+    mark("WAV corpus phase")
+    print(f"whole run: {time.time() - run_start:.1f} s", flush=True)
 
     # ---------------- report ----------------
     smi = subprocess.run(

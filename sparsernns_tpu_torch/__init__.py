@@ -23,7 +23,13 @@ with block-sparse engine serving over the block-sparse matmul kernel
 (``ops/cuda/block_sparse.py``) — and the conversion pipeline from a
 training run's checkpoint (``quantize/convert.convert``, its artifacts
 served by ``W8A16Engine.from_artifacts``) behind the command line
-``python -m sparsernns_tpu_torch.cli train|convert``.
+``python -m sparsernns_tpu_torch.cli train|convert|fxp`` — and the
+fixed-point golden engine (``fxp/``) — and the rest of the run surface:
+the classification and retrieval heads with their datasets, steps and
+epoch loop, truncated backpropagation through time (``data/tbptt.py``),
+BatchNorm folding, the kernel-free routes (``scan_mode="blocked"``, the
+engine's ``route="xla"``), the WAV corpus with its native decoder, the
+metrics sinks and the hyperparameter search (``train/tune.py``).
 Module names follow the JAX package. Entry points run on ``"cuda"`` unless
 the caller passes another device.
 """

@@ -8,8 +8,11 @@
 Every :class:`~sparsernns_tpu_torch.utils.config.RunConfig` field is a
 flag (``--<field> value``); a ``--recipe`` JSON file overlays the flags
 (the recipe wins, as in the JAX package), then ``dim_scale`` rescales the
-model. ``--device`` (default ``cuda``) is where the model runs. ``fxp``
-runs the fixed-point golden engine over ``convert``'s artifacts
+model. ``--device`` (default ``cuda``) is where the model runs. ``train``
+runs every dataset of the registry (``--dataset ndns``,
+``synthetic-classification``, ``smnist``, ``psmnist``); ``convert`` and
+``fxp`` serve the NDNS task, as in the JAX package. ``fxp`` runs the
+fixed-point golden engine over ``convert``'s artifacts
 (``fxp/runner.py``).
 """
 

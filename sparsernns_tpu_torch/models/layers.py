@@ -50,6 +50,18 @@ Two routes, as in the JAX package:
   largest values (relu top-k), and after the residual, the postnorm and
   the relu the layer output keeps them too (top-k, before the
   ``quant_residual`` quantizer).
+
+With ``fuse_batchnorm_linear`` (prenorm BatchNorm only) the layer never
+takes the whole-layer kernel: its BatchNorm folds into the mixer's B̄ and
+D from the running statistics and the affine (the JAX package's
+``bn_fusion``), in eval and in training mode alike, and the norm itself
+is not run, so its running statistics stay as they are. Without
+``use_batchnorm_scale`` / ``use_batchnorm_bias`` the BatchNorm has no
+scale or no bias parameter (ones and zeros take their place as
+non-persistent buffers, so every route computes as before). A layer
+without either parameter does not fold (the JAX package finds no norm
+parameters and normalizes), and one with a single parameter raises
+``KeyError`` on folding, as the JAX package's lookup does.
 """
 
 from __future__ import annotations
@@ -139,10 +151,16 @@ class SequenceLayer(nn.Module):
                  batchnorm: bool = True, prenorm: bool = True,
                  q_config: Optional[QuantizationConfig] = None,
                  dropout: float = 0.0, bn_momentum: float = 0.90,
-                 topk: float = 1.0, approx_topk: bool = False):
+                 topk: float = 1.0, approx_topk: bool = False,
+                 fuse_batchnorm_linear: bool = False,
+                 use_batchnorm_scale: bool = True,
+                 use_batchnorm_bias: bool = True):
         super().__init__()
         if glu_variant not in GLU_VARIANTS:
             raise ValueError(f"glu_variant must be one of {GLU_VARIANTS}")
+        if fuse_batchnorm_linear and not (batchnorm and prenorm):
+            raise ValueError("fuse_batchnorm_linear requires batchnorm and "
+                             "prenorm")
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {dropout}")
         q_config = q_config or QuantizationConfig.none()
@@ -162,8 +180,21 @@ class SequenceLayer(nn.Module):
             self.out1 = make_dense(q_config, d_model, d_model)
         if glu_variant in ("full", "half1", "half2"):
             self.out2 = make_dense(q_config, d_model, d_model)
+        self.fuse_batchnorm_linear = fuse_batchnorm_linear
         self.norm = (nn.BatchNorm1d(d_model, eps=BN_EPS) if batchnorm
                      else nn.LayerNorm(d_model, eps=LN_EPS))
+        #: the BatchNorm's affine parameters that exist (flax's
+        #: ``use_scale`` / ``use_bias``)
+        self.bn_params = ()
+        if batchnorm:
+            for name, use, fill in (("weight", use_batchnorm_scale, 1.0),
+                                    ("bias", use_batchnorm_bias, 0.0)):
+                if use:
+                    self.bn_params += (name,)
+                else:
+                    delattr(self.norm, name)
+                    self.norm.register_buffer(
+                        name, torch.full((d_model,), fill), persistent=False)
         act_bits = q_config.non_ssm_act_precision
         self.static_quant = bool(q_config.static_quant)
         #: any quantization (static or QAT) keeps the layer off the
@@ -274,7 +305,24 @@ class SequenceLayer(nn.Module):
         package's ``_tail_ops``): a float prenorm layer around a mixer that
         the kernel expresses."""
         return (self.prenorm and not self.quantized and not self.capturing
+                and not self.fuse_batchnorm_linear
                 and self.mixer.expresses_tail())
+
+    def bn_fusion(self) -> Optional[dict]:
+        """The BatchNorm the mixer folds in (mean, var, eps, scale, bias),
+        or None: with ``fuse_batchnorm_linear``, outside static
+        quantization, and where the norm has parameters at all."""
+        if (not self.fuse_batchnorm_linear or self.static_quant
+                or not self.bn_params):
+            return None
+        for name in ("weight", "bias"):
+            if name not in self.bn_params:
+                raise KeyError(
+                    f"fuse_batchnorm_linear folds the BatchNorm's scale and "
+                    f"bias; this norm has no {name!r}")
+        n = self.norm
+        return dict(mean=n.running_mean, var=n.running_var, eps=n.eps,
+                    scale=n.weight, bias=n.bias)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -306,11 +354,14 @@ class SequenceLayer(nn.Module):
             m2, "relu" if self.relufication else "gelu", glu, relu_state,
             self.relufication, skip)
 
-    def forward_stream(self, x: torch.Tensor, carry: Optional[Pair]
+    def forward_stream(self, x: torch.Tensor, carry: Optional[Pair],
+                       generator: Optional[torch.Generator] = None
                        ) -> Tuple[torch.Tensor, Pair]:
         """Unfused forward starting the scan from ``carry`` (None: zero).
-        Returns (output, the mixer's final state pair)."""
-        return self._unfused(x, None, carry, streaming=True)
+        Returns (output, the mixer's final state pair). In training mode
+        (truncated backpropagation through time) the norm takes the batch
+        statistics and the dropout masks come from ``generator``."""
+        return self._unfused(x, generator, carry, streaming=True)
 
     def _unfused(self, x: torch.Tensor,
                  generator: Optional[torch.Generator],
@@ -319,11 +370,12 @@ class SequenceLayer(nn.Module):
         m1 = m2 = None
         if self.training:
             m1, m2 = self.dropout_masks(x.shape[0], x.device, generator)
-        u = self._norm(x) if self.prenorm else x
+        fusion = self.bn_fusion()
+        u = self._norm(x) if self.prenorm and fusion is None else x
         if streaming:
-            y, final = self.mixer.forward_stream(u, carry)
+            y, final = self.mixer.forward_stream(u, carry, bn_fusion=fusion)
         else:
-            y, final = self.mixer(u)
+            y, final = self.mixer(u, bn_fusion=fusion)
         x1 = self._act(y)
         if m1 is not None:
             x1 = x1 * m1

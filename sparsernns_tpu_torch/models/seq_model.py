@@ -1,6 +1,10 @@
-"""Stacked S5 encoder and the regression head (counterpart of
-``sparsernns_tpu/models/seq_model.py`` ``StackedEncoderModel`` and
-``RegressionModel``), eval and training forward.
+"""Stacked S5 encoder and the task heads (counterpart of
+``sparsernns_tpu/models/seq_model.py``): ``StackedEncoderModel``, the
+regression head (NDNS denoising), the classification head (pooled or last
+step, ``log_softmax``) and the retrieval head (two documents, pooled, the
+four-feature MLP), eval and training forward, float, QAT or static-quant.
+A ``padded`` head takes ``(x, lengths)`` and pools over the valid steps
+only (:func:`masked_meanpool`).
 
 The JAX package pads the stream to its TPU kernel geometry (L to a
 multiple of the time block, H to 128 lanes) and takes the training
@@ -18,6 +22,7 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sparsernns_tpu_torch.models.layers import SequenceLayer, make_dense
@@ -49,6 +54,13 @@ def quant_input_fn(x: torch.Tensor, quant_input_exp: Optional[float] = None
     return torch.round(x * step) / step
 
 
+def masked_meanpool(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Mean of (B, L, H) over the first ``lengths`` (B,) steps of each
+    row."""
+    mask = torch.arange(x.shape[-2], device=x.device) < lengths[..., None]
+    return (mask[..., None] * x).sum(dim=-2) / lengths[..., None].to(x.dtype)
+
+
 class StackedEncoderModel(nn.Module):
     """Linear encoder + N S5 sequence layers."""
 
@@ -59,7 +71,10 @@ class StackedEncoderModel(nn.Module):
                  q_config: Optional[QuantizationConfig] = None,
                  dropout: float = 0.0, bn_momentum: float = 0.90,
                  topk: float = 1.0, approx_topk: bool = False,
-                 stream_dtype: str = "float32"):
+                 stream_dtype: str = "float32",
+                 fuse_batchnorm_linear: bool = False,
+                 use_batchnorm_scale: bool = True,
+                 use_batchnorm_bias: bool = True):
         super().__init__()
         q_config = q_config or QuantizationConfig.none()
         if topk < 1.0 and not approx_topk:
@@ -75,7 +90,10 @@ class StackedEncoderModel(nn.Module):
                           relufication=relufication, batchnorm=batchnorm,
                           prenorm=prenorm, q_config=q_config,
                           dropout=dropout, bn_momentum=bn_momentum,
-                          topk=topk, approx_topk=approx_topk)
+                          topk=topk, approx_topk=approx_topk,
+                          fuse_batchnorm_linear=fuse_batchnorm_linear,
+                          use_batchnorm_scale=use_batchnorm_scale,
+                          use_batchnorm_bias=use_batchnorm_bias)
             for _ in range(n_layers))
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
@@ -102,13 +120,14 @@ class StackedEncoderModel(nn.Module):
             x = layer(x, generator)
         return x.to(torch.float32)
 
-    def forward_stream(self, x: torch.Tensor, cache: Optional[Cache]
+    def forward_stream(self, x: torch.Tensor, cache: Optional[Cache],
+                       generator: Optional[torch.Generator] = None
                        ) -> Tuple[torch.Tensor, Cache]:
         x = self._encode(x)
         new_cache = []
         for i, layer in enumerate(self.layers):
             x, final = layer.forward_stream(
-                x, None if cache is None else cache[i])
+                x, None if cache is None else cache[i], generator)
             new_cache.append(final)
         return x, new_cache
 
@@ -120,19 +139,23 @@ class RegressionModel(nn.Module):
     def __init__(self, make_mixer: Callable[[], nn.Module], d_input: int,
                  d_output: int, n_layers: int, d_model: int,
                  q_config: Optional[QuantizationConfig] = None,
-                 quant_input: Optional[float] = None, **layer_kw):
+                 quant_input: Optional[float] = None, padded: bool = False,
+                 **layer_kw):
         super().__init__()
         q_config = q_config or QuantizationConfig.none()
         self.q_config = q_config
         #: the exponent of the input grid (``quant_input_fn``), or None
         self.quant_input = quant_input
+        #: inputs are ``(x, lengths)``; the regression head ignores the
+        #: lengths, as the JAX package's does
+        self.padded = padded
         self.encoder = StackedEncoderModel(make_mixer, d_input, n_layers,
                                            d_model, q_config=q_config,
                                            **layer_kw)
         self.decoder = make_dense(q_config, d_model, d_output)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """Offline forward (the whole-layer kernel route for a float
         prenorm model, BatchNorm or LayerNorm, else the unfused route
         around the mixer kernel or the stand-alone scans). In training mode
@@ -141,13 +164,116 @@ class RegressionModel(nn.Module):
         masks from ``generator``, and the stream between the layers is the
         encoder's ``stream_dtype`` where the module doc says. With
         ``quant_input`` the input is first rounded to its grid."""
+        if self.padded:
+            x, _ = x
         x = quant_input_fn(x, self.quant_input)
         return self.decoder(self.encoder(x, generator))
 
-    def forward_stream(self, x: torch.Tensor, cache: Optional[Cache] = None
+    def forward_stream(self, x: torch.Tensor, cache: Optional[Cache] = None,
+                       generator: Optional[torch.Generator] = None
                        ) -> Tuple[torch.Tensor, Cache]:
         """Chunk forward: every layer's scan starts from its carry in
-        ``cache`` (None: zero) and the final carries come back."""
+        ``cache`` (None: zero) and the final carries come back. In
+        training mode (``data/tbptt.py``) the layers take batch statistics
+        and draw dropout masks from ``generator``."""
         y, new_cache = self.encoder.forward_stream(
-            quant_input_fn(x, self.quant_input), cache)
+            quant_input_fn(x, self.quant_input), cache, generator)
         return self.decoder(y), new_cache
+
+
+class ClassificationModel(nn.Module):
+    """Encoder stack, then pooling, a linear decoder and ``log_softmax``:
+    (B, L, d_input) -> log-probabilities (B, d_output). ``mode="pool"``
+    averages over time (over the valid steps when ``padded``),
+    ``mode="last"`` takes the last step (``padded`` then raises, as in the
+    JAX package)."""
+
+    def __init__(self, make_mixer: Callable[[], nn.Module], d_input: int,
+                 d_output: int, n_layers: int, d_model: int,
+                 q_config: Optional[QuantizationConfig] = None,
+                 quant_input: Optional[float] = None, padded: bool = False,
+                 mode: str = "pool", **layer_kw):
+        super().__init__()
+        q_config = q_config or QuantizationConfig.none()
+        self.q_config = q_config
+        self.quant_input = quant_input
+        self.padded = padded
+        self.mode = mode
+        self.encoder = StackedEncoderModel(make_mixer, d_input, n_layers,
+                                           d_model, q_config=q_config,
+                                           **layer_kw)
+        self.decoder = make_dense(q_config, d_model, d_output)
+
+    def _head(self, x: torch.Tensor, lengths) -> torch.Tensor:
+        if self.mode == "pool":
+            x = (masked_meanpool(x, lengths) if self.padded
+                 else x.mean(dim=-2))
+        elif self.mode == "last":
+            if self.padded:
+                raise NotImplementedError(
+                    "mode='last' with padded sequences not implemented")
+            x = x[..., -1, :]
+        else:
+            raise NotImplementedError(f"mode {self.mode}")
+        return F.log_softmax(self.decoder(x), dim=-1)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        lengths = None
+        if self.padded:
+            x, lengths = x
+        x = quant_input_fn(x, self.quant_input)
+        return self._head(self.encoder(x, generator), lengths)
+
+
+class RetrievalDecoder(nn.Module):
+    """MLP over the four-feature concatenation [u1, u2, u1 - u2, u1 * u2]:
+    dense (4H -> H), gelu, dense (H -> d_output). The denses keep the JAX
+    package's automatic names (``QDense_0`` / ``QDense_1``,
+    ``QuantizedDense_*`` under static quantization)."""
+
+    def __init__(self, d_model: int, d_output: int,
+                 q_config: Optional[QuantizationConfig] = None):
+        super().__init__()
+        q_config = q_config or QuantizationConfig.none()
+        prefix = "QuantizedDense" if q_config.static_quant else "QDense"
+        self.names = (f"{prefix}_0", f"{prefix}_1")
+        self.add_module(self.names[0],
+                        make_dense(q_config, 4 * d_model, d_model))
+        self.add_module(self.names[1],
+                        make_dense(q_config, d_model, d_output))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        first, second = (getattr(self, n) for n in self.names)
+        return second(F.gelu(first(x), approximate="tanh"))
+
+
+class RetrievalModel(nn.Module):
+    """Document matching: (2B, L, d_input), the first B rows the first
+    documents and the last B the second, -> log-probabilities
+    (B, d_output). Both halves go through one encoder stack and are pooled
+    (over the valid steps when ``padded``)."""
+
+    def __init__(self, make_mixer: Callable[[], nn.Module], d_input: int,
+                 d_output: int, n_layers: int, d_model: int,
+                 q_config: Optional[QuantizationConfig] = None,
+                 padded: bool = False, **layer_kw):
+        super().__init__()
+        q_config = q_config or QuantizationConfig.none()
+        self.q_config = q_config
+        self.padded = padded
+        self.encoder = StackedEncoderModel(make_mixer, d_input, n_layers,
+                                           d_model, q_config=q_config,
+                                           **layer_kw)
+        self.decoder = RetrievalDecoder(d_model, d_output, q_config)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        lengths = None
+        if self.padded:
+            x, lengths = x
+        x = self.encoder(x, generator)
+        x = masked_meanpool(x, lengths) if self.padded else x.mean(dim=-2)
+        u1, u2 = torch.chunk(x, 2, dim=0)
+        features = torch.cat([u1, u2, u1 - u2, u1 * u2], dim=-1)
+        return F.log_softmax(self.decoder(features), dim=-1)

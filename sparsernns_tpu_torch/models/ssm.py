@@ -25,7 +25,14 @@ stacked (H, 2P) / (2P, H) weight. The routes through the mixer:
 - a ``scan_mode="sequential"`` mixer (float or QAT) runs the same
   projections around the step-by-step scan in plain PyTorch
   (``ops/scan.py`` ``sequential_diag_scan``): the JAX package's naive
-  scan, which its conversion pipeline validates the model with;
+  scan, which its conversion pipeline validates the model with; a
+  ``scan_mode="blocked"`` mixer (float only) around the block-parallel
+  matmul scan (``blocked_diag_scan``), plain PyTorch as the JAX package
+  made it, free of kernels;
+- with ``bn_fusion`` (the layer's ``fuse_batchnorm_linear``) the
+  preceding BatchNorm folds into B̄, D and two bias terms
+  (:meth:`S5SSM.fused_operands`); the bias keeps the mixer off the mixer
+  kernel, so it runs the stand-alone scans, as in the JAX package;
 - under dynamic fake-quant (QAT: a ``q_config`` with precisions and no
   static quant) the same routes with fake-quantized operands, as the JAX
   package's ``_apply``: the mixer kernel's and the scan kernel's QAT modes
@@ -107,8 +114,8 @@ class S5SSM(nn.Module):
 
     ``scan_mode``: ``"fused"`` (the mixer kernel where it applies),
     ``"pallas"`` (always the stand-alone scan kernel; the name is the JAX
-    package's), ``"associative"`` or ``"sequential"`` (plain PyTorch; the
-    static-quant model runs the latter).
+    package's), ``"associative"``, ``"sequential"`` or ``"blocked"``
+    (plain PyTorch; the static-quant model runs the sequential scan).
     """
 
     def __init__(self, lambda_init, v, vinv, h: int, p: int,
@@ -241,7 +248,24 @@ class S5SSM(nn.Module):
         return (lam_bar, self._w_b(b_bar), self._w_c(), self.D,
                 self.relufication)
 
-    def forward(self, u: torch.Tensor
+    def fused_operands(self, bn_fusion: Optional[dict]):
+        """(lam_bar, b_bar, d, b_bias, d_bias): the discretized operands,
+        with a preceding BatchNorm folded in when ``bn_fusion`` (mean, var,
+        eps, scale, bias) is given (the JAX package's ``_fused_operands``):
+        s = scale / sqrt(var + eps), t = bias - mean * s, B̄ ← B̄ · s,
+        b_bias = B̄ t, D ← D · s, d_bias = D t. Without it both biases are
+        None."""
+        lam_bar, b_bar = self.discretized()
+        if bn_fusion is None:
+            return lam_bar, b_bar, self.D, None, None
+        scale = bn_fusion["scale"] / torch.sqrt(bn_fusion["var"]
+                                                + bn_fusion["eps"])
+        bias = bn_fusion["bias"] - bn_fusion["mean"] * scale
+        b_bias = (b_bar[0] @ bias, b_bar[1] @ bias)
+        b_bar = (b_bar[0] * scale, b_bar[1] * scale)
+        return lam_bar, b_bar, self.D * scale, b_bias, self.D * bias
+
+    def forward(self, u: torch.Tensor, bn_fusion: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Optional[Pair]]:
         """The offline, differentiable call. u: (B, L, H) -> (ys (B, L, H),
         states). A unidirectional ``scan_mode="fused"`` mixer without top-k
@@ -259,14 +283,17 @@ class S5SSM(nn.Module):
         its QAT mode with ``qat_bits`` (a_bits, act_bits) over time blocks
         of ``block_t``; with ``qat_global_scales`` one state absmax, from
         an unquantized B-projection and float scan under no_grad, scales
-        every in-scan fake-quant."""
+        every in-scan fake-quant.
+
+        ``bn_fusion``: the preceding BatchNorm to fold in
+        (:meth:`fused_operands`); such a call runs the stand-alone scans."""
         if self.q_config.static_quant:
             return self._apply_static_quant(u)
         cfg = self.q_config
-        lam_bar, b_bar = self.discretized()
+        lam_bar, b_bar, d, b_bias, d_bias = self.fused_operands(bn_fusion)
         w_b = self._w_b(b_bar)
         if (self.scan_mode == "fused" and not self.bidirectional
-                and not self.topk < 1.0):
+                and not self.topk < 1.0 and b_bias is None):
             from sparsernns_tpu_torch.ops.cuda.fused_s5 import FusedS5Fn
             qat_bits = act_qat_bits(cfg)
             d, qat_scale = self.D, None
@@ -278,7 +305,7 @@ class S5SSM(nn.Module):
             return FusedS5Fn.apply(u, lam_bar[0], lam_bar[1], w_b,
                                    self._w_c(), d, self.relufication,
                                    qat_bits, qat_scale, self.block_t), None
-        return self._apply_scan(u, lam_bar, w_b, None)
+        return self._apply_scan(u, lam_bar, w_b, None, d, b_bias, d_bias)
 
     def _global_state_absmax(self, u, lam_bar: Pair, w_b) -> torch.Tensor:
         """max(absmax(x_re), absmax(x_im)) of the unquantized states of the
@@ -289,11 +316,16 @@ class S5SSM(nn.Module):
             xs = diag_ssm_scan(lam_bar, (bu[..., :self.p], bu[..., self.p:]))
             return torch.maximum(xs[0].abs().amax(), xs[1].abs().amax())
 
-    def forward_stream(self, u: torch.Tensor, carry: Optional[Pair]
+    def forward_stream(self, u: torch.Tensor, carry: Optional[Pair],
+                       bn_fusion: Optional[dict] = None
                        ) -> Tuple[torch.Tensor, Pair]:
-        """The carried call (streaming): the scan starts from ``carry``
-        (the state before the first step; None: zeros) and its final state
-        comes back. Not differentiable, as in the JAX package."""
+        """The carried call (streaming, and truncated backpropagation
+        through time): the scan starts from ``carry`` (the state before the
+        first step; None: zeros) and its final state comes back. As in the
+        JAX package it is differentiable on the plain scans
+        (``"associative"``, ``"sequential"``, ``"blocked"``) and not on
+        the scan kernel (``"fused"``, ``"pallas"``), which raises when
+        gradients are asked for."""
         if self.q_config.static_quant:
             if carry is not None:
                 raise NotImplementedError(
@@ -306,23 +338,30 @@ class S5SSM(nn.Module):
         if carry is None:
             zeros = u.new_zeros((u.shape[0], self.p))
             carry = (zeros, zeros)
-        lam_bar, b_bar = self.discretized()
-        return self._apply_scan(u, lam_bar, self._w_b(b_bar), carry)
+        lam_bar, b_bar, d, b_bias, d_bias = self.fused_operands(bn_fusion)
+        return self._apply_scan(u, lam_bar, self._w_b(b_bar), carry, d,
+                                b_bias, d_bias)
 
-    def _apply_scan(self, u, lam_bar: Pair, w_b, carry: Optional[Pair]):
+    def _apply_scan(self, u, lam_bar: Pair, w_b, carry: Optional[Pair],
+                    d: torch.Tensor, b_bias: Optional[Pair] = None,
+                    d_bias: Optional[torch.Tensor] = None):
         """B-projection, stand-alone scan(s), state relu, C-projection: the
         JAX package's unfused mixer. Under QAT u enters the B-projection
         fake-quantized, the scans run the kernel's QAT mode (or, with
         ``scan_mode="associative"`` / ``"sequential"``, the plain scan with
         the QAT hadamards), the states are fake-quantized once more before
         the C-projection, and D ⊙ u is ``d_had`` of the two fake-quantized
-        operands. Returns (ys, the final state) with a carry, else (ys, the
-        states the C-projection reads)."""
+        operands. ``d`` is D, or a folded BatchNorm's, whose ``b_bias`` /
+        ``d_bias`` add to the B-projection and to the output. Returns (ys,
+        the final state) with a carry, else (ys, the states the
+        C-projection reads)."""
         cfg = self.q_config
         bu_cat = fake_quant(u, cfg.ssm_act_precision) @ w_b
         bu = (bu_cat[..., :self.p], bu_cat[..., self.p:])
+        if b_bias is not None:
+            bu = (bu[0] + b_bias[0], bu[1] + b_bias[1])
         mode = (self.scan_mode
-                if self.scan_mode in ("associative", "sequential")
+                if self.scan_mode in ("associative", "sequential", "blocked")
                 else "kernel")
         had_aa, had_ax = self.q_ops.a_had
         kw = dict(mode=mode, qat_bits=act_qat_bits(cfg), block_t=self.block_t,
@@ -342,7 +381,9 @@ class S5SSM(nn.Module):
         bits = cfg.ssm_act_precision
         xs_cat = torch.cat([fake_quant(xs[0], bits), fake_quant(xs[1], bits)],
                            dim=-1)
-        ys = xs_cat @ self._w_c() + self.q_ops.d_had(self.D, u)
+        ys = xs_cat @ self._w_c() + self.q_ops.d_had(d, u)
+        if d_bias is not None:
+            ys = ys + d_bias
         return ys, (xs if carry is None else final)
 
     def _state_act(self, xs: Pair) -> Pair:

@@ -20,6 +20,13 @@ same float adjoint.
 (``jax.lax.associative_scan``'s recursion, reproduced combine for
 combine), with the QAT hadamards in every combine: the quantization-aware
 scan of ``scan_mode="associative"``, in plain PyTorch.
+
+:func:`blocked_diag_scan` is the JAX package's block-parallel scan
+(``scan_mode="blocked"`` and the serving engine's ``route="xla"``): per
+time block one per-channel triangular matmul, a carry loop over the
+blocks and the λ-power fold. The JAX package made it free of Pallas
+kernels on purpose, so here it is plain PyTorch on every device, and
+differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -271,6 +278,112 @@ def apply_carry(xs: Pair, lam: Pair, carry: Pair) -> Pair:
     return xs[0] + corr[0], xs[1] + corr[1]
 
 
+# ------------------------------------------------ blocked scan
+
+def _block_triangular(lam: Pair, block_t: int, dtype) -> Pair:
+    """The per-channel lower-triangular propagator M[j, i, p] = λ_p^{j-i}
+    (i ≤ j, else 0), a (T, T, P) pair of polar powers (|λ| < 1 keeps every
+    entry in [0, 1]). Each power is :func:`lambda_powers`' expression for
+    its exponent, so the entries are the JAX package's gather of that
+    table; evaluated in place, the backward is elementwise, with no
+    scatter of an index's gradient."""
+    lr, li = lam[0].to(dtype), lam[1].to(dtype)
+    r = torch.sqrt(lr * lr + li * li)
+    theta = torch.atan2(li, lr)
+    idx = torch.arange(block_t, device=lr.device)
+    k = idx[:, None] - idx[None, :]                       # j - i
+    mask = (k >= 0)[..., None].to(dtype)                  # (T, T, 1)
+    kc = torch.clamp(k, min=0).to(dtype)[..., None]
+    rk = torch.exp(kc * torch.log(torch.clamp(r, min=1e-30)))
+    ang = kc * theta
+    return rk * torch.cos(ang) * mask, rk * torch.sin(ang) * mask
+
+
+def blocked_diag_scan(lam: Pair, bu: Pair, block_t: int = 128,
+                      reverse: bool = False,
+                      carry_init: Optional[Pair] = None,
+                      block_requant: Optional[BlockRequant] = None) -> Pair:
+    """All-prefix states along axis -2 by block-parallel matmuls (the JAX
+    package's ``blocked_diag_scan``). L is cut into blocks of
+    T = min(block_t, L) rows (the last one zero-padded). Within a block the
+    zero-carry states are one per-channel triangular matmul
+    y[j] = Σ_{i≤j} λ^{j-i} u[i]; the carry into block k+1 is
+    λ^T c_k + y_k[T-1], a loop over the blocks; the carry folds back in as
+    x[k, j] = y[k, j] + λ^{j+1} c_k. ``carry_init`` (..., P) is the state
+    before the first row (forward only).
+
+    ``block_requant`` (s_re, s_im, bits): every state lands on the frozen
+    grid after the carry fold, and the carry into the next block is the
+    requantized block-final state (the serving engine's placement).
+    ``reverse`` scans the flipped sequence and takes neither a carry nor,
+    as in the JAX package, the requant. Differentiable by autograd."""
+    if reverse:
+        if carry_init is not None:
+            raise NotImplementedError("carry with reverse scan")
+        flip = lambda p: (torch.flip(p[0], dims=(-2,)),  # noqa: E731
+                          torch.flip(p[1], dims=(-2,)))
+        return flip(blocked_diag_scan(lam, flip(bu), block_t=block_t))
+    bu_re, bu_im = bu
+    orig_shape = bu_re.shape
+    l, p = orig_shape[-2], orig_shape[-1]
+    t = min(block_t, l)
+    nb = -(-l // t)
+    pad = nb * t - l
+    dtype = bu_re.dtype
+
+    def prep(a):
+        a = a.reshape((-1,) + tuple(orig_shape[-2:]))      # (N, L, P)
+        if pad:
+            a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        return a.reshape(-1, nb, t, p)                     # (N, nb, T, P)
+
+    u_re, u_im = prep(bu_re), prep(bu_im)
+    m_re, m_im = _block_triangular(lam, t, dtype)
+    rq = None
+    if block_requant is not None:
+        s_re, s_im, bits = block_requant
+
+        def rq(xr, xi):
+            return grid_value(xr, s_re, bits), grid_value(xi, s_im, bits)
+
+    def tri(m, u):  # (T, T, P) x (N, nb, T, P) -> (N, nb, T, P), over i
+        return torch.einsum("jip,nkip->nkjp", m, u)
+
+    y_re = tri(m_re, u_re) - tri(m_im, u_im)
+    y_im = tri(m_re, u_im) + tri(m_im, u_re)
+
+    lam_t = lambda_powers(lam, t)
+    lam_t = (lam_t[0][-1].to(dtype), lam_t[1][-1].to(dtype))
+    c_re = torch.zeros_like(u_re[:, 0, 0, :])
+    c_im = torch.zeros_like(c_re)
+    if carry_init is not None:
+        c_re = carry_init[0].reshape(-1, p).expand(c_re.shape)
+        c_im = carry_init[1].reshape(-1, p).expand(c_im.shape)
+    carries_re, carries_im = [c_re], [c_im]
+    for k in range(nb - 1):
+        # c_{k+1} = λ^T c_k + y_k[T-1], y the zero-carry block scan
+        ac = complex_mul(lam_t, (carries_re[-1], carries_im[-1]))
+        nc_re, nc_im = ac[0] + y_re[:, k, -1, :], ac[1] + y_im[:, k, -1, :]
+        if rq is not None:      # the carry is the requantized final state
+            nc_re, nc_im = rq(nc_re, nc_im)
+        carries_re.append(nc_re)
+        carries_im.append(nc_im)
+    cs = (torch.stack(carries_re, dim=1), torch.stack(carries_im, dim=1))
+
+    pw = lambda_powers(lam, t)
+    pw = (pw[0].to(dtype), pw[1].to(dtype))                 # (T, P)
+    corr = complex_mul((pw[0][None, None], pw[1][None, None]),
+                       (cs[0][:, :, None, :], cs[1][:, :, None, :]))
+    x_re, x_im = y_re + corr[0], y_im + corr[1]
+    if rq is not None:          # every served state lands on the grid
+        x_re, x_im = rq(x_re, x_im)
+
+    def unprep(a):
+        return a.reshape(-1, nb * t, p)[:, :l, :].reshape(orig_shape)
+
+    return unprep(x_re), unprep(x_im)
+
+
 def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
                   carry_init: Optional[Pair] = None,
                   block_requant: Optional[BlockRequant] = None,
@@ -297,7 +410,25 @@ def diag_ssm_scan(lam: Pair, bu: Pair, reverse: bool = False,
     λ powers afterwards, forward only). ``mode="sequential"`` walks the
     steps one by one (:func:`sequential_diag_scan`, differentiable, with
     ``had_ax``): the JAX package's naive scan. Both express QAT through
-    the hadamards and ignore ``qat_bits``, as in the JAX package."""
+    the hadamards and ignore ``qat_bits``, as in the JAX package.
+
+    ``mode="blocked"`` is :func:`blocked_diag_scan` (differentiable, with a
+    carry forward; time blocks of ``block_t``, None: 128). It has no
+    site for the QAT hadamards and refuses them, as the JAX package does,
+    and takes no ``block_requant`` here (the JAX dispatcher passes none)."""
+    if mode == "blocked":
+        if had_aa is not torch.mul or had_ax is not torch.mul:
+            raise NotImplementedError(
+                "QAT hadamards are per-combine; the blocked matmul form "
+                "has no per-combine site: train QAT with "
+                "scan_mode='associative' or 'pallas'")
+        if block_requant is not None:
+            raise NotImplementedError(
+                "diag_ssm_scan(mode='blocked') takes no block requant: "
+                "call blocked_diag_scan")
+        return blocked_diag_scan(lam, bu, reverse=reverse,
+                                 carry_init=carry_init,
+                                 block_t=128 if block_t is None else block_t)
     if mode == "sequential":
         if block_requant is not None:
             raise NotImplementedError("the sequential scan has no block "

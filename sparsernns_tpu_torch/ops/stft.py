@@ -4,6 +4,8 @@ one-sided, scipy's centred framing, torch-convention magnitudes.
 
 Both directions are one matmul against a real DFT basis; the matmuls stay
 ``torch.matmul`` (the JAX package left them to XLA, outside any kernel).
+:func:`stft_splitter_fft` and :func:`stft_mixer_fft` are the FFT forms
+over ``torch.stft`` / ``torch.istft``, the semantics oracles of the two.
 """
 
 from __future__ import annotations
@@ -85,6 +87,42 @@ def stft_splitter(audio: torch.Tensor, nfft: int = NFFT,
     re = spec[..., :f].transpose(-1, -2)
     im = spec[..., f:].transpose(-1, -2)
     return torch.sqrt(re * re + im * im), torch.atan2(im, re)
+
+
+def stft_splitter_fft(audio: torch.Tensor, nfft: int = NFFT,
+                      hop_length: int = HOP_LENGTH
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """audio (..., T) -> (magnitude, phase), each (..., nfft//2+1, frames),
+    by ``torch.stft``: the FFT form of :func:`stft_splitter`, with the
+    same framing (the audio zero-extended to a whole hop, nfft//2 zeros at
+    both ends) and the torch.stft magnitude convention (the frame's raw
+    rFFT, no 1/N window normalization), which the JAX package's oracle
+    restores from scipy's."""
+    lead = audio.shape[:-1]
+    t = audio.shape[-1]
+    nadd = (-t) % hop_length
+    x = torch.nn.functional.pad(audio.reshape(-1, t), (0, nadd))
+    spec = torch.stft(x, nfft, hop_length=hop_length, win_length=nfft,
+                      window=torch.ones(nfft, device=audio.device,
+                                        dtype=audio.dtype),
+                      center=True, pad_mode="constant", onesided=True,
+                      return_complex=True)
+    spec = spec.reshape(*lead, *spec.shape[-2:])
+    return spec.abs(), spec.angle()
+
+
+def stft_mixer_fft(mag: torch.Tensor, phase: torch.Tensor, nfft: int = NFFT,
+                   hop_length: int = HOP_LENGTH) -> torch.Tensor:
+    """(magnitude, phase) (..., F, L) -> audio (..., T) by ``torch.istft``
+    (boxcar window, overlap-added and divided by the window overlap): the
+    FFT form of :func:`stft_mixer`."""
+    lead = mag.shape[:-2]
+    spec = torch.polar(mag, phase).reshape(-1, *mag.shape[-2:])
+    audio = torch.istft(spec, nfft, hop_length=hop_length, win_length=nfft,
+                        window=torch.ones(nfft, device=mag.device,
+                                          dtype=mag.dtype),
+                        center=True, onesided=True)
+    return audio.reshape(*lead, audio.shape[-1])
 
 
 def stft_mixer_tm(mag: torch.Tensor, phase: torch.Tensor, nfft: int = NFFT,

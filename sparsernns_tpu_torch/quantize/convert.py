@@ -162,7 +162,8 @@ def _finetune_state(cfg: RunConfig, model, state: TrainState,
     ``state``'s optimizer state (``fresh`` False) or a fresh optimizer
     whose schedule starts at the step count (``fresh``: the JAX package's
     ``TrainState.create`` over the frozen tree, whose optax state starts
-    its schedule again), a dropout generator seeded with ``cfg.seed + 1``."""
+    its schedule again), a dropout generator seeded with
+    ``cfg.jax_seed + 1``."""
     optimizer = create_optimizer(
         model.named_parameters(), cfg.opt_config, lr=cfg.lr,
         ssm_lr=cfg.ssm_lr_base, weight_decay=cfg.weight_decay,
@@ -189,7 +190,7 @@ def _finetune_state(cfg: RunConfig, model, state: TrainState,
             merge_trained_params_into_calibrated(trained, ones)))
         masks = {leaf.key: merged[leaf.path] for leaf in leaves}
     device = next(model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    generator = torch.Generator(device=device).manual_seed(cfg.jax_seed + 1)
     return TrainState(model=model, optimizer=optimizer, step=int(state.step),
                       generator=generator, masks=masks, pruner=state.pruner)
 

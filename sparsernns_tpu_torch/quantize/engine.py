@@ -37,15 +37,24 @@
   checkpoint) is packed block-sparse and runs the block-sparse matmul
   (``ops/cuda/block_sparse.py``, K7) wherever it is used; a block-sparse
   encoder or decoder turns the whole-network route off, and the stack
-  route then runs it outside the first or last layer launch.
+  route then runs it outside the first or last layer launch;
+- ``route="xla"`` (only when the caller asks for it; ``"auto"`` never
+  takes it) runs no kernel at all, as the JAX package made it: the per-op
+  route with every dense dequantized to a float ``torch.matmul`` (no
+  integer dots, no block-sparse packs, no mxu16 requants) and the mixer
+  as the B-projection, the block-parallel matmul scan
+  (``ops/scan.py`` ``blocked_diag_scan``, with the per-block state
+  requant and, per chunk, the layer's carry) and the C-projection. The
+  state and residual requants keep their static-quant semantics.
 
 The engine takes the frozen tree that calibration returns
 (``quantize/calibrate.py``, or the JAX package's: the trees are
 interchangeable), as nested dicts of numpy arrays, or reads the one that
 the conversion pipeline stored (:meth:`W8A16Engine.from_artifacts`).
 
-Not ported yet, and refused with ``NotImplementedError``: ``route="xla"``
-and, as in the JAX package, chunked streaming with top-k on the states.
+Refused with ``NotImplementedError``, as in the JAX package: chunked
+streaming with top-k on the states. The sequence- and pipeline-parallel
+engines of ``parallel/`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -70,7 +79,8 @@ from sparsernns_tpu_torch.ops.cuda.engine_network import (MAX_LAYERS,
                                                           engine_network)
 from sparsernns_tpu_torch.ops.cuda.fused_s5 import fused_s5_engine
 from sparsernns_tpu_torch.ops.intdot import fits_planewise, weight_colsum
-from sparsernns_tpu_torch.ops.scan import Pair, diag_ssm_scan
+from sparsernns_tpu_torch.ops.scan import (Pair, blocked_diag_scan,
+                                           diag_ssm_scan)
 from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity, top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
 
@@ -287,9 +297,7 @@ class W8A16Engine:
         if route not in ("auto", "xla"):
             raise ValueError(f"unknown engine route {route!r}")
         if route == "xla":
-            raise NotImplementedError(
-                "route='xla' (the kernel-free blocked_diag_scan route) is "
-                "not ported yet")
+            block_sparse_dense = None  # the block-sparse matmul is a kernel
         if act_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"act_dtype {act_dtype}")
         #: the JAX package's paired-row schedule of the network kernel
@@ -525,6 +533,8 @@ class W8A16Engine:
                 out2_out_requant=out2_o, out1_out_requant=out1_o,
                 cs_wb=cs[0], cs_wc_re=cs[1], cs_wc_im=cs[2]))
         self._demote_int_sites(mxu16)
+        if route == "xla":
+            self._demote_xla()
 
         self.mode = LayerMode(prenorm=cfg.prenorm,
                               relufication=cfg.relufication,
@@ -535,10 +545,11 @@ class W8A16Engine:
         #: residual stream, for the offline call and every streaming
         #: chunk; else the per-op route. Tests force the per-op route by
         #: clearing this flag alone, as the JAX package's tests do.
-        self._stack_ok = self._fused_stack_eligible()
+        self._stack_ok = route != "xla" and self._fused_stack_eligible()
         if mxu16 and not self._stack_ok:
             self._demote_mxu16()
-            self._stack_ok = self._fused_stack_eligible()
+            self._stack_ok = (route != "xla"
+                              and self._fused_stack_eligible())
         #: which dot sites run integer dots, and whether any of mxu16's
         #: requants applies (the JAX engine's introspection)
         self.mxu16 = dict(
@@ -557,7 +568,21 @@ class W8A16Engine:
                 or self.decoder_out_requant is not None))
         #: whole-network route (K6): one kernel for the offline call when
         #: the whole-layer route applies and the layer limit allows
-        self._network_ok = self._fused_network_eligible()
+        self._network_ok = (route != "xla"
+                            and self._fused_network_eligible())
+
+    def _demote_xla(self) -> None:
+        """``route="xla"`` runs no integer dot anywhere: every dense falls
+        back to its dequantized float weight, and mxu16's sites and
+        requants go; the state and residual requants stay."""
+        for lp in self.layers:
+            lp.out2_in_scale = lp.out1_in_scale = None
+            lp.mixer_in16 = None
+            lp.state16 = False
+            lp.but_requant = lp.yt_requant = None
+            lp.out2_out_requant = lp.out1_out_requant = None
+        self.encoder_in_scale = self.decoder_in_scale = None
+        self.encoder_out_requant = self.decoder_out_requant = None
 
     def _demote_int_sites(self, mxu16: bool) -> None:
         """The JAX engine's all-or-none rule: its network kernel shares one
@@ -736,7 +761,26 @@ class W8A16Engine:
         which that kernel cannot apply, the B-projection and the
         C-projection as ``torch.matmul`` of the dequantized weights around
         the scan kernel with its block requant, the state activation
-        between (offline only)."""
+        between (offline only). On ``route="xla"`` the scan is the blocked
+        matmul scan, from the carry where there is one, with the new carry
+        its final state (on the requant grid where the state requant
+        applies)."""
+        if self.route == "xla":
+            def blocked_mixer(z: torch.Tensor):
+                z = z.to(torch.float32)
+                bu = z @ layer.wb_f32()
+                p = layer.p
+                xs = blocked_diag_scan(
+                    layer.lam, (bu[..., :p], bu[..., p:]),
+                    block_t=block_t, carry_init=carry,
+                    block_requant=layer.state_requant)
+                new_c = (None if carry is None
+                         else (xs[0][..., -1, :], xs[1][..., -1, :]))
+                xs = state_activation(self.cfg, xs)
+                return (torch.cat(xs, dim=-1) @ layer.wc_f32()
+                        + layer.d * z, new_c)
+
+            return blocked_mixer
         if not self._state_topk():
             def kernel_mixer(z: torch.Tensor):
                 out = fused_s5_engine(

@@ -1,18 +1,25 @@
 """Training orchestrator: dataset -> model -> epoch loop -> checkpoints
-(counterpart of ``sparsernns_tpu/train/loop.py``), for the NDNS task on the
-synthetic loader.
+(counterpart of ``sparsernns_tpu/train/loop.py``), for every dataset of
+the JAX package's registry: the NDNS regression task (synthetic, or the
+WAV corpus of ``NDNS_{TRAIN,VALIDATION,TEST}_SET``) and the classification
+tasks (``synthetic-classification``, ``smnist``, ``psmnist``).
 
 :func:`build_model` assembles the model of a :class:`RunConfig` and
 :func:`build_dataset` its loaders (shared with the conversion pipeline);
 :func:`create_run_state` adds the optimizer, the step count, the dropout
 generator and, for a ``cfg.pruning`` recipe, the pruner and its masks;
-:func:`run_ndns_epoch` and :func:`validate_ndns` drive one pass over a
-loader (with the mask update before each step); :func:`train` is the whole
-run: epochs with validation and test passes, the cosine or plateau
-schedule, the weight sparsity of a pruned run, latest and best checkpoints,
-early stopping and resume. Not ported, and raising where a configuration
-asks for them: device meshes, the activation-sparsity capture and
-profiling; metrics go to Python ``logging`` only.
+:func:`run_ndns_epoch` / :func:`validate_ndns` and
+:func:`run_classification_epoch` / :func:`validate_classification` drive
+one pass over a loader (with the mask update before each step);
+:func:`act_sparsity_metrics` is the per-epoch activation-sparsity capture;
+:func:`train` is the whole run: epochs with validation and test passes,
+the cosine or plateau schedule, the eigenvalue, weight-sparsity and
+activation-sparsity logs, the gradient-norm warning, the metrics sink
+(into the checkpoint directory, and nowhere without one), a
+``torch.profiler`` trace of the second epoch with ``cfg.profile``, latest
+and best checkpoints, early stopping and resume. Not ported, and raising
+where a configuration asks for them: device meshes and
+``scan_mode="sp"``.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from sparsernns_tpu_torch.data.ndns import create_ndns_dataset
-from sparsernns_tpu_torch.models.seq_model import (RegressionModel,
+from sparsernns_tpu_torch.models.seq_model import (ClassificationModel,
+                                                   RegressionModel,
                                                    check_stream_dtype)
 from sparsernns_tpu_torch.models.ssm import S5SSM
 from sparsernns_tpu_torch.models.ssm_init import (blocked_dplr_init,
@@ -33,6 +41,7 @@ from sparsernns_tpu_torch.ops.stft import stft_splitter
 from sparsernns_tpu_torch.quantize.config import (QuantizationConfig,
                                                   quantization_recipes)
 from sparsernns_tpu_torch.train.checkpoint import CheckpointManager
+from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
 from sparsernns_tpu_torch.train.optim import (create_optimizer,
                                               extract_learning_rates,
                                               reduce_lr_on_plateau,
@@ -41,10 +50,14 @@ from sparsernns_tpu_torch.train.pruning import (MagnitudePruner,
                                                 pruning_recipes,
                                                 summarize_sparsity)
 from sparsernns_tpu_torch.train.state import TrainState, count_params
-from sparsernns_tpu_torch.train.steps import (make_mask_update_fn,
-                                              make_ndns_eval_step,
-                                              make_ndns_train_step)
+from sparsernns_tpu_torch.train.steps import (
+    capture_intermediates, make_classification_eval_step,
+    make_classification_train_step, make_mask_update_fn, make_ndns_eval_step,
+    make_ndns_train_step)
 from sparsernns_tpu_torch.utils.config import RunConfig
+from sparsernns_tpu_torch.utils.logging import (activation_sparsity,
+                                                compute_eigenvalue_logs,
+                                                make_sink, sparsity_key)
 
 logger = logging.getLogger("sparsernns_tpu_torch")
 
@@ -54,19 +67,26 @@ logger = logging.getLogger("sparsernns_tpu_torch")
 #: ``runs/autotune.json``, which the port does not)
 QAT_BLOCK_T = 256
 
+#: the float and QAT scan modes of the port (``S5SSM``)
+SCAN_MODES = ("fused", "pallas", "associative", "sequential", "blocked")
+
 
 def build_model(cfg: RunConfig, d_input: int, d_output: int,
                 training: bool = False, device="cuda",
                 seed: Optional[int] = None,
                 q_config: Optional[QuantizationConfig] = None,
-                scan_mode: Optional[str] = None) -> RegressionModel:
-    """The NDNS regression model of ``cfg`` on ``device``, in eval mode
-    or, with ``training``, in training mode (batch statistics, dropout
-    ``cfg.p_dropout``), with parameters drawn from ``seed`` (default
-    ``cfg.seed``) by the JAX package's initializer distributions. Every
-    float model trains: prenorm or postnorm, BatchNorm or LayerNorm,
-    unidirectional or ``cfg.bidirectional``, with activation top-k
-    (``cfg.topk < 1`` with ``cfg.approx_topk``) or without.
+                scan_mode: Optional[str] = None) -> torch.nn.Module:
+    """The model of ``cfg`` on ``device``: the NDNS regression model for
+    ``cfg.dataset == "ndns"``, else the classification model with
+    ``cfg.mode`` pooling; in eval mode or, with ``training``, in training
+    mode (batch statistics, dropout ``cfg.p_dropout``), with parameters
+    drawn from ``seed`` (default ``cfg.jax_seed``) by the JAX package's
+    initializer distributions. Every float model trains: prenorm or
+    postnorm, BatchNorm (with or without its scale and bias,
+    ``cfg.batchnorm_use_scale`` / ``_bias``, folded into the mixers with
+    ``cfg.fuse_batchnorm_linear``) or LayerNorm, unidirectional or
+    ``cfg.bidirectional``, with activation top-k (``cfg.topk < 1`` with
+    ``cfg.approx_topk``) or without.
 
     ``q_config`` defaults to ``quantization_recipes[cfg.quantization]()``:
     a dynamic fake-quant recipe (``"w8a16"`` …) builds the
@@ -82,17 +102,16 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     mixer kernel, whichever the layer admits), ``"pallas"`` (the JAX
     package's name for the stand-alone scan kernel between two matmuls),
     ``"associative"`` (the associative scan in plain PyTorch, with the QAT
-    hadamards) or ``"sequential"`` (the step-by-step scan in plain
-    PyTorch: the naive scan of the conversion pipeline); the other scan
-    modes of the JAX package are not ported.
+    hadamards), ``"sequential"`` (the step-by-step scan in plain PyTorch:
+    the naive scan of the conversion pipeline) or ``"blocked"`` (the
+    block-parallel matmul scan, float only: kernel-free, as in the JAX
+    package); ``"sp"`` (a sequence-parallel mesh) is not ported.
 
     A training model takes ``cfg.train_stream_dtype`` as the dtype of the
     stream between its layers (``"bfloat16"``: bf16 where every layer runs
     the whole-layer kernel with BatchNorm, ``models/seq_model.py``); an
     eval model keeps float32, as the JAX package builds it. Another value
     raises ``ValueError``."""
-    if cfg.dataset != "ndns":
-        raise NotImplementedError(f"dataset {cfg.dataset!r}: only ndns")
     check_stream_dtype(cfg.train_stream_dtype)
     if q_config is None:
         q_config = quantization_recipes[cfg.quantization]()
@@ -102,11 +121,12 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
             raise NotImplementedError(
                 "the static-quant model requantizes the state every step: "
                 "build it with scan_mode='sequential'")
-    elif scan_mode not in ("fused", "pallas", "associative", "sequential"):
+    elif scan_mode not in SCAN_MODES:
         raise NotImplementedError(
-            f"scan_mode {scan_mode!r}: the float and QAT port runs 'fused', "
-            "'pallas', 'associative' and 'sequential'")
-    gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+            f"scan_mode {scan_mode!r}: the float and QAT port runs "
+            f"{', '.join(repr(m) for m in SCAN_MODES)}")
+    gen = torch.Generator().manual_seed(cfg.jax_seed if seed is None
+                                        else seed)
     init = blocked_dplr_init(cfg.ssm_size_base, cfg.blocks, cfg.conj_sym)
     block_t = QAT_BLOCK_T if cfg.block_t is None else cfg.block_t
 
@@ -122,15 +142,22 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
             approx_topk=cfg.approx_topk, block_t=block_t,
             qat_global_scales=cfg.qat_global_scales)
 
-    model = RegressionModel(
-        make_mixer, d_input, d_output, cfg.n_layers, cfg.d_model,
+    common = dict(
         q_config=q_config, quant_input=cfg.quant_input,
         glu_variant=cfg.glu_variant,
         relufication=cfg.relufication, batchnorm=cfg.batchnorm,
         prenorm=cfg.prenorm, dropout=cfg.p_dropout,
         bn_momentum=cfg.bn_momentum, topk=cfg.topk,
         approx_topk=cfg.approx_topk,
-        stream_dtype=cfg.train_stream_dtype if training else "float32")
+        stream_dtype=cfg.train_stream_dtype if training else "float32",
+        fuse_batchnorm_linear=cfg.fuse_batchnorm_linear,
+        use_batchnorm_scale=cfg.batchnorm_use_scale,
+        use_batchnorm_bias=cfg.batchnorm_use_bias)
+    args = (make_mixer, d_input, d_output, cfg.n_layers, cfg.d_model)
+    if cfg.dataset == "ndns":
+        model = RegressionModel(*args, **common)
+    else:
+        model = ClassificationModel(*args, mode=cfg.mode, **common)
     # dense layers: lecun_normal kernel, zero bias (as in the JAX package)
     with torch.no_grad():
         for mod in model.modules():
@@ -141,19 +168,39 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     return model.to(device).train(training)
 
 
-def build_dataset(cfg: RunConfig):
-    """The NDNS loaders of ``cfg`` (seeded with ``cfg.seed``):
-    (trainloader, valloader, testloader, n_out, seq_len, d_input,
-    train_size), as ``data/ndns.create_ndns_dataset`` returns them. As in
-    the JAX package, ``synthetic_data`` False leaves the choice to the
-    loader, which takes the synthetic set (the WAV-corpus reader is not
-    ported). ``train`` and the conversion pipeline share it."""
-    if cfg.dataset != "ndns":
-        raise NotImplementedError(f"dataset {cfg.dataset!r}: only ndns")
-    return create_ndns_dataset(
-        cfg.bsz, seed=cfg.seed, synthetic=True if cfg.synthetic_data else None,
-        synthetic_size=cfg.synthetic_size,
-        synthetic_length=int(cfg.synthetic_seconds * 16000))
+def build_dataset(cfg: RunConfig, num_shards: int = 1, shard_index: int = 0):
+    """The loaders of ``cfg.dataset`` (the JAX package's registry), seeded
+    with ``cfg.data_seed`` (None: ``cfg.jax_seed``): (trainloader,
+    valloader, testloader, n_out, seq_len, d_input, train_size).
+
+    - ``"ndns"``: ``data/ndns.create_ndns_dataset``; ``synthetic_data``
+      False leaves the choice to the loader, which reads the WAV corpus
+      where ``NDNS_{TRAIN,VALIDATION,TEST}_SET`` are all set and takes the
+      synthetic set otherwise;
+    - ``"synthetic-classification"``: the synthetic sequence task of
+      ``cfg.synthetic_size`` sequences;
+    - ``"smnist"`` / ``"psmnist"``: sequential MNIST from the IDX files of
+      ``SMNIST_DATA_DIR`` (``FileNotFoundError`` without them), psMNIST
+      bit-reversal permuted.
+
+    ``train`` and the conversion pipeline share it."""
+    from sparsernns_tpu_torch.data import classification
+    data_seed = cfg.jax_seed if cfg.data_seed is None else cfg.data_seed
+    shards = dict(num_shards=num_shards, shard_index=shard_index)
+    if cfg.dataset == "ndns":
+        return create_ndns_dataset(
+            cfg.bsz, seed=data_seed,
+            synthetic=True if cfg.synthetic_data else None,
+            synthetic_size=cfg.synthetic_size,
+            synthetic_length=int(cfg.synthetic_seconds * 16000), **shards)
+    if cfg.dataset == "synthetic-classification":
+        return classification.create_classification_dataset(
+            cfg.bsz, seed=data_seed, size=cfg.synthetic_size, **shards)
+    if cfg.dataset in ("smnist", "psmnist"):
+        return classification.create_smnist_dataset(
+            cfg.bsz, permute=cfg.dataset == "psmnist", seed=data_seed,
+            **shards)
+    raise NotImplementedError(f"dataset {cfg.dataset!r} not registered")
 
 
 def prep_ndns_batch(noisy: torch.Tensor, clean: torch.Tensor):
@@ -173,11 +220,11 @@ def _check_ported(cfg: RunConfig) -> None:
         raise ValueError(f"lr_schedule {cfg.lr_schedule!r}")
 
 
-def create_run_state(cfg: RunConfig, model: RegressionModel,
+def create_run_state(cfg: RunConfig, model: torch.nn.Module,
                      steps_per_epoch: int) -> TrainState:
     """Optimizer of ``cfg`` over the model's parameters (schedules sized
     by ``steps_per_epoch * cfg.epochs``), step 0, a dropout generator on
-    the model's device seeded with ``cfg.seed`` and, when
+    the model's device seeded with ``cfg.jax_seed`` and, when
     ``pruning_recipes(cfg.epochs, steps_per_epoch)[cfg.pruning]`` prunes,
     its pruner with masks of ones."""
     _check_ported(cfg)
@@ -195,7 +242,7 @@ def create_run_state(cfg: RunConfig, model: RegressionModel,
         dt_global=cfg.dt_global, lr_min=cfg.lr_min,
         schedule="constant" if cfg.lr_schedule == "plateau" else "cosine")
     device = next(model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    generator = torch.Generator(device=device).manual_seed(cfg.jax_seed)
     logger.info("trainable parameters: %d", count_params(model))
     return TrainState(model=model, optimizer=optimizer, step=0,
                       generator=generator,
@@ -207,10 +254,23 @@ def _place(batch, device):
     return tuple(torch.from_numpy(a).to(device) for a in batch)
 
 
+def _place_classification(batch, device):
+    """(inputs, labels) of a classification loader on ``device``, the
+    labels as int64."""
+    xs, ys = batch
+    return (torch.from_numpy(xs).to(device),
+            torch.from_numpy(ys).to(device=device, dtype=torch.int64))
+
+
 def _epoch_means(acc: Dict[str, list], prefix: str = "") -> Dict[str, float]:
     # one host read per metric and epoch, none per step
     return {f"{prefix}{k}": float(torch.stack(v).mean())
             for k, v in acc.items()}
+
+
+def _accumulate(acc: Dict[str, list], metrics: Dict[str, Any]) -> None:
+    for k, v in metrics.items():
+        acc.setdefault(k, []).append(v)
 
 
 def run_ndns_epoch(state: TrainState, step_fn: Callable, loader,
@@ -228,8 +288,7 @@ def run_ndns_epoch(state: TrainState, step_fn: Callable, loader,
             state = mask_update(state)
         state, metrics = step_fn(state, *prep_ndns_batch(noisy, clean),
                                  clean)
-        for k, v in metrics.items():
-            acc.setdefault(k, []).append(v)
+        _accumulate(acc, metrics)
     return _epoch_means(acc, "train_")
 
 
@@ -246,24 +305,89 @@ def validate_ndns(model: RegressionModel, eval_fn: Callable, loader
     return _epoch_means(acc)
 
 
+def run_classification_epoch(state: TrainState, step_fn: Callable, loader,
+                             mask_update: Optional[Callable] = None
+                             ) -> Dict[str, float]:
+    """One pass of the classification ``step_fn`` over ``loader`` (each
+    step after ``mask_update(state)``); ``state`` moves on in place.
+    Returns the epoch means as ``train_<key>``, the accuracy as
+    ``train_acc`` (the JAX package's historical key)."""
+    device = next(state.model.parameters()).device
+    acc: Dict[str, list] = {}
+    for batch in loader:
+        if mask_update is not None:
+            state = mask_update(state)
+        state, metrics = step_fn(state, *_place_classification(batch,
+                                                               device))
+        _accumulate(acc, metrics)
+    out = _epoch_means(acc, "train_")
+    if "train_accuracy" in out:
+        out["train_acc"] = out.pop("train_accuracy")
+    return out
+
+
+def validate_classification(model: torch.nn.Module, eval_fn: Callable,
+                            loader) -> Dict[str, float]:
+    """Mean loss and accuracy of ``eval_fn`` over ``loader``."""
+    device = next(model.parameters()).device
+    acc: Dict[str, list] = {}
+    for batch in loader:
+        metrics = eval_fn(*_place_classification(batch, device))
+        for k in ("loss", "accuracy"):
+            acc.setdefault(k, []).append(metrics[k])
+    return _epoch_means(acc)
+
+
+def act_sparsity_metrics(model: torch.nn.Module, x: torch.Tensor,
+                         prefix: str) -> Dict[str, float]:
+    """Activation-sparsity telemetry of one batch: a captured eval forward
+    (``train/steps.capture_intermediates``) reduced to the share of zeros
+    of each captured activation, as ``<prefix>/<module path>`` (the JAX
+    package's names), and their mean as ``<prefix>/mean``."""
+    _, inter = capture_intermediates(model, x)
+    out = {f"{prefix}/{sparsity_key(k)}": frac
+           for k, frac in activation_sparsity(inter).items()}
+    if out:
+        out[f"{prefix}/mean"] = sum(out.values()) / len(out)
+    return out
+
+
+def _model_input(loader, is_ndns: bool, device) -> torch.Tensor:
+    """The model input of the first batch of ``loader``: the centred
+    noisy magnitude (B, L, F) for NDNS, the sequences otherwise."""
+    batch = next(iter(loader))
+    if is_ndns:
+        noisy, clean = _place(batch, device)
+        noisy_mag = prep_ndns_batch(noisy, clean)[0]
+        return (noisy_mag - STFT_MAG_MEAN).transpose(1, 2)
+    return _place_classification(batch, device)[0]
+
+
 def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
     """Full training run of ``cfg`` (after :meth:`RunConfig.apply_dim_scale`)
-    on the synthetic NDNS set. Returns ``{"state", "metadata"}``; with
+    on ``cfg.dataset``. Returns ``{"state", "metadata"}``; with
     ``cfg.checkpoint_dir`` the latest checkpoints go there and the best one
-    to ``<dir>/best``, and a run that finds a checkpoint resumes from it
+    to ``<dir>/best``, the epoch logs to the ``cfg.logger`` sink in that
+    directory, and a run that finds a checkpoint resumes from it
     (``cfg.restore_checkpoint``; with ``cfg.reset_optimizer`` only the
-    weights are restored)."""
+    weights are restored). The quality metric is SI-SNR for NDNS and
+    accuracy for classification (kept as ``best_si_snr`` in the metadata,
+    as the JAX package keeps it)."""
     cfg = cfg.apply_dim_scale()
     _check_ported(cfg)
-    if not cfg.synthetic_data:
-        raise NotImplementedError(
-            "the WAV-corpus reader is not ported yet: set synthetic_data")
     trainloader, valloader, testloader, n_out, _, d_input, _ = \
         build_dataset(cfg)
     steps_per_epoch = max(1, len(trainloader))
     model = build_model(cfg, d_input, n_out, training=True, device=device)
     state = create_run_state(cfg, model, steps_per_epoch)
+    device = next(model.parameters()).device
 
+    sink = make_sink("none")
+    if cfg.checkpoint_dir:
+        sink = make_sink(cfg.logger, directory=cfg.checkpoint_dir,
+                         **({"project": cfg.wandb_project,
+                             "config": cfg.to_dict(), "name": cfg.run_name}
+                            if cfg.logger == "wandb" else {}))
     mngr = best_mngr = None
     metadata: Dict[str, Any] = {"best_val_loss": float("inf"),
                                 "best_si_snr": -float("inf"),
@@ -282,14 +406,47 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
                 if restored:
                     metadata.update(restored)
 
-    step_fn = make_ndns_train_step(model, microbatch=cfg.microbatch)
-    eval_fn = make_ndns_eval_step(model, state.pruner, state.masks)
+    is_ndns = cfg.dataset == "ndns"
+    static_q = quantization_recipes[cfg.quantization]().static_quant
+    if is_ndns:
+        step_fn = make_ndns_train_step(model, microbatch=cfg.microbatch,
+                                       static_quant=static_q)
+        eval_fn = make_ndns_eval_step(model, state.pruner, state.masks)
+        epoch_fn, val_fn = run_ndns_epoch, validate_ndns
+    else:
+        step_fn = make_classification_train_step(model,
+                                                 static_quant=static_q)
+        eval_fn = make_classification_eval_step(model, state.pruner,
+                                                state.masks)
+        epoch_fn, val_fn = run_classification_epoch, validate_classification
+    quality_key = "si_snr" if is_ndns else "accuracy"
     mask_update = make_mask_update_fn(state.pruner)
+
+    # one batch each for the per-epoch activation-sparsity capture
+    cap_val = cap_train = None
+    if cfg.log_act_sparsity in ("val", "both"):
+        cap_val = _model_input(valloader, is_ndns, device)
+    if cfg.log_act_sparsity in ("train", "both"):
+        cap_train = _model_input(trainloader, is_ndns, device)
+
     patience = 0
-    for epoch in range(int(metadata.get("next_epoch", 0)), cfg.epochs):
-        log = run_ndns_epoch(state, step_fn, trainloader, mask_update)
-        val = validate_ndns(model, eval_fn, valloader)
-        test = validate_ndns(model, eval_fn, testloader)
+    start_epoch = int(metadata.get("next_epoch", 0))
+    for epoch in range(start_epoch, cfg.epochs):
+        profiler = None
+        if cfg.profile and epoch == start_epoch + 1:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    cfg.profile_dir))
+            profiler.start()
+        log = epoch_fn(state, step_fn, trainloader, mask_update)
+        val = val_fn(model, eval_fn, valloader)
+        test = val_fn(model, eval_fn, testloader)
+        if profiler is not None:
+            profiler.stop()
 
         if cfg.lr_schedule == "plateau":
             # the decay state lives in the checkpoint metadata, the live
@@ -298,7 +455,7 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
             ssm_now = float(metadata.get("plateau_ssm_lr", cfg.ssm_lr_base))
             new_lr, new_ssm, count, best = reduce_lr_on_plateau(
                 lr_now, ssm_now, int(metadata.get("plateau_count", 0)),
-                val["si_snr"],
+                val[quality_key],
                 float(metadata.get("plateau_best", -float("inf"))),
                 factor=cfg.plateau_factor, patience=cfg.plateau_patience,
                 lr_min=cfg.lr_min)
@@ -312,15 +469,38 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
         log.update({f"val_{k}": v for k, v in val.items()})
         log.update({f"test_{k}": v for k, v in test.items()})
         log.update(extract_learning_rates(state.optimizer))
+        log.update(compute_eigenvalue_logs(model))
         if state.pruner is not None:
             log["weight_sparsity"] = summarize_sparsity(
                 model, state.masks)["_total_sparsity"]
-        logger.info("epoch %d: %s", epoch, log)
+        if cap_val is not None:
+            log.update(act_sparsity_metrics(model, cap_val,
+                                            "act_sparsity_val"))
+        if cap_train is not None:
+            log.update(act_sparsity_metrics(model, cap_train,
+                                            "act_sparsity_train"))
+
+        gn = log.get("train_grad_norm")
+        if gn is not None and gn > cfg.grad_norm_warn_threshold:
+            detail = {k.split("/", 1)[1]: round(float(v), 3)
+                      for k, v in log.items()
+                      if k.startswith("train_grad_norm/")}
+            logger.warning(
+                "epoch %d: gradient norm %.3f exceeds threshold %.1f "
+                "(per-branch: %s)", epoch, gn,
+                cfg.grad_norm_warn_threshold, detail)
+
+        sink.log(log, step=epoch)
+        logger.info("epoch %d: train %.4f val %.4f (%s %.3f)", epoch,
+                    log["train_loss"], log["val_loss"], quality_key,
+                    val[quality_key])
 
         improved = val["loss"] < metadata["best_val_loss"]
         if improved:
             metadata.update(best_val_loss=val["loss"],
-                            best_si_snr=val["si_snr"], best_epoch=epoch)
+                            best_si_snr=val[quality_key], best_epoch=epoch)
+            sink.log_best({"best_val_loss": val["loss"],
+                           "best_quality": val[quality_key]})
             patience = 0
         else:
             patience += 1
@@ -334,4 +514,5 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
         if patience >= cfg.early_stop_patience:
             logger.info("early stopping at epoch %d", epoch)
             break
+    sink.finish()
     return {"state": state, "metadata": metadata}

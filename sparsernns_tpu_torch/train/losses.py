@@ -1,6 +1,7 @@
-"""NDNS loss and quality metric (counterpart of
+"""Losses and quality metrics (counterpart of
 ``sparsernns_tpu/train/losses.py``): SI-SNR and the NDNS objective
-0.001·MSE(mag) + (100 − SI-SNR)."""
+0.001·MSE(mag) + (100 − SI-SNR); the classification heads' cross entropy
+and accuracy."""
 
 from __future__ import annotations
 
@@ -55,3 +56,16 @@ def ndns_loss_from_mask(mask, noisy_mag, noisy_phase, clean_mag,
     loss, snr, cleaned_mag = ndns_loss_from_mask_tm(
         t(mask), t(noisy_mag), t(noisy_phase), t(clean_mag), clean_audio)
     return loss, snr, t(cleaned_mag)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """Mean negative log-likelihood of integer ``labels`` (B,) under
+    log-probabilities ``logits`` (B, C)."""
+    one_hot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
+    return -torch.mean(torch.sum(one_hot.to(logits.dtype) * logits, dim=-1))
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Share of rows whose largest log-probability is the label's."""
+    return torch.mean((logits.argmax(dim=-1) == labels).to(torch.float32))

@@ -1,8 +1,9 @@
-"""NDNS train and eval steps (counterpart of
-``sparsernns_tpu/train/steps.py`` ``make_ndns_train_step``,
-``_make_ndns_microbatch_step``, ``make_ndns_eval_step``,
+"""Train and eval steps (counterpart of ``sparsernns_tpu/train/steps.py``):
+the NDNS steps (``make_ndns_train_step`` with its microbatch form,
+``make_ndns_eval_step``), the classification steps
+(``make_classification_train_step``, ``make_classification_eval_step``),
 ``_forward_params``, ``make_mask_update_fn`` and
-``capture_intermediates``).
+``capture_intermediates``.
 
 The train step updates the model, the optimizer and the state's step count
 in place (the JAX step returns a new immutable state; here the tensors are
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from sparsernns_tpu_torch.train.losses import (STFT_MAG_MEAN,
+from sparsernns_tpu_torch.train.losses import (STFT_MAG_MEAN, accuracy,
+                                               cross_entropy_loss,
                                                ndns_loss_from_mask_tm)
 from sparsernns_tpu_torch.train.optim import (optimizer_step,
                                               scale_gradient_leak_norm,
@@ -189,6 +191,76 @@ def make_ndns_eval_step(model: torch.nn.Module,
     return step
 
 
+def _call(model, params: Dict[str, torch.Tensor], inputs, generator):
+    """The model's forward on ``inputs`` (a tensor, or ``(x, lengths)`` for
+    a padded head), with ``params`` in place of the model's parameters of
+    those names where there are any."""
+    if params:
+        return functional_call(model, params, (inputs, generator))
+    return model(inputs, generator)
+
+
+def make_classification_train_step(model: torch.nn.Module,
+                                   static_quant: bool = False) -> Callable:
+    """Classification train step: ``step(state, inputs, labels)`` ->
+    ``(state, metrics)``. ``inputs`` are (B, L, d_input), or
+    ``(x, lengths)`` for a padded head; ``labels`` (B,) integers. Metrics
+    are 0-dim tensors on the model's device: ``loss`` (the cross entropy of
+    the log-probabilities), ``accuracy``, ``grad_norm`` and
+    ``grad_norm/<branch>``. Dropout masks come from ``state.generator``;
+    with ``state.pruner`` the forward sees the masked weights (STE), and
+    in hard mode the pruned weights are zeroed after the update.
+    ``static_quant`` (finetuning a static-quant model) zeroes the
+    gradients of the quantization scales before the update, as the JAX
+    step does (it reports no leak metric here)."""
+
+    def step(state: TrainState, inputs, labels):
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step")
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = _call(model, _forward_params(model, state.pruner,
+                                              state.masks),
+                       inputs, state.generator)
+        loss = cross_entropy_loss(logits, labels)
+        loss.backward()
+        metrics = {"loss": loss.detach(),
+                   "accuracy": accuracy(logits.detach(), labels)}
+        metrics.update(_grad_norm_metrics(model))
+        if static_quant:
+            zero_scale_gradients(model)
+        optimizer_step(state.optimizer, state.step)
+        if state.pruner is not None:
+            state.pruner.post_gradient_update(model, state.masks)
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+def make_classification_eval_step(model: torch.nn.Module,
+                                  pruner: Optional[MagnitudePruner] = None,
+                                  masks: Optional[Masks] = None
+                                  ) -> Callable:
+    """Returns ``step(inputs, labels)`` -> ``{"loss", "accuracy"}`` (0-dim
+    tensors): the model in eval mode (switched for the call and back),
+    with ``pruner`` on its weights times ``masks``."""
+
+    @torch.no_grad()
+    def step(inputs, labels) -> Dict[str, torch.Tensor]:
+        was_training = model.training
+        model.eval()
+        try:
+            logits = _call(model, _forward_params(model, pruner, masks),
+                           inputs, None)
+        finally:
+            model.train(was_training)
+        return {"loss": cross_entropy_loss(logits, labels),
+                "accuracy": accuracy(logits, labels)}
+
+    return step
+
+
 def _flax_module_path(name: str) -> str:
     """A ``named_modules`` name under the JAX package's module names
     (``layers.0`` -> ``layers_0``), as ``weights.flax_path`` maps them."""
@@ -218,12 +290,13 @@ def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
     input), ``<layer>.pre_C`` (the mixer's states, where it returns them),
     ``<layer>.pre_GLU`` (the mixer's output), ``encoder.pre_encoder``,
     ``encoder.encoder_output`` (the encoder dense after its activation,
-    the JAX package's ``topk_op``) and ``pre_decoder``, each
+    the JAX package's ``topk_op``) and ``pre_decoder`` (the regression head), each
     ``.<call>[.<index>]``. As in the JAX package the
     layers run their unfused route while capturing (no whole-layer
     kernel). Modules the port computes inline (BatchNorm, dropout) have no
     key."""
     from sparsernns_tpu_torch.models.layers import SequenceLayer
+    from sparsernns_tpu_torch.models.seq_model import RegressionModel
     from sparsernns_tpu_torch.models.ssm import S5SSM
     out: Dict[str, np.ndarray] = {}
     calls: Dict[str, int] = {}
@@ -269,7 +342,7 @@ def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
                 return y
             mod._encode = encode
             encoders.append(mod)
-        elif name == "decoder":
+        elif name == "decoder" and isinstance(model, RegressionModel):
             handles.append(mod.register_forward_pre_hook(
                 lambda m, args: record("pre_decoder", args[0])))
     was_training = model.training

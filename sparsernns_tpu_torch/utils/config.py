@@ -1,8 +1,8 @@
 """Run configuration with JSON recipe overlay (counterpart of
-``sparsernns_tpu/utils/config.py``), reduced to the fields the ported
-serving, training and conversion paths read, with the JAX package's
-defaults. The command line (``cli.py``) is generated from the fields
-(:func:`add_config_args`, :func:`config_from_args`)."""
+``sparsernns_tpu/utils/config.py``): every field of the JAX package's
+``RunConfig`` with its default and meaning, so a recipe written for the
+JAX package loads here. The command line (``cli.py``) is generated from
+the fields (:func:`add_config_args`, :func:`config_from_args`)."""
 
 from __future__ import annotations
 
@@ -14,15 +14,27 @@ from typing import Optional
 
 @dataclasses.dataclass
 class RunConfig:
-    # --- experiment ---
-    logger: str = "jsonl"               # accepted from recipes; the port
-                                        # logs through Python ``logging``
+    # --- experiment / logging ---
+    run_name: Optional[str] = None
+    #: the epoch metrics' sink: "jsonl" (``metrics.jsonl`` in the
+    #: checkpoint directory), "wandb" or "none" (``utils/logging.py``)
+    logger: str = "jsonl"
+    wandb_project: str = "sparsernns-tpu"
     checkpoint_dir: Optional[str] = None
     restore_checkpoint: bool = True
     reset_optimizer: bool = False
+    #: per-epoch activation sparsity of one batch: none | val | train | both
+    log_act_sparsity: str = "none"
+    #: warn when an epoch's mean gradient norm exceeds this
+    grad_norm_warn_threshold: float = 50.0
+    #: a ``torch.profiler`` trace of the second epoch into ``profile_dir``
+    profile: bool = False
+    profile_dir: str = "/tmp/sparsernns_profile"
 
     # --- dataset ---
+    #: "ndns", "synthetic-classification", "smnist" or "psmnist"
     dataset: str = "ndns"
+    dir_name: Optional[str] = None      # accepted, read by no path
     bsz: int = 32
     #: gradient-accumulation microbatch size (None: full-batch step)
     microbatch: Optional[int] = None
@@ -37,6 +49,9 @@ class RunConfig:
     blocks: int = 16
     C_init: str = "lecun_normal"
     discretization: str = "zoh"
+    #: the classification head's pooling: "pool" or "last"
+    mode: str = "pool"
+    activation_fn: str = "half_glu1"    # accepted, read by no path
     conj_sym: bool = True
     clip_eigs: bool = True
     bidirectional: bool = False
@@ -45,13 +60,17 @@ class RunConfig:
     prenorm: bool = True
     batchnorm: bool = True
     bn_momentum: float = 0.95
+    batchnorm_use_bias: bool = True
+    batchnorm_use_scale: bool = True
     glu_variant: str = "half1"
+    #: fold each prenorm BatchNorm into its mixer's B̄ and D
+    fuse_batchnorm_linear: bool = False
     relufication: bool = False
     topk: float = 1.0                   # activation top-k share (< 1: on)
     approx_topk: bool = False           # required with topk < 1 (as JAX)
     #: uniform rescale of d_model and the state size (:meth:`apply_dim_scale`)
     dim_scale: float = 1.0
-    #: "associative", "fused", "pallas" or "sequential"
+    #: "associative", "fused", "pallas", "sequential" or "blocked"
     scan_mode: str = "associative"
     #: the stream between the layers of a training model: "float32", or
     #: "bfloat16" where every layer runs the whole-layer kernel with
@@ -87,7 +106,9 @@ class RunConfig:
 
     # --- regularization / optimization ---
     p_dropout: float = 0.1
-    seed: int = 1919                    # model init, dropout, data
+    #: model init and dropout, and the data where ``data_seed`` is None
+    jax_seed: int = 1919
+    data_seed: Optional[int] = None
     epochs: int = 50
     warmup_end: int = 1
     early_stop_patience: int = 1000

@@ -1,12 +1,13 @@
 """Carry weights between the JAX package's model variables and the port.
 
 :func:`from_flax` takes the ``params`` and ``batch_stats`` nested dicts of
-the JAX package's ``RegressionModel`` as numpy arrays and returns the
-``state_dict`` of the port's
-:class:`~sparsernns_tpu_torch.models.seq_model.RegressionModel`, for any
-number of layers, any GLU variant, BatchNorm or LayerNorm, float or
-static-quant (a frozen tree's ``scale`` leaves become the quantizers'
-``scale`` buffers). :func:`to_flax` is the inverse: a model's state under
+one of the JAX package's models (the regression, classification or
+retrieval head) as numpy arrays and returns the ``state_dict`` of the
+port's counterpart (``models/seq_model.py``), for any number of layers,
+any GLU variant, BatchNorm (with or without its scale and bias) or
+LayerNorm, float or static-quant (a frozen tree's ``scale`` leaves become
+the quantizers' ``scale`` buffers). The retrieval decoder's denses keep
+flax's automatic names (``QDense_0``, ``QDense_1``). :func:`to_flax` is the inverse: a model's state under
 the JAX package's names, which for a calibrated model is the frozen tree
 (scales kept, observers dropped). Frozen trees of the two packages are
 therefore interchangeable. :func:`grads_to_flax` gives the gradients that
@@ -45,7 +46,7 @@ def flat_leaves(tree: Mapping, path: Tuple[str, ...] = ()
 
 def from_flax(params: Mapping, batch_stats: Mapping
               ) -> Dict[str, torch.Tensor]:
-    """JAX RegressionModel variables (numpy leaves) -> port state_dict."""
+    """JAX model variables (numpy leaves) -> port state_dict."""
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in flat_leaves(params):
         *mods, name = (_LAYER.sub(r"layers.\1", p) for p in path)

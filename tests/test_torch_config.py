@@ -44,8 +44,7 @@ from tests.test_torch_train import (D_IO, audio_batch, jax_features,
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: shared fields that differ on purpose: none (``seed`` is the port's one
-#: seed, JAX's ``jax_seed`` / ``data_seed`` are not ported)
+#: shared fields that differ on purpose: none
 DIFFER = set()
 
 
@@ -56,15 +55,16 @@ def _shared():
 
 
 def test_shared_defaults_equal_jax():
+    """The port's ``RunConfig`` has exactly the JAX package's fields, each
+    with its default."""
     shared = _shared()
-    assert len(shared) > 60
+    assert {f.name for f in dataclasses.fields(RunConfig)} == set(shared) \
+        == {f.name for f in dataclasses.fields(JaxConfig)}
+    assert len(shared) >= 80
     ours, theirs = RunConfig(), JaxConfig()
     for name in shared:
         if name not in DIFFER:
             assert getattr(ours, name) == getattr(theirs, name), name
-    assert {f.name for f in dataclasses.fields(RunConfig)} - set(shared) \
-        == {"seed"}
-    assert RunConfig().seed == JaxConfig().jax_seed
 
 
 @pytest.mark.parametrize("scale", [0.5, 1.0, 1.5, 2.0, 4.5])

@@ -66,7 +66,7 @@ def pipelines(tmp_path_factory):
     step 0."""
     tmp = tmp_path_factory.mktemp("convert")
     jcfg = JaxConfig(**SHARED, jax_seed=0, checkpoint_dir=str(tmp / "jax"))
-    tcfg = RunConfig(**SHARED, seed=0, checkpoint_dir=str(tmp / "port"))
+    tcfg = RunConfig(**SHARED, jax_seed=0, checkpoint_dir=str(tmp / "port"))
 
     trainloader, _, _, n_out, seq_len, d_in, _ = jax_loop.build_dataset(jcfg)
     jmodel = jax_loop.build_model(jcfg, d_in, n_out, training=True)

@@ -260,8 +260,11 @@ def test_engine_refusals(frozen):  # noqa: F811
     assert e16.mxu16["requested"] and e16._network_ok
     e8 = port_eng(frozen, recipe="w8a8")
     assert e8.encoder_in_scale[1] == 8 and e8._network_ok
-    with pytest.raises(NotImplementedError, match="xla"):
-        port_eng(frozen, engine_kw=dict(route="xla"))
+    # the kernel-free route builds when asked for, and only then
+    xla = port_eng(frozen, engine_kw=dict(route="xla", mxu16=True))
+    assert xla.route == "xla" and not xla._stack_ok and not xla._network_ok
+    assert not any(xla.mxu16[k] for k in ("mixer", "state", "dense",
+                                          "requants"))
     with pytest.raises(ValueError, match="route"):
         port_eng(frozen, engine_kw=dict(route="fast"))
     wide = port_eng(frozen, recipe="w32a32")

@@ -45,7 +45,7 @@ def runs(tmp_path_factory):
     into its store, the same numpy trees are saved into the port's."""
     tmp = tmp_path_factory.mktemp("fxp_runner")
     jcfg = JaxConfig(**SHARED, jax_seed=0, checkpoint_dir=str(tmp / "jax"))
-    tcfg = RunConfig(**SHARED, seed=0, checkpoint_dir=str(tmp / "port"))
+    tcfg = RunConfig(**SHARED, jax_seed=0, checkpoint_dir=str(tmp / "port"))
     trainloader, _, _, n_out, seq_len, d_in, _ = jax_loop.build_dataset(jcfg)
     jmodel = jax_loop.build_model(jcfg, d_in, n_out, training=True)
     jstate, _ = jax_loop.create_run_state(

@@ -354,10 +354,9 @@ def test_routes_and_what_still_raises():
                           device="cpu")
     with pytest.raises(NotImplementedError, match="bidirectional"):
         bi.forward_stream(torch.zeros(1, 8, D_IO))
-    for mode in ("blocked", "sp"):
-        with pytest.raises(NotImplementedError, match="scan_mode"):
-            loop.build_model(small_config(scan_mode=mode), D_IO, D_IO,
-                             device="cpu")
+    with pytest.raises(NotImplementedError, match="scan_mode"):
+        loop.build_model(small_config(scan_mode="sp"), D_IO, D_IO,
+                         device="cpu")
     # the associative and the sequential scan (plain PyTorch) build and
     # run the unfused route
     for mode in ("associative", "sequential"):

@@ -196,7 +196,7 @@ def test_build_model_shapes_and_state_dict_keys():
                      training=True, device="cpu")
     assert ln(torch.zeros(1, 4, 9)).requires_grad
     with pytest.raises(NotImplementedError):   # not a ported scan mode
-        build_model(dataclasses.replace(cfg, scan_mode="blocked"), 9, 9,
+        build_model(dataclasses.replace(cfg, scan_mode="sp"), 9, 9,
                     device="cpu")
 
 

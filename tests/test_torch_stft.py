@@ -82,7 +82,9 @@ def test_synthetic_ndns_equals_jax_draw():
             np.testing.assert_array_equal(a, b)
 
 
-def test_create_ndns_dataset_synthetic():
+def test_create_ndns_dataset_synthetic(monkeypatch):
+    for split in ("TRAIN", "VALIDATION", "TEST"):
+        monkeypatch.delenv(f"NDNS_{split}_SET", raising=False)
     train, val, test, n_cls, seq_len, in_dim, size = create_ndns_dataset(
         2, seed=0, synthetic=True, synthetic_size=4, synthetic_length=5000)
     assert (n_cls, in_dim, size, seq_len) == (257, 257, 4, 4608 // 128 + 1)
@@ -91,5 +93,6 @@ def test_create_ndns_dataset_synthetic():
     noisy, clean = batches[0]
     assert noisy.shape == clean.shape == (2, 4608)
     assert isinstance(val, NDNSLoader) and len(test) == 1
-    with pytest.raises(NotImplementedError):
+    # the WAV corpus needs its three directories
+    with pytest.raises(FileNotFoundError):
         create_ndns_dataset(2, synthetic=False)

@@ -315,11 +315,11 @@ def test_what_still_raises():
         out.sum().backward()
         assert all(p.grad is not None for p in model.parameters())
     with pytest.raises(NotImplementedError, match="scan_mode"):
-        loop.build_model(small_config(scan_mode="blocked"), D_IO, D_IO,
+        loop.build_model(small_config(scan_mode="sp"), D_IO, D_IO,
                          training=True, device="cpu")
-    # the associative and the sequential scan train (plain PyTorch, on the
-    # unfused route)
-    for mode in ("associative", "sequential"):
+    # the associative, the sequential and the blocked scan train (plain
+    # PyTorch, on the unfused route)
+    for mode in ("associative", "sequential", "blocked"):
         assoc = loop.build_model(small_config(scan_mode=mode), D_IO, D_IO,
                                  training=True, device="cpu")
         assoc(torch.zeros(1, 8, D_IO)).sum().backward()
@@ -334,8 +334,15 @@ def test_what_still_raises():
         loop.create_run_state(small_config(pruning="magnitude-0.5"), tm, 1)
     with pytest.raises(NotImplementedError, match="mesh"):
         loop.train(small_config(mesh_model=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        loop.train(small_config(synthetic_data=False), device="cpu")
+    # synthetic_data false reads the WAV corpus where its three
+    # directories are set, else the synthetic set, as in the JAX package
+    env = {f"NDNS_{k}_SET": os.environ.pop(f"NDNS_{k}_SET", None)
+           for k in ("TRAIN", "VALIDATION", "TEST")}
+    try:
+        loader = loop.build_dataset(small_config(synthetic_data=False))[0]
+    finally:
+        os.environ.update({k: v for k, v in env.items() if v is not None})
+    assert type(loader.dataset).__name__ == "SyntheticNDNS"
     full = RunConfig().with_recipe(os.path.join(ROOT, "recipes", "ndns.json"))
     flagship = loop.build_model(full, D_IO, D_IO, training=True,
                                 device="cpu")

@@ -257,7 +257,32 @@ a seed):
    for bit (``native.available()`` printed), then ``train(cfg)`` with
    ``synthetic_data`` false and the ``NDNS_*_SET`` variables, one epoch at
    B = 8 (K2-train, K3a, K3b x 3 a step, K2 x 3 an eval batch), its wall
-   seconds. The whole run's wall time is printed last.
+   seconds;
+30. parallel phase — the device mesh (``parallel/``) at the flagship's
+   width, dropout 0. First every path as one rank over NCCL (world 1, the
+   trivial mesh, no collective): three B = 32 train steps (K2-train, K3a,
+   K3b x 3 a step), two B = 8 steps of the ``"associative"`` model, the
+   engine's DP forward (K6, equal to ``engine(x)``), its SP and TP
+   forwards at L = 3744 (K1 x 3: the per-op float layer body without the
+   state requant; against the engine's own route at the JAX package's
+   0.1), the pipeline over 3 stages on the visible cards, 6 chunks of 624
+   frames: the float route (K1 from a carry x 18) against the same route
+   on the CPU at the engine bar and against that body at 0.1 (it keeps
+   the mixer input f32, as the JAX package's does), the mxu16 route (K5b
+   x 18, time block 208) equal to ``process_chunk``, and both routes
+   again on an input the caller's stream writes behind ~10 ms of matrix
+   products (the stages wait for it: equal to the first call). Then two
+   ranks, one a card over NCCL (``make_mesh`` makes it current) or, with
+   one card, both on it over gloo: DP training (3 steps, 16 rows a rank), TP
+   training (2 steps, P 128 as 2 x 64), SP training (``scan_mode="sp"``,
+   B = 8, 2 steps, 1876 + 1875 frames; K1 x 3 each way a step) against the
+   one-rank runs at PR 3's card bars and, at 65 frames, against the CPU;
+   DP serving (B = 8, K6 a rank) against one rank bit for bit, SP and TP
+   serving against one rank at the engine bar. For each path: backend,
+   world, wall, collective bytes and counts, launches per rank. With two
+   or more cards also ``cli train`` under ``torch.distributed.run``: two
+   ranks, a card each over NCCL, ``--mesh_data 2``, one layer, one epoch
+   of 8 clips of 2 s. The whole run's wall time is printed last.
 
 Run from the repository root: ``python3 chip_smoke.py``. Prints the card
 and its power limit, one ``{"kernels": [...]}`` line, and last
@@ -4925,6 +4950,416 @@ def wav_corpus_phase(cfg, counters) -> None:
                       "layer_tail_bwd": n_layers * steps}, counts
 
 
+#: frames of phase 30's sequence-, tensor- and pipeline-parallel serving:
+#: 3751 = 11 x 11 x 31 splits over no two seq ranks, 3744 = 32 x 117 over
+#: 2 seq ranks and over 6 pipeline chunks (a cut of 7 frames); the mxu16
+#: pipeline engine's time block, which divides its 624-frame chunks
+PAR_FRAMES, PP_CHUNKS, PP_BLOCK = 3744, 6, 208
+
+
+def _par_train(cfg, state_dict, feats, mesh, steps, counters, expect):
+    """``steps`` steps of ``make_ndns_train_step`` on ``mesh`` from
+    ``state_dict``, the global batch ``feats`` (this rank takes its rows):
+    per step the metrics, wall ms, collective bytes and launches (each must
+    equal ``expect``), and the whole parameters on the host after each."""
+    import torch
+
+    from sparsernns_tpu_torch.parallel.comms import CollectiveCounter
+    from sparsernns_tpu_torch.parallel.sharding import (shard_batch,
+                                                        shard_train_state,
+                                                        whole_model)
+    from sparsernns_tpu_torch.train.loop import build_model, create_run_state
+    from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+    model = build_model(cfg, 257, 257, training=True, device=mesh.device,
+                        mesh=mesh)
+    model.load_state_dict(state_dict)
+    state = shard_train_state(create_run_state(cfg, model, 1, mesh), mesh)
+    step = make_ndns_train_step(model)
+    out = dict(metrics=[], walls=[], comms=[], launches=[], params=[])
+    for _ in range(steps):
+        local = shard_batch(feats, mesh)
+        counters()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with CollectiveCounter() as counter:
+            state, metrics = step(state, *local)
+        torch.cuda.synchronize()
+        out["walls"].append((time.time() - t0) * 1e3)
+        launches = {k: v for k, v in counters().items() if v}
+        assert launches == expect, (launches, expect)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["comms"].append(counter.result())
+        out["launches"].append(launches)
+        with whole_model(state):
+            out["params"].append({n: q.detach().cpu().clone()
+                                  for n, q in model.named_parameters()})
+    return out
+
+
+def _par_serve(forward, x, counters, expect):
+    """``forward(x)`` timed on the card: (output on the host, wall ms,
+    collective bytes, launches, which must equal ``expect``)."""
+    import torch
+
+    from sparsernns_tpu_torch.parallel.comms import CollectiveCounter
+    forward(x)                       # warm: workspaces, first launches
+    counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with CollectiveCounter() as counter:
+        y = forward(x)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    launches = {k: v for k, v in counters().items() if v}
+    assert launches == expect, (launches, expect)
+    return y.float().cpu(), wall, counter.result(), launches
+
+
+def _par_features(bsz: int, samples: int):
+    """The train step's features of ``bsz`` synthetic clips of ``samples``
+    samples on the card (the phase-8 batch's first clips)."""
+    import numpy as np
+    import torch
+
+    from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
+    from sparsernns_tpu_torch.train.loop import prep_ndns_batch
+    ds = SyntheticNDNS(size=bsz, length=SECONDS * 16000, seed=0)
+    audio = [ds[i] for i in range(bsz)]
+    noisy = torch.from_numpy(np.stack([a[:samples] for a, _ in audio]))
+    clean = torch.from_numpy(np.stack([c[:samples] for _, c in audio]))
+    noisy, clean = noisy.cuda(), clean.cuda()
+    return (*prep_ndns_batch(noisy, clean), clean)
+
+
+def _par_engine(spec, mxu16: bool = False):
+    """The w8a16 engine of phase 4's frozen tree (block 512), or the mxu16
+    engine of the same tree at the pipeline's time block."""
+    import torch
+
+    from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+    if not mxu16:
+        return engine_from_frozen(spec["cfg"], *spec["frozen"],
+                                  device=torch.device("cuda"), block_t=512)
+    cfg = dataclasses.replace(spec["cfg"], engine_mxu16=True)
+    engine = engine_from_frozen(cfg, *spec["frozen"],
+                                device=torch.device("cuda"),
+                                block_t=PP_BLOCK)
+    assert engine.mxu16["mixer"] or engine.mxu16["requants"], engine.mxu16
+    return engine
+
+
+def _par_paths(spec, mesh_of, counters):
+    """Every parallel path of phase 30 on this rank's meshes (``mesh_of``:
+    (data, model, seq) -> mesh): its results, as host values."""
+    import torch
+
+    from sparsernns_tpu_torch.parallel.sp_engine import (make_dp_forward,
+                                                         make_sp_forward,
+                                                         make_tp_forward)
+    cfg = spec["cfg"]
+    n = spec["world"]
+    dp_mesh = mesh_of(n, 1, 1)       # makes this rank's card current
+    assert torch.cuda.current_device() == dp_mesh.device.index, \
+        (torch.cuda.current_device(), dp_mesh.device)
+    tail = {k: 3 for k in TAIL_KERNELS}
+    feats32 = _par_features(4 * B, SECONDS * 16000)
+    res = {}
+    res["dp_train"] = _par_train(cfg, spec["state"], feats32, dp_mesh, 3,
+                                 counters, tail)
+    res["tp_train"] = _par_train(cfg, spec["state"], feats32,
+                                 mesh_of(1, n, 1), 2, counters, tail)
+    del feats32
+    scans = {"diag_scan": 3, "diag_scan_rev": 3}
+    res["sp_train"] = _par_train(cfg, spec["state"],
+                                 _par_features(B, SECONDS * 16000),
+                                 mesh_of(1, 1, n), 2, counters, scans)
+    res["sp_train_short"] = _par_train(
+        cfg, spec["state"], _par_features(2, 64 * 128), mesh_of(1, 1, n),
+        1, counters, scans)
+    engine = _par_engine(spec)
+    x8 = spec["x_eng"].cuda()
+    x = x8[:, :PAR_FRAMES].contiguous()
+    res["dp_serve"] = _par_serve(make_dp_forward(engine, dp_mesh), x8,
+                                 counters, {"engine_network": 1})
+    res["sp_serve"] = _par_serve(make_sp_forward(engine, mesh_of(1, 1, n)),
+                                 x, counters, {"diag_scan": 3})
+    res["tp_serve"] = _par_serve(make_tp_forward(engine, mesh_of(1, n, 1)),
+                                 x, counters, {"diag_scan": 3})
+    torch.cuda.synchronize()
+    return res
+
+
+def parallel_rank(rank: int, world: int, spec):
+    """One rank of phase 30's multi-rank run (``parallel/launch.run_ranks``):
+    builds nothing (the parent's build is on disk), computes on
+    ``cuda:0`` when the ranks share one card, else on ``cuda:<rank>``
+    (``LOCAL_RANK``), which the mesh makes the current card."""
+    import torch
+
+    from sparsernns_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0) if spec["share"] else "cuda"
+    spec = dict(spec, world=world)
+    return _par_paths(spec, lambda d, m, s: make_mesh(
+        MeshConfig(data=d, model=m, seq=s), device=dev), launch_counts)
+
+
+def _fresh_copy(x):
+    """A copy of ``x`` that the current stream writes only after about
+    ten milliseconds of matrix products queued on it; until then it holds
+    NaN."""
+    import torch
+    out = torch.full_like(x, float("nan"))
+    a = torch.randn(4096, 4096, device=x.device)
+    torch.cuda.synchronize()
+    for _ in range(4):
+        a = a @ a * 1e-2
+    out.copy_(x)
+    return out
+
+
+def _par_train_close(tag, got, ref, step_pairs) -> None:
+    """A parallel run's steps against the one-rank run's at PR 3's card
+    bars: loss, SI-SNR and gradient norm 1e-3 relative; every parameter's
+    mean abs difference 1e-5 (Adam moves an element of noise-level
+    gradient by about the learning rate)."""
+    for i, j in step_pairs:
+        for key in ("loss", "si_snr", "grad_norm"):
+            r = ref["metrics"][j][key]
+            _check(f"{tag} step {i}, {key} vs one rank",
+                   abs(got["metrics"][i][key] - r), 1e-3 * max(1.0, abs(r)))
+        _check(f"{tag} step {i}, parameters vs one rank (mean abs)",
+               max((got["params"][i][n] - q).abs().mean().item()
+                   for n, q in ref["params"][j].items()), 1e-5)
+
+
+def _par_cli_train() -> None:
+    """The documented multi-card entry: ``cli train`` under the launcher
+    (``torch.distributed.run``), two ranks, one card each over NCCL, a
+    mesh of 2 data ranks at the flagship's width (1 layer, 8 synthetic
+    clips of 2 s, one epoch)."""
+    import tempfile
+
+    from sparsernns_tpu_torch.parallel.launch import free_port
+    from sparsernns_tpu_torch.train.checkpoint import CheckpointManager
+    with tempfile.TemporaryDirectory() as ckpt:
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+               "--master_port", str(free_port()), "-m",
+               "sparsernns_tpu_torch.cli", "train", "--device", "cuda",
+               "--mesh_data", "2", "--scan_mode", "fused", "--n_layers",
+               "1", "--synthetic_data", "1", "--synthetic_size", "8",
+               "--synthetic_seconds", "2.0", "--bsz", "4", "--epochs", "1",
+               "--checkpoint_dir", ckpt]
+        t0 = time.time()
+        run = subprocess.run(cmd, cwd=os.path.dirname(
+            os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=300)
+        if run.returncode:
+            print(run.stdout[-4000:], run.stderr[-8000:], file=sys.stderr)
+            raise AssertionError(f"cli train on 2 cards: rc "
+                                 f"{run.returncode}")
+        steps = CheckpointManager(ckpt).all_steps()
+        assert steps, "cli train on 2 cards wrote no checkpoint"
+    print(f"phase 30 cli train under torch.distributed.run (nccl, world "
+          f"2, cuda:0 and cuda:1, mesh_data 2): rc 0 in "
+          f"{time.time() - t0:.1f} s, checkpoint steps {steps}", flush=True)
+
+
+def parallel_phase(cfg, model, eng, counters) -> None:
+    """Phase 30: the device mesh (module docstring, item 30)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sparsernns_tpu_torch.parallel.launch import free_port, run_ranks
+    from sparsernns_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from sparsernns_tpu_torch.parallel.pp_engine import make_pp_forward
+    from sparsernns_tpu_torch.parallel.sp_engine import (make_dp_forward,
+                                                         make_sp_forward,
+                                                         make_tp_forward)
+    from sparsernns_tpu_torch.train.loop import build_model
+    from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+    dev = torch.device("cuda", 0)
+    cfg0 = dataclasses.replace(cfg, p_dropout=0.0)
+    spec = dict(cfg=cfg0, frozen=eng.frozen, x_eng=eng.x_eng.cpu(),
+                state={k: v.detach().cpu()
+                       for k, v in model.state_dict().items()})
+
+    # ---- one rank over NCCL: every path on the trivial mesh ----
+    t0 = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh1 = make_mesh(MeshConfig(), device=dev)
+        tail = {k: 3 for k in TAIL_KERNELS}
+        feats32 = _par_features(4 * B, SECONDS * 16000)
+        one = dict(train=_par_train(cfg0, spec["state"], feats32, mesh1, 3,
+                                    counters, tail))
+        del feats32
+        assoc = dataclasses.replace(cfg0, scan_mode="associative")
+        one["assoc"] = _par_train(assoc, spec["state"],
+                                  _par_features(B, SECONDS * 16000), mesh1,
+                                  2, counters, {})
+        for path in ("train", "assoc"):
+            r = one[path]
+            print(f"phase 30 one rank (nccl, world 1) {path} steps: ms "
+                  f"{[round(w, 2) for w in r['walls']]}, loss "
+                  f"{[round(m['loss'], 5) for m in r['metrics']]}, comms "
+                  f"{r['comms'][0]}, launches a step {r['launches'][0]}",
+                  flush=True)
+        engine = _par_engine(spec)
+        x8 = eng.x_eng
+        x = x8[:, :PAR_FRAMES].contiguous()
+        with torch.no_grad():
+            whole8 = engine(x8).float().cpu()
+            whole = engine(x).float().cpu()
+        for mode, make, inp, expect in (
+                ("dp", make_dp_forward, x8, {"engine_network": 1}),
+                ("sp", make_sp_forward, x, {"diag_scan": 3}),
+                ("tp", make_tp_forward, x, {"diag_scan": 3})):
+            one[mode] = _par_serve(make(engine, mesh1), inp, counters,
+                                   expect)
+            print(f"phase 30 one rank (nccl, world 1) {mode} serving: "
+                  f"{one[mode][1]:.2f} ms, comms {one[mode][2]}, "
+                  f"launches {one[mode][3]}", flush=True)
+        assert torch.equal(one["dp"][0], whole8), "DP one rank vs engine"
+        _engine_close("SP one rank vs TP one rank", one["sp"][0],
+                      one["tp"][0])
+        rel = ((one["sp"][0] - whole).abs().max()
+               / whole.abs().max()).item()
+        print(f"phase 30 per-op float body (no state requant) vs the "
+              f"engine's own route (block-512 requant): {rel:.3e} of "
+              "max|ref| (the JAX package's bar 0.1)", flush=True)
+        _check("per-op float body vs engine route, relative", rel, 0.1)
+        # the pipeline: 3 stages on the visible card(s), 6 chunks
+        n_cards = torch.cuda.device_count()
+        stages = [torch.device("cuda", s % n_cards) for s in range(3)]
+        pp = make_pp_forward(engine, stages, chunks=PP_CHUNKS)
+        one["pp"] = _par_serve(pp, x, counters,
+                               {"diag_scan": 3 * PP_CHUNKS})
+        from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
+        cpu_pp = make_pp_forward(
+            engine_from_frozen(cfg0, *eng.frozen, device="cpu",
+                               block_t=512), ["cpu"] * 3, chunks=PP_CHUNKS)
+        with torch.no_grad():
+            _engine_close("PP float route, card vs CPU", one["pp"][0],
+                          cpu_pp(x.cpu()).float())
+        # the JAX package's float pipeline body keeps the mixer input f32
+        # where the per-op body rounds it to the engine's bf16 activations
+        rel = ((one["pp"][0] - one["sp"][0]).abs().max()
+               / one["sp"][0].abs().max()).item()
+        _check("PP float route vs the per-op float body, relative", rel,
+               0.1)
+        e16 = _par_engine(spec, mxu16=True)
+        pp16 = make_pp_forward(e16, stages, chunks=PP_CHUNKS)
+        one["pp16"] = _par_serve(pp16, x, counters,
+                                 {"engine_layer_carry": 3 * PP_CHUNKS})
+        lc = PAR_FRAMES // PP_CHUNKS
+        with torch.no_grad():
+            carries, chunks = None, []
+            for c in range(PP_CHUNKS):
+                y, carries = e16.process_chunk(x[:, c * lc:(c + 1) * lc],
+                                               carries)
+                chunks.append(y.float().cpu())
+        assert torch.equal(one["pp16"][0], torch.cat(chunks, dim=1)), \
+            "PP mxu16 route vs process_chunk"
+        # an input written on the caller's stream just before the call,
+        # behind a queue of work there: the stages must wait for it
+        for mode, fwd in (("pp", pp), ("pp16", pp16)):
+            with torch.no_grad():
+                y = fwd(_fresh_copy(x)).float().cpu()
+            assert torch.isfinite(y).all(), f"{mode} on a fresh input"
+            if mode == "pp16":
+                assert torch.equal(y, one["pp16"][0]), \
+                    "PP mxu16 route on a fresh input"
+            else:
+                _engine_close("PP float route on a fresh input", y,
+                              one["pp"][0])
+        for mode in ("pp", "pp16"):
+            print(f"phase 30 pipeline {mode} ({len(stages)} stages on "
+                  f"{sorted(set(str(d) for d in stages))}, {PP_CHUNKS} "
+                  f"chunks of {lc} frames): {one[mode][1]:.2f} ms, "
+                  f"launches {one[mode][3]}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    # the sp step on the CPU at the short length (the plain scan)
+    short = tuple(t.cpu() for t in _par_features(2, 64 * 128))
+    cpu_model = build_model(assoc, 257, 257, training=True, device="cpu")
+    cpu_model.load_state_dict(spec["state"])
+    from sparsernns_tpu_torch.train.loop import create_run_state
+    cpu_state = create_run_state(assoc, cpu_model, 1)
+    _, cpu_m = make_ndns_train_step(cpu_model)(cpu_state, *short)
+    cpu_ref = dict(metrics=[{k: float(v) for k, v in cpu_m.items()}],
+                   params=[{n: q.detach().clone()
+                            for n, q in cpu_model.named_parameters()}])
+    print(f"phase 30 one rank: {time.time() - t0:.1f} s", flush=True)
+
+    # ---- two ranks: one a card over NCCL, or sharing the card over gloo
+    share = torch.cuda.device_count() < 2
+    backend = "gloo" if share else "nccl"
+    t0 = time.time()
+    outs = run_ranks(parallel_rank, 2, (dict(spec, share=share),),
+                     backend=backend, timeout=900, threads=2)
+    print(f"phase 30 two ranks ({backend}, world 2, "
+          f"{'sharing cuda:0' if share else 'one card each'}): "
+          f"{time.time() - t0:.1f} s with the start of the ranks"
+          + ("; a time on one card over gloo says nothing of scaling"
+             if share else ""), flush=True)
+    for rank, res in enumerate(outs):
+        for path in ("dp_train", "tp_train", "sp_train", "sp_train_short"):
+            r = res[path]
+            print(f"phase 30 rank {rank} {path} ({backend}, world 2): "
+                  f"step ms {[round(w, 2) for w in r['walls']]}, loss "
+                  f"{[round(m['loss'], 5) for m in r['metrics']]}, comms "
+                  f"{r['comms'][0]}, launches a step {r['launches'][0]}",
+                  flush=True)
+        for path in ("dp_serve", "sp_serve", "tp_serve"):
+            _, wall, comms, launches = res[path]
+            print(f"phase 30 rank {rank} {path} ({backend}, world 2): "
+                  f"{wall:.2f} ms, comms {comms}, launches {launches}",
+                  flush=True)
+    for rank, res in enumerate(outs):
+        _par_train_close(f"rank {rank} DP train (2 x 16 rows)",
+                         res["dp_train"], one["train"],
+                         [(0, 0), (1, 1), (2, 2)])
+        _par_train_close(f"rank {rank} TP train (P 128 as 2 x 64)",
+                         res["tp_train"], one["train"], [(0, 0), (1, 1)])
+        _par_train_close(f"rank {rank} SP train (1876 + 1875 frames)",
+                         res["sp_train"], one["assoc"], [(0, 0), (1, 1)])
+        _par_train_close(f"rank {rank} SP train, 65 frames, vs the CPU",
+                         res["sp_train_short"], cpu_ref, [(0, 0)])
+        for path in ("dp_train", "tp_train", "sp_train"):
+            for n, q in res[path]["params"][-1].items():
+                assert torch.equal(q, outs[0][path]["params"][-1][n]), \
+                    (path, n)
+    if not share:
+        _par_cli_train()
+    dp = torch.cat([o["dp_serve"][0] for o in outs], dim=0)
+    if torch.equal(dp, one["dp"][0]):
+        print("phase 30 DP serving = one rank, bit for bit", flush=True)
+    else:
+        _engine_close("DP serving vs one rank", dp, one["dp"][0])
+    _engine_close("SP serving vs one rank",
+                  torch.cat([o["sp_serve"][0] for o in outs], dim=1),
+                  one["sp"][0])
+    for rank, o in enumerate(outs):
+        _engine_close(f"rank {rank} TP serving vs one rank", o["tp_serve"][0],
+                      one["tp"][0])
+        assert o["dp_serve"][2]["total_bytes"] == 0
+    h, p = cfg.d_model, model.encoder.layers[0].mixer.p
+    sp_bytes = cfg.n_layers * 2 * 4 * (2 * p + 2 * B * p)
+    tp_bytes = cfg.n_layers * B * PAR_FRAMES * h * 4
+    assert outs[0]["sp_serve"][2]["total_bytes"] == sp_bytes
+    assert outs[0]["tp_serve"][2]["total_bytes"] == tp_bytes
+    print(f"phase 30 collective bytes: SP serving {sp_bytes} "
+          f"({cfg.n_layers} gathers of 2 (λ^T, end) pairs, any L), TP "
+          f"serving {tp_bytes} ({cfg.n_layers} all-reduces of (B, L, H) "
+          f"f32), DP serving 0", flush=True)
+    assert np.isfinite(outs[0]["dp_train"]["metrics"][-1]["loss"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5301,6 +5736,10 @@ def main() -> int:
     mark("TBPTT phase")
     wav_corpus_phase(cfg, counters)
     mark("WAV corpus phase")
+
+    # ---------------- the device mesh ----------------
+    parallel_phase(cfg, model, eng, counters)
+    mark("parallel phase")
     print(f"whole run: {time.time() - run_start:.1f} s", flush=True)
 
     # ---------------- report ----------------

@@ -14,6 +14,15 @@ runs every dataset of the registry (``--dataset ndns``,
 ``fxp`` serve the NDNS task, as in the JAX package. ``fxp`` runs the
 fixed-point golden engine over ``convert``'s artifacts
 (``fxp/runner.py``).
+
+``train`` on a device mesh: one process a rank under ``torchrun``, which
+sets the process group's variables; ``--mesh_data``, ``--mesh_model``
+and ``--mesh_seq`` shape the mesh (``parallel/``); the process group's
+backend is ``nccl`` with ``--device cuda`` (a card a rank) and ``gloo``
+with ``--device cpu``::
+
+    torchrun --nproc_per_node 4 -m sparsernns_tpu_torch.cli train \
+        --recipe recipes/ndns.json --mesh_data 2 --mesh_model 2
 """
 
 from __future__ import annotations
@@ -52,8 +61,19 @@ def main(argv=None) -> int:
     logger.info("command=%s device=%s config=%s", args.command, args.device,
                 cfg)
     if args.command == "train":
+        import torch.distributed as dist
+
+        from sparsernns_tpu_torch.parallel.mesh import \
+            maybe_initialize_distributed
         from sparsernns_tpu_torch.train.loop import train
-        train(cfg, device=args.device)
+        backend = "nccl" if args.device == "cuda" else "gloo"
+        started = (not dist.is_initialized()
+                   and maybe_initialize_distributed(backend))
+        try:
+            train(cfg, device=args.device)
+        finally:
+            if started:
+                dist.destroy_process_group()
     elif args.command == "convert":
         from sparsernns_tpu_torch.quantize.convert import convert
         results = convert(cfg, device=args.device)

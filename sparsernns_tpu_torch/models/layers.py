@@ -110,6 +110,39 @@ class StreamMoments(torch.autograd.Function):
         return (g_mean / n + xf * (2.0 * (g_sq / n))).to(x.dtype)
 
 
+class StreamSums(torch.autograd.Function):
+    """(Σx, Σx²) over (B, L) of a (B, L, H) stream, in float32 whatever the
+    stream's dtype, with :class:`StreamMoments`' backward (the stream kept
+    as it is)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        xf = x.float()
+        return xf.sum(dim=(0, 1)), (xf * xf).sum(dim=(0, 1))
+
+    @staticmethod
+    def backward(ctx, g_sum, g_sq):
+        x, = ctx.saved_tensors
+        return (g_sum + x.float() * (2.0 * g_sq)).to(x.dtype)
+
+
+def group_moments(x: torch.Tensor, group
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E[x], E[x²]) over the (B, L) rows of every rank of ``group``: the
+    local sums and row count, summed over the group in one all-reduce
+    (differentiable: the backward sums the gradients of the sums over the
+    group), over the total count. The BatchNorm statistics of a
+    data- or sequence-parallel batch, as the JAX package's partitioner
+    reduces them over the mesh."""
+    from sparsernns_tpu_torch.parallel.comms import AllReduceSum
+    s1, s2 = StreamSums.apply(x)
+    count = s1.new_full((1,), float(x.shape[0] * x.shape[1]))
+    tot = AllReduceSum.apply(torch.cat([s1, s2, count]), group)
+    h = s1.shape[0]
+    return tot[:h] / tot[2 * h], tot[h:2 * h] / tot[2 * h]
+
+
 class QATDense(nn.Linear):
     """``nn.Linear`` whose input and weight pass the per-tensor fake-quant
     with the STE first (the JAX package's ``QDense`` with ``q_dot``):
@@ -200,6 +233,10 @@ class SequenceLayer(nn.Module):
         #: any quantization (static or QAT) keeps the layer off the
         #: whole-layer kernel
         self.quantized = q_config.any_quantized
+        #: the process group whose rows the training statistics of the
+        #: BatchNorm cover (a data- or sequence-parallel mesh's (data, seq)
+        #: group, set by ``train/loop.build_model``); None: this rank's
+        self.stat_group = None
         #: set while ``train/steps.capture_intermediates`` records the
         #: layer: the unfused route, as the JAX package's capture runs it
         self.capturing = False
@@ -245,7 +282,10 @@ class SequenceLayer(nn.Module):
         ``nn.BatchNorm1d``'s own training forward is not used: it stores
         the unbiased variance."""
         n = self.norm
-        mean, sq = StreamMoments.apply(x)
+        if self.stat_group is None:
+            mean, sq = StreamMoments.apply(x)
+        else:
+            mean, sq = group_moments(x, self.stat_group)
         var = sq - mean * mean
         with torch.no_grad():
             mom = self.bn_momentum
@@ -285,8 +325,11 @@ class SequenceLayer(nn.Module):
         if not self.batchnorm:
             return n(x)
         if self.training:
-            mean = x.mean(dim=(0, 1))
-            var = ((x * x).mean(dim=(0, 1)) - mean * mean).clamp(min=0.0)
+            if self.stat_group is None:
+                mean, sq = x.mean(dim=(0, 1)), (x * x).mean(dim=(0, 1))
+            else:
+                mean, sq = group_moments(x, self.stat_group)
+            var = (sq - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 mom = self.bn_momentum
                 n.running_mean.mul_(mom).add_(mean, alpha=1.0 - mom)

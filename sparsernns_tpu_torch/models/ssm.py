@@ -115,7 +115,13 @@ class S5SSM(nn.Module):
     ``scan_mode``: ``"fused"`` (the mixer kernel where it applies),
     ``"pallas"`` (always the stand-alone scan kernel; the name is the JAX
     package's), ``"associative"``, ``"sequential"`` or ``"blocked"``
-    (plain PyTorch; the static-quant model runs the sequential scan).
+    (plain PyTorch; the static-quant model runs the sequential scan), or
+    ``"sp"``: the input is this rank's time chunk of the clip and the
+    scan the sequence-parallel one over ``seq_group``
+    (``parallel/seqscan.seq_chunk_scan``: the scan kernel on the chunk,
+    then the carry of the chunks before), unidirectional and without a
+    carry, as in the JAX package (whose QAT in-scan fake-quant it skips
+    too).
     """
 
     def __init__(self, lambda_init, v, vinv, h: int, p: int,
@@ -144,6 +150,10 @@ class S5SSM(nn.Module):
         self.approx_topk = approx_topk
         self.block_t = block_t
         self.qat_global_scales = qat_global_scales
+        #: ``scan_mode="sp"``: the process group of the mesh's seq axis,
+        #: over whose ranks the time chunks of one clip lie (set by
+        #: ``train/loop.build_model``)
+        self.seq_group = None
         self.q_config = cfg = q_config or QuantizationConfig.none()
         self.q_ops = QuantizedOps.create(cfg)
         #: dynamic fake-quant (QAT): the float paths quantize their operands
@@ -366,7 +376,15 @@ class S5SSM(nn.Module):
         had_aa, had_ax = self.q_ops.a_had
         kw = dict(mode=mode, qat_bits=act_qat_bits(cfg), block_t=self.block_t,
                   had_aa=had_aa, had_ax=had_ax)
-        xs = diag_ssm_scan(lam_bar, bu, carry_init=carry, **kw)
+        if self.scan_mode == "sp":
+            if self.bidirectional or carry is not None:
+                raise NotImplementedError(
+                    "sequence-parallel scan does not support "
+                    "bidirectional or streaming carries")
+            from sparsernns_tpu_torch.parallel.seqscan import seq_chunk_scan
+            xs = seq_chunk_scan(lam_bar, bu, self.seq_group)
+        else:
+            xs = diag_ssm_scan(lam_bar, bu, carry_init=carry, **kw)
         final = None
         if carry is not None:
             final = (xs[0][..., -1, :], xs[1][..., -1, :])

@@ -5,7 +5,8 @@
 One file per saved step, ``ckpt_<step>.pt``, holding the model's
 ``state_dict`` (parameters and BatchNorm running statistics), the
 optimizer's ``state_dict`` (moments, schedules, live learning rates), the
-count of optimizer steps, the dropout generator's state, the pruning masks
+count of optimizer steps, the dropout generator's state (on a mesh every
+rank's), the pruning masks
 (None without pruning) and a metadata dict. The format is the port's own;
 :func:`~sparsernns_tpu_torch.weights.from_flax` and ``to_flax`` remain the
 bridge to the JAX package's checkpoints. Files are written whole under a
@@ -57,18 +58,35 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState,
              metadata: Optional[Dict[str, Any]] = None) -> None:
+        """On a mesh (``state.mesh``) every rank calls it: the P-sharded
+        parameters, masks and moments are gathered whole, so are the
+        ranks' generator states (``generators``, in rank order; rank 0's
+        is ``generator`` as on one device), rank 0 writes and the others
+        wait, so the file restores into a run on one device."""
+        from sparsernns_tpu_torch.parallel.comms import barrier
+        from sparsernns_tpu_torch.parallel.sharding import (
+            whole_model, whole_optimizer_state)
         gen = state.generator
-        payload = {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step),
-            "generator": None if gen is None else gen.get_state(),
-            "masks": state.masks,
-            "metadata": dict(metadata or {}),
-        }
-        _save_whole(payload, self._path(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        mesh = state.mesh
+        optimizer = whole_optimizer_state(state)
+        gens = (None if mesh is None or gen is None
+                else _gather_generator_states(gen, mesh.device))
+        with whole_model(state):
+            payload = {
+                "model": state.model.state_dict(),
+                "optimizer": optimizer,
+                "step": int(state.step),
+                "generator": None if gen is None else gen.get_state(),
+                "generators": gens,
+                "masks": state.masks,
+                "metadata": dict(metadata or {}),
+            }
+            if mesh is None or mesh.rank == 0:
+                _save_whole(payload, self._path(step))
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    os.remove(self._path(old))
+        if mesh is not None:
+            barrier()
 
     def _load(self, state: TrainState, step: Optional[int]):
         if step is None:
@@ -79,11 +97,15 @@ class CheckpointManager:
         return torch.load(self._path(step), map_location=device,
                           weights_only=True)
 
-    def restore(self, state: TrainState, step: Optional[int] = None
-                ) -> Tuple[TrainState, Optional[Dict[str, Any]]]:
+    def restore(self, state: TrainState, step: Optional[int] = None,
+                mesh=None) -> Tuple[TrainState, Optional[Dict[str, Any]]]:
         """Load checkpoint ``step`` (default: the latest) into ``state``, in
         place. Returns (state, metadata); (state, None) when the directory
-        holds no checkpoint."""
+        holds no checkpoint. On a ``mesh`` (the state still whole) each
+        rank takes its own generator state where the checkpoint holds one
+        per rank of a world of this size; else the saved one, which a data
+        rank other than the first reseeds from that state, the step and its
+        data index, so that the data ranks draw other masks."""
         payload = self._load(state, step)
         if payload is None:
             return state, None
@@ -98,7 +120,7 @@ class CheckpointManager:
             group.update(fields)
         state.step = int(payload["step"])
         if state.generator is not None and payload["generator"] is not None:
-            state.generator.set_state(payload["generator"].cpu())
+            _restore_generator(state.generator, payload, mesh)
         return state, payload["metadata"]
 
     def restore_params_only(self, state: TrainState,
@@ -110,6 +132,41 @@ class CheckpointManager:
         if payload is not None:
             _restore_model(state, payload)
         return state
+
+
+def _gather_generator_states(gen: torch.Generator,
+                             device: torch.device) -> torch.Tensor:
+    """Every rank's generator state (a byte tensor, of one size on all
+    ranks), stacked in rank order, on the host for the file. The gather
+    runs on the mesh's device, as the backend takes it."""
+    import torch.distributed as dist
+
+    from sparsernns_tpu_torch.parallel import comms
+    mine = gen.get_state().to(device=device, dtype=torch.int32)
+    group = dist.group.WORLD if dist.get_world_size() > 1 else None
+    return comms.all_gather(mine, group).to(torch.uint8).cpu()
+
+
+def _restore_generator(gen: torch.Generator, payload: Dict[str, Any],
+                       mesh) -> None:
+    """This rank's generator state from the checkpoint
+    (:meth:`CheckpointManager.restore`)."""
+    from sparsernns_tpu_torch.parallel.mesh import AXES, DATA_AXIS
+    if mesh is None:
+        gen.set_state(payload["generator"].cpu())
+        return
+    gens = payload.get("generators")
+    if gens is not None and gens.shape[0] == mesh.size(AXES):
+        # a copy: ``set_state`` reads a view from its storage's start
+        gen.set_state(gens[mesh.rank].cpu().clone())
+        return
+    gen.set_state(payload["generator"].cpu())
+    data_index = mesh.coords[DATA_AXIS]
+    if data_index > 0:
+        saved = payload["generator"].cpu().numpy().astype(np.uint32)
+        gen.manual_seed(int(np.random.SeedSequence(
+            [int(payload["step"]), data_index, *saved.tolist()]
+        ).generate_state(1)[0]))
 
 
 def _restore_model(state: TrainState, payload: Dict[str, Any]) -> None:

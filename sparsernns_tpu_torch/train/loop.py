@@ -17,18 +17,26 @@ the cosine or plateau schedule, the eigenvalue, weight-sparsity and
 activation-sparsity logs, the gradient-norm warning, the metrics sink
 (into the checkpoint directory, and nowhere without one), a
 ``torch.profiler`` trace of the second epoch with ``cfg.profile``, latest
-and best checkpoints, early stopping and resume. Not ported, and raising
-where a configuration asks for them: device meshes and
-``scan_mode="sp"``.
+and best checkpoints, early stopping and resume. On a device mesh
+(``cfg.mesh_data`` / ``mesh_model`` / ``mesh_seq``, one process a rank,
+``parallel/``) every rank runs :func:`train`: its data rank's rows of each
+batch, the P-slices of a tensor-parallel model, the time chunks of
+``scan_mode="sp"`` (which ``mesh_seq > 1`` sets, as in the JAX package),
+with the sink and the checkpoint files written by rank 0. A
+classification model on a seq axis raises ``NotImplementedError`` (its
+pooling would need the whole sequence).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from sparsernns_tpu_torch.data.ndns import create_ndns_dataset
 from sparsernns_tpu_torch.models.seq_model import (ClassificationModel,
@@ -38,6 +46,15 @@ from sparsernns_tpu_torch.models.ssm import S5SSM
 from sparsernns_tpu_torch.models.ssm_init import (blocked_dplr_init,
                                                   lecun_normal)
 from sparsernns_tpu_torch.ops.stft import stft_splitter
+from sparsernns_tpu_torch.parallel import comms
+from sparsernns_tpu_torch.parallel.mesh import (DATA_AXIS, SEQ_AXIS, Mesh,
+                                                MeshConfig,
+                                                local_data_shard_info,
+                                                make_mesh)
+from sparsernns_tpu_torch.parallel.sharding import (forward_params,
+                                                    seq_bounds,
+                                                    shard_train_state,
+                                                    whole_model)
 from sparsernns_tpu_torch.quantize.config import (QuantizationConfig,
                                                   quantization_recipes)
 from sparsernns_tpu_torch.train.checkpoint import CheckpointManager
@@ -68,14 +85,16 @@ logger = logging.getLogger("sparsernns_tpu_torch")
 QAT_BLOCK_T = 256
 
 #: the float and QAT scan modes of the port (``S5SSM``)
-SCAN_MODES = ("fused", "pallas", "associative", "sequential", "blocked")
+SCAN_MODES = ("fused", "pallas", "associative", "sequential", "blocked",
+              "sp")
 
 
 def build_model(cfg: RunConfig, d_input: int, d_output: int,
                 training: bool = False, device="cuda",
                 seed: Optional[int] = None,
                 q_config: Optional[QuantizationConfig] = None,
-                scan_mode: Optional[str] = None) -> torch.nn.Module:
+                scan_mode: Optional[str] = None,
+                mesh: Optional[Mesh] = None) -> torch.nn.Module:
     """The model of ``cfg`` on ``device``: the NDNS regression model for
     ``cfg.dataset == "ndns"``, else the classification model with
     ``cfg.mode`` pooling; in eval mode or, with ``training``, in training
@@ -105,7 +124,12 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     hadamards), ``"sequential"`` (the step-by-step scan in plain PyTorch:
     the naive scan of the conversion pipeline) or ``"blocked"`` (the
     block-parallel matmul scan, float only: kernel-free, as in the JAX
-    package); ``"sp"`` (a sequence-parallel mesh) is not ported.
+    package); or ``"sp"``, the sequence-parallel scan over the seq axis of
+    ``mesh``, which a mesh with ``seq > 1`` sets whatever ``scan_mode``
+    says, as the JAX package's ``sp_mesh`` does (without such a mesh
+    ``"sp"`` raises ``ValueError``; a classification model raises
+    ``NotImplementedError`` there). With ``mesh`` the BatchNorm
+    statistics of training cover the rows of every data and seq rank.
 
     A training model takes ``cfg.train_stream_dtype`` as the dtype of the
     stream between its layers (``"bfloat16"``: bf16 where every layer runs
@@ -116,6 +140,16 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
     if q_config is None:
         q_config = quantization_recipes[cfg.quantization]()
     scan_mode = scan_mode or cfg.scan_mode
+    seq_mesh = mesh is not None and mesh.size(SEQ_AXIS) > 1
+    if seq_mesh and cfg.dataset != "ndns":
+        raise NotImplementedError(
+            "a classification model on a seq axis: its pooling needs the "
+            "whole sequence")
+    if seq_mesh:
+        scan_mode = "sp"
+    elif scan_mode == "sp":
+        raise ValueError("scan_mode='sp' requires a mesh with a seq axis "
+                         "(mesh_seq > 1)")
     if q_config.static_quant:
         if scan_mode != "sequential":
             raise NotImplementedError(
@@ -165,6 +199,12 @@ def build_model(cfg: RunConfig, d_input: int, d_output: int,
                 k = lecun_normal((mod.in_features, mod.out_features), gen)
                 mod.weight.copy_(k.T)
                 mod.bias.zero_()
+    if mesh is not None:
+        for mod in model.modules():
+            if hasattr(mod, "stat_group"):
+                mod.stat_group = mesh.group((DATA_AXIS, SEQ_AXIS))
+            if isinstance(mod, S5SSM) and seq_mesh:
+                mod.seq_group = mesh.group(SEQ_AXIS)
     return model.to(device).train(training)
 
 
@@ -211,23 +251,43 @@ def prep_ndns_batch(noisy: torch.Tensor, clean: torch.Tensor):
     return noisy_mag, noisy_phase, clean_mag
 
 
-def _check_ported(cfg: RunConfig) -> None:
-    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.mesh_seq > 1:
-        raise NotImplementedError(
-            f"mesh ({cfg.mesh_data},{cfg.mesh_model},{cfg.mesh_seq}): "
-            "device meshes are not ported yet, training runs on one device")
+def _check_config(cfg: RunConfig) -> None:
     if cfg.lr_schedule not in ("cosine", "plateau"):
         raise ValueError(f"lr_schedule {cfg.lr_schedule!r}")
 
 
+def run_mesh(cfg: RunConfig, device="cuda") -> Optional[Mesh]:
+    """The mesh of a run: None on a world of one rank without the mesh
+    flags; else ``make_mesh`` of ``cfg.mesh_data`` (-1: the rest of the
+    world), ``mesh_model`` and ``mesh_seq`` on ``device``. Mesh flags on
+    a world of one rank raise ``ValueError``, as in the JAX package: one
+    device would fake a parallel run."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    requested = cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.mesh_seq > 1
+    if requested and world == 1:
+        raise ValueError(
+            f"mesh ({cfg.mesh_data},{cfg.mesh_model},{cfg.mesh_seq}) "
+            "requested but the world has one rank: start the run with one "
+            "process a rank (torchrun); one device would fake the mesh")
+    if world == 1:
+        return None
+    return make_mesh(MeshConfig(data=cfg.mesh_data, model=cfg.mesh_model,
+                                seq=cfg.mesh_seq), device=device)
+
+
 def create_run_state(cfg: RunConfig, model: torch.nn.Module,
-                     steps_per_epoch: int) -> TrainState:
+                     steps_per_epoch: int,
+                     mesh: Optional[Mesh] = None) -> TrainState:
     """Optimizer of ``cfg`` over the model's parameters (schedules sized
     by ``steps_per_epoch * cfg.epochs``), step 0, a dropout generator on
-    the model's device seeded with ``cfg.jax_seed`` and, when
-    ``pruning_recipes(cfg.epochs, steps_per_epoch)[cfg.pruning]`` prunes,
-    its pruner with masks of ones."""
-    _check_ported(cfg)
+    the model's device seeded with ``cfg.jax_seed`` (on a ``mesh``: with
+    (``cfg.jax_seed``, the data rank), so that the data ranks draw other
+    masks and the model and seq ranks of one data rank the same) and,
+    when ``pruning_recipes(cfg.epochs, steps_per_epoch)[cfg.pruning]``
+    prunes, its pruner with masks of ones. The state is whole: the
+    caller shards it over ``mesh``
+    (``parallel/sharding.shard_train_state``)."""
+    _check_config(cfg)
     recipes = pruning_recipes(cfg.epochs, steps_per_epoch)
     if cfg.pruning not in recipes:
         raise ValueError(f"unknown pruning recipe {cfg.pruning!r}")
@@ -242,7 +302,12 @@ def create_run_state(cfg: RunConfig, model: torch.nn.Module,
         dt_global=cfg.dt_global, lr_min=cfg.lr_min,
         schedule="constant" if cfg.lr_schedule == "plateau" else "cosine")
     device = next(model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(cfg.jax_seed)
+    seed = cfg.jax_seed
+    if mesh is not None:
+        seed = int(np.random.SeedSequence(
+            [cfg.jax_seed, local_data_shard_info(mesh)[1]]).generate_state(
+                1)[0])
+    generator = torch.Generator(device=device).manual_seed(seed)
     logger.info("trainable parameters: %d", count_params(model))
     return TrainState(model=model, optimizer=optimizer, step=0,
                       generator=generator,
@@ -339,12 +404,21 @@ def validate_classification(model: torch.nn.Module, eval_fn: Callable,
 
 
 def act_sparsity_metrics(model: torch.nn.Module, x: torch.Tensor,
-                         prefix: str) -> Dict[str, float]:
+                         prefix: str, mesh: Optional[Mesh] = None
+                         ) -> Dict[str, float]:
     """Activation-sparsity telemetry of one batch: a captured eval forward
     (``train/steps.capture_intermediates``) reduced to the share of zeros
     of each captured activation, as ``<prefix>/<module path>`` (the JAX
-    package's names), and their mean as ``<prefix>/mean``."""
-    _, inter = capture_intermediates(model, x)
+    package's names), and their mean as ``<prefix>/mean``. On a ``mesh``
+    the forward runs on the whole weights and, with a seq axis, on this
+    rank's time chunk: the shares are this rank's."""
+    if mesh is not None and mesh.size(SEQ_AXIS) > 1:
+        lo, hi = seq_bounds(x.shape[1], mesh.size(SEQ_AXIS),
+                            mesh.index(SEQ_AXIS))
+        x = x[:, lo:hi]
+    with torch.no_grad():
+        params = forward_params(model, mesh)
+    _, inter = capture_intermediates(model, x, params)
     out = {f"{prefix}/{sparsity_key(k)}": frac
            for k, frac in activation_sparsity(inter).items()}
     if out:
@@ -363,6 +437,20 @@ def _model_input(loader, is_ndns: bool, device) -> torch.Tensor:
     return _place_classification(batch, device)[0]
 
 
+def _mesh_mean(metrics: Dict[str, float], mesh: Optional[Mesh]
+               ) -> Dict[str, float]:
+    """Epoch means averaged over the data ranks (the seq ranks of a data
+    rank hold the same values), equal on every rank afterwards."""
+    if mesh is None or not metrics:
+        return metrics
+    keys = sorted(metrics)
+    vals = torch.tensor([metrics[k] for k in keys], dtype=torch.float64,
+                        device=mesh.device)
+    comms.all_reduce(vals, mesh.group((DATA_AXIS, SEQ_AXIS)))
+    vals /= mesh.size((DATA_AXIS, SEQ_AXIS))
+    return dict(zip(keys, vals.tolist()))
+
+
 def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
     """Full training run of ``cfg`` (after :meth:`RunConfig.apply_dim_scale`)
     on ``cfg.dataset``. Returns ``{"state", "metadata"}``; with
@@ -372,18 +460,33 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
     (``cfg.restore_checkpoint``; with ``cfg.reset_optimizer`` only the
     weights are restored). The quality metric is SI-SNR for NDNS and
     accuracy for classification (kept as ``best_si_snr`` in the metadata,
-    as the JAX package keeps it)."""
+    as the JAX package keeps it).
+
+    In a process group of several ranks (:func:`run_mesh`; ``device`` is
+    then ``"cuda"`` for the card of ``LOCAL_RANK``, or ``"cpu"``) every
+    rank calls it: ``cfg.bsz`` is the global batch, each data rank loads
+    ``cfg.bsz / mesh_data`` rows of it, and the validation metrics are
+    averaged over the data ranks."""
     cfg = cfg.apply_dim_scale()
-    _check_ported(cfg)
+    _check_config(cfg)
+    mesh = run_mesh(cfg, device)
+    n_data, i_data = (1, 0) if mesh is None else local_data_shard_info(mesh)
+    if mesh is not None:
+        device = mesh.device
+        if cfg.bsz % n_data:
+            raise ValueError(f"batch {cfg.bsz} not divisible by the data "
+                             f"axis ({n_data})")
     trainloader, valloader, testloader, n_out, _, d_input, _ = \
-        build_dataset(cfg)
+        build_dataset(dataclasses.replace(cfg, bsz=cfg.bsz // n_data),
+                      num_shards=n_data, shard_index=i_data)
     steps_per_epoch = max(1, len(trainloader))
-    model = build_model(cfg, d_input, n_out, training=True, device=device)
-    state = create_run_state(cfg, model, steps_per_epoch)
+    model = build_model(cfg, d_input, n_out, training=True, device=device,
+                        mesh=mesh)
+    state = create_run_state(cfg, model, steps_per_epoch, mesh)
     device = next(model.parameters()).device
 
     sink = make_sink("none")
-    if cfg.checkpoint_dir:
+    if cfg.checkpoint_dir and (mesh is None or mesh.rank == 0):
         sink = make_sink(cfg.logger, directory=cfg.checkpoint_dir,
                          **({"project": cfg.wandb_project,
                              "config": cfg.to_dict(), "name": cfg.run_name}
@@ -402,22 +505,25 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
             if cfg.reset_optimizer:
                 state = mngr.restore_params_only(state)
             else:
-                state, restored = mngr.restore(state)
+                state, restored = mngr.restore(state, mesh=mesh)
                 if restored:
                     metadata.update(restored)
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
 
     is_ndns = cfg.dataset == "ndns"
     static_q = quantization_recipes[cfg.quantization]().static_quant
     if is_ndns:
         step_fn = make_ndns_train_step(model, microbatch=cfg.microbatch,
                                        static_quant=static_q)
-        eval_fn = make_ndns_eval_step(model, state.pruner, state.masks)
+        eval_fn = make_ndns_eval_step(model, state.pruner, state.masks,
+                                      mesh)
         epoch_fn, val_fn = run_ndns_epoch, validate_ndns
     else:
         step_fn = make_classification_train_step(model,
                                                  static_quant=static_q)
         eval_fn = make_classification_eval_step(model, state.pruner,
-                                                state.masks)
+                                                state.masks, mesh)
         epoch_fn, val_fn = run_classification_epoch, validate_classification
     quality_key = "si_snr" if is_ndns else "accuracy"
     mask_update = make_mask_update_fn(state.pruner)
@@ -443,8 +549,8 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
                     cfg.profile_dir))
             profiler.start()
         log = epoch_fn(state, step_fn, trainloader, mask_update)
-        val = val_fn(model, eval_fn, valloader)
-        test = val_fn(model, eval_fn, testloader)
+        val = _mesh_mean(val_fn(model, eval_fn, valloader), mesh)
+        test = _mesh_mean(val_fn(model, eval_fn, testloader), mesh)
         if profiler is not None:
             profiler.stop()
 
@@ -469,16 +575,17 @@ def train(cfg: RunConfig, device="cuda") -> Dict[str, Any]:
         log.update({f"val_{k}": v for k, v in val.items()})
         log.update({f"test_{k}": v for k, v in test.items()})
         log.update(extract_learning_rates(state.optimizer))
-        log.update(compute_eigenvalue_logs(model))
-        if state.pruner is not None:
-            log["weight_sparsity"] = summarize_sparsity(
-                model, state.masks)["_total_sparsity"]
+        with whole_model(state):
+            log.update(compute_eigenvalue_logs(model))
+            if state.pruner is not None:
+                log["weight_sparsity"] = summarize_sparsity(
+                    model, state.masks)["_total_sparsity"]
         if cap_val is not None:
             log.update(act_sparsity_metrics(model, cap_val,
-                                            "act_sparsity_val"))
+                                            "act_sparsity_val", mesh))
         if cap_train is not None:
             log.update(act_sparsity_metrics(model, cap_train,
-                                            "act_sparsity_train"))
+                                            "act_sparsity_train", mesh))
 
         gn = log.get("train_grad_norm")
         if gn is not None and gn > cfg.grad_norm_warn_threshold:

@@ -153,16 +153,23 @@ def scheduled_lr(group: dict, step: int) -> float:
         step - group.get("schedule_start", 0))
 
 
-def clip_group_gradients(optimizer: torch.optim.Optimizer) -> None:
+def clip_group_gradients(optimizer: torch.optim.Optimizer,
+                         norms: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> None:
     """Scale each group's gradients so that the group's global norm is at
     most its ``clip`` (per group, on the raw gradients, before the
-    update)."""
+    update). ``norms``: each group's norm by label, where the group's
+    gradients here are slices of the whole (tensor parallelism); None: the
+    norm of the gradients here."""
     for group in optimizer.param_groups:
         max_norm = group.get("clip")
         grads = [p.grad for p in group["params"] if p.grad is not None]
         if max_norm is None or not grads:
             continue
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        if norms is not None:
+            norm = norms[group["label"]]
+        else:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads))
         # optax: unchanged below the threshold, else g / norm * max_norm
         factor = torch.where(norm < max_norm, torch.ones_like(norm),
                              max_norm / norm)
@@ -170,13 +177,15 @@ def clip_group_gradients(optimizer: torch.optim.Optimizer) -> None:
             g.mul_(factor)
 
 
-def optimizer_step(optimizer: torch.optim.Optimizer, step: int) -> None:
+def optimizer_step(optimizer: torch.optim.Optimizer, step: int,
+                   norms: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """One update from the gradients in ``.grad``: learning rates of step
-    ``step`` (0 for the first update), per-group clipping, then the
-    optimizer's own step."""
+    ``step`` (0 for the first update), per-group clipping (by ``norms``
+    where given, :func:`clip_group_gradients`), then the optimizer's own
+    step."""
     for group in optimizer.param_groups:
         group["lr"] = scheduled_lr(group, step)
-    clip_group_gradients(optimizer)
+    clip_group_gradients(optimizer, norms)
     optimizer.step()
 
 

@@ -8,13 +8,14 @@ tensors and are updated in place, so the state holds references: the model
 schedules), the count of optimizer steps taken, the generator that the
 dropout masks are drawn from, and with pruning the pruner and its masks
 (``train/pruning.py``: a dict keyed by the JAX leaf paths, updated in
-place), else None.
+place), else None. ``mesh`` is the device mesh of a parallel run
+(``parallel/sharding.shard_train_state`` records it), else None.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -29,6 +30,7 @@ class TrainState:
     generator: Optional[torch.Generator] = None
     masks: Optional[Masks] = None
     pruner: Optional[MagnitudePruner] = None
+    mesh: Optional[Any] = None
 
 
 def count_params(model: torch.nn.Module) -> int:

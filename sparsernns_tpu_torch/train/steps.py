@@ -12,6 +12,14 @@ With pruning the model runs on its masked weights
 (``torch.func.functional_call`` with the pruner's forward weights: the
 parameters are swapped for the call, the BatchNorm buffers stay the
 module's and move in place).
+
+On a device mesh (``state.mesh``, ``parallel/``) a step is one rank's
+part of the step: the forward runs on the whole weights gathered from the
+model ranks' P-slices, a sequence-parallel model on this rank's time
+chunk with the mask gathered whole for the loss, and the gradients and
+metrics are averaged over the data ranks (summed over the seq ranks) in
+one all-reduce before the norms and the update, which see the whole
+gradient as the JAX package's partitioned step does.
 """
 
 from __future__ import annotations
@@ -23,6 +31,12 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from sparsernns_tpu_torch.parallel import comms
+from sparsernns_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS
+from sparsernns_tpu_torch.parallel.sharding import (forward_params,
+                                                    grad_square_sums,
+                                                    reduce_gradients,
+                                                    seq_bounds, whole_model)
 from sparsernns_tpu_torch.train.losses import (STFT_MAG_MEAN, accuracy,
                                                cross_entropy_loss,
                                                ndns_loss_from_mask_tm)
@@ -34,12 +48,16 @@ from sparsernns_tpu_torch.train.state import TrainState
 
 
 def _forward_params(model, pruner: Optional[MagnitudePruner],
-                    masks: Optional[Masks]) -> Dict[str, torch.Tensor]:
-    """The masked forward weights of the pruned parameters, by name; empty
-    without pruning."""
-    if pruner is None or not pruner.cfg.enabled or masks is None:
-        return {}
-    return pruner.apply_masks(model, masks)
+                    masks: Optional[Masks], mesh=None
+                    ) -> Dict[str, torch.Tensor]:
+    """The forward weights that replace the model's own, by name: the
+    masked weights of the pruned parameters, and on a tensor-parallel mesh
+    the whole P-sharded parameters (gathered from the slices); empty
+    without either."""
+    params = {}
+    if pruner is not None and pruner.cfg.enabled and masks is not None:
+        params = pruner.apply_masks(model, masks)
+    return forward_params(model, mesh, params)
 
 
 def make_mask_update_fn(pruner: Optional[MagnitudePruner]) -> Callable:
@@ -59,22 +77,35 @@ def make_mask_update_fn(pruner: Optional[MagnitudePruner]) -> Callable:
         counter["step"] = step + 1
         if (cfg.update_start <= step <= cfg.update_end
                 and (step - cfg.update_start) % cfg.update_freq == 0):
-            pruner.update_masks(state.model, state.masks, step)
+            # on a tensor-parallel mesh the magnitudes are the whole
+            # tensors' and every model rank keeps its slice of the masks
+            with whole_model(state):
+                pruner.update_masks(state.model, state.masks, step)
         return state
 
     return maybe_update
 
 
 def _loss(model, generator, noisy_mag, noisy_phase, clean_mag, clean,
-          params: Optional[Dict[str, torch.Tensor]] = None):
+          params: Optional[Dict[str, torch.Tensor]] = None, mesh=None):
     """(loss, mean SI-SNR) of one (micro)batch. The whole loss path runs
     time-major (B, L, F), the model's own layout; the spectra are
     transposed once here (only the mask carries gradients). ``params``
-    replace the model's parameters of those names for the call."""
+    replace the model's parameters of those names for the call. On a
+    mesh with a seq axis the model sees this rank's time chunk and its
+    mask is gathered whole for the loss (iSTFT and SI-SNR need the clip),
+    which every seq rank then computes alike."""
     noisy_mag_tm = noisy_mag.transpose(1, 2)
     x = noisy_mag_tm - STFT_MAG_MEAN
+    n_seq = 1 if mesh is None else mesh.size(SEQ_AXIS)
+    if n_seq > 1:
+        lo, hi = seq_bounds(x.shape[1], n_seq, mesh.index(SEQ_AXIS))
+        x = x[:, lo:hi]
     out = (functional_call(model, params, (x, generator)) if params
            else model(x, generator))
+    if n_seq > 1:
+        out = comms.gather_cat(out, mesh.group(SEQ_AXIS), dim=1,
+                               length=noisy_mag_tm.shape[1])
     loss, snr, _ = ndns_loss_from_mask_tm(
         out, noisy_mag_tm, noisy_phase.transpose(1, 2),
         clean_mag.transpose(1, 2), clean)
@@ -94,6 +125,29 @@ def _grad_norm_metrics(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     out = {f"grad_norm/{k}": torch.sqrt(v) for k, v in squares.items()}
     out["grad_norm"] = torch.sqrt(sum(squares.values()))
     return out
+
+
+def _reduce_and_norms(state: TrainState, metrics: Dict[str, torch.Tensor]):
+    """On a mesh: the gradients and ``metrics`` averaged over the data
+    ranks, then the norm metrics of the whole gradient and, with tensor
+    parallelism, each param group's norm for the clip. Returns (metrics
+    with the norms, group norms or None)."""
+    model, mesh = state.model, state.mesh
+    if mesh is None:
+        return {**metrics, **_grad_norm_metrics(model)}, None
+    metrics = reduce_gradients(model, mesh, metrics)
+    if mesh.size(MODEL_AXIS) == 1:
+        return {**metrics, **_grad_norm_metrics(model)}, None
+    labels = {p: g["label"] for g in state.optimizer.param_groups
+              for p in g["params"]}
+    sums = grad_square_sums(model, mesh, lambda name, p: (
+        name.split(".")[0], ("label", labels[p])))
+    branches = {k: v for k, v in sums.items() if isinstance(k, str)}
+    out = {f"grad_norm/{k}": torch.sqrt(v) for k, v in branches.items()}
+    out["grad_norm"] = torch.sqrt(sum(branches.values()))
+    norms = {k[1]: torch.sqrt(v) for k, v in sums.items()
+             if isinstance(k, tuple)}
+    return {**metrics, **out}, norms
 
 
 def make_ndns_train_step(model: torch.nn.Module,
@@ -142,7 +196,8 @@ def make_ndns_train_step(model: torch.nn.Module,
                               noisy_phase[rows], clean_mag[rows],
                               clean[rows],
                               _forward_params(model, state.pruner,
-                                              state.masks))
+                                              state.masks, state.mesh),
+                              state.mesh)
             loss.backward()             # .grad accumulates the sum
             losses.append(loss.detach())
             snrs.append(snr.detach())
@@ -150,13 +205,13 @@ def make_ndns_train_step(model: torch.nn.Module,
             for param in model.parameters():
                 if param.grad is not None:
                     param.grad.div_(k)
-        metrics = {"loss": torch.stack(losses).mean(),
-                   "si_snr": torch.stack(snrs).mean()}
-        metrics.update(_grad_norm_metrics(model))
+        metrics, norms = _reduce_and_norms(state, {
+            "loss": torch.stack(losses).mean(),
+            "si_snr": torch.stack(snrs).mean()})
         if static_quant:
             metrics["scale_grad_leak"] = scale_gradient_leak_norm(model)
             zero_scale_gradients(model)
-        optimizer_step(state.optimizer, state.step)
+        optimizer_step(state.optimizer, state.step, norms)
         if state.pruner is not None:
             state.pruner.post_gradient_update(model, state.masks)
         state.step += 1
@@ -167,13 +222,15 @@ def make_ndns_train_step(model: torch.nn.Module,
 
 def make_ndns_eval_step(model: torch.nn.Module,
                         pruner: Optional[MagnitudePruner] = None,
-                        masks: Optional[Masks] = None) -> Callable:
+                        masks: Optional[Masks] = None,
+                        mesh=None) -> Callable:
     """Returns ``step(noisy_mag, noisy_phase, clean_mag, clean)`` ->
     ``{"loss", "si_snr"}`` (0-dim tensors). Spectra are (B, F, L) as
     :func:`~sparsernns_tpu_torch.ops.stft.stft_splitter` gives them; the
     model runs in eval mode on its own device (a model in training mode is
     switched to eval for the call and back), with ``pruner`` on its
-    weights times ``masks`` as they are at the call."""
+    weights times ``masks`` as they are at the call, on ``mesh`` as the
+    train step runs (this rank's rows; the metrics are this rank's)."""
 
     @torch.no_grad()
     def step(noisy_mag, noisy_phase, clean_mag, clean
@@ -183,7 +240,8 @@ def make_ndns_eval_step(model: torch.nn.Module,
         try:
             loss, snr = _loss(model, None, noisy_mag, noisy_phase,
                               clean_mag, clean,
-                              _forward_params(model, pruner, masks))
+                              _forward_params(model, pruner, masks, mesh),
+                              mesh)
         finally:
             model.train(was_training)
         return {"loss": loss, "si_snr": snr}
@@ -220,16 +278,16 @@ def make_classification_train_step(model: torch.nn.Module,
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         logits = _call(model, _forward_params(model, state.pruner,
-                                              state.masks),
+                                              state.masks, state.mesh),
                        inputs, state.generator)
         loss = cross_entropy_loss(logits, labels)
         loss.backward()
-        metrics = {"loss": loss.detach(),
-                   "accuracy": accuracy(logits.detach(), labels)}
-        metrics.update(_grad_norm_metrics(model))
+        metrics, norms = _reduce_and_norms(state, {
+            "loss": loss.detach(),
+            "accuracy": accuracy(logits.detach(), labels)})
         if static_quant:
             zero_scale_gradients(model)
-        optimizer_step(state.optimizer, state.step)
+        optimizer_step(state.optimizer, state.step, norms)
         if state.pruner is not None:
             state.pruner.post_gradient_update(model, state.masks)
         state.step += 1
@@ -240,19 +298,20 @@ def make_classification_train_step(model: torch.nn.Module,
 
 def make_classification_eval_step(model: torch.nn.Module,
                                   pruner: Optional[MagnitudePruner] = None,
-                                  masks: Optional[Masks] = None
-                                  ) -> Callable:
+                                  masks: Optional[Masks] = None,
+                                  mesh=None) -> Callable:
     """Returns ``step(inputs, labels)`` -> ``{"loss", "accuracy"}`` (0-dim
     tensors): the model in eval mode (switched for the call and back),
-    with ``pruner`` on its weights times ``masks``."""
+    with ``pruner`` on its weights times ``masks``, on the whole weights
+    of a tensor-parallel ``mesh``."""
 
     @torch.no_grad()
     def step(inputs, labels) -> Dict[str, torch.Tensor]:
         was_training = model.training
         model.eval()
         try:
-            logits = _call(model, _forward_params(model, pruner, masks),
-                           inputs, None)
+            logits = _call(model, _forward_params(model, pruner, masks,
+                                                  mesh), inputs, None)
         finally:
             model.train(was_training)
         return {"loss": cross_entropy_loss(logits, labels),
@@ -278,7 +337,8 @@ def _numeric_leaves(value, key: str, out: Dict[str, np.ndarray]) -> None:
 
 
 @torch.no_grad()
-def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
+def capture_intermediates(model: torch.nn.Module, x: torch.Tensor,
+                          params: Optional[Dict[str, torch.Tensor]] = None
                           ) -> Tuple[torch.Tensor, Dict[str, np.ndarray]]:
     """Eval forward of ``model`` on ``x`` (B, L, d_input) recording the
     output of every submodule's ``forward``, the golden-activation dump of
@@ -294,7 +354,8 @@ def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
     ``.<call>[.<index>]``. As in the JAX package the
     layers run their unfused route while capturing (no whole-layer
     kernel). Modules the port computes inline (BatchNorm, dropout) have no
-    key."""
+    key. ``params`` replace the model's parameters of those names for the
+    call (the whole weights of a tensor-parallel model)."""
     from sparsernns_tpu_torch.models.layers import SequenceLayer
     from sparsernns_tpu_torch.models.seq_model import RegressionModel
     from sparsernns_tpu_torch.models.ssm import S5SSM
@@ -350,7 +411,7 @@ def capture_intermediates(model: torch.nn.Module, x: torch.Tensor
     for layer in layers:
         layer.capturing = True
     try:
-        y = model(x)
+        y = functional_call(model, params, (x,)) if params else model(x)
     finally:
         for h in handles:
             h.remove()

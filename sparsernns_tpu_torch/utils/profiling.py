@@ -29,6 +29,14 @@ machine with the card, from the repository root::
 
 Prints the card's name and power limit, then one JSON object per
 profiled region.
+
+The cost accounting of the JAX package's profiling module, for reading
+kernel and step times against the card: :class:`S5Cost` (FLOPs and bytes
+of one S5 layer forward, and its speed-of-light time),
+:func:`model_forward_flops` (the NDNS stack's forward FLOPs, for a share
+of peak), :func:`chip_peaks` (the card's published peaks, by its name),
+:func:`hbm_limit` (the card's memory) and :class:`StepTimer` (wall-clock
+steps that end on a device synchronize, warm-up steps dropped).
 """
 
 from __future__ import annotations
@@ -39,6 +47,131 @@ import json
 import os
 import subprocess
 import time
+from typing import Optional
+
+
+@dataclasses.dataclass
+class S5Cost:
+    """FLOPs / bytes for one S5 layer forward at (B, L, H, P)."""
+
+    flops: int
+    hbm_bytes_fused: int
+    hbm_bytes_unfused: int
+
+    @staticmethod
+    def forward(b: int, l: int, h: int, p: int,
+                dtype_bytes: int = 4) -> "S5Cost":
+        bl = b * l
+        proj = 2 * bl * h * (2 * p) * 2          # B and C projections
+        scan = bl * p * 8                        # complex mul-add per step
+        d_term = bl * h * 2
+        flops = proj + scan + d_term
+        # fused kernel: read u, write y (+ weights once)
+        io = 2 * bl * h * dtype_bytes
+        weights = (h * 2 * p + 2 * p * h + h) * dtype_bytes
+        fused = io + weights
+        # unfused: u, bu (2P), scan intermediates (two passes at least),
+        # xs, y
+        unfused = io + weights + (3 * 2 * bl * p) * dtype_bytes * 2
+        return S5Cost(flops, fused, unfused)
+
+    def speed_of_light_us(self, hbm_gbps: float = 3350.0,
+                          tflops: float = 67.0) -> float:
+        """Least runtime (µs) on one card: the fused bytes over the memory
+        rate or the FLOPs over the compute rate, whichever is longer. The
+        defaults are the H100 SXM data sheet's HBM3 rate and its float32
+        rate outside the tensor cores, the precision of the port's
+        kernels."""
+        t_mem = self.hbm_bytes_fused / (hbm_gbps * 1e3)
+        t_flops = self.flops / (tflops * 1e6)
+        return max(t_mem, t_flops)
+
+
+#: Published peaks (dense bf16 FLOP/s, memory bytes/s) by a substring of
+#: ``torch.cuda.get_device_name``: NVIDIA's H100 SXM data sheet, at the
+#: card's full power limit of 700 W.
+CHIP_PEAKS = {
+    "H100 80GB HBM3": (989e12, 3.35e12),
+    "H100 SXM": (989e12, 3.35e12),
+}
+
+
+def chip_peaks(device=None):
+    """(bf16 FLOP/s, memory bytes/s) of the card ``device`` (default: the
+    current one). Raises ``ValueError`` for a card the table does not
+    hold: no number is assumed."""
+    import torch
+    name = torch.cuda.get_device_name(device)
+    for key, peaks in CHIP_PEAKS.items():
+        if key in name:
+            return peaks
+    raise ValueError(f"no published peaks for {name!r}; add them to "
+                     "CHIP_PEAKS")
+
+
+def hbm_limit(device=None) -> int:
+    """The card's memory in bytes (``torch.cuda.get_device_properties``)."""
+    import torch
+    return int(torch.cuda.get_device_properties(
+        torch.cuda.current_device() if device is None else device
+    ).total_memory)
+
+
+def model_forward_flops(b: int, l: int, d_io: int, h: int, p: int,
+                        n_layers: int, glu_variant: str = "half1") -> float:
+    """Analytic forward FLOPs of the NDNS S5 stack (encoder, ``n_layers``
+    layers, decoder), the JAX package's count. ``p`` is the number of
+    complex states scanned (the B projection is (H, 2P): re|im
+    stacked)."""
+    bl = b * l
+    flops = 2.0 * bl * d_io * h            # encoder
+    per_layer = (
+        2.0 * bl * h * (2 * p)             # B projection
+        + 8.0 * bl * p                     # scan: complex mul-add per step
+        + 2.0 * bl * (2 * p) * h           # C projection
+        + 8.0 * bl * h                     # D, residual, norm, relu
+    )
+    if glu_variant in ("half1", "half2", "full"):
+        per_layer += 2.0 * bl * h * h + 3.0 * bl * h   # gate dense, sigmoid
+    if glu_variant == "full":
+        per_layer += 2.0 * bl * h * h
+    flops += n_layers * per_layer
+    flops += 2.0 * bl * h * d_io           # decoder
+    return flops
+
+
+class StepTimer:
+    """Wall-clock step timer with warm-up discard: a ``with`` block per
+    step; each step ends on ``torch.cuda.synchronize`` (on the card) before
+    the clock is read, so it times the device's work, not its enqueue."""
+
+    def __init__(self, warmup: int = 2, device=None):
+        self.warmup = warmup
+        self.device = device
+        self.times = []
+        self._n = 0
+        self._t0: Optional[float] = None
+
+    def _sync(self) -> None:
+        import torch
+        if torch.cuda.is_available():
+            torch.cuda.synchronize(self.device)
+
+    def __enter__(self):
+        self._sync()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._sync()
+        dt = time.perf_counter() - self._t0
+        self._n += 1
+        if self._n > self.warmup:
+            self.times.append(dt)
+
+    @property
+    def mean(self) -> float:
+        return sum(self.times) / max(1, len(self.times))
 
 
 def _device_us(evt) -> float:

@@ -354,7 +354,7 @@ def test_routes_and_what_still_raises():
                           device="cpu")
     with pytest.raises(NotImplementedError, match="bidirectional"):
         bi.forward_stream(torch.zeros(1, 8, D_IO))
-    with pytest.raises(NotImplementedError, match="scan_mode"):
+    with pytest.raises(ValueError, match="scan_mode='sp'"):
         loop.build_model(small_config(scan_mode="sp"), D_IO, D_IO,
                          device="cpu")
     # the associative and the sequential scan (plain PyTorch) build and

@@ -195,7 +195,7 @@ def test_build_model_shapes_and_state_dict_keys():
                                          p_dropout=0.0), 9, 9,
                      training=True, device="cpu")
     assert ln(torch.zeros(1, 4, 9)).requires_grad
-    with pytest.raises(NotImplementedError):   # not a ported scan mode
+    with pytest.raises(ValueError, match="mesh"):   # "sp" needs a seq mesh
         build_model(dataclasses.replace(cfg, scan_mode="sp"), 9, 9,
                     device="cpu")
 

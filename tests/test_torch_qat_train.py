@@ -376,7 +376,7 @@ def test_what_the_qat_and_topk_models_still_refuse():
     with pytest.raises(NotImplementedError, match="exact top-k"):
         loop.build_model(qat_config(topk=0.5), D_IO, D_IO, training=True,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="scan_mode"):
+    with pytest.raises(ValueError, match="scan_mode='sp'"):
         loop.build_model(qat_config(quantization="w8a16", scan_mode="sp"),
                          D_IO, D_IO, device="cpu")
     # the blocked scan has no site for the QAT hadamards: it builds and

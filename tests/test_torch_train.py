@@ -314,7 +314,8 @@ def test_what_still_raises():
         out = model(torch.zeros(1, 8, D_IO))
         out.sum().backward()
         assert all(p.grad is not None for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="scan_mode"):
+    # the sequence-parallel scan needs a mesh with a seq axis
+    with pytest.raises(ValueError, match="scan_mode='sp'"):
         loop.build_model(small_config(scan_mode="sp"), D_IO, D_IO,
                          training=True, device="cpu")
     # the associative, the sequential and the blocked scan train (plain
@@ -332,7 +333,8 @@ def test_what_still_raises():
     assert pruned.pruner.cfg.final_sparsity == 0.5 and pruned.masks
     with pytest.raises(ValueError, match="pruning"):
         loop.create_run_state(small_config(pruning="magnitude-0.5"), tm, 1)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh on a world of one rank would fake the parallel run
+    with pytest.raises(ValueError, match="mesh"):
         loop.train(small_config(mesh_model=2), device="cpu")
     # synthetic_data false reads the WAV corpus where its three
     # directories are set, else the synthetic set, as in the JAX package

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.cuda.engine_layer import WTYPES
+from sparsernns_tpu_torch.utils.trace import traced
 
 #: the JAX package's default tile
 DEFAULT_BK = 128
@@ -442,6 +443,7 @@ def _lib():
     return fn
 
 
+@traced("kernel.block_sparse")
 def block_sparse_matmul_cuda(x: torch.Tensor, w: BlockSparseWeight
                              ) -> torch.Tensor:
     """Launch the kernel: x (..., K) f32 or bf16 on the weight's CUDA

@@ -43,6 +43,7 @@ import torch
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, grid_value,
                                            sequential_diag_scan)
+from sparsernns_tpu_torch.utils.trace import traced
 
 #: kernel calls made by :func:`diag_scan` in this process: forward in time,
 #: reverse, and with the block requant in either direction (each call
@@ -448,6 +449,7 @@ def _aligned(bu: Pair, vec: int) -> Pair:
     return bu
 
 
+@traced("kernel.diag_scan")
 def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
                    reverse: bool = False,
                    block_requant: Optional[BlockRequant] = None,

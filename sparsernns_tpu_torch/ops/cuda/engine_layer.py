@@ -67,6 +67,7 @@ from sparsernns_tpu_torch.ops.intdot import (DOT_I8, dot_formula, int16_dot,
                                              quantize_codes)
 from sparsernns_tpu_torch.ops.scan import (Pair, grid_value, quant_codes,
                                            sequential_diag_scan)
+from sparsernns_tpu_torch.utils.trace import traced
 
 GLU_KINDS = ("full", "half1", "half2", "none")
 
@@ -734,6 +735,7 @@ def launched() -> List[Tuple[str, int]]:
     return read_launched("engine_layer")
 
 
+@traced("kernel.engine_layer")
 def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
                       block_t: int,
                       in_requant: Optional[Tuple[float, int]] = None,

@@ -35,6 +35,7 @@ from sparsernns_tpu_torch.ops.cuda.engine_layer import (
     alloc_scratch, check_row_passes, zero_carry, dense_plain, encode_plain,
     layer_body_plain, pack_dense, pad128, pack_layer, pack_mode, pass_plan,
     read_launched, stream_value, widest_row_pass)
+from sparsernns_tpu_torch.utils.trace import traced
 
 #: most layers one call takes (``kMaxLayers`` of the CUDA source)
 MAX_LAYERS = 8
@@ -91,6 +92,7 @@ def launched():
     return read_launched("engine_network")
 
 
+@traced("kernel.engine_network")
 def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
                         dec: Dense, mode: LayerMode, *, block_t: int,
                         out_dtype: torch.dtype = torch.float32

@@ -65,6 +65,7 @@ from sparsernns_tpu_torch.ops.cuda.diag_scan import _check_f32_cuda, diag_scan
 from sparsernns_tpu_torch.ops.cuda.layer_tail import check_tensors
 from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, QatBits,
                                            sequential_diag_scan)
+from sparsernns_tpu_torch.utils.trace import traced
 
 #: kernel calls made in this process, one a call (K4a and K4b: three
 #: passes each): by :func:`fused_s5` (K4a float), by
@@ -152,6 +153,7 @@ def _launch(u, ops: engine_layer.MixerOps, relu_state: bool, block_t: int,
     return y if carry is None else (y, co)
 
 
+@traced("kernel.fused_s5")
 def fused_s5_cuda(u, lam: Pair, w_b, w_c, d, relu_state: bool = False
                   ) -> torch.Tensor:
     """Enqueue the kernel's passes in its float mode. Same arguments as
@@ -299,6 +301,7 @@ def qat_plan(u, w_b, block_t: int
             engine_layer.pass_plan(b, length, h, p, 1, encoder=False))
 
 
+@traced("kernel.fused_s5_qat")
 def fused_s5_qat_cuda(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
                       block_t: int, relu_state: bool = False,
                       qat_scale: Optional[torch.Tensor] = None, *,
@@ -423,6 +426,7 @@ def fused_s5_engine_plain(u, lam: Pair, w_b, w_c, d, *, block_t: int,
     return y if carry is None else (y, state)
 
 
+@traced("kernel.fused_s5_engine")
 def fused_s5_engine_cuda(u, lam: Pair, w_b, w_c, d, *, block_t: int,
                          wb_scales: Scales = None, wc_scales: Scales = None,
                          block_requant: Optional[BlockRequant] = None,

@@ -32,6 +32,7 @@ import torch
 
 from sparsernns_tpu_torch.fxp.array import RoundingMode, fxp_rshift_round
 from sparsernns_tpu_torch.ops.cuda import build
+from sparsernns_tpu_torch.utils.trace import traced
 
 #: calls of :func:`fxp_scan_cuda` in this process (one launch each)
 launches = 0
@@ -92,6 +93,7 @@ def _lib():
     return fn
 
 
+@traced("kernel.fxp_scan")
 def fxp_scan_cuda(bu_r: torch.Tensor, bu_i: torch.Tensor,
                   a_re: torch.Tensor, a_im: torch.Tensor,
                   shifts: Tuple[int, int], g: int,

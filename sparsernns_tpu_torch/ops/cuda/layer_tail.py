@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
+from sparsernns_tpu_torch.utils.trace import traced
 
 GLU_KINDS = ("full", "half1", "half2", "none")
 ACTS = ("gelu", "relu")
@@ -215,6 +216,7 @@ def data_ptr(ops: Dict[str, torch.Tensor], name: str) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+@traced("kernel.layer_tail")
 def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
                     o1k=None, o1b=None, act: str = "gelu",
                     glu: str = "none", relu_state: bool = False,

@@ -55,6 +55,7 @@ from sparsernns_tpu_torch.ops.cuda.layer_tail import (ACTS, GLU_KINDS,
                                                       data_ptr,
                                                       norm_and_residual)
 from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
+from sparsernns_tpu_torch.utils.trace import traced
 
 #: time rows of one history block
 HIST_BLOCK = 32
@@ -363,6 +364,7 @@ def _hist_launch(ops, plan: BwdPlan, h: int, p: int, states) -> Pair:
     return hist
 
 
+@traced("kernel.layer_tail_hist")
 def layer_tail_hist_cuda(x, lam: Pair, w_b, nw, nb) -> Pair:
     """Launch K3a (a B-projection pass over all rows, then the scan per
     batch row and channel). ``nw = nb = None``: ``x`` is the normed stream
@@ -390,6 +392,7 @@ def layer_tail_hist(x, lam: Pair, w_b, nw, nb) -> Pair:
     return fn(x, lam, w_b, nw, nb)
 
 
+@traced("kernel.layer_tail_bwd")
 def layer_tail_bwd_cuda(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
                         o2b=None, o1k=None, o1b=None, act: str = "gelu",
                         glu: str = "none", relu_state: bool = False,

@@ -52,6 +52,7 @@ from sparsernns_tpu_torch.ops.cuda.diag_scan import _check_f32_cuda
 from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, QatBits,
                                            grid_value, lambda_powers)
 from sparsernns_tpu_torch.quantize.qat import _on_grid, dyn_fake_quant
+from sparsernns_tpu_torch.utils.trace import traced
 
 #: kernel calls made by :func:`qat_scan` in this process (one a call: the
 #: tables kernel and the scan)
@@ -362,6 +363,7 @@ def call_buffers(plan: QatPlan, device) -> Tuple[torch.Tensor, ...]:
                         device=device))
 
 
+@traced("kernel.qat_scan")
 def qat_scan_cuda(lam: Pair, bu: Pair, qat_bits: QatBits, block_t: int,
                   reverse: bool = False,
                   carry_init: Optional[Pair] = None,

@@ -16,6 +16,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sparsernns_tpu_torch.utils.trace import span
+
 NFFT = 512
 HOP_LENGTH = 128
 N_FREQ = NFFT // 2 + 1  # = 257 = NDNS feature dim
@@ -77,16 +79,19 @@ def stft_splitter(audio: torch.Tensor, nfft: int = NFFT,
     nadd = (-(ext - nfft) % hop_length) % nfft
     ext += nadd
     n_frames = (ext - nfft) // hop_length + 1
-    x = torch.nn.functional.pad(audio, (nfft // 2, nfft // 2 + nadd))
-    strips = x.reshape(*lead, ext // hop_length, hop_length)
-    frames = torch.cat([strips[..., j:j + n_frames, :]
-                        for j in range(nfft // hop_length)], dim=-1)
-    basis = torch.from_numpy(_dft_matrix(nfft)).to(audio.device)
-    spec = frames @ basis                                # (..., L, nfft+2)
-    f = nfft // 2 + 1
-    re = spec[..., :f].transpose(-1, -2)
-    im = spec[..., f:].transpose(-1, -2)
-    return torch.sqrt(re * re + im * im), torch.atan2(im, re)
+    with span("stft.frames"):
+        x = torch.nn.functional.pad(audio, (nfft // 2, nfft // 2 + nadd))
+        strips = x.reshape(*lead, ext // hop_length, hop_length)
+        frames = torch.cat([strips[..., j:j + n_frames, :]
+                            for j in range(nfft // hop_length)], dim=-1)
+    with span("stft.upload"):
+        basis = torch.from_numpy(_dft_matrix(nfft)).to(audio.device)
+    with span("stft.dft"):
+        spec = frames @ basis                            # (..., L, nfft+2)
+        f = nfft // 2 + 1
+        re = spec[..., :f].transpose(-1, -2)
+        im = spec[..., f:].transpose(-1, -2)
+        return torch.sqrt(re * re + im * im), torch.atan2(im, re)
 
 
 def stft_splitter_fft(audio: torch.Tensor, nfft: int = NFFT,
@@ -141,21 +146,25 @@ def stft_mixer_tm(mag: torch.Tensor, phase: torch.Tensor, nfft: int = NFFT,
         phase = torch.nn.functional.pad(phase, pad)
     n_frames = mag.shape[-2]
     lead = mag.shape[:-2]
-    products = torch.cat([mag * torch.cos(phase), mag * torch.sin(phase)],
-                         dim=-1)
-    basis = torch.from_numpy(_idft_matrix(nfft)).to(mag.device)
-    frames = products @ basis                            # (..., L, nfft)
-    # overlap-add: frame l covers samples [l*hop, l*hop + nfft)
-    total = (n_frames - 1) * hop_length + nfft
-    flat = n_frames * hop_length
-    x = frames.new_zeros(*lead, total)
-    for j in range(nfft // hop_length):
-        piece = frames[..., :, j * hop_length:(j + 1) * hop_length]
-        x[..., j * hop_length:j * hop_length + flat] += piece.reshape(
-            *lead, flat)
-    norm = torch.from_numpy(_ola_norm(n_frames, nfft, hop_length)
-                            ).to(mag.device)
-    return x[..., nfft // 2: total - nfft // 2] / norm
+    with span("istft.dft"):
+        products = torch.cat([mag * torch.cos(phase),
+                              mag * torch.sin(phase)], dim=-1)
+        with span("istft.upload"):
+            basis = torch.from_numpy(_idft_matrix(nfft)).to(mag.device)
+        frames = products @ basis                        # (..., L, nfft)
+    with span("istft.ola"):
+        # overlap-add: frame l covers samples [l*hop, l*hop + nfft)
+        total = (n_frames - 1) * hop_length + nfft
+        flat = n_frames * hop_length
+        x = frames.new_zeros(*lead, total)
+        for j in range(nfft // hop_length):
+            piece = frames[..., :, j * hop_length:(j + 1) * hop_length]
+            x[..., j * hop_length:j * hop_length + flat] += piece.reshape(
+                *lead, flat)
+        with span("istft.norm_upload"):
+            norm = torch.from_numpy(_ola_norm(n_frames, nfft, hop_length)
+                                    ).to(mag.device)
+        return x[..., nfft // 2: total - nfft // 2] / norm
 
 
 def stft_mixer(mag: torch.Tensor, phase: torch.Tensor, nfft: int = NFFT,

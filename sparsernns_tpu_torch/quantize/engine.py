@@ -83,6 +83,7 @@ from sparsernns_tpu_torch.ops.scan import (Pair, blocked_diag_scan,
                                            diag_ssm_scan)
 from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity, top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
+from sparsernns_tpu_torch.utils.trace import span
 
 #: the engine's time block when ``block_t`` is None
 DEFAULT_BLOCK_T = 512
@@ -843,7 +844,8 @@ class W8A16Engine:
         return self._apply_per_op(x, block_t)
 
     def __call__(self, x) -> torch.Tensor:
-        return self._apply(self._input(x), self.block_t)
+        with span("engine.call"):
+            return self._apply(self._input(x), self.block_t)
 
     # ---------------- streaming (chunked) serving ----------------
 

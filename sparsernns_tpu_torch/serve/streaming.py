@@ -21,6 +21,7 @@ import torch
 
 from sparsernns_tpu_torch.ops.stft import HOP_LENGTH, NFFT
 from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
+from sparsernns_tpu_torch.utils.trace import span
 
 
 class StreamingDenoiser:
@@ -67,13 +68,16 @@ class StreamingDenoiser:
     @torch.no_grad()
     def _forward(self, frames_mag: np.ndarray):
         """(B, F, T) magnitudes -> ((B, F, T) mask, new cache)."""
-        x = torch.from_numpy(frames_mag).to(self.device)
-        x = (x - STFT_MAG_MEAN).transpose(1, 2)
-        if self.engine is not None:
-            out, cache = self.engine.process_chunk(x, self.cache)
-        else:
-            out, cache = self.model.forward_stream(x, self.cache)
-        return out.transpose(1, 2).float().cpu().numpy(), cache
+        with span("stream.upload"):
+            x = torch.from_numpy(frames_mag).to(self.device)
+        with span("stream.forward"):
+            x = (x - STFT_MAG_MEAN).transpose(1, 2)
+            if self.engine is not None:
+                out, cache = self.engine.process_chunk(x, self.cache)
+            else:
+                out, cache = self.model.forward_stream(x, self.cache)
+        with span("stream.download"):
+            return out.transpose(1, 2).float().cpu().numpy(), cache
 
     def reset(self, slot: Optional[int] = None):
         if slot is None:
@@ -111,14 +115,22 @@ class StreamingDenoiser:
         return self._run_frames(n_frames)
 
     def _run_frames(self, n_frames: int) -> np.ndarray:
-        starts = np.arange(n_frames) * self.hop
-        frames = np.stack(
-            [self._pending[:, s:s + self.nfft] for s in starts], axis=1)
-        spec = np.fft.rfft(frames, axis=-1)          # (B, T, F)
-        mag = np.abs(spec).astype(np.float32).transpose(0, 2, 1)
-        phase = np.angle(spec).transpose(0, 2, 1)
+        with span("stream.frames"):
+            starts = np.arange(n_frames) * self.hop
+            frames = np.stack(
+                [self._pending[:, s:s + self.nfft] for s in starts], axis=1)
+            spec = np.fft.rfft(frames, axis=-1)      # (B, T, F)
+            mag = np.abs(spec).astype(np.float32).transpose(0, 2, 1)
+            phase = np.angle(spec).transpose(0, 2, 1)
 
         mask, self.cache = self._forward(mag)
+        with span("stream.ola"):
+            return self._synthesize(mag, phase, mask, n_frames)
+
+    def _synthesize(self, mag: np.ndarray, phase: np.ndarray,
+                    mask: np.ndarray, n_frames: int) -> np.ndarray:
+        """The masked frames' irFFT overlap-added into the synthesis
+        buffer; returns the samples no future frame touches."""
         cleaned = mag * (1.0 + mask)
         spec_out = (cleaned * np.exp(1j * phase)).transpose(0, 2, 1)
         time_frames = np.fft.irfft(spec_out, axis=-1).astype(np.float32)
@@ -269,7 +281,8 @@ class ContinuousBatcher:
             if take:
                 self._content_end[sid] = start + take
         emit0 = self.denoiser._emit_pos
-        out = self.denoiser.process(batch)
+        with span("stream.batch"):
+            out = self.denoiser.process(batch)
         for i, sid in enumerate(self.slots):
             if sid is not None and out.shape[1]:
                 # route only samples inside the stream's real content —

@@ -45,6 +45,7 @@ from sparsernns_tpu_torch.train.optim import (optimizer_step,
                                               zero_scale_gradients)
 from sparsernns_tpu_torch.train.pruning import MagnitudePruner, Masks
 from sparsernns_tpu_torch.train.state import TrainState
+from sparsernns_tpu_torch.utils.trace import span
 
 
 def _forward_params(model, pruner: Optional[MagnitudePruner],
@@ -79,7 +80,7 @@ def make_mask_update_fn(pruner: Optional[MagnitudePruner]) -> Callable:
                 and (step - cfg.update_start) % cfg.update_freq == 0):
             # on a tensor-parallel mesh the magnitudes are the whole
             # tensors' and every model rank keeps its slice of the masks
-            with whole_model(state):
+            with span("train.masks"), whole_model(state):
                 pruner.update_masks(state.model, state.masks, step)
         return state
 
@@ -192,28 +193,32 @@ def make_ndns_train_step(model: torch.nn.Module,
         losses, snrs = [], []
         for i in range(k):
             rows = slice(i * size, (i + 1) * size)
-            loss, snr = _loss(model, state.generator, noisy_mag[rows],
-                              noisy_phase[rows], clean_mag[rows],
-                              clean[rows],
-                              _forward_params(model, state.pruner,
-                                              state.masks, state.mesh),
-                              state.mesh)
-            loss.backward()             # .grad accumulates the sum
+            with span("train.forward"):
+                loss, snr = _loss(model, state.generator, noisy_mag[rows],
+                                  noisy_phase[rows], clean_mag[rows],
+                                  clean[rows],
+                                  _forward_params(model, state.pruner,
+                                                  state.masks, state.mesh),
+                                  state.mesh)
+            with span("train.backward"):
+                loss.backward()         # .grad accumulates the sum
             losses.append(loss.detach())
             snrs.append(snr.detach())
-        if k > 1:
-            for param in model.parameters():
-                if param.grad is not None:
-                    param.grad.div_(k)
-        metrics, norms = _reduce_and_norms(state, {
-            "loss": torch.stack(losses).mean(),
-            "si_snr": torch.stack(snrs).mean()})
-        if static_quant:
-            metrics["scale_grad_leak"] = scale_gradient_leak_norm(model)
-            zero_scale_gradients(model)
-        optimizer_step(state.optimizer, state.step, norms)
-        if state.pruner is not None:
-            state.pruner.post_gradient_update(model, state.masks)
+        with span("train.reduce"):
+            if k > 1:
+                for param in model.parameters():
+                    if param.grad is not None:
+                        param.grad.div_(k)
+            metrics, norms = _reduce_and_norms(state, {
+                "loss": torch.stack(losses).mean(),
+                "si_snr": torch.stack(snrs).mean()})
+        with span("train.optimizer"):
+            if static_quant:
+                metrics["scale_grad_leak"] = scale_gradient_leak_norm(model)
+                zero_scale_gradients(model)
+            optimizer_step(state.optimizer, state.step, norms)
+            if state.pruner is not None:
+                state.pruner.post_gradient_update(model, state.masks)
         state.step += 1
         return state, metrics
 

@@ -18,9 +18,10 @@ recipe) and ``--mxu16`` calibrate and serve the engine at that recipe:
 w8a8 runs its denses as int8 dots, ``--mxu16`` a w8a16 engine's every dot
 on the two int8 planes of its 16-bit codes — with
 ``torch.profiler``, after a warm-up, and prints for each: the wall time,
-the device time summed over kernels, the device busy share (device time
-over wall time) and the kernels that take the most device time. Run on a
-machine with the card, from the repository root::
+the device time summed over kernels, the device busy share (the union of
+the device intervals over the region), the kernels that take the most
+device time and the program's spans (``utils/trace.py``) by name. Run on
+a machine with the card, from the repository root::
 
     python -m sparsernns_tpu_torch.utils.profiling [--batch 8] \\
         [--engine [--recipe w8a8] [--mxu16] |
@@ -174,46 +175,129 @@ class StepTimer:
         return sum(self.times) / max(1, len(self.times))
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
+#: chrome-trace categories of device operations (kernels, copies, fills)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: the span that bounds a profiled region
+REGION = "profile_region"
+
+
+def _union(intervals):
+    """The union of (start, end) intervals, in order."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def _covered(intervals) -> float:
+    return sum(e - s for s, e in _union(intervals))
+
+
+def summarize_trace(events, top: int = 10) -> dict:
+    """Device time and program spans of the region in a chrome trace
+    (``export_chrome_trace``'s ``traceEvents``): the stretch of the
+    ``span(REGION)`` that :func:`profile_region` opens. Times in ms.
+
+    ``device_ms`` sums the device operations inside the region;
+    ``device_busy_share`` is the union of their intervals over the
+    region's length. ``spans`` holds, for each program span by name, its
+    count, host ms, self ms (host ms less the time its child spans on the
+    same thread cover) and the device ms of the operations launched while
+    one of them was open, from any thread (the backward's kernels are
+    launched from autograd's thread)."""
+    from sparsernns_tpu_torch.utils.trace import PREFIX
+    xs = [e for e in events if e.get("ph") == "X"]
+    launches, spans = {}, []
+    for e in xs:
+        ts = float(e["ts"]) * 1e-3
+        end = ts + float(e.get("dur", 0.0)) * 1e-3
+        corr = (e.get("args") or {}).get("correlation")
+        cat = e.get("cat", "")
+        if cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launches[corr] = ts
+        elif cat == "user_annotation" and e["name"].startswith(PREFIX):
+            spans.append((e["name"][len(PREFIX):], ts, end, e.get("tid")))
+    region = [s for s in spans if s[0] == REGION]
+    if not region:
+        raise ValueError(f"the trace holds no {PREFIX}{REGION} span")
+    w0, w1 = region[0][1], region[0][2]
+    ops = []
+    for e in xs:
+        if e.get("cat") in DEVICE_CATS:
+            ts = float(e["ts"]) * 1e-3
+            end = ts + float(e.get("dur", 0.0)) * 1e-3
+            if w0 <= ts and end <= w1:
+                corr = (e.get("args") or {}).get("correlation")
+                ops.append((e["name"], ts, end, launches.get(corr)))
+    spans = [s for s in spans if s[0] != REGION and w0 <= s[1] <= w1]
+    by_name = {}
+    for name, ts, end, _ in ops:
+        n, ms = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, ms + end - ts)
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    device_ms = sum(ms for _, (_, ms) in kernels)
+    table = {}
+    for name, ts, end, tid in spans:
+        row = table.setdefault(name, {"count": 0, "host_ms": 0.0,
+                                      "self_ms": 0.0, "device_ms": 0.0})
+        inner = [(a, b) for n2, a, b, t2 in spans
+                 if t2 == tid and ts <= a and b <= end
+                 and (a, b) != (ts, end)]
+        row["count"] += 1
+        row["host_ms"] += end - ts
+        row["self_ms"] += end - ts - _covered(inner)
+    for name, row in table.items():
+        opened = [(a, b) for n2, a, b, _ in spans if n2 == name]
+        row["device_ms"] = sum(
+            end - ts for _, ts, end, launch in ops if launch is not None
+            and any(a <= launch <= b for a, b in opened))
+    return {
+        "device_ms": device_ms,
+        "device_busy_share": (_covered([(a, b) for _, a, b, _ in ops])
+                              / (w1 - w0) if w1 > w0 else None),
+        "device_events": len(ops),
+        "top_kernels": [{"name": name[:80], "count": n, "device_ms": ms}
+                        for name, (n, ms) in kernels[:top]],
+        "spans": dict(sorted(table.items())),
+    }
 
 
 def profile_region(name: str, fn, top: int = 10) -> dict:
-    """Run ``fn`` once under the profiler; summarize wall and device time.
+    """Run ``fn`` once under the profiler; summarize wall and device time
+    and the program's spans (:func:`summarize_trace`).
 
     The profiler on the H100 machine records no device event for the first
     kernel of a window, so a one-element fill runs first, outside the
-    timed span, to take that place."""
+    region, to take that place."""
+    import tempfile
+
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from sparsernns_tpu_torch.utils.trace import span
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): the host-side operator
-    # events carry the same device time again
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    events.sort(key=_device_us, reverse=True)
-    device_us = sum(_device_us(e) for e in events)
-    return {
-        "region": name, "wall_ms": wall_us / 1e3,
-        "device_ms": device_us / 1e3,
-        "device_busy_share": device_us / wall_us if wall_us else None,
-        "device_events": sum(e.count for e in events),
-        "top_kernels": [{"name": e.key[:80], "count": e.count,
-                         "device_ms": _device_us(e) / 1e3}
-                        for e in events[:top]],
-    }
+        with span(REGION):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return {"region": name, "wall_ms": wall_us / 1e3,
+            **summarize_trace(events, top)}
 
 
 def main() -> int:

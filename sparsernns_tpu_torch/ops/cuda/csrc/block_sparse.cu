@@ -25,11 +25,11 @@
 //   * Exact bf16 planes on the tensor cores (mma.sync m16n8k16, f32
 //     accumulators). Each operand is staged as bf16 planes whose sum is
 //     exactly the value the function multiplies:
-//       f32 x: 3 planes (split3), the top 8 significant bits, the next 8,
-//         the last 8 (truncation: a rounded top plane would overflow at the
-//         largest finite f32); exact for |x| >= 2^-110, where the lowest
-//         plane still lies on bf16's grid; a non-finite x is its own top
-//         plane;
+//       f32 x: 3 planes (split3, bf16_planes.cuh), the top 8 significant
+//         bits, the next 8, the last 8 (truncation: a rounded top plane
+//         would overflow at the largest finite f32); exact for |x| >=
+//         2^-110, where the lowest plane still lies on bf16's grid; a
+//         non-finite x is its own top plane;
 //       bf16 x: itself;
 //       int8 tile: itself (exact); int16 tile: hi * 256 and lo (lo the
 //         unsigned low byte); f32 tile: split3;
@@ -71,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_planes.cuh"
+
 // The packed weight as a launch takes it for one type of x
 // (ops/cuda/block_sparse.py `_WeightArgs`), built once when it is packed.
 struct BsWeight {
@@ -109,27 +111,9 @@ struct XType<__nv_bfloat16> {
 
 // ------------------------------------------------------------ the planes
 
-__device__ __forceinline__ uint32_t bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// f32 v as three bf16 planes h[0] + h[1] + h[2] == v: the top 8
-// significant bits, the next 8, the last 8. A non-finite v is its own top
-// plane.
-__device__ __forceinline__ void split3(float v, uint32_t (&h)[3]) {
-  const uint32_t u = __float_as_uint(v);
-  if ((u & 0x7f800000u) == 0x7f800000u) {
-    h[0] = bf16_bits(v);
-    h[1] = h[2] = 0u;
-    return;
-  }
-  const float r1 = v - __uint_as_float(u & 0xffff0000u);
-  const uint32_t u1 = __float_as_uint(r1);
-  const float r2 = r1 - __uint_as_float(u1 & 0xffff0000u);
-  h[0] = u >> 16;
-  h[1] = u1 >> 16;
-  h[2] = bf16_bits(r2);
-}
+using bf16_planes::bf16_bits;
+using bf16_planes::mma_bf16;
+using bf16_planes::split3;
 
 // The planes of a tile value, by the type of x it multiplies. One plane,
 // the value rounded to bf16: exact for int8; with bf16 x an int16 or f32
@@ -212,16 +196,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------------ the walk

@@ -1,12 +1,18 @@
 // Shared device code of the serving-engine kernels: the parts of one
 // quantized serving layer (and the encoder / decoder dense) on a tile of
 // kT frames held in shared memory. The serving passes (engine_passes.cuh,
-// for engine_layer.cu, engine_network.cu and the mixer alone, fused_s5.cu)
-// and the QAT mixer (qat_scan.cu) compute every product and every
-// requantization through the functions below, with each output element
-// summed over k in ascending order by fmaf, so every route gives
-// bit-identical results. The passes take the 4-column register tiles where
-// the width allows, qat_scan.cu one column a thread.
+// for engine_layer.cu, engine_network.cu and the mixer alone, fused_s5.cu,
+// and the QAT mixer's row passes in qat_scan.cu) compute every product and
+// every requantization through the functions below, so every route gives
+// bit-identical results: the function, not the route, fixes the order of
+// each sum. A float dot over int8 codes that come with their fragments
+// (every dense of the w8a16 engine) runs on the tensor cores over exact
+// bf16 planes (tile_matmul_mma, bf16_planes.cuh): the fmaf chain's
+// products, summed per 16-deep k-step in the tile's order. A float dot
+// over f32 or int16 weights (K4a's float mode, a w16 pack), or over int8
+// codes without fragments (the QAT mixer's, new every step; an
+// integer-dot engine's), is one fmaf chain in ascending k, in the 4-column
+// register tiles where the width allows; integer dots (__dp4a) are exact.
 //
 // The layer body is the TPU kernels' (sparsernns_tpu/ops/pallas/
 // fused_layer.py `_mixer_pre`, scan_kernel.py `scan_block_body`,
@@ -58,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_planes.cuh"
 #include "scan_step.cuh"
 
 namespace engine {
@@ -80,6 +87,8 @@ struct DenseW {
   const void* w;
   const float* bias;   // (N) or null
   const int* colsum;   // (N) column sums of the int8 weight (two planes)
+  const uint4* wf;     // int8 w: its codes as mma's bf16 B fragments
+                       // (ops/cuda/engine_layer.py `mma_fragments`)
   float scale;         // 1 when the weight is float
   float acc_scale;     // in_s * scale: integer accumulator -> value
   float in_s;          // the input's grid (in_mode != kDotFloat)
@@ -126,6 +135,16 @@ struct Mode {
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// f(r, c) over a rows x width tile: a warp takes a row at a time, its
+// lanes neighbouring columns, so no index divides and a warp's accesses of
+// a row are contiguous.
+template <class F>
+__device__ __forceinline__ void for_tile(int rows, int width, F f) {
+  for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5)
+#pragma unroll 2
+    for (int c = threadIdx.x & 31; c < width; c += 32) f(r, c);
+}
 
 // Bytes a row of the code tile Q needs for a layer's integer dots: the
 // widest operand they quantize (the im half of the states sits at
@@ -279,11 +298,174 @@ __device__ inline bool wide_ok(const void* w, int N, int bytes) {
          ((unsigned long long)w & (unsigned long long)(4 * bytes - 1)) == 0;
 }
 
-// A @ W through the dense's weight type: the 4-column register tiles where
-// the width allows, else one column a thread.
+// ---- int8 weights on the tensor cores ----
+//
+// A @ W for an int8 W (K, N) as mma.sync m16n8k16 over exact bf16 planes
+// (bf16_planes.cuh): each float32 value of A (in shared memory) as its
+// three split3 planes, each weight code as itself. Every plane product is
+// exact in float32. Per 16-deep k-step the planes go lo, mid, hi into
+// fresh accumulators (each mma then adds products of one magnitude to a
+// smaller partial sum), and the step's sums join the running sums by one
+// float32 add each: the tensor cores round their sums toward zero, and an
+// accumulator that has grown over many steps would lose the low bits of
+// every later product. So the products are the fmaf chain's, summed in
+// another order (closer to the exact dot than the chain, on the card).
+//
+// The 8 warps of a CTA: 2 m-blocks of 16 rows x 4 column lanes. A warp
+// takes groups of 32 columns (kMmaGroups at a time, every 4th group) and
+// for each k-step splits its A fragment once for all of them. The k order
+// inside a step is permuted alike in A and B (mma's k slots 2t, 2t + 1,
+// 2t + 8, 2t + 9 of lane t hold k = 4t .. 4t + 3), and n-block j of a group
+// takes columns 4n + j (n = mma's n index), so lane (g, t) reads A rows g
+// and g + 8 as one float4 each, and its B fragments of a group and step as
+// two 16-byte loads of `wf`, which the wrapper lays out once per weight
+// (engine_layer.py `mma_fragments`: K padded with zero codes to 16, N to
+// 32). Its results land as rows g, g + 8 x columns 8t .. 8t + 7 of each
+// group. A past K and rows past `rows` read zeros; columns past N are not
+// stored.
+constexpr int kMmaGroups = 2;
+constexpr int kMmaWarpsN = kThreads / 32 / (kT / 16);
+static_assert(kT % 16 == 0 && kMmaWarpsN * (kT / 16) * 32 == kThreads,
+              "the warps of a CTA: kT / 16 m-blocks x kMmaWarpsN");
+
+// Lane `lane`'s B fragments of column group `grp`, k-step `ks` (of ks_n):
+// words 2j and 2j + 1 are n-block j's b0 and b1; zeros for a group past N.
+__device__ __forceinline__ void mma_b_frags(const uint4* __restrict__ wf,
+                                            int grp, int n_groups, int ks,
+                                            int ks_n, int lane,
+                                            uint4 (&f)[2]) {
+  if (grp < n_groups && ks < ks_n) {
+    const uint4* p = wf + ((long long)(grp * ks_n + ks) * 32 + lane) * 2;
+    f[0] = __ldg(p);
+    f[1] = __ldg(p + 1);
+  } else {
+    f[0] = f[1] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+__device__ __forceinline__ uint32_t uint4_word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <class Epi>
+__device__ inline void tile_matmul_mma(const float* A, int lda,
+                                       const uint4* __restrict__ wf, int K,
+                                       int N, int rows, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp % (kT / 16)) * 16;
+  const int wn = warp / (kT / 16);
+  if (m0 >= rows) return;
+  const int n_groups = (N + 31) / 32, ks_n = (K + 15) / 16;
+  const bool ok0 = m0 + g < rows, ok1 = m0 + g + 8 < rows;
+  const float* a_r0 = A + (m0 + g) * lda;
+  const float* a_r1 = a_r0 + 8 * lda;
+  for (int gb = wn; gb < n_groups; gb += kMmaWarpsN * kMmaGroups) {
+    float acc[kMmaGroups][4][4];
+#pragma unroll
+    for (int i = 0; i < kMmaGroups; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    // the next k-step's fragments load while this one multiplies
+    uint4 fc[kMmaGroups][2];
+#pragma unroll
+    for (int i = 0; i < kMmaGroups; ++i)
+      mma_b_frags(wf, gb + i * kMmaWarpsN, n_groups, 0, ks_n, lane, fc[i]);
+    for (int ks = 0; ks < ks_n; ++ks) {
+      uint4 fn[kMmaGroups][2];
+#pragma unroll
+      for (int i = 0; i < kMmaGroups; ++i)
+        mma_b_frags(wf, gb + i * kMmaWarpsN, n_groups, ks + 1, ks_n, lane,
+                    fn[i]);
+      // A: rows g, g + 8 at k = kt .. kt + 3, as three planes
+      const int kt = 16 * ks + 4 * t;
+      float v[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      if (kt < K) {
+        if (ok0) {
+          const float4 q = *reinterpret_cast<const float4*>(a_r0 + kt);
+          v[0][0] = q.x, v[0][1] = q.y, v[0][2] = q.z, v[0][3] = q.w;
+        }
+        if (ok1) {
+          const float4 q = *reinterpret_cast<const float4*>(a_r1 + kt);
+          v[1][0] = q.x, v[1][1] = q.y, v[1][2] = q.z, v[1][3] = q.w;
+        }
+#pragma unroll
+        for (int e = 1; e < 4; ++e)
+          if (kt + e >= K) v[0][e] = v[1][e] = 0.f;
+      }
+      uint32_t a[3][4];   // a[plane][mma register]
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          uint32_t lo[3], hi[3];
+          bf16_planes::split3(v[h][e], lo);
+          bf16_planes::split3(v[h][e + 1], hi);
+#pragma unroll
+          for (int p = 0; p < 3; ++p) a[p][h + e] = lo[p] | (hi[p] << 16);
+        }
+#pragma unroll
+      for (int i = 0; i < kMmaGroups; ++i) {
+        if (gb + i * kMmaWarpsN < n_groups) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t b0 = uint4_word(fc[i][j >> 1], 2 * (j & 1));
+            const uint32_t b1 = uint4_word(fc[i][j >> 1], 2 * (j & 1) + 1);
+            float step[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int p = 2; p >= 0; --p)
+              bf16_planes::mma_bf16(step, a[p], b0, b1);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][j][e] = __fadd_rn(acc[i][j][e], step[e]);
+          }
+        }
+        fc[i][0] = fn[i][0];
+        fc[i][1] = fn[i][1];
+      }
+    }
+    // acc[i][j][2h + e]: row g + 8h, column 32 * group + 8t + 4e + j
+#pragma unroll
+    for (int i = 0; i < kMmaGroups; ++i) {
+      const int c0 = (gb + i * kMmaWarpsN) * 32 + 8 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + g + 8 * h;
+        if (r >= rows) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c0 + 4 * e + j < N)
+              epi(r, c0 + 4 * e + j, acc[i][j][2 * h + e]);
+      }
+    }
+  }
+}
+
+// Whether a float dot over the dense runs on the tensor cores: int8 codes
+// whose fragments the engine laid out once (engine_layer.py
+// `attach_fragments`: every int8 float-dot dense of a network without
+// integer dots, the w8a16 engine's; an integer-dot network keeps its float
+// dots as fmaf chains, whose codes at the 8-bit activation grids after
+// them would move with the order of the sums). Else fmaf tiles, as
+// tile_matmul decides.
+__host__ __device__ inline bool dot_on_tensor_cores(const DenseW& w) {
+  return w.wtype == kWI8 && w.wf != nullptr;
+}
+
+// A @ W through the dense: on the tensor cores (dot_on_tensor_cores), else
+// as fmaf chains by its weight type, the 4-column register tiles where the
+// width allows, else one column a thread.
 template <class Epi>
 __device__ inline void tile_matmul(const float* A, int lda, const DenseW& w,
                                    int K, int N, int rows, Epi epi) {
+  if (dot_on_tensor_cores(w)) {
+    tile_matmul_mma(A, lda, w.wf, K, N, rows, epi);
+    return;
+  }
   if (w.wtype == kWI8 && wide_ok(w.w, N, 1)) {
     tile_matmul4_t(A, lda, static_cast<const int8_t*>(w.w), K, N, rows, epi);
     return;
@@ -360,12 +542,11 @@ __device__ inline void put_code(int8_t* Q, int ldq, int r, int c, int q,
 __device__ inline void quant_tile(const float* A, int lda, int K, int rows,
                                   float s, float qmin, float qmax, int mode,
                                   int8_t* Q, int ldq, float* zd) {
-  for (int i = threadIdx.x; i < rows * K; i += blockDim.x) {
-    const int r = i / K, c = i % K;
+  for_tile(rows, K, [&](int r, int c) {
     const float code = quant_code(A[r * lda + c], s, qmin, qmax);
     put_code(Q, ldq, r, c, (int)code, mode);
     if (zd) zd[r * lda + c] = __fmul_rn(code, s);
-  }
+  });
 }
 
 // out(r, c) = the integer dot of the codes in Q (ld ldq, planes as
@@ -574,16 +755,44 @@ __device__ inline void store_io(void* p, long long i, int type, float v) {
   }
 }
 
+// 16 bytes from global to shared memory without a register, in flight
+// until cp_async_wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// Whether float rows of `width` at `src` (row stride `ld`) go as 16-byte
+// copies: whole units, every row's start aligned.
+__device__ __forceinline__ bool rows_async_ok(const void* src, int ld,
+                                              int width) {
+  return width % 4 == 0 && ld % 4 == 0 &&
+         ((unsigned long long)src & 15ull) == 0;
+}
+
+// The first `width` floats of rows [0, rows) at `src` (stride src_ld) into
+// the shared tile T (stride ld) as 16-byte async copies, all issued at
+// once; cp_async_wait and a barrier before they are read.
+__device__ inline void rows_async(float* T, int ld, const float* src,
+                                  long long src_ld, int width, int rows) {
+  for_tile(rows, width / 4, [&](int r, int u) {
+    cp_async16(T + r * ld + 4 * u, src + r * src_ld + 4 * u);
+  });
+}
+
 // Rows [t0, t0 + rows) of a (L, width) row-major array of `type` into a
 // shared tile with leading dimension ld, times `scale`.
 __device__ inline void load_tile(float* T, int ld, const void* src, int type,
                                  long long row0, int width, int rows,
                                  float scale) {
-  for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
-    const int r = i / width, c = i % width;
+  for_tile(rows, width, [&](int r, int c) {
     T[r * ld + c] = __fmul_rn(load_io(src, (row0 + r) * width + c, type),
                               scale);
-  }
+  });
 }
 
 // Encoder: R = stream_type(relu?(requant?((X @ W_enc) * s + b))).
@@ -713,12 +922,11 @@ __device__ inline void layer_norm(const LayerParams& lp, const Mode& m,
                                   const float* R, float* Z, int ldh,
                                   int rows) {
   const int H = m.h;
-  for (int i = threadIdx.x; i < rows * H; i += blockDim.x) {
-    const int r = i / H, c = i % H;
+  for_tile(rows, H, [&](int r, int c) {
     const float v = R[r * ldh + c];
     Z[r * ldh + c] =
         m.prenorm ? __fadd_rn(__fmul_rn(v, lp.nw[c]), lp.nb[c]) : v;
-  }
+  });
 }
 
 // The layer after its mixer, on a tile: x1 = act(Y) (replaces Z), the GLU
@@ -729,13 +937,11 @@ __device__ inline void layer_finish(const LayerParams& lp, const Mode& m,
                                     float* R, float* Z, float* Y, int ldh,
                                     int rows, int8_t* Q, int ldq) {
   const int H = m.h;
-  const int tid = threadIdx.x;
   // ---- activation (x1 replaces z); no GLU: residual here ----
-  for (int i = tid; i < rows * H; i += blockDim.x) {
-    const int r = i / H, c = i % H;
+  for_tile(rows, H, [&](int r, int c) {
     const float y = Y[r * ldh + c];
     Z[r * ldh + c] = m.relufication ? fmaxf(y, 0.f) : gelu_tanh(y);
-  }
+  });
   __syncthreads();
   auto finish = [&](int r, int c, float hval) {
     float o = __fadd_rn(hval, R[r * ldh + c]);
@@ -744,8 +950,7 @@ __device__ inline void layer_finish(const LayerParams& lp, const Mode& m,
     R[r * ldh + c] = o;
   };
   if (m.glu == kNone) {
-    for (int i = tid; i < rows * H; i += blockDim.x)
-      finish(i / H, i % H, Z[(i / H) * ldh + i % H]);
+    for_tile(rows, H, [&](int r, int c) { finish(r, c, Z[r * ldh + c]); });
     __syncthreads();
     return;
   }

@@ -113,3 +113,9 @@ extern "C" int engine_layer_launched(const char** names, long long* ctas,
                                      int cap) {
   return read_launched(names, ctas, cap);
 }
+
+// The same passes' dense products on the tensor cores and as fmaf tiles:
+// see engine::read_launched_dots.
+extern "C" int engine_layer_launched_dots(int* mma, int* fmaf, int cap) {
+  return read_launched_dots(mma, fmaf, cap);
+}

@@ -27,8 +27,10 @@
 // bytes a frame and layer (52 MB a layer at B=8). The int-dot modes count
 // their dots as int8 operations (engine_layer.cu). A row pass is
 // ceil(B * L / 32) CTAs (938 at B=8), two an SM where shared memory allows;
-// a scan is B * P / 32 one-warp CTAs, latency-bound like K1. The products
-// run on the CUDA cores (f32 fmaf, __dp4a): the tensor cores are unused.
+// a scan is B * P / 32 one-warp CTAs, latency-bound like K1. The int8
+// float dots with the engine's fragments run on the tensor cores over
+// exact bf16 planes, the other float dots as fmaf tiles, the integer dots
+// by __dp4a (engine_body.cuh).
 
 #include "engine_passes.cuh"
 
@@ -105,4 +107,10 @@ extern "C" int engine_network_fwd(
 extern "C" int engine_network_launched(const char** names, long long* ctas,
                                        int cap) {
   return read_launched(names, ctas, cap);
+}
+
+// The same passes' dense products on the tensor cores and as fmaf tiles:
+// see engine::read_launched_dots.
+extern "C" int engine_network_launched_dots(int* mma, int* fmaf, int cap) {
+  return read_launched_dots(mma, fmaf, cap);
 }

@@ -30,13 +30,37 @@
 // scan, a tail pass; the mixer alone (fused_s5.cu, K4a / K4b) the same
 // three, with no norm (prenorm off), no GLU, residual or stream requant:
 // its tail pass stores y = the C-projection + d * u and stops. Every
-// product and requant is the same device function of engine_body.cuh, in
-// the same order, as in the one-CTA-per-row kernels the passes replaced:
-// each output element of a product is one fmaf chain in ascending k from
-// 0, integer dots are exact, the scan steps without contraction. So the
-// passes give the values those kernels gave, K6 equals the K5 stack bit
-// for bit, the per-op route's mixer rounds as the stack does, and K5b /
-// K4b over chunks of whole blocks equal one call.
+// product and requant is the same device function of engine_body.cuh on
+// the same 32-row tiles of the flattened stream: an int8 float dot with
+// the engine's fragments on the tensor cores over exact bf16 planes, each
+// output of any other float dot an fmaf chain in ascending k from 0,
+// integer dots exact, the scan steps
+// without contraction; a row's result does not depend on its place in the
+// tile. So K6 equals the K5 stack bit for bit, the per-op route's mixer
+// rounds as the stack does, DP equals one rank, and K5b / K4b over chunks
+// of whole blocks equal one call.
+//
+// Bound of a middle row pass on the H100 at the flagship (H = 192, P =
+// 128, B = 32, L = 3751: 120 032 rows): 3.5 KB a row of device memory (the
+// stream read and written, the states read, bu written; float32), 0.42 GB,
+// 0.13 ms at 3.35 TB/s; against 0.27 MFLOP a row of the network's products,
+// 0.81 M as three-plane tensor-core operations, 97 G a pass, 0.10 ms at
+// 989 TFLOP/s bf16. So bytes and operations bound it alike near 0.13 ms,
+// where the fmaf tiles could not go below 0.49 ms (67 TFLOP/s f32). The
+// design keeps the tile and its shared memory (every width the fmaf tiles
+// took still runs) and feeds the tensor cores from it: each warp splits
+// its A fragment once a k-step for 64 columns, the codes come from L2 in
+// 32-byte lanes already in mma's B layout (engine_layer.py
+// `mma_fragments`, made once a weight when the engine packs it), the
+// stream and states tiles land as 16-byte async copies all in flight at
+// once, and the element loops go a warp to a row without index divides.
+// The pass still runs near 1 ms on the card (PERF.md): the products' loop,
+// not the bytes, sets its pace. A 64-row tile that stages a dense's
+// fragments in shared memory for all its rows does not fit: its f32 tiles
+// alone take 208 KB of the 227 KB at the flagship (104 KB at 32 rows), one
+// dense's bf16 fragments 72-96 KB, and at H = 520 the 32-row tiles already
+// take all of it; serving the fragments from L1 instead of L2 saved at
+// most 0.04 ms a product on the card.
 //
 // Each launch is recorded with its grid (read_launched, behind
 // engine_network_launched, engine_layer_launched and fused_s5_launched), so
@@ -104,6 +128,29 @@ __host__ __device__ inline bool q_in_s(const RowPass& a) {
   return a.has_tail && 2 * a.ldq <= 4 * a.ldp;
 }
 
+// The stages of a row pass, in the kernel's order: the one account that
+// the kernel's flow and its launch record (pass_dots) both read.
+struct PassStages {
+  bool enc;      // the encoder dense on the tile's input
+  bool tail;     // a layer's tail: its states and C-projection
+  bool finish;   // then the layer after its mixer (activation, GLU denses)
+  bool head;     // the next layer's norm and B-projection
+  bool dec;      // the decoder dense
+};
+
+__host__ __device__ inline PassStages pass_stages(const RowPass& a) {
+  // a pass that stores y (the mixer alone) or the layer's codes (the last
+  // pass of K5) ends with its tail
+  const bool ends = a.has_tail && (a.y_out || a.codes_out);
+  PassStages st;
+  st.enc = a.enc.w != nullptr;
+  st.tail = a.has_tail;
+  st.finish = a.has_tail && !a.y_out;
+  st.head = a.has_head && !ends;
+  st.dec = a.dec.w != nullptr && !ends;
+  return st;
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 engine_row_pass_kernel(const __grid_constant__ RowPass a) {
   extern __shared__ float4 smem4[];
@@ -118,32 +165,47 @@ engine_row_pass_kernel(const __grid_constant__ RowPass a) {
   float* X = Y;
   int8_t* Q = reinterpret_cast<int8_t*>(q_in_s(a) ? S
                                                   : Y + kT * union_width(a));
-  const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * kT;
   const int rows = (int)min((long long)kT, a.n_rows - row0);
+  const PassStages st = pass_stages(a);
 
-  // ---- the tile's stream values: the encoder, or the stream as stored ----
-  if (a.enc.w) {
+  // ---- the tile's stream values: the encoder, or the stream as stored.
+  // A float32 stream and a tail's raw states (the float C-projection's:
+  // the integer one keeps its codes in Q, which may lie in S) go as
+  // 16-byte async copies, all in flight at once. ----
+  const bool in_async = !st.enc && a.in_type == kIoF32 &&
+                        a.in_scale == 1.f &&
+                        rows_async_ok(a.in, H, H);
+  const bool s_async = st.tail && !a.tail.st_mode &&
+                       rows_async_ok(a.s_in, a.ld_bu, 2 * a.tail.p);
+  if (in_async)
+    rows_async(R, ldh, static_cast<const float*>(a.in) + row0 * H, H, H,
+               rows);
+  if (s_async)
+    rows_async(S, a.ldp, a.s_in + row0 * a.ld_bu, a.ld_bu, 2 * a.tail.p,
+               rows);
+  if (st.enc) {
     const int ldx = round4(a.d_in);
     load_tile(X, ldx, a.in, a.in_type, row0, a.d_in, rows, 1.f);
     __syncthreads();
     encode_tile(X, ldx, a.enc, a.d_in, m, R, ldh, rows, Q, a.ldq);
-  } else {
+  } else if (!in_async) {
     load_tile(R, ldh, a.in, a.in_type, row0, H, rows, a.in_scale);
   }
+  if (in_async || s_async) cp_async_wait();
   __syncthreads();
 
   // ---- tail of a layer: its output h replaces R ----
-  if (a.has_tail) {
+  if (st.tail) {
     const LayerParams& lp = a.tail;
     const int P = lp.p;
     layer_norm(lp, m, R, Z, ldh, rows);
     // the states as the C-projection reads them: floats in S, or with
     // state16 their codes in Q (quant_tile's arithmetic)
     const int p4 = round4(P);
-    for (int i = tid; i < rows * P; i += blockDim.x) {
-      const int r = i / P, p = i % P;
-      const float* x = a.s_in + (row0 + r) * a.ld_bu + p;
+    for_tile(rows, P, [&](int r, int p) {
+      const float* x = s_async ? S + r * a.ldp + p
+                               : a.s_in + (row0 + r) * a.ld_bu + p;
       float sr, si, wr, wi;
       mixer_grid(lp, x[0], x[P], sr, si);
       mixer_read(lp, m.relu_state, sr, si, wr, wi);
@@ -156,48 +218,50 @@ engine_row_pass_kernel(const __grid_constant__ RowPass a) {
         S[r * a.ldp + p] = wr;
         S[r * a.ldp + P + p] = wi;
       }
-    }
+    });
     __syncthreads();
     if (lp.ut_mode) {   // the D term's operand: z on the quant_ut grid
       const float qmax = grid_max(lp.ut_bits);
-      for (int i = tid; i < rows * H; i += blockDim.x) {
-        float* z = Z + (i / H) * ldh + i % H;
+      for_tile(rows, H, [&](int r, int c) {
+        float* z = Z + r * ldh + c;
         *z = __fmul_rn(quant_code(*z, lp.ut_s, -qmax - 1.f, qmax), lp.ut_s);
-      }
+      });
       __syncthreads();
     }
     mixer_cproj(lp, H, Z, Y, S, ldh, a.ldp, rows, Q, a.ldq);
     __syncthreads();
-    if (a.y_out) {   // the mixer alone: y is the result
-      for (int i = tid; i < rows * H; i += blockDim.x)
-        a.y_out[row0 * H + i] = Y[(i / H) * ldh + i % H];
+    if (!st.finish) {   // the mixer alone: y is the result
+      for_tile(rows, H, [&](int r, int c) {
+        a.y_out[(row0 + r) * H + c] = Y[r * ldh + c];
+      });
       return;
     }
     layer_finish(lp, m, R, Z, Y, ldh, rows, Q, a.ldq);
     if (a.codes_out) {   // the layer's stream as stored: the last pass
-      for (int i = tid; i < rows * H; i += blockDim.x) {
-        const float h = R[(i / H) * ldh + i % H];
-        store_io(a.out, row0 * H + i, a.out_type,
+      for_tile(rows, H, [&](int r, int c) {
+        const float h = R[r * ldh + c];
+        store_io(a.out, (row0 + r) * H + c, a.out_type,
                  lp.has_rq ? quant_code(h, lp.rq_s, lp.rq_min, lp.rq_max)
                            : h);
-      }
+      });
       return;
     }
-    for (int i = tid; i < rows * H; i += blockDim.x) {
-      float* v = R + (i / H) * ldh + i % H;
+    for_tile(rows, H, [&](int r, int c) {
+      float* v = R + r * ldh + c;
       *v = stream_value(*v, lp, m.act_bf16);
-    }
+    });
     __syncthreads();
   }
 
   // ---- the stream for the next pass (in place of the rows read) ----
   if (a.stream_out) {
-    for (int i = tid; i < rows * H; i += blockDim.x)
-      a.stream_out[row0 * H + i] = R[(i / H) * ldh + i % H];
+    for_tile(rows, H, [&](int r, int c) {
+      a.stream_out[(row0 + r) * H + c] = R[r * ldh + c];
+    });
   }
 
   // ---- head of the next layer: bu straight to device memory ----
-  if (a.has_head) {
+  if (st.head) {
     const LayerParams& lp = a.head;
     layer_norm(lp, m, R, Z, ldh, rows);
     __syncthreads();
@@ -207,7 +271,7 @@ engine_row_pass_kernel(const __grid_constant__ RowPass a) {
   }
 
   // ---- decoder ----
-  if (a.dec.w)
+  if (st.dec)
     decode_tile(R, ldh, a.dec, H, a.d_out, a.out, a.out_type, row0, rows, Q,
                 a.ldq);
 }
@@ -288,17 +352,22 @@ engine_scan_pass_kernel(const __grid_constant__ ScanPass a) {
 
 // ------------------------------------------------------------------ host
 
-// The passes the last call launched, in order, with their grids' CTAs.
+// The passes the last call launched, in order, with their grids' CTAs
+// and, for a row pass, how many of its dense products ran on the tensor
+// cores and how many as fmaf tiles (integer dots are neither).
 struct Launched {
   const char* name;
   long long ctas;
+  int mma, fmaf;
 };
 constexpr int kMaxLaunches = 2 * 8 + 1;   // K6 at its most layers
 static Launched g_launched[kMaxLaunches];
 static int g_n_launched = 0;
 
-inline void record_launch(const char* name, long long ctas) {
-  if (g_n_launched < kMaxLaunches) g_launched[g_n_launched++] = {name, ctas};
+inline void record_launch(const char* name, long long ctas, int mma = 0,
+                          int fmaf = 0) {
+  if (g_n_launched < kMaxLaunches)
+    g_launched[g_n_launched++] = {name, ctas, mma, fmaf};
 }
 
 // Up to `cap` names and grid sizes of the last call's passes into `names`
@@ -309,6 +378,36 @@ inline int read_launched(const char** names, long long* ctas, int cap) {
     ctas[i] = g_launched[i].ctas;
   }
   return g_n_launched;
+}
+
+// The same passes' dense products on the tensor cores and as fmaf tiles.
+inline int read_launched_dots(int* mma, int* fmaf, int cap) {
+  for (int i = 0; i < g_n_launched && i < cap; ++i) {
+    mma[i] = g_launched[i].mma;
+    fmaf[i] = g_launched[i].fmaf;
+  }
+  return g_n_launched;
+}
+
+// The float-dot dense products a row pass runs (its stages, pass_stages),
+// by where tile_matmul puts them (dot_on_tensor_cores): the encoder, the
+// tail's C-projection, value and gate denses, the head's B-projection,
+// the decoder; each float where the device function that runs it takes
+// its float dot.
+inline void pass_dots(const RowPass& a, int* mma, int* fmaf) {
+  const PassStages st = pass_stages(a);
+  *mma = *fmaf = 0;
+  auto add = [&](bool float_dot, const DenseW& w) {
+    if (float_dot) ++*(dot_on_tensor_cores(w) ? mma : fmaf);
+  };
+  if (st.enc) add(a.enc.in_mode == kDotFloat, a.enc);
+  if (st.tail) add(!a.tail.st_mode, a.tail.wc);
+  if (st.finish && a.mode.glu == kFull)
+    add(a.tail.out1.in_mode == kDotFloat, a.tail.out1);
+  if (st.finish && a.mode.glu != kNone)
+    add(a.tail.out2.in_mode == kDotFloat, a.tail.out2);
+  if (st.head) add(!a.head.ut_mode, a.head.wb);
+  if (st.dec) add(a.dec.in_mode == kDotFloat, a.dec);
 }
 
 // Bytes a row of the code tile Q needs for the integer dots of one row
@@ -343,7 +442,9 @@ inline cudaError_t launch_row_pass(RowPass a, cudaStream_t st) {
   if (err != cudaSuccess) return err;
   const long long grid = (a.n_rows + kT - 1) / kT;
   engine_row_pass_kernel<<<(unsigned)grid, kThreads, smem, st>>>(a);
-  record_launch("engine_row_pass_kernel", grid);
+  int mma, fmaf;
+  pass_dots(a, &mma, &fmaf);
+  record_launch("engine_row_pass_kernel", grid, mma, fmaf);
   return cudaGetLastError();
 }
 

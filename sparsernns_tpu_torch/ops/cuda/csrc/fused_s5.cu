@@ -36,12 +36,13 @@
 // These are the device functions of the whole-layer serving kernels
 // (engine_layer.cu, engine_network.cu), in the same order, so the per-op
 // route and the stack route round alike, and a chunked call at chunk =
-// block equals one whole call bit for bit. Each product output is one fmaf
-// chain over k in ascending order from 0; each product and sum of the scan
-// is rounded on its own (scan_step_rn), as in the plain recurrence. Plain
-// f32 FMA on the CUDA cores, no tensor cores. Each launch is recorded with
-// its grid; fused_s5_launched hands the wrapper the record of the last
-// call.
+// block equals one whole call bit for bit. A product over int8 weights
+// with the engine's fragments runs on the tensor cores over exact bf16
+// planes, any other as fmaf chains over k in ascending order from 0
+// (engine_body.cuh tile_matmul); each product and sum of the scan is
+// rounded on its own (scan_step_rn), as in the plain recurrence. Each
+// launch is recorded with its grid; fused_s5_launched hands the wrapper
+// the record of the last call.
 //
 // Bound: operations. Per row 2*H*2P (B-projection) + 2*2P*H
 // (C-projection) = 196,608 flop at H=192, P=128; at B=8, L=3751 that is
@@ -109,4 +110,10 @@ extern "C" int fused_s5_fwd(
 extern "C" int fused_s5_launched(const char** names, long long* ctas,
                                  int cap) {
   return read_launched(names, ctas, cap);
+}
+
+// The same passes' dense products on the tensor cores and as fmaf tiles:
+// see engine::read_launched_dots.
+extern "C" int fused_s5_launched_dots(int* mma, int* fmaf, int cap) {
+  return read_launched_dots(mma, fmaf, cap);
 }

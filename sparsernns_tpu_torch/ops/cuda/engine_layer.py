@@ -57,7 +57,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -92,7 +92,8 @@ class Dense(NamedTuple):
     """A dense layer as the kernels take it."""
 
     #: QWeight-like: ``.data`` (in, out), ``.scale`` (None: float data),
-    #: ``.colsum`` (out,) int32 column sums of int8 data
+    #: ``.colsum`` (out,) int32 column sums of int8 data, ``.frags`` the
+    #: tensor cores' fragments of int8 data (:func:`attach_fragments`)
     kernel: Any
     bias: torch.Tensor
     #: (scale, bits) frozen grid of the input: the dot runs on its codes
@@ -168,6 +169,82 @@ def dense_plain(x: torch.Tensor, dense: Dense,
     return qdq(r + dense.bias, dense.out_spec)
 
 
+#: depth of one tensor-core k-step (mma m16n8k16) and the columns of one
+#: group of a warp's n-blocks in ``tile_matmul_mma`` (csrc/engine_body.cuh)
+MMA_K = 16
+MMA_GROUP = 32
+
+
+def mma_k_order(k0: int) -> List[int]:
+    """The k that each of mma's 16 k slots takes in the step from ``k0``:
+    lane t's slots 2t, 2t + 1, 2t + 8, 2t + 9 hold k0 + 4t .. k0 + 4t + 3,
+    in A and in B alike."""
+    return [k0 + 4 * ((s % 8) // 2) + s % 2 + 2 * (s // 8)
+            for s in range(MMA_K)]
+
+
+def mma_columns(group: int, j: int) -> List[int]:
+    """The output columns of n-block ``j`` (0..3) of a 32-column group, by
+    mma's n index: n -> 32 * group + 4n + j, so that lane (g, t) holds
+    columns 8t .. 8t + 7 of the group."""
+    return [MMA_GROUP * group + 4 * n + j for n in range(8)]
+
+
+def mma_fragments(w: torch.Tensor) -> torch.Tensor:
+    """An int8 weight (K, N) as the B operands of the kernel's tensor-core
+    products (``DenseW.wf``): bf16 codes (exact), K padded with zero codes
+    to a multiple of 16 and N to 32, laid out (column group, k-step, lane
+    (g, t), n-block j, register q, half h) so that each lane loads its
+    fragments of one group and step as 32 contiguous bytes; the half h of
+    register q of n-block j is the code at k = 16 * step + 4t + 2q + h,
+    column 32 * group + 4g + j (:func:`mma_k_order`, :func:`mma_columns`).
+    """
+    k, n = w.shape
+    steps, groups = -(-k // MMA_K), -(-n // MMA_GROUP)
+    wp = F.pad(w.to(torch.bfloat16),
+               (0, groups * MMA_GROUP - n, 0, steps * MMA_K - k))
+    # k -> (step, t, q, h), column -> (group, g, j)
+    return (wp.reshape(steps, 4, 2, 2, groups, 8, 4)
+            .permute(4, 0, 5, 1, 6, 2, 3).contiguous())
+
+
+def tile_mma_plain(a: torch.Tensor, w: torch.Tensor,
+                   acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain mirror of the kernel's tensor-core products of an int8 float
+    dot: ``a`` (M, K) float32, ``w`` (K, N) int8 -> (M, N). For each n-block
+    of each 32-column group (:func:`mma_columns`), each 16-deep k-step (K
+    padded with zeros) in the kernel's k order: the products of a's three
+    split planes (K7's ``block_sparse.split_f32``; lo, mid, hi) summed into
+    the step's sums, which are then added to the block's running sums, in
+    ``acc_dtype``.
+    Every plane product is exact; the tensor cores round each 16-term sum
+    their own way, so in float32 the mirror repeats the order, not the
+    bits, and in float64 (exact for operands of a bounded exponent range)
+    it is the float64 dot."""
+    from sparsernns_tpu_torch.ops.cuda.block_sparse import split_f32
+    m, k = a.shape
+    n = w.shape[1]
+    k_pad = -(-k // MMA_K) * MMA_K
+    n_pad = -(-n // MMA_GROUP) * MMA_GROUP
+    planes = [p.to(acc_dtype) for p in split_f32(
+        F.pad(a.to(torch.float32), (0, k_pad - k)))]
+    wp = F.pad(w.to(acc_dtype), (0, n_pad - n, 0, k_pad - k))
+    out = torch.zeros((m, n_pad), dtype=acc_dtype, device=a.device)
+    for group in range(n_pad // MMA_GROUP):
+        for j in range(4):
+            cols = mma_columns(group, j)
+            acc = torch.zeros((m, len(cols)), dtype=acc_dtype,
+                              device=a.device)
+            for k0 in range(0, k_pad, MMA_K):
+                ks = mma_k_order(k0)
+                step = torch.zeros_like(acc)
+                for p in reversed(planes):
+                    step += p[:, ks] @ wp[ks][:, cols]
+                acc += step
+            out[:, cols] = acc
+    return out[:, :n]
+
+
 def stream_value(h: torch.Tensor, layer, mode: LayerMode) -> torch.Tensor:
     """What the next reader of the stream sees of a layer's output h:
     storing the codes (or the activation type) and loading them again."""
@@ -206,6 +283,10 @@ class MixerOps(NamedTuple):
     cs_wb: Optional[torch.Tensor] = None      # (2P,) int32
     cs_wc_re: Optional[torch.Tensor] = None   # (H,) int32
     cs_wc_im: Optional[torch.Tensor] = None
+    #: the tensor cores' fragments of int8 W_b and W_c
+    #: (:func:`attach_fragments`); None: their products as fmaf chains
+    wb_frags: Optional[torch.Tensor] = None
+    wc_frags: Optional[torch.Tensor] = None
 
 
 def mixer_plain(z: torch.Tensor, layer, relu_state: bool, carry: Pair
@@ -444,7 +525,8 @@ def alloc_scratch(plan: PassPlan, device) -> Dict[str, torch.Tensor]:
 class DenseW(ctypes.Structure):
     """``engine::DenseW`` of ``csrc/engine_body.cuh``."""
 
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("w", "bias", "colsum")]
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("w", "bias", "colsum",
+                                                  "wf")]
                 + [(n, ctypes.c_float)
                    for n in ("scale", "acc_scale", "in_s", "out_s")]
                 + [(n, ctypes.c_int)
@@ -510,7 +592,10 @@ def _colsum(t: Optional[torch.Tensor], name: str, n: int, device) -> int:
 
 def pack_weight(w: torch.Tensor, scale: Optional[float],
                 bias: Optional[torch.Tensor], name: str, shape,
-                device) -> DenseW:
+                device, frags: Optional[torch.Tensor] = None) -> DenseW:
+    """A weight as the kernel's struct. An int8 weight's float dot runs on
+    the tensor cores where it comes with its fragments (``frags``,
+    :func:`attach_fragments`), else as fmaf chains."""
     if w.dtype not in WTYPES:
         raise ValueError(f"{name}: weight dtype {w.dtype}")
     out = DenseW()
@@ -520,6 +605,11 @@ def pack_weight(w: torch.Tensor, scale: Optional[float],
                      device))
     out.scale = 1.0 if scale is None else float(scale)
     out.wtype = WTYPES[w.dtype]
+    if frags is not None:
+        if w.dtype != torch.int8:
+            raise ValueError(f"{name}: fragments of a {w.dtype} weight")
+        out.wf = _ptr(frags, f"{name} fragments",
+                      fragments_shape(*shape), torch.bfloat16, device)
     return out
 
 
@@ -530,9 +620,10 @@ def pack_dense(dense: Optional[Dense], name: str, shape, device,
     if dense is None:
         return DenseW()
     kernel = dense.kernel
-    out = pack_weight(kernel.data, kernel.scale, dense.bias, name, shape,
-                      device)
     spec = int_dot_spec(kernel, dense.in_spec)
+    out = pack_weight(kernel.data, kernel.scale, dense.bias, name, shape,
+                      device, getattr(kernel, "frags", None)
+                      if spec is None else None)
     if spec is not None:
         s, bits = float(spec[0]), _bits(spec, f"{name} input")
         out.in_mode = dot_formula(shape[0] if k_dot is None else k_dot, bits)
@@ -550,7 +641,8 @@ def pack_dense(dense: Optional[Dense], name: str, shape, device,
 def pack_mixer(layer, device) -> LayerParams:
     """The mixer's operands of a layer (or a :class:`MixerOps`) as the
     kernel's struct, without the norm and the GLU (pointers into the
-    layer's own tensors, which must outlive the launch)."""
+    layer's own tensors, which must outlive the launch); int8 B- and
+    C-projections with their fragments on the tensor cores."""
     h = layer.w_b.shape[0]
     p = layer.w_b.shape[-1] // 2
     f32 = torch.float32
@@ -558,8 +650,10 @@ def pack_mixer(layer, device) -> LayerParams:
     lp.lam_re = _ptr(layer.lam[0], "lam_re", (p,), f32, device)
     lp.lam_im = _ptr(layer.lam[1], "lam_im", (p,), f32, device)
     lp.d = _ptr(layer.d, "d", (h,), f32, device)
-    lp.wb = pack_weight(layer.w_b, None, None, "w_b", (h, 2 * p), device)
-    lp.wc = pack_weight(layer.w_c, None, None, "w_c", (2 * p, h), device)
+    lp.wb = pack_weight(layer.w_b, None, None, "w_b", (h, 2 * p), device,
+                        layer.wb_frags)
+    lp.wc = pack_weight(layer.w_c, None, None, "w_c", (2 * p, h), device,
+                        layer.wc_frags)
     lp.wb_s_re, lp.wb_s_im = layer.wb_scales or (1.0, 1.0)
     lp.wc_s_re, lp.wc_s_im = layer.wc_scales or (1.0, 1.0)
     if layer.state_requant is not None:
@@ -599,6 +693,49 @@ def pack_mixer(layer, device) -> LayerParams:
         lp.yt_bits = _bits(layer.yt_requant, "yt_requant")
     lp.p = p
     return lp
+
+
+def attach_fragments(enc: Optional[Dense], layers: Sequence,
+                     dec: Optional[Dense], mode: LayerMode) -> bool:
+    """Lay out once the tensor cores' B fragments (:func:`mma_fragments`)
+    of every int8 weight of a serving network whose dot is a float dot:
+    the encoder, each layer's B- and C-projection and GLU denses, the
+    decoder. They are kept beside the weight (``kernel.frags``, a layer's
+    ``wb_frags`` / ``wc_frags``), where :func:`pack_dense` and
+    :func:`pack_mixer` hand them to the kernels: those products run on the
+    tensor cores, on every route that packs these weights. One rule for
+    the whole network: where any dense of it runs an integer dot (w8a8,
+    mxu16), none gets fragments (any it had are dropped), and its float
+    dots stay fmaf chains, bit for bit as before the tensor cores: the
+    order of a sum moves codes of the 8-bit grids after it by more than
+    the engine bar. Returns whether the network has fragments."""
+    used = {"full": 2, "half1": 1, "half2": 1, "none": 0}[mode.glu]
+    # the denses over a QWeight (a block-sparse weight is K7's, outside)
+    denses = [d for d in (enc, dec) if d is not None]
+    for layer in layers:
+        denses += glu_denses(layer)[:used]
+    denses = [d for d in denses if hasattr(d.kernel, "frags")]
+    tensor_cores = not (
+        any(layer.mixer_in16 is not None or layer.state16
+            for layer in layers)
+        or any(int_dot_spec(d.kernel, d.in_spec) is not None
+               for d in denses))
+
+    def frags(w: torch.Tensor) -> Optional[torch.Tensor]:
+        return (mma_fragments(w) if tensor_cores and w.dtype == torch.int8
+                else None)
+
+    for d in denses:
+        d.kernel.frags = frags(d.kernel.data)
+    for layer in layers:
+        layer.wb_frags = frags(layer.w_b)
+        layer.wc_frags = frags(layer.w_c)
+    return tensor_cores
+
+
+def fragments_shape(k: int, n: int) -> Tuple[int, ...]:
+    """The shape of :func:`mma_fragments` of a (k, n) weight."""
+    return (-(-n // MMA_GROUP), -(-k // MMA_K), 8, 4, 4, 2, 2)
 
 
 def pack_layer(layer, mode: LayerMode, device) -> LayerParams:
@@ -727,6 +864,22 @@ def read_launched(lib_name: str) -> List[Tuple[str, int]]:
     ctas = (ctypes.c_longlong * cap)()
     n = fn(names, ctas, cap)
     return [(names[i].decode(), ctas[i]) for i in range(min(n, cap))]
+
+
+def read_launched_dots(lib_name: str) -> List[Tuple[int, int]]:
+    """(on the tensor cores, as fmaf tiles): the float-dot dense products
+    of every pass of the last call of the library's entry, in the order of
+    :func:`read_launched` (0, 0 for a scan). A dense of int8 codes with
+    their fragments (:func:`attach_fragments`) runs on the tensor cores,
+    any other float dot as fmaf tiles; an integer dot is neither."""
+    fn = getattr(build.load(lib_name), f"{lib_name}_launched_dots")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    cap = 2 * 8 + 1
+    mma = (ctypes.c_int * cap)()
+    fmaf = (ctypes.c_int * cap)()
+    n = fn(mma, fmaf, cap)
+    return [(mma[i], fmaf[i]) for i in range(min(n, cap))]
 
 
 def launched() -> List[Tuple[str, int]]:

@@ -404,9 +404,11 @@ def fused_s5_engine_plain(u, lam: Pair, w_b, w_c, d, *, block_t: int,
                           wb_scales: Scales = None, wc_scales: Scales = None,
                           block_requant: Optional[BlockRequant] = None,
                           relu_state: bool = False,
-                          carry: Optional[Pair] = None):
+                          carry: Optional[Pair] = None,
+                          frags: Optional[Pair] = None):
     """Plain PyTorch version of :func:`fused_s5_engine`: the mixer block by
-    block (``engine_layer.mixer_plain``), the recurrence step by step."""
+    block (``engine_layer.mixer_plain``), the recurrence step by step; its
+    products are float dots whatever ``frags`` holds."""
     t = _engine_args(u, w_b, block_t, carry)
     ops = engine_layer.MixerOps(lam, w_b, w_c, d, wb_scales, wc_scales,
                                 block_requant)
@@ -431,16 +433,21 @@ def fused_s5_engine_cuda(u, lam: Pair, w_b, w_c, d, *, block_t: int,
                          wb_scales: Scales = None, wc_scales: Scales = None,
                          block_requant: Optional[BlockRequant] = None,
                          relu_state: bool = False,
-                         carry: Optional[Pair] = None):
+                         carry: Optional[Pair] = None,
+                         frags: Optional[Pair] = None):
     """Enqueue the kernel's passes. Same arguments and results as
     :func:`fused_s5_engine_plain`; u float32 or bfloat16, weights int8 /
-    int16 / float32, every tensor on ``u``'s CUDA device."""
+    int16 / float32, every tensor on ``u``'s CUDA device; ``frags`` the
+    tensor cores' fragments of int8 ``w_b`` and ``w_c``
+    (``engine_layer.attach_fragments``: the layer's ``wb_frags``,
+    ``wc_frags``), which put their products on the tensor cores."""
     global launches_engine, launches_engine_carry
     t = _engine_args(u, w_b, block_t, carry)
     if u.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"u dtype {u.dtype}: float32 or bfloat16")
+    wb_f, wc_f = frags or (None, None)
     ops = engine_layer.MixerOps(lam, w_b, w_c, d, wb_scales, wc_scales,
-                                block_requant)
+                                block_requant, wb_frags=wb_f, wc_frags=wc_f)
     out = _launch(u, ops, relu_state, t, carry)
     if u.shape[0] and u.shape[1]:
         if carry is None:
@@ -453,7 +460,8 @@ def fused_s5_engine_cuda(u, lam: Pair, w_b, w_c, d, *, block_t: int,
 def fused_s5_engine(u, lam: Pair, w_b, w_c, d, *, block_t: int,
                     wb_scales: Scales = None, wc_scales: Scales = None,
                     block_requant: Optional[BlockRequant] = None,
-                    relu_state: bool = False, carry: Optional[Pair] = None):
+                    relu_state: bool = False, carry: Optional[Pair] = None,
+                    frags: Optional[Pair] = None):
     """The serving engine's mixer, (B, L, H) f32 or bf16 -> (B, L, H) f32,
     or with ``carry`` ((B, P) pair) -> (y, new carry); with a carry L must
     be a multiple of the time block :func:`engine_block`. ``w_b`` (H, 2P)
@@ -461,10 +469,11 @@ def fused_s5_engine(u, lam: Pair, w_b, w_c, d, *, block_t: int,
     ``wb_scales`` / ``wc_scales`` (the conj-sym factor folded into the
     latter), or float32 without. ``block_requant`` (s_re, s_im, bits) puts
     every state on its frozen grid and the carry on it at every block end.
+    ``frags``: see :func:`fused_s5_engine_cuda`.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
     fn = fused_s5_engine_cuda if u.is_cuda else fused_s5_engine_plain
     return fn(u, lam, w_b, w_c, d, block_t=block_t, wb_scales=wb_scales,
               wc_scales=wc_scales, block_requant=block_requant,
-              relu_state=relu_state, carry=carry)
+              relu_state=relu_state, carry=carry, frags=frags)

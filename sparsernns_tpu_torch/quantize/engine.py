@@ -71,6 +71,7 @@ from sparsernns_tpu_torch.ops.cuda.block_sparse import (BlockSparseWeight,
                                                         block_sparse_matmul,
                                                         pack_block_sparse)
 from sparsernns_tpu_torch.ops.cuda.engine_layer import (Dense, LayerMode,
+                                                        attach_fragments,
                                                         dense_plain,
                                                         engine_layer,
                                                         int_dot_spec, pad128,
@@ -120,12 +121,14 @@ def _pow2_quant_values(w: np.ndarray, bits: Optional[int]) -> np.ndarray:
 @dataclasses.dataclass
 class QWeight:
     """Integer-stored weight + static per-tensor pow2 scale (None: the
-    data is float), and the int32 column sums of int8 data (the
-    two-plane integer dot's correction row)."""
+    data is float), the int32 column sums of int8 data (the two-plane
+    integer dot's correction row), and the tensor cores' fragments of int8
+    data under a float dot (``engine_layer.attach_fragments``)."""
 
     data: torch.Tensor
     scale: Optional[float] = None
     colsum: Optional[torch.Tensor] = None
+    frags: Optional[torch.Tensor] = None
 
     @property
     def shape(self):
@@ -176,6 +179,10 @@ class _LayerPack:
     cs_wb: Optional[torch.Tensor] = None
     cs_wc_re: Optional[torch.Tensor] = None
     cs_wc_im: Optional[torch.Tensor] = None
+    #: the tensor cores' fragments of int8 W_b and W_c
+    #: (``engine_layer.attach_fragments``); None: fmaf chains
+    wb_frags: Optional[torch.Tensor] = None
+    wc_frags: Optional[torch.Tensor] = None
 
     @property
     def p(self) -> int:
@@ -571,6 +578,10 @@ class W8A16Engine:
         #: the whole-layer route applies and the layer limit allows
         self._network_ok = (route != "xla"
                             and self._fused_network_eligible())
+        #: whether the kernels run the int8 float dots on the tensor cores
+        #: (every route that launches them reads the same fragments)
+        self.tensor_cores = attach_fragments(self._enc, self.layers,
+                                             self._dec, self.mode)
 
     def _demote_xla(self) -> None:
         """``route="xla"`` runs no integer dot anywhere: every dense falls
@@ -789,7 +800,8 @@ class W8A16Engine:
                     block_t=block_t, wb_scales=layer.wb_scales,
                     wc_scales=layer.wc_scales,
                     block_requant=layer.state_requant,
-                    relu_state=self.cfg.relufication, carry=carry)
+                    relu_state=self.cfg.relufication, carry=carry,
+                    frags=(layer.wb_frags, layer.wc_frags))
                 return (out, None) if carry is None else out
 
             return kernel_mixer

@@ -62,6 +62,7 @@ class Runner:
         self.sample = set(int(i) for i in rng(ctx.seed, "sample").choice(
             SAMPLE_OF, SAMPLED, replace=False))
         self.kept: Dict[int, tuple] = {}
+        self._packed = None
         ctx.faults.apply_denoise(self)
 
     def _float_model(self, cfg):
@@ -121,15 +122,16 @@ class Runner:
 
     def step(self, i: int) -> None:
         rows = self.ctx.schedule[i]
-        mask, audio = self.request(self.ctx.noisy[rows])
+        mask, audio = self.request(self.ctx.data["noisy"][rows])
         self.bad += (~torch.isfinite(audio).all()).to(torch.int64)
         if i in self.sample:
             self.kept[i] = (mask, audio)
 
     def setup(self) -> None:
         """Two requests outside the window: they build every kernel."""
+        noisy = self.ctx.data["noisy"]
         for i in range(2):
-            self.request(self.ctx.noisy[self.ctx.schedule[-1 - i]])
+            self.request(noisy[self.ctx.schedule[-1 - i]])
 
     def failed(self) -> int:
         return int(self.bad)
@@ -141,15 +143,23 @@ class Runner:
 
     # ------------------------------------------------------------ check
 
+    def packed_reference(self):
+        """The reference engine's calibration and packing (made once)."""
+        if self._packed is None:
+            ctx = self.ctx
+            scales = ref_engine.calibrate(ctx.weights, ctx.calibration_inputs)
+            self._packed = ref_engine.pack(ctx.weights, scales)
+        return self._packed
+
     def reference(self, rows, control: Optional[str] = None):
         """(mask, audio) of the reference on ``rows``; with ``control``
         the control: float in TF32, the engine with float8 activations."""
         ctx = self.ctx
-        noisy = ctx.noisy[rows]
+        noisy = ctx.data["noisy"][rows]
         if ctx.config["serve"] == "float":
             return ndns.denoise(ctx.weights, noisy,
                                 prec="tf32" if control else "fp32")
-        packed = ctx.packed_reference()
+        packed = self.packed_reference()
         return ref_engine.denoise(packed, noisy,
                                   ctx.config["engine"]["block_t"],
                                   act="fp8" if control else "bf16")

@@ -79,7 +79,8 @@ class Runner:
     def step(self, i: int) -> None:
         """Enqueue step ``i`` (no synchronize)."""
         rows = self.ctx.schedule[i, self.rows]
-        noisy, clean = self.ctx.noisy[rows], self.ctx.clean[rows]
+        data = self.ctx.data
+        noisy, clean = data["noisy"][rows], data["clean"][rows]
         with record_function("bench.stft"):
             feats = self.prep(noisy, clean)
         with record_function("bench.train_step"):
@@ -119,7 +120,8 @@ class Runner:
         batches = []
         for i in range(CHECK_STEPS):
             rows = ctx.schedule[i]
-            batches.append((ctx.noisy[rows], ctx.clean[rows]))
+            batches.append((ctx.data["noisy"][rows],
+                            ctx.data["clean"][rows]))
         return batches
 
     def reference(self, prec: str = "fp32"):

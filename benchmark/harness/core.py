@@ -45,7 +45,9 @@ def forbidden_modules() -> List[str]:
 
 @dataclasses.dataclass
 class Ctx:
-    """What a rank's entry and the check see of the run."""
+    """What a rank's entry and the check see of the run: the cell, its
+    configuration and mix, and what the configuration's task made for it
+    (``benchmark/tasks/<task>.py``)."""
 
     seed: int
     rank: int
@@ -56,21 +58,12 @@ class Ctx:
     mix: dict
     shape: object
     weights: Dict[str, object]
-    noisy: object
-    clean: object
+    #: the task's pool, by name (rows first), which ``schedule`` indexes
+    data: Dict[str, object]
     schedule: object
     calibration_inputs: list
     faults: Faults
     mesh: object = None
-    _packed: object = None
-
-    def packed_reference(self):
-        """The reference engine's calibration and packing (made once)."""
-        if self._packed is None:
-            from benchmark.reference import engine
-            scales = engine.calibrate(self.weights, self.calibration_inputs)
-            self._packed = engine.pack(self.weights, scales)
-        return self._packed
 
 
 def _overlay(cell: dict, sizes: Optional[dict]) -> dict:
@@ -81,7 +74,8 @@ def _overlay(cell: dict, sizes: Optional[dict]) -> dict:
         return cell
     cell = dict(cell)
     conf = dict(cell["config_data"])
-    conf["recipe"] = {**conf["recipe"], **sizes.get("recipe", {})}
+    if "recipe" in sizes:
+        conf["recipe"] = {**conf["recipe"], **sizes["recipe"]}
     conf.update(sizes.get("config", {}))
     cell["config_data"] = conf
     cell["mix"] = {**cell["mix"], **sizes.get("mix", {})}
@@ -89,38 +83,23 @@ def _overlay(cell: dict, sizes: Optional[dict]) -> dict:
 
 
 def prepare(cell: dict, seed: int, device, rank: int, ranks: int,
-            faults: Faults, mesh=None) -> Ctx:
-    """Inputs and weights of the run, made on ``device`` from ``seed``:
-    the same on every rank."""
+            faults: Faults, mesh=None, bench_dir: str = spec.HERE) -> Ctx:
+    """Inputs and weights of the run, made on ``device`` from ``seed`` by
+    the configuration's task and the mix's generator, each found by name
+    in ``bench_dir``: the same on every rank."""
     import torch
 
-    from benchmark.cost.model import Shape
-    from benchmark.reference import ndns
-    from benchmark.traffic import synthetic_ndns as gen
     conf, mix = cell["config_data"], cell["mix"]
-    recipe = {**conf["defaults"], **conf["recipe"]}
     if mix.get("ranks", 1) != ranks:
         raise ValueError(f"mix {cell['traffic']} has {mix.get('ranks', 1)} "
                          f"ranks, the cell {ranks}")
-    noisy, clean = gen.make_pool(mix, seed, device)
+    gen = spec.generator(mix["generator"], bench_dir)
+    made = spec.task(conf["task"], bench_dir).prepare(cell, seed, device, gen)
     sched = torch.as_tensor(gen.schedule(mix, seed, SCHEDULE_STEPS),
                             device=device)
-    ns = conf["norm_stats"]
-    stats_in = ndns.features(noisy[:ns["clips"]])[0][:, :ns["frames"]]
-    from benchmark.harness.weights import make_weights
-    weights = make_weights(recipe, conf["d_io"], conf["init"], seed, device,
-                           stats_in)
-    cal = []
-    if "calibration" in conf:
-        feats = ndns.features(noisy[:conf["calibration"]["clips"]])[0]
-        cal = [feats[:, a:b].contiguous()
-               for a, b in conf["calibration"]["slices"]]
-    frames = noisy.shape[-1] // ndns.HOP + 1
-    p = recipe["ssm_size_base"] // 2
-    shape = Shape(mix["batch"], frames, conf["d_io"], recipe["d_model"], p,
-                  recipe["n_layers"])
-    return Ctx(seed, rank, ranks, device, cell, conf, mix, shape, weights,
-               noisy, clean, sched, cal, faults, mesh)
+    return Ctx(seed, rank, ranks, device, cell, conf, mix, made.shape,
+               made.weights, made.data, sched, made.calibration_inputs,
+               faults, mesh)
 
 
 def _sync(device) -> None:
@@ -201,7 +180,8 @@ def run_rank(cell_name: str, seed: int, seconds: float, trace: bool,
     if "readings" in opts:
         return _readings(cell, opts["readings"], bench_dir, device, rank,
                          ranks, mesh, agree, gather)
-    ctx = prepare(cell, seed, device, rank, ranks, faults, mesh)
+    ctx = prepare(cell, seed, device, rank, ranks, faults, mesh,
+                  bench_dir)
     entry = spec.entry(cell["entry"], bench_dir)
     runner = entry.Runner(ctx)
     runner.setup()
@@ -291,7 +271,8 @@ def _readings(cell: dict, how: dict, bench_dir: str, device, rank: int,
         row = {"seed": seed}
         for fault in [None] + list(how.get("faults", ())):
             faults = Faults(fault)
-            ctx = prepare(cell, seed, device, rank, ranks, faults, mesh)
+            ctx = prepare(cell, seed, device, rank, ranks, faults, mesh,
+                          bench_dir)
             runner = entry.Runner(ctx)
             runner.setup()
             if runner.min_steps:

@@ -1,7 +1,8 @@
 """The benchmark's files, found by name: ``BENCHMARK.json`` at the root of
 the checkout, ``benchmark/workloads/<cell>.json``, the configuration and
-the traffic mix the cell names, the entry module it drives and the metric
-reader of each metric name."""
+the traffic mix the cell names, the configuration's task module, the
+mix's generator, the entry module the cell drives and the metric reader
+of each metric name."""
 
 from __future__ import annotations
 
@@ -63,6 +64,18 @@ def entry(name: str, bench_dir: str = HERE):
     """The module ``benchmark/entries/<name>.py`` of the checkout at
     ``bench_dir``."""
     return _module("entries", name, bench_dir)
+
+
+def task(name: str, bench_dir: str = HERE):
+    """The module ``benchmark/tasks/<name>.py``: a configuration's
+    ``task``."""
+    return _module("tasks", name, bench_dir)
+
+
+def generator(name: str, bench_dir: str = HERE):
+    """The module ``benchmark/traffic/<name>.py``: a mix's ``generator``
+    (``make_pool``, ``schedule``)."""
+    return _module("traffic", name, bench_dir)
 
 
 def _module(sub: str, name: str, bench_dir: str):

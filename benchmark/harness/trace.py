@@ -5,20 +5,33 @@ readers take from it.
 chrome trace it exports (to the run's ``TMPDIR``, deleted once read, a few
 MB) gives the device operations (kernels, copies, fills) with their start
 and length on the card, the host's launches that made them (linked by
-CUPTI's correlation id), and the benchmark's own spans
-(``torch.profiler.record_function("bench.<name>")``) on the host. All
-times are on one clock, in seconds.
+CUPTI's correlation id), the benchmark's own spans
+(``torch.profiler.record_function("bench.<name>")``) on the host, and the
+program's spans (``sparsernns.<name>``, opened by the program's
+``utils/trace.span`` while a profiler records). All times are on one
+clock, in seconds.
+
+The program's spans are kept apart (``Trace.program``): the benchmark's
+spans alone label idle gaps (:func:`host_span_at`) and feed
+:func:`ops_in_spans`, and two traces compare equal where their
+operations, benchmark spans, window and steps do. Readers of the
+program's spans take them through :func:`span_host_seconds` and
+:func:`span_device_seconds`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import fnmatch
 import json
 import os
 import tempfile
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPAN_PREFIX = "bench."
+#: the prefix of the program's spans (``sparsernns_tpu_torch/utils/trace``)
+PROGRAM_PREFIX = "sparsernns."
 
 
 class Op(NamedTuple):
@@ -34,16 +47,20 @@ class Span(NamedTuple):
     end: float
 
 
-class Trace(NamedTuple):
+@dataclasses.dataclass(frozen=True)
+class Trace:
     ops: List[Op]                # device operations in the window
     spans: List[Span]            # the benchmark's spans
     window: Tuple[float, float]  # the traced stretch on the host clock
     steps: int                   # steps or requests in the stretch
+    #: the program's host spans in the window, any thread, by start
+    program: List[Span] = dataclasses.field(default_factory=list,
+                                            compare=False)
 
 
 def parse(events: List[dict], steps: int) -> Trace:
     launches: Dict[int, float] = {}
-    spans, ops = [], []
+    spans, ops, program = [], [], []
     for e in events:
         if e.get("ph") != "X":
             continue
@@ -54,6 +71,10 @@ def parse(events: List[dict], steps: int) -> Trace:
             launches[corr] = ts
         elif cat == "user_annotation" and e["name"].startswith(SPAN_PREFIX):
             spans.append(Span(e["name"][len(SPAN_PREFIX):], ts, ts + dur))
+        elif cat == "user_annotation" and e["name"].startswith(
+                PROGRAM_PREFIX):
+            program.append(Span(e["name"][len(PROGRAM_PREFIX):], ts,
+                                ts + dur))
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
             corr = (e.get("args") or {}).get("correlation")
@@ -66,8 +87,10 @@ def parse(events: List[dict], steps: int) -> Trace:
     w0, w1 = outer[0].start, outer[0].end
     ops = [o for o in ops if o.start >= w0 and o.start + o.dur <= w1]
     ops.sort(key=lambda o: o.start)
+    program = sorted((s for s in program if w0 <= s.start <= w1),
+                     key=lambda s: s.start)
     return Trace(ops, [s for s in spans if s.name != "trace"], (w0, w1),
-                 steps)
+                 steps, program)
 
 
 def record(fn, steps: int) -> Trace:
@@ -96,16 +119,20 @@ def record(fn, steps: int) -> Trace:
     return parse(events, steps)
 
 
-def busy_intervals(ops: List[Op]) -> List[Tuple[float, float]]:
-    """The union of the operations' intervals, in order."""
+def _union(intervals) -> List[Tuple[float, float]]:
+    """The union of (start, end) intervals, in order."""
     out: List[Tuple[float, float]] = []
-    for o in sorted(ops, key=lambda o: o.start):
-        s, e = o.start, o.start + o.dur
+    for s, e in sorted(intervals):
         if out and s <= out[-1][1]:
             out[-1] = (out[-1][0], max(out[-1][1], e))
         else:
             out.append((s, e))
     return out
+
+
+def busy_intervals(ops: List[Op]) -> List[Tuple[float, float]]:
+    """The union of the operations' intervals, in order."""
+    return _union((o.start, o.start + o.dur) for o in ops)
 
 
 def busy_seconds(tr: Trace) -> float:
@@ -164,11 +191,44 @@ def ops_seconds(tr: Trace, pred) -> float:
     return sum(o.dur for o in tr.ops if pred(base_name(o.name)))
 
 
+def _launched_in(tr: Trace, intervals) -> float:
+    """Device seconds of the operations launched inside ``intervals``."""
+    return sum(o.dur for o in tr.ops if o.launch is not None and any(
+        s <= o.launch <= e for s, e in intervals))
+
+
 def ops_in_spans(tr: Trace, names) -> float:
     """Device seconds of the operations launched inside spans ``names``."""
-    chosen = [s for s in tr.spans if s.name in names]
-    return sum(o.dur for o in tr.ops if o.launch is not None and any(
-        s.start <= o.launch <= s.end for s in chosen))
+    return _launched_in(tr, [(s.start, s.end) for s in tr.spans
+                             if s.name in names])
+
+
+Patterns = Union[str, Tuple[str, ...]]
+
+
+def _program_intervals(tr: Trace, patterns: Patterns
+                       ) -> List[Tuple[float, float]]:
+    """The union, in order, of the program's spans whose name matches
+    ``patterns``: a name (``"train.forward"``) or an ``fnmatch`` pattern
+    (``"kernel.*"``, ``"*upload"``), or a tuple of them. Nested or
+    overlapping spans, also of other threads, count once."""
+    if isinstance(patterns, str):
+        patterns = (patterns,)
+    return _union((s.start, s.end) for s in tr.program
+                  if any(fnmatch.fnmatchcase(s.name, p) for p in patterns))
+
+
+def span_host_seconds(tr: Trace, patterns: Patterns) -> float:
+    """Host seconds the traced stretch spent inside the program's spans
+    that match ``patterns`` (:func:`_program_intervals`)."""
+    return sum(e - s for s, e in _program_intervals(tr, patterns))
+
+
+def span_device_seconds(tr: Trace, patterns: Patterns) -> float:
+    """Device seconds of the operations launched while a program span that
+    matches ``patterns`` was open (by each operation's launch time, from
+    any thread: the backward's kernels are launched from autograd's)."""
+    return _launched_in(tr, _program_intervals(tr, patterns))
 
 
 def breakdown(tr: Trace, top: int = 10) -> dict:

@@ -1,0 +1,13 @@
+"""fwd_ms.train: device milliseconds a step of the operations launched
+while the program's ``train.forward`` span was open (``train/steps.py``:
+the model's forward and the loss), from the trace."""
+
+from benchmark.harness import trace
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None:
+        return None
+    t = trace.span_device_seconds(tr, "train.forward")
+    return t / tr.steps * 1e3 if t > 0 else None

@@ -4,7 +4,7 @@ Written from the published model (S5: Smith et al., arXiv:2208.04933; the
 N-DNS recipe of arXiv:2502.01330), in float32 with TF32 off, with no kernel,
 cache or fused route. It imports nothing of the measured program. Weights
 arrive as a dict of tensors under the names the benchmark gives them
-(``benchmark/harness/weights.py``).
+(``benchmark/tasks/ndns.py``).
 
 The model, per clip of L frames of F = 257 magnitudes (time-major):
 

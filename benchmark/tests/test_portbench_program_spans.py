@@ -3,7 +3,8 @@
 mirrors them, on the device) in a trace beside the benchmark's
 ``bench.*`` spans: ``trace.parse``, ``breakdown`` and every metric
 reader give on a fixed event list exactly what they give on the same
-list without them."""
+list without them; the readers of the program's spans (``source``
+``program_span``) read nothing without them."""
 
 import glob
 import os
@@ -18,6 +19,8 @@ from benchmark.harness import trace as htrace
 H100 = "NVIDIA H100 80GB HBM3"
 METRICS = sorted(os.path.basename(p)[:-3] for p in glob.glob(
     os.path.join(spec.HERE, "metrics", "*.py")))
+PROGRAM_READERS = {m["name"] for m in spec.manifest()["per_layer"]
+                   if m["source"] == "program_span"}
 
 
 def _x(name, cat, ts, dur, corr=None, tid=1):
@@ -125,7 +128,10 @@ def test_parse_keeps_spans_ops_and_window(traces):
 def test_every_reader_reads_the_same(traces, metric):
     without, with_program = traces
     read = spec.reader(metric)
-    assert read(_ctx(with_program)) == read(_ctx(without))
+    if metric in PROGRAM_READERS:
+        assert read(_ctx(without)) is None
+    else:
+        assert read(_ctx(with_program)) == read(_ctx(without))
 
 
 def test_the_readers_read_something(traces):

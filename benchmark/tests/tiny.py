@@ -1,15 +1,28 @@
 """Runs of the benchmark's cells on the CPU at small shapes, for the
-tests: the harness without its look for a card."""
+tests: the harness without its look for a card. The small shapes are the
+``TINY`` of the cell's configuration's task (``benchmark/tasks/<task>.py``)."""
 
-#: small shapes of every cell for the CPU: the recipe's structure at
-#: width 16, 8 states, 2 layers; clips of 0.2 s (26 frames); engine block 8
-TINY = {"recipe": {"d_model": 16, "ssm_size_base": 16, "blocks": 2,
-                   "n_layers": 2},
-        "mix": {"clip_seconds": 0.2, "pool_clips": 48, "batch": 4},
-        "config": {"norm_stats": {"clips": 4, "frames": 16},
-                   "calibration": {"clips": 4, "slices": [[0, 10], [10, 20]]},
-                   "engine": {"block_t": 8, "act_dtype": "bfloat16",
-                              "route": "auto"}}}
+import os
+
+
+def _bench_dir(root=None):
+    from benchmark.harness.spec import HERE
+    return HERE if root is None else os.path.join(root, "benchmark")
+
+
+def tiny_sizes(cell, root=None):
+    """The ``TINY`` of ``cell``'s task, in the checkout at ``root``."""
+    from benchmark.harness import spec
+    bench_dir = _bench_dir(root)
+    task = spec.cell(cell, bench_dir)["config_data"]["task"]
+    return spec.task(task, bench_dir).TINY
+
+
+def tiny_cell(cell, root=None):
+    """``cell``'s files with its task's small shapes laid over them."""
+    from benchmark.harness import core, spec
+    return core._overlay(spec.cell(cell, _bench_dir(root)),
+                         tiny_sizes(cell, root))
 
 
 def tiny_run(cell, seed=20260101, fault=None, root=None, trace=False,
@@ -18,7 +31,7 @@ def tiny_run(cell, seed=20260101, fault=None, root=None, trace=False,
     import time
 
     from benchmark.harness import core
-    opts = {"device": "cpu", "sizes": TINY, "fault": fault}
+    opts = {"device": "cpu", "sizes": tiny_sizes(cell, root), "fault": fault}
     if root is not None:
         opts["root"] = root
     if readings is not None:

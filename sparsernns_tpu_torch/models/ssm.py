@@ -69,6 +69,7 @@ from sparsernns_tpu_torch.quantize.qat import (QuantizedOps, act_qat_bits,
 from sparsernns_tpu_torch.quantize.static import (FakeQuant,
                                                   FakeQuantComplex,
                                                   quant_dequant)
+from sparsernns_tpu_torch.utils.trace import span
 
 
 def discretize_zoh(lam: Pair, b: Pair, delta: torch.Tensor
@@ -364,44 +365,50 @@ class S5SSM(nn.Module):
         operands. ``d`` is D, or a folded BatchNorm's, whose ``b_bias`` /
         ``d_bias`` add to the B-projection and to the output. Returns (ys,
         the final state) with a carry, else (ys, the states the
-        C-projection reads)."""
+        C-projection reads). The three parts run inside the spans
+        ``mixer.bproj``, ``mixer.scan`` (both directions of a
+        bidirectional mixer) and ``mixer.cproj`` (with the D term)."""
         cfg = self.q_config
-        bu_cat = fake_quant(u, cfg.ssm_act_precision) @ w_b
-        bu = (bu_cat[..., :self.p], bu_cat[..., self.p:])
-        if b_bias is not None:
-            bu = (bu[0] + b_bias[0], bu[1] + b_bias[1])
+        with span("mixer.bproj"):
+            bu_cat = fake_quant(u, cfg.ssm_act_precision) @ w_b
+            bu = (bu_cat[..., :self.p], bu_cat[..., self.p:])
+            if b_bias is not None:
+                bu = (bu[0] + b_bias[0], bu[1] + b_bias[1])
         mode = (self.scan_mode
                 if self.scan_mode in ("associative", "sequential", "blocked")
                 else "kernel")
         had_aa, had_ax = self.q_ops.a_had
         kw = dict(mode=mode, qat_bits=act_qat_bits(cfg), block_t=self.block_t,
                   had_aa=had_aa, had_ax=had_ax)
-        if self.scan_mode == "sp":
-            if self.bidirectional or carry is not None:
-                raise NotImplementedError(
-                    "sequence-parallel scan does not support "
-                    "bidirectional or streaming carries")
-            from sparsernns_tpu_torch.parallel.seqscan import seq_chunk_scan
-            xs = seq_chunk_scan(lam_bar, bu, self.seq_group)
-        else:
-            xs = diag_ssm_scan(lam_bar, bu, carry_init=carry, **kw)
-        final = None
-        if carry is not None:
-            final = (xs[0][..., -1, :], xs[1][..., -1, :])
-        if self.relufication:
-            xs = self._state_act(xs)
-        if self.bidirectional:
-            # as in the JAX package, the reverse states are not relufied
-            # before the concatenation
-            rev = diag_ssm_scan(lam_bar, bu, reverse=True, **kw)
-            xs = (torch.cat([xs[0], rev[0]], dim=-1),
-                  torch.cat([xs[1], rev[1]], dim=-1))
-        bits = cfg.ssm_act_precision
-        xs_cat = torch.cat([fake_quant(xs[0], bits), fake_quant(xs[1], bits)],
-                           dim=-1)
-        ys = xs_cat @ self._w_c() + self.q_ops.d_had(d, u)
-        if d_bias is not None:
-            ys = ys + d_bias
+        with span("mixer.scan"):
+            if self.scan_mode == "sp":
+                if self.bidirectional or carry is not None:
+                    raise NotImplementedError(
+                        "sequence-parallel scan does not support "
+                        "bidirectional or streaming carries")
+                from sparsernns_tpu_torch.parallel.seqscan import \
+                    seq_chunk_scan
+                xs = seq_chunk_scan(lam_bar, bu, self.seq_group)
+            else:
+                xs = diag_ssm_scan(lam_bar, bu, carry_init=carry, **kw)
+            final = None
+            if carry is not None:
+                final = (xs[0][..., -1, :], xs[1][..., -1, :])
+            if self.relufication:
+                xs = self._state_act(xs)
+            if self.bidirectional:
+                # as in the JAX package, the reverse states are not
+                # relufied before the concatenation
+                rev = diag_ssm_scan(lam_bar, bu, reverse=True, **kw)
+                xs = (torch.cat([xs[0], rev[0]], dim=-1),
+                      torch.cat([xs[1], rev[1]], dim=-1))
+        with span("mixer.cproj"):
+            bits = cfg.ssm_act_precision
+            xs_cat = torch.cat([fake_quant(xs[0], bits),
+                                fake_quant(xs[1], bits)], dim=-1)
+            ys = xs_cat @ self._w_c() + self.q_ops.d_had(d, u)
+            if d_bias is not None:
+                ys = ys + d_bias
         return ys, (xs if carry is None else final)
 
     def _state_act(self, xs: Pair) -> Pair:

@@ -282,19 +282,23 @@ def make_classification_train_step(model: torch.nn.Module,
             raise ValueError("the state holds another model than the step")
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        logits = _call(model, _forward_params(model, state.pruner,
-                                              state.masks, state.mesh),
-                       inputs, state.generator)
-        loss = cross_entropy_loss(logits, labels)
-        loss.backward()
-        metrics, norms = _reduce_and_norms(state, {
-            "loss": loss.detach(),
-            "accuracy": accuracy(logits.detach(), labels)})
-        if static_quant:
-            zero_scale_gradients(model)
-        optimizer_step(state.optimizer, state.step, norms)
-        if state.pruner is not None:
-            state.pruner.post_gradient_update(model, state.masks)
+        with span("train.forward"):
+            logits = _call(model, _forward_params(model, state.pruner,
+                                                  state.masks, state.mesh),
+                           inputs, state.generator)
+            loss = cross_entropy_loss(logits, labels)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.reduce"):
+            metrics, norms = _reduce_and_norms(state, {
+                "loss": loss.detach(),
+                "accuracy": accuracy(logits.detach(), labels)})
+        with span("train.optimizer"):
+            if static_quant:
+                zero_scale_gradients(model)
+            optimizer_step(state.optimizer, state.step, norms)
+            if state.pruner is not None:
+                state.pruner.post_gradient_update(model, state.masks)
         state.step += 1
         return state, metrics
 

@@ -17,7 +17,8 @@ from sparsernns_tpu_torch.ops import stft
 from sparsernns_tpu_torch.serve.streaming import (ContinuousBatcher,
                                                   StreamingDenoiser)
 from sparsernns_tpu_torch.train import loop
-from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+from sparsernns_tpu_torch.train.steps import (
+    make_classification_train_step, make_ndns_train_step)
 from sparsernns_tpu_torch.utils import profiling, trace
 from sparsernns_tpu_torch.utils.config import RunConfig
 
@@ -127,6 +128,34 @@ def _train_once(profiled: bool, microbatch=None):
     return values, spans
 
 
+def _classify_once(profiled: bool):
+    """One step of a bidirectional classification model (the Path-X
+    configuration's route: BatchNorm, ``complex_normal`` C, the mixer's
+    B-projection, K1 both ways and C-projection), with or without a
+    profiler."""
+    cfg = _config(dataset="synthetic-classification", bidirectional=True,
+                  C_init="complex_normal", opt_config="BfastandCdecay")
+    model = loop.build_model(cfg, 1, 2, training=True, device="cpu",
+                             seed=3)
+    state = loop.create_run_state(cfg, model, steps_per_epoch=4)
+    state.generator = torch.Generator().manual_seed(11)
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand((4, 40, 1), generator=g) * 2 - 1
+    y = torch.tensor([0, 1, 1, 0])
+    step = make_classification_train_step(model)
+
+    def run():
+        return step(state, x, y)[1]
+
+    if profiled:
+        metrics, spans = _traced(run)
+    else:
+        metrics, spans = run(), []
+    values = {f"metric/{k}": v for k, v in metrics.items()}
+    values.update({f"param/{k}": v for k, v in model.state_dict().items()})
+    return values, spans
+
+
 def _stream_once(profiled: bool):
     model = loop.build_model(_config(n_layers=1), D_IO, D_IO, device="cpu",
                              seed=4)
@@ -162,11 +191,13 @@ def _flat(out) -> dict:
 
 
 @pytest.mark.parametrize("path", ["stft_splitter", "stft_mixer_tm",
-                                  "train_step", "stream_process"])
+                                  "train_step", "stream_process",
+                                  "classify_step"])
 def test_outputs_bit_equal_with_profiler_on_and_off(path):
     run = {"stft_splitter": _splitter, "stft_mixer_tm": _mixer,
            "train_step": lambda on: _train_once(on),
-           "stream_process": _stream_once}[path]
+           "stream_process": _stream_once,
+           "classify_step": _classify_once}[path]
     off, _ = run(False)
     on, spans = run(True)
     assert spans, "the profiled run recorded no span"
@@ -220,6 +251,24 @@ def test_train_step_phases_in_order(microbatch):
     assert len(istft) == chunks
     assert all(any(_inside(s, f) for f in fwd) for s in istft)
     assert [s for s in spans if s[0] == "stft.upload"][-1][2] <= fwd[0][1]
+
+
+def test_classification_step_phases_and_mixer_spans():
+    """The step's four phases in order; in the forward, per layer, the
+    mixer's B-projection, scans (both directions) and C-projection in
+    order, nested in ``train.forward``; none outside it (the backward's
+    kernels are autograd's)."""
+    _, spans = _classify_once(True)
+    fwd, bwd, reduce, opt = (_one(spans, f"train.{n}") for n in
+                             ("forward", "backward", "reduce", "optimizer"))
+    assert fwd[2] <= bwd[1] and bwd[2] <= reduce[1] and reduce[2] <= opt[1]
+    mixer = [s for s in spans if s[0].startswith("mixer.")]
+    layers = 2
+    assert _names(mixer) == ["mixer.bproj", "mixer.scan",
+                             "mixer.cproj"] * layers
+    assert all(_inside(s, fwd) for s in mixer)
+    for a, b in zip(mixer, mixer[1:]):
+        assert a[2] <= b[1]
 
 
 def test_mask_refresh_span_on_a_due_step():

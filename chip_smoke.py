@@ -70,15 +70,22 @@ a seed):
    times, K4a's passes against its plan and its output's digest; the relu
    decisions of K4a's forward states that K1's recompute flips; the
    gradients of ``FusedS5Fn`` and of the scan in both directions on the
-   card against autograd through the plain versions on the card;
+   card against autograd through the plain versions on the card; K1's
+   launch options for the bidirectional mixer's buffers at Path-X's scan
+   shape (B=32, L=16384, P=128) and an odd one: the states into their
+   columns of a (B, L, 4P) matrix, the adjoint's into a (B, L, 2P) buffer
+   and added to what one held, bit for bit against the plain mirror, dλ's
+   partials once reduced within 1e-5 of their terms' magnitudes of
+   ``_dlam`` in float64;
 10. mixer-route training phase — the recipe with ``prenorm=false``
    (postnorm BatchNorm: the unfused layer around K4a): three B=32 train
    steps with dropout 0.1 (per step 3 x K4a, 3 x K1 forward, 3 x K1
    reverse and no other kernel), one eval step (3 x K4a), one step on the
    card against the CPU, eight dropout-free B=8 steps that must lower the
    loss; then the bidirectional model at B=8, two steps (6 x K1 forward
-   and 6 x K1 reverse a step); step wall time, device busy share, peak
-   memory;
+   and 6 x K1 reverse a step, every layer's scans on the buffers route,
+   forward and backward) and one step on the card against the CPU; step
+   wall time, device busy share, peak memory;
 11. top-k kernel phase — K1 with the block requant (no carry, from a
    carry, and reverse, its blocks from the end; B=8 and 32; bit for bit
    against its plan's mirror, its passes against the plan), K4a in the
@@ -899,6 +906,19 @@ def mixer_kernel_phase(layer0, cfg, frames: int, gen, records) -> None:
           f"{bound32:.4f}, {100 * bound32 / ms32:.1f} %); medians of 5",
           flush=True)
 
+    # ---- K1's options for the bidirectional mixer's buffers: Path-X's
+    # scan shape and an odd width, from generators of their own ----
+    gx = torch.Generator().manual_seed(326)
+    with torch.no_grad():
+        worst = _check_k1_buffers(
+            "K1 buffers B=32 L=16384", lam,
+            torch.randn((32, 16384, 2 * p), generator=gx).to(dev))
+        worst_odd = _check_k1_buffers(
+            f"K1 buffers P={ps} L={ls}", odd_lam,
+            torch.randn((3, ls, 2 * ps), generator=gx).to(dev))
+    records["diag_scan_rev"]["buffers_dlam_ratio"] = max(worst, worst_odd)
+    torch.cuda.empty_cache()
+
     # ---- K4a ----
     u = rnd(B, frames, h)
     errs = {}
@@ -1051,6 +1071,7 @@ def mixer_training_phase(cfg, records, counters, batch) -> None:
     import numpy as np
     import torch
 
+    from sparsernns_tpu_torch.ops import scan
     from sparsernns_tpu_torch.train.steps import (make_ndns_eval_step,
                                                   make_ndns_train_step)
     from sparsernns_tpu_torch.utils.profiling import profile_region
@@ -1105,22 +1126,34 @@ def mixer_training_phase(cfg, records, counters, batch) -> None:
           flush=True)
     del state, step
 
-    # ---- bidirectional: two B=8 steps, scans both ways ----
+    # ---- bidirectional: two B=8 steps, scans both ways, inside the
+    # projections' buffers (ops/scan.BiDiagScanFn) ----
     bidir = dataclasses.replace(cfg, bidirectional=True)
     model, state = _fresh_run(bidir)
     assert hasattr(model.encoder.layers[0].mixer, "C1")
     step = make_ndns_train_step(model)
     torch.cuda.reset_peak_memory_stats()
+    routes = scan.bidir_route_counts()
     state, _, _ = _run_steps(
         f"bidirectional train B={B}", state, step, small, 2,
         {"diag_scan": 2 * n_layers, "diag_scan_rev": 2 * n_layers}, counters)
     peak_bi = torch.cuda.max_memory_allocated()
+    moved = {k: v - routes[k] for k, v in scan.bidir_route_counts().items()}
+    print(f"bidirectional train B={B}: mixer passes by route {moved}",
+          flush=True)
+    assert moved == {"buffers": 2 * 2 * n_layers, "unfused": 0}, moved
     profile = profile_region(f"bidirectional train step B={B}",
                              lambda: step(state, *small))
     print(json.dumps(profile), flush=True)
     print(f"bidirectional train B={B}: peak memory {peak_bi / 2**20:.0f} "
           f"MiB, device busy share {profile['device_busy_share']:.3f}",
           flush=True)
+    del model, state, step
+    routes = scan.bidir_route_counts()
+    _card_vs_cpu_step("bidirectional train step",
+                      dataclasses.replace(bidir, p_dropout=0.0), noisy, clean)
+    moved = {k: v - routes[k] for k, v in scan.bidir_route_counts().items()}
+    assert moved == {"buffers": 2 * 2 * n_layers, "unfused": 0}, moved
 
 def _codes_of(name, out, ref, scale) -> float:
     """States on a frozen grid of ``scale``: every state the kernel wrote
@@ -3992,6 +4025,70 @@ def _check_k1(name: str, lam, bu, carry=None, reverse=False,
     print(f"{name} output digest: {_digest(out[0])}-{_digest(out[1])}",
           flush=True)
     return err
+
+
+def _check_k1_buffers(name: str, lam, bu_cat) -> float:
+    """K1's launch options for the bidirectional mixer's buffers on one
+    (B, L, 2P) projection, both directions: the states written into their
+    column blocks of a (B, L, 4P) matrix, and the adjoint's (the other way
+    with conj(λ), over bu as the cotangent) written into a (B, L, 2P)
+    buffer and added to what another held, bit for bit against the plain
+    mirror of the plan (``diag_scan_chunked_plain``); dλ's partials, once
+    reduced, within 1e-5 of the sum of the terms' magnitudes of
+    ``_dlam`` in float64, and the same partials on each of the three
+    calls. Returns the worst dλ gap over that sum."""
+    import torch
+
+    from sparsernns_tpu_torch.ops import scan
+    from sparsernns_tpu_torch.ops.cuda import diag_scan
+    b, length, p2 = bu_cat.shape
+    p = p2 // 2
+    dev = bu_cat.device
+    bu = (bu_cat[..., :p], bu_cat[..., p:])
+    buf = torch.full((b, length, 4 * p), float("nan"), device=dev)
+    fresh = torch.full((b, length, 2 * p), float("nan"), device=dev)
+    acc = torch.randn((b, length, 2 * p),
+                      generator=torch.Generator().manual_seed(b + p)).to(dev)
+    worst = 0.0
+    for k, reverse in enumerate((False, True)):
+        cols = (buf[..., k * p:(k + 1) * p], buf[..., (k + 2) * p:(k + 3) * p])
+        diag_scan.diag_scan_cuda(lam, bu, reverse=reverse, out=cols)
+        want = diag_scan.diag_scan_chunked_plain(lam, bu, reverse=reverse)
+        same = all(torch.equal(c, w) for c, w in zip(cols, want))
+        v_want = torch.cat(diag_scan.diag_scan_chunked_plain(
+            (lam[0], -lam[1]), bu, reverse=not reverse), dim=-1)
+        v, parts = diag_scan.diag_scan_adjoint_cuda(lam, bu, cols, reverse)
+        same_v = torch.equal(torch.cat(v, dim=-1), v_want)
+        _, parts_out = diag_scan.diag_scan_adjoint_cuda(
+            lam, bu, cols, reverse, out=(fresh[..., :p], fresh[..., p:]))
+        acc0 = acc.clone()
+        _, parts_acc = diag_scan.diag_scan_adjoint_cuda(
+            lam, bu, cols, reverse, out=(acc[..., :p], acc[..., p:]),
+            accumulate=True)
+        same_out = torch.equal(fresh, v_want)
+        same_acc = torch.equal(acc, acc0 + v_want)
+        same_parts = (torch.equal(parts_out, parts)
+                      and torch.equal(parts_acc, parts))
+        got = torch.stack(diag_scan.reduce_dlam(parts)).double()
+        v64 = tuple(t.double() for t in v)
+        x64 = tuple(t.double() for t in cols)
+        ref = torch.stack(scan._dlam(v64, x64, reverse))
+        va = tuple(t.abs() for t in v64)
+        mag = torch.stack([
+            scan._dlam(va, tuple(t.abs() for t in x64), reverse)[0],
+            scan._dlam(va, (x64[0].abs(), -x64[1].abs()), reverse)[1]])
+        ratio = float(((got - ref).abs() / mag).max())
+        worst = max(worst, ratio)
+        del v64, x64, va, v_want, acc0
+        print(f"{name} reverse={reverse}: states into the 4P columns "
+              f"bit-equal {same}, adjoint {same_v}, into 2P {same_out}, "
+              f"accumulated {same_acc}, partials the same on each call "
+              f"{same_parts}", flush=True)
+        assert same and same_v and same_out and same_acc and same_parts, name
+        _check(f"{name} reverse={reverse} dλ vs _dlam in float64, over the "
+               "sum of its terms' magnitudes", ratio, 1e-5)
+    assert not torch.isnan(buf).any(), name
+    return worst
 
 
 def _k1_bytes(b: int, length: int, p: int, carry: bool) -> int:

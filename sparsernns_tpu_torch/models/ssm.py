@@ -21,7 +21,13 @@ stacked (H, 2P) / (2P, H) weight. The routes through the mixer:
   bidirectional mixer scans both ways and projects the two state sets with
   one C of 2P columns (``C1`` and ``C2`` when C is projected from the
   eigenbasis); only the forward states pass the relu, or with top-k and
-  ``approx_topk`` a relu top-k of ``int(topk * P)`` per state half;
+  ``approx_topk`` a relu top-k of ``int(topk * P)`` per state half. A
+  bidirectional float mixer on the scan kernel without a carry, relu,
+  top-k or bias (:meth:`S5SSM._buffers_route`) runs both scans inside the
+  projections' buffers (``ops/scan.py`` ``BiDiagScanFn``: the states
+  written into the C-projection's input, their adjoints reading its
+  cotangent in place); every other one the two scans and the
+  concatenations;
 - a ``scan_mode="sequential"`` mixer (float or QAT) runs the same
   projections around the step-by-step scan in plain PyTorch
   (``ops/scan.py`` ``sequential_diag_scan``): the JAX package's naive
@@ -60,7 +66,8 @@ from torch import nn
 from sparsernns_tpu_torch.models.ssm_init import (init_cv, init_log_steps,
                                                   init_vinv_b, project_cv,
                                                   trunc_standard_normal)
-from sparsernns_tpu_torch.ops.scan import (Pair, diag_ssm_scan,
+from sparsernns_tpu_torch.ops.scan import (BiDiagScanFn, Pair,
+                                           count_bidir_route, diag_ssm_scan,
                                            sequential_diag_scan)
 from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
@@ -353,6 +360,18 @@ class S5SSM(nn.Module):
         return self._apply_scan(u, lam_bar, self._w_b(b_bar), carry, d,
                                 b_bias, d_bias)
 
+    def _buffers_route(self, carry: Optional[Pair],
+                       b_bias: Optional[Pair]) -> bool:
+        """Whether the unfused mixer runs its scans inside the projections'
+        buffers (``BiDiagScanFn``): bidirectional, on the scan kernel
+        (``scan_mode`` ``"fused"`` or ``"pallas"``), without a carry, the
+        in-scan QAT, a state relu, top-k or a folded BatchNorm's bias."""
+        return (self.bidirectional and carry is None
+                and self.scan_mode in ("fused", "pallas")
+                and act_qat_bits(self.q_config) is None
+                and not self.relufication and self.topk >= 1.0
+                and b_bias is None)
+
     def _apply_scan(self, u, lam_bar: Pair, w_b, carry: Optional[Pair],
                     d: torch.Tensor, b_bias: Optional[Pair] = None,
                     d_bias: Optional[torch.Tensor] = None):
@@ -367,13 +386,21 @@ class S5SSM(nn.Module):
         the final state) with a carry, else (ys, the states the
         C-projection reads). The three parts run inside the spans
         ``mixer.bproj``, ``mixer.scan`` (both directions of a
-        bidirectional mixer) and ``mixer.cproj`` (with the D term)."""
+        bidirectional mixer) and ``mixer.cproj`` (with the D term). On
+        :meth:`_buffers_route` the states the C-projection reads are the
+        columns of ``BiDiagScanFn``'s matrix."""
         cfg = self.q_config
         with span("mixer.bproj"):
             bu_cat = fake_quant(u, cfg.ssm_act_precision) @ w_b
             bu = (bu_cat[..., :self.p], bu_cat[..., self.p:])
             if b_bias is not None:
                 bu = (bu[0] + b_bias[0], bu[1] + b_bias[1])
+        if self._buffers_route(carry, b_bias):
+            with span("mixer.scan"):
+                xs_cat = BiDiagScanFn.apply(lam_bar[0], lam_bar[1], bu_cat)
+            with span("mixer.cproj"):
+                ys = xs_cat @ self._w_c() + self.q_ops.d_had(d, u)
+            return ys, (xs_cat[..., :2 * self.p], xs_cat[..., 2 * self.p:])
         mode = (self.scan_mode
                 if self.scan_mode in ("associative", "sequential", "blocked")
                 else "kernel")
@@ -397,6 +424,7 @@ class S5SSM(nn.Module):
             if self.relufication:
                 xs = self._state_act(xs)
             if self.bidirectional:
+                count_bidir_route("unfused")
                 # as in the JAX package, the reverse states are not
                 # relufied before the concatenation
                 rev = diag_ssm_scan(lam_bar, bu, reverse=True, **kw)

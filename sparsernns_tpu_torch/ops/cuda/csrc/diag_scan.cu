@@ -73,6 +73,20 @@
 // rounds otherwise than the sequential walk (the carry's lam^c), within
 // 1e-5 of max|x|.
 //
+// Launch options of the output pass, all off for every caller but the
+// bidirectional mixer's (ops/scan.py BiDiagScanFn), whose launches they leave
+// as they were: the states go to any (batch, time) strides, so that the two
+// directions write their columns of one (B, L, 4P) matrix, the C-projection's
+// input; the dλ epilogue, for an adjoint walk, sums v_t * conj(x) per
+// channel over the chunk's rows, x the primal state at the walk's next row
+// (zero past the walk's end), into one partial per (batch row, chunk,
+// channel), which the wrapper reduces in a fixed order; and with it
+// `accumulate` adds each state to what the output holds, one rounded f32
+// add, the walk carrying its own state (the second adjoint adds its
+// cotangent to the first's, as autograd's one add does). The epilogue reads
+// the saved states once more (2 of the call's 6 element reads and writes;
+// accumulate 2 more).
+//
 // Each launch is recorded with its grid; diag_scan_launched hands the
 // wrapper the record of the last call.
 
@@ -88,6 +102,9 @@ constexpr int kGroup = 8;    // rows loaded before their steps
 constexpr int kSeg = 64;     // chunk ends the carry pass stages at a time
 constexpr int kRing = 16;    // rows a stage of the block walk's ring holds
 constexpr int kStages = 8;   // stages of the ring (kStages - 1 in flight)
+// epilogues of the output pass (flags)
+constexpr int kAcc = 1;      // add every state to what the output holds
+constexpr int kDlam = 2;     // sum v_t * conj(x at the walk's next row)
 
 struct Args {
   const float* bu_re;
@@ -100,8 +117,13 @@ struct Args {
   float* link;                 // (B, n_chunks - 1, 2P): ends, then carries
   float* block_ends;           // (B, n_blocks, 2P): block ends on the grid
   int* sync;                   // 1 ticket counter, (B, n_blocks, P / 32) flags
-  float* out_re;               // (B, L, P) contiguous
+  float* out_re;               // (B, L, P) with element strides (osb, ost, 1)
   float* out_im;
+  long long osb, ost;
+  const float* xs_re;          // dλ: the primal states (B, L, P), strides
+  const float* xs_im;          //     (xsb, xst, 1); or null
+  long long xsb, xst;
+  float* dlam;                 // dλ: (B, n_chunks, 2P) partials, or null
   int B, L, P, reverse;
   int chunk, block, per_block, n_chunks, n_blocks;
   int rq_block;                // the requant's block, in walk steps
@@ -149,6 +171,21 @@ __device__ __forceinline__ void load(const float* p, float (&x)[V]) {
   }
 }
 
+// A load of memory this kernel writes afterwards (no read-only path).
+template <int V>
+__device__ __forceinline__ void load_rw(const float* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) x[v] = p[v];
+  }
+}
+
 template <int V>
 __device__ __forceinline__ void store(float* p, const float (&x)[V]) {
   if constexpr (V == 4) {
@@ -161,11 +198,15 @@ __device__ __forceinline__ void store(float* p, const float (&x)[V]) {
 
 // Passes 1 (kOut false: the chunk's end state into `link`) and 3 (kOut
 // true: every state into out; with the requant only for a plan of one chunk,
-// whose walk puts the carry on the grid at every block end). Grid (chunk,
-// channel slice, batch row), one warp a CTA, V channels a thread.
-template <int V, int kRq, bool kOut>
+// whose walk puts the carry on the grid at every block end; kEpi the output
+// pass's epilogues, float modes only). Grid (chunk, channel slice, batch
+// row), one warp a CTA, V channels a thread.
+template <int V, int kRq, bool kOut, int kEpi>
 __global__ void __launch_bounds__(kLanes) k1_walk_kernel(const Args a) {
   constexpr bool kRequant = kRq != 0;
+  constexpr bool kAdd = (kEpi & kAcc) != 0;
+  constexpr bool kDl = (kEpi & kDlam) != 0;
+  static_assert(kEpi == 0 || (kOut && !kRequant), "epilogues: float output");
   const int k = blockIdx.x;
   const int p0 = (blockIdx.y * kLanes + threadIdx.x) * V;
   const int b = blockIdx.z;
@@ -198,20 +239,55 @@ __global__ void __launch_bounds__(kLanes) k1_walk_kernel(const Args a) {
   // step on, as running pointers
   const long long t0 = a.reverse ? a.L - 1 - c.s0 : c.s0;
   const long long ds = a.reverse ? -a.st : a.st;
-  const long long dt = a.reverse ? -(long long)a.P : a.P;
   const float* in_r = a.bu_re + b * a.sb + t0 * a.st + p0;
   const float* in_i = a.bu_im + b * a.sb + t0 * a.st + p0;
-  float* o_r = a.out_re + ((long long)b * a.L + t0) * a.P + p0;
-  float* o_i = a.out_im + ((long long)b * a.L + t0) * a.P + p0;
+  const long long dt = a.reverse ? -a.ost : a.ost;
+  float* o_r = a.out_re + b * a.osb + t0 * a.ost + p0;
+  float* o_i = a.out_im + b * a.osb + t0 * a.ost + p0;
+  // dλ: the primal state at the walk's next row of chunk row r, for the
+  // chunk's first n_dl rows (the walk's last row has none: a zero)
+  const long long dx = a.reverse ? -a.xst : a.xst;
+  const long long x0 = b * a.xsb + t0 * a.xst + dx + p0;
+  const int n_dl = kDl ? min(c.len, a.L - 1 - c.s0) : 0;
+  float dr[V], di[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) dr[v] = di[v] = 0.f;
+  auto next_state = [&](int r, float(&nr)[V], float(&ni)[V]) {
+    if (r < n_dl) {
+      load<V>(a.xs_re + x0 + r * dx, nr);
+      load<V>(a.xs_im + x0 + r * dx, ni);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) nr[v] = ni[v] = 0.f;
+    }
+  };
   // one row of the walk: the state advances, and the output pass writes
-  // it (on the grid with the requant, the carry on it at a block end)
-  auto step = [&](const float(&ur)[V], const float(&ui)[V]) {
+  // it (on the grid with the requant, the carry on it at a block end; with
+  // the epilogues added to what the output held (pr, pi), and its product
+  // with the conjugate next state (nr, ni) summed)
+  auto step = [&](const float(&ur)[V], const float(&ui)[V],
+                  const float(&pr)[V], const float(&pi)[V],
+                  const float(&nr)[V], const float(&ni)[V]) {
     float wr[V], wi[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       scan::scan_step_rn(lr[v], li[v], ur[v], ui[v], xr[v], xi[v]);
       wr[v] = xr[v];
       wi[v] = xi[v];
+    }
+    if constexpr (kDl) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        dr[v] = fmaf(wr[v], nr[v], fmaf(wi[v], ni[v], dr[v]));
+        di[v] = fmaf(wi[v], nr[v], fmaf(-wr[v], ni[v], di[v]));
+      }
+    }
+    if constexpr (kAdd) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        wr[v] = __fadd_rn(pr[v], wr[v]);
+        wi[v] = __fadd_rn(pi[v], wi[v]);
+      }
     }
     if (kRequant) {
 #pragma unroll
@@ -235,8 +311,11 @@ __global__ void __launch_bounds__(kLanes) k1_walk_kernel(const Args a) {
       o_i += dt;
     }
   };
+  // the epilogues' operands of a group's rows (one slot where off)
+  constexpr int kP = kAdd ? kGroup : 1, kN = kDl ? kGroup : 1;
   for (int r0 = 0; r0 < c.len; r0 += kGroup) {
     float ur[kGroup][V], ui[kGroup][V];
+    float pr[kP][V], pi[kP][V], nr[kN][V], ni[kN][V];
     const int m = min(kGroup, c.len - r0);
     if (m == kGroup) {
       // a full group is one basic block: its loads are all issued before
@@ -245,18 +324,30 @@ __global__ void __launch_bounds__(kLanes) k1_walk_kernel(const Args a) {
       for (int g = 0; g < kGroup; ++g) {
         load<V>(in_r + g * ds, ur[g]);
         load<V>(in_i + g * ds, ui[g]);
+        if constexpr (kAdd) {
+          load_rw<V>(o_r + g * dt, pr[g]);
+          load_rw<V>(o_i + g * dt, pi[g]);
+        }
+        if constexpr (kDl) next_state(r0 + g, nr[g], ni[g]);
       }
       in_r += kGroup * ds;
       in_i += kGroup * ds;
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) step(ur[g], ui[g]);
+      for (int g = 0; g < kGroup; ++g)
+        step(ur[g], ui[g], pr[kAdd ? g : 0], pi[kAdd ? g : 0],
+             nr[kDl ? g : 0], ni[kDl ? g : 0]);
     } else {
       for (int g = 0; g < m; ++g) {
         load<V>(in_r, ur[0]);
         load<V>(in_i, ui[0]);
+        if constexpr (kAdd) {
+          load_rw<V>(o_r, pr[0]);
+          load_rw<V>(o_i, pi[0]);
+        }
+        if constexpr (kDl) next_state(r0 + g, nr[0], ni[0]);
         in_r += ds;
         in_i += ds;
-        step(ur[0], ui[0]);
+        step(ur[0], ui[0], pr[0], pi[0], nr[0], ni[0]);
       }
     }
   }
@@ -264,6 +355,11 @@ __global__ void __launch_bounds__(kLanes) k1_walk_kernel(const Args a) {
     float* out = a.link + lb + (long long)k * 2 * a.P + p0;
     store<V>(out, xr);
     store<V>(out + a.P, xi);
+  }
+  if constexpr (kDl) {
+    float* out = a.dlam + ((long long)b * a.n_chunks + k) * 2 * a.P + p0;
+    store<V>(out, dr);
+    store<V>(out + a.P, di);
   }
 }
 
@@ -378,11 +474,11 @@ __device__ __forceinline__ void walk_block(const Args& a,
   // as running pointers: no per-row product of a row and a stride
   const long long t0 = a.reverse ? a.L - 1 - s0 : s0;
   const long long ds = a.reverse ? -a.st : a.st;
-  const long long dt = a.reverse ? -(long long)a.P : a.P;
+  const long long dt = a.reverse ? -a.ost : a.ost;
   const float* in_r = a.bu_re + b * a.sb + t0 * a.st + p;
   const float* in_i = a.bu_im + b * a.sb + t0 * a.st + p;
-  float* o_r = a.out_re + ((long long)b * a.L + t0) * a.P + p;
-  float* o_i = a.out_im + ((long long)b * a.L + t0) * a.P + p;
+  float* o_r = a.out_re + b * a.osb + t0 * a.ost + p;
+  float* o_i = a.out_im + b * a.osb + t0 * a.ost + p;
   const int n_stage = (len + kRing - 1) / kRing;
   int issued = 0;   // rows whose copies are issued, in order
   auto issue = [&](int stage) {
@@ -532,17 +628,36 @@ void record(const char* name, dim3 grid) {
         name, {(int)grid.x, (int)grid.y, (int)grid.z}, kLanes};
 }
 
-template <int V, int kRq, bool kOut>
+template <int V, int kRq, bool kOut, int kEpi = 0>
 cudaError_t launch_walk(const Args& a, cudaStream_t st) {
   const int slices = (a.P + kLanes * V - 1) / (kLanes * V);
   const dim3 grid(kOut ? a.n_chunks : a.n_chunks - 1, slices, a.B);
-  k1_walk_kernel<V, kRq, kOut><<<grid, kLanes, 0, st>>>(a);
+  k1_walk_kernel<V, kRq, kOut, kEpi><<<grid, kLanes, 0, st>>>(a);
   record(kOut ? "k1_out_pass" : "k1_chunk_pass", grid);
   return cudaGetLastError();
 }
 
+// The output pass with the epilogues `epi` (float modes only): none, dλ,
+// or dλ with accumulate, the adjoint's two uses; accumulate alone is not
+// built (diag_scan_run refuses it).
 template <int V, int kRq>
-cudaError_t launch_all(const Args& a, cudaStream_t st) {
+cudaError_t launch_out(const Args& a, int epi, cudaStream_t st) {
+  if constexpr (kRq != 0) {
+    return launch_walk<V, kRq, true>(a, st);
+  } else {
+    switch (epi) {
+      case kDlam:
+        return launch_walk<V, 0, true, kDlam>(a, st);
+      case kAcc | kDlam:
+        return launch_walk<V, 0, true, kAcc | kDlam>(a, st);
+      default:
+        return launch_walk<V, 0, true>(a, st);
+    }
+  }
+}
+
+template <int V, int kRq>
+cudaError_t launch_all(const Args& a, int epi, cudaStream_t st) {
   if (a.n_chunks > 1) {
     cudaError_t err = launch_walk<V, 0, false>(a, st);
     if (err != cudaSuccess) return err;
@@ -557,7 +672,7 @@ cudaError_t launch_all(const Args& a, cudaStream_t st) {
       return cudaGetLastError();
     }
   }
-  return launch_walk<V, kRq, true>(a, st);
+  return launch_out<V, kRq>(a, epi, st);
 }
 
 }  // namespace
@@ -570,14 +685,20 @@ cudaError_t launch_all(const Args& a, cudaStream_t st) {
 // n_chunks - 1, 2P floats), then with the requant and more than one chunk
 // the blocks' ends (B, ceil(L / block), 2P floats) and the block pass's
 // ticket and flags (1 + B * ceil(L / block) * ceil(P / 32) ints).
-// out_re/out_im: (B, L, P) contiguous. reverse: 0 forward in time,
+// out_re/out_im: (B, L, P) views with element strides (out_sb, out_st, 1),
+// with vec = 4 multiples of 4 floats (the columns of a wider matrix; a
+// contiguous output: L * P, P). reverse: 0 forward in time,
 // 1 backward. chunk, block, per_block, n_chunks: the plan's chunks, in the
 // walk's order. requant 1 puts every state on (s_re, s_im) with codes in
 // [qmin, qmax] and the carry on the grid after every rq_block steps of the
 // walk. vec: channels a thread of passes 1 and 3 (4 or 1). inv_re/inv_im:
 // 1 / s_re and 1 / s_im where the scale is a power of two whose reciprocal
 // is a normal float (the grid then multiplies, bit-equal), else 0 (it
-// divides). Returns the first launch error.
+// divides). xs_re/xs_im: null, or the primal states (B, L, P) with element
+// strides (xs_sb, xs_st, 1), aligned as out: the output pass then writes
+// dλ's partial sums into dlam (B, n_chunks, 2P floats), and accumulate 1
+// adds every state to what out holds (only with xs_re). The epilogues take
+// no requant. Returns the first launch error.
 extern "C" int diag_scan_run(
     const float* bu_re, const float* bu_im, long long stride_b,
     long long stride_t, const float* lam_re, const float* lam_im,
@@ -585,11 +706,16 @@ extern "C" int diag_scan_run(
     float* out_im, int B, int L, int P, int reverse, int chunk, int block,
     int per_block, int n_chunks, int rq_block, int requant, int vec,
     float s_re, float s_im, float qmin, float qmax, float inv_re,
-    float inv_im, void* stream) {
+    float inv_im, long long out_sb, long long out_st, int accumulate,
+    const float* xs_re, const float* xs_im, long long xs_sb, long long xs_st,
+    float* dlam, void* stream) {
   g_n_record = 0;
+  const int epi = (accumulate ? kAcc : 0) | (xs_re != nullptr ? kDlam : 0);
   if (chunk < 1 || block < chunk || per_block < 1 || n_chunks < 1 ||
       (requant && rq_block < 1) || (vec != 1 && vec != 4) ||
-      (vec == 4 && P % 4 != 0))
+      (vec == 4 && P % 4 != 0) || (epi != 0 && requant) ||
+      (accumulate && xs_re == nullptr) ||
+      (xs_re != nullptr && (xs_im == nullptr || dlam == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.bu_re = bu_re;
@@ -607,6 +733,13 @@ extern "C" int diag_scan_run(
                                   (long long)B * a.n_blocks * 2 * P);
   a.out_re = out_re;
   a.out_im = out_im;
+  a.osb = out_sb;
+  a.ost = out_st;
+  a.xs_re = xs_re;
+  a.xs_im = xs_im;
+  a.xsb = xs_sb;
+  a.xst = xs_st;
+  a.dlam = dlam;
   a.B = B;
   a.L = L;
   a.P = P;
@@ -626,13 +759,13 @@ extern "C" int diag_scan_run(
   const int rq = !requant ? 0 : inv_re != 0.f && inv_im != 0.f ? 2 : 1;
   cudaError_t err;
   if (vec == 4)
-    err = rq == 2   ? launch_all<4, 2>(a, st)
-          : rq == 1 ? launch_all<4, 1>(a, st)
-                    : launch_all<4, 0>(a, st);
+    err = rq == 2   ? launch_all<4, 2>(a, epi, st)
+          : rq == 1 ? launch_all<4, 1>(a, epi, st)
+                    : launch_all<4, 0>(a, epi, st);
   else
-    err = rq == 2   ? launch_all<1, 2>(a, st)
-          : rq == 1 ? launch_all<1, 1>(a, st)
-                    : launch_all<1, 0>(a, st);
+    err = rq == 2   ? launch_all<1, 2>(a, epi, st)
+          : rq == 1 ? launch_all<1, 1>(a, epi, st)
+                    : launch_all<1, 0>(a, epi, st);
   return (int)err;
 }
 

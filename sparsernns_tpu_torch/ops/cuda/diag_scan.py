@@ -28,6 +28,14 @@ tensors on the CPU. :func:`diag_scan_chunked_plain` follows the kernel's
 plan in PyTorch, rounding every operation as the kernel does: the tests
 hold it against the sequential recurrence and the JAX kernel on the CPU,
 and the kernel against it bit for bit on the card.
+
+The bidirectional mixer's buffers (``ops/scan.py``
+:class:`~sparsernns_tpu_torch.ops.scan.BiDiagScanFn`) take two launch
+options of the float modes, off for every other caller: ``out`` writes the
+states into given views (the columns of a wider matrix), and
+:func:`diag_scan_adjoint` walks a scan's adjoint, adds its cotangent to
+what ``out`` holds if asked, and sums dλ against the primal states in the
+same walk (:func:`reduce_dlam`).
 """
 
 from __future__ import annotations
@@ -41,8 +49,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from sparsernns_tpu_torch.ops.cuda import build
-from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, grid_value,
-                                           sequential_diag_scan)
+from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, _dlam,
+                                           grid_value, sequential_diag_scan)
 from sparsernns_tpu_torch.utils.trace import traced
 
 #: kernel calls made by :func:`diag_scan` in this process: forward in time,
@@ -73,7 +81,9 @@ CHUNK_PASS, CARRY_PASS, OUT_PASS, BLOCK_PASS = (
 _argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
               ctypes.c_longlong] + [ctypes.c_void_p] * 7
              + [ctypes.c_int] * 11 + [ctypes.c_float] * 6
-             + [ctypes.c_void_p])
+             + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+             + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
+             + [ctypes.c_void_p] * 2)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -434,6 +444,34 @@ def _check_f32_cuda(name: str, t: torch.Tensor, device) -> None:
                          f"{t.dtype} on {t.device}")
 
 
+def _check_view_pair(name: str, pair: Pair, shape, vec: int,
+                     device) -> None:
+    """A pair the kernel reads or writes in place: float32 (B, L, P) views
+    on the device with equal strides, unit stride in P and, with 128-bit
+    accesses, strides and addresses a multiple of ``vec`` floats."""
+    a, b = pair
+    for t in pair:
+        _check_f32_cuda(name, t, device)
+    if a.shape != shape or b.shape != shape:
+        raise ValueError(f"{name} must be {tuple(shape)} pairs, got "
+                         f"{tuple(a.shape)} / {tuple(b.shape)}")
+    if a.stride() != b.stride() or a.stride(-1) != 1:
+        raise ValueError(f"{name} halves need equal strides, unit-stride "
+                         "in P")
+    if vec > 1 and (a.stride(0) % vec or a.stride(1) % vec
+                    or a.data_ptr() % (4 * vec) or b.data_ptr() % (4 * vec)):
+        raise ValueError(f"{name}: strides and addresses must be multiples "
+                         f"of {vec} floats")
+
+
+def reduce_dlam(partials: torch.Tensor) -> Pair:
+    """dλ from the output pass's partial sums (B, n_chunks, 2, P): one sum
+    over batch rows and chunks, in a fixed order (no atomics), so repeated
+    runs agree bit for bit."""
+    s = partials.sum(dim=(0, 1))
+    return s[0], s[1]
+
+
 def _aligned(bu: Pair, vec: int) -> Pair:
     """bu as the vector loads take it: element strides and addresses a
     multiple of ``vec`` floats, else fresh contiguous copies."""
@@ -449,20 +487,20 @@ def _aligned(bu: Pair, vec: int) -> Pair:
     return bu
 
 
-@traced("kernel.diag_scan")
-def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
-                   reverse: bool = False,
-                   block_requant: Optional[BlockRequant] = None,
-                   block_t: Optional[int] = None) -> Pair:
-    """Launch the kernel's passes. bu: (B, L, P) pair whose last axis is
-    unit-stride (the halves of a (B, L, 2P) projection are taken as they
-    are); lam: (P,) pair; carry_init: (B, P) pair or None, and None with
-    ``reverse``; ``block_requant`` (s_re, s_im, bits) per ``block_t``
-    steps, in either direction. Returns contiguous (B, L, P) states."""
+def _launch(lam: Pair, bu: Pair, carry_init: Optional[Pair], reverse: bool,
+            block_requant: Optional[BlockRequant], block_t: Optional[int],
+            out: Optional[Pair], accumulate: bool = False,
+            states: Optional[Pair] = None):
+    """The kernel's passes (:func:`diag_scan_cuda`, and with ``states``
+    :func:`diag_scan_adjoint_cuda`): returns (the states, dλ's partials or
+    None)."""
     global launches, launches_rev, launches_requant, passes
     if reverse and carry_init is not None:
         raise NotImplementedError("carry with reverse scan")
     _check_requant(block_requant, block_t)
+    if block_requant is not None and out is not None:
+        raise ValueError("out is a float-mode option: the block requant "
+                         "takes none")
     bu_re, bu_im = bu
     dev = bu_re.device
     if bu_re.dim() != 3 or bu_re.shape != bu_im.shape:
@@ -486,12 +524,24 @@ def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
         _check_f32_cuda(name, t, dev)
     if lam_re.shape != (p,) or lam_im.shape != (p,):
         raise ValueError(f"lam must be ({p},) pairs")
-    out_re = torch.empty((b, l, p), dtype=torch.float32, device=dev)
-    out_im = torch.empty_like(out_re)
+    if out is None:
+        out_re = torch.empty((b, l, p), dtype=torch.float32, device=dev)
+        out_im = torch.empty_like(out_re)
+    else:
+        out_re, out_im = out
     if b == 0 or l == 0 or p == 0:
-        return out_re, out_im
+        return (out_re, out_im), (None if states is None else
+                                  out_re.new_zeros((b, 0, 2, p)))
     plan = scan_plan(b, l, p, None if block_requant is None else block_t,
                      reverse)
+    if out is not None:
+        _check_view_pair("out", out, bu_re.shape, plan.vec, dev)
+    xs_re = xs_im = dlam = None
+    if states is not None:
+        _check_view_pair("states", states, bu_re.shape, plan.vec, dev)
+        xs_re, xs_im = states
+        dlam = torch.empty((b, plan.n_chunks, 2, p), dtype=torch.float32,
+                           device=dev)
     bu_re, bu_im = _aligned((bu_re, bu_im), plan.vec)
     scratch = torch.empty(plan.scratch_floats(), dtype=torch.float32,
                           device=dev)
@@ -509,6 +559,12 @@ def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
         plan.requant_block or 0, int(block_requant is not None), plan.vec,
         float(s_re), float(s_im), -(qmax + 1.0), qmax,
         exact_reciprocal(s_re), exact_reciprocal(s_im),
+        out_re.stride(0), out_re.stride(1), int(accumulate),
+        xs_re.data_ptr() if xs_re is not None else None,
+        xs_im.data_ptr() if xs_im is not None else None,
+        xs_re.stride(0) if xs_re is not None else 0,
+        xs_re.stride(1) if xs_re is not None else 0,
+        dlam.data_ptr() if dlam is not None else None,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "diag_scan")
     passes += len(plan.launches())
@@ -518,23 +574,95 @@ def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
         launches_rev += 1
     else:
         launches += 1
-    return out_re, out_im
+    return (out_re, out_im), dlam
+
+
+@traced("kernel.diag_scan")
+def diag_scan_cuda(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
+                   reverse: bool = False,
+                   block_requant: Optional[BlockRequant] = None,
+                   block_t: Optional[int] = None,
+                   out: Optional[Pair] = None) -> Pair:
+    """Launch the kernel's passes. bu: (B, L, P) pair whose last axis is
+    unit-stride (the halves of a (B, L, 2P) projection are taken as they
+    are); lam: (P,) pair; carry_init: (B, P) pair or None, and None with
+    ``reverse``; ``block_requant`` (s_re, s_im, bits) per ``block_t``
+    steps, in either direction. Returns contiguous (B, L, P) states, or
+    with ``out`` (float modes only), a (B, L, P) pair of views with equal
+    strides and unit stride in P, writes them there and returns it."""
+    return _launch(lam, bu, carry_init, reverse, block_requant, block_t,
+                   out)[0]
+
+
+@traced("kernel.diag_scan")
+def diag_scan_adjoint_cuda(lam: Pair, g: Pair, states: Pair,
+                           reverse: bool = False,
+                           out: Optional[Pair] = None,
+                           accumulate: bool = False):
+    """The adjoint of the float scan ``diag_scan_cuda(lam, bu,
+    reverse=reverse)`` whose states are ``states`` (B, L, P), at the
+    cotangent ``g`` of those states: the kernel walks g the other way with
+    conj(λ), which gives bu's cotangent v, and its output pass also sums
+    v_t ⊙ conj(x) per (batch row, chunk, channel), x the state the primal
+    step read (a zero at the open end). ``out`` as in
+    :func:`diag_scan_cuda`; ``accumulate`` adds v to what ``out`` holds
+    (one rounded float32 add; the walk carries its own v). Returns (v,
+    partials (B, n_chunks, 2, P)), which :func:`reduce_dlam` sums."""
+    if accumulate and out is None:
+        raise ValueError("accumulate adds into out: pass out")
+    return _launch((lam[0], -lam[1]), g, None, not reverse, None, None, out,
+                   accumulate, states)
 
 
 def diag_scan(lam: Pair, bu: Pair, carry_init: Optional[Pair] = None,
               reverse: bool = False,
               block_requant: Optional[BlockRequant] = None,
-              block_t: Optional[int] = None) -> Pair:
+              block_t: Optional[int] = None,
+              out: Optional[Pair] = None) -> Pair:
     """All-prefix states of x_t = λ x_{t-1} + bu_t over bu (B, L, P), or
     with ``reverse`` of x_t = λ x_{t+1} + bu_t (no carry then). With
     ``block_requant`` every state is output on the frozen grid and the
     carry is put on it every ``block_t`` steps of the walk
-    (:func:`~sparsernns_tpu_torch.ops.scan.sequential_diag_scan`).
+    (:func:`~sparsernns_tpu_torch.ops.scan.sequential_diag_scan`). ``out``
+    as in :func:`diag_scan_cuda`.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
-    fn = diag_scan_cuda if bu[0].is_cuda else diag_scan_plain
-    return fn(lam, bu, carry_init, reverse, block_requant, block_t)
+    version (copied into ``out``)."""
+    if bu[0].is_cuda:
+        return diag_scan_cuda(lam, bu, carry_init, reverse, block_requant,
+                              block_t, out)
+    xs = diag_scan_plain(lam, bu, carry_init, reverse, block_requant, block_t)
+    if out is None:
+        return xs
+    for o, x in zip(out, xs):
+        o.copy_(x)
+    return out
+
+
+def diag_scan_adjoint(lam: Pair, g: Pair, states: Pair,
+                      reverse: bool = False, out: Optional[Pair] = None,
+                      accumulate: bool = False) -> Tuple[Pair, Pair]:
+    """:func:`diag_scan_adjoint_cuda` with dλ summed: returns (v, dλ pair
+    (P,)), dλ the sum of v_t ⊙ conj(x) over every batch row and step.
+    CUDA tensors launch the kernel; CPU tensors take the plain version
+    (written into ``out``, copied or added) and dλ by
+    :func:`~sparsernns_tpu_torch.ops.scan._dlam`."""
+    if g[0].is_cuda:
+        v, parts = diag_scan_adjoint_cuda(lam, g, states, reverse, out,
+                                          accumulate)
+        return v, reduce_dlam(parts)
+    if accumulate and out is None:
+        raise ValueError("accumulate adds into out: pass out")
+    v = diag_scan_plain((lam[0], -lam[1]), g, reverse=not reverse)
+    dlam = _dlam(v, states, reverse)
+    if out is not None:
+        for o, x in zip(out, v):
+            if accumulate:
+                o.add_(x)
+            else:
+                o.copy_(x)
+        v = out
+    return v, dlam
 
 
 def launched() -> List[Tuple[str, Tuple[int, int, int], int]]:

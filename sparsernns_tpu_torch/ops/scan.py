@@ -16,6 +16,14 @@ with conj(λ). With ``qat_bits`` the forward is the kernel's QAT mode
 operand, of the folded carry and of the block's states), the backward the
 same float adjoint.
 
+:class:`BiDiagScanFn` is a bidirectional float mixer's two scans in one
+differentiable call that works inside the projections' buffers: both
+directions write their states into the C-projection's (B, L, 4P) input,
+their adjoints read its cotangent in place, write bu's gradient into one
+(B, L, 2P) buffer, the second adding to the first, and sum dλ in the
+kernel's output pass. :func:`bidir_route_counts` says which route the
+bidirectional mixers took.
+
 :func:`associative_diag_scan` is the associative scan of the JAX package
 (``jax.lax.associative_scan``'s recursion, reproduced combine for
 combine), with the QAT hadamards in every combine: the quantization-aware
@@ -209,6 +217,78 @@ class DiagScanFn(torch.autograd.Function):
                       reverse=not ctx.reverse)
         d_re, d_im = _dlam(v, (x_re, x_im), ctx.reverse)
         return d_re, d_im, v[0], v[1], None, None, None
+
+
+def _columns(buf: torch.Tensor, k: int, p: int) -> Pair:
+    """Direction k's (re, im) column blocks of the bidirectional states
+    matrix (..., 4P), laid out [fwd_re | rev_re | fwd_im | rev_im]."""
+    return buf[..., k * p:(k + 1) * p], buf[..., (k + 2) * p:(k + 3) * p]
+
+
+#: bidirectional mixer calls by route: ``"buffers"`` counts each forward
+#: and each backward of :class:`BiDiagScanFn`, ``"unfused"`` each forward
+#: of the two separate scans (``models/ssm.S5SSM._apply_scan``)
+_bidir_routes = {"buffers": 0, "unfused": 0}
+
+
+def count_bidir_route(route: str) -> None:
+    _bidir_routes[route] += 1
+
+
+def bidir_route_counts() -> dict:
+    """How many bidirectional mixer passes each route ran in this
+    process: ``{"buffers": n, "unfused": m}``."""
+    return dict(_bidir_routes)
+
+
+class BiDiagScanFn(torch.autograd.Function):
+    """Both scans of a bidirectional float mixer, inside the projections'
+    buffers. Call as ``BiDiagScanFn.apply(lam_re, lam_im, bu_cat)`` with
+    ``bu_cat`` (B, L, 2P) = [bu_re | bu_im], the B-projection's output;
+    returns the (B, L, 4P) states matrix [fwd_re | rev_re | fwd_im |
+    rev_im], the C-projection's input, which the scan kernel writes column
+    block by column block (``diag_scan``'s ``out``): the states and the
+    matrix of the two :class:`DiagScanFn` and the concatenations, bit for
+    bit. It is saved once, for dλ here and for the C-projection's weight
+    gradient by autograd.
+
+    The backward reads the matrix's cotangent in place: each direction's
+    adjoint is the kernel in the other direction with conj(λ) on its column
+    blocks, writing bu's gradient into one (B, L, 2P) buffer [v_re | v_im],
+    the second adding its own to the first's (one rounded add, as
+    autograd's: bit for bit), and summing dλ against the saved states in
+    the same walk (``diag_scan_adjoint``; :func:`_dlam` on the CPU, whose
+    plain scans write into the same buffers). Only dλ's order of summation
+    differs from :class:`DiagScanFn`'s."""
+
+    @staticmethod
+    def forward(ctx, lam_re, lam_im, bu_cat):
+        from sparsernns_tpu_torch.ops.cuda.diag_scan import diag_scan
+        p = bu_cat.shape[-1] // 2
+        bu = _kernel_operand((bu_cat[..., :p], bu_cat[..., p:]))
+        buf = bu_cat.new_empty(bu_cat.shape[:-1] + (4 * p,))
+        for k, reverse in enumerate((False, True)):
+            diag_scan((lam_re, lam_im), bu, reverse=reverse,
+                      out=_columns(buf, k, p))
+        ctx.save_for_backward(lam_re, lam_im, buf)
+        count_bidir_route("buffers")
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        from sparsernns_tpu_torch.ops.cuda.diag_scan import \
+            diag_scan_adjoint
+        lam_re, lam_im, buf = ctx.saved_tensors
+        p = buf.shape[-1] // 4
+        g_bu = buf.new_empty(buf.shape[:-1] + (2 * p,))
+        v = (g_bu[..., :p], g_bu[..., p:])
+        d = [diag_scan_adjoint((lam_re, lam_im),
+                               _kernel_operand(_columns(g, k, p)),
+                               _columns(buf, k, p), reverse, out=v,
+                               accumulate=k == 1)[1]
+             for k, reverse in enumerate((False, True))]
+        count_bidir_route("buffers")
+        return d[0][0] + d[1][0], d[0][1] + d[1][1], g_bu
 
 
 # ------------------------------------------------ associative scan

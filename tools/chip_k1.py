@@ -22,11 +22,14 @@ kernel also: the kernel against its plan's plain mirror (bit for bit),
 the launch record against the plan, ``--chunks`` times the calls at
 fixed chunk lengths, ``--profile`` the device time of each pass.
 ``--steps`` times warm steps of the paths K1 runs on (:func:`k1_steps`).
+``--pathx`` times K1 at Path-X's scan shape with the launch options of
+the bidirectional mixer's buffers and the mixer's scans both ways, forward
+and backward, on each route (:func:`pathx_scans`).
 
 Run from the repository root::
 
     python3 tools/chip_k1.py [--root DIR] [--no-time] [--chunks 16,32,64]
-        [--profile] [--steps]
+        [--profile] [--steps] [--pathx]
 
 ``--root`` imports ``sparsernns_tpu_torch`` from another checkout (its
 kernels build under that checkout's ``_build/``). Prints one JSON line
@@ -251,6 +254,85 @@ def k1_steps(report) -> None:
     timed("top-k float eval B=8", lambda: step(*batch))
 
 
+def pathx_scans(report) -> None:
+    """K1 at Path-X's scan shape (B 32, L 16 384, P 128), medians of 5
+    (CUDA events) and each kernel's device ms of one profiled call: a plain
+    call; with the buffers' options (``out`` into the columns of a 4P
+    matrix; the adjoint walk into a 2P buffer with dλ; the second adjoint
+    adding to it with dλ); and a bidirectional mixer's two scans forward
+    and backward on the buffers route (``BiDiagScanFn``) and on the two
+    ``DiagScanFn`` with the concatenations. A tree without the options
+    prints "n/a" for them."""
+    import torch
+
+    from sparsernns_tpu_torch.ops import scan as tscan
+    from sparsernns_tpu_torch.ops.cuda import diag_scan
+    from sparsernns_tpu_torch.utils.profiling import profile_region
+    b, length, p = 32, 16384, 128
+    gen = torch.Generator().manual_seed(5)
+    radius = torch.rand(p, generator=gen) * 0.099 + 0.9
+    angle = torch.rand(p, generator=gen) * 6.0 - 3.0
+    lam = ((radius * torch.cos(angle)).cuda(),
+           (radius * torch.sin(angle)).cuda())
+    cat = torch.randn((b, length, 2 * p), generator=gen).cuda()
+    cot = torch.randn((b, length, 4 * p), generator=gen).cuda()
+    bu = (cat[..., :p], cat[..., p:])
+    buf = torch.empty((b, length, 4 * p), device="cuda")
+    acc = torch.empty((b, length, 2 * p), device="cuda")
+    fwd = (buf[..., :p], buf[..., 2 * p:3 * p])
+    v = (acc[..., :p], acc[..., p:])
+    g_fwd = (cot[..., :p], cot[..., 2 * p:3 * p])
+    calls = {
+        "plain forward": lambda: diag_scan.diag_scan_cuda(lam, bu),
+        "plain reverse": lambda: diag_scan.diag_scan_cuda(lam, bu,
+                                                          reverse=True),
+    }
+    # a tree without the buffers' options (the parent) prints "n/a"
+    options = hasattr(diag_scan, "diag_scan_adjoint_cuda")
+    if options:
+        calls.update({
+            "forward into 4P": lambda: diag_scan.diag_scan_cuda(lam, bu,
+                                                                out=fwd),
+            "adjoint + dlam": lambda: diag_scan.diag_scan_adjoint_cuda(
+                lam, g_fwd, fwd, out=v),
+            "adjoint + accumulate + dlam":
+                lambda: diag_scan.diag_scan_adjoint_cuda(
+                    lam, g_fwd, fwd, out=v, accumulate=True),
+        })
+
+    def unfused(lr, li, x):
+        f = tscan.DiagScanFn.apply(lr, li, x[..., :p], x[..., p:], False)
+        r = tscan.DiagScanFn.apply(lr, li, x[..., :p], x[..., p:], True)
+        return torch.cat([torch.cat([f[0], r[0]], dim=-1),
+                          torch.cat([f[1], r[1]], dim=-1)], dim=-1)
+
+    def mixer_scans(fn):
+        leaves = [lam[0].clone().requires_grad_(True),
+                  lam[1].clone().requires_grad_(True),
+                  cat.clone().requires_grad_(True)]
+        return lambda: fn(*leaves).backward(cot)
+
+    calls["bidirectional scans fwd+bwd, unfused"] = mixer_scans(unfused)
+    if options:
+        calls["bidirectional scans fwd+bwd, buffers"] = mixer_scans(
+            tscan.BiDiagScanFn.apply)
+    report["pathx"] = {}
+    for name in ("forward into 4P", "adjoint + dlam",
+                 "adjoint + accumulate + dlam",
+                 "bidirectional scans fwd+bwd, buffers"):
+        if name not in calls:
+            report["pathx"][name] = "n/a"
+            print(f"pathx {name}: n/a", flush=True)
+    for name, fn in calls.items():
+        ms = _median_ms(fn)
+        prof = profile_region(name, fn, top=12)
+        kernels = {k["name"]: k["device_ms"] for k in prof["top_kernels"]}
+        report["pathx"][name] = {"ms": ms, "device_ms": prof["device_ms"],
+                                 "kernels": kernels}
+        print(f"pathx {name}: {ms:.4f} ms, device {prof['device_ms']:.4f} "
+              f"ms, kernels {kernels}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
@@ -258,6 +340,7 @@ def main() -> int:
     ap.add_argument("--chunks", default="")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--steps", action="store_true")
+    ap.add_argument("--pathx", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -377,6 +460,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     if args.steps:
         k1_steps(report)
+    if args.pathx:
+        pathx_scans(report)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

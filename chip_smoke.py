@@ -715,8 +715,7 @@ def _run_steps(tag, state, step, batch, n, expect, counters):
               f"si_snr {metrics['si_snr'].item():.3f} dB, grad_norm "
               f"{gn:.3f}, launches {counts}", flush=True)
         assert np.isfinite(loss) and np.isfinite(gn), metrics
-        for name, count in counts.items():
-            assert count == expect.get(name, 0), (tag, name, count, expect)
+        check_launches(tag, counts, expect)
     return state, counts, walls
 
 
@@ -1071,7 +1070,6 @@ def mixer_training_phase(cfg, records, counters, batch) -> None:
     import numpy as np
     import torch
 
-    from sparsernns_tpu_torch.ops import scan
     from sparsernns_tpu_torch.train.steps import (make_ndns_eval_step,
                                                   make_ndns_train_step)
     from sparsernns_tpu_torch.utils.profiling import profile_region
@@ -1110,8 +1108,7 @@ def mixer_training_phase(cfg, records, counters, batch) -> None:
     print(f"postnorm eval step B={B}: {wall:.1f} ms, loss "
           f"{metrics['loss'].item():.4f}, launches {counts}", flush=True)
     assert np.isfinite(metrics["loss"].item()) and model.training
-    for name, count in counts.items():
-        assert count == (n_layers if name == "fused_s5" else 0), counts
+    check_launches("postnorm eval step", counts, {"fused_s5": n_layers})
     del model, state, step, eval_step
 
     quiet = dataclasses.replace(post, p_dropout=0.0)
@@ -1133,15 +1130,12 @@ def mixer_training_phase(cfg, records, counters, batch) -> None:
     assert hasattr(model.encoder.layers[0].mixer, "C1")
     step = make_ndns_train_step(model)
     torch.cuda.reset_peak_memory_stats()
-    routes = scan.bidir_route_counts()
+    # each layer's mixer on the buffers route, forward and backward
     state, _, _ = _run_steps(
         f"bidirectional train B={B}", state, step, small, 2,
-        {"diag_scan": 2 * n_layers, "diag_scan_rev": 2 * n_layers}, counters)
+        {"diag_scan": 2 * n_layers, "diag_scan_rev": 2 * n_layers,
+         "bidir_buffers": 2 * n_layers}, counters)
     peak_bi = torch.cuda.max_memory_allocated()
-    moved = {k: v - routes[k] for k, v in scan.bidir_route_counts().items()}
-    print(f"bidirectional train B={B}: mixer passes by route {moved}",
-          flush=True)
-    assert moved == {"buffers": 2 * 2 * n_layers, "unfused": 0}, moved
     profile = profile_region(f"bidirectional train step B={B}",
                              lambda: step(state, *small))
     print(json.dumps(profile), flush=True)
@@ -1149,11 +1143,15 @@ def mixer_training_phase(cfg, records, counters, batch) -> None:
           f"MiB, device busy share {profile['device_busy_share']:.3f}",
           flush=True)
     del model, state, step
-    routes = scan.bidir_route_counts()
+    counters()
     _card_vs_cpu_step("bidirectional train step",
                       dataclasses.replace(bidir, p_dropout=0.0), noisy, clean)
-    moved = {k: v - routes[k] for k, v in scan.bidir_route_counts().items()}
-    assert moved == {"buffers": 2 * 2 * n_layers, "unfused": 0}, moved
+    moved = counters()
+    print(f"bidirectional train step, card and CPU: mixer passes by route "
+          f"{moved['bidir_buffers']} buffers, {moved['bidir_unfused']} "
+          "unfused", flush=True)
+    assert (moved["bidir_buffers"], moved["bidir_unfused"]) == (
+        2 * 2 * n_layers, 0), moved
 
 def _codes_of(name, out, ref, scale) -> float:
     """States on a frozen grid of ``scale``: every state the kernel wrote
@@ -1226,6 +1224,7 @@ def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
     import torch
 
     from sparsernns_tpu_torch.ops.cuda import diag_scan, engine_layer, fused_s5
+    from sparsernns_tpu_torch.utils.trace import launch_counts as ledger
     from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
     dev = torch.device("cuda")
     lay = engine.layers[1]
@@ -1431,10 +1430,10 @@ def topk_kernel_phase(cfg, engine, x_eng, frames, gen, records,
                                     act_dtype=torch.float32)
     stack = f32_engine._apply_stack(x_eng, 512)
     f32_engine._stack_ok = False
-    before = fused_s5.launches_engine
+    before = ledger()["fused_s5_engine"]
     per_op = f32_engine(x_eng)
     torch.cuda.synchronize()
-    assert fused_s5.launches_engine - before == len(engine.layers)
+    assert ledger()["fused_s5_engine"] - before == len(engine.layers)
     _engine_close("flagship engine per-op route vs stack route (f32 act)",
                   per_op, stack)
     print(json.dumps({"topk_kernel_phase": {
@@ -1459,8 +1458,7 @@ def _timed_region(tag, fn, expect, counters):
     wall = (time.time() - t0) * 1e3
     counts = counters()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    for name, count in counts.items():
-        assert count == expect.get(name, 0), (tag, counts)
+    check_launches(tag, counts, expect)
     prof = profile_region(tag, fn, top=12)
     print(json.dumps(prof), flush=True)
     print(f"{tag}: {wall:.1f} ms, peak memory {peak:.0f} MiB, device "
@@ -2046,6 +2044,7 @@ def _k7_code_flips(engine, x) -> None:
 
     from sparsernns_tpu_torch.ops.cuda import block_sparse
     from sparsernns_tpu_torch.quantize import engine as engine_mod
+    from sparsernns_tpu_torch.utils.trace import launch_counts as ledger
     layer_fwd = engine_mod.engine_layer_forward
     matmul = engine_mod.block_sparse_matmul
     plain_matmul = block_sparse.block_sparse_matmul_plain
@@ -2079,9 +2078,9 @@ def _k7_code_flips(engine, x) -> None:
         assert isinstance(engine.encoder_kernel,
                           engine_mod.BlockSparseWeight)
         grid = engine.encoder_out_requant or engine.layers[0].residual_requant
-        before = block_sparse.launches
+        before = ledger()["block_sparse"]
         enc = encode()
-        assert block_sparse.launches == before + 1
+        assert ledger()["block_sparse"] == before + 1
         engine_mod.block_sparse_matmul = plain_matmul
         try:
             enc_ref = encode()
@@ -2567,8 +2566,7 @@ def qat_training_phase(cfg, audio, feats, batch, frozen, records,
           f"{metrics['loss'].item():.4f}, launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
     assert np.isfinite(metrics["loss"].item())
-    for name, count in counts.items():
-        assert count == (n_layers if name == "fused_s5_qat" else 0), counts
+    check_launches("QAT eval step", counts, {"fused_s5_qat": n_layers})
     profile = profile_region(f"QAT eval step B={B}",
                              lambda: eval_step(*small), top=12)
     print(json.dumps(profile), flush=True)
@@ -3424,9 +3422,8 @@ def layernorm_training_phase(cfg, records, counters, batch) -> None:
     print(f"layernorm eval step B={B}: {wall:.1f} ms, loss "
           f"{metrics['loss'].item():.4f}, launches {counts}", flush=True)
     assert np.isfinite(metrics["loss"].item()) and model.training
-    for name, count in counts.items():
-        assert count == (n_layers if name == "layer_tail_train" else 0), \
-            counts
+    check_launches("layernorm eval step", counts,
+                   {"layer_tail_train": n_layers})
     del model, state, step, eval_step
 
     # the mixer route in the same call, for the route question
@@ -3486,9 +3483,8 @@ def bf16_training_phase(cfg, records, counters, batch) -> None:
             print(f"{sd} stream train B={bsz} step {i}: {walls[sd][-1]:.1f} "
                   f"ms, loss {losses[sd][-1]:.6f}, launches {counts}",
                   flush=True)
-            for name, count in counts.items():
-                assert count == (n_layers if name in TAIL_KERNELS else 0), \
-                    (sd, counts)
+            check_launches(f"{sd} stream train", counts,
+                           dict.fromkeys(TAIL_KERNELS, n_layers))
         peaks[sd] = torch.cuda.max_memory_allocated()
         hook.remove()
         want = torch.bfloat16 if sd == "bfloat16" else torch.float32
@@ -3816,49 +3812,24 @@ def _stage_metrics(metrics) -> str:
     return ", ".join(f"{k} {float(metrics[k]):.4f}" for k in keys)
 
 
-def _reset_counts() -> None:
-    """Every kernel wrapper's launch counter to 0."""
-    from sparsernns_tpu_torch.ops.cuda import (block_sparse, diag_scan,
-                                               engine_layer, engine_network,
-                                               fused_s5, fxp_scan, layer_tail,
-                                               qat_scan)
-    diag_scan.launches = diag_scan.launches_rev = 0
-    diag_scan.launches_requant = 0
-    fused_s5.launches = layer_tail.launches = 0
-    fused_s5.launches_engine = fused_s5.launches_engine_carry = 0
-    engine_layer.launches = engine_layer.launches_carry = 0
-    engine_network.launches = 0
-    block_sparse.launches = fxp_scan.launches = 0
-    qat_scan.launches = fused_s5.launches_qat = 0
-
-
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch count by record name, then every
-    count set to 0."""
-    from sparsernns_tpu_torch.ops.cuda import (block_sparse, diag_scan,
-                                               engine_layer, engine_network,
-                                               fused_s5, fxp_scan, layer_tail,
-                                               layer_tail_bwd, qat_scan)
-    counts = {
-        "diag_scan": diag_scan.launches,
-        "diag_scan_rev": diag_scan.launches_rev,
-        "diag_scan_requant": diag_scan.launches_requant,
-        "fused_s5": fused_s5.launches,
-        "fused_s5_engine": fused_s5.launches_engine,
-        "fused_s5_engine_carry": fused_s5.launches_engine_carry,
-        "layer_tail_train": layer_tail.launches,
-        "layer_tail_hist": layer_tail_bwd.launches_hist,
-        "layer_tail_bwd": layer_tail_bwd.launches_bwd,
-        "engine_layer": engine_layer.launches,
-        "engine_layer_carry": engine_layer.launches_carry,
-        "engine_network": engine_network.launches,
-        "block_sparse": block_sparse.launches,
-        "qat_scan": qat_scan.launches,
-        "fused_s5_qat": fused_s5.launches_qat,
-        "fxp_scan": fxp_scan.launches}
-    _reset_counts()
-    layer_tail_bwd.launches_hist = layer_tail_bwd.launches_bwd = 0
+def kernel_launches() -> dict:
+    """Every kernel's launch count by record name since the last call, and
+    the bidirectional mixer's route counts (the launch ledger of
+    ``utils/trace.py``, a Counter: 0 for a name never counted; K1's passes,
+    which its plans fix, left out), then the ledger zeroed."""
+    from sparsernns_tpu_torch.utils.trace import launch_counts as ledger
+    counts = ledger(reset=True)
+    del counts["diag_scan_passes"]
     return counts
+
+
+def check_launches(tag, counts, expect) -> None:
+    """``counts`` equal to ``expect`` (name -> count; a name not in it: 0)
+    in both directions: an expected launch that never came fails as an
+    unexpected one does."""
+    for name in set(counts) | set(expect):
+        assert counts.get(name, 0) == expect.get(name, 0), (
+            tag, name, counts, expect)
 
 
 def engine_setup(cfg, model, noisy_mag):
@@ -4360,8 +4331,7 @@ def engine_offline_phase(cfg, eng, feats, clean_t, float_metrics,
     import numpy as np
     import torch
 
-    from sparsernns_tpu_torch.ops.cuda import (diag_scan, engine_layer,
-                                               engine_network, layer_tail)
+    from sparsernns_tpu_torch.ops.cuda import engine_layer, engine_network
     from sparsernns_tpu_torch.ops.cuda.engine_layer import pass_plan
     from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
     from sparsernns_tpu_torch.train.losses import ndns_loss_from_mask_tm
@@ -4379,24 +4349,25 @@ def engine_offline_phase(cfg, eng, feats, clean_t, float_metrics,
             clean_mag.transpose(1, 2), clean_t)
         return loss_e.item(), snr_e.item()
 
-    _reset_counts()
+    kernel_launches()
     t0 = time.time()
     mask_net = engine(x_eng)
     torch.cuda.synchronize()
     eng_s = time.time() - t0
-    records["engine_network"]["launches"] = engine_network.launches
+    counts = kernel_launches()
+    records["engine_network"]["launches"] = counts["engine_network"]
     loss_e, snr_e = engine_metrics(mask_net)
     print(f"engine offline: call {eng_s * 1e3:.1f} ms, loss {loss_e:.4f}, "
           f"si_snr {snr_e:.3f} dB (float model: loss {loss:.4f}, si_snr "
-          f"{snr:.3f} dB), K6 launches {engine_network.launches}, K5a "
-          f"{engine_layer.launches}, K5b {engine_layer.launches_carry}",
+          f"{snr:.3f} dB), K6 launches {counts['engine_network']}, K5a "
+          f"{counts['engine_layer']}, K5b {counts['engine_layer_carry']}",
           flush=True)
     assert mask_net.shape == (B, frames, 257), mask_net.shape
     assert torch.isfinite(mask_net).all()
     assert np.isfinite(loss_e) and np.isfinite(snr_e)
-    assert engine_network.launches == 1, engine_network.launches
-    assert engine_layer.launches == engine_layer.launches_carry == 0
-    assert diag_scan.launches == layer_tail.launches == 0
+    assert counts["engine_network"] == 1, counts
+    assert counts["engine_layer"] == counts["engine_layer_carry"] == 0
+    assert counts["diag_scan"] == counts["layer_tail_train"] == 0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     _check_passes("K6 engine offline call B=8", engine_network.launched(),
                   pass_plan(B, frames, h, p, n_layers), sms)
@@ -4421,15 +4392,16 @@ def engine_offline_phase(cfg, eng, feats, clean_t, float_metrics,
     stack_engine = engine_from_frozen(cfg, frozen_params, frozen_stats,
                                       device=x_eng.device, block_t=512)
     stack_engine._network_ok = False
-    _reset_counts()
+    kernel_launches()
     mask_stack = stack_engine(x_eng)
     torch.cuda.synchronize()
-    records["engine_layer"]["launches"] = engine_layer.launches
-    print(f"engine stack route: K5a launches {engine_layer.launches}, K6 "
-          f"{engine_network.launches}, K5b {engine_layer.launches_carry}",
+    counts = kernel_launches()
+    records["engine_layer"]["launches"] = counts["engine_layer"]
+    print(f"engine stack route: K5a launches {counts['engine_layer']}, K6 "
+          f"{counts['engine_network']}, K5b {counts['engine_layer_carry']}",
           flush=True)
-    assert engine_layer.launches == n_layers, engine_layer.launches
-    assert engine_network.launches == engine_layer.launches_carry == 0
+    assert counts["engine_layer"] == n_layers, counts
+    assert counts["engine_network"] == counts["engine_layer_carry"] == 0
     _check_passes("K5a stack route, last launch", engine_layer.launched(),
                   pass_plan(B, frames, h, p, 1, encoder=False), sms)
     _check("engine network route vs stack route (bit-identical)",
@@ -4452,8 +4424,7 @@ def engine_streaming_phase(cfg, eng, noisy, out_shape, records) -> None:
     import numpy as np
     import torch
 
-    from sparsernns_tpu_torch.ops.cuda import (diag_scan, engine_layer,
-                                               engine_network, layer_tail)
+    from sparsernns_tpu_torch.ops.cuda import engine_layer
     from sparsernns_tpu_torch.ops.cuda.engine_layer import pass_plan
     from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
     from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
@@ -4463,24 +4434,25 @@ def engine_streaming_phase(cfg, eng, noisy, out_shape, records) -> None:
     stream_engine = engine_from_frozen(cfg, *eng.frozen, device=x_eng.device,
                                        block_t=STREAM_BLOCK)
     eden = StreamingDenoiser.from_engine(stream_engine, batch_size=B)
-    _reset_counts()
+    kernel_launches()
     t0 = time.time()
     out_eng = eden.process_offline(noisy, chunk_samples=CHUNK)
     torch.cuda.synchronize()
     estream_s = time.time() - t0
-    records["engine_layer_carry"]["launches"] = engine_layer.launches_carry
-    n_forwards = engine_layer.launches_carry // n_layers
+    counts = kernel_launches()
+    records["engine_layer_carry"]["launches"] = counts["engine_layer_carry"]
+    n_forwards = counts["engine_layer_carry"] // n_layers
     print(f"engine streaming: {n_chunks} chunks of {CHUNK} samples in "
           f"{estream_s * 1e3:.1f} ms, {n_forwards} forwards of "
           f"{STREAM_BLOCK}-frame blocks, K5b launches "
-          f"{engine_layer.launches_carry}, K5a {engine_layer.launches}, K6 "
-          f"{engine_network.launches}", flush=True)
+          f"{counts['engine_layer_carry']}, K5a {counts['engine_layer']}, "
+          f"K6 {counts['engine_network']}", flush=True)
     assert out_shape is None or out_eng.shape == out_shape, out_eng.shape
     assert np.isfinite(out_eng).all()
-    assert engine_layer.launches_carry % n_layers == 0
+    assert counts["engine_layer_carry"] % n_layers == 0
     assert n_forwards >= frames // STREAM_BLOCK, n_forwards
-    assert engine_layer.launches == engine_network.launches == 0
-    assert diag_scan.launches == layer_tail.launches == 0
+    assert counts["engine_layer"] == counts["engine_network"] == 0
+    assert counts["diag_scan"] == counts["layer_tail_train"] == 0
     carries, parts = None, []
     for start in range(0, frames, STREAM_BLOCK):
         part, carries = stream_engine.process_chunk(
@@ -5238,7 +5210,7 @@ def parallel_rank(rank: int, world: int, spec):
     dev = torch.device("cuda", 0) if spec["share"] else "cuda"
     spec = dict(spec, world=world)
     return _par_paths(spec, lambda d, m, s: make_mesh(
-        MeshConfig(data=d, model=m, seq=s), device=dev), launch_counts)
+        MeshConfig(data=d, model=m, seq=s), device=dev), kernel_launches)
 
 
 def _fresh_copy(x):
@@ -5511,6 +5483,7 @@ def main() -> int:
     from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
     from sparsernns_tpu_torch.train.steps import make_ndns_eval_step
     from sparsernns_tpu_torch.utils.config import RunConfig
+    from sparsernns_tpu_torch.utils.trace import launch_counts as ledger
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5694,20 +5667,20 @@ def main() -> int:
     noisy_mag, noisy_phase = stft_splitter(noisy_t)
     clean_mag, _ = stft_splitter(clean_t)
     step = make_ndns_eval_step(model)
-    diag_scan.launches = layer_tail.launches = 0
+    kernel_launches()
     t0 = time.time()
     metrics = step(noisy_mag, noisy_phase, clean_mag, clean_t)
     torch.cuda.synchronize()
     offline_s = time.time() - t0
-    records["layer_tail"]["launches"] = layer_tail.launches
-    k1_offline = diag_scan.launches
+    counts = kernel_launches()
+    records["layer_tail"]["launches"] = counts["layer_tail_train"]
     loss, snr = metrics["loss"].item(), metrics["si_snr"].item()
     print(f"offline: eval step {offline_s * 1e3:.1f} ms, loss {loss:.4f}, "
-          f"si_snr {snr:.3f} dB, K2 launches {layer_tail.launches}, "
-          f"K1 launches {k1_offline}", flush=True)
+          f"si_snr {snr:.3f} dB, K2 launches {counts['layer_tail_train']}, "
+          f"K1 launches {counts['diag_scan']}", flush=True)
     assert noisy_mag.shape == (B, 257, frames), noisy_mag.shape
     assert np.isfinite(loss) and np.isfinite(snr), metrics
-    assert layer_tail.launches == n_layers, layer_tail.launches
+    assert counts["layer_tail_train"] == n_layers, counts
     # reference on a small input: the same model on the CPU (plain paths)
     with torch.no_grad():
         x_small = (noisy_mag[:2, :, :200].transpose(1, 2) - STFT_MAG_MEAN)
@@ -5723,26 +5696,26 @@ def main() -> int:
 
     # ---------------- streaming phase (K1) ----------------
     den = StreamingDenoiser(model, batch_size=B)
-    diag_scan.launches = diag_scan.passes = layer_tail.launches = 0
+    kernel_launches()
     t0 = time.time()
     out_chunked = den.process_offline(noisy, chunk_samples=CHUNK)
     torch.cuda.synchronize()
     stream_s = time.time() - t0
-    records["diag_scan"]["launches"] = diag_scan.launches
+    counts = ledger(reset=True)
+    records["diag_scan"]["launches"] = counts["diag_scan"]
     n_chunks = -(-audio_len // CHUNK)
     print(f"streaming: {n_chunks} chunks of {CHUNK} samples in "
-          f"{stream_s * 1e3:.1f} ms, K1 launches {diag_scan.launches} "
-          f"(kernel passes {diag_scan.passes}), K2 launches "
-          f"{layer_tail.launches}", flush=True)
-    assert diag_scan.launches >= n_layers * (n_chunks - 1), diag_scan.launches
+          f"{stream_s * 1e3:.1f} ms, K1 launches {counts['diag_scan']} "
+          f"(kernel passes {counts['diag_scan_passes']}), K2 launches "
+          f"{counts['layer_tail_train']}", flush=True)
+    assert counts["diag_scan"] >= n_layers * (n_chunks - 1), counts
     # a chunk of CHUNK samples is at most SHORT_LENGTH frames: the plan
     # makes each K1 call one pass, so a chunk launches n_layers kernels
     chunk_plan = diag_scan.scan_plan(B, CHUNK // 128 + 1, p)
     assert CHUNK // 128 + 1 <= diag_scan.SHORT_LENGTH
     assert len(chunk_plan.launches()) == 1, chunk_plan
-    assert diag_scan.passes == diag_scan.launches, (diag_scan.passes,
-                                                    diag_scan.launches)
-    assert layer_tail.launches == 0, layer_tail.launches
+    assert counts["diag_scan_passes"] == counts["diag_scan"], counts
+    assert counts["layer_tail_train"] == 0, counts
     whole = StreamingDenoiser(model, batch_size=B)
     out_whole = np.concatenate([whole.process(noisy), whole.flush()], axis=-1)
     assert out_chunked.shape == out_whole.shape, (out_chunked.shape,
@@ -5781,7 +5754,7 @@ def main() -> int:
     mark("training kernel phase")
 
     # ---------------- training phase ----------------
-    counters = launch_counts
+    counters = kernel_launches
     batch = _train_batch(cfg.bsz)
     training_phase(cfg, records, counters, batch)
     mark("training phase")

@@ -67,7 +67,7 @@ from sparsernns_tpu_torch.models.ssm_init import (init_cv, init_log_steps,
                                                   init_vinv_b, project_cv,
                                                   trunc_standard_normal)
 from sparsernns_tpu_torch.ops.scan import (BiDiagScanFn, Pair,
-                                           count_bidir_route, diag_ssm_scan,
+                                           diag_ssm_scan,
                                            sequential_diag_scan)
 from sparsernns_tpu_torch.ops.topk import relu_top_k_sparsity
 from sparsernns_tpu_torch.quantize.config import QuantizationConfig
@@ -76,7 +76,7 @@ from sparsernns_tpu_torch.quantize.qat import (QuantizedOps, act_qat_bits,
 from sparsernns_tpu_torch.quantize.static import (FakeQuant,
                                                   FakeQuantComplex,
                                                   quant_dequant)
-from sparsernns_tpu_torch.utils.trace import span
+from sparsernns_tpu_torch.utils.trace import count, span
 
 
 def discretize_zoh(lam: Pair, b: Pair, delta: torch.Tensor
@@ -424,7 +424,7 @@ class S5SSM(nn.Module):
             if self.relufication:
                 xs = self._state_act(xs)
             if self.bidirectional:
-                count_bidir_route("unfused")
+                count("bidir_unfused")
                 # as in the JAX package, the reverse states are not
                 # relufied before the concatenation
                 rev = diag_ssm_scan(lam_bar, bu, reverse=True, **kw)

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.cuda.engine_layer import WTYPES
-from sparsernns_tpu_torch.utils.trace import traced
+from sparsernns_tpu_torch.utils.trace import count, traced
 
 #: the JAX package's default tile
 DEFAULT_BK = 128
@@ -67,9 +67,6 @@ def max_per_sm(bm: int, planes: int) -> int:
     registers): 2 of 8 warps; of 4 warps 4, 3 or 2 with 1, 2 or 3 tile
     planes."""
     return 2 if bm == 128 else {1: 4, 2: 3, 3: 2}[planes]
-
-#: kernel launches made by :func:`block_sparse_matmul` in this process
-launches = 0
 
 
 class _WeightArgs(ctypes.Structure):
@@ -174,11 +171,9 @@ def _kernel_weight(w: BlockSparseWeight) -> KernelWeight:
     if counts.numel() != -(-w.shape[1] // w.bn) or bool((counts < 1).any()):
         raise ValueError("every output tile needs at least one block (the "
                          "packer's pad block)")
-    fn = build.load("block_sparse").block_sparse_planes
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = build.entry("block_sparse", "block_sparse_planes",
+                     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     planes, args = {}, {}
     for x_dtype in (torch.float32, torch.bfloat16):
         n = n_planes(x_dtype, w.data.dtype)
@@ -433,14 +428,9 @@ def _sm_count(index: int) -> int:
 
 # ------------------------------------------------ the launch
 
-def _lib():
-    fn = build.load("block_sparse").block_sparse_run
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(_WeightArgs), ctypes.c_void_p,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_RUN_ARGS = ([ctypes.POINTER(_WeightArgs), ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+             + [ctypes.c_void_p])
 
 
 @traced("kernel.block_sparse")
@@ -449,7 +439,6 @@ def block_sparse_matmul_cuda(x: torch.Tensor, w: BlockSparseWeight
     """Launch the kernel: x (..., K) f32 or bf16 on the weight's CUDA
     device -> (..., N) float32. The weight was checked when it was
     packed; this checks x."""
-    global launches
     if w.kernel is None:
         raise ValueError(f"the weight was packed on {w.data.device}: pack "
                          "it on the card to launch the kernel")
@@ -471,24 +460,22 @@ def block_sparse_matmul_cuda(x: torch.Tensor, w: BlockSparseWeight
         x_bf16 = xm.dtype == torch.bfloat16
         plan = launch_plan(m, n_dim, x_bf16, args.n_planes,
                            _sm_count(dev.index))
-        err = _lib()(
+        err = build.entry("block_sparse", "block_sparse_run", _RUN_ARGS)(
             ctypes.byref(args), xm.data_ptr(), int(x_bf16),
             int(k_dim * xm.element_size() % 16 == 0), y.data_ptr(), m,
             plan.bm, plan.stages, plan.ctas,
             # the current stream's handle, without making a Stream object
             torch._C._cuda_getCurrentRawStream(dev.index))
         build.check(err, "block_sparse")
-        launches += 1
+        count("block_sparse")
     return y if two_d else y.reshape(*x.shape[:-1], n_dim)
 
 
 def launched() -> dict:
     """The last launch as the CUDA source recorded it: CTAs, row tile,
     stages and dynamic shared memory bytes."""
-    fn = build.load("block_sparse").block_sparse_launched
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p]
-        fn.restype = None
+    fn = build.entry("block_sparse", "block_sparse_launched",
+                     [ctypes.c_void_p], None)
     out = (ctypes.c_int * 4)()
     fn(out)
     return dict(zip(("ctas", "bm", "stages", "smem"), list(out)))
@@ -496,10 +483,7 @@ def launched() -> dict:
 
 def smem_on_card(x_bf16: bool, planes: int, bm: int, stages: int) -> int:
     """The CUDA source's shared memory bytes for a launch of this kind."""
-    fn = build.load("block_sparse").block_sparse_smem
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 4
-        fn.restype = ctypes.c_int
+    fn = build.entry("block_sparse", "block_sparse_smem", [ctypes.c_int] * 4)
     return fn(int(x_bf16), planes, bm, stages)
 
 

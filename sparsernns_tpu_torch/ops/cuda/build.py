@@ -10,7 +10,9 @@ The library name carries a hash of the source and of every ``csrc/``
 header it includes, so an edited source or header is rebuilt and an
 unchanged one is reused from ``_build/`` (listed in ``.gitignore``).
 :func:`build_all` starts one ``nvcc`` per source, all at once. A missing
-``nvcc`` or a failed build raises; nothing falls back.
+``nvcc`` or a failed build raises; nothing falls back. :func:`entry` is
+how a wrapper reaches a C function: its library built and loaded at first
+use, its argument and result types set once.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Any, Dict, Iterable, List, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -36,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], Any] = {}
 #: ``nvcc -Xptxas -v`` output of each build made in this process
 #: (registers, shared memory and spills per kernel)
 build_logs: Dict[str, str] = {}
@@ -101,15 +104,22 @@ def build_all(names: Iterable[str] = SOURCES) -> List[str]:
     return list(paths.values())
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built at first use."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            path, = build_all([name])
-            lib = ctypes.CDLL(path)
-            _libs[name] = lib
-        return lib
+def entry(name: str, symbol: str, argtypes: Sequence,
+          restype: Any = ctypes.c_int):
+    """The C function ``symbol`` of kernel ``name``'s library (built and
+    loaded at first use) with its argument and result types, set once."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                path, = build_all([name])
+                lib = _libs[name] = ctypes.CDLL(path)
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _entries[(name, symbol)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

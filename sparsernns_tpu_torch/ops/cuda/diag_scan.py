@@ -29,13 +29,15 @@ plan in PyTorch, rounding every operation as the kernel does: the tests
 hold it against the sequential recurrence and the JAX kernel on the CPU,
 and the kernel against it bit for bit on the card.
 
-The bidirectional mixer's buffers (``ops/scan.py``
-:class:`~sparsernns_tpu_torch.ops.scan.BiDiagScanFn`) take two launch
-options of the float modes, off for every other caller: ``out`` writes the
-states into given views (the columns of a wider matrix), and
-:func:`diag_scan_adjoint` walks a scan's adjoint, adds its cotangent to
-what ``out`` holds if asked, and sums dλ against the primal states in the
-same walk (:func:`reduce_dlam`).
+Two launch options of the float modes serve the differentiable scans of
+``ops/scan.py``: ``out`` writes the states into given views (the columns
+of the bidirectional mixer's (B, L, 4P) matrix,
+:class:`~sparsernns_tpu_torch.ops.scan.BiDiagScanFn`), and
+:func:`diag_scan_adjoint`, the one adjoint of every float scan
+(:class:`~sparsernns_tpu_torch.ops.scan.DiagScanFn`'s and
+``BiDiagScanFn``'s backward), walks a scan's adjoint, adds its cotangent
+to what ``out`` holds if asked, and sums dλ against the primal states in
+the same walk (:func:`reduce_dlam`).
 """
 
 from __future__ import annotations
@@ -51,16 +53,7 @@ import torch
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, _dlam,
                                            grid_value, sequential_diag_scan)
-from sparsernns_tpu_torch.utils.trace import traced
-
-#: kernel calls made by :func:`diag_scan` in this process: forward in time,
-#: reverse, and with the block requant in either direction (each call
-#: counts in one of the three)
-launches = 0
-launches_rev = 0
-launches_requant = 0
-#: kernel launches those calls made: each call its plan's (one or three)
-passes = 0
+from sparsernns_tpu_torch.utils.trace import count, traced
 
 #: threads of every K1 CTA: one warp
 LANES = 32
@@ -429,15 +422,6 @@ def diag_scan_chunked_plain(lam: Pair, bu: Pair,
 
 # ------------------------------------------------ the kernel
 
-def _lib():
-    lib = build.load("diag_scan")
-    fn = lib.diag_scan_run
-    if fn.argtypes is None:
-        fn.argtypes = _argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_f32_cuda(name: str, t: torch.Tensor, device) -> None:
     if t.dtype != torch.float32 or t.device != device:
         raise ValueError(f"{name}: expected float32 on {device}, got "
@@ -494,7 +478,6 @@ def _launch(lam: Pair, bu: Pair, carry_init: Optional[Pair], reverse: bool,
     """The kernel's passes (:func:`diag_scan_cuda`, and with ``states``
     :func:`diag_scan_adjoint_cuda`): returns (the states, dλ's partials or
     None)."""
-    global launches, launches_rev, launches_requant, passes
     if reverse and carry_init is not None:
         raise NotImplementedError("carry with reverse scan")
     _check_requant(block_requant, block_t)
@@ -549,7 +532,7 @@ def _launch(lam: Pair, bu: Pair, carry_init: Optional[Pair], reverse: bool,
     if block_requant is not None:
         s_re, s_im, bits = block_requant
         qmax = 2.0 ** (bits - 1) - 1
-    err = _lib()(
+    err = build.entry("diag_scan", "diag_scan_run", _argtypes)(
         bu_re.data_ptr(), bu_im.data_ptr(), bu_re.stride(0), bu_re.stride(1),
         lam_re.data_ptr(), lam_im.data_ptr(),
         c_re.data_ptr() if c_re is not None else None,
@@ -567,13 +550,9 @@ def _launch(lam: Pair, bu: Pair, carry_init: Optional[Pair], reverse: bool,
         dlam.data_ptr() if dlam is not None else None,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "diag_scan")
-    passes += len(plan.launches())
-    if block_requant is not None:
-        launches_requant += 1
-    elif reverse:
-        launches_rev += 1
-    else:
-        launches += 1
+    count("diag_scan_passes", len(plan.launches()))
+    count("diag_scan_requant" if block_requant is not None
+          else "diag_scan_rev" if reverse else "diag_scan")
     return (out_re, out_im), dlam
 
 
@@ -668,10 +647,8 @@ def diag_scan_adjoint(lam: Pair, g: Pair, states: Pair,
 def launched() -> List[Tuple[str, Tuple[int, int, int], int]]:
     """(pass, grid, threads a CTA) of every launch that the last K1 call
     made on the card, in order, as the CUDA source recorded them."""
-    fn = build.load("diag_scan").diag_scan_launched
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
-        fn.restype = ctypes.c_int
+    fn = build.entry("diag_scan", "diag_scan_launched",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int])
     cap = 4
     names = (ctypes.c_char_p * cap)()
     grids = (ctypes.c_int * (3 * cap))()

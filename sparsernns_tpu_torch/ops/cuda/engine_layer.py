@@ -67,14 +67,9 @@ from sparsernns_tpu_torch.ops.intdot import (DOT_I8, dot_formula, int16_dot,
                                              quantize_codes)
 from sparsernns_tpu_torch.ops.scan import (Pair, grid_value, quant_codes,
                                            sequential_diag_scan)
-from sparsernns_tpu_torch.utils.trace import traced
+from sparsernns_tpu_torch.utils.trace import count, traced
 
 GLU_KINDS = ("full", "half1", "half2", "none")
-
-#: calls made in this process without / with a carry (K5a / K5b), each
-#: one enqueue of its three passes
-launches = 0
-launches_carry = 0
 
 #: frames of the flattened B * L stream that one row-pass CTA owns (``kT``
 #: of ``csrc/engine_body.cuh``)
@@ -838,27 +833,22 @@ def check_row_passes(h: int, ld_bu: int, passes) -> None:
                 f"of shared memory, the card gives {MAX_SMEM}")
 
 
-def _lib():
-    fn = build.load("engine_layer").engine_layer_fwd
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_float, ctypes.POINTER(LayerParams),
-             ctypes.POINTER(Mode), ctypes.POINTER(DenseW), ctypes.c_int,
-             ctypes.POINTER(DenseW), ctypes.c_int]
-            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 3)
-        fn.restype = ctypes.c_int
-    return fn
+_FWD_ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.c_float, ctypes.POINTER(LayerParams),
+              ctypes.POINTER(Mode), ctypes.POINTER(DenseW), ctypes.c_int,
+              ctypes.POINTER(DenseW), ctypes.c_int]
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p] * 3)
+#: the argument types of a library's ``<lib>_launched`` and
+#: ``<lib>_launched_dots``
+_RECORD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 
 
 def read_launched(lib_name: str) -> List[Tuple[str, int]]:
     """(kernel, CTAs) of every pass that the last call of the library's
     entry launched on the card, in order, as its CUDA source recorded
     them at the launch."""
-    fn = getattr(build.load(lib_name), f"{lib_name}_launched")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
+    fn = build.entry(lib_name, f"{lib_name}_launched", _RECORD_ARGS)
     cap = 2 * 8 + 1
     names = (ctypes.c_char_p * cap)()
     ctas = (ctypes.c_longlong * cap)()
@@ -872,9 +862,7 @@ def read_launched_dots(lib_name: str) -> List[Tuple[int, int]]:
     :func:`read_launched` (0, 0 for a scan). A dense of int8 codes with
     their fragments (:func:`attach_fragments`) runs on the tensor cores,
     any other float dot as fmaf tiles; an integer dot is neither."""
-    fn = getattr(build.load(lib_name), f"{lib_name}_launched_dots")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
+    fn = build.entry(lib_name, f"{lib_name}_launched_dots", _RECORD_ARGS)
     cap = 2 * 8 + 1
     mma = (ctypes.c_int * cap)()
     fmaf = (ctypes.c_int * cap)()
@@ -899,7 +887,6 @@ def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
     """Enqueue the three passes (:func:`pass_plan`). Same arguments and
     results as :func:`engine_layer_plain`; every tensor on ``r``'s CUDA
     device."""
-    global launches, launches_carry
     _check_args(r, layer, mode, block_t, enc)
     dev = r.device
     b, l, _ = r.shape
@@ -937,7 +924,7 @@ def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
     if b == 0 or l == 0:
         return out if carry is None else (out, carry)
     scratch = alloc_scratch(pass_plan(b, l, h, p, 1, enc is not None), dev)
-    err = _lib()(
+    err = build.entry("engine_layer", "engine_layer_fwd", _FWD_ARGS)(
         r.data_ptr(), out.data_ptr(), IO_TYPES[r.dtype], IO_TYPES[o_dtype],
         1.0 if in_requant is None else float(in_requant[0]),
         ctypes.byref(lp), ctypes.byref(md), ctypes.byref(enc_w), d_in,
@@ -947,9 +934,9 @@ def engine_layer_cuda(r: torch.Tensor, layer, mode: LayerMode, *,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "engine_layer")
     if carry is None:
-        launches += 1
+        count("engine_layer")
         return out
-    launches_carry += 1
+    count("engine_layer_carry")
     return out, co
 
 

@@ -35,14 +35,10 @@ from sparsernns_tpu_torch.ops.cuda.engine_layer import (
     alloc_scratch, check_row_passes, zero_carry, dense_plain, encode_plain,
     layer_body_plain, pack_dense, pad128, pack_layer, pack_mode, pass_plan,
     read_launched, stream_value, widest_row_pass)
-from sparsernns_tpu_torch.utils.trace import traced
+from sparsernns_tpu_torch.utils.trace import count, traced
 
 #: most layers one call takes (``kMaxLayers`` of the CUDA source)
 MAX_LAYERS = 8
-
-#: calls of :func:`engine_network_cuda` in this process, each one enqueue
-#: of all its passes
-launches = 0
 
 
 def _check_args(x, enc: Dense, layers: Sequence, dec: Dense, block_t: int):
@@ -74,16 +70,10 @@ def engine_network_plain(x: torch.Tensor, enc: Dense, layers: Sequence,
     return torch.cat(outs, dim=1)
 
 
-def _lib():
-    fn = build.load("engine_network").engine_network_fwd
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.POINTER(LayerParams), ctypes.c_int, ctypes.POINTER(Mode),
-             ctypes.POINTER(DenseW), ctypes.c_int, ctypes.POINTER(DenseW),
-             ctypes.c_int] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
-        fn.restype = ctypes.c_int
-    return fn
+_FWD_ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.POINTER(LayerParams), ctypes.c_int, ctypes.POINTER(Mode),
+              ctypes.POINTER(DenseW), ctypes.c_int, ctypes.POINTER(DenseW),
+              ctypes.c_int] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
 
 
 def launched():
@@ -100,7 +90,6 @@ def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
     """Enqueue the passes (:func:`pass_plan`) for all of L. Same
     arguments as :func:`engine_network_plain`, every tensor on ``x``'s
     CUDA device."""
-    global launches
     _check_args(x, enc, layers, dec, block_t)
     if x.dtype not in (torch.float32, torch.bfloat16) or out_dtype not in (
             torch.float32, torch.bfloat16):
@@ -127,14 +116,14 @@ def engine_network_cuda(x: torch.Tensor, enc: Dense, layers: Sequence,
                  tail=packed[i - 1] if i > 0 else None,
                  head=packed[i] if i < n else None) for i in range(n + 1)])
     scratch = alloc_scratch(pass_plan(b, l, h, p_max, len(layers)), dev)
-    err = _lib()(
+    err = build.entry("engine_network", "engine_network_fwd", _FWD_ARGS)(
         x.data_ptr(), out.data_ptr(), IO_TYPES[x.dtype], IO_TYPES[out_dtype],
         packed, len(layers), ctypes.byref(md), ctypes.byref(enc_w), d_in,
         ctypes.byref(dec_w), d_out, b, l, int(block_t),
         scratch["bu"].data_ptr(), scratch["stream"].data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "engine_network")
-    launches += 1
+    count("engine_network")
     return out
 
 

@@ -65,16 +65,7 @@ from sparsernns_tpu_torch.ops.cuda.diag_scan import _check_f32_cuda, diag_scan
 from sparsernns_tpu_torch.ops.cuda.layer_tail import check_tensors
 from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, QatBits,
                                            sequential_diag_scan)
-from sparsernns_tpu_torch.utils.trace import traced
-
-#: kernel calls made in this process, one a call (K4a and K4b: three
-#: passes each): by :func:`fused_s5` (K4a float), by
-#: :func:`fused_s5_engine` without a carry (K4a engine modes) and with one
-#: (K4b), by :func:`fused_s5_qat` (K4a QAT mode: four launches)
-launches = 0
-launches_engine = 0
-launches_engine_carry = 0
-launches_qat = 0
+from sparsernns_tpu_torch.utils.trace import count, traced
 
 Scales = Optional[Tuple[float, float]]
 
@@ -91,15 +82,10 @@ def fused_s5_plain(u, lam: Pair, w_b, w_c, d, relu_state: bool = False
     return torch.cat(xs, dim=-1) @ w_c + d * u
 
 
-def _lib():
-    fn = build.load("fused_s5").fused_s5_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                        ctypes.POINTER(engine_layer.LayerParams),
-                        ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-    return fn
+_FWD_ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+              ctypes.POINTER(engine_layer.LayerParams), ctypes.c_int]
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+             + [ctypes.c_void_p] * 2)
 
 
 def launched():
@@ -144,7 +130,7 @@ def _launch(u, ops: engine_layer.MixerOps, relu_state: bool, block_t: int,
         return y if carry is None else (y, carry)
     scratch = engine_layer.alloc_scratch(
         engine_layer.pass_plan(b, l, h, p, 1, encoder=False), dev)
-    err = _lib()(
+    err = build.entry("fused_s5", "fused_s5_fwd", _FWD_ARGS)(
         u.data_ptr(), y.data_ptr(), engine_layer.IO_TYPES[u.dtype],
         ctypes.byref(lp), int(relu_state), *ci_ptr, *co_ptr, b, l, h,
         block_t, scratch["bu"].data_ptr(),
@@ -158,7 +144,6 @@ def fused_s5_cuda(u, lam: Pair, w_b, w_c, d, relu_state: bool = False
                   ) -> torch.Tensor:
     """Enqueue the kernel's passes in its float mode. Same arguments as
     :func:`fused_s5_plain`; every tensor float32 on one CUDA device."""
-    global launches
     if u.dim() != 3:
         raise ValueError(f"u must be (B, L, H), got {tuple(u.shape)}")
     b, l, h = u.shape
@@ -171,7 +156,7 @@ def fused_s5_cuda(u, lam: Pair, w_b, w_c, d, relu_state: bool = False
                                 t["w_c"], t["d"])
     y = _launch(t["u"], ops, relu_state, max(l, 1), None)
     if b and l:
-        launches += 1
+        count("fused_s5")
     return y
 
 
@@ -280,12 +265,11 @@ def fused_s5_qat_plain(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
     return xs @ w_c.to(torch.float32) + d * u
 
 
-def _qat_lib():
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return qat_scan._fn(
-        "fused_s5_qat_run",
-        [vp, vp, ctypes.POINTER(engine_layer.LayerParams), i, vp, vp, i, vp,
-         vp, vp] + [i] * 7 + [f, f, i, vp])
+_QAT_ARGS = ([ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.POINTER(engine_layer.LayerParams), ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def qat_plan(u, w_b, block_t: int
@@ -314,7 +298,6 @@ def fused_s5_qat_cuda(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
     :func:`fused_s5_qat_plain`; u, λ, d float32, the weights int8 / int16
     / float32, every tensor on one CUDA device, ``qat_scale`` a one-element
     float32 tensor or None."""
-    global launches_qat
     a_bits, act_bits = qat_scan._check_bits(qat_bits)
     qat_scan._check_requant(block_requant)
     if u.dim() != 3:
@@ -340,7 +323,7 @@ def fused_s5_qat_cuda(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
         return y
     tables, cbuf, sync = qat_scan.call_buffers(plan, u.device)
     scratch = engine_layer.alloc_scratch(rows, u.device)
-    err = _qat_lib()(
+    err = build.entry("qat_scan", "fused_s5_qat_run", _QAT_ARGS)(
         t["u"].data_ptr(), y.data_ptr(), ctypes.byref(lp), int(relu_state),
         amax_ptr, tables.data_ptr(), plan.num_passes, cbuf.data_ptr(),
         sync.data_ptr(), scratch["bu"].data_ptr(), b, length, h, plan.t,
@@ -348,7 +331,7 @@ def fused_s5_qat_cuda(u, lam: Pair, w_b, w_c, d, qat_bits: QatBits,
             block_requant),
         torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "fused_s5_qat")
-    launches_qat += 1
+    count("fused_s5_qat")
     return y
 
 
@@ -441,7 +424,6 @@ def fused_s5_engine_cuda(u, lam: Pair, w_b, w_c, d, *, block_t: int,
     tensor cores' fragments of int8 ``w_b`` and ``w_c``
     (``engine_layer.attach_fragments``: the layer's ``wb_frags``,
     ``wc_frags``), which put their products on the tensor cores."""
-    global launches_engine, launches_engine_carry
     t = _engine_args(u, w_b, block_t, carry)
     if u.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"u dtype {u.dtype}: float32 or bfloat16")
@@ -450,10 +432,7 @@ def fused_s5_engine_cuda(u, lam: Pair, w_b, w_c, d, *, block_t: int,
                                 block_requant, wb_frags=wb_f, wc_frags=wc_f)
     out = _launch(u, ops, relu_state, t, carry)
     if u.shape[0] and u.shape[1]:
-        if carry is None:
-            launches_engine += 1
-        else:
-            launches_engine_carry += 1
+        count("fused_s5_engine" if carry is None else "fused_s5_engine_carry")
     return out
 
 

@@ -32,10 +32,7 @@ import torch
 
 from sparsernns_tpu_torch.fxp.array import RoundingMode, fxp_rshift_round
 from sparsernns_tpu_torch.ops.cuda import build
-from sparsernns_tpu_torch.utils.trace import traced
-
-#: calls of :func:`fxp_scan_cuda` in this process (one launch each)
-launches = 0
+from sparsernns_tpu_torch.utils.trace import count, traced
 
 
 def _check_args(bu_r, bu_i, a_re, a_im, shifts, g, bounds_r, bounds_i):
@@ -84,13 +81,7 @@ def fxp_scan_plain(bu_r: torch.Tensor, bu_i: torch.Tensor,
     return xs_r, xs_i
 
 
-def _lib():
-    fn = build.load("fxp_scan").fxp_scan_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @traced("kernel.fxp_scan")
@@ -101,7 +92,6 @@ def fxp_scan_cuda(bu_r: torch.Tensor, bu_i: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel for all of (B, L, P). Same arguments as
     :func:`fxp_scan_plain`, every tensor on one CUDA device."""
-    global launches
     _check_args(bu_r, bu_i, a_re, a_im, shifts, g, bounds_r, bounds_i)
     if not bu_r.is_cuda:
         raise ValueError("fxp_scan_cuda needs CUDA tensors")
@@ -112,13 +102,13 @@ def fxp_scan_cuda(bu_r: torch.Tensor, bu_i: torch.Tensor,
     b, length, p = bu_r.shape
     if bu_r.numel() == 0:
         return xs_r, xs_i
-    err = _lib()(
+    err = build.entry("fxp_scan", "fxp_scan_fwd", _FWD_ARGS)(
         bu_r.data_ptr(), bu_i.data_ptr(), a_re.data_ptr(), a_im.data_ptr(),
         xs_r.data_ptr(), xs_i.data_ptr(), b, length, p, shifts[0],
         shifts[1], g, bounds_r[0], bounds_r[1], bounds_i[0], bounds_i[1],
         torch.cuda.current_stream(bu_r.device).cuda_stream)
     build.check(err, "fxp_scan")
-    launches += 1
+    count("fxp_scan")
     return xs_r, xs_i
 
 

@@ -41,16 +41,12 @@ import torch.nn.functional as F
 
 from sparsernns_tpu_torch.ops.cuda import build
 from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
-from sparsernns_tpu_torch.utils.trace import traced
+from sparsernns_tpu_torch.utils.trace import count, traced
 
 GLU_KINDS = ("full", "half1", "half2", "none")
 ACTS = ("gelu", "relu")
 #: dtypes of the (B, L, H) streams that the tail kernels read and write
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
-
-#: calls of the kernel made by :func:`layer_tail` in this process (one a
-#: call, whose three passes :func:`launched` reads back)
-launches = 0
 
 #: the passes of one call, as the CUDA source names its kernels
 BPROJ_PASS = "tail_hist_bproj_kernel"
@@ -126,21 +122,11 @@ _argtypes = ([ctypes.c_void_p] * 17
              + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
-def _lib():
-    fn = build.load("layer_tail").layer_tail_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def launched() -> List[Tuple[str, int]]:
     """(kernel, CTAs) of every pass that the last K2 call launched on the
     card, in order, as the CUDA source recorded them at the launch."""
-    lib = build.load("layer_tail")
-    fn = lib.layer_tail_fwd_launched
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
+    fn = build.entry("layer_tail", "layer_tail_fwd_launched",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
     cap = 16
     names = (ctypes.c_char_p * cap)()
     ctas = (ctypes.c_longlong * cap)()
@@ -227,7 +213,6 @@ def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
     float32 or bfloat16, the rest float32. With a GLU the tail pass keeps
     64 rows of x1 in shared memory: H up to 872 on an H100; a wider layer
     raises ValueError."""
-    global launches
     ops = checked_operands(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
                            m1, m2, act, glu, skip=skip)
     b, l, h = x.shape
@@ -235,7 +220,7 @@ def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
     out = torch.empty((b, l, h), dtype=x.dtype, device=x.device)
     if b == 0 or l == 0:
         return out
-    fn = _lib()
+    fn = build.entry("layer_tail", "layer_tail_fwd", _argtypes)
     # S: bu, then the raw states [re | im] in place
     states = torch.empty((b * l, 2 * p), dtype=torch.float32,
                          device=x.device)
@@ -251,7 +236,7 @@ def layer_tail_cuda(x, lam: Pair, w_b, w_c, d, nw, nb, o2k=None, o2b=None,
         raise ValueError(f"H={h}: 64 rows of x1 do not fit in the shared "
                          "memory the card gives a block")
     build.check(err, "layer_tail")
-    launches += 1
+    count("layer_tail_train")
     return out
 
 

@@ -55,7 +55,7 @@ from sparsernns_tpu_torch.ops.cuda.layer_tail import (ACTS, GLU_KINDS,
                                                       data_ptr,
                                                       norm_and_residual)
 from sparsernns_tpu_torch.ops.scan import Pair, sequential_diag_scan
-from sparsernns_tpu_torch.utils.trace import traced
+from sparsernns_tpu_torch.utils.trace import count, traced
 
 #: time rows of one history block
 HIST_BLOCK = 32
@@ -67,10 +67,6 @@ CHUNK = 128
 WGRAD_SPLITS = 48
 #: the vector gradients that the kernels sum per chunk, in their slot order
 VEC_SLOTS = ("d", "o2b", "o1b", "m1", "m2", "nw", "nb")
-
-#: launches of the history kernel and of the adjoint kernel in this process
-launches_hist = 0
-launches_bwd = 0
 
 _GELU_K = 0.7978845608028654
 _GELU_C = 0.044715
@@ -309,12 +305,8 @@ def reduce_partials(plan: BwdPlan, parts: Dict[str, torch.Tensor],
             total("nb") if affine else None)
 
 
-def _fn(name: str, argtypes):
-    fn = getattr(build.load("layer_tail_bwd"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+_HIST_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def launched() -> Dict[str, Dict[str, int]]:
@@ -323,11 +315,9 @@ def launched() -> Dict[str, Dict[str, int]]:
     source recorded them at the launch: ``{"K3a": {name: ctas}, "K3b":
     {name: ctas}}``. The names are the ``__global__`` s' (with their
     template arguments), as the profiler shows them."""
-    lib = build.load("layer_tail_bwd")
-    fn = lib.layer_tail_launched
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int]
-    fn.restype = ctypes.c_int
+    fn = build.entry("layer_tail_bwd", "layer_tail_launched",
+                     [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int])
     cap = 16
     res = {}
     for call, kernel in enumerate(("K3a", "K3b")):
@@ -341,10 +331,9 @@ def launched() -> Dict[str, Dict[str, int]]:
 def _hist_launch(ops, plan: BwdPlan, h: int, p: int, states) -> Pair:
     """Launch K3a: every state into ``states`` ((B, L, 2P) float32), and
     the history, which it returns."""
-    global launches_hist
-    lib = build.load("layer_tail_bwd")
-    if (lib.layer_tail_tile_rows(), lib.layer_tail_chunk_rows()) != (
-            HIST_BLOCK, plan.chunk):
+    tile = build.entry("layer_tail_bwd", "layer_tail_tile_rows", [])
+    chunk = build.entry("layer_tail_bwd", "layer_tail_chunk_rows", [])
+    if (tile(), chunk()) != (HIST_BLOCK, plan.chunk):
         raise RuntimeError("the kernels' tiles differ from HIST_BLOCK / "
                            "CHUNK")
     b, l = plan.batch, plan.length
@@ -352,15 +341,14 @@ def _hist_launch(ops, plan: BwdPlan, h: int, p: int, states) -> Pair:
     n_blocks = -(-l // HIST_BLOCK)
     hist = tuple(torch.empty((b, n_blocks, p), dtype=torch.float32,
                              device=device) for _ in range(2))
-    fn = _fn("layer_tail_hist",
-             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn = build.entry("layer_tail_bwd", "layer_tail_hist", _HIST_ARGS)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(*(data_ptr(ops, k) for k in ("x", "nw", "nb", "w_b", "lam_re",
                                           "lam_im")),
              states.data_ptr(), hist[0].data_ptr(), hist[1].data_ptr(), b, l,
              h, p, int(ops["x"].dtype == torch.bfloat16), stream)
     build.check(err, "layer_tail_hist")
-    launches_hist += 1
+    count("layer_tail_hist")
     return hist
 
 
@@ -402,7 +390,6 @@ def layer_tail_bwd_cuda(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
     arguments and result as :func:`layer_tail_bwd_plain`; every tensor on
     one CUDA device, the streams (``x``, ``g``, ``skip``) float32 or
     bfloat16, the rest float32."""
-    global launches_bwd
     ops = checked_operands(x, lam, w_b, w_c, d, nw, nb, o2k, o2b, o1k, o1b,
                            m1, m2, act, glu, skip=skip, g=g)
     b, l, h = x.shape
@@ -433,14 +420,13 @@ def layer_tail_bwd_cuda(x, g, lam: Pair, w_b, w_c, d, nw, nb, o2k=None,
     ptrs = [data_ptr(ops, k) for k in in_names]
     ptrs += [data_ptr(bufs, k) for k in buf_names]
     table = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    fn = _fn("layer_tail_bwd",
-             [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    fn = build.entry("layer_tail_bwd", "layer_tail_bwd", _BWD_ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(table, b, l, h, p, GLU_KINDS.index(glu), ACTS.index(act),
              int(relu_state), int(layer_relu),
              int(x.dtype == torch.bfloat16), plan.split_rows, stream)
     build.check(err, "layer_tail_bwd")
-    launches_bwd += 1
+    count("layer_tail_bwd")
     return (bufs["gx"], bufs.get("gskip"),
             *reduce_partials(plan, bufs, glu, skip is None,
                              (m1 is not None, m2 is not None)))

@@ -52,11 +52,7 @@ from sparsernns_tpu_torch.ops.cuda.diag_scan import _check_f32_cuda
 from sparsernns_tpu_torch.ops.scan import (BlockRequant, Pair, QatBits,
                                            grid_value, lambda_powers)
 from sparsernns_tpu_torch.quantize.qat import _on_grid, dyn_fake_quant
-from sparsernns_tpu_torch.utils.trace import traced
-
-#: kernel calls made by :func:`qat_scan` in this process (one a call: the
-#: tables kernel and the scan)
-launches = 0
+from sparsernns_tpu_torch.utils.trace import count, traced
 
 #: (pow_re, pow_im (K, P), ctab_re, ctab_im (t, P))
 Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -326,19 +322,10 @@ def qat_scan_plain(lam: Pair, bu: Pair, qat_bits: QatBits, block_t: int,
     return xs
 
 
-def _fn(name: str, argtypes):
-    fn = getattr(build.load("qat_scan"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _lib():
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _fn("qat_scan_run",
-               [vp, vp, ctypes.c_longlong, ctypes.c_longlong] + [vp] * 5
-               + [i, vp, vp, vp, vp] + [i] * 8 + [f, f, i, vp])
+_RUN_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
+             + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 8
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def requant_args(block_requant: Optional[BlockRequant]
@@ -372,7 +359,6 @@ def qat_scan_cuda(lam: Pair, bu: Pair, qat_bits: QatBits, block_t: int,
     stride in P; lam (P,) pair; carry_init (B, P) pair or None. Returns
     contiguous (B, L, P) states. A time block that does not fit in a
     cluster is refused (:func:`qat_plan`) before any launch."""
-    global launches
     _check_args(bu, carry_init, reverse, block_requant)
     a_bits, act_bits = _check_bits(qat_bits)
     bu_re, bu_im = bu
@@ -400,7 +386,7 @@ def qat_scan_cuda(lam: Pair, bu: Pair, qat_bits: QatBits, block_t: int,
     if plan is None:
         return out_re, out_im
     tables, cbuf, sync = call_buffers(plan, dev)
-    err = _lib()(
+    err = build.entry("qat_scan", "qat_scan_run", _RUN_ARGS)(
         bu_re.data_ptr(), bu_im.data_ptr(), bu_re.stride(0),
         bu_re.stride(1), lam_re.data_ptr(), lam_im.data_ptr(), *c_ptr,
         tables.data_ptr(), plan.num_passes, cbuf.data_ptr(),
@@ -409,7 +395,7 @@ def qat_scan_cuda(lam: Pair, bu: Pair, qat_bits: QatBits, block_t: int,
         *requant_args(block_requant),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "qat_scan")
-    launches += 1
+    count("qat_scan")
     return out_re, out_im
 
 
@@ -445,8 +431,9 @@ def tables_cuda(lam: Pair, t: int, num_passes: int,
     tables = torch.empty(2 * (num_passes + t) * p, dtype=torch.float32,
                          device=dev)
     sync = torch.empty(1, dtype=torch.int32, device=dev)
-    fn = _fn("qat_tables_run", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-             + [ctypes.c_void_p])
+    fn = build.entry("qat_scan", "qat_tables_run",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
     build.check(fn(lam_re.data_ptr(), lam_im.data_ptr(), tables.data_ptr(),
                    sync.data_ptr(), 1, p, t, num_passes, a_bits or 0,
                    torch.cuda.current_stream(dev).cuda_stream),
@@ -462,7 +449,8 @@ def launched() -> List[Tuple[str, int, int, int]]:
     """(kernel, CTAs, cluster, dynamic shared memory bytes) of every launch
     that the last K1 qat or K4a qat call made on the card, in order, as the
     CUDA source recorded them."""
-    fn = _fn("qat_scan_launched", [ctypes.c_void_p] * 4 + [ctypes.c_int])
+    fn = build.entry("qat_scan", "qat_scan_launched",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int])
     cap = 8
     names = (ctypes.c_char_p * cap)()
     ctas = (ctypes.c_longlong * cap)()
@@ -476,7 +464,8 @@ def launched() -> List[Tuple[str, int, int, int]]:
 def max_active_clusters(plan: QatPlan, mixer: bool = False) -> int:
     """How many clusters of the plan's scan the card keeps resident at
     once (``cudaOccupancyMaxActiveClusters``)."""
-    fn = _fn("qat_scan_max_clusters", [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn = build.entry("qat_scan", "qat_scan_max_clusters",
+                     [ctypes.c_int] * 4 + [ctypes.c_void_p])
     out = ctypes.c_int(0)
     build.check(fn(plan.t, plan.p, plan.cpc, int(mixer), ctypes.byref(out)),
                 "qat_scan_max_clusters")

@@ -11,18 +11,21 @@ plain version (:func:`sequential_diag_scan`) only for a tensor on the CPU.
 Without a carry the scan is differentiable (:class:`DiagScanFn`, the
 counterpart of ``sparsernns_tpu/ops/pallas/scan_vjp.py``): the recurrence
 is linear, so its adjoint is the same kernel run in the other direction
-with conj(λ). With ``qat_bits`` the forward is the kernel's QAT mode
-(``ops/cuda/qat_scan.py``: per-block fake-quant of every doubling
-operand, of the folded carry and of the block's states), the backward the
-same float adjoint.
+with conj(λ), which sums dλ in the same walk (the kernel's adjoint entry,
+``ops/cuda/diag_scan.diag_scan_adjoint``). With ``qat_bits`` the forward
+is the kernel's QAT mode (``ops/cuda/qat_scan.py``: per-block fake-quant
+of every doubling operand, of the folded carry and of the block's
+states), the backward the same float adjoint.
 
 :class:`BiDiagScanFn` is a bidirectional float mixer's two scans in one
 differentiable call that works inside the projections' buffers: both
 directions write their states into the C-projection's (B, L, 4P) input,
 their adjoints read its cotangent in place, write bu's gradient into one
 (B, L, 2P) buffer, the second adding to the first, and sum dλ in the
-kernel's output pass. :func:`bidir_route_counts` says which route the
-bidirectional mixers took.
+kernel's output pass. The launch ledger (``utils/trace.py``) counts the
+bidirectional mixers' routes: ``bidir_buffers`` each forward and each
+backward of :class:`BiDiagScanFn`, ``bidir_unfused`` each forward of the
+two separate scans (``models/ssm.S5SSM._apply_scan``).
 
 :func:`associative_diag_scan` is the associative scan of the JAX package
 (``jax.lax.associative_scan``'s recursion, reproduced combine for
@@ -42,6 +45,8 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from sparsernns_tpu_torch.utils.trace import count
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 #: (s_re, s_im, bits): the frozen grid of a blockwise state requant
@@ -187,12 +192,13 @@ class DiagScanFn(torch.autograd.Function):
     block_t])``; returns the (B, L, P) state pair. ``qat_bits``
     (a_bits, act_bits) runs the forward in the kernel's QAT mode over time
     blocks of ``block_t`` (``ops/cuda/qat_scan.py``); None the float scan
-    (``block_t`` unused). The backward runs the float kernel once more, in
-    the other direction with conj(λ), on the cotangents: ``v`` is the
-    gradient of ``bu`` (the straight-through estimator of the in-scan
-    fake-quant), and dλ sums ``v`` against the conjugate of the state each
-    step read, the quantized states under QAT (plain tensor ops, as in the
-    JAX package)."""
+    (``block_t`` unused). The backward is one call of the kernel's adjoint
+    entry (``diag_scan_adjoint``): the float kernel once more, in the other
+    direction with conj(λ), on the cotangents, gives ``v``, the gradient of
+    ``bu`` (the straight-through estimator of the in-scan fake-quant), and
+    sums dλ, ``v`` against the conjugate of the state each step read (the
+    saved states: the quantized ones under QAT), in its output pass;
+    :func:`_dlam` on the CPU."""
 
     @staticmethod
     def forward(ctx, lam_re, lam_im, bu_re, bu_im, reverse, qat_bits=None,
@@ -211,11 +217,12 @@ class DiagScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_re, g_im):
-        from sparsernns_tpu_torch.ops.cuda.diag_scan import diag_scan
+        from sparsernns_tpu_torch.ops.cuda.diag_scan import \
+            diag_scan_adjoint
         lam_re, lam_im, x_re, x_im = ctx.saved_tensors
-        v = diag_scan((lam_re, -lam_im), _kernel_operand((g_re, g_im)),
-                      reverse=not ctx.reverse)
-        d_re, d_im = _dlam(v, (x_re, x_im), ctx.reverse)
+        v, (d_re, d_im) = diag_scan_adjoint(
+            (lam_re, lam_im), _kernel_operand((g_re, g_im)), (x_re, x_im),
+            ctx.reverse)
         return d_re, d_im, v[0], v[1], None, None, None
 
 
@@ -223,22 +230,6 @@ def _columns(buf: torch.Tensor, k: int, p: int) -> Pair:
     """Direction k's (re, im) column blocks of the bidirectional states
     matrix (..., 4P), laid out [fwd_re | rev_re | fwd_im | rev_im]."""
     return buf[..., k * p:(k + 1) * p], buf[..., (k + 2) * p:(k + 3) * p]
-
-
-#: bidirectional mixer calls by route: ``"buffers"`` counts each forward
-#: and each backward of :class:`BiDiagScanFn`, ``"unfused"`` each forward
-#: of the two separate scans (``models/ssm.S5SSM._apply_scan``)
-_bidir_routes = {"buffers": 0, "unfused": 0}
-
-
-def count_bidir_route(route: str) -> None:
-    _bidir_routes[route] += 1
-
-
-def bidir_route_counts() -> dict:
-    """How many bidirectional mixer passes each route ran in this
-    process: ``{"buffers": n, "unfused": m}``."""
-    return dict(_bidir_routes)
 
 
 class BiDiagScanFn(torch.autograd.Function):
@@ -257,9 +248,9 @@ class BiDiagScanFn(torch.autograd.Function):
     blocks, writing bu's gradient into one (B, L, 2P) buffer [v_re | v_im],
     the second adding its own to the first's (one rounded add, as
     autograd's: bit for bit), and summing dλ against the saved states in
-    the same walk (``diag_scan_adjoint``; :func:`_dlam` on the CPU, whose
-    plain scans write into the same buffers). Only dλ's order of summation
-    differs from :class:`DiagScanFn`'s."""
+    the same walk (``diag_scan_adjoint``, as :class:`DiagScanFn`'s
+    backward; :func:`_dlam` on the CPU, whose plain scans write into the
+    same buffers)."""
 
     @staticmethod
     def forward(ctx, lam_re, lam_im, bu_cat):
@@ -271,7 +262,7 @@ class BiDiagScanFn(torch.autograd.Function):
             diag_scan((lam_re, lam_im), bu, reverse=reverse,
                       out=_columns(buf, k, p))
         ctx.save_for_backward(lam_re, lam_im, buf)
-        count_bidir_route("buffers")
+        count("bidir_buffers")
         return buf
 
     @staticmethod
@@ -287,7 +278,7 @@ class BiDiagScanFn(torch.autograd.Function):
                                _columns(buf, k, p), reverse, out=v,
                                accumulate=k == 1)[1]
              for k, reverse in enumerate((False, True))]
-        count_bidir_route("buffers")
+        count("bidir_buffers")
         return d[0][0] + d[1][0], d[0][1] + d[1][1], g_bu
 
 

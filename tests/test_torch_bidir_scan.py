@@ -6,8 +6,9 @@ matrix and autograd's assembly of bu's gradient. On the CPU both run the
 plain scans (K1's plain version), so the states, the matrix, ``ys`` and
 bu's gradient are bit-equal, and dλ is held to float64 within float32
 round-off. Shapes: ``benchmark/tasks/pathx.TINY``'s mixer (B 4, L 64, P 8)
-and an odd length and width (B 3, L 37, P 5). The route counter
-(``bidir_route_counts``) shows which route a tiny Path-X step takes."""
+and an odd length and width (B 3, L 37, P 5). The launch ledger's route
+counts (``bidir_buffers``, ``bidir_unfused``; ``utils/trace.launch_counts``)
+show which route a tiny Path-X step takes."""
 
 import dataclasses
 import json
@@ -24,6 +25,7 @@ from sparsernns_tpu_torch.ops.cuda import diag_scan
 from sparsernns_tpu_torch.train.loop import build_model, create_run_state
 from sparsernns_tpu_torch.train.steps import make_classification_train_step
 from sparsernns_tpu_torch.utils.config import RunConfig
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: (name, B, L, P): the Path-X configuration's tiny mixer, an odd one
@@ -123,14 +125,14 @@ def test_mixer_route_is_bit_equal_to_the_unfused_route(name, b, l, p,
         grads = {n: q.grad.clone() for n, q in mixer.named_parameters()}
         return ys.detach(), [s.detach() for s in states], x.grad, grads
 
-    before = tscan.bidir_route_counts()
+    before = launch_counts()
     new = run()
-    after = tscan.bidir_route_counts()
-    assert after["buffers"] - before["buffers"] == 2
-    assert after["unfused"] == before["unfused"]
+    after = launch_counts()
+    assert after["bidir_buffers"] - before["bidir_buffers"] == 2
+    assert after["bidir_unfused"] == before["bidir_unfused"]
     monkeypatch.setattr(S5SSM, "_buffers_route", lambda self, c, b: False)
     old = run()
-    assert tscan.bidir_route_counts()["unfused"] == after["unfused"] + 1
+    assert launch_counts()["bidir_unfused"] == after["bidir_unfused"] + 1
     assert torch.equal(new[0], old[0])
     assert all(torch.equal(a, c) for a, c in zip(new[1], old[1]))
     assert torch.equal(new[2], old[2])
@@ -170,11 +172,12 @@ def test_a_tiny_pathx_step_takes_its_route(over, route):
     cfg, model, x, y, n_layers = _pathx_tiny(**over)
     state = create_run_state(cfg, model, 1)
     step = make_classification_train_step(model)
-    before = tscan.bidir_route_counts()
+    before = launch_counts()
     _, metrics = step(state, x, y)
-    after = tscan.bidir_route_counts()
+    after = launch_counts()
     assert torch.isfinite(metrics["loss"])
-    moved = {k: after[k] - before[k] for k in after}
+    moved = {k: after[f"bidir_{k}"] - before[f"bidir_{k}"]
+             for k in ("buffers", "unfused")}
     want = 2 * n_layers if route == "buffers" else n_layers
     other = "unfused" if route == "buffers" else "buffers"
     assert moved == {route: want, other: 0}
@@ -211,13 +214,13 @@ def test_scan_options_refuse_what_they_cannot_do():
 #: one tiny run of the Path-X cell with the buffers route's reverse column
 #: blocks zeroed, in a fresh interpreter (the harness refuses a process
 #: that holds JAX, as this test process does): prints the result and the
-#: route counter's buffers passes
+#: ledger's count of buffers passes
 _FORWARD_ONLY = """
 import json
 import torch
 from benchmark.tests.tiny import tiny_run
 from sparsernns_tpu_torch.models import ssm
-from sparsernns_tpu_torch.ops import scan
+from sparsernns_tpu_torch.utils.trace import launch_counts
 both = ssm.BiDiagScanFn
 
 class ForwardOnly:
@@ -233,7 +236,7 @@ class ForwardOnly:
 ssm.BiDiagScanFn = ForwardOnly
 out = tiny_run("pathx_train_b32")
 print(json.dumps({"correct": out["correct"], "checks": out["checks"],
-                  "buffers": scan.bidir_route_counts()["buffers"]}))
+                  "buffers": launch_counts()["bidir_buffers"]}))
 """
 
 
@@ -241,8 +244,8 @@ def test_a_reverse_scan_left_out_fails_the_pathx_check():
     """The buffers route's reverse column blocks zeroed, so that the
     bidirectional mixer sees its forward direction alone: the Path-X
     cell's check (``pathx_train_b32`` at its small sizes on the CPU, held
-    against its plain reference) is not correct. The route counter shows
-    that the fault reached the program."""
+    against its plain reference) is not correct. The ledger's route count
+    shows that the fault reached the program."""
     import subprocess
     import sys
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}

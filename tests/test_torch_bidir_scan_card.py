@@ -6,9 +6,12 @@ Path-X's (B 32, L 16 384, P 128). The states written into the columns of a
 (B, L, 4P) matrix, and the adjoint's written into a (B, L, 2P) buffer or
 added to what it holds, are ``diag_scan_chunked_plain``'s bit for bit; the
 dλ partials, once reduced, are within float32 round-off of ``_dlam`` in
-float64; with the options off every mode gives what it gave. ``BiDiagScanFn`` against the two
-``DiagScanFn`` and the concatenations: the matrix and bu's gradient bit for
-bit, dλ within round-off.
+float64; with the options off every mode gives what it gave.
+``DiagScanFn``'s backward, one call of the adjoint entry: bu's gradient
+``diag_scan_chunked_plain``'s walk the other way bit for bit, dλ within
+round-off. ``BiDiagScanFn`` against the two ``DiagScanFn`` and the
+concatenations: the matrix and bu's gradient bit for bit, dλ within
+round-off.
 
 The tests need the card and skip without one. This file imports no JAX:
 on the card, from the repository's root,
@@ -20,6 +23,7 @@ import torch
 
 from sparsernns_tpu_torch.ops import scan as tscan
 from sparsernns_tpu_torch.ops.cuda import diag_scan
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 #: (B, L, P): several chunks; an odd width (one channel a thread); one
 #: chunk (L <= 256, the output pass alone); Path-X's scan
@@ -112,6 +116,37 @@ def test_k1_options_against_the_plain_mirror(card, shape):
         diag_scan._launch(lam, bu, None, False, None, None,
                           (acc[..., :p], acc[..., p:]), True)
     print(f"k1 options {shape}: dλ gap / Σ|terms| at most {worst:.3g}")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_diag_scan_fn_backward_is_the_adjoint_entry(card, shape, reverse):
+    """``DiagScanFn``'s gradient: one K1 call walking the other way (the
+    adjoint entry), whose v, bu's gradient, is ``diag_scan_chunked_plain``'s
+    walk with conj(λ) bit for bit, and whose dλ is within float32 round-off
+    of ``_dlam`` in float64 (1e-5 of its terms' magnitudes summed)."""
+    b, l, p = shape
+    lam, cat = _inputs(b, l, p, card, seed=5 * l + p + reverse)
+    g = torch.randn((b, l, 2 * p), device=card)
+    g = (g[..., :p], g[..., p:])
+    leaves = [t.clone().requires_grad_(True)
+              for t in (*lam, cat[..., :p], cat[..., p:])]
+    xs = tscan.DiagScanFn.apply(*leaves, reverse)
+    before = launch_counts()
+    torch.autograd.backward(xs, g)
+    walk = "diag_scan" if reverse else "diag_scan_rev"
+    moved = launch_counts() - before
+    assert moved[walk] == 1 and moved["diag_scan"] + moved[
+        "diag_scan_rev"] + moved["diag_scan_requant"] == 1, moved
+    v = diag_scan.diag_scan_chunked_plain((lam[0], -lam[1]), g,
+                                          reverse=not reverse)
+    assert torch.equal(leaves[2].grad, v[0])
+    assert torch.equal(leaves[3].grad, v[1])
+    ref, mag = _dlam64(v, tuple(x.detach() for x in xs), reverse)
+    got = torch.stack([leaves[0].grad, leaves[1].grad]).double()
+    ratio = float(((got - ref).abs() / mag).max())
+    assert ratio <= 1e-5, ratio
 
 
 @pytest.mark.card

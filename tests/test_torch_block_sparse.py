@@ -28,12 +28,12 @@ from sparsernns_tpu.ops.pallas.block_sparse import \
 from sparsernns_tpu.quantize.config import quantization_recipes as jax_recipes
 from sparsernns_tpu.quantize.engine import W8A16Engine as JaxEngine
 from sparsernns_tpu_torch.fxp.derive import FxpModelConfig
-from sparsernns_tpu_torch.ops.cuda import block_sparse
 from sparsernns_tpu_torch.ops.cuda.block_sparse import (
     BlockSparseWeight, block_sparse_matmul, block_sparse_matmul_plain,
     pack_block_sparse)
 from sparsernns_tpu_torch.quantize.config import quantization_recipes
 from sparsernns_tpu_torch.quantize.engine import QWeight, W8A16Engine
+from sparsernns_tpu_torch.utils.trace import launch_counts
 from tests.test_torch_quantize import LAYERS, frozen  # noqa: F401
 
 BLOCK = 8
@@ -134,10 +134,10 @@ def test_cuda_wrapper_checks_without_a_card():
                                  128, 0.5, np.int8), 32, 128, 2.0 ** -5,
                           device="cpu")
     x = torch.randn(5, 64)
-    before = block_sparse.launches
+    before = launch_counts()["block_sparse"]
     assert torch.equal(block_sparse_matmul(x, w),
                        block_sparse_matmul_plain(x, w))
-    assert block_sparse.launches == before
+    assert launch_counts()["block_sparse"] == before
     with pytest.raises(ValueError, match="features"):
         block_sparse_matmul(torch.randn(5, 63), w)
 

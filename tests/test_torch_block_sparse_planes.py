@@ -36,6 +36,7 @@ from sparsernns_tpu.ops.pallas.block_sparse import \
 from sparsernns_tpu.ops.pallas.block_sparse import \
     pack_block_sparse as jax_pack
 from sparsernns_tpu_torch.ops.cuda import block_sparse as bs
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 F32_MAX = float(np.finfo(np.float32).max)
 F32_TINY = float(np.finfo(np.float32).tiny)   # the smallest normal
@@ -317,7 +318,7 @@ def test_pack_refuses_what_the_kernel_does_not_take(bad):
 def test_a_weight_packed_on_the_cpu_is_refused_by_the_kernel():
     w = bs.pack_block_sparse(np.ones((64, 128), np.int8), 32, 128,
                              device="cpu")
-    before = bs.launches
+    before = launch_counts()["block_sparse"]
     with pytest.raises(ValueError, match="pack it on the card"):
         bs.block_sparse_matmul_cuda(torch.ones(3, 64), w)
-    assert bs.launches == before
+    assert launch_counts()["block_sparse"] == before

@@ -24,6 +24,8 @@ from sparsernns_tpu.quantize.config import quantization_recipes as jax_recipes
 from sparsernns_tpu.quantize.engine import W8A16Engine as JaxEngine
 from sparsernns_tpu.train.steps import make_ndns_train_step as jax_train_step
 from sparsernns_tpu_torch.ops import scan as tscan
+from sparsernns_tpu_torch.ops.scan import blocked_diag_scan
+from sparsernns_tpu_torch.quantize import engine
 from sparsernns_tpu_torch.train.steps import make_ndns_train_step
 from sparsernns_tpu_torch.weights import to_flax
 from tests.test_torch_engine import jax_eng, port_eng
@@ -174,16 +176,48 @@ def _engine_close(out, ref):
     assert err.mean() <= 1e-4, err.mean()
 
 
+def _carry_codes_close(out, ref, scan, grid, name):
+    """A carry's codes on its frozen grid against the JAX package's: equal,
+    but where the unrounded state (the last row of the recorded blocked
+    scan ``scan`` = (lam, bu, carry_init) of the chunk, redone without the
+    requant) lies within float32 round-off of a rounding boundary, where
+    they may be one apart. The state sums T + 1 terms (the chunk's T rows
+    and the carry, each times a power of λ made by exp, log, cos and sin:
+    λ^k's angle rounds like k times θ's, |θ| <= π, so a power is good to
+    about 2k ulps), in another order on each side: the round-off is at most
+    4 (T + 1) 2^-23 of the terms' magnitudes summed."""
+    lam, bu, carry = scan
+    raw = blocked_diag_scan(lam, bu, block_t=bu[0].shape[1],
+                            carry_init=carry)
+    t = bu[0].shape[1]
+    r = torch.sqrt(lam[0].double() ** 2 + lam[1].double() ** 2)
+    mag = torch.sqrt(bu[0].double() ** 2 + bu[1].double() ** 2)
+    powers = r ** torch.arange(t - 1, -1, -1, dtype=torch.float64)[:, None]
+    terms = ((mag * powers).sum(dim=1) + r ** t * torch.sqrt(
+        carry[0].double() ** 2 + carry[1].double() ** 2)).numpy()
+    for h, (o, q, u) in enumerate(zip(out, ref, raw)):
+        o, q = np.asarray(o) / grid[h], np.asarray(q) / grid[h]
+        u = u[..., -1, :].double().numpy() / grid[h]
+        np.testing.assert_array_equal(o, np.round(o))
+        tie = (np.abs(u - np.floor(u) - 0.5)
+               <= 4 * (t + 1) * 2.0 ** -23 * terms / grid[h])
+        diff = np.abs(o - np.round(q))
+        assert diff.max() <= 1 and not diff[~tie].any(), (
+            name, h, diff.max(), u[(diff > 0) & ~tie])
+
+
 @pytest.mark.parametrize("act", ["float32", "bfloat16"])
 @pytest.mark.parametrize("glu,relu,prenorm", [("full", True, True),
                                               ("half1", False, False)])
-def test_xla_engine_matches_jax_xla_engine(frozen, glu, relu, prenorm, act):  # noqa: F811
+def test_xla_engine_matches_jax_xla_engine(frozen, glu, relu, prenorm, act,  # noqa: F811
+                                           monkeypatch):
     """``route="xla"`` offline and chunked (three chunks of the time
     block, carries between them) against the JAX package's ``"xla"``
     engine, and with float32 activations against the kernel route. With
     bf16 activations the per-op route rounds each mixer input to bf16
     where the whole-layer kernels do not, in both packages, so there the
-    route is held against JAX's xla engine only."""
+    route is held against JAX's xla engine only. The last carries' codes
+    are equal to JAX's but at rounding ties (:func:`_carry_codes_close`)."""
     t_act = getattr(torch, act)
     kw = dict(glu=glu, relu=relu, prenorm=prenorm, block_t=8, act=t_act)
     je_x = JaxEngine(
@@ -206,14 +240,28 @@ def test_xla_engine_matches_jax_xla_engine(frozen, glu, relu, prenorm, act):  # 
     # chunked at the time block against the JAX xla engine's chunks and
     # against the whole call
     carries, jcarries, outs, jouts = None, None, [], []
+    scans = []
+
+    def recorded(lam, bu, **kw):
+        scans.append((lam, bu, kw["carry_init"]))
+        return blocked_diag_scan(lam, bu, **kw)
+
+    monkeypatch.setattr(engine, "blocked_diag_scan", recorded)
     for i in range(0, x.shape[1], 8):
         chunk = x[:, i:i + 8]
+        scans.clear()
         y, carries = te_x.process_chunk(torch.from_numpy(chunk), carries)
         jy, jcarries = je_x.process_chunk(jnp.asarray(chunk), jcarries)
         outs.append(y.numpy())
         jouts.append(np.asarray(jy))
     _engine_close(np.concatenate(outs, 1), np.concatenate(jouts, 1))
     _engine_close(np.concatenate(outs, 1), out)
-    for layer, ours, theirs in zip(te_x.layers, carries, jcarries):
-        _codes_close([c.numpy() for c in ours], theirs,
-                     layer.state_requant[:2], "carry")
+    # one recorded scan a layer, each over the last chunk
+    assert len(scans) == len(te_x.layers) == len(carries) == len(jcarries)
+    for (_, bu, _), ours in zip(scans, carries):
+        assert bu[0].shape == bu[1].shape == (*chunk.shape[:2],
+                                              ours[0].shape[-1])
+    for layer, ours, theirs, scan in zip(te_x.layers, carries, jcarries,
+                                         scans):
+        _carry_codes_close([c.numpy() for c in ours], theirs, scan,
+                           layer.state_requant[:2], "carry")

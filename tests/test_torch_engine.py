@@ -17,11 +17,12 @@ from sparsernns_tpu.ops.pallas.fused_layer import (fused_layer_apply,
 from sparsernns_tpu.quantize.config import quantization_recipes as jax_recipes
 from sparsernns_tpu.quantize.engine import W8A16Engine as JaxEngine
 from sparsernns_tpu_torch.fxp.derive import FxpModelConfig
-from sparsernns_tpu_torch.ops.cuda import engine_layer, engine_network
+from sparsernns_tpu_torch.ops.cuda import engine_network
 from sparsernns_tpu_torch.ops.cuda.engine_layer import (LayerMode,
                                                         engine_layer_plain)
 from sparsernns_tpu_torch.quantize.config import quantization_recipes
 from sparsernns_tpu_torch.quantize.engine import QWeight, W8A16Engine
+from sparsernns_tpu_torch.utils.trace import launch_counts
 from sparsernns_tpu_torch.weights import from_flax
 from tests.test_torch_quantize import (D_IO, H, LAYERS, frozen,  # noqa: F401
                                        jax_model, port_model)
@@ -322,11 +323,9 @@ def test_network_kernel_layer_limit(frozen):  # noqa: F811
 def test_engine_defaults_and_cpu_counters(frozen):  # noqa: F811
     """block_t=None is 512 (no autotune file is read); on the CPU no kernel
     launch is counted."""
-    before = (engine_layer.launches, engine_layer.launches_carry,
-              engine_network.launches)
+    before = launch_counts()
     eng = port_eng(frozen, block_t=None)
     assert eng.block_t == 512
     eng(frozen["batches"][0])
     eng.process_chunk(frozen["batches"][0])
-    assert before == (engine_layer.launches, engine_layer.launches_carry,
-                      engine_network.launches)
+    assert launch_counts() == before

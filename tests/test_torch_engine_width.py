@@ -13,7 +13,7 @@ import os
 import pytest
 import torch
 
-from sparsernns_tpu_torch.ops.cuda import engine_layer, engine_network
+from sparsernns_tpu_torch.ops.cuda import build, engine_layer, engine_network
 from sparsernns_tpu_torch.ops.cuda.engine_layer import (
     MAX_SMEM, ROW_TILE, Dense, DenseW, LayerMode, LayerParams,
     check_row_passes, row_pass_smem, widest_row_pass)
@@ -165,8 +165,7 @@ def test_wrappers_refuse_before_any_launch(monkeypatch, kernel):
     packing, before the library is loaded or any scratch is taken."""
     def no_launch(*_):
         raise AssertionError("launched")
-    monkeypatch.setattr(engine_network, "_lib", no_launch)
-    monkeypatch.setattr(engine_layer, "_lib", no_launch)
+    monkeypatch.setattr(build, "entry", no_launch)
     monkeypatch.setattr(engine_network, "alloc_scratch", no_launch)
     monkeypatch.setattr(engine_layer, "alloc_scratch", no_launch)
     enc, layer, dec, mode = _float_network(528)

@@ -13,7 +13,8 @@ import torch
 from sparsernns_tpu.ops.pallas.fused_s5 import fused_s5_apply
 from sparsernns_tpu.ops.pallas.fused_vjp import fused_s5_apply_diff
 from sparsernns_tpu_torch.ops import scan as tscan
-from sparsernns_tpu_torch.ops.cuda import diag_scan, fused_s5
+from sparsernns_tpu_torch.ops.cuda import fused_s5
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 NAMES = ("u", "lam_re", "lam_im", "w_b", "w_c", "d")
 
@@ -50,9 +51,10 @@ def test_fused_s5_plain_matches_pallas(relu_state, l, h, p, block_t):
     ref = np.asarray(fused_s5_apply(
         j["u"], (j["lam_re"], j["lam_im"]), j["w_b"], j["w_c"], j["d"],
         block_t=block_t, relu_state=relu_state))
-    before = fused_s5.launches
+    before = launch_counts()["fused_s5"]
     out = _port(_torch_ops(inp), relu_state).numpy()
-    assert fused_s5.launches == before      # plain version on the CPU
+    # plain version on the CPU
+    assert launch_counts()["fused_s5"] == before
     assert out.shape == ref.shape
     assert np.abs(out - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
 
@@ -105,14 +107,13 @@ def test_fused_s5_gradients_match_plain_autograd(relu_state):
 def test_fused_s5_fn_saves_inputs_only_and_launches_nothing_on_cpu():
     inp = _inputs(30)
     ops = _torch_ops(inp, grad=True)
-    before = (fused_s5.launches, diag_scan.launches, diag_scan.launches_rev)
+    before = launch_counts()
     out = fused_s5.FusedS5Fn.apply(*ops, True)
     saved = out.grad_fn.saved_tensors
     assert len(saved) == len(ops)
     assert all(s.data_ptr() == o.data_ptr() for s, o in zip(saved, ops))
     out.sum().backward()
-    assert (fused_s5.launches, diag_scan.launches,
-            diag_scan.launches_rev) == before
+    assert launch_counts() == before
     # the mixer equals B-projection, stand-alone scan, C-projection
     u, lam_re, lam_im, w_b, w_c, d = (t.detach() for t in ops)
     bu = u @ w_b

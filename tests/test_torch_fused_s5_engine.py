@@ -25,6 +25,7 @@ from sparsernns_tpu.ops.pallas.fused_s5 import (fused_s5_apply,
 from sparsernns_tpu.ops.pallas.scan_kernel import pallas_diag_scan
 from sparsernns_tpu_torch.ops import scan as tscan
 from sparsernns_tpu_torch.ops.cuda import diag_scan, fused_s5
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 WDTYPES = {"int8": (np.int8, 127, 2.0 ** -9), "int16": (np.int16, 30000,
                                                       2.0 ** -17),
@@ -67,14 +68,15 @@ def test_scan_block_requant_matches_pallas(carry, l, p, block_t, bits):
         tuple(jnp.asarray(a) for a in bu), block_t=block_t,
         carry_init=None if c is None else tuple(jnp.asarray(a) for a in c),
         block_requant=rq)
-    before = diag_scan.launches_requant
+    before = launch_counts()["diag_scan_requant"]
     out = diag_scan.diag_scan(
         tuple(torch.from_numpy(a) for a in lam),
         tuple(torch.from_numpy(a) for a in bu),
         carry_init=None if c is None else tuple(torch.from_numpy(a)
                                                 for a in c),
         block_requant=rq, block_t=block_t)
-    assert diag_scan.launches_requant == before     # plain on the CPU
+    # plain on the CPU
+    assert launch_counts()["diag_scan_requant"] == before
     for o, r, sc in zip(out, ref, s):
         o, r = o.numpy(), np.asarray(r)
         assert o.shape == r.shape == (2, l, p)
@@ -189,11 +191,11 @@ def test_fused_s5_engine_plain_matches_pallas(wdtype, io, relu, requant,
     ref = np.asarray(fused_s5_apply(
         *_jax_ops(inp, jio), block_t=block_t, relu_state=relu,
         **_statics(inp, requant)))
-    before = fused_s5.launches_engine
+    before = launch_counts()["fused_s5_engine"]
     out = fused_s5.fused_s5_engine(
         *_port_ops(inp, tio), block_t=block_t, relu_state=relu,
         **_statics(inp, requant)).numpy()
-    assert fused_s5.launches_engine == before
+    assert launch_counts()["fused_s5_engine"] == before
     assert out.shape == ref.shape == (b, l, h) and out.dtype == np.float32
     assert np.abs(out - ref).max() <= 1e-5 * max(1.0, np.abs(ref).max())
 
@@ -209,12 +211,12 @@ def test_fused_s5_engine_carry_matches_pallas(wdtype, io, relu, bits):
     ref, ref_c = fused_s5_apply_carry(
         *_jax_ops(inp, jio), tuple(jnp.asarray(c) for c in inp["carry"]),
         block_t=16, relu_state=relu, **_statics(inp, True))
-    before = fused_s5.launches_engine_carry
+    before = launch_counts()["fused_s5_engine_carry"]
     out, out_c = fused_s5.fused_s5_engine(
         *_port_ops(inp, tio), block_t=16, relu_state=relu,
         carry=tuple(torch.from_numpy(c) for c in inp["carry"]),
         **_statics(inp, True))
-    assert fused_s5.launches_engine_carry == before
+    assert launch_counts()["fused_s5_engine_carry"] == before
     ref = np.asarray(ref)
     assert np.abs(out.numpy() - ref).max() <= 1e-5 * max(1.0,
                                                          np.abs(ref).max())

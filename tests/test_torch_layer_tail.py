@@ -9,6 +9,7 @@ import torch
 
 from sparsernns_tpu.ops.pallas.fused_layer_train import fused_layer_tail
 from sparsernns_tpu_torch.ops.cuda import layer_tail as lt
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 B, L, H, P = 2, 37, 16, 8
 
@@ -50,11 +51,12 @@ def _both(ops, glu, act, relu_state=False, layer_relu=False, block_t=16):
 @pytest.mark.parametrize("act", ["gelu", "relu"])
 @pytest.mark.parametrize("glu", ["full", "half1", "half2", "none"])
 def test_layer_tail_plain_matches_pallas(glu, act):
-    before = lt.launches
+    before = launch_counts()["layer_tail_train"]
     out, ref = _both(_operands(7), glu, act)
     assert out.shape == (B, L, H)
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
-    assert lt.launches == before          # CPU tensors launch nothing
+    # CPU tensors launch nothing
+    assert launch_counts()["layer_tail_train"] == before
 
 
 def test_layer_tail_relufied_matches_pallas():

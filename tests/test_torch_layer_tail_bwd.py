@@ -16,6 +16,7 @@ from sparsernns_tpu.ops.pallas.fused_layer_train import (
 from sparsernns_tpu_torch.ops.cuda import layer_tail as lt
 from sparsernns_tpu_torch.ops.cuda import layer_tail_bwd as lb
 from sparsernns_tpu_torch.ops.scan import sequential_diag_scan
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 B, L, H, P = 2, 37, 16, 8
 BLOCK_T = 16
@@ -93,14 +94,14 @@ def test_masked_forward_matches_pallas(glu, act, relu_state, layer_relu):
 def _fn_grads(ops, g, act, glu, relu_state, layer_relu):
     """Gradients of sum(out * g) through LayerTailFn, by operand name."""
     t = _torch_ops(ops, requires_grad=True)
-    before = (lt.launches, lb.launches_hist, lb.launches_bwd)
+    before = launch_counts()
     out = lt.LayerTailFn.apply(*(t[n] for n in NAMES), act, glu, relu_state,
                                layer_relu)
     live = [n for n in NAMES if t[n] is not None]
     grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(),
                                 [t[n] for n in live])
     # CPU tensors launch no kernel
-    assert before == (lt.launches, lb.launches_hist, lb.launches_bwd)
+    assert launch_counts() == before
     return {n: v.numpy() for n, v in zip(live, grads)}
 
 

@@ -36,6 +36,7 @@ from sparsernns_tpu.ops.pallas.fused_s5 import (fused_s5_apply,
                                                 fused_s5_apply_carry)
 from sparsernns_tpu_torch.ops.cuda import engine_layer, fused_s5
 from sparsernns_tpu_torch.ops.scan import complex_mul
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 PLAN_SHAPES = [(1, 37), (3, 70), (2, 300), (8, 3751), (32, 3751)]
 H_FLAG, P_FLAG = 192, 128
@@ -82,17 +83,29 @@ def mixer_passes(u, lam, w_b, w_c, d, *, block_t=None, wb_scales=None,
                  carry=None):
     """K4a / K4b as their passes, the arguments and results of
     ``fused_s5_engine_plain`` (``block_t`` None: the float mode, one block
-    of all of L)."""
+    of all of L). The row passes write their row tiles; the products they
+    read are the plain version's, a time block of all batch rows at a time:
+    the CPU's BLAS picks its order of summation by a product's shape, so a
+    32-row tile of them would not be bit-equal to it."""
     b, length, h = u.shape
     p = w_b.shape[-1] // 2
     t = (length if block_t is None
          else fused_s5.engine_block(block_t, max(length, 1)))
     plan = engine_layer.pass_plan(b, length, h, p, 1, encoder=False)
     rows = u.reshape(b * length, h).to(torch.float32)
+
+    def product(x, w):
+        """(B * L, K) rows @ w as the plain version multiplies them."""
+        x = x.view(b, length, -1)
+        return torch.cat([x[:, s:s + t] @ w.to(torch.float32)
+                          for s in range(0, length, t)],
+                         dim=1).reshape(b * length, -1)
+
     # ---- head pass: bu per row tile ----
+    head = product(rows, w_b)
     bu = torch.empty((b * length, 2 * p))
     for r0, r1 in plan.tiles():
-        x = rows[r0:r1] @ w_b.to(torch.float32)
+        x = head[r0:r1]
         if wb_scales is not None:
             x = torch.cat([x[:, :p] * wb_scales[0], x[:, p:] * wb_scales[1]],
                           dim=-1)
@@ -111,7 +124,7 @@ def mixer_passes(u, lam, w_b, w_c, d, *, block_t=None, wb_scales=None,
             x_i = engine_layer.qdq(x_i, (block_requant[1], block_requant[2]))
     raw = raw.reshape(b * length, 2 * p)
     # ---- tail pass: the states as the C-projection reads them, y ----
-    y = torch.empty((b * length, h))
+    states = torch.empty((b * length, 2 * p))
     for r0, r1 in plan.tiles():
         s_r, s_i = raw[r0:r1, :p], raw[r0:r1, p:]
         if block_requant is not None:
@@ -121,9 +134,8 @@ def mixer_passes(u, lam, w_b, w_c, d, *, block_t=None, wb_scales=None,
             s_r, s_i = torch.relu(s_r), torch.relu(s_i)
         if wc_scales is not None:
             s_r, s_i = s_r * wc_scales[0], s_i * wc_scales[1]
-        y[r0:r1] = (torch.cat([s_r, s_i], dim=-1) @ w_c.to(torch.float32)
-                    + d * rows[r0:r1])
-    y = y.view(b, length, h)
+        states[r0:r1] = torch.cat([s_r, s_i], dim=-1)
+    y = (product(states, w_c) + d * rows).view(b, length, h)
     return y if carry is None else (y, (x_r, x_i))
 
 
@@ -181,9 +193,10 @@ def test_mirror_equals_float_plain(b, l, h, p, relu):
     for bit."""
     inp = _inputs(b + l + h, b, l, h, p, "f32")
     ops = _port(inp, torch.float32)
-    before = fused_s5.launches
+    before = launch_counts()["fused_s5"]
     ref = fused_s5.fused_s5(*ops, relu_state=relu)
-    assert fused_s5.launches == before      # CPU tensors launch nothing
+    # CPU tensors launch nothing
+    assert launch_counts()["fused_s5"] == before
     assert torch.equal(mixer_passes(*ops, relu_state=relu), ref)
 
 

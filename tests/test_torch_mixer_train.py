@@ -28,14 +28,13 @@ from sparsernns_tpu.train.losses import \
     STFT_MAG_MEAN, ndns_loss_from_mask_tm as jax_ndns_loss
 from sparsernns_tpu.train.state import TrainState as JaxTrainState
 from sparsernns_tpu.train.steps import make_ndns_train_step as jax_train_step
-from sparsernns_tpu_torch.ops.cuda import (diag_scan, fused_s5, layer_tail,
-                                           layer_tail_bwd)
 from sparsernns_tpu_torch.ops.stft import stft_splitter
 from sparsernns_tpu_torch.train import loop
 from sparsernns_tpu_torch.train.optim import param_label
 from sparsernns_tpu_torch.train.steps import (_loss, make_ndns_eval_step,
                                               make_ndns_train_step)
 from sparsernns_tpu_torch.utils.config import RunConfig
+from sparsernns_tpu_torch.utils.trace import launch_counts
 from sparsernns_tpu_torch.weights import from_flax, grads_to_flax, to_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,9 +153,9 @@ def test_training_forward_and_running_stats_match_flax(name):
     mutable = ["batch_stats"] if cfg.batchnorm else []
     ref, mod = jm.apply(variables, jnp.asarray(x), mutable=mutable)
     assert tm.training
-    before = layer_tail.launches
+    before = launch_counts()["layer_tail_train"]
     out = tm(torch.from_numpy(x))
-    assert layer_tail.launches == before
+    assert launch_counts()["layer_tail_train"] == before
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
                                atol=1e-4, rtol=0)
     _, stats = to_flax(tm)
@@ -318,9 +317,9 @@ def test_routes_and_what_still_raises():
     """Which kernel's wrapper each configuration's mixer goes through (on
     the CPU: its plain version, no launch), and the refusals that stay."""
     x = torch.zeros(1, 8, 16)
-    counters = lambda: (  # noqa: E731
-        diag_scan.launches, diag_scan.launches_rev, fused_s5.launches,
-        layer_tail.launches, layer_tail_bwd.launches_bwd)
+    keys = ("diag_scan", "diag_scan_rev", "fused_s5", "layer_tail_train",
+            "layer_tail_bwd")
+    counters = lambda: [launch_counts()[k] for k in keys]  # noqa: E731
     before = counters()
     routes = {}
     for name, kw in {**CONFIGS, "flagship": {}}.items():

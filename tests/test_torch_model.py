@@ -17,9 +17,9 @@ from sparsernns_tpu.models.ssm import make_ssm_init_fn
 from sparsernns_tpu.models.ssm_init import \
     blocked_dplr_init as jax_blocked_dplr_init
 from sparsernns_tpu_torch.models import ssm_init
-from sparsernns_tpu_torch.ops.cuda import diag_scan, layer_tail
 from sparsernns_tpu_torch.train.loop import build_model
 from sparsernns_tpu_torch.utils.config import RunConfig
+from sparsernns_tpu_torch.utils.trace import launch_counts
 from sparsernns_tpu_torch.weights import from_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,10 +75,11 @@ def test_regression_forward_matches_jax(glu, relu):
     jm, variables, tm = paired_models(cfg, d_io=17)
     x = np.random.RandomState(1).randn(2, 37, 17).astype(np.float32)
     ref = np.asarray(jm.apply(variables, jnp.asarray(x)))
-    before = layer_tail.launches
+    before = launch_counts()["layer_tail_train"]
     with torch.no_grad():
         out = tm(torch.from_numpy(x)).numpy()
-    assert layer_tail.launches == before    # plain version on the CPU
+    # plain version on the CPU
+    assert launch_counts()["layer_tail_train"] == before
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
 
 
@@ -212,7 +213,7 @@ def test_recipe_config_is_the_flagship():
 def test_streaming_kernel_counter_untouched_on_cpu():
     cfg = small_config()
     tm = build_model(cfg, 5, 5, device="cpu")
-    before = diag_scan.launches
+    before = launch_counts()["diag_scan"]
     with torch.no_grad():
         tm.forward_stream(torch.zeros(1, 4, 5))
-    assert diag_scan.launches == before
+    assert launch_counts()["diag_scan"] == before

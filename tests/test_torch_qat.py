@@ -30,9 +30,10 @@ from sparsernns_tpu.quantize import qat as jqat
 from sparsernns_tpu.quantize.config import \
     quantization_recipes as jax_recipes
 from sparsernns_tpu_torch.ops import scan as tscan
-from sparsernns_tpu_torch.ops.cuda import diag_scan, fused_s5, qat_scan
+from sparsernns_tpu_torch.ops.cuda import fused_s5, qat_scan
 from sparsernns_tpu_torch.quantize import qat as tqat
 from sparsernns_tpu_torch.quantize.config import quantization_recipes
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 
 def assert_quantized_close(out, ref, step, name=""):
@@ -69,6 +70,27 @@ def _t(pair, grad=False):
 
 def _j(pair):
     return tuple(jnp.asarray(a) for a in pair)
+
+
+def _on_jax_tables(monkeypatch):
+    """The port's QAT scans from here on take the JAX package's λ tables
+    (``lambda_power_tables``, run eagerly), so that a comparison with a
+    Pallas kernel holds the two scans on the same tables. The carry table
+    is made by exp, log, cos and sin, whose last bits the CPU's math
+    library decides: on some hosts a fake-quantized entry whose unrounded
+    power lies at a rounding boundary takes the other code
+    (:func:`test_qat_tables_match_jax`), and every state folded with it
+    moves."""
+    from sparsernns_tpu.ops.pallas.scan_kernel import lambda_power_tables
+
+    def tables(lam, t, num_passes, a_bits):
+        with jax.disable_jit():
+            pr, pi, ct = lambda_power_tables(
+                *(jnp.asarray(a.detach().numpy()) for a in lam), t,
+                num_passes, (a_bits, None))
+        return tuple(torch.from_numpy(np.array(a)) for a in (pr, pi, *ct))
+
+    monkeypatch.setattr(qat_scan, "lambda_power_tables", tables)
 
 
 def _block_steps(ref, t, bits, reverse):
@@ -212,10 +234,14 @@ def _ieee_reference(lam, bu, bits, t, reverse=False, carry=None,
                     amax=None):
     """``scan_block_body`` with ``qat_bits`` and its wrapper
     (``pallas_diag_scan``), evaluated one numpy float32 operation at a time
-    (IEEE rounding, no contraction), with the JAX package's own λ tables
-    (``lambda_power_tables``, run eagerly); ``amax``: the global-scale mode.
-    The Pallas kernel itself always runs jitted, even in interpret mode."""
-    from sparsernns_tpu.ops.pallas.scan_kernel import lambda_power_tables
+    (IEEE rounding, no contraction), with the λ tables the plain version
+    takes (``qat_scan.lambda_power_tables``), so that both sides scan with
+    the same tables: the carry table is made by exp, log, cos and sin,
+    whose last bit the CPU's math library decides, and
+    :func:`test_qat_tables_match_jax` holds it to the JAX package's own
+    (codes equal, or one apart at a rounding tie).
+    ``amax``: the global-scale mode. The Pallas kernel itself always runs
+    jitted, even in interpret mode."""
     f32 = np.float32
     a_bits, act = bits
 
@@ -237,9 +263,8 @@ def _ieee_reference(lam, bu, bits, t, reverse=False, carry=None,
     l_pad, n_pass = -(-length // t) * t, max(1, (t - 1).bit_length())
     br, bi = (np.pad(a, ((0, 0), (0, l_pad - length), (0, 0)))
               for a in (br, bi))
-    with jax.disable_jit():
-        pr, pi, (cr, ci) = (jax.tree.map(np.asarray, lambda_power_tables(
-            *_j(lam), t, n_pass, bits)))
+    pr, pi, cr, ci = (a.numpy() for a in qat_scan.lambda_power_tables(
+        _t(lam), t, n_pass, a_bits))
     out = [np.empty_like(br), np.empty_like(bi)]
     for row in range(b):
         c_re, c_im = np.zeros(p, f32), np.zeros(p, f32)
@@ -273,7 +298,8 @@ K1_CASES = [
 
 
 @pytest.mark.parametrize("direction,length,t,p,bits", K1_CASES)
-def test_qat_scan_plain_matches_pallas(direction, length, t, p, bits):
+def test_qat_scan_plain_matches_pallas(direction, length, t, p, bits,
+                                      monkeypatch):
     """Against the Pallas kernel (interpret mode) under the quantized-state
     bar at 16 and 8 bits. At 4 bits the grids are so coarse that exact
     rounding ties are the rule: the carry is a row of codes times its
@@ -284,7 +310,9 @@ def test_qat_scan_plain_matches_pallas(direction, length, t, p, bits):
     state of its channel. So at 4 bits the kernel's first time block is
     held to the Pallas kernel under the bar, and every block to
     ``scan_block_body`` evaluated op by op (:func:`_ieee_reference`)
-    exactly. At every width the plain version equals that evaluation."""
+    exactly. At every width the plain version equals that evaluation.
+    Against the Pallas kernel the plain version scans on the JAX package's
+    λ tables (:func:`_on_jax_tables`)."""
     rng = np.random.RandomState(length + t + p)
     lam, bu = _lam(rng, p), _pair(rng, 2, length, p)
     reverse = direction == "reverse"
@@ -293,16 +321,23 @@ def test_qat_scan_plain_matches_pallas(direction, length, t, p, bits):
         _j(lam), _j(bu), reverse=reverse,
         carry_init=None if carry is None else _j(carry), block_t=t,
         interpret=True, qat_bits=bits)
-    before = qat_scan.launches
-    out = qat_scan.qat_scan(_t(lam), _t(bu), bits, t, reverse=reverse,
-                            carry_init=None if carry is None else _t(carry))
-    assert qat_scan.launches == before          # plain version on the CPU
+    before = launch_counts()["qat_scan"]
+
+    def plain():
+        return qat_scan.qat_scan(
+            _t(lam), _t(bu), bits, t, reverse=reverse,
+            carry_init=None if carry is None else _t(carry))
+
+    out = plain()
+    assert launch_counts()["qat_scan"] == before     # plain version on the CPU
     ieee = _ieee_reference(lam, bu, bits, t, reverse, carry)
+    for o, e in zip(out, ieee):
+        np.testing.assert_array_equal(o.numpy(), e)
+    _on_jax_tables(monkeypatch)
     blk = min(t, -(-length // 8) * 8)
     first = slice(length - blk, None) if reverse else slice(0, blk)
-    for o, r, e in zip(out, ref, ieee):
+    for o, r in zip(plain(), ref):
         o, r = o.numpy(), np.asarray(r)
-        np.testing.assert_array_equal(o, e)
         if bits[1] == 4:
             # every code the same; the values move with the block scale,
             # whose absmax the reference sums with FMAs (a few ulps)
@@ -334,20 +369,68 @@ def test_qat_scan_padding_and_block_alignment_are_numerics():
     assert not torch.equal(rev[0], unaligned[0])
 
 
+def _power_bound(lam, length):
+    """How far two float32 evaluations of λ^k = exp(k log|λ|) (cos, sin)(kθ),
+    k = 1 .. ``length`` (``lambda_powers``), may lie apart, (length, P):
+    each side's |λ| and θ are good to a few ulps, the products k log|λ| and
+    kθ carry k times their operands' errors, and exp, cos, sin and the last
+    product add a few ulps each, so a side's power is within
+    (k (3 + 3 |log|λ|| + 3 |θ|) + 6) 2^-23 of |λ|^k."""
+    re, im = (a.astype(np.float64) for a in lam)
+    r, theta = np.hypot(re, im), np.abs(np.arctan2(im, re))
+    k = np.arange(1, length + 1, dtype=np.float64)[:, None]
+    return 2 * 2.0 ** -23 * r ** k * (
+        k * (3 + 3 * np.abs(np.log(r)) + 3 * theta) + 6)
+
+
 def test_qat_tables_match_jax():
+    """The λ tables against the JAX package's ``lambda_power_tables``. The
+    rows of λ^(2^k) (products and fake-quants, the same roundings) bit for
+    bit. The carry table's powers λ^(r+1) come from exp, log, cos and sin,
+    whose last bits each host's math library decides: the port's
+    ``lambda_powers`` within :func:`_power_bound` of the JAX package's, and
+    so the raw table (``bits=None``). Fake-quantized, each half's codes
+    (the table over its scale, amax / qmax of its own powers) equal the
+    JAX table's, but where the unrounded power lies within that bound of a
+    rounding boundary, where they may be one apart."""
     from sparsernns_tpu.ops.pallas.scan_kernel import lambda_power_tables
+    from sparsernns_tpu.ops.scan import lambda_powers
     rng = np.random.RandomState(3)
     lam = _lam(rng, 7)
+    bound = _power_bound(lam, 32)
+    ours_raw = [a.numpy().astype(np.float64)
+                for a in tscan.lambda_powers(_t(lam), 32)]
+    theirs_raw = [np.asarray(a, np.float64)
+                  for a in lambda_powers(_j(lam), 32)]
+    for o, r in zip(ours_raw, theirs_raw):
+        assert (np.abs(o - r) <= bound).all(), np.abs(o - r).max()
     for bits in (4, 8, 16, None):
         with jax.disable_jit():
             pr, pi, ct = lambda_power_tables(*_j(lam), 32, 5, (bits, 8))
         ours = qat_scan.lambda_power_tables(_t(lam), 32, 5, bits)
-        for i, (o, r) in enumerate(zip(ours, (pr, pi, *ct))):
-            if i < 2:       # products and fake-quants: the same roundings
-                np.testing.assert_array_equal(o.numpy(), np.asarray(r))
-            else:           # exp, log, cos, sin: within an ulp or two
-                np.testing.assert_allclose(o.numpy(), np.asarray(r),
-                                           rtol=0, atol=1e-6)
+        for o, r in zip(ours[:2], (pr, pi)):
+            np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+        for o, r, o_raw, r_raw in zip(ours[2:], ct, ours_raw, theirs_raw):
+            o, r = o.numpy().astype(np.float64), np.asarray(r, np.float64)
+            if bits is None:
+                assert (np.abs(o - r) <= bound).all(), np.abs(o - r).max()
+                continue
+            qmax = 2.0 ** (bits - 1) - 1
+            step_o = float(np.float32(np.abs(o_raw).max()) / np.float32(qmax))
+            step_r = float(np.float32(np.abs(r_raw).max()) / np.float32(qmax))
+            assert abs(step_o - step_r) <= bound.max() / qmax, (step_o, step_r)
+            codes_o, codes_r = np.round(o / step_o), np.round(r / step_r)
+            for codes, step, table in ((codes_o, step_o, o),
+                                       (codes_r, step_r, r)):
+                np.testing.assert_array_equal(
+                    codes.astype(np.float32) * np.float32(step), table)
+            u = r_raw / step_r
+            tie = (np.abs(np.abs(u - np.floor(u) - 0.5))
+                   <= bound / step_r + np.abs(u) * (
+                       abs(step_o / step_r - 1) + 2.0 ** -22))
+            diff = np.abs(codes_o - codes_r)
+            assert diff.max() <= 1 and not diff[~tie].any(), (
+                bits, diff.max(), u[(diff > 0) & ~tie])
 
 
 # ------------------------------------------------ K4a in its QAT mode
@@ -372,18 +455,20 @@ def _k4a_both(inp, bits, relu_state, scale):
         block_t=16, relu_state=relu_state, qat_bits=bits,
         qat_state_scale=None if scale is None else jnp.asarray(scale)))
     ops = [torch.from_numpy(inp[k]) for k in NAMES]
-    before = fused_s5.launches_qat
+    before = launch_counts()["fused_s5_qat"]
     out = fused_s5.fused_s5_qat(
         ops[0], (ops[1], ops[2]), *ops[3:], bits, 16, relu_state,
         None if scale is None else torch.tensor(scale)).numpy()
-    assert fused_s5.launches_qat == before      # plain version on the CPU
+    # plain version on the CPU
+    assert launch_counts()["fused_s5_qat"] == before
     return out, ref
 
 
 @pytest.mark.parametrize("relu_state", [False, True])
 @pytest.mark.parametrize("global_scale", [False, True])
 @pytest.mark.parametrize("bits", [(16, 16), (8, 8)])
-def test_fused_s5_qat_plain_matches_pallas(relu_state, global_scale, bits):
+def test_fused_s5_qat_plain_matches_pallas(relu_state, global_scale, bits,
+                                           monkeypatch):
     """At L = 45, t = 16 (a padded last block), per-block or one global
     state scale. The states themselves (W_c the identity, d = 0, so that
     y = relu?(states) exactly): equal to ``scan_block_body`` evaluated op
@@ -395,7 +480,8 @@ def test_fused_s5_qat_plain_matches_pallas(relu_state, global_scale, bits):
     carry, over the rest of the sequence (over seeds 0 to 5 the share was
     0 to 1.6 %). The output at random weights within 1e-4·max(1, |ref|)
     but for 0.5 % of its elements, and everywhere within two state steps
-    times the weights of its column."""
+    times the weights of its column. Against the Pallas kernel the plain
+    version scans on the JAX package's λ tables (:func:`_on_jax_tables`)."""
     seed = 11 + 2 * relu_state + global_scale + bits[0]
     scale = np.float32(3.7) if global_scale else None
     inp = _mixer_inputs(seed, h=14)
@@ -408,6 +494,8 @@ def test_fused_s5_qat_plain_matches_pallas(relu_state, global_scale, bits):
         amax=scale), axis=-1)
     np.testing.assert_array_equal(out, np.maximum(ieee, 0) if relu_state
                                   else ieee)
+    _on_jax_tables(monkeypatch)
+    out, ref = _k4a_both(ident, bits, relu_state, scale)
     qmax = 2.0 ** (bits[1] - 1) - 1
     steps = (scale / qmax if scale is not None else
              _block_steps(ref, 16, bits[1], False))
@@ -474,13 +562,12 @@ def test_diag_scan_fn_qat_gradients_match_jax(reverse):
 
     ref = jax.grad(loss, argnums=(0, 1))(_j(lam), _j(bu))
     t_lam, t_bu = _t(lam, True), _t(bu, True)
-    before = (diag_scan.launches, diag_scan.launches_rev, qat_scan.launches)
+    before = launch_counts()
     xs = tscan.diag_ssm_scan(t_lam, t_bu, reverse=reverse, qat_bits=bits,
                              block_t=16)
     (xs[0] * torch.from_numpy(g[0]) + xs[1] * torch.from_numpy(g[1])
      ).sum().backward()
-    assert (diag_scan.launches, diag_scan.launches_rev,
-            qat_scan.launches) == before
+    assert launch_counts() == before
     for ours, theirs in zip((*t_lam, *t_bu), (*ref[0], *ref[1])):
         theirs = np.asarray(theirs)
         np.testing.assert_allclose(

@@ -39,6 +39,7 @@ from sparsernns_tpu.ops.pallas.scan_kernel import pallas_diag_scan
 from sparsernns_tpu_torch.ops.cuda import engine_layer, fused_s5, qat_scan
 from sparsernns_tpu_torch.ops.scan import grid_value
 from sparsernns_tpu_torch.quantize.qat import _on_grid
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 #: a 16-bit and an 8-bit frozen state grid (s_re, s_im, bits)
 GRID16 = (2.0 ** -8, 2.0 ** -9, 16)
@@ -466,11 +467,11 @@ def test_k1_qat_block_requant_matches_pallas(bits, grid, carry):
     p, length, t = 7, 100, 32
     lam, bu = _lam(rng, p), _pair(rng, 2, length, p)
     c = _pair(rng, 2, p) if carry else None
-    before = qat_scan.launches
+    before = launch_counts()["qat_scan"]
     with torch.no_grad():
         out = tscan.diag_ssm_scan(lam, bu, carry_init=c, block_requant=grid,
                                   block_t=t, qat_bits=bits)
-    assert qat_scan.launches == before
+    assert launch_counts()["qat_scan"] == before
     for o, r in zip(out, _ieee_k1(lam, bu, bits, t, c, grid)):
         np.testing.assert_array_equal(o.numpy(), r)
     lam = _lam_fast(rng, p)
@@ -510,13 +511,13 @@ def test_k4a_qat_int8_scales_requant_matches_pallas(relu_state,
             wb_scales=scales["wb_scales"], wc_scales=wc_scales,
             qat_bits=bits, qat_state_scale=None if scale is None
             else jnp.asarray(scale, jnp.float32)))
-        before = fused_s5.launches_qat
+        before = launch_counts()["fused_s5_qat"]
         out = fused_s5.fused_s5_qat(
             u, lam, w_b, w_c, d, bits, 16, relu_state,
             None if scale is None else torch.tensor(scale),
             wb_scales=scales["wb_scales"], wc_scales=wc_scales,
             block_requant=GRID16).numpy()
-        assert fused_s5.launches_qat == before
+        assert launch_counts()["fused_s5_qat"] == before
         return out, jref
 
     p = w_b.shape[1] // 2

@@ -41,11 +41,12 @@ from sparsernns_tpu.train.losses import \
 from sparsernns_tpu.train.state import TrainState as JaxTrainState
 from sparsernns_tpu.train.steps import make_ndns_train_step as jax_train_step
 from sparsernns_tpu_torch.ops.cuda import (diag_scan, fused_s5, layer_tail,
-                                           layer_tail_bwd, qat_scan)
+                                           layer_tail_bwd)
 from sparsernns_tpu_torch.quantize.config import quantization_recipes
 from sparsernns_tpu_torch.train import loop
 from sparsernns_tpu_torch.train.steps import _loss, make_ndns_train_step
 from sparsernns_tpu_torch.utils.config import RunConfig
+from sparsernns_tpu_torch.utils.trace import launch_counts
 from sparsernns_tpu_torch.weights import from_flax, grads_to_flax, to_flax
 from tests.test_torch_mixer_train import (D_IO, assert_trees_close,
                                           audio_batch, jax_features,
@@ -240,7 +241,7 @@ def test_qat_stream_matches_jax_cache():
     x = np.random.RandomState(4).randn(2, 57, D_IO).astype(np.float32)
     bounds = (0, 19, 40, 57)
     refs, state, outs, cache = [], {}, [], None
-    before = qat_scan.launches
+    before = launch_counts()["qat_scan"]
     for s, e in zip(bounds[:-1], bounds[1:]):
         y, state = jm.apply({**variables, **state}, jnp.asarray(x[:, s:e]),
                             mutable=["cache"])
@@ -248,7 +249,7 @@ def test_qat_stream_matches_jax_cache():
         with torch.no_grad():
             y, cache = tm.forward_stream(torch.from_numpy(x[:, s:e]), cache)
         outs.append(y.numpy())
-    assert qat_scan.launches == before          # plain version on the CPU
+    assert launch_counts()["qat_scan"] == before     # plain version on the CPU
     assert_forward_close(np.concatenate(outs, 1), np.concatenate(refs, 1))
     for i, pair in enumerate(cache):
         jc = state["cache"]["encoder"][f"layers_{i}"]["mixer"]
@@ -284,9 +285,7 @@ def test_routes_of_the_qat_and_topk_models(monkeypatch):
                       (qs, "qat_scan_plain"),
                       (diag_scan, "diag_scan_plain")):
         counting(mod, name)
-    launches = (diag_scan.launches, diag_scan.launches_rev, qs.launches,
-                fused_s5.launches, fused_s5.launches_qat, layer_tail.launches,
-                layer_tail_bwd.launches_bwd)
+    launches = launch_counts()
     noisy, clean = audio_batch(2, seed=1)
     expect = {
         "w8a16_fused": {"fused_s5_qat_plain": 2, "diag_scan_plain": 2,
@@ -306,9 +305,7 @@ def test_routes_of_the_qat_and_topk_models(monkeypatch):
         calls.clear()
         make_ndns_train_step(tm)(state, *torch_features(noisy, clean))
         assert calls == want, (name, calls)
-    assert launches == (diag_scan.launches, diag_scan.launches_rev,
-                        qs.launches, fused_s5.launches, fused_s5.launches_qat,
-                        layer_tail.launches, layer_tail_bwd.launches_bwd)
+    assert launch_counts() == launches
 
 
 def _jax_small_qat(scan_mode, qat_global_scales=False):

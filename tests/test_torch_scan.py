@@ -11,6 +11,7 @@ from sparsernns_tpu.ops.pallas.scan_kernel import pallas_diag_scan
 from sparsernns_tpu.ops.scan import lambda_powers as jax_lambda_powers
 from sparsernns_tpu_torch.ops import scan as tscan
 from sparsernns_tpu_torch.ops.cuda import diag_scan
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 
 def _inputs(seed, b=2, l=37, p=8):
@@ -49,14 +50,15 @@ def test_diag_scan_plain_matches_pallas(with_carry, block_t, l):
 
 def test_diag_scan_dispatch_on_cpu_takes_plain_version():
     lam, bu, carry = _inputs(3)
-    before = diag_scan.launches
+    before = launch_counts()["diag_scan"]
     for carry_init in (None, _t(carry)):
         out = tscan.diag_ssm_scan(_t(lam), _t(bu), carry_init=carry_init)
         ref = tscan.sequential_diag_scan(_t(lam), _t(bu),
                                          carry_init=carry_init)[0]
         for o, r in zip(out, ref):
             torch.testing.assert_close(o, r, rtol=0, atol=0)
-    assert diag_scan.launches == before   # CPU tensors launch nothing
+    # CPU tensors launch nothing
+    assert launch_counts()["diag_scan"] == before
 
 
 def test_carry_splits_the_sequence():

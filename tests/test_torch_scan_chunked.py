@@ -30,6 +30,7 @@ import torch
 from sparsernns_tpu.ops.pallas.scan_kernel import pallas_diag_scan
 from sparsernns_tpu_torch.ops import scan as tscan
 from sparsernns_tpu_torch.ops.cuda import diag_scan, qat_scan
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 #: frozen state grids (s_re, s_im, bits): 16 and 8 bits
 GRID16 = (2.0 ** -10, 2.0 ** -11, 16)
@@ -391,8 +392,7 @@ def test_reverse_block_requant_matches_pallas(shape, grid):
     lam, bu, _ = _inputs(3 * l + block_t, b, l, p)
     ref = pallas_diag_scan(_j(lam), _j(bu), reverse=True, block_t=block_t,
                            interpret=True, block_requant=grid)
-    before = (diag_scan.launches, diag_scan.launches_rev,
-              diag_scan.launches_requant)
+    before = launch_counts()
     out = diag_scan.diag_scan(_t(lam), _t(bu), reverse=True,
                               block_requant=grid, block_t=block_t)
     _codes_close(out, ref, grid, f"{shape} sequential")
@@ -401,8 +401,7 @@ def test_reverse_block_requant_matches_pallas(shape, grid):
                                      block_requant=grid, block_t=block_t)
     for o, r in zip(routed, out):
         assert torch.equal(o, r)
-    assert (diag_scan.launches, diag_scan.launches_rev,
-            diag_scan.launches_requant) == before
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("bits", [(16, 16), (8, 8)])
@@ -420,7 +419,7 @@ def test_reverse_qat_block_requant_matches_pallas(shape, bits):
     lam, bu, _ = _inputs(9 * l + p, b, l, p, radius=(0.5, 0.97))
     ref = pallas_diag_scan(_j(lam), _j(bu), reverse=True, block_t=block_t,
                            interpret=True, block_requant=grid, qat_bits=bits)
-    before = qat_scan.launches
+    before = launch_counts()["qat_scan"]
     out = qat_scan.qat_scan_plain(_t(lam), _t(bu), bits, block_t,
                                   reverse=True, block_requant=grid)
     _codes_close(out, ref, grid, f"{shape} qat {bits}")
@@ -430,7 +429,7 @@ def test_reverse_qat_block_requant_matches_pallas(shape, bits):
                                      qat_bits=bits)
     for o, r in zip(routed, out):
         assert torch.equal(o, r)
-    assert qat_scan.launches == before
+    assert launch_counts()["qat_scan"] == before
 
 
 @pytest.mark.parametrize("qat_bits", [None, (8, 8)])

@@ -15,6 +15,7 @@ from sparsernns_tpu.ops.pallas.scan_vjp import (pallas_diag_scan_diff,
                                                 pallas_diag_scan_diff_rev)
 from sparsernns_tpu_torch.ops import scan as tscan
 from sparsernns_tpu_torch.ops.cuda import diag_scan
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 
 def _inputs(seed, b=2, l=37, p=8):
@@ -158,9 +159,9 @@ def test_carried_scan_with_requires_grad_raises():
 
 def test_cpu_tensors_launch_nothing():
     lam, bu, g = _inputs(16)
-    before = (diag_scan.launches, diag_scan.launches_rev)
+    before = launch_counts()
     t_lam, t_bu = _t(lam, True), _t(bu, True)
     for reverse in (False, True):
         out = tscan.diag_ssm_scan(t_lam, t_bu, reverse=reverse)
         torch.autograd.backward(out, _t(g))
-    assert (diag_scan.launches, diag_scan.launches_rev) == before
+    assert launch_counts() == before

@@ -27,6 +27,7 @@ from sparsernns_tpu_torch.ops.cuda import layer_tail as lt
 from sparsernns_tpu_torch.ops.cuda import layer_tail_bwd as lb
 from sparsernns_tpu_torch.train import loop
 from sparsernns_tpu_torch.train.steps import make_ndns_train_step
+from sparsernns_tpu_torch.utils.trace import launch_counts
 from sparsernns_tpu_torch.weights import from_flax, to_flax
 from tests.test_torch_train import (D_IO, audio_batch, jax_features, leaves,
                                     small_config, torch_features)
@@ -152,14 +153,14 @@ def test_non_affine_forward_matches_pallas(glu, act, relu_state,
 def _fn_grads(t, g, act, glu, relu_state, layer_relu):
     """Gradients of sum(out * g) through LayerTailFn, by operand name, and
     the output. ``t``: torch operands that require grad."""
-    before = (lt.launches, lb.launches_hist, lb.launches_bwd)
+    before = launch_counts()
     out = lt.LayerTailFn.apply(*(t[n] for n in NAMES[:-1]), act, glu,
                                relu_state, layer_relu, t["skip"])
     live = [n for n in NAMES if t[n] is not None]
     grads = torch.autograd.grad((out.float() * g).sum(),
                                 [t[n] for n in live])
     # CPU tensors launch no kernel
-    assert before == (lt.launches, lb.launches_hist, lb.launches_bwd)
+    assert launch_counts() == before
     return out, {n: v for n, v in zip(live, grads)}
 
 

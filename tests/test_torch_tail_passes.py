@@ -32,6 +32,7 @@ from sparsernns_tpu.ops.pallas.fused_layer_train import (
 from sparsernns_tpu_torch.ops.cuda import layer_tail as lt
 from sparsernns_tpu_torch.ops.cuda.layer_tail_bwd import CHUNK
 from sparsernns_tpu_torch.ops.scan import sequential_diag_scan
+from sparsernns_tpu_torch.utils.trace import launch_counts
 
 PLAN_SHAPES = [(1, 37), (3, 70), (2, 300), (8, 3751), (32, 3751)]
 #: the flagship's widths
@@ -229,10 +230,11 @@ def test_mirror_equals_plain(affine, dtype, glu, act, relu_state, layer_relu,
     args, kw = _torch_args(ops, DTYPES[dtype][0])
     flags = dict(act=act, glu=glu, relu_state=relu_state,
                  layer_relu=layer_relu)
-    before = lt.launches
+    before = launch_counts()["layer_tail_train"]
     ref = lt.layer_tail(*args, **flags, **kw)
     out = tail_passes(*args, **flags, **kw)
-    assert lt.launches == before          # CPU tensors launch nothing
+    # CPU tensors launch nothing
+    assert launch_counts()["layer_tail_train"] == before
     assert out.dtype == ref.dtype == DTYPES[dtype][0]
     assert torch.equal(out, ref)
 

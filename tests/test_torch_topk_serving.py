@@ -35,7 +35,6 @@ from sparsernns_tpu.quantize.engine import W8A16Engine as JaxEngine
 from sparsernns_tpu.serve.streaming import \
     StreamingDenoiser as JaxStreamingDenoiser
 from sparsernns_tpu_torch.fxp.derive import FxpModelConfig
-from sparsernns_tpu_torch.ops.cuda import diag_scan, fused_s5
 from sparsernns_tpu_torch.quantize.calibrate import calibrate
 from sparsernns_tpu_torch.quantize.config import quantization_recipes
 from sparsernns_tpu_torch.quantize.convert import engine_from_frozen
@@ -43,6 +42,7 @@ from sparsernns_tpu_torch.quantize.engine import W8A16Engine
 from sparsernns_tpu_torch.serve.streaming import StreamingDenoiser
 from sparsernns_tpu_torch.train.loop import build_model
 from sparsernns_tpu_torch.utils.config import RunConfig
+from sparsernns_tpu_torch.utils.trace import launch_counts
 from sparsernns_tpu_torch.weights import flat_leaves, from_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -105,12 +105,12 @@ def test_float_topk_model_matches_jax(relu):
     tm = build_model(cfg, 17, 17, device="cpu", seed=0)
     tm.load_state_dict(from_flax(params, stats))
     assert tm.encoder.layers[0].mixer.layer_tail_operands() is None
-    before = fused_s5.launches
+    before = launch_counts()["fused_s5"]
     with torch.no_grad():
         out = tm(torch.from_numpy(x)).numpy()
         t1, cache = tm.forward_stream(torch.from_numpy(x[:, :19]))
         t2, _ = tm.forward_stream(torch.from_numpy(x[:, 19:]), cache)
-    assert fused_s5.launches == before
+    assert launch_counts()["fused_s5"] == before
     bar = 1e-4 * max(1.0, np.abs(ref).max())
     assert np.abs(out - ref).max() <= bar
     assert np.abs(torch.cat([t1, t2], dim=1).numpy() - ref).max() <= bar
@@ -209,9 +209,9 @@ def test_per_op_engine_matches_jax(topk_frozen, name, act, block_t, length):
     je, te = _engines(topk_frozen, relu, recipe, topk, act, block_t)
     assert not je._stack_ok and not te._stack_ok and not te._network_ok
     x = topk_frozen["batches"][0][:, :length]
-    counts = (fused_s5.launches_engine, diag_scan.launches_requant)
+    counts = launch_counts()
     out = te(x)
-    assert counts == (fused_s5.launches_engine, diag_scan.launches_requant)
+    assert launch_counts() == counts
     assert out.dtype == torch.float32
     _engine_close(out.numpy(), np.asarray(je(jnp.asarray(x))))
 

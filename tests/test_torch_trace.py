@@ -1,7 +1,8 @@
 """The port's spans (``utils/trace.py``): a no-op without a profiler,
 bit-equal outputs with the profiler on and off, the named spans and their
 nesting in a CPU profiler's chrome trace, and ``utils/profiling``'s
-summary of a region (busy share as a union, the spans by name)."""
+summary of a region (busy share as a union, the spans by name); the launch
+ledger, and ``chip_smoke.py``'s check of a phase's launches against it."""
 
 import dataclasses
 import json
@@ -400,3 +401,58 @@ def test_summarize_trace_union_self_time_and_launches():
 def test_summarize_trace_needs_the_region_span():
     with pytest.raises(ValueError):
         profiling.summarize_trace([_x("k", "kernel", 0, 1)])
+
+
+def test_launch_ledger_counts_reads_and_resets():
+    """``count`` adds to a name; ``launch_counts`` returns a copy, in which
+    a name never counted reads 0; ``reset=True`` zeroes the ledger after
+    the copy."""
+    trace.launch_counts(reset=True)
+    trace.count("diag_scan")
+    trace.count("diag_scan_passes", 3)
+    counts = trace.launch_counts()
+    assert counts == {"diag_scan": 1, "diag_scan_passes": 3}
+    assert counts["fused_s5"] == 0
+    counts["diag_scan"] += 5
+    assert trace.launch_counts(reset=True)["diag_scan"] == 1
+    assert trace.launch_counts() == {}
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("launched,holds", [
+    ({"layer_tail_train": 3, "layer_tail_hist": 3, "layer_tail_bwd": 3},
+     True),
+    # an expected launch that never came
+    ({"layer_tail_train": 3, "layer_tail_hist": 3}, False),
+    # one launch short
+    ({"layer_tail_train": 3, "layer_tail_hist": 3, "layer_tail_bwd": 2},
+     False),
+    # a launch not expected
+    ({"layer_tail_train": 3, "layer_tail_hist": 3, "layer_tail_bwd": 3,
+      "diag_scan": 1}, False)])
+def test_smoke_launch_check_holds_both_ways(launched, holds):
+    """``chip_smoke.py`` reads the ledger with ``kernel_launches`` (K1's
+    pass count left out, then the ledger zeroed) and holds a phase's
+    launches with ``check_launches``, which fails on a missing launch as on
+    an unexpected one."""
+    cs = _chip_smoke()
+    trace.launch_counts(reset=True)
+    for name, n in launched.items():
+        trace.count(name, n)
+    trace.count("diag_scan_passes", 2)
+    counts = cs.kernel_launches()
+    assert "diag_scan_passes" not in counts and trace.launch_counts() == {}
+    expect = dict.fromkeys(cs.TAIL_KERNELS, 3)
+    if holds:
+        cs.check_launches("three steps", counts, expect)
+    else:
+        with pytest.raises(AssertionError):
+            cs.check_launches("three steps", counts, expect)

@@ -265,8 +265,7 @@ def phases() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from sparsernns_tpu_torch.data.ndns import SyntheticNDNS
-    from sparsernns_tpu_torch.ops.cuda import (build, engine_layer,
-                                               engine_network, fused_s5)
+    from sparsernns_tpu_torch.ops.cuda import build
     from sparsernns_tpu_torch.ops.stft import stft_splitter
     from sparsernns_tpu_torch.train.loop import build_model
     from sparsernns_tpu_torch.train.steps import make_ndns_eval_step
@@ -305,14 +304,6 @@ def phases() -> int:
         marks.append(time.time())
         print(f"[{name}: {marks[-1] - marks[-2]:.1f} s]", flush=True)
 
-    def counters():
-        counts = {"fused_s5_engine": fused_s5.launches_engine,
-                  "engine_layer": engine_layer.launches,
-                  "engine_layer_carry": engine_layer.launches_carry,
-                  "engine_network": engine_network.launches}
-        cs._reset_counts()
-        return counts
-
     eng = cs.engine_setup(cfg, model, noisy_mag)
     mark("engine set-up")
     cs.engine_kernel_phase(cfg, eng, gen, records)
@@ -325,7 +316,7 @@ def phases() -> int:
                                    gen, records)
     mark("int-dot kernel phase")
     cs.intdot_serving_phase(cfg, trees, (noisy, clean_t), feats, records,
-                            counters)
+                            cs.kernel_launches)
     mark("int-dot serving phase")
     print(_card())
     keys = ("name", "route", "source", "replaces", "launches",

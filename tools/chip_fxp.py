@@ -54,6 +54,7 @@ def main() -> int:
     from sparsernns_tpu_torch.train.losses import STFT_MAG_MEAN
     from sparsernns_tpu_torch.utils.config import RunConfig
     from sparsernns_tpu_torch.utils.profiling import profile_region
+    from sparsernns_tpu_torch.utils.trace import launch_counts as ledger
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -107,12 +108,12 @@ def main() -> int:
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
-        fxp_scan.launches = 0
+        ledger(reset=True)
         t0 = time.perf_counter()
         y = forward()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        assert fxp_scan.launches == cfg.n_layers, fxp_scan.launches
+        assert ledger()["fxp_scan"] == cfg.n_layers, ledger()
     prof = profile_region(f"fxp forward B={B} L={frames}", forward, top=8)
     print(json.dumps(prof), flush=True)
     out.update(forward_ms=sorted(times)[1], forward_ms_all=times,

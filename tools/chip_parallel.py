@@ -44,7 +44,7 @@ def main() -> int:
     noisy = cs._train_batch(cs.B)[0]
     eng = cs.engine_setup(cfg, model, stft_splitter(noisy)[0])
     t0 = time.time()
-    cs.parallel_phase(cfg, model, eng, cs.launch_counts)
+    cs.parallel_phase(cfg, model, eng, cs.kernel_launches)
     print(f"[parallel phase: {time.time() - t0:.1f} s]", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

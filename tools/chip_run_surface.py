@@ -52,7 +52,7 @@ def main() -> int:
         marks.append(time.time())
         print(f"[{name}: {marks[-1] - marks[-2]:.1f} s]", flush=True)
 
-    counters = cs.launch_counts
+    counters = cs.kernel_launches
     phases = {
         "classification": lambda: cs.classification_phase(cfg, ROOT, {},
                                                           counters),

@@ -25,8 +25,7 @@ def main() -> int:
         print("chip_tail_modes: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from sparsernns_tpu_torch.ops.cuda import (build, diag_scan, fused_s5,
-                                               layer_tail, layer_tail_bwd)
+    from sparsernns_tpu_torch.ops.cuda import build
     from sparsernns_tpu_torch.train.loop import build_model
     from sparsernns_tpu_torch.utils.config import RunConfig
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -54,26 +53,14 @@ def main() -> int:
         marks.append(time.time())
         print(f"[{name}: {marks[-1] - marks[-2]:.1f} s]", flush=True)
 
-    def counters():
-        counts = {"layer_tail_train": layer_tail.launches,
-                  "layer_tail_hist": layer_tail_bwd.launches_hist,
-                  "layer_tail_bwd": layer_tail_bwd.launches_bwd,
-                  "fused_s5": fused_s5.launches,
-                  "diag_scan": diag_scan.launches,
-                  "diag_scan_rev": diag_scan.launches_rev}
-        layer_tail.launches = layer_tail_bwd.launches_hist = 0
-        layer_tail_bwd.launches_bwd = fused_s5.launches = 0
-        diag_scan.launches = diag_scan.launches_rev = 0
-        return counts
-
     cs.training_kernel_phase(layer0, cfg, frames, gen, records)
     mark("phase 7")
     cs.tail_modes_kernel_phase(layer0, cfg, frames, gen, records)
     mark("phase 19")
     batch = cs._train_batch(cfg.bsz)
-    cs.layernorm_training_phase(cfg, records, counters, batch)
+    cs.layernorm_training_phase(cfg, records, cs.kernel_launches, batch)
     mark("phase 20")
-    cs.bf16_training_phase(cfg, records, counters, batch)
+    cs.bf16_training_phase(cfg, records, cs.kernel_launches, batch)
     mark("phase 21")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
